@@ -61,6 +61,63 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Attention-dropout keep test: the murmur-finalizer counter hash of
+// flash_attention.dropout_keep_positions (JAX ops/flash_attention.py:120),
+// 2 rounds, over (seed, b * H + h, absolute query position, key position).
+// uint32 arithmetic wraps; keep when the hash is below thr (unsigned).
+struct DropoutParams {
+  uint32_t seed0, seed1, thr;
+  float inv_keep;  // 1 / (1 - p)
+  int on;
+};
+
+__device__ __forceinline__ bool dropout_keep(const DropoutParams& dp, uint32_t bh,
+                                             uint32_t q_pos, uint32_t k_pos) {
+  uint32_t x = dp.seed0 ^ (q_pos * 0x9E3779B9u) ^ (k_pos * 0x85EBCA77u) ^ (bh * 0xC2B2AE3Du);
+  x += dp.seed1;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    x ^= x >> 16;
+    x *= 0x85EBCA6Bu;
+    x ^= x >> 13;
+    x *= 0xC2B2AE35u;
+    x ^= x >> 16;
+  }
+  return x < dp.thr;
+}
+
+inline DropoutParams make_dropout(long long seed0, long long seed1, long long thr, float inv_keep,
+                                  long long on) {
+  DropoutParams d;
+  d.seed0 = static_cast<uint32_t>(seed0);
+  d.seed1 = static_cast<uint32_t>(seed1);
+  d.thr = static_cast<uint32_t>(thr);
+  d.inv_keep = inv_keep;
+  d.on = static_cast<int>(on);
+  return d;
+}
+
 // Block-wide reductions; every thread gets the result. `red` holds >= 32
 // floats of shared memory and may be reused right after the call.
 __device__ __forceinline__ float block_max(float v, float* red) {

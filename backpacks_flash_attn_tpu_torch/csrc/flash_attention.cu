@@ -1,11 +1,16 @@
-// K3: FlashAttention forward (inference): online softmax over key tiles.
+// K3: FlashAttention forward: online softmax over key tiles, with
+// attention dropout.
 //
 // Replaces the TPU kernel backpacks_flash_attn_tpu/ops/flash_attention.py
 // _flash_fwd (:298, Pallas body _flash_fwd_kernel :158) for causal masking,
 // per-sequence seq_lengths and q_offsets. Key u of sequence b is valid for
 // query row i when u < min(seq_len[b], sk) and, if causal,
 // u <= q_off[b] + i. Fully masked rows give 0 (l = 0 is treated as 1) and
-// an LSE of FLASH_NEG_INF, as on the TPU.
+// an LSE of FLASH_NEG_INF, as on the TPU. Dropout (common.cuh
+// dropout_keep, positions q_off[b] + i and u, stream b * H + h) scales the
+// kept un-normalised probabilities by 1 / (1 - p) after the running max and
+// sum are taken, so the LSE stays the pre-dropout one the backward (K5)
+// recomputes from.
 //
 // Bound on the H100: the flops of the two products (causal half) over the
 // tensor-core rate at the main path's long sequences; the q/k/v/out bytes
@@ -31,7 +36,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const int* __restrict__ seq_lengths, const int* __restrict__ q_offsets,
                        int H, int sq, int sk, long long q_sb, long long q_st, long long q_sh,
                        long long k_sb, long long k_st, long long k_sh, long long v_sb,
-                       long long v_st, long long v_sh, float scale, int causal) {
+                       long long v_st, long long v_sh, float scale, int causal,
+                       DropoutParams drop) {
   __shared__ float Qs[BQ][D + 1];
   __shared__ float Ks[BKV][D + 1];
   __shared__ float Vs[BKV][D];
@@ -90,9 +96,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float tile_sum = 0.f;
 #pragma unroll
     for (int i = 0; i < BKV / 4; ++i) {
-      const float p = s[i] == FLASH_NEG_INF ? 0.f : expf(s[i] - m_new);
-      Ps[r][c + 4 * i] = p;
+      float p = s[i] == FLASH_NEG_INF ? 0.f : expf(s[i] - m_new);
       tile_sum += p;
+      if (drop.on)
+        p = dropout_keep(drop, static_cast<uint32_t>(b * H + h), static_cast<uint32_t>(q_pos),
+                         static_cast<uint32_t>(j0 + c + 4 * i))
+                ? p * drop.inv_keep
+                : 0.f;
+      Ps[r][c + 4 * i] = p;
     }
     l = l * corr + group_sum(tile_sum, 4);
     m = m_new;
@@ -121,7 +132,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            const void* seq_lengths, const void* q_offsets, long long B, long long H,
            long long sq, long long sk, long long q_sb, long long q_st, long long q_sh,
            long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
-           long long v_sh, float scale, long long causal, cudaStream_t stream) {
+           long long v_sh, float scale, long long causal, DropoutParams drop,
+           cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((sq + BQ - 1) / BQ), static_cast<unsigned>(H),
                   static_cast<unsigned>(B));
   flash_attention_kernel<T><<<grid, kThreads, 0, stream>>>(
@@ -129,7 +141,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
       static_cast<T*>(out), static_cast<float*>(lse), static_cast<const int*>(seq_lengths),
       static_cast<const int*>(q_offsets), static_cast<int>(H), static_cast<int>(sq),
       static_cast<int>(sk), q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale,
-      static_cast<int>(causal));
+      static_cast<int>(causal), drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -142,10 +154,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       long long q_st, long long q_sh, long long k_sb,
                                       long long k_st, long long k_sh, long long v_sb,
                                       long long v_st, long long v_sh, float scale,
-                                      long long causal, long long dtype, void* stream) {
+                                      long long causal, long long seed0, long long seed1,
+                                      long long thr, float inv_keep, long long dropout,
+                                      long long dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const DropoutParams drop = make_dropout(seed0, seed1, thr, inv_keep, dropout);
 #define K3_ARGS q, k, v, out, lse, seq_lengths, q_offsets, B, H, sq, sk, q_sb, q_st, q_sh, \
-                k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal, st
+                k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal, drop, st
   if (dtype == DT_BF16) return launch<__nv_bfloat16>(K3_ARGS);
   if (dtype == DT_F32) return launch<float>(K3_ARGS);
 #undef K3_ARGS

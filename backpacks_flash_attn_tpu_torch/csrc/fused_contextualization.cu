@@ -1,9 +1,12 @@
-// K4: fused Backpack contextualization (inference forward).
+// K4: fused Backpack contextualization (forward), and the forward of K6.
 //
 // Replaces the TPU kernel backpacks_flash_attn_tpu/ops/backpack_kernels.py
 // _fused_ctx_infer (:281, Pallas body _fused_ctx_infer_kernel :119):
 //   out[b,t,:] = sum_k sum_{j<=t} softmax_j(scale * q[b,t,k] . k[b,j,k]) content[b,j,k,:]
-// with alpha (b, nv, s, s) never stored.
+// with alpha (b, nv, s, s) never stored. Both paths below also write each
+// (row, head)'s log-sum-exp to `lse` (b, nv, s): that makes this the
+// training forward _fused_ctx_fwd_lse (:309, :137) as well, whose
+// backward is K6 (fused_contextualization_bwd.cu).
 //
 // Bound on the H100: bytes. Per (query, key) pair and sense head it does
 // dnv (48) multiply-adds for the score and d (768) for the value sum; at
@@ -41,31 +44,11 @@
 // f32 operands, and bf16 operands that are not aligned so, take the SIMT
 // kernel below: one block per (32-row query tile, 128-column slice of d,
 // batch row), an online softmax per head with the f32 output slice in
-// registers, recomputing the scores once per slice.
+// registers, recomputing the scores once per slice; the blocks of the first
+// slice write the LSE.
 #include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 constexpr int DNVP = 64, KLD = DNVP + 8;  // padded key row (16-byte aligned, conflict-free)
 constexpr float kLog2e = 1.4426950408889634f;
@@ -350,7 +333,8 @@ constexpr int BQ = 32, BKV = 32, DC = 128, DNV_MAX = 64, kThreads = 256;
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_ctx_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ content, T* __restrict__ out, int S, int NV, int DNV,
+                      const T* __restrict__ content, T* __restrict__ out,
+                      float* __restrict__ lse, int S, int NV, int DNV,
                       int D, long long q_sb, long long q_st, long long q_sh, long long k_sb,
                       long long k_st, long long k_sh, long long c_sb, long long c_st,
                       long long c_sh, float scale) {
@@ -428,9 +412,12 @@ fused_ctx_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < DC / 8; ++j) o[j] += p * Cs[kk][c + 8 * j];
       }
     }
-    const float inv = 1.f / (l == 0.f ? 1.f : l);
+    const float l_safe = l == 0.f ? 1.f : l;
+    const float inv = 1.f / l_safe;
 #pragma unroll
     for (int j = 0; j < DC / 8; ++j) total[j] += o[j] * inv;
+    if (blockIdx.y == 0 && c == 0 && qi < S)
+      lse[(static_cast<long long>(b) * NV + head) * S + qi] = m + logf(l_safe);
   }
 
   if (qi >= S) return;
@@ -441,7 +428,8 @@ fused_ctx_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch_simt(const void* q, const void* k, const void* content, void* out, long long B,
+int launch_simt(const void* q, const void* k, const void* content, void* lse, void* out,
+                long long B,
                 long long S, long long NV, long long DNV, long long D, long long q_sb,
                 long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh,
                 long long c_sb, long long c_st, long long c_sh, float scale,
@@ -450,7 +438,8 @@ int launch_simt(const void* q, const void* k, const void* content, void* out, lo
                   static_cast<unsigned>((D + DC - 1) / DC), static_cast<unsigned>(B));
   fused_ctx_simt_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(content),
-      static_cast<T*>(out), static_cast<int>(S), static_cast<int>(NV), static_cast<int>(DNV),
+      static_cast<T*>(out), static_cast<float*>(lse), static_cast<int>(S), static_cast<int>(NV),
+      static_cast<int>(DNV),
       static_cast<int>(D), q_sb, q_st, q_sh, k_sb, k_st, k_sh, c_sb, c_st, c_sh, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -490,8 +479,7 @@ bool aligned16(const void* p, long long D, long long sb, long long st, long long
 
 }  // namespace
 
-// lse: f32 workspace of B * NV * S elements (the tensor-core path's row
-// log-sum-exps; unused by the SIMT path)
+// lse: f32 output of B * NV * S elements, the (batch, head, row) log-sum-exps
 extern "C" int fused_contextualization_launch(const void* q, const void* k,
                                               const void* content, void* lse, void* out,
                                               long long B, long long S, long long NV,
@@ -501,7 +489,7 @@ extern "C" int fused_contextualization_launch(const void* q, const void* k,
                                               long long c_st, long long c_sh, float scale,
                                               long long dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K4_ARGS q, k, content, out, B, S, NV, DNV, D, q_sb, q_st, q_sh, k_sb, k_st, k_sh, \
+#define K4_ARGS q, k, content, lse, out, B, S, NV, DNV, D, q_sb, q_st, q_sh, k_sb, k_st, k_sh, \
                 c_sb, c_st, c_sh, scale, st
   if (dtype == DT_BF16) {
     const bool tc = aligned16(content, D, c_sb, c_st, c_sh) &&

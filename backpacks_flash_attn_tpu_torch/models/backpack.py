@@ -1,4 +1,4 @@
-"""Backpack language model (PyTorch port), inference.
+"""Backpack language model (PyTorch port): training forward and inference.
 
 Port of ``backpacks_flash_attn_tpu/models/backpack.py``:
 
@@ -10,6 +10,7 @@ sense network is per-token (word embeddings, no positions, one MLP-only
 block, a d -> nv*d MLP), so a quantized tree may replace it by a gathered
 (vocab, nv, d) table. Decode is incremental: GPT KV cache + cached
 contextualization keys + cached senses, computing one alpha row per step.
+Training splits the dropout keys as the JAX package does (``utils.prng``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..ops import _build, dense, norms, quant
 from ..ops.attention import MASK_VALUE
 from ..ops.backpack_kernels import fused_contextualization
 from ..ops.decode_attention import decode_attention, decode_attention_flat_multi
+from ..utils import prng
 from . import gpt as gpt_lib
 
 Params = Dict[str, Any]
@@ -88,9 +90,13 @@ def contextualization(params: Params, cfg: BackpackConfig,
 
 
 def content_forward(params: Params, cfg: BackpackConfig,
-                    input_ids: torch.Tensor) -> torch.Tensor:
+                    input_ids: torch.Tensor, *, train: bool = False,
+                    rng: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sense network C(x): (b, s) -> (b, s, nv, d); strictly per-token. A
-    quantized tree with a precomputed sense table gathers from it."""
+    quantized tree with a precomputed sense table gathers from it. In
+    training, the embedding's dropout site takes the first split of
+    ``rng`` and each block's two sites a (n_blocks, 2) split of the second
+    (JAX :141-170)."""
     b, s = input_ids.shape
     cp = params["content"]
     act = gpt_lib.quant_act_dtype(params["gpt"])
@@ -105,21 +111,27 @@ def content_forward(params: Params, cfg: BackpackConfig,
             scales = scales.repeat_interleave(d // scales.shape[-1], dim=-1)
         return (rows.float() * scales).to(act)
     hidden = gpt_lib.take_embedding(params["gpt"]["wte"], input_ids, act)
+    n_blocks = cp["blocks"]["norm1"]["weight"].shape[0]
+    r_emb, blk_rngs = None, None
+    if rng is not None:
+        r_emb, r_rest = prng.split(rng)
+        blk_rngs = prng.split(r_rest, (n_blocks, 2))
+    det, eps, pdrop = not train, cfg.layer_norm_epsilon, cfg.resid_pdrop
     hidden, residual = norms.dropout_add_layer_norm(
         hidden, None, cp["ln_0"]["weight"], cp["ln_0"]["bias"],
-        0.0, cfg.layer_norm_epsilon)
-    n_blocks = cp["blocks"]["norm1"]["weight"].shape[0]
+        cfg.embd_pdrop, eps, rng=r_emb, deterministic=det)
     for i in range(n_blocks):
         blk = gpt_lib.tree_index(cp["blocks"], i)
+        r1, r2 = (None, None) if blk_rngs is None else blk_rngs[i]
         # no-mix block: the identity mixer still feeds `hidden` into the
         # residual stream
         hidden, residual = norms.dropout_add_layer_norm(
             hidden, residual, blk["norm1"]["weight"], blk["norm1"]["bias"],
-            0.0, cfg.layer_norm_epsilon)
+            pdrop, eps, rng=r1, deterministic=det)
         mlp_out = dense.mlp(hidden, blk["mlp"], cfg.activation)
         hidden, residual = norms.dropout_add_layer_norm(
             mlp_out, residual, blk["norm2"]["weight"], blk["norm2"]["bias"],
-            0.0, cfg.layer_norm_epsilon)
+            pdrop, eps, rng=r2, deterministic=det)
     senses = dense.mlp(hidden, cp["final_mlp"], cfg.activation)
     return senses.reshape(b, s, cfg.num_senses, cfg.n_embd)
 
@@ -138,23 +150,36 @@ def sense_table(params: Params, cfg: BackpackConfig,
 # ---------------------------------------------------------------- forward
 
 def backpack_forward(params: Params, cfg: BackpackConfig,
-                     input_ids: torch.Tensor, *, return_parts: bool = False):
-    """Inference forward -> logits (b, s, vocab). The GPT attention goes
-    to K3 and the contextualization to K4 (alpha is never stored);
-    return_parts takes the einsum path and also returns
-    {'alpha', 'content', 'contextual', 'outputs'}."""
-    contextl = gpt_lib.gpt_forward(params["gpt"], cfg, input_ids)
-    content = content_forward(params, cfg, input_ids)          # (b, s, nv, d)
+                     input_ids: torch.Tensor, *, train: bool = False,
+                     rng: Optional[torch.Tensor] = None,
+                     return_parts: bool = False, remat="none",
+                     fused_ctx: Optional[bool] = None):
+    """Forward -> logits (b, s, vocab) (JAX ``backpack_forward`` :213).
+    The GPT attention goes to the flash wrapper (K3, K5 backward). The
+    combine takes the fused kernel (K4, K6 backward; alpha is never
+    stored) when ``fused_ctx``, else the einsum over a materialized alpha;
+    by default fused_ctx = not train, JAX's rule (:271) with the flash
+    attention the port always takes.
+    train with a key ``rng`` turns dropout on; its first split keys the GPT
+    stack and its second the sense network. return_parts takes the einsum
+    path and also returns {'alpha', 'content', 'contextual', 'outputs'}."""
+    r_gpt, r_content = prng.split(rng) if rng is not None else (None, None)
+    contextl = gpt_lib.gpt_forward(params["gpt"], cfg, input_ids,
+                                   train=train, rng=r_gpt, remat=remat)
+    content = content_forward(params, cfg, input_ids, train=train,
+                              rng=r_content)                    # (b, s, nv, d)
+    if fused_ctx is None:
+        fused_ctx = not train
     scale = cfg.sense_head_dim ** -0.5
     alpha = None
-    if not return_parts:
+    if fused_ctx and not return_parts:
         q, ctx_k = context_qk(params, cfg, contextl)
         outputs = fused_contextualization(q, ctx_k, content,
                                           scale).to(contextl.dtype)
     else:
         alpha = contextualization(params, cfg, contextl)
-        outputs = torch.einsum("bkts,bskd->btd", alpha.float(),
-                               content.float()).to(contextl.dtype)
+        outputs = torch.einsum("bkts,bskd->btd", alpha,
+                               content.to(alpha.dtype)).to(contextl.dtype)
     logits = gpt_lib.lm_logits(params["gpt"], cfg, outputs)
     if return_parts:
         return logits, {"alpha": alpha, "content": content,
@@ -322,8 +347,10 @@ def _rebuild(skel, module: torch.nn.Module):
 
 class BackpackLM(torch.nn.Module):
     """Thin module over the functional model: registers the parameter
-    tree's tensors as buffers (so ``.to()``/``state_dict()`` see them) and
-    calls the functions above with the tree rebuilt from them."""
+    tree's floating-point tensors as ``nn.Parameter``s (trainable; what
+    ``parameters()``, ``.to()`` and ``state_dict()`` see) and the integer
+    ones of a quantized tree as buffers, and calls the functions above with
+    the tree rebuilt from them."""
 
     def __init__(self, cfg: BackpackConfig, params: Params):
         super().__init__()
@@ -331,7 +358,10 @@ class BackpackLM(torch.nn.Module):
         tensors: Dict[str, torch.Tensor] = {}
         self._skeleton = _flatten(params, "", tensors)
         for name, t in tensors.items():
-            self.register_buffer(name, t)
+            if t.is_floating_point():
+                self.register_parameter(name, torch.nn.Parameter(t.detach()))
+            else:
+                self.register_buffer(name, t)
 
     @property
     def params(self) -> Params:
@@ -339,9 +369,10 @@ class BackpackLM(torch.nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return next(self.buffers()).device
+        return next(self.parameters()).device
 
     def forward(self, input_ids: torch.Tensor, **kw):
+        """``backpack_forward`` (train=, rng=, fused_ctx=, ... pass through)."""
         return backpack_forward(self.params, self.cfg, input_ids, **kw)
 
     def init_cache(self, batch: int, max_seqlen: int,
@@ -349,6 +380,7 @@ class BackpackLM(torch.nn.Module):
         return init_backpack_cache(self.cfg, batch, max_seqlen, dtype,
                                    device=self.device)
 
+    @torch.no_grad()
     def step(self, input_ids: torch.Tensor, cache: BackpackCache,
              window: Optional[int] = None):
         """One cached prefill or decode step (cache updated in place)."""
@@ -360,6 +392,7 @@ class BackpackLM(torch.nn.Module):
         return generate_backpack(self.params, self.cfg, input_ids, max_length,
                                  device=self.device, **kw)
 
+    @torch.no_grad()
     def quantized(self, bits: int = 8) -> "BackpackLM":
         from .quantized import quantize_backpack_params
         return BackpackLM(self.cfg, quantize_backpack_params(

@@ -1,11 +1,12 @@
-"""GPT-2 style decoder (PyTorch port), inference.
+"""GPT-2 style decoder (PyTorch port): training forward and inference.
 
 Port of ``backpacks_flash_attn_tpu/models/gpt.py``: pure functions over a
 dict of tensors in the JAX tree layout (kernels ``(in, out)``, layers
 stacked on a leading ``n_layer`` axis), the reordered residual
 ("Attn/MLP -> Add -> LN", final LN as the last layer's norm2, first LN
 hoisted to ``ln_0``), the f32 residual stream, and the flat-E KV cache.
-Where JAX scans over layers, the port loops.
+Where JAX scans over layers, the port loops. In training the dropout keys
+split as in JAX (``utils.prng``), so every mask is JAX's bit for bit.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from ..config import GPTConfig
 from ..ops import _build, dense, norms, quant
 from ..ops.attention import mha
+from ..utils import prng
 from ..ops.decode_attention import decode_attention, decode_attention_flat_multi
 
 Params = Dict[str, Any]
@@ -124,35 +126,67 @@ def embed(params: Params, cfg: GPTConfig, input_ids: torch.Tensor,
 
 # ---------------------------------------------------------------- forward
 
-def _mlp_and_norms(hidden, residual, lp, mixer_out, cfg):
+def _mlp_and_norms(hidden, residual, lp, mixer_out, cfg, *,
+                   train: bool = False, r_d1=None, r_d2=None):
+    det = not train
     hidden, residual = norms.dropout_add_layer_norm(
         mixer_out, residual, lp["norm1"]["weight"], lp["norm1"]["bias"],
-        0.0, cfg.layer_norm_epsilon)
+        cfg.resid_pdrop, cfg.layer_norm_epsilon, rng=r_d1, deterministic=det)
     mlp_out = dense.mlp(hidden, lp["mlp"], cfg.activation)
     return norms.dropout_add_layer_norm(
         mlp_out, residual, lp["norm2"]["weight"], lp["norm2"]["bias"],
-        0.0, cfg.layer_norm_epsilon)
+        cfg.resid_pdrop, cfg.layer_norm_epsilon, rng=r_d2, deterministic=det)
 
 
-def gpt_forward(params: Params, cfg: GPTConfig,
-                input_ids: torch.Tensor) -> torch.Tensor:
-    """Full inference forward -> post-final-LN hidden states (b, s, d);
-    attention goes through the flash kernel (K3)."""
+def check_remat(remat) -> None:
+    """Only "none" (save everything) is ported; the JAX package's
+    rematerialization modes wait for ROADMAP Queue 1 item 6."""
+    if remat not in (False, None, "none"):
+        raise NotImplementedError(f"remat={remat!r} is not ported yet "
+                                  f"(ROADMAP Queue 1 item 6)")
+
+
+def _block(hidden, residual, lp, scale, cfg: GPTConfig, *, train: bool,
+           rngs):
+    """One pre-norm block with the reordered residual (JAX ``_block`` :372):
+    attention dropout in the flash kernel, then two dropout+add+LN sites,
+    keyed by the three splits of the layer's key."""
+    b, s, _ = hidden.shape
+    qkv = dense.linear(hidden, lp["Wqkv"])
+    qkv = qkv.reshape(b, s, 3, cfg.n_head, cfg.head_dim)
+    r_attn, r_d1, r_d2 = (prng.split(rngs, 3) if rngs is not None
+                          else (None, None, None))
+    ctx = mha(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=True,
+              softmax_scale=scale, dropout_p=cfg.attn_pdrop,
+              dropout_rng=r_attn, deterministic=not train)
+    mixer_out = dense.linear(ctx.reshape(b, s, cfg.n_embd), lp["out_proj"])
+    return _mlp_and_norms(hidden, residual, lp, mixer_out, cfg, train=train,
+                          r_d1=r_d1, r_d2=r_d2)
+
+
+def gpt_forward(params: Params, cfg: GPTConfig, input_ids: torch.Tensor, *,
+                train: bool = False, rng: Optional[torch.Tensor] = None,
+                remat="none") -> torch.Tensor:
+    """Full forward -> post-final-LN hidden states (b, s, d) (JAX
+    ``gpt_forward`` :470). Attention goes through the flash wrapper (K3
+    forward, K5 backward); the JAX package's ``use_flash=False`` reference
+    attention is not a path of the port. train with a key
+    ``rng`` (``utils.prng``) turns on the dropout sites: the embedding's,
+    and per layer the attention's and the two residual ones."""
     _check_supported(cfg)
+    check_remat(remat)
     hidden = embed(params, cfg, input_ids)
+    r_emb, r_layers = prng.split(rng) if rng is not None else (None, None)
     hidden, residual = norms.dropout_add_layer_norm(
         hidden, None, params["ln_0"]["weight"], params["ln_0"]["bias"],
-        0.0, cfg.layer_norm_epsilon)
-    b, s = input_ids.shape
+        cfg.embd_pdrop, cfg.layer_norm_epsilon, rng=r_emb,
+        deterministic=not train)
+    layer_rngs = (prng.split(r_layers, cfg.n_layer) if r_layers is not None
+                  else None)
     for li, scale in enumerate(_softmax_scales(cfg)):
-        lp = tree_index(params["layers"], li)
-        qkv = dense.linear(hidden, lp["Wqkv"])
-        qkv = qkv.reshape(b, s, 3, cfg.n_head, cfg.head_dim)
-        ctx = mha(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=True,
-                  softmax_scale=scale)
-        mixer_out = dense.linear(ctx.reshape(b, s, cfg.n_embd), lp["out_proj"])
-        hidden, residual = _mlp_and_norms(hidden, residual, lp, mixer_out,
-                                          cfg)
+        hidden, residual = _block(
+            hidden, residual, tree_index(params["layers"], li), scale, cfg,
+            train=train, rngs=None if layer_rngs is None else layer_rngs[li])
     return hidden
 
 
@@ -289,3 +323,9 @@ def lm_logits(params: Params, cfg: GPTConfig, hidden: torch.Tensor) -> torch.Ten
     if hidden.dtype == torch.bfloat16 and wte.dtype == torch.bfloat16:
         return hidden @ wte.T
     return (hidden.float() @ wte.float().T).to(hidden.dtype)
+
+
+def gpt_lm_forward(params: Params, cfg: GPTConfig, input_ids: torch.Tensor,
+                   **kw) -> torch.Tensor:
+    """GPT LM with the tied head: logits (b, s, V) (JAX :1127)."""
+    return lm_logits(params, cfg, gpt_forward(params, cfg, input_ids, **kw))

@@ -68,6 +68,10 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "backpacks_flash_attn_tpu/ops/flash_attention.py:298"),
     Kernel("fused_contextualization", "fused_contextualization.cu",
            "backpacks_flash_attn_tpu/ops/backpack_kernels.py:281"),
+    Kernel("flash_attention_bwd", "flash_attention_bwd.cu",
+           "backpacks_flash_attn_tpu/ops/flash_attention.py:794"),
+    Kernel("fused_contextualization_bwd", "fused_contextualization_bwd.cu",
+           "backpacks_flash_attn_tpu/ops/backpack_kernels.py:345"),
 )}
 
 
@@ -219,3 +223,11 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: innermost stride must be 1, "
                          f"got strides {t.stride()}")
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether every row of t starts on a 16-byte boundary (the vector
+    loads of the mma.sync kernels): aligned base, outer strides a multiple
+    of 8 elements (for 2-byte types)."""
+    return (t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in t.stride()[:-1]))

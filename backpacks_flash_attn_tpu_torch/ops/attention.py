@@ -1,4 +1,4 @@
-"""Multi-head attention: the plain reference and the entry to K3.
+"""Multi-head attention: the plain reference and the entry to K3/K5.
 
 Port of ``backpacks_flash_attn_tpu/ops/attention.py`` (``mha_reference``
 :50, ``mha`` :81). Layout (b, s, h, dh) as in the JAX package.
@@ -63,10 +63,17 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True,
         softmax_scale: Optional[float] = None,
         seq_lengths: Optional[torch.Tensor] = None,
+        dropout_p: float = 0.0,
+        dropout_rng: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
         q_offset=0) -> torch.Tensor:
-    """Attention entry point of the model code: the flash wrapper (K3).
-    q_offset: scalar or (b,) absolute position of q row 0."""
+    """Attention entry point of the model code (JAX :81): the flash wrapper
+    (K3, K5 backward), with in-kernel dropout when ``deterministic`` is
+    False. q_offset: scalar or (b,) absolute position of q row 0."""
+    dropout_active = dropout_p > 0.0 and not deterministic
     has_offset = not (isinstance(q_offset, int) and q_offset == 0)
     return flash_attention(q, k, v, causal=causal, softmax_scale=softmax_scale,
                            seq_lengths=seq_lengths,
+                           dropout_p=dropout_p if dropout_active else 0.0,
+                           dropout_rng=dropout_rng if dropout_active else None,
                            q_offsets=q_offset if has_offset else None)

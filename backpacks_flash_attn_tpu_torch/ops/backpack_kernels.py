@@ -1,13 +1,16 @@
-"""Fused Backpack contextualization (kernel K4), inference only.
+"""Fused Backpack contextualization: forward (kernel K4) and training
+backward (kernel K6).
 
-Port of the inference forward of
-``backpacks_flash_attn_tpu/ops/backpack_kernels.py`` (``fused_contextualization``
-:424 -> ``_fused_ctx_infer`` :281 -> ``_fused_ctx_infer_kernel`` :119):
+Port of ``backpacks_flash_attn_tpu/ops/backpack_kernels.py``
+(``fused_contextualization`` :424, a ``custom_vjp`` :423-452 whose forward
+is ``_fused_ctx_infer`` :281 / ``_fused_ctx_fwd_lse`` :309 and whose
+backward is ``_fused_ctx_bwd`` :345):
 
     out[b,t,:] = sum_k causal_softmax_j(scale * q[b,t,k] . k[b,j,k]) @ content[b,j,k,:]
 
-without materializing alpha (b, nv, s, s). The training forward and
-backward (with the per-head LSE) come with the training slice.
+without materializing alpha (b, nv, s, s). The forward also returns the
+per-(row, head) LSE, which the backward recomputes alpha from: the saved
+tensors are just (q, k, content, lse), never a per-head output.
 """
 
 from __future__ import annotations
@@ -18,36 +21,52 @@ from . import _build
 from .flash_attention import NEG_INF
 
 _K4 = _build.KERNELS["fused_contextualization"]
+_K6 = _build.KERNELS["fused_contextualization_bwd"]
+
+
+def _causal(s: int, device) -> torch.Tensor:
+    pos = torch.arange(s, device=device)
+    return (pos[None, :] <= pos[:, None])[None, None]
 
 
 def contextualization_reference(q: torch.Tensor, k: torch.Tensor,
-                                content: torch.Tensor,
-                                scale: float) -> torch.Tensor:
+                                content: torch.Tensor, scale: float,
+                                return_lse: bool = False):
     """Plain version of K4, O(s^2) memory: the products in the working
-    dtype (content's; bf16 stays bf16), scores and softmax in f32."""
+    dtype (content's; bf16 stays bf16), scores and softmax in f32. With
+    return_lse also the (b, nv, s) f32 log-sum-exps."""
     cdt = content.dtype
     s = torch.einsum("btkd,bjkd->bktj", q.to(cdt), k.to(cdt)).float() * scale
-    sq = s.shape[-1]
-    pos = torch.arange(sq, device=q.device)
-    s = torch.where((pos[None, :] <= pos[:, None])[None, None], s, NEG_INF)
+    s = torch.where(_causal(s.shape[-1], q.device), s, NEG_INF)
     a = torch.softmax(s, dim=-1)
-    return torch.einsum("bktj,bjkd->btd", a.to(cdt), content).to(content.dtype)
+    out = torch.einsum("bktj,bjkd->btd", a.to(cdt), content).to(content.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
 
 
-def fused_contextualization(q: torch.Tensor, k: torch.Tensor,
-                            content: torch.Tensor,
-                            scale: float) -> torch.Tensor:
-    """q, k (b, s, nv, dnv); content (b, s, nv, d) -> (b, s, d) in content's
-    dtype. CPU tensors, and every call inside ``_build.plain_path()``, take
-    :func:`contextualization_reference`; otherwise a CUDA tensor launches
-    K4 (``csrc/fused_contextualization.cu``: bf16 on tensor cores when the
-    rows of q, k and content are 16-byte aligned and dnv % 8 == 0, else f32
-    or bf16 SIMT; dnv <= 64, any outer strides) or raises."""
-    if not q.is_cuda or not _build.kernels_enabled():
-        return contextualization_reference(q, k, content, scale)
+def fused_ctx_bwd_ref(q, k, content, lse, g, scale: float):
+    """Plain version of K6 (JAX ``_fused_ctx_dq_delta_kernel`` :158 and
+    ``_fused_ctx_dkc_kernel`` :209): alpha = exp(scale q.k - lse) (causal),
+    dP = dO . c, delta = rowsum(alpha dP), dS = alpha (dP - delta);
+    dq = scale dS k, dk = scale dS^T q, dcontent = alpha^T dO. Products in
+    content's dtype, the rest in f32."""
+    cdt = content.dtype
+    g = g.to(cdt)
+    s = torch.einsum("btkd,bjkd->bktj", q.to(cdt), k.to(cdt)).float() * scale
+    a = torch.where(_causal(s.shape[-1], q.device),
+                    torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("btd,bjkd->bktj", g, content).float()
+    delta = (a * dp).sum(-1, keepdim=True)
+    ds = (a * (dp - delta)).to(cdt)
+    dq = torch.einsum("bktj,bjkd->btkd", ds, k.to(cdt)).float() * scale
+    dk = torch.einsum("bktj,btkd->bjkd", ds, q.to(cdt)).float() * scale
+    dc = torch.einsum("bktj,btd->bjkd", a.to(cdt), g)
+    return dq.to(q.dtype), dk.to(k.dtype), dc.to(cdt)
+
+
+def _check(q, k, content, dtypes):
     b, s, nv, dnv = q.shape
-    d = content.shape[-1]
-    dtypes = (torch.bfloat16, torch.float32)
     _build.check_cuda_tensor("content", content, dtypes, 4)
     _build.check_cuda_tensor("q", q, (content.dtype,), 4)
     _build.check_cuda_tensor("k", k, (content.dtype,), 4)
@@ -55,10 +74,19 @@ def fused_contextualization(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"content {tuple(content.shape)} disagree")
     if dnv > 64:
-        raise ValueError(f"fused_contextualization kernel takes dnv <= 64, "
+        raise ValueError(f"fused contextualization kernels take dnv <= 64, "
                          f"got {dnv}")
+
+
+def _fwd_kernel(q, k, content, scale):
+    """K4 (``csrc/fused_contextualization.cu``): bf16 on tensor cores when
+    the rows of q, k and content are 16-byte aligned and dnv % 8 == 0, else
+    f32 or bf16 SIMT; dnv <= 64, any outer strides. -> (out (b, s, d), lse
+    (b, nv, s) f32)."""
+    b, s, nv, dnv = q.shape
+    d = content.shape[-1]
+    _check(q, k, content, (torch.bfloat16, torch.float32))
     out = torch.empty((b, s, d), dtype=content.dtype, device=q.device)
-    # the tensor-core path's per-(row, head) log-sum-exps
     lse = torch.empty((b, nv, s), dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
     _build.launch(
@@ -68,4 +96,79 @@ def fused_contextualization(q: torch.Tensor, k: torch.Tensor,
         k.stride(0), k.stride(1), k.stride(2),
         content.stride(0), content.stride(1), content.stride(2),
         float(scale), _build.DTYPE_CODE[content.dtype])
-    return out
+    return out, lse
+
+
+def fused_ctx_bwd(q, k, content, lse, g, scale: float):
+    """Gradients (dq, dk, dcontent) of the fused contextualization. CPU
+    tensors, and every call inside ``_build.plain_path()``, take
+    :func:`fused_ctx_bwd_ref`; otherwise a CUDA tensor launches K6
+    (``csrc/fused_contextualization_bwd.cu``: bf16, dnv % 8 == 0, dnv <= 64,
+    d % 8 == 0; rows 16-byte aligned, else copied contiguous first) or
+    raises."""
+    if not q.is_cuda or not _build.kernels_enabled():
+        return fused_ctx_bwd_ref(q, k, content, lse, g, scale)
+    b, s, nv, dnv = q.shape
+    d = content.shape[-1]
+    _check(q, k, content, (torch.bfloat16,))
+    if dnv % 8 or d % 8:
+        raise ValueError(f"fused_ctx_bwd kernel takes dnv % 8 == 0 and "
+                         f"d % 8 == 0, got {dnv} and {d}")
+    g = g.to(content.dtype)
+    q, k, content, g = (t if _build.aligned16(t) else t.contiguous()
+                        for t in (q, k, content, g))
+    _build.check_cuda_tensor("g", g, (content.dtype,), 3)
+    if g.shape != (b, s, d):
+        raise ValueError(f"g: shape {tuple(g.shape)} != {(b, s, d)}")
+    _build.check_cuda_tensor("lse", lse, (torch.float32,), 3)
+    lse = lse.contiguous()
+    dq = torch.empty((b, s, nv, dnv), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, nv, dnv), dtype=k.dtype, device=q.device)
+    dc = torch.empty((b, s, nv, d), dtype=content.dtype, device=q.device)
+    delta = torch.empty((b, nv, s), dtype=torch.float32, device=q.device)
+    P = _build.Ptr.of
+    _build.launch(
+        _K6, "fused_contextualization_bwd_launch", P(q), P(k), P(content),
+        P(g), P(lse), P(delta), P(dq), P(dk), P(dc), b, s, nv, dnv, d,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        content.stride(0), content.stride(1), content.stride(2),
+        g.stride(0), g.stride(1), float(scale))
+    return dq, dk, dc
+
+
+class _FusedContextualization(torch.autograd.Function):
+    """K4 forward (with its LSE), K6 backward: the counterpart of the JAX
+    ``custom_vjp`` (:423-452). The path (kernel or plain) is fixed at the
+    forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, content, scale, use_kernel):
+        if use_kernel:
+            out, lse = _fwd_kernel(q, k, content, scale)
+        else:
+            out, lse = contextualization_reference(q, k, content, scale,
+                                                   return_lse=True)
+        ctx.save_for_backward(q, k, content, lse)
+        ctx.scale, ctx.use_kernel = scale, use_kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, content, lse = ctx.saved_tensors
+        fn = fused_ctx_bwd if ctx.use_kernel else fused_ctx_bwd_ref
+        dq, dk, dc = fn(q, k, content, lse, g, ctx.scale)
+        return dq, dk, dc, None, None
+
+
+def fused_contextualization(q: torch.Tensor, k: torch.Tensor,
+                            content: torch.Tensor,
+                            scale: float) -> torch.Tensor:
+    """q, k (b, s, nv, dnv); content (b, s, nv, d) -> (b, s, d) in content's
+    dtype, differentiable in q, k and content. CPU tensors, and every call
+    inside ``_build.plain_path()``, take :func:`contextualization_reference`
+    (and :func:`fused_ctx_bwd_ref` backward); otherwise a CUDA tensor
+    launches K4 (and K6 backward) or raises."""
+    use_kernel = q.is_cuda and _build.kernels_enabled()
+    return _FusedContextualization.apply(q, k, content, float(scale),
+                                         use_kernel)

@@ -1,28 +1,44 @@
-"""FlashAttention forward (kernel K3), inference only.
+"""FlashAttention forward (kernel K3) and backward (kernel K5).
 
-Port of the forward of ``backpacks_flash_attn_tpu/ops/flash_attention.py``
+Port of ``backpacks_flash_attn_tpu/ops/flash_attention.py``
 (``flash_attention`` :1039 -> ``_flash_fwd`` :298 -> ``_flash_fwd_kernel``
-:158) for causal masking, per-sequence ``seq_lengths`` and ``q_offsets``:
-key column u of sequence b is valid when ``u < min(seq_lengths[b], sk)``
-and, if causal, ``u <= q_offsets[b] + i`` for query row i. Fully masked rows
-give 0 and an LSE of ``NEG_INF``. Dropout, an additive bias and block masks
-come with the training and long-context slices.
+:158, and the ``custom_vjp`` around it, :1009-1036, whose backward is
+``_flash_bwd`` :794) for causal masking, per-sequence ``seq_lengths`` and
+``q_offsets``, and attention dropout: key column u of sequence b is valid
+when ``u < min(seq_lengths[b], sk)`` and, if causal, ``u <= q_offsets[b] +
+i`` for query row i. Fully masked rows give 0 and an LSE of ``NEG_INF``.
+
+Dropout keeps a probability where the counter hash of ``(seed, b*H + h,
+q_offsets[b] + i, j)`` falls below a threshold (``dropout_keep_positions``,
+JAX :120), so the forward, the backward and the plain versions all draw the
+same mask without storing it. It is applied to the un-normalised
+probabilities after the running max and sum, so the LSE stays the one of
+the softmax before dropout (JAX :250-259).
+
+The differentiable entry (no ``seq_lengths``/``q_offsets``, as in JAX)
+saves ``(q, k, v, out, lse)`` and the seed; its backward is K5 on the card
+and :func:`flash_attention_bwd_ref` on the CPU. The ragged/offset entry is
+inference only. An additive bias and block masks wait for the BERT/ViT and
+long-context items of the ROADMAP.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import prng
 from . import _build
 
 # Large negative instead of -inf: keeps exp(m_prev - m_new) finite for
 # fully-masked tiles.
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+DROPOUT_ROUNDS = 2
 _K3 = _build.KERNELS["flash_attention"]
+_K5 = _build.KERNELS["flash_attention_bwd"]
 
 
 def _per_seq(x, b: int, device, default: int) -> torch.Tensor:
@@ -31,31 +47,80 @@ def _per_seq(x, b: int, device, default: int) -> torch.Tensor:
     return torch.as_tensor(x, device=device).reshape(-1).expand(b)
 
 
+# ------------------------------------------------------------ dropout hash
+
+def keep_threshold(dropout_p: float) -> int:
+    """The 32-bit threshold a hash must fall below to keep (JAX :145)."""
+    return min(int(round((1.0 - dropout_p) * 2 ** 32)), 2 ** 32 - 1)
+
+
+def dropout_keep_positions(seed: Tuple[int, int], bh, q_pos, k_pos,
+                           dropout_p: float,
+                           rounds: int = DROPOUT_ROUNDS) -> torch.Tensor:
+    """Counter-based keep mask of ``_dropout_keep_positions`` (JAX :120):
+    the murmur finalizer over ``(seed, bh, q_pos, k_pos)``, which broadcast
+    together. uint32 arithmetic in int64 masked to 32 bits."""
+    m = prng.MASK32
+    u = lambda t: torch.as_tensor(t, dtype=torch.int64) & m
+    x = (seed[0] ^ prng.mul32(u(q_pos), 0x9E3779B9)
+         ^ prng.mul32(u(k_pos), 0x85EBCA77) ^ prng.mul32(u(bh), 0xC2B2AE3D))
+    x = (x + seed[1]) & m
+    for _ in range(rounds):
+        x = x ^ (x >> 16)
+        x = prng.mul32(x, 0x85EBCA6B)
+        x = x ^ (x >> 13)
+        x = prng.mul32(x, 0xC2B2AE35)
+        x = x ^ (x >> 16)
+    return x < keep_threshold(dropout_p)
+
+
+def _keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, device):
+    """Keep mask (b, h, sq, sk) at absolute positions: bh = b*H + h, query
+    row i at q_offsets[b] + i, key column j at j."""
+    bh = (torch.arange(b, device=device)[:, None] * h
+          + torch.arange(h, device=device)[None, :])[:, :, None, None]
+    q_pos = (_per_seq(q_offsets, b, device, 0)[:, None]
+             + torch.arange(sq, device=device)[None, :])[:, None, :, None]
+    k_pos = torch.arange(sk, device=device)[None, None, None, :]
+    return dropout_keep_positions(seed, bh, q_pos, k_pos, dropout_p)
+
+
+# ------------------------------------------------------------ plain versions
+
+def _valid_mask(b, sq, sk, causal, seq_lengths, q_offsets, device):
+    lens = _per_seq(seq_lengths, b, device, sk)
+    k_pos = torch.arange(sk, device=device)
+    mask = (k_pos[None, :] < torch.clamp(lens, max=sk)[:, None])[:, None, None, :]
+    if causal:
+        q_pos = (_per_seq(q_offsets, b, device, 0)[:, None]
+                 + torch.arange(sq, device=device)[None, :])          # (b, sq)
+        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
                         softmax_scale: Optional[float] = None,
                         seq_lengths=None, q_offsets=None,
+                        dropout_p: float = 0.0, seed=(0, 0),
                         return_lse: bool = False):
     """Plain version of K3: the two products in the working dtype (bf16
-    stays bf16), scores and softmax in f32, with the kernel's masks and
-    its zero output for fully masked rows."""
+    stays bf16), scores and softmax in f32, with the kernel's masks, its
+    dropout mask and its zero output for fully masked rows."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     dev = q.device
     s = torch.einsum("bthd,bshd->bhts", q, k.to(q.dtype)).float() * scale
-    lens = _per_seq(seq_lengths, b, dev, sk)
-    k_pos = torch.arange(sk, device=dev)
-    mask = (k_pos[None, :] < torch.clamp(lens, max=sk)[:, None])[:, None, None, :]
-    if causal:
-        q_pos = (_per_seq(q_offsets, b, dev, 0)[:, None]
-                 + torch.arange(sq, device=dev)[None, :])          # (b, sq)
-        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+    mask = _valid_mask(b, sq, sk, causal, seq_lengths, q_offsets, dev)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
+    if dropout_p > 0.0:
+        keep = _keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, dev)
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_p)), 0.0)
     o = torch.einsum("bhts,bshd->bthd", p.to(q.dtype), v.to(q.dtype)).float()
     out = (o / l_safe.permute(0, 2, 1, 3)).to(q.dtype)
     if return_lse:
@@ -63,31 +128,43 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    softmax_scale: Optional[float] = None,
-                    seq_lengths=None,
-                    dropout_p: float = 0.0,
-                    q_offsets=None,
-                    attn_bias=None,
-                    blockmask=None,
-                    return_lse: bool = False):
-    """q (b, sq, h, d); k, v (b, sk, h, d) -> (b, sq, h, d) in q's dtype
-    [, lse (b, h, sq) f32]. CPU tensors, and every call inside
-    ``_build.plain_path()``, take :func:`flash_attention_ref`; otherwise a
-    CUDA tensor launches K3 (``csrc/flash_attention.cu``: bf16 or f32,
-    d = 64, any outer strides) or raises."""
-    if dropout_p > 0.0 or attn_bias is not None or blockmask is not None:
-        raise NotImplementedError("dropout, attn_bias and blockmask come "
-                                  "with the training and long-context slices")
-    if not q.is_cuda or not _build.kernels_enabled():
-        return flash_attention_ref(q, k, v, causal=causal,
-                                   softmax_scale=softmax_scale,
-                                   seq_lengths=seq_lengths,
-                                   q_offsets=q_offsets, return_lse=return_lse)
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            softmax_scale: Optional[float] = None,
+                            dropout_p: float = 0.0, seed=(0, 0)):
+    """Plain version of K5 (JAX ``_flash_bwd_scratch_kernel`` :681): p is
+    recomputed as exp(s - lse) with the forward's masks and keep mask,
+    delta = rowsum(dO * O), ds = p * (dp - delta); the products in the
+    working dtype, the rest in f32. Returns (dq, dk, dv) in the input
+    dtypes."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    dtypes = (torch.bfloat16, torch.float32)
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    cdt, dev = q.dtype, q.device
+    dout = dout.to(cdt)
+    s = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
+    mask = _valid_mask(b, sq, sk, causal, None, None, dev)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bthd,bshd->bhts", dout, v).float()
+    if dropout_p > 0.0:
+        keep = _keep_mask(seed, dropout_p, b, h, sq, sk, None, dev)
+        inv = 1.0 / (1.0 - dropout_p)
+        p_v = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    else:
+        p_v = p
+    delta = (out.float() * dout.float()).sum(-1).permute(0, 2, 1)[..., None]
+    ds = (p * (dp - delta)).to(cdt)
+    dv = torch.einsum("bhts,bthd->bshd", p_v.to(cdt), dout).float()
+    dq = torch.einsum("bhts,bshd->bthd", ds, k).float() * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, q).float() * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ------------------------------------------------------------ kernels
+
+def _check_qkv(q, k, v, dtypes):
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
     _build.check_cuda_tensor("q", q, dtypes, 4)
     _build.check_cuda_tensor("k", k, (q.dtype,), 4)
     _build.check_cuda_tensor("v", v, (q.dtype,), 4)
@@ -95,8 +172,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} disagree")
     if d != 64:
-        raise ValueError(f"flash_attention kernel takes head dim 64, got {d}")
-    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+        raise ValueError(f"flash attention kernels take head dim 64, got {d}")
+
+
+def _dropout_args(dropout_p, seed):
+    if dropout_p > 0.0:
+        return (int(seed[0]), int(seed[1]), keep_threshold(dropout_p),
+                float(1.0 / (1.0 - dropout_p)), 1)
+    return (0, 0, 0, 1.0, 0)
+
+
+def _flash_fwd_kernel(q, k, v, *, causal, scale, seq_lengths, q_offsets,
+                      dropout_p, seed):
+    """K3 (``csrc/flash_attention.cu``): bf16 or f32, d = 64, any outer
+    strides. Returns (out (b, sq, h, d), lse (b, h, sq) f32)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
     lens = _per_seq(seq_lengths, b, q.device, sk).to(torch.int32).contiguous()
     offs = _per_seq(q_offsets, b, q.device, 0).to(torch.int32).contiguous()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -108,5 +200,127 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        float(scale), int(causal), _build.DTYPE_CODE[q.dtype])
+        float(scale), int(causal), *_dropout_args(dropout_p, seed),
+        _build.DTYPE_CODE[q.dtype])
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        softmax_scale: Optional[float] = None,
+                        dropout_p: float = 0.0, seed=(0, 0)):
+    """Gradients (dq, dk, dv) of the flash forward. CPU tensors, and every
+    call inside ``_build.plain_path()``, take
+    :func:`flash_attention_bwd_ref`; otherwise a CUDA tensor launches K5
+    (``csrc/flash_attention_bwd.cu``: bf16, d = 64, sq == sk, no lengths or
+    offsets; rows 16-byte aligned, else copied contiguous first) or
+    raises."""
+    d = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    if not q.is_cuda or not _build.kernels_enabled():
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                       softmax_scale=scale,
+                                       dropout_p=dropout_p, seed=seed)
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    _check_qkv(q, k, v, (torch.bfloat16,))
+    if sq != sk:
+        raise ValueError(f"flash_attention_bwd kernel takes sq == sk, got "
+                         f"{sq} and {sk}")
+    dout = dout.to(q.dtype)
+    q, k, v, out, dout = (t if _build.aligned16(t) else t.contiguous()
+                          for t in (q, k, v, out, dout))
+    for name, t in (("out", out), ("dout", dout)):
+        _build.check_cuda_tensor(name, t, (q.dtype,), 4)
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != q's")
+    _build.check_cuda_tensor("lse", lse, (torch.float32,), 3)
+    lse = lse.contiguous()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    P = _build.Ptr.of
+    strides = [s for t in (q, k, v, out, dout) for s in t.stride()[:3]]
+    _build.launch(
+        _K5, "flash_attention_bwd_launch", P(q), P(k), P(v), P(out),
+        P(dout), P(lse), P(delta), P(dq), P(dk), P(dv), b, h, sq, *strides,
+        float(scale), int(causal), *_dropout_args(dropout_p, seed))
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 forward, K5 backward (JAX ``_flash_attention_bhsd``'s custom_vjp,
+    :1009-1036): saves (q, k, v, out, lse) and the dropout seed, never the
+    mask. The path (kernel or plain) is fixed at the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, dropout_p, seed, use_kernel):
+        kw = dict(causal=causal, dropout_p=dropout_p, seed=seed)
+        if use_kernel:
+            out, lse = _flash_fwd_kernel(q, k, v, scale=scale,
+                                         seq_lengths=None, q_offsets=None,
+                                         **kw)
+        else:
+            out, lse = flash_attention_ref(q, k, v, softmax_scale=scale,
+                                           return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(kw, softmax_scale=scale)
+        ctx.use_kernel = use_kernel
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if ctx.use_kernel:
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                             **ctx.kw)
+        else:
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                 **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    softmax_scale: Optional[float] = None,
+                    seq_lengths=None,
+                    dropout_p: float = 0.0,
+                    dropout_rng: Optional[torch.Tensor] = None,
+                    q_offsets=None,
+                    attn_bias=None,
+                    blockmask=None,
+                    return_lse: bool = False):
+    """q (b, sq, h, d); k, v (b, sk, h, d) -> (b, sq, h, d) in q's dtype
+    [, lse (b, h, sq) f32]. CPU tensors, and every call inside
+    ``_build.plain_path()``, take :func:`flash_attention_ref`; otherwise a
+    CUDA tensor launches K3 (``csrc/flash_attention.cu``: bf16 or f32,
+    d = 64, any outer strides) or raises. Differentiable in q, k, v when
+    neither ``seq_lengths`` nor ``q_offsets`` is given (the backward is K5).
+    dropout_rng: a key of ``utils.prng`` (required when dropout_p > 0)."""
+    if attn_bias is not None:
+        raise NotImplementedError("attn_bias comes with BERT/ViT (ROADMAP "
+                                  "Queue 1 item 7)")
+    if blockmask is not None:
+        raise NotImplementedError("blockmask comes with the long-context "
+                                  "kernels (ROADMAP Queue 2, K9)")
+    seed = (0, 0)
+    if dropout_p > 0.0:
+        if dropout_rng is None:
+            raise ValueError("dropout_p > 0 requires dropout_rng")
+        seed = prng.seed_words(dropout_rng)
+    d = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    use_kernel = q.is_cuda and _build.kernels_enabled()
+    if seq_lengths is None and q_offsets is None:
+        out, lse = _FlashAttention.apply(q, k, v, causal, float(scale),
+                                         float(dropout_p), seed, use_kernel)
+        return (out, lse) if return_lse else out
+    kw = dict(causal=causal, seq_lengths=seq_lengths, q_offsets=q_offsets,
+              dropout_p=dropout_p, seed=seed)
+    if use_kernel:
+        out, lse = _flash_fwd_kernel(q, k, v, scale=scale, **kw)
+    else:
+        out, lse = flash_attention_ref(q, k, v, softmax_scale=scale,
+                                       return_lse=True, **kw)
     return (out, lse) if return_lse else out

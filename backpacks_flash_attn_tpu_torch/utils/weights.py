@@ -50,3 +50,14 @@ def params_from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
                           bits=int(tree.bits))
     return _to_tensor(tree, device, dtype)
 
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The inverse of :func:`params_from_numpy` for floating-point trees:
+    tensor tree -> numpy-leaved tree (bf16 leaves as f32), so a test can
+    compare gradients and updated parameters leaf by leaf with the JAX
+    package's tree."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

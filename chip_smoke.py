@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (backpacks_flash_attn_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,serve,forward] [--out DIR]
+    python3 chip_smoke.py [--phases device,build,kernels,serve,forward,train] [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -21,6 +21,25 @@ Phases, each printing one JSON line:
             kernel path against the plain path under the same 2x rule.
 5. forward  backpack_forward at (8, 512) in bf16 through K3 and K4, logits
             against the plain path under the 2x rule.
+6. train    backpack-small at full width and depth, bf16 weights from the
+            seeded generator, AdamW (warmup 10, lr 6e-4) on a bigram corpus
+            over the first 4096 ids. Two runs at batch 32 x 512: (a) the
+            einsum combine, 40 steps, (b) fused_ctx=True (K4 forward, K6
+            backward), 12 steps. Step ms (median of 10 timed steps after 2
+            warm-up steps), tokens/s, an MFU estimate, peak memory, the
+            launches of every step (K3 and K5 12 each, K6 at least 1 in
+            (b)), the loss of every step, one profiled step; the learning
+            gate: the mean loss of the last 5 of (a)'s 40 steps at least 1
+            nat below the first 5's. Then a gradient gate at batch 8 x 512
+            at the weights of (a)'s last step, dropout on, both combine
+            routes: one step's per-token losses, its whole gradient (every
+            leaf as one vector) and the gradients of wte, the first and last
+            GPT layer's Wqkv and ctx_attn.Wqkv, kernel path vs plain path
+            under the 2x rule of relative error against an f32 plain
+            reference (the mean loss and the global gradient norm are
+            reported beside them).
+            The kernels phase also holds K3 with dropout, K5 and K6 at the
+            training shapes.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -32,12 +51,14 @@ no CUDA device it exits non-zero before printing any result. TF32 is off
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -69,7 +90,8 @@ def flush_l2():
     finds its inputs cold, as the decode loop does."""
     global _FLUSH
     if _FLUSH is None:
-        _FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        with torch.inference_mode(False):       # usable in and out of it
+            _FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     _FLUSH.zero_()
 
 
@@ -102,7 +124,13 @@ def max_err(a, ref):
 
 
 def two_x(name, out, plain, ref):
-    """The kernel-vs-baseline rule: err(kernel) <= 2 * err(bf16 plain)."""
+    """The kernel-vs-baseline rule: err(kernel) <= 2 * err(bf16 plain),
+    for each output of a tuple (dq, dk, dv, ...); returns the largest
+    errors."""
+    if isinstance(out, tuple):
+        errs = [two_x(f"{name}[{i}]", o, p, r)
+                for i, (o, p, r) in enumerate(zip(out, plain, ref))]
+        return max(e for e, _ in errs), max(e for _, e in errs)
     ek, ep = max_err(out, ref), max_err(plain, ref)
     if not (ep > 0 and ek <= 2 * ep):
         raise AssertionError(f"{name}: kernel error {ek:.3e} exceeds 2x the "
@@ -237,26 +265,121 @@ def kernel_cases(gen):
     return cases
 
 
+def train_kernel_cases(gen):
+    """K3 with dropout, K5 and K6 at the training shapes (batch 32 x 512,
+    backpack-small). Made outside inference mode: the library yardsticks
+    of the backward kernels are autograd calls, timed on a graph built
+    once (the backward alone). Their dropout masks differ from the port's,
+    so their error is not reported."""
+    from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as bk
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+
+    bf = torch.bfloat16
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    cases = []
+    b, s, h, d, p = TRAIN_BATCH, TRAIN_LEN, 12, 64, 0.1
+    scale = 0.125
+    seed = (0x1234567, 0x89ABCDEF)
+    qkv = randn(b, s, 3, h, d).to(bf)                    # strided q/k/v, as
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]   # the model makes them
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    dout = randn(b, s, h, d).to(bf)
+    kw = dict(causal=True, softmax_scale=scale, dropout_p=p, seed=seed)
+    pairs = b * h * s * (s + 1) // 2
+    tensor = b * s * h * d * 2                           # one bf16 (b, s, h, d)
+    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
+    cases.append(("flash_attention", f"train-dropout b={b} h={h} s={s} p={p}", dict(
+        kernel=lambda: fa._flash_fwd_kernel(q, k, v, scale=scale, seq_lengths=None,
+                                            q_offsets=None, causal=True,
+                                            dropout_p=p, seed=seed)[0],
+        plain=lambda: fa.flash_attention_ref(q, k, v, **kw),
+        ref=lambda: fa.flash_attention_ref(q32, k32, v32, **kw),
+        library=lambda: F.scaled_dot_product_attention(
+            qT, kT, vT, is_causal=True, scale=scale, dropout_p=p).transpose(1, 2),
+        bytes=4 * tensor + b * h * s * 4, flops=4 * pairs * d)))
+
+    out, lse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    out32, lse32 = fa.flash_attention_ref(q32, k32, v32, return_lse=True, **kw)
+    with torch.enable_grad():
+        lq, lk, lv = (t.detach().requires_grad_() for t in (qT, kT, vT))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                              scale=scale, dropout_p=p)
+    ldo = dout.transpose(1, 2)
+    cases.append(("flash_attention_bwd", f"train b={b} h={h} s={s} p={p}", dict(
+        kernel=lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw),
+        plain=lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw),
+        ref=lambda: fa.flash_attention_bwd_ref(q32, k32, v32, out32, lse32,
+                                               dout.float(), **kw),
+        library=lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo,
+                                            retain_graph=True),
+        # read q, k, v, out, dO and lse once, write dq, dk, dv; the five
+        # causal products (S recomputed, dP, dV, dQ, dK)
+        bytes=8 * tensor + b * h * s * 4, flops=10 * pairs * d)))
+
+    nv, dnv, dd = 16, 48, 768
+    qk = randn(b, s, 2, nv, dnv).to(bf)
+    cq, ck = qk[:, :, 0], qk[:, :, 1]
+    c = randn(b, s, nv, dd).to(bf)
+    g = randn(b, s, dd).to(bf)
+    cscale = dnv ** -0.5
+    _, clse = bk.contextualization_reference(cq, ck, c, cscale, return_lse=True)
+    _, clse32 = bk.contextualization_reference(cq.float(), ck.float(), c.float(),
+                                               cscale, return_lse=True)
+    with torch.enable_grad():
+        hq, hk, hc = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (cq, ck, c))
+        hout = F.scaled_dot_product_attention(hq, hk, hc, is_causal=True,
+                                              scale=cscale).sum(dim=1)
+    cpairs = b * nv * s * (s + 1) // 2
+    cases.append(("fused_contextualization_bwd",
+                  f"train b={b} s={s} nv={nv} dnv={dnv} d={dd}", dict(
+        kernel=lambda: bk.fused_ctx_bwd(cq, ck, c, clse, g, cscale),
+        plain=lambda: bk.fused_ctx_bwd_ref(cq, ck, c, clse, g, cscale),
+        ref=lambda: bk.fused_ctx_bwd_ref(cq.float(), ck.float(), c.float(),
+                                         clse32, g.float(), cscale),
+        library=lambda: torch.autograd.grad(hout, (hq, hk, hc), g,
+                                            retain_graph=True),
+        # read q, k, content, dO, lse once, write dq, dk, dcontent; the
+        # products S (recomputed) and dP and alpha^T dO over d, dS k and
+        # dS^T q over dnv
+        bytes=2 * (4 * cq.numel() + 2 * c.numel() + g.numel()) + b * nv * s * 4,
+        flops=2 * cpairs * (3 * dnv + 2 * dd))))
+    return cases
+
+
 # the case whose numbers stand for each kernel in the {"kernels"} line: the
-# one the INT8 decode step (K1, K2), the INT8 prefill (K3) and the forward
-# (K4) run
+# one the INT8 decode step (K1, K2), the INT8 prefill (K3), the forward
+# (K4) and the training step (K5, K6) run
 HEADLINE = {
     "decode_attention": "backpack-int8",
     "quant_matmul": "M=128 K=768 N=50264 int8",
     "flash_attention": "prefill",
     "fused_contextualization": "b=8",
+    "flash_attention_bwd": "train",
+    "fused_contextualization_bwd": "train",
+}
+# the run whose launch counts stand for each kernel in that line
+LAUNCH_RUN = {
+    "decode_attention": "serve_int8",
+    "quant_matmul": "serve_int8",
+    "flash_attention": "serve_int8",
+    "fused_contextualization": "forward",
+    "flash_attention_bwd": "train_einsum",
+    "fused_contextualization_bwd": "train_fused",
 }
 
 
-def phase_kernels(gen, results):
+def phase_kernels(cases, results):
     from backpacks_flash_attn_tpu_torch.ops import _build
-    for name, label, c in kernel_cases(gen):
+    for name, label, c in cases:
         out, plain, ref = c["kernel"](), c["plain"](), c["ref"]()
         torch.cuda.synchronize()
         ek, ep = two_x(f"{name} [{label}]", out, plain, ref)
         lib_out = c["library"]()
+        lib_err = (max_err(lib_out, ref) if isinstance(lib_out, torch.Tensor)
+                   and "dropout" not in label else None)
         row = dict(case=label, max_abs_err=ek, plain_bf16_err=ep,
-                   library_err=max_err(lib_out, ref),
+                   library_err=lib_err,
                    ms=time_ms(c["kernel"]), plain_ms=time_ms(c["plain"]),
                    library_ms=time_ms(c["library"]))
         row["bound_ms"], row["bound_by"] = bound(c["bytes"], c["flops"])
@@ -507,11 +630,219 @@ def phase_forward(gen, results):
     results["forward"] = run
 
 
+# ------------------------------------------------------------------ train
+
+TRAIN_BATCH, TRAIN_LEN, GATE_BATCH = 32, 512, 8
+TRAIN_WARMUP, TRAIN_TIMED, LEARN_STEPS, LEARN_WINDOW = 2, 10, 40, 5
+BIGRAM_VOCAB = 4096
+
+
+def _rel(a, ref):
+    a, ref = a.float(), ref.float()
+    return ((a - ref).norm() / ref.norm()).item()
+
+
+def gradient_gate(cfg, params, batch, fused_ctx):
+    """One step's per-token losses, whole gradient (every leaf, as one
+    vector) and chosen gradients on three paths (kernels in bf16; plain in
+    bf16; plain in f32, the reference): the kernel path's relative error
+    must be at most 2x the bf16 plain path's on each (or 0). The scalars
+    the vectors reduce to, the mean loss and the global gradient norm, are
+    reported and not gated: each one's relative error is a single draw of
+    bf16 rounding noise per path, and the ratio flips between runs (mean
+    loss: 4.1e-7 kernel vs 1.3e-5 plain in one run, 2.8e-4 vs 3.7e-5 in
+    another; gradient norm 5.5e-5 vs 5.1e-4, then 6.0e-4 vs 6.0e-5)."""
+    import contextlib
+
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.ops.cross_entropy import cross_entropy
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+    from backpacks_flash_attn_tpu_torch.utils import prng
+
+    key = prng.fold_in(prng.PRNGKey(1), 0)
+    x, y = batch["input_ids"][:, :-1], batch["input_ids"][:, 1:]
+    picks = {
+        "wte": lambda p: p["gpt"]["wte"],
+        "gpt.layers[0].Wqkv": lambda p: p["gpt"]["layers"]["Wqkv"]["kernel"][0],
+        "gpt.layers[-1].Wqkv": lambda p: p["gpt"]["layers"]["Wqkv"]["kernel"][-1],
+        "ctx_attn.Wqkv": lambda p: p["ctx_attn"]["Wqkv"]["kernel"],
+    }
+    outs = {}
+    for path, dtype in (("kernel", torch.bfloat16), ("plain", torch.bfloat16),
+                        ("ref", torch.float32)):
+        p = tl.trainable(_map_tensors(params, lambda t: t.to(dtype)))
+        ctx = contextlib.nullcontext() if path == "kernel" else _build.plain_path()
+        with ctx:
+            logits = bp.backpack_forward(p, cfg, x, train=True, rng=key,
+                                         fused_ctx=fused_ctx)
+            per_token, _ = cross_entropy(logits, y)
+            loss = per_token.mean()          # make_loss_fn's loss
+            loss.backward()
+        grads = _map_tensors(p, lambda t: t.grad)
+        gnorm = torch.sqrt(sum(g.float().square().sum()
+                               for _, g in tl.named_leaves(grads)))
+        outs[path] = {"loss_per_token": per_token.detach(), "loss": loss.detach(),
+                      "grads": grads, "grad_norm": gnorm,
+                      **{k: f(grads) for k, f in picks.items()}}
+        del p, logits, per_token, loss
+    ref_leaves = tl.named_leaves(outs["ref"].pop("grads"))
+    for path in ("kernel", "plain"):
+        leaves = dict(tl.named_leaves(outs[path].pop("grads")))
+        diff = sum((leaves[k].float() - g).square().sum() for k, g in ref_leaves)
+        outs[path]["all_grads"] = diff.sqrt() / outs["ref"]["grad_norm"]
+    errs, failed = {}, []
+    for k in outs["kernel"]:
+        if k == "all_grads":
+            ek, ep = outs["kernel"][k].item(), outs["plain"][k].item()
+        else:
+            ek = _rel(outs["kernel"][k], outs["ref"][k])
+            ep = _rel(outs["plain"][k], outs["ref"][k])
+        errs[k] = {"kernel": ek, "plain_bf16": ep}
+        if k not in ("loss", "grad_norm") and \
+                not (ek == 0.0 or (ep > 0 and ek <= 2 * ep)):
+            failed.append(f"{k}: kernel rel. error {ek:.3e} > 2x plain {ep:.3e}")
+    if failed:
+        raise AssertionError(f"gradient gate (fused_ctx={fused_ctx}): "
+                             + "; ".join(failed) + f" (all: {errs})")
+    return errs
+
+
+def _profile_step(step_once):
+    """Device ms by kernel over one training step (torch.profiler, kernel
+    events only) and the step's wall ms under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    return dict(wall_ms_profiled=wall * 1e3,
+                device_ms=sum(us for us, _, _ in rows) / 1e3,
+                top=[dict(name=k[:80], ms=us / 1e3, calls=c) for us, k, c in rows[:15]])
+
+
+def train_run(label, cfg, params, stream, n_steps, fused_ctx):
+    """n_steps of make_train_step (AdamW, warmup 10, lr 6e-4) from a copy of
+    params: the loss and the kernel launches of every step (counts reset
+    just before the step, read just after), step ms over the steps after
+    TRAIN_WARMUP, tokens/s, MFU, peak memory, and one profiled step."""
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.training import callbacks as cb
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+    from backpacks_flash_attn_tpu_torch.utils import prng
+
+    p = tl.trainable(_map_tensors(params, lambda t: t.clone()))
+    state = tl.TrainState(p, tl.make_optimizer(p, lr=6e-4, warmup_steps=10,
+                                               total_steps=1000), 0)
+    step_fn = tl.make_train_step(cfg, fused_ctx=fused_ctx)
+    rng = prng.PRNGKey(1)
+    batches = [next(stream)[0] for _ in range(n_steps + 1)]
+    batches = [{"input_ids": torch.from_numpy(np.concatenate([x, y[:, -1:]], 1)
+                                              ).long().to(DEV)} for x, y in batches]
+    losses, launches, times = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n_steps):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i], rng)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append(_build.launch_counts())
+        losses.append(m["loss"].item())
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"train {label}: non-finite loss at step {i}")
+    peak = torch.cuda.max_memory_allocated()
+    for i, counts in enumerate(launches):
+        if counts["flash_attention"] != cfg.n_layer or \
+                counts["flash_attention_bwd"] != cfg.n_layer:
+            raise AssertionError(f"train {label} step {i}: K3/K5 launches "
+                                 f"{counts}, want {cfg.n_layer} each")
+        if fused_ctx and counts["fused_contextualization_bwd"] < 1:
+            raise AssertionError(f"train {label} step {i}: K6 never launched")
+    prof = _profile_step(lambda: step_fn(state, batches[n_steps], rng))
+    timed = times[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]
+    step_s = statistics.median(timed)
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    flops = cb.flop_count(cfg, state.params, TRAIN_BATCH, TRAIN_LEN)
+    prof["device_idle_share"] = 1 - prof["device_ms"] / (step_s * 1e3)
+    out = dict(phase="train", run=label, fused_ctx=fused_ctx,
+               shape=[TRAIN_BATCH, TRAIN_LEN], steps=n_steps,
+               step_ms=step_s * 1e3, step_ms_timed=[t * 1e3 for t in timed],
+               tokens_per_s=tokens / step_s,
+               flops_per_step=flops, mfu=flops / step_s / PEAK_BF16_FLOP_PER_S,
+               mfu_formula=("(6 N tokens + 12 n_layer s d tokens + 6 s nv (dnv + d) "
+                            "tokens) / step_s / 989e12"),
+               peak_memory_bytes=peak, launches_per_step=launches[0],
+               launches=_sum_counts(launches), losses=losses, profile=prof)
+    emit(out)
+    trained = _map_tensors(state.params, lambda t: t.detach())
+    del state, p, batches
+    torch.cuda.empty_cache()
+    return out, trained
+
+
+def _sum_counts(rows):
+    return {k: sum(r[k] for r in rows) for k in rows[0]}
+
+
+def phase_train(gen, results):
+    from backpacks_flash_attn_tpu_torch.config import backpack_small
+    from backpacks_flash_attn_tpu_torch.data import lm_dataset as lmd
+    from backpacks_flash_attn_tpu_torch.data.synthetic import bigram_corpus
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+
+    cfg = backpack_small(vocab_size=50257)
+    n_tokens = (LEARN_STEPS + 2) * TRAIN_BATCH * (TRAIN_LEN + 1) * 2
+    toks, floor = bigram_corpus(n_tokens, vocab_size=BIGRAM_VOCAB,
+                                n_successors=4, seed=0)
+    ds = lmd.LMDataset(toks, TRAIN_LEN)
+    params = bp.init_backpack(cfg, gen, dtype=torch.bfloat16)
+
+    trained = {}
+    for label, fused, n in (("train_einsum", False, LEARN_STEPS),
+                            ("train_fused", True, TRAIN_WARMUP + TRAIN_TIMED)):
+        log(f"train: {label}")
+        stream = lmd.batches(ds, TRAIN_BATCH, lmd.SamplerState(seed=0))
+        results[label], trained[label] = train_run(label, cfg, params, stream,
+                                                   n, fused)
+    del trained["train_fused"]
+
+    # at the initial weights every logit is ~0 and the loss sits within an
+    # f32 ulp of ln(V) on all three paths: take the gate at the weights of
+    # run (a)'s last step
+    log("train: gradient gate")
+    x, y = next(lmd.batches(ds, GATE_BATCH, lmd.SamplerState(seed=1)))[0]
+    gate_batch = {"input_ids": torch.from_numpy(
+        np.concatenate([x, y[:, -1:]], 1)).long().to(DEV)}
+    gate = {f"fused_ctx={f}": gradient_gate(cfg, trained["train_einsum"],
+                                            gate_batch, f)
+            for f in (False, True)}
+    emit({"phase": "train", "gradient_gate": gate})
+    results["train_gate"] = gate
+    del trained
+    losses = results["train_einsum"]["losses"]
+    first = statistics.mean(losses[:LEARN_WINDOW])
+    last = statistics.mean(losses[-LEARN_WINDOW:])
+    results["learning_gate"] = dict(first5=first, last5=last, drop=first - last,
+                                    entropy_floor=floor)
+    emit({"phase": "train", "learning_gate": results["learning_gate"]})
+    if not first - last >= 1.0:
+        raise AssertionError(f"learning gate: loss fell {first - last:.3f} nats "
+                             f"over {LEARN_STEPS} steps, want >= 1")
+
+
 # ------------------------------------------------------------------ main
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,serve,forward")
+    ap.add_argument("--phases", default="device,build,kernels,serve,forward,train")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"))
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -543,18 +874,25 @@ def main():
     with torch.inference_mode():
         if "kernels" in phases:
             log("kernels")
-            phase_kernels(gen, results.setdefault("kernels", {}))
+            phase_kernels(kernel_cases(gen), results.setdefault("kernels", {}))
         if "serve" in phases:
             phase_serve(gen, results)
         if "forward" in phases:
             log("forward")
             phase_forward(gen, results)
+    if "kernels" in phases:
+        log("kernels: training shapes")
+        with torch.no_grad():
+            phase_kernels(train_kernel_cases(gen), results.setdefault("kernels", {}))
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        phase_train(gen, results)
 
     line = []
     for k in _build.KERNELS.values():
         rows = results.get("kernels", {}).get(k.name, [])
         head = next((r for r in rows if r["case"].startswith(HEADLINE[k.name])), None)
-        run = "forward" if k.name == "fused_contextualization" else "serve_int8"
+        run = LAUNCH_RUN[k.name]
         launches = results.get(run, {}).get("launches", {}).get(k.name, 0)
         line.append({
             "name": k.name, "route": "cuda",

@@ -28,6 +28,8 @@ from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as tbk
 from backpacks_flash_attn_tpu_torch.ops import decode_attention as tda
 from backpacks_flash_attn_tpu_torch.ops import flash_attention as tfa
 from backpacks_flash_attn_tpu_torch.ops import quant as tq
+from backpacks_flash_attn_tpu_torch.eval import perplexity
+from backpacks_flash_attn_tpu_torch.training import train_cli
 from backpacks_flash_attn_tpu_torch.utils import generation as tgen
 from backpacks_flash_attn_tpu_torch.utils.weights import params_from_numpy
 
@@ -101,7 +103,7 @@ def test_params_from_numpy_round_trips_quantized_tree(jax_params):
 def test_port_imports_no_jax():
     """Statically: no import of jax or of the JAX package in the port or
     chip_smoke.py. Dynamically: with both blocked, the port imports and
-    runs a tiny CPU forward and cached decode step."""
+    runs a tiny CPU forward, a cached decode step and a training step."""
     pattern = re.compile(r"^\s*(import|from) +(jax|backpacks_flash_attn_tpu)\b",
                          re.M)
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
@@ -120,6 +122,14 @@ logits = bp.backpack_forward(params, cfg, ids)
 cache = bp.init_backpack_cache(cfg, 2, 16, torch.float32, device="cpu")
 step, _ = bp.backpack_forward_with_cache(params, cfg, ids, cache)
 assert torch.allclose(step, logits, atol=1e-5), (step - logits).abs().max()
+from backpacks_flash_attn_tpu_torch.training import train, train_cli
+from backpacks_flash_attn_tpu_torch.utils import prng
+tp = train.trainable(params)
+state = train.TrainState(tp, train.make_optimizer(tp, warmup_steps=1), 0)
+step_fn = train.make_train_step(cfg, fused_ctx=True)
+batch = {"input_ids": torch.randint(0, cfg.vocab_size, (2, 9))}
+state, metrics = step_fn(state, batch, prng.PRNGKey(0))
+assert state.step == 1 and torch.isfinite(metrics["loss"])
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
 print("ok", tuple(logits.shape))
 """
@@ -144,6 +154,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(jax_params):
         lambda: tgpt.init_kv_cache(cfg, 1, 8),
         lambda: params_from_numpy(np_tree),
         lambda: tgen.generate_backpack(params, cfg, ids, 6),
+        lambda: train_cli.run(train_cli.RunConfig(corpus="unused.npy")),
+        lambda: perplexity.evaluate_perplexity(
+            lambda x: x, np.zeros(64, np.uint16), 8, 2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA device requested"):
@@ -168,9 +181,18 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     qc, kc, cc = r(2, 6, 3, 4), r(2, 6, 3, 4), r(2, 6, 3, 8)
     assert torch.equal(tbk.fused_contextualization(qc, kc, cc, 0.5),
                        tbk.contextualization_reference(qc, kc, cc, 0.5))
+    o, lse = tfa.flash_attention_ref(a, a, a, return_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(
+        tfa.flash_attention_bwd(a, a, a, o, lse, a),
+        tfa.flash_attention_bwd_ref(a, a, a, o, lse, a)))
+    _, clse = tbk.contextualization_reference(qc, kc, cc, 0.5, return_lse=True)
+    g = r(2, 6, 8)
+    assert all(torch.equal(x, y) for x, y in zip(
+        tbk.fused_ctx_bwd(qc, kc, cc, clse, g, 0.5),
+        tbk.fused_ctx_bwd_ref(qc, kc, cc, clse, g, 0.5)))
     assert _build.launch_counts() == {k: 0 for k in _build.KERNELS}
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(a, b, c, dropout_p=0.1)
+    with pytest.raises(NotImplementedError, match="attn_bias"):
+        tfa.flash_attention(a, b, c, attn_bias=torch.zeros(5, 7))
 
 
 def test_plain_path_switch_is_scoped():
@@ -188,7 +210,7 @@ def test_backpack_module_matches_functions(jax_params):
     ids = torch.randint(0, cfg.vocab_size, (2, 5),
                         generator=torch.Generator().manual_seed(1))
     assert torch.equal(model(ids), tbp.backpack_forward(params, cfg, ids))
-    assert "gpt__layers__Wqkv__kernel" in dict(model.named_buffers())
+    assert "gpt__layers__Wqkv__kernel" in dict(model.named_parameters())
     qmodel = model.quantized(bits=8)
     assert isinstance(qmodel.params["gpt"]["lm_head"], tq.QuantWeight)
     cache = qmodel.init_cache(2, 16, torch.int8)

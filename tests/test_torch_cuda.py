@@ -136,3 +136,123 @@ def test_fused_contextualization_kernel(gen, dt, b, s, nv, dnv, d, misalign):
         assert _err(out, ref) <= F32_ATOL
     else:
         _within_2x(out, bk.contextualization_reference(q, k, c, dnv ** -0.5), ref)
+
+
+@pytest.mark.parametrize("dt,dropout_p,offs", [
+    (torch.float32, 0.1, None),
+    (torch.bfloat16, 0.1, None),
+    (torch.float32, 0.3, [3, 17]),
+])
+def test_flash_attention_dropout_kernel(gen, dt, dropout_p, offs):
+    from backpacks_flash_attn_tpu_torch.utils import prng
+    b, sq, h = 2, 70, 3
+    r = lambda s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+    q, k, v = r((b, sq, h, 64)), r((b, sq + 20, h, 64)), r((b, sq + 20, h, 64))
+    kw = dict(causal=True, softmax_scale=0.2, dropout_p=dropout_p,
+              q_offsets=None if offs is None else torch.tensor(offs, device="cuda"))
+    if offs is None:
+        k, v = k[:, :sq], v[:, :sq]
+    out, lse = fa.flash_attention(q, k, v, return_lse=True,
+                                  dropout_rng=prng.PRNGKey(5), **kw)
+    seed = prng.seed_words(prng.PRNGKey(5))
+    ref, rlse = fa.flash_attention_ref(q.float(), k.float(), v.float(),
+                                       return_lse=True, seed=seed, **kw)
+    assert torch.allclose(lse, rlse, rtol=1e-5, atol=1e-4)
+    if dt == torch.float32:
+        assert _err(out, ref) <= F32_ATOL
+    else:
+        _within_2x(out, fa.flash_attention_ref(q, k, v, seed=seed, **kw), ref)
+
+
+@pytest.mark.parametrize("b,s,h,causal,dropout_p", [
+    (2, 70, 3, True, 0.0),
+    (2, 130, 2, True, 0.1),
+    (1, 96, 3, False, 0.2),
+])
+def test_flash_attention_bwd_kernel(gen, b, s, h, causal, dropout_p):
+    qkv = torch.randn(b, s, 3, h, 64, generator=gen, device="cuda")
+    dout = torch.randn(b, s, h, 64, generator=gen, device="cuda")
+    seed = (12345, 678)
+    kw = dict(causal=causal, softmax_scale=0.125, dropout_p=dropout_p,
+              seed=seed)
+
+    def grads(x, go, bwd):
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]        # strided views
+        out, lse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        return bwd(q, k, v, out, lse, go, **kw)
+
+    bf = torch.bfloat16
+    kernel = grads(qkv.to(bf), dout.to(bf), fa.flash_attention_bwd)
+    plain = grads(qkv.to(bf), dout.to(bf), fa.flash_attention_bwd_ref)
+    ref = grads(qkv.to(bf).float(), dout.to(bf).float(),
+                fa.flash_attention_bwd_ref)
+    for name, a, p, r in zip(("dq", "dk", "dv"), kernel, plain, ref):
+        assert a.dtype == bf and a.is_contiguous(), name
+        _within_2x(a, p, r)
+
+
+def test_flash_attention_autograd_launches_k3_and_k5(gen):
+    from backpacks_flash_attn_tpu_torch.utils import prng
+    x = torch.randn(2, 64, 3, 2, 64, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    _build.reset_launches()
+    out = fa.flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2],
+                             dropout_p=0.1, dropout_rng=prng.PRNGKey(0))
+    out.float().square().sum().backward()
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    assert torch.isfinite(x.grad.float()).all()
+
+
+@pytest.mark.parametrize("b,s,nv,dnv,d", [
+    (2, 100, 3, 48, 200),       # ragged tiles, slabs and d chunks
+    (1, 64, 4, 48, 768),
+    (1, 33, 2, 16, 64),
+])
+def test_fused_contextualization_bwd_kernel(gen, b, s, nv, dnv, d):
+    qk = torch.randn(b, s, 2, nv, dnv, generator=gen, device="cuda")
+    c = torch.randn(b, s, nv, d, generator=gen, device="cuda")
+    g = torch.randn(b, s, d, generator=gen, device="cuda")
+    scale = dnv ** -0.5
+
+    def grads(x, cc, gg, bwd):
+        q, k = x[:, :, 0], x[:, :, 1]                        # strided views
+        _, lse = bk.contextualization_reference(q, k, cc, scale,
+                                                return_lse=True)
+        return bwd(q, k, cc, lse, gg, scale)
+
+    bf = torch.bfloat16
+    kernel = grads(qk.to(bf), c.to(bf), g.to(bf), bk.fused_ctx_bwd)
+    plain = grads(qk.to(bf), c.to(bf), g.to(bf), bk.fused_ctx_bwd_ref)
+    ref = grads(qk.to(bf).float(), c.to(bf).float(), g.to(bf).float(),
+                bk.fused_ctx_bwd_ref)
+    for name, a, p, r in zip(("dq", "dk", "dc"), kernel, plain, ref):
+        assert a.dtype == bf, name
+        _within_2x(a, p, r)
+
+
+@pytest.mark.parametrize("dt,misalign", [(torch.bfloat16, 0),   # tensor cores
+                                         (torch.bfloat16, 1),   # SIMT
+                                         (torch.float32, 0)])
+def test_fused_contextualization_lse_and_autograd(gen, dt, misalign):
+    b, s, nv, dnv, d = 2, 70, 3, 48, 96
+    qk = torch.randn(b, s, 2, nv, dnv, generator=gen, device="cuda").to(dt)
+    c = torch.randn(b, s, nv, d + misalign, generator=gen,
+                    device="cuda").to(dt)[..., misalign:]
+    q, k = qk[:, :, 0], qk[:, :, 1]
+    _, lse = bk._fwd_kernel(q, k, c, 0.3)
+    _, rlse = bk.contextualization_reference(q.float(), k.float(), c.float(),
+                                             0.3, return_lse=True)
+    assert torch.allclose(lse, rlse, rtol=1e-4, atol=1e-3)
+    if dt == torch.bfloat16 and not misalign:
+        x = qk.detach().requires_grad_(True)
+        cc = c.detach().requires_grad_(True)
+        _build.reset_launches()
+        out = bk.fused_contextualization(x[:, :, 0], x[:, :, 1], cc, 0.3)
+        out.float().sum().backward()
+        counts = _build.launch_counts()
+        assert counts["fused_contextualization"] == 1
+        assert counts["fused_contextualization_bwd"] == 1
+        assert torch.isfinite(x.grad.float()).all()
+        assert torch.isfinite(cc.grad.float()).all()
