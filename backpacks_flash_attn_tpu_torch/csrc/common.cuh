@@ -82,6 +82,92 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// (batch, row, head) element strides of a (B, S, H, d) operand
+struct Strides {
+  long long sb, st, sh;
+};
+
+// ---- 64-row tiles for the mma.sync backward kernels (K5, K6), whose blocks
+// are kTileThreads threads: a warp owns 16 rows; fragments follow
+// mma_16816's layout (g = lane / 4, tq = lane % 4).
+constexpr int kTileThreads = 128;
+
+// rows [r0, r0 + 64) x columns [c0, c0 + W) of a row-strided bf16 matrix
+// into dst (leading dimension ld), 16 bytes a thread; zero past S rows or
+// past `cols` columns. The compile-time stride lets the loop unroll, so a
+// thread's loads are all in flight before its stores.
+template <int W>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld, const __nv_bfloat16* base,
+                                          long long st, int r0, int S, int c0, int cols) {
+#pragma unroll
+  for (int idx = threadIdx.x; idx < 64 * (W / 8); idx += kTileThreads) {
+    const int rr = idx / (W / 8), cc = (idx % (W / 8)) * 8;
+    *reinterpret_cast<uint4*>(dst + rr * ld + cc) =
+        (r0 + rr < S && c0 + cc < cols)
+            ? *reinterpret_cast<const uint4*>(base + (r0 + rr) * st + c0 + cc)
+            : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// A fragments (4 k-steps of 16) of the 16 tile rows from r0
+__device__ __forceinline__ void a_frags(uint32_t (&a)[4][4], const __nv_bfloat16* t, int ld,
+                                        int r0, int g, int tq) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[ks][e] = ld32(t + (r0 + g + 8 * (e & 1)) * ld + ks * 16 + 2 * tq + 8 * (e >> 1));
+}
+
+// c (16 x 64) += A (16 x 16 * ksteps, fragments) * B^T, B a 64-row tile
+// stored [n][k]
+__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[4][4],
+                                        const __nv_bfloat16* bt, int ld, int ksteps, int g,
+                                        int tq) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if (ks >= ksteps) break;
+#pragma unroll
+    for (int nf = 0; nf < 8; ++nf) {
+      const __nv_bfloat16* p = bt + (nf * 8 + g) * ld + ks * 16 + 2 * tq;
+      const uint32_t b[2] = {ld32(p), ld32(p + 8)};
+      mma_16816(c[nf], a[ks], b);
+    }
+  }
+}
+
+// c (16 x 8 * NF) += A (16 x 64, fragments over k = tile rows) * B, B a
+// 64-row tile stored [k][n]
+template <int NF>
+__device__ __forceinline__ void mma_ab(float (&c)[NF][4], const uint32_t (&a)[4][4],
+                                       const __nv_bfloat16* b, int ld, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int nj = 0; nj < NF / 2; ++nj) {
+      uint32_t bfr[4];
+      ldmatrix_x4_trans(bfr, b + (kk * 16 + (lane & 15)) * ld + nj * 16 + (lane >> 4) * 8);
+      mma_16816(c[2 * nj], a[kk], bfr);
+      mma_16816(c[2 * nj + 1], a[kk], bfr + 2);
+    }
+}
+
+template <int NF>
+__device__ __forceinline__ void zero(float (&c)[NF][4]) {
+#pragma unroll
+  for (int i = 0; i < NF; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[i][e] = 0.f;
+}
+
+// accumulator pair (e, e + 1) of n-fragment nf -> its slot of an A fragment
+// over the same 64 columns
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], int nf, int half, float lo, float hi) {
+  a[nf >> 1][(nf & 1) * 2 + half] = pack_bf16x2(lo, hi);
+}
+
 // Attention-dropout keep test: the murmur-finalizer counter hash of
 // flash_attention.dropout_keep_positions (JAX ops/flash_attention.py:120),
 // 2 rounds, over (seed, b * H + h, absolute query position, key position).

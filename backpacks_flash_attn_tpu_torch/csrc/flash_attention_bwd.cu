@@ -5,7 +5,8 @@
 // _flash_bwd (:794): its default Pallas body _flash_bwd_scratch_kernel
 // (:681), and the no-bias contract of _flash_bwd_fused_kernel (:590) and of
 // the split _flash_bwd_dq_kernel (:460) + _flash_bwd_dkv_kernel (:523).
-// Head dim 64, sq == sk, causal or not, bf16 in and out, f32 accumulators.
+// Head dim 64, sq == sk, causal or not, bf16 or f32 in and out (as the TPU
+// kernel takes both), f32 accumulators.
 //
 // The TPU kernel carries dq across a sequential grid in VMEM scratch; blocks
 // on the card run in no order, so this is three launches with no atomics
@@ -21,6 +22,10 @@
 //    operands in registers (the FlashAttention-2 layout).
 // 3. dq_kernel: one block per (64-query tile, head, batch row), walking the
 //    key tiles up to the diagonal with the same recompute, dQ += dS K.
+// f32 operands take SIMT versions of 2 and 3 (dkdv_simt_kernel,
+// dq_simt_kernel): 32-row tiles of f32 in shared memory, 256 threads, eight
+// threads a row, each making 4 of the row's 32 scores per tile and holding 8
+// of its 64 gradient columns; every product in f32.
 //
 // Bound on the H100 at the training shape (32, 12, 512, 64) bf16: the
 // bytes, about 8 tensors of 25 MB (q, k, v, out, dO read; dq, dk, dv
@@ -33,17 +38,13 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int D = 64, T = 64, LD = D + 8, kThreads = 128;  // 144-byte smem rows
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct Strides {
-  long long sb, st, sh;
-};
+constexpr int D = 64, T = 64, LD = D + 8, kThreads = kTileThreads;  // 144-byte smem rows
 
 // ------------------------------------------------------------- 1. delta
 
+template <typename E>
 __global__ void __launch_bounds__(256)
-delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout, float* __restrict__ delta,
+delta_kernel(const E* __restrict__ out, const E* __restrict__ dout, float* __restrict__ delta,
              int B, int H, int S, Strides so, Strides sd) {
   const int lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
@@ -51,74 +52,14 @@ delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout, float*
   const int h = static_cast<int>(row % H);
   const int i = static_cast<int>((row / H) % S);
   const int b = static_cast<int>(row / (static_cast<long long>(H) * S));
-  const __nv_bfloat162 o = *reinterpret_cast<const __nv_bfloat162*>(
-      out + b * so.sb + i * so.st + h * so.sh + 2 * lane);
-  const __nv_bfloat162 g = *reinterpret_cast<const __nv_bfloat162*>(
-      dout + b * sd.sb + i * sd.st + h * sd.sh + 2 * lane);
-  float v = __low2float(o) * __low2float(g) + __high2float(o) * __high2float(g);
+  const E* o = out + b * so.sb + i * so.st + h * so.sh + 2 * lane;
+  const E* g = dout + b * sd.sb + i * sd.st + h * sd.sh + 2 * lane;
+  float v = to_f32(o[0]) * to_f32(g[0]) + to_f32(o[1]) * to_f32(g[1]);
   v = warp_sum(v);
   if (lane == 0) delta[(static_cast<long long>(b) * H + h) * S + i] = v;
 }
 
 // ------------------------------------------------------------- helpers
-
-// 64 rows x 64 columns of a (row-strided) bf16 matrix into shared memory,
-// 16 bytes a thread; rows at or past S are zero
-__device__ __forceinline__ void load_tile(bf16 (*dst)[LD], const bf16* base, long long st, int r0,
-                                          int S) {
-  for (int idx = threadIdx.x; idx < T * (D / 8); idx += kThreads) {
-    const int rr = idx >> 3, cc = (idx & 7) * 8;
-    *reinterpret_cast<uint4*>(&dst[rr][cc]) =
-        r0 + rr < S ? *reinterpret_cast<const uint4*>(base + (r0 + rr) * st + cc)
-                    : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// A fragments (m16n8k16, 4 k-steps of 16) of the 16 tile rows from r0
-__device__ __forceinline__ void a_frags(uint32_t (&a)[D / 16][4], const bf16 (*t)[LD], int r0,
-                                        int g, int tq) {
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      a[ks][e] = ld32(&t[r0 + g + 8 * (e & 1)][ks * 16 + 2 * tq + 8 * (e >> 1)]);
-}
-
-// c[nf] (16 x 8 each, nf < 8) += A (16 x 64, fragments) * B^T where B is a
-// 64 x 64 tile stored row-major [n][k] in shared memory
-__device__ __forceinline__ void mma_abt(float (&c)[T / 8][4], const uint32_t (&a)[D / 16][4],
-                                        const bf16 (*bt)[LD], int g, int tq) {
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-    for (int nf = 0; nf < T / 8; ++nf) {
-      const uint32_t b[2] = {ld32(&bt[nf * 8 + g][ks * 16 + 2 * tq]),
-                             ld32(&bt[nf * 8 + g][ks * 16 + 2 * tq + 8])};
-      mma_16816(c[nf], a[ks], b);
-    }
-}
-
-// c[nf] (16 x 8 each, nf < 8) += A (16 x 64, fragments over k = tile rows)
-// * B where B is a 64 x 64 tile stored row-major [k][n] in shared memory
-__device__ __forceinline__ void mma_ab(float (&c)[D / 8][4], const uint32_t (&a)[T / 16][4],
-                                       const bf16 (*b)[LD], int lane) {
-#pragma unroll
-  for (int kk = 0; kk < T / 16; ++kk)
-#pragma unroll
-    for (int nj = 0; nj < D / 16; ++nj) {
-      uint32_t bfr[4];
-      ldmatrix_x4_trans(bfr, &b[kk * 16 + (lane & 15)][nj * 16 + (lane >> 4) * 8]);
-      mma_16816(c[2 * nj], a[kk], bfr);
-      mma_16816(c[2 * nj + 1], a[kk], bfr + 2);
-    }
-}
-
-// accumulator pair (e, e + 1) of n-fragment nf -> its slot of an A fragment
-// over the same 64 columns
-__device__ __forceinline__ void to_a(uint32_t (&a)[T / 16][4], int nf, int half, float lo,
-                                     float hi) {
-  a[nf >> 1][(nf & 1) * 2 + half] = pack_bf16x2(lo, hi);
-}
 
 __device__ __forceinline__ void store_rows(bf16* dst, long long row_stride, const float (&c)[D / 8][4],
                                            int r0, int g, int tq, int S, float mult) {
@@ -151,25 +92,23 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   const float sl2 = scale * kLog2e;
 
   // this block's K and V rows as A fragments (staged through Qs / Ds)
-  load_tile(Qs, k + b * sk.sb + h * sk.sh, sk.st, k0, S);
-  load_tile(Ds, v + b * sv.sb + h * sv.sh, sv.st, k0, S);
+  load_tile<D>(&Qs[0][0], LD, k + b * sk.sb + h * sk.sh, sk.st, k0, S, 0, D);
+  load_tile<D>(&Ds[0][0], LD, v + b * sv.sb + h * sv.sh, sv.st, k0, S, 0, D);
   __syncthreads();
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  a_frags(ka, Qs, kr, g, tq);
-  a_frags(va, Ds, kr, g, tq);
+  uint32_t ka[4][4], va[4][4];
+  a_frags(ka, &Qs[0][0], LD, kr, g, tq);
+  a_frags(va, &Ds[0][0], LD, kr, g, tq);
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  zero(dk_acc);
+  zero(dv_acc);
 
   const bf16* qb = q + b * sq.sb + h * sq.sh;
   const bf16* db = dout + b * sd.sb + h * sd.sh;
   for (int q0 = causal ? k0 : 0; q0 < S; q0 += T) {
     __syncthreads();  // the previous tiles (or K, V) are consumed
-    load_tile(Qs, qb, sq.st, q0, S);
-    load_tile(Ds, db, sd.st, q0, S);
+    load_tile<D>(&Qs[0][0], LD, qb, sq.st, q0, S, 0, D);
+    load_tile<D>(&Ds[0][0], LD, db, sd.st, q0, S, 0, D);
     for (int i = threadIdx.x; i < T; i += kThreads) {
       const bool in = q0 + i < S;
       Ls[i] = in ? lse[bh * S + q0 + i] * kLog2e : 0.f;
@@ -178,12 +117,10 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     __syncthreads();
 
     float st[T / 8][4], dpt[T / 8][4];  // 16 keys x 64 queries
-#pragma unroll
-    for (int i = 0; i < T / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.f;
-    mma_abt(st, ka, Qs, g, tq);
-    mma_abt(dpt, va, Ds, g, tq);
+    zero(st);
+    zero(dpt);
+    mma_abt(st, ka, &Qs[0][0], LD, 4, g, tq);
+    mma_abt(dpt, va, &Ds[0][0], LD, 4, g, tq);
 
     uint32_t pa[T / 16][4], dsa[T / 16][4];
 #pragma unroll
@@ -209,8 +146,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
         to_a(pa, nf, half, pv[0], pv[1]);
         to_a(dsa, nf, half, ds[0], ds[1]);
       }
-    mma_ab(dv_acc, pa, Ds, lane);
-    mma_ab(dk_acc, dsa, Qs, lane);
+    mma_ab<D / 8>(dv_acc, pa, &Ds[0][0], LD, lane);
+    mma_ab<D / 8>(dk_acc, dsa, &Qs[0][0], LD, lane);
   }
 
   const long long o_st = static_cast<long long>(H) * D;
@@ -235,12 +172,12 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   const long long bh = static_cast<long long>(b) * H + h;
   const float sl2 = scale * kLog2e;
 
-  load_tile(Ks, q + b * sq.sb + h * sq.sh, sq.st, q0, S);
-  load_tile(Vs, dout + b * sd.sb + h * sd.sh, sd.st, q0, S);
+  load_tile<D>(&Ks[0][0], LD, q + b * sq.sb + h * sq.sh, sq.st, q0, S, 0, D);
+  load_tile<D>(&Vs[0][0], LD, dout + b * sd.sb + h * sd.sh, sd.st, q0, S, 0, D);
   __syncthreads();
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  a_frags(qa, Ks, qr, g, tq);
-  a_frags(da, Vs, qr, g, tq);
+  uint32_t qa[4][4], da[4][4];
+  a_frags(qa, &Ks[0][0], LD, qr, g, tq);
+  a_frags(da, &Vs[0][0], LD, qr, g, tq);
   float row_lse[2], row_delta[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -250,27 +187,22 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   }
 
   float dq_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[i][e] = 0.f;
+  zero(dq_acc);
 
   const bf16* kb = k + b * sk.sb + h * sk.sh;
   const bf16* vb = v + b * sv.sb + h * sv.sh;
   const int kv_end = causal ? min(S, q0 + T) : S;
   for (int j0 = 0; j0 < kv_end; j0 += T) {
     __syncthreads();
-    load_tile(Ks, kb, sk.st, j0, S);
-    load_tile(Vs, vb, sv.st, j0, S);
+    load_tile<D>(&Ks[0][0], LD, kb, sk.st, j0, S, 0, D);
+    load_tile<D>(&Vs[0][0], LD, vb, sv.st, j0, S, 0, D);
     __syncthreads();
 
     float s[T / 8][4], dps[T / 8][4];  // 16 queries x 64 keys
-#pragma unroll
-    for (int i = 0; i < T / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dps[i][e] = 0.f;
-    mma_abt(s, qa, Ks, g, tq);
-    mma_abt(dps, da, Vs, g, tq);
+    zero(s);
+    zero(dps);
+    mma_abt(s, qa, &Ks[0][0], LD, 4, g, tq);
+    mma_abt(dps, da, &Vs[0][0], LD, 4, g, tq);
 
     uint32_t dsa[T / 16][4];
 #pragma unroll
@@ -293,17 +225,160 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
         }
         to_a(dsa, nf, half, ds[0], ds[1]);
       }
-    mma_ab(dq_acc, dsa, Ks, lane);
+    mma_ab<D / 8>(dq_acc, dsa, &Ks[0][0], LD, lane);
   }
   store_rows(dq + (static_cast<long long>(b) * S * H + h) * D, static_cast<long long>(H) * D,
              dq_acc, q0 + qr, g, tq, S, scale);
 }
 
+// ------------------------------------------------------------- f32 (SIMT)
+
+constexpr int ST = 32, SLD = D + 1, kSimtThreads = 256;
+
+// 32 rows from r0 of a row-strided f32 matrix into shared memory; rows at
+// or past S are zero
+__device__ __forceinline__ void load_rows(float (*dst)[SLD], const float* base, long long st,
+                                          int r0, int S) {
+  for (int idx = threadIdx.x; idx < ST * D; idx += kSimtThreads) {
+    const int rr = idx / D, dd = idx % D;
+    dst[rr][dd] = r0 + rr < S ? base[(r0 + rr) * st + dd] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float dot64(const float* a, const float* b) {
+  float acc = 0.f;
+#pragma unroll 16
+  for (int dd = 0; dd < D; ++dd) acc += a[dd] * b[dd];
+  return acc;
+}
+
+// one block per (32-key tile, head, batch row); thread (r, c) = key k0 + r,
+// queries c + 8 i of each tile, gradient columns c + 8 j
+__global__ void __launch_bounds__(kSimtThreads)
+dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dk, float* __restrict__ dv, int H, int S, Strides sq,
+                 Strides sk, Strides sv, Strides sd, float scale, int causal, DropoutParams drop) {
+  __shared__ float Ks[ST][SLD], Vs[ST][SLD], Qs[ST][SLD], Ds[ST][SLD];
+  __shared__ float Ps[ST][ST + 1], DSs[ST][ST + 1];
+  __shared__ float Ls[ST], Dl[ST];
+  const int k0 = blockIdx.x * ST, h = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x >> 3, c = threadIdx.x & 7, key = k0 + r;
+  const long long bh = static_cast<long long>(b) * H + h;
+  load_rows(Ks, k + b * sk.sb + h * sk.sh, sk.st, k0, S);
+  load_rows(Vs, v + b * sv.sb + h * sv.sh, sv.st, k0, S);
+  float dk_acc[D / 8], dv_acc[D / 8];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+
+  const float* qb = q + b * sq.sb + h * sq.sh;
+  const float* db = dout + b * sd.sb + h * sd.sh;
+  for (int q0 = causal ? k0 : 0; q0 < S; q0 += ST) {
+    __syncthreads();  // the previous tiles are consumed (and K, V staged)
+    load_rows(Qs, qb, sq.st, q0, S);
+    load_rows(Ds, db, sd.st, q0, S);
+    for (int i = threadIdx.x; i < ST; i += kSimtThreads) {
+      const bool in = q0 + i < S;
+      Ls[i] = in ? lse[bh * S + q0 + i] : 0.f;
+      Dl[i] = in ? delta[bh * S + q0 + i] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < ST / 8; ++i) {
+      const int ql = c + 8 * i, qry = q0 + ql;
+      const bool valid = key < S && qry < S && (!causal || key <= qry);
+      const float p = valid ? expf(dot64(Ks[r], Qs[ql]) * scale - Ls[ql]) : 0.f;
+      float dp = dot64(Vs[r], Ds[ql]), pk = p;
+      if (drop.on) {
+        const bool keep = dropout_keep(drop, static_cast<uint32_t>(bh),
+                                       static_cast<uint32_t>(qry), static_cast<uint32_t>(key));
+        pk = keep ? p * drop.inv_keep : 0.f;
+        dp = keep ? dp * drop.inv_keep : 0.f;
+      }
+      Ps[r][ql] = pk;
+      DSs[r][ql] = p * (dp - Dl[ql]);
+    }
+    __syncwarp();  // the row's eight threads share one warp
+    for (int ql = 0; ql < ST; ++ql) {
+      const float pk = Ps[r][ql], ds = DSs[r][ql];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        dv_acc[j] += pk * Ds[ql][c + 8 * j];
+        dk_acc[j] += ds * Qs[ql][c + 8 * j];
+      }
+    }
+  }
+  if (key >= S) return;
+  const long long o = ((static_cast<long long>(b) * S + key) * H + h) * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    dk[o + c + 8 * j] = dk_acc[j] * scale;
+    dv[o + c + 8 * j] = dv_acc[j];
+  }
+}
+
+// one block per (32-query tile, head, batch row); thread (r, c) = query
+// q0 + r, keys c + 8 i of each tile, gradient columns c + 8 j
+__global__ void __launch_bounds__(kSimtThreads)
+dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dq, int H, int S, Strides sq, Strides sk, Strides sv,
+               Strides sd, float scale, int causal, DropoutParams drop) {
+  __shared__ float Qs[ST][SLD], Ds[ST][SLD], Ks[ST][SLD], Vs[ST][SLD];
+  __shared__ float DSs[ST][ST + 1];
+  const int q0 = blockIdx.x * ST, h = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x >> 3, c = threadIdx.x & 7, qry = q0 + r;
+  const long long bh = static_cast<long long>(b) * H + h;
+  load_rows(Qs, q + b * sq.sb + h * sq.sh, sq.st, q0, S);
+  load_rows(Ds, dout + b * sd.sb + h * sd.sh, sd.st, q0, S);
+  const float row_lse = qry < S ? lse[bh * S + qry] : 0.f;
+  const float row_delta = qry < S ? delta[bh * S + qry] : 0.f;
+  float dq_acc[D / 8];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) dq_acc[j] = 0.f;
+
+  const float* kb = k + b * sk.sb + h * sk.sh;
+  const float* vb = v + b * sv.sb + h * sv.sh;
+  const int kv_end = causal ? min(S, q0 + ST) : S;
+  for (int j0 = 0; j0 < kv_end; j0 += ST) {
+    __syncthreads();
+    load_rows(Ks, kb, sk.st, j0, S);
+    load_rows(Vs, vb, sv.st, j0, S);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < ST / 8; ++i) {
+      const int kl = c + 8 * i, key = j0 + kl;
+      const bool valid = key < S && qry < S && (!causal || key <= qry);
+      const float p = valid ? expf(dot64(Qs[r], Ks[kl]) * scale - row_lse) : 0.f;
+      float dp = dot64(Ds[r], Vs[kl]);
+      if (drop.on)
+        dp = dropout_keep(drop, static_cast<uint32_t>(bh), static_cast<uint32_t>(qry),
+                          static_cast<uint32_t>(key))
+                 ? dp * drop.inv_keep
+                 : 0.f;
+      DSs[r][kl] = p * (dp - row_delta);
+    }
+    __syncwarp();
+    for (int kl = 0; kl < ST; ++kl) {
+      const float ds = DSs[r][kl];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) dq_acc[j] += ds * Ks[kl][c + 8 * j];
+    }
+  }
+  if (qry >= S) return;
+  float* drow = dq + ((static_cast<long long>(b) * S + qry) * H + h) * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) drow[c + 8 * j] = dq_acc[j] * scale;
+}
+
 }  // namespace
 
-// q, k, v, out, dout: (B, S, H, 64) bf16 with the given (batch, row, head)
-// strides, rows 16-byte aligned; lse (B, H, S) f32; delta: f32 workspace of
-// B * H * S; dq, dk, dv: contiguous (B, S, H, 64) bf16 outputs
+// q, k, v, out, dout: (B, S, H, 64) bf16 or f32 (dtype) with the given
+// (batch, row, head) strides, bf16 rows 16-byte aligned; lse (B, H, S) f32;
+// delta: f32 workspace of B * H * S; dq, dk, dv: contiguous (B, S, H, 64)
+// outputs of the operands' dtype
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, long long B, long long H,
@@ -311,29 +386,47 @@ extern "C" int flash_attention_bwd_launch(
     long long k_sh, long long v_sb, long long v_st, long long v_sh, long long o_sb,
     long long o_st, long long o_sh, long long d_sb, long long d_st, long long d_sh, float scale,
     long long causal, long long seed0, long long seed1, long long thr, float inv_keep,
-    long long dropout, void* stream) {
+    long long dropout, long long dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropoutParams drop = make_dropout(seed0, seed1, thr, inv_keep, dropout);
   const Strides sq{q_sb, q_st, q_sh}, sk{k_sb, k_st, k_sh}, sv{v_sb, v_st, v_sh},
       so{o_sb, o_st, o_sh}, sd{d_sb, d_st, d_sh};
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* dp = static_cast<const bf16*>(dout);
-  const long long rows = B * S * H;
-  delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
-      static_cast<const bf16*>(out), dp, static_cast<float*>(delta), static_cast<int>(B),
-      static_cast<int>(H), static_cast<int>(S), so, sd);
-  const dim3 grid(static_cast<unsigned>((S + T - 1) / T), static_cast<unsigned>(H),
-                  static_cast<unsigned>(B));
-  dkdv_kernel<<<grid, kThreads, 0, st>>>(qp, kp, vp, dp, static_cast<const float*>(lse),
-                                         static_cast<const float*>(delta), static_cast<bf16*>(dk),
-                                         static_cast<bf16*>(dv), static_cast<int>(H),
-                                         static_cast<int>(S), sq, sk, sv, sd, scale,
-                                         static_cast<int>(causal), drop);
-  dq_kernel<<<grid, kThreads, 0, st>>>(qp, kp, vp, dp, static_cast<const float*>(lse),
-                                       static_cast<const float*>(delta), static_cast<bf16*>(dq),
-                                       static_cast<int>(H), static_cast<int>(S), sq, sk, sv, sd,
-                                       scale, static_cast<int>(causal), drop);
+  const int b = static_cast<int>(B), h = static_cast<int>(H), s = static_cast<int>(S);
+  const int c = static_cast<int>(causal);
+  const auto* lp = static_cast<const float*>(lse);
+  auto* dl = static_cast<float*>(delta);
+  const unsigned delta_blocks = static_cast<unsigned>((B * S * H + 7) / 8);
+  if (dtype == DT_BF16) {
+    const auto* qp = static_cast<const bf16*>(q);
+    const auto* kp = static_cast<const bf16*>(k);
+    const auto* vp = static_cast<const bf16*>(v);
+    const auto* dp = static_cast<const bf16*>(dout);
+    delta_kernel<bf16><<<delta_blocks, 256, 0, st>>>(static_cast<const bf16*>(out), dp, dl, b, h,
+                                                     s, so, sd);
+    const dim3 grid(static_cast<unsigned>((S + T - 1) / T), static_cast<unsigned>(H),
+                    static_cast<unsigned>(B));
+    dkdv_kernel<<<grid, kThreads, 0, st>>>(qp, kp, vp, dp, lp, dl, static_cast<bf16*>(dk),
+                                           static_cast<bf16*>(dv), h, s, sq, sk, sv, sd, scale, c,
+                                           drop);
+    dq_kernel<<<grid, kThreads, 0, st>>>(qp, kp, vp, dp, lp, dl, static_cast<bf16*>(dq), h, s,
+                                         sq, sk, sv, sd, scale, c, drop);
+  } else if (dtype == DT_F32) {
+    const auto* qp = static_cast<const float*>(q);
+    const auto* kp = static_cast<const float*>(k);
+    const auto* vp = static_cast<const float*>(v);
+    const auto* dp = static_cast<const float*>(dout);
+    delta_kernel<float><<<delta_blocks, 256, 0, st>>>(static_cast<const float*>(out), dp, dl, b,
+                                                      h, s, so, sd);
+    const dim3 grid(static_cast<unsigned>((S + ST - 1) / ST), static_cast<unsigned>(H),
+                    static_cast<unsigned>(B));
+    dkdv_simt_kernel<<<grid, kSimtThreads, 0, st>>>(qp, kp, vp, dp, lp, dl,
+                                                    static_cast<float*>(dk),
+                                                    static_cast<float*>(dv), h, s, sq, sk, sv, sd,
+                                                    scale, c, drop);
+    dq_simt_kernel<<<grid, kSimtThreads, 0, st>>>(qp, kp, vp, dp, lp, dl, static_cast<float*>(dq),
+                                                  h, s, sq, sk, sv, sd, scale, c, drop);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

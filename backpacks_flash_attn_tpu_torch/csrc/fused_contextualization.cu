@@ -51,7 +51,6 @@
 namespace {
 
 constexpr int DNVP = 64, KLD = DNVP + 8;  // padded key row (16-byte aligned, conflict-free)
-constexpr float kLog2e = 1.4426950408889634f;
 
 // A fragments of the 16 query rows starting at r0 for every 16-wide step of
 // dnv (rows past S and columns past DNV are zero): a[ks] = {(g, 2t), (g + 8,

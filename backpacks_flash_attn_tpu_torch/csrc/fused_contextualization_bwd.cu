@@ -37,83 +37,17 @@
 // the gradients is ~0.5 GB, ~0.15 ms by bytes. This first version makes
 // four d-wide products (dP twice in dq_kernel) and stages tiles
 // synchronously: right first, fast later.
-// Needs bf16, 16-byte aligned rows, dnv % 8 == 0, dnv <= 64, d % 8 == 0.
+// bf16 needs 16-byte aligned rows, dnv % 8 == 0, dnv <= 64, d % 8 == 0.
+// f32 operands (dnv <= 64, any d) take SIMT versions of the same three
+// launches: 32-row tiles of f32 in shared memory, 256 threads, eight
+// threads a row, each making 4 of the row's 32 scores per tile; dP streams
+// over d in 64-column chunks and dcontent takes 128-column slabs, as above.
 #include "common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int T = 64, LD = 64 + 8, SLAB = 128, SLD = SLAB + 8, kThreads = 128;
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct Strides {
-  long long sb, st, sh;
-};
-
-// rows [r0, r0 + 64) x columns [c0, c0 + W) of a row-strided bf16 matrix
-// into dst (leading dimension ld); zero past S rows or past `cols` columns
-template <int W>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* base, long long st,
-                                          int r0, int S, int c0, int cols) {
-  for (int idx = threadIdx.x; idx < T * (W / 8); idx += kThreads) {
-    const int rr = idx / (W / 8), cc = (idx % (W / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + rr * ld + cc) =
-        (r0 + rr < S && c0 + cc < cols)
-            ? *reinterpret_cast<const uint4*>(base + (r0 + rr) * st + c0 + cc)
-            : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-__device__ __forceinline__ void a_frags(uint32_t (&a)[4][4], const bf16 (*t)[LD], int r0, int g,
-                                        int tq) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      a[ks][e] = ld32(&t[r0 + g + 8 * (e & 1)][ks * 16 + 2 * tq + 8 * (e >> 1)]);
-}
-
-// c (16 x 64) += A (16 x 16 * ksteps) * B^T, B stored [n][k] (64 rows)
-__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[4][4],
-                                        const bf16 (*bt)[LD], int ksteps, int g, int tq) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    if (ks >= ksteps) break;
-#pragma unroll
-    for (int nf = 0; nf < 8; ++nf) {
-      const uint32_t b[2] = {ld32(&bt[nf * 8 + g][ks * 16 + 2 * tq]),
-                             ld32(&bt[nf * 8 + g][ks * 16 + 2 * tq + 8])};
-      mma_16816(c[nf], a[ks], b);
-    }
-  }
-}
-
-// c (16 x 8 * NF) += A (16 x 64, k over tile rows) * B, B stored [k][n]
-template <int NF>
-__device__ __forceinline__ void mma_ab(float (&c)[NF][4], const uint32_t (&a)[4][4],
-                                       const bf16* b, int ld, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int nj = 0; nj < NF / 2; ++nj) {
-      uint32_t bfr[4];
-      ldmatrix_x4_trans(bfr, b + (kk * 16 + (lane & 15)) * ld + nj * 16 + (lane >> 4) * 8);
-      mma_16816(c[2 * nj], a[kk], bfr);
-      mma_16816(c[2 * nj + 1], a[kk], bfr + 2);
-    }
-}
-
-template <int NF>
-__device__ __forceinline__ void zero(float (&c)[NF][4]) {
-#pragma unroll
-  for (int i = 0; i < NF; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[i][e] = 0.f;
-}
-
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], int nf, int half, float lo, float hi) {
-  a[nf >> 1][(nf & 1) * 2 + half] = pack_bf16x2(lo, hi);
-}
+constexpr int T = 64, LD = 64 + 8, SLAB = 128, SLD = SLAB + 8, kThreads = kTileThreads;
 
 // c += X Y^T over the whole d: X = 64 rows of x (the warp's 16 as A), Y =
 // 64 rows of y, both streamed through 64-column chunks in shared memory
@@ -127,8 +61,8 @@ __device__ __forceinline__ void dot_rows(float (&c)[8][4], bf16 (*xs)[LD], bf16 
     load_tile<64>(&ys[0][0], LD, yb, y_st, y0, S, d0, D);
     __syncthreads();
     uint32_t xa[4][4];
-    a_frags(xa, xs, r0, g, tq);
-    mma_abt(c, xa, ys, 4, g, tq);
+    a_frags(xa, &xs[0][0], LD, r0, g, tq);
+    mma_abt(c, xa, &ys[0][0], LD, 4, g, tq);
   }
 }
 
@@ -157,7 +91,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   load_tile<64>(&Qt[0][0], LD, qb, sq.st, q0, S, 0, DNV);
   __syncthreads();
   uint32_t qa[4][4];
-  a_frags(qa, Qt, r0, g, tq);
+  a_frags(qa, &Qt[0][0], LD, r0, g, tq);
   float row_lse[2], row_delta[2] = {0.f, 0.f};
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -176,7 +110,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
       zero(s);
       zero(dp);
       dot_rows(dp, Ot, Ct, gb, g_st, q0, cb, sc.st, j0, S, D, r0, g, tq);  // syncs: Kt ready
-      mma_abt(s, qa, Kt, ksteps, g, tq);
+      mma_abt(s, qa, &Kt[0][0], LD, ksteps, g, tq);
       uint32_t dsa[4][4];
 #pragma unroll
       for (int nf = 0; nf < 8; ++nf)
@@ -244,7 +178,7 @@ dk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   load_tile<64>(&Ct[0][0], LD, k + b * sk.sb + head * sk.sh, sk.st, k0, S, 0, DNV);
   __syncthreads();
   uint32_t ka[4][4];
-  a_frags(ka, Ct, kr, g, tq);
+  a_frags(ka, &Ct[0][0], LD, kr, g, tq);
   float dk_acc[8][4];
   zero(dk_acc);
 
@@ -260,7 +194,7 @@ dk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     zero(st);
     zero(dpt);
     dot_rows(dpt, Ct, Ot, cb, sc.st, k0, gb, g_st, q0, S, D, kr, g, tq);  // syncs: Qt ready
-    mma_abt(st, ka, Qt, ksteps, g, tq);
+    mma_abt(st, ka, &Qt[0][0], LD, ksteps, g, tq);
     uint32_t dsa[4][4];
 #pragma unroll
     for (int nf = 0; nf < 8; ++nf)
@@ -315,7 +249,7 @@ dc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   load_tile<64>(&Qt[0][0], LD, k + b * sk.sb + head * sk.sh, sk.st, k0, S, 0, DNV);
   __syncthreads();
   uint32_t ka[4][4];
-  a_frags(ka, Qt, kr, g, tq);
+  a_frags(ka, &Qt[0][0], LD, kr, g, tq);
   float dc_acc[SLAB / 8][4];
   zero(dc_acc);
 
@@ -328,7 +262,7 @@ dc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     __syncthreads();
     float st[8][4];
     zero(st);
-    mma_abt(st, ka, Qt, ksteps, g, tq);
+    mma_abt(st, ka, &Qt[0][0], LD, ksteps, g, tq);
     uint32_t pa[4][4];
 #pragma unroll
     for (int nf = 0; nf < 8; ++nf)
@@ -360,38 +294,264 @@ dc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
   }
 }
 
+// ------------------------------------------------------------- f32 (SIMT)
+
+constexpr int ST = 32, CH = 64, FLD = CH + 1, FSLAB = 128, kSimtThreads = 256;
+
+// rows [r0, r0 + 32) x columns [c0, c0 + W) of a row-strided f32 matrix
+// into dst (leading dimension ld); zero past S rows or past `cols` columns
+template <int W>
+__device__ __forceinline__ void load_f32(float* dst, int ld, const float* base, long long st,
+                                         int r0, int S, int c0, int cols) {
+  for (int idx = threadIdx.x; idx < ST * W; idx += kSimtThreads) {
+    const int rr = idx / W, cc = idx % W;
+    dst[rr * ld + cc] = (r0 + rr < S && c0 + cc < cols) ? base[(r0 + rr) * st + c0 + cc] : 0.f;
+  }
+}
+
+// acc[i] += x[r] . y[c + 8 i] over the first w columns of two FLD-wide tiles
+__device__ __forceinline__ void dots4(float (&acc)[4], const float (*x)[FLD],
+                                      const float (*y)[FLD], int r, int c, int w) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float a = 0.f;
+    for (int cc = 0; cc < w; ++cc) a += x[r][cc] * y[c + 8 * i][cc];
+    acc[i] += a;
+  }
+}
+
+// dp[i] += X[x0 + r] . Y[y0 + c + 8 i] over the whole d, both streamed
+// through 64-column chunks in shared memory
+__device__ __forceinline__ void dp_f32(float (&dp)[4], float (*xs)[FLD], float (*ys)[FLD],
+                                       const float* xb, long long x_st, int x0, const float* yb,
+                                       long long y_st, int y0, int S, int D, int r, int c) {
+  for (int d0 = 0; d0 < D; d0 += CH) {
+    __syncthreads();
+    load_f32<CH>(&xs[0][0], FLD, xb, x_st, x0, S, d0, D);
+    load_f32<CH>(&ys[0][0], FLD, yb, y_st, y0, S, d0, D);
+    __syncthreads();
+    dots4(dp, xs, ys, r, c, CH);
+  }
+}
+
+// one block per (32-query tile, head, batch row); thread (r, c) = query
+// q0 + r, keys c + 8 i of each tile, dq columns c + 8 j
+__global__ void __launch_bounds__(kSimtThreads)
+dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ c, const float* __restrict__ g_out,
+               const float* __restrict__ lse, float* __restrict__ delta, float* __restrict__ dq,
+               int S, int NV, int DNV, int D, Strides sq, Strides sk, Strides sc, long long g_sb,
+               long long g_st, float scale) {
+  __shared__ float Qs[ST][FLD], Ks[ST][FLD], Gs[ST][FLD], Cs[ST][FLD];
+  __shared__ float DSs[ST][ST + 1];
+  const int q0 = blockIdx.x * ST, head = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x >> 3, cl = threadIdx.x & 7, row = q0 + r;
+  const long long bh = static_cast<long long>(b) * NV + head;
+  const float* kb = k + b * sk.sb + head * sk.sh;
+  const float* cb = c + b * sc.sb + head * sc.sh;
+  const float* gb = g_out + b * g_sb;
+  load_f32<CH>(&Qs[0][0], FLD, q + b * sq.sb + head * sq.sh, sq.st, q0, S, 0, DNV);
+  const float row_lse = row < S ? lse[bh * S + row] : 0.f;
+  float row_delta = 0.f, dq_acc[CH / 8];
+#pragma unroll
+  for (int j = 0; j < CH / 8; ++j) dq_acc[j] = 0.f;
+
+  const int kv_end = min(S, q0 + ST);
+  for (int pass = 0; pass < 2; ++pass) {
+    float part = 0.f;
+    for (int j0 = 0; j0 < kv_end; j0 += ST) {
+      __syncthreads();
+      load_f32<CH>(&Ks[0][0], FLD, kb, sk.st, j0, S, 0, DNV);
+      float dp[4] = {0.f, 0.f, 0.f, 0.f}, s[4] = {0.f, 0.f, 0.f, 0.f};
+      dp_f32(dp, Gs, Cs, gb, g_st, q0, cb, sc.st, j0, S, D, r, cl);  // syncs: Ks ready
+      dots4(s, Qs, Ks, r, cl, DNV);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kl = cl + 8 * i, key = j0 + kl;
+        const bool valid = row < S && key < S && key <= row;
+        const float a = valid ? expf(s[i] * scale - row_lse) : 0.f;
+        if (pass == 0)
+          part += a * dp[i];
+        else
+          DSs[r][kl] = a * (dp[i] - row_delta);
+      }
+      if (pass == 1) {
+        __syncwarp();  // the row's eight threads share one warp
+        for (int kl = 0; kl < ST; ++kl) {
+          const float ds = DSs[r][kl];
+#pragma unroll
+          for (int j = 0; j < CH / 8; ++j) dq_acc[j] += ds * Ks[kl][cl + 8 * j];
+        }
+      }
+    }
+    if (pass == 0) {
+      row_delta = group_sum(part, 8);
+      if (cl == 0 && row < S) delta[bh * S + row] = row_delta;
+    }
+  }
+  if (row >= S) return;
+  float* drow = dq + ((static_cast<long long>(b) * S + row) * NV + head) * DNV;
+#pragma unroll
+  for (int j = 0; j < CH / 8; ++j)
+    if (cl + 8 * j < DNV) drow[cl + 8 * j] = dq_acc[j] * scale;
+}
+
+// one block per (32-key tile, head, batch row); thread (r, c) = key k0 + r,
+// queries c + 8 i of each tile, dk columns c + 8 j
+__global__ void __launch_bounds__(kSimtThreads)
+dk_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ c, const float* __restrict__ g_out,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dk, int S, int NV, int DNV, int D, Strides sq, Strides sk,
+               Strides sc, long long g_sb, long long g_st, float scale) {
+  __shared__ float Ks[ST][FLD], Qs[ST][FLD], Cs[ST][FLD], Gs[ST][FLD];
+  __shared__ float DSs[ST][ST + 1], Ls[ST], Dl[ST];
+  const int k0 = blockIdx.x * ST, head = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x >> 3, cl = threadIdx.x & 7, key = k0 + r;
+  const long long bh = static_cast<long long>(b) * NV + head;
+  const float* qb = q + b * sq.sb + head * sq.sh;
+  const float* cb = c + b * sc.sb + head * sc.sh;
+  const float* gb = g_out + b * g_sb;
+  load_f32<CH>(&Ks[0][0], FLD, k + b * sk.sb + head * sk.sh, sk.st, k0, S, 0, DNV);
+  float dk_acc[CH / 8];
+#pragma unroll
+  for (int j = 0; j < CH / 8; ++j) dk_acc[j] = 0.f;
+
+  for (int q0 = k0; q0 < S; q0 += ST) {
+    __syncthreads();
+    load_f32<CH>(&Qs[0][0], FLD, qb, sq.st, q0, S, 0, DNV);
+    for (int i = threadIdx.x; i < ST; i += kSimtThreads) {
+      const bool in = q0 + i < S;
+      Ls[i] = in ? lse[bh * S + q0 + i] : 0.f;
+      Dl[i] = in ? delta[bh * S + q0 + i] : 0.f;
+    }
+    float dp[4] = {0.f, 0.f, 0.f, 0.f}, s[4] = {0.f, 0.f, 0.f, 0.f};
+    dp_f32(dp, Cs, Gs, cb, sc.st, k0, gb, g_st, q0, S, D, r, cl);  // syncs: Qs ready
+    dots4(s, Ks, Qs, r, cl, DNV);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ql = cl + 8 * i, qry = q0 + ql;
+      const bool valid = key < S && qry < S && key <= qry;
+      const float a = valid ? expf(s[i] * scale - Ls[ql]) : 0.f;
+      DSs[r][ql] = a * (dp[i] - Dl[ql]);
+    }
+    __syncwarp();
+    for (int ql = 0; ql < ST; ++ql) {
+      const float ds = DSs[r][ql];
+#pragma unroll
+      for (int j = 0; j < CH / 8; ++j) dk_acc[j] += ds * Qs[ql][cl + 8 * j];
+    }
+  }
+  if (key >= S) return;
+  float* drow = dk + ((static_cast<long long>(b) * S + key) * NV + head) * DNV;
+#pragma unroll
+  for (int j = 0; j < CH / 8; ++j)
+    if (cl + 8 * j < DNV) drow[cl + 8 * j] = dk_acc[j] * scale;
+}
+
+// one block per (32-key tile, 128-column slab of d, head, batch row);
+// thread (r, c) = key k0 + r, queries c + 8 i, slab columns c + 8 j
+__global__ void __launch_bounds__(kSimtThreads)
+dc_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ g_out, const float* __restrict__ lse,
+               float* __restrict__ dc, int S, int NV, int DNV, int D, int n_slabs, Strides sq,
+               Strides sk, long long g_sb, long long g_st, float scale) {
+  __shared__ float Ks[ST][FLD], Qs[ST][FLD], Gs[ST][FSLAB + 1];
+  __shared__ float Ps[ST][ST + 1], Ls[ST];
+  const int k0 = blockIdx.x * ST, head = blockIdx.y / n_slabs, b = blockIdx.z;
+  const int d0 = (blockIdx.y % n_slabs) * FSLAB;
+  const int r = threadIdx.x >> 3, cl = threadIdx.x & 7, key = k0 + r;
+  const long long bh = static_cast<long long>(b) * NV + head;
+  const float* qb = q + b * sq.sb + head * sq.sh;
+  const float* gb = g_out + b * g_sb;
+  load_f32<CH>(&Ks[0][0], FLD, k + b * sk.sb + head * sk.sh, sk.st, k0, S, 0, DNV);
+  float dc_acc[FSLAB / 8];
+#pragma unroll
+  for (int j = 0; j < FSLAB / 8; ++j) dc_acc[j] = 0.f;
+
+  for (int q0 = k0; q0 < S; q0 += ST) {
+    __syncthreads();
+    load_f32<CH>(&Qs[0][0], FLD, qb, sq.st, q0, S, 0, DNV);
+    load_f32<FSLAB>(&Gs[0][0], FSLAB + 1, gb, g_st, q0, S, d0, D);
+    for (int i = threadIdx.x; i < ST; i += kSimtThreads)
+      Ls[i] = q0 + i < S ? lse[bh * S + q0 + i] : 0.f;
+    __syncthreads();
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    dots4(s, Ks, Qs, r, cl, DNV);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ql = cl + 8 * i, qry = q0 + ql;
+      const bool valid = key < S && qry < S && key <= qry;
+      Ps[r][ql] = valid ? expf(s[i] * scale - Ls[ql]) : 0.f;
+    }
+    __syncwarp();
+    for (int ql = 0; ql < ST; ++ql) {
+      const float a = Ps[r][ql];
+#pragma unroll
+      for (int j = 0; j < FSLAB / 8; ++j) dc_acc[j] += a * Gs[ql][cl + 8 * j];
+    }
+  }
+  if (key >= S) return;
+  float* drow = dc + ((static_cast<long long>(b) * S + key) * NV + head) * D + d0;
+#pragma unroll
+  for (int j = 0; j < FSLAB / 8; ++j)
+    if (d0 + cl + 8 * j < D) drow[cl + 8 * j] = dc_acc[j];
+}
+
 }  // namespace
 
-// q, k: (B, S, NV, DNV) bf16, content (B, S, NV, D) bf16 and g (B, S, D)
-// bf16 with the given strides (rows 16-byte aligned); lse (B, NV, S) f32
-// from the forward; delta: f32 workspace of B * NV * S; dq, dk (B, S, NV,
-// DNV) and dc (B, S, NV, D): contiguous bf16 outputs
+// q, k: (B, S, NV, DNV), content (B, S, NV, D) and g (B, S, D), all bf16 or
+// all f32 (dtype), with the given strides (bf16 rows 16-byte aligned); lse
+// (B, NV, S) f32 from the forward; delta: f32 workspace of B * NV * S; dq,
+// dk (B, S, NV, DNV) and dc (B, S, NV, D): contiguous outputs of the
+// operands' dtype
 extern "C" int fused_contextualization_bwd_launch(
     const void* q, const void* k, const void* content, const void* g, const void* lse,
     void* delta, void* dq, void* dk, void* dc, long long B, long long S, long long NV,
     long long DNV, long long D, long long q_sb, long long q_st, long long q_sh, long long k_sb,
     long long k_st, long long k_sh, long long c_sb, long long c_st, long long c_sh,
-    long long g_sb, long long g_st, float scale, void* stream) {
+    long long g_sb, long long g_st, float scale, long long dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides sq{q_sb, q_st, q_sh}, sk{k_sb, k_st, k_sh}, sc{c_sb, c_st, c_sh};
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* cp = static_cast<const bf16*>(content);
-  const auto* gp = static_cast<const bf16*>(g);
   const auto* lp = static_cast<const float*>(lse);
+  auto* dl = static_cast<float*>(delta);
   const int s = static_cast<int>(S), nv = static_cast<int>(NV), dnv = static_cast<int>(DNV),
             d = static_cast<int>(D);
-  const unsigned tiles = static_cast<unsigned>((S + T - 1) / T);
-  const dim3 grid(tiles, static_cast<unsigned>(NV), static_cast<unsigned>(B));
-  dq_kernel<<<grid, kThreads, 0, st>>>(qp, kp, cp, gp, lp, static_cast<float*>(delta),
-                                       static_cast<bf16*>(dq), s, nv, dnv, d, sq, sk, sc, g_sb,
-                                       g_st, scale);
-  dk_kernel<<<grid, kThreads, 0, st>>>(qp, kp, cp, gp, lp, static_cast<const float*>(delta),
-                                       static_cast<bf16*>(dk), s, nv, dnv, d, sq, sk, sc, g_sb,
-                                       g_st, scale);
-  const int n_slabs = static_cast<int>((D + SLAB - 1) / SLAB);
-  const dim3 dc_grid(tiles, static_cast<unsigned>(NV * n_slabs), static_cast<unsigned>(B));
-  dc_kernel<<<dc_grid, kThreads, 0, st>>>(qp, kp, gp, lp, static_cast<bf16*>(dc), s, nv, dnv, d,
-                                          n_slabs, sq, sk, g_sb, g_st, scale);
+  if (dtype == DT_BF16) {
+    const auto* qp = static_cast<const bf16*>(q);
+    const auto* kp = static_cast<const bf16*>(k);
+    const auto* cp = static_cast<const bf16*>(content);
+    const auto* gp = static_cast<const bf16*>(g);
+    const unsigned tiles = static_cast<unsigned>((S + T - 1) / T);
+    const dim3 grid(tiles, static_cast<unsigned>(NV), static_cast<unsigned>(B));
+    dq_kernel<<<grid, kThreads, 0, st>>>(qp, kp, cp, gp, lp, dl, static_cast<bf16*>(dq), s, nv,
+                                         dnv, d, sq, sk, sc, g_sb, g_st, scale);
+    dk_kernel<<<grid, kThreads, 0, st>>>(qp, kp, cp, gp, lp, dl, static_cast<bf16*>(dk), s, nv,
+                                         dnv, d, sq, sk, sc, g_sb, g_st, scale);
+    const int n_slabs = static_cast<int>((D + SLAB - 1) / SLAB);
+    const dim3 dc_grid(tiles, static_cast<unsigned>(NV * n_slabs), static_cast<unsigned>(B));
+    dc_kernel<<<dc_grid, kThreads, 0, st>>>(qp, kp, gp, lp, static_cast<bf16*>(dc), s, nv, dnv,
+                                            d, n_slabs, sq, sk, g_sb, g_st, scale);
+  } else if (dtype == DT_F32) {
+    const auto* qp = static_cast<const float*>(q);
+    const auto* kp = static_cast<const float*>(k);
+    const auto* cp = static_cast<const float*>(content);
+    const auto* gp = static_cast<const float*>(g);
+    const unsigned tiles = static_cast<unsigned>((S + ST - 1) / ST);
+    const dim3 grid(tiles, static_cast<unsigned>(NV), static_cast<unsigned>(B));
+    dq_simt_kernel<<<grid, kSimtThreads, 0, st>>>(qp, kp, cp, gp, lp, dl,
+                                                  static_cast<float*>(dq), s, nv, dnv, d, sq, sk,
+                                                  sc, g_sb, g_st, scale);
+    dk_simt_kernel<<<grid, kSimtThreads, 0, st>>>(qp, kp, cp, gp, lp, dl,
+                                                  static_cast<float*>(dk), s, nv, dnv, d, sq, sk,
+                                                  sc, g_sb, g_st, scale);
+    const int n_slabs = static_cast<int>((D + FSLAB - 1) / FSLAB);
+    const dim3 dc_grid(tiles, static_cast<unsigned>(NV * n_slabs), static_cast<unsigned>(B));
+    dc_simt_kernel<<<dc_grid, kSimtThreads, 0, st>>>(qp, kp, gp, lp, static_cast<float*>(dc), s,
+                                                     nv, dnv, d, n_slabs, sq, sk, g_sb, g_st,
+                                                     scale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

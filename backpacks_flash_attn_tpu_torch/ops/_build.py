@@ -231,3 +231,11 @@ def aligned16(t: torch.Tensor) -> bool:
     of 8 elements (for 2-byte types)."""
     return (t.data_ptr() % 16 == 0
             and all(st % 8 == 0 for st in t.stride()[:-1]))
+
+
+def kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """t itself when a backward kernel can read it in place (unit inner
+    stride; in bf16 also rows 16-byte aligned), else a contiguous copy.
+    Autograd hands a backward expanded cotangents (stride 0) as well."""
+    ok = t.stride(-1) == 1 and (t.dtype != torch.bfloat16 or aligned16(t))
+    return t if ok else t.contiguous()

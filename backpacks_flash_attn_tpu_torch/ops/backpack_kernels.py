@@ -99,24 +99,18 @@ def _fwd_kernel(q, k, content, scale):
     return out, lse
 
 
-def fused_ctx_bwd(q, k, content, lse, g, scale: float):
-    """Gradients (dq, dk, dcontent) of the fused contextualization. CPU
-    tensors, and every call inside ``_build.plain_path()``, take
-    :func:`fused_ctx_bwd_ref`; otherwise a CUDA tensor launches K6
-    (``csrc/fused_contextualization_bwd.cu``: bf16, dnv % 8 == 0, dnv <= 64,
-    d % 8 == 0; rows 16-byte aligned, else copied contiguous first) or
-    raises."""
-    if not q.is_cuda or not _build.kernels_enabled():
-        return fused_ctx_bwd_ref(q, k, content, lse, g, scale)
+def _bwd_kernel(q, k, content, lse, g, scale):
+    """K6 (``csrc/fused_contextualization_bwd.cu``): bf16 on tensor cores
+    (dnv % 8 == 0, d % 8 == 0; rows 16-byte aligned, else copied contiguous
+    first) or f32 SIMT; dnv <= 64. -> (dq, dk, dcontent), contiguous."""
     b, s, nv, dnv = q.shape
     d = content.shape[-1]
-    _check(q, k, content, (torch.bfloat16,))
-    if dnv % 8 or d % 8:
+    _check(q, k, content, (torch.bfloat16, torch.float32))
+    if content.dtype == torch.bfloat16 and (dnv % 8 or d % 8):
         raise ValueError(f"fused_ctx_bwd kernel takes dnv % 8 == 0 and "
-                         f"d % 8 == 0, got {dnv} and {d}")
-    g = g.to(content.dtype)
-    q, k, content, g = (t if _build.aligned16(t) else t.contiguous()
-                        for t in (q, k, content, g))
+                         f"d % 8 == 0 in bf16, got {dnv} and {d}")
+    q, k, content, g = (_build.kernel_operand(t)
+                        for t in (q, k, content, g.to(content.dtype)))
     _build.check_cuda_tensor("g", g, (content.dtype,), 3)
     if g.shape != (b, s, d):
         raise ValueError(f"g: shape {tuple(g.shape)} != {(b, s, d)}")
@@ -133,14 +127,25 @@ def fused_ctx_bwd(q, k, content, lse, g, scale: float):
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         content.stride(0), content.stride(1), content.stride(2),
-        g.stride(0), g.stride(1), float(scale))
+        g.stride(0), g.stride(1), float(scale),
+        _build.DTYPE_CODE[content.dtype])
     return dq, dk, dc
+
+
+def fused_ctx_bwd(q, k, content, lse, g, scale: float):
+    """Gradients (dq, dk, dcontent) of the fused contextualization. CPU
+    tensors, and every call inside ``_build.plain_path()``, take
+    :func:`fused_ctx_bwd_ref`; otherwise a CUDA tensor launches K6 (bf16
+    or f32) or raises."""
+    fn = (_bwd_kernel if q.is_cuda and _build.kernels_enabled()
+          else fused_ctx_bwd_ref)
+    return fn(q, k, content, lse, g, scale)
 
 
 class _FusedContextualization(torch.autograd.Function):
     """K4 forward (with its LSE), K6 backward: the counterpart of the JAX
-    ``custom_vjp`` (:423-452). The path (kernel or plain) is fixed at the
-    forward."""
+    ``custom_vjp`` (:423-452). The path (kernel or plain) is decided once,
+    at the forward, as in ``flash_attention._FlashAttention``."""
 
     @staticmethod
     def forward(ctx, q, k, content, scale, use_kernel):
@@ -156,7 +161,7 @@ class _FusedContextualization(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, content, lse = ctx.saved_tensors
-        fn = fused_ctx_bwd if ctx.use_kernel else fused_ctx_bwd_ref
+        fn = _bwd_kernel if ctx.use_kernel else fused_ctx_bwd_ref
         dq, dk, dc = fn(q, k, content, lse, g, ctx.scale)
         return dq, dk, dc, None, None
 

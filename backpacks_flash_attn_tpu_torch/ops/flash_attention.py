@@ -205,30 +205,19 @@ def _flash_fwd_kernel(q, k, v, *, causal, scale, seq_lengths, q_offsets,
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
-                        softmax_scale: Optional[float] = None,
-                        dropout_p: float = 0.0, seed=(0, 0)):
-    """Gradients (dq, dk, dv) of the flash forward. CPU tensors, and every
-    call inside ``_build.plain_path()``, take
-    :func:`flash_attention_bwd_ref`; otherwise a CUDA tensor launches K5
-    (``csrc/flash_attention_bwd.cu``: bf16, d = 64, sq == sk, no lengths or
-    offsets; rows 16-byte aligned, else copied contiguous first) or
-    raises."""
-    d = q.shape[-1]
-    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    if not q.is_cuda or not _build.kernels_enabled():
-        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
-                                       softmax_scale=scale,
-                                       dropout_p=dropout_p, seed=seed)
-    b, sq, h, _ = q.shape
+def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
+                      dropout_p, seed):
+    """K5 (``csrc/flash_attention_bwd.cu``): bf16 on tensor cores (rows
+    16-byte aligned, else copied contiguous first) or f32 SIMT; d = 64,
+    sq == sk, no lengths or offsets. -> (dq, dk, dv), contiguous."""
+    b, sq, h, d = q.shape
     sk = k.shape[1]
-    _check_qkv(q, k, v, (torch.bfloat16,))
+    _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
     if sq != sk:
         raise ValueError(f"flash_attention_bwd kernel takes sq == sk, got "
                          f"{sq} and {sk}")
-    dout = dout.to(q.dtype)
-    q, k, v, out, dout = (t if _build.aligned16(t) else t.contiguous()
-                          for t in (q, k, v, out, dout))
+    q, k, v, out, dout = (_build.kernel_operand(t)
+                          for t in (q, k, v, out, dout.to(q.dtype)))
     for name, t in (("out", out), ("dout", dout)):
         _build.check_cuda_tensor(name, t, (q.dtype,), 4)
         if t.shape != q.shape:
@@ -244,14 +233,32 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     _build.launch(
         _K5, "flash_attention_bwd_launch", P(q), P(k), P(v), P(out),
         P(dout), P(lse), P(delta), P(dq), P(dk), P(dv), b, h, sq, *strides,
-        float(scale), int(causal), *_dropout_args(dropout_p, seed))
+        float(softmax_scale), int(causal), *_dropout_args(dropout_p, seed),
+        _build.DTYPE_CODE[q.dtype])
     return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        softmax_scale: Optional[float] = None,
+                        dropout_p: float = 0.0, seed=(0, 0)):
+    """Gradients (dq, dk, dv) of the flash forward. CPU tensors, and every
+    call inside ``_build.plain_path()``, take
+    :func:`flash_attention_bwd_ref`; otherwise a CUDA tensor launches K5
+    (bf16 or f32, d = 64, sq == sk) or raises."""
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(
+        q.shape[-1])
+    fn = (_flash_bwd_kernel if q.is_cuda and _build.kernels_enabled()
+          else flash_attention_bwd_ref)
+    return fn(q, k, v, out, lse, dout, causal=causal, softmax_scale=scale,
+              dropout_p=dropout_p, seed=seed)
 
 
 class _FlashAttention(torch.autograd.Function):
     """K3 forward, K5 backward (JAX ``_flash_attention_bhsd``'s custom_vjp,
     :1009-1036): saves (q, k, v, out, lse) and the dropout seed, never the
-    mask. The path (kernel or plain) is fixed at the forward."""
+    mask. The path (kernel or plain) is decided once, at the forward: the
+    backward of a CUDA tensor runs on autograd's device thread, which does
+    not see the caller's ``plain_path()``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, dropout_p, seed, use_kernel):
@@ -271,13 +278,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        if ctx.use_kernel:
-            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                             **ctx.kw)
-        else:
-            dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                                 **ctx.kw)
+        fn = _flash_bwd_kernel if ctx.use_kernel else flash_attention_bwd_ref
+        dq, dk, dv = fn(*ctx.saved_tensors, dout, **ctx.kw)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -296,7 +298,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``_build.plain_path()``, take :func:`flash_attention_ref`; otherwise a
     CUDA tensor launches K3 (``csrc/flash_attention.cu``: bf16 or f32,
     d = 64, any outer strides) or raises. Differentiable in q, k, v when
-    neither ``seq_lengths`` nor ``q_offsets`` is given (the backward is K5).
+    neither ``seq_lengths`` nor ``q_offsets`` is given (the backward is K5,
+    bf16 or f32 as the forward).
     dropout_rng: a key of ``utils.prng`` (required when dropout_p > 0)."""
     if attn_bias is not None:
         raise NotImplementedError("attn_bias comes with BERT/ViT (ROADMAP "

@@ -30,16 +30,17 @@ Phases, each printing one JSON line:
             launches of every step (K3 and K5 12 each, K6 at least 1 in
             (b)), the loss of every step, one profiled step; the learning
             gate: the mean loss of the last 5 of (a)'s 40 steps at least 1
-            nat below the first 5's. Then a gradient gate at batch 8 x 512
-            at the weights of (a)'s last step, dropout on, both combine
-            routes: one step's per-token losses, its whole gradient (every
-            leaf as one vector) and the gradients of wte, the first and last
-            GPT layer's Wqkv and ctx_attn.Wqkv, kernel path vs plain path
-            under the 2x rule of relative error against an f32 plain
-            reference (the mean loss and the global gradient norm are
-            reported beside them).
-            The kernels phase also holds K3 with dropout, K5 and K6 at the
-            training shapes.
+            nat below the first 5's. Then a gradient gate on 5 batches of
+            8 x 512 at the weights of (a)'s last step, dropout on, both
+            combine routes, kernel path vs plain path against an f32 plain
+            reference: per batch, the 2x rule of relative error on the
+            per-token losses, the whole gradient (every leaf as one vector)
+            and the gradients of wte, the first and last GPT layer's Wqkv
+            and ctx_attn.Wqkv; pooled over the batches, the signed error of
+            the loss and of the global gradient norm (bias) within 2x the
+            plain path's plus 3 standard errors.
+            The kernels phase also holds K3 with dropout, K4, K5 and K6 at
+            the training shapes.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -266,8 +267,9 @@ def kernel_cases(gen):
 
 
 def train_kernel_cases(gen):
-    """K3 with dropout, K5 and K6 at the training shapes (batch 32 x 512,
-    backpack-small). Made outside inference mode: the library yardsticks
+    """K3 with dropout, K4, K5 and K6 at the training shapes (batch 32 x
+    512, backpack-small; q and k strided views, as the model makes them).
+    Made outside inference mode: the library yardsticks
     of the backward kernels are autograd calls, timed on a graph built
     once (the backward alone). Their dropout masks differ from the port's,
     so their error is not reported."""
@@ -322,6 +324,19 @@ def train_kernel_cases(gen):
     c = randn(b, s, nv, dd).to(bf)
     g = randn(b, s, dd).to(bf)
     cscale = dnv ** -0.5
+    cpairs = b * nv * s * (s + 1) // 2
+    cqT, ckT, cT = (t.transpose(1, 2) for t in (cq, ck, c))
+    cases.append(("fused_contextualization",
+                  f"train b={b} s={s} nv={nv} dnv={dnv} d={dd}", dict(
+        kernel=lambda: bk.fused_contextualization(cq, ck, c, cscale),
+        plain=lambda: bk.contextualization_reference(cq, ck, c, cscale),
+        ref=lambda: bk.contextualization_reference(cq.float(), ck.float(), c.float(),
+                                                   cscale),
+        library=lambda: F.scaled_dot_product_attention(
+            cqT, ckT, cT, is_causal=True, scale=cscale).sum(dim=1),
+        bytes=2 * (2 * cq.numel() + c.numel() + b * s * dd),
+        flops=2 * cpairs * (dnv + dd))))
+
     _, clse = bk.contextualization_reference(cq, ck, c, cscale, return_lse=True)
     _, clse32 = bk.contextualization_reference(cq.float(), ck.float(), c.float(),
                                                cscale, return_lse=True)
@@ -330,7 +345,6 @@ def train_kernel_cases(gen):
                       for t in (cq, ck, c))
         hout = F.scaled_dot_product_attention(hq, hk, hc, is_causal=True,
                                               scale=cscale).sum(dim=1)
-    cpairs = b * nv * s * (s + 1) // 2
     cases.append(("fused_contextualization_bwd",
                   f"train b={b} s={s} nv={nv} dnv={dnv} d={dd}", dict(
         kernel=lambda: bk.fused_ctx_bwd(cq, ck, c, clse, g, cscale),
@@ -632,7 +646,7 @@ def phase_forward(gen, results):
 
 # ------------------------------------------------------------------ train
 
-TRAIN_BATCH, TRAIN_LEN, GATE_BATCH = 32, 512, 8
+TRAIN_BATCH, TRAIN_LEN, GATE_BATCH, GATE_BATCHES = 32, 512, 8, 5
 TRAIN_WARMUP, TRAIN_TIMED, LEARN_STEPS, LEARN_WINDOW = 2, 10, 40, 5
 BIGRAM_VOCAB = 4096
 
@@ -642,16 +656,10 @@ def _rel(a, ref):
     return ((a - ref).norm() / ref.norm()).item()
 
 
-def gradient_gate(cfg, params, batch, fused_ctx):
-    """One step's per-token losses, whole gradient (every leaf, as one
-    vector) and chosen gradients on three paths (kernels in bf16; plain in
-    bf16; plain in f32, the reference): the kernel path's relative error
-    must be at most 2x the bf16 plain path's on each (or 0). The scalars
-    the vectors reduce to, the mean loss and the global gradient norm, are
-    reported and not gated: each one's relative error is a single draw of
-    bf16 rounding noise per path, and the ratio flips between runs (mean
-    loss: 4.1e-7 kernel vs 1.3e-5 plain in one run, 2.8e-4 vs 3.7e-5 in
-    another; gradient norm 5.5e-5 vs 5.1e-4, then 6.0e-4 vs 6.0e-5)."""
+def _gate_step(cfg, params, batch, fused_ctx):
+    """One training step's per-token losses, global gradient norm, whole
+    gradient and chosen gradients on three paths: kernels in bf16, plain in
+    bf16, plain in f32 (the reference)."""
     import contextlib
 
     from backpacks_flash_attn_tpu_torch.models import backpack as bp
@@ -677,35 +685,84 @@ def gradient_gate(cfg, params, batch, fused_ctx):
             logits = bp.backpack_forward(p, cfg, x, train=True, rng=key,
                                          fused_ctx=fused_ctx)
             per_token, _ = cross_entropy(logits, y)
-            loss = per_token.mean()          # make_loss_fn's loss
-            loss.backward()
+            per_token.mean().backward()          # make_loss_fn's loss
         grads = _map_tensors(p, lambda t: t.grad)
         gnorm = torch.sqrt(sum(g.float().square().sum()
                                for _, g in tl.named_leaves(grads)))
-        outs[path] = {"loss_per_token": per_token.detach(), "loss": loss.detach(),
+        outs[path] = {"loss_per_token": per_token.detach().float(),
                       "grads": grads, "grad_norm": gnorm,
                       **{k: f(grads) for k, f in picks.items()}}
-        del p, logits, per_token, loss
+        del p, logits, per_token
     ref_leaves = tl.named_leaves(outs["ref"].pop("grads"))
     for path in ("kernel", "plain"):
         leaves = dict(tl.named_leaves(outs[path].pop("grads")))
         diff = sum((leaves[k].float() - g).square().sum() for k, g in ref_leaves)
         outs[path]["all_grads"] = diff.sqrt() / outs["ref"]["grad_norm"]
-    errs, failed = {}, []
-    for k in outs["kernel"]:
-        if k == "all_grads":
-            ek, ep = outs["kernel"][k].item(), outs["plain"][k].item()
-        else:
-            ek = _rel(outs["kernel"][k], outs["ref"][k])
-            ep = _rel(outs["plain"][k], outs["ref"][k])
-        errs[k] = {"kernel": ek, "plain_bf16": ep}
-        if k not in ("loss", "grad_norm") and \
-                not (ek == 0.0 or (ep > 0 and ek <= 2 * ep)):
-            failed.append(f"{k}: kernel rel. error {ek:.3e} > 2x plain {ep:.3e}")
+    return outs
+
+
+def _bias_gate(name, draws):
+    """Signed errors against the f32 reference, one per draw, on each path:
+    the kernel path's mean must be within twice the bf16 plain path's plus
+    three standard errors of a mean (pooled over both paths' draws), so that
+    a bias several times the rounding noise of a mean fails, and a mean
+    that is one draw of that noise does not."""
+    k, p = (torch.tensor(draws[path], dtype=torch.float64)
+            for path in ("kernel", "plain"))
+    se = math.sqrt((k.var().item() + p.var().item()) / 2 / len(k))
+    bk, bp = k.mean().item(), p.mean().item()
+    row = {"kernel": bk, "plain_bf16": bp, "stderr": se, "draws": len(k)}
+    ok = abs(bk) <= 2 * abs(bp) + 3 * se
+    return row, None if ok else (f"{name}: kernel bias {bk:.3e} > 2x plain "
+                                 f"{abs(bp):.3e} + 3 x stderr {se:.3e}")
+
+
+def gradient_gate(cfg, params, batches, fused_ctx):
+    """Over GATE_BATCHES batches, kernel path (bf16) vs plain path (bf16)
+    against the f32 plain reference. On each batch, the relative error of
+    the per-token losses, the whole gradient (every leaf as one vector) and
+    the gradients of wte, the first and last GPT layer's Wqkv and
+    ctx_attn.Wqkv: the kernel's at most 2x the plain path's (or 0). Pooled
+    over the batches, the signed error of the loss (one draw per sequence:
+    its mean per-token error, nats) and of the global gradient norm (one
+    relative draw per batch), under _bias_gate."""
+    errs, failed = [], []
+    draws = {"loss_bias": {"kernel": [], "plain": []},
+             "grad_norm_bias": {"kernel": [], "plain": []}}
+    for batch in batches:
+        outs = _gate_step(cfg, params, batch, fused_ctx)
+        ref = outs["ref"]
+        row = {}
+        for k in outs["kernel"]:
+            if k == "grad_norm":
+                continue
+            if k == "all_grads":
+                ek, ep = outs["kernel"][k].item(), outs["plain"][k].item()
+            else:
+                ek = _rel(outs["kernel"][k], ref[k])
+                ep = _rel(outs["plain"][k], ref[k])
+            row[k] = {"kernel": ek, "plain_bf16": ep}
+            if not (ek == 0.0 or (ep > 0 and ek <= 2 * ep)):
+                failed.append(f"{k}: kernel rel. error {ek:.3e} > 2x plain {ep:.3e}")
+        for path in ("kernel", "plain"):
+            d = outs[path]["loss_per_token"] - ref["loss_per_token"]
+            draws["loss_bias"][path] += d.mean(dim=1).tolist()
+            draws["grad_norm_bias"][path].append(
+                ((outs[path]["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]).item())
+        row["loss"] = ref["loss_per_token"].mean().item()
+        errs.append(row)
+        del outs, ref
+    out = {"per_batch": errs}
+    for name, d in draws.items():
+        out[name], msg = _bias_gate(name, d)
+        if name == "grad_norm_bias":
+            out[name].update(kernel_draws=d["kernel"], plain_draws=d["plain"])
+        if msg:
+            failed.append(msg)
     if failed:
         raise AssertionError(f"gradient gate (fused_ctx={fused_ctx}): "
-                             + "; ".join(failed) + f" (all: {errs})")
-    return errs
+                             + "; ".join(failed) + f" (all: {out})")
+    return out
 
 
 def _profile_step(step_once):
@@ -818,11 +875,12 @@ def phase_train(gen, results):
     # f32 ulp of ln(V) on all three paths: take the gate at the weights of
     # run (a)'s last step
     log("train: gradient gate")
-    x, y = next(lmd.batches(ds, GATE_BATCH, lmd.SamplerState(seed=1)))[0]
-    gate_batch = {"input_ids": torch.from_numpy(
+    gate_stream = lmd.batches(ds, GATE_BATCH, lmd.SamplerState(seed=1))
+    gate_batches = [{"input_ids": torch.from_numpy(
         np.concatenate([x, y[:, -1:]], 1)).long().to(DEV)}
+        for (x, y), _ in (next(gate_stream) for _ in range(GATE_BATCHES))]
     gate = {f"fused_ctx={f}": gradient_gate(cfg, trained["train_einsum"],
-                                            gate_batch, f)
+                                            gate_batches, f)
             for f in (False, True)}
     emit({"phase": "train", "gradient_gate": gate})
     results["train_gate"] = gate

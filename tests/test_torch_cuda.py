@@ -164,12 +164,22 @@ def test_flash_attention_dropout_kernel(gen, dt, dropout_p, offs):
         _within_2x(out, fa.flash_attention_ref(q, k, v, seed=seed, **kw), ref)
 
 
-@pytest.mark.parametrize("b,s,h,causal,dropout_p", [
-    (2, 70, 3, True, 0.0),
-    (2, 130, 2, True, 0.1),
-    (1, 96, 3, False, 0.2),
+def _f32_close(out, ref):
+    """f32 kernel against the f32 plain version: products summed in another
+    order, so the bound scales with the output's magnitude."""
+    assert out.dtype == torch.float32
+    assert _err(out, ref) <= F32_ATOL * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dt,b,s,h,causal,dropout_p", [
+    (torch.bfloat16, 2, 70, 3, True, 0.0),
+    (torch.bfloat16, 2, 130, 2, True, 0.1),
+    (torch.bfloat16, 1, 96, 3, False, 0.2),
+    (torch.float32, 2, 70, 3, True, 0.0),
+    (torch.float32, 2, 130, 2, True, 0.1),
+    (torch.float32, 1, 45, 3, False, 0.2),
 ])
-def test_flash_attention_bwd_kernel(gen, b, s, h, causal, dropout_p):
+def test_flash_attention_bwd_kernel(gen, dt, b, s, h, causal, dropout_p):
     qkv = torch.randn(b, s, 3, h, 64, generator=gen, device="cuda")
     dout = torch.randn(b, s, h, 64, generator=gen, device="cuda")
     seed = (12345, 678)
@@ -181,36 +191,48 @@ def test_flash_attention_bwd_kernel(gen, b, s, h, causal, dropout_p):
         out, lse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
         return bwd(q, k, v, out, lse, go, **kw)
 
-    bf = torch.bfloat16
-    kernel = grads(qkv.to(bf), dout.to(bf), fa.flash_attention_bwd)
-    plain = grads(qkv.to(bf), dout.to(bf), fa.flash_attention_bwd_ref)
-    ref = grads(qkv.to(bf).float(), dout.to(bf).float(),
+    before = _build.KERNELS["flash_attention_bwd"].launches
+    kernel = grads(qkv.to(dt), dout.to(dt), fa.flash_attention_bwd)
+    assert _build.KERNELS["flash_attention_bwd"].launches == before + 1
+    ref = grads(qkv.to(dt).float(), dout.to(dt).float(),
                 fa.flash_attention_bwd_ref)
+    if dt == torch.float32:
+        for name, a, r in zip(("dq", "dk", "dv"), kernel, ref):
+            assert a.is_contiguous(), name
+            _f32_close(a, r)
+        return
+    plain = grads(qkv.to(dt), dout.to(dt), fa.flash_attention_bwd_ref)
     for name, a, p, r in zip(("dq", "dk", "dv"), kernel, plain, ref):
-        assert a.dtype == bf and a.is_contiguous(), name
+        assert a.dtype == dt and a.is_contiguous(), name
         _within_2x(a, p, r)
 
 
-def test_flash_attention_autograd_launches_k3_and_k5(gen):
+@pytest.mark.parametrize("dt,expanded", [(torch.bfloat16, False),
+                                         (torch.bfloat16, True),
+                                         (torch.float32, True)])
+def test_flash_attention_autograd_launches_k3_and_k5(gen, dt, expanded):
     from backpacks_flash_attn_tpu_torch.utils import prng
     x = torch.randn(2, 64, 3, 2, 64, generator=gen, device="cuda").to(
-        torch.bfloat16).requires_grad_(True)
+        dt).requires_grad_(True)
     _build.reset_launches()
     out = fa.flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2],
                              dropout_p=0.1, dropout_rng=prng.PRNGKey(0))
-    out.float().square().sum().backward()
+    # out.sum() hands the backward a stride-0 cotangent
+    (out.sum() if expanded else out.float().square().sum()).backward()
     counts = _build.launch_counts()
     assert counts["flash_attention"] == 1
     assert counts["flash_attention_bwd"] == 1
     assert torch.isfinite(x.grad.float()).all()
 
 
-@pytest.mark.parametrize("b,s,nv,dnv,d", [
-    (2, 100, 3, 48, 200),       # ragged tiles, slabs and d chunks
-    (1, 64, 4, 48, 768),
-    (1, 33, 2, 16, 64),
+@pytest.mark.parametrize("dt,b,s,nv,dnv,d", [
+    (torch.bfloat16, 2, 100, 3, 48, 200),       # ragged tiles, slabs and d chunks
+    (torch.bfloat16, 1, 64, 4, 48, 768),
+    (torch.bfloat16, 1, 33, 2, 16, 64),
+    (torch.float32, 2, 100, 3, 48, 200),
+    (torch.float32, 1, 70, 2, 44, 300),         # dnv and d off every tile size
 ])
-def test_fused_contextualization_bwd_kernel(gen, b, s, nv, dnv, d):
+def test_fused_contextualization_bwd_kernel(gen, dt, b, s, nv, dnv, d):
     qk = torch.randn(b, s, 2, nv, dnv, generator=gen, device="cuda")
     c = torch.randn(b, s, nv, d, generator=gen, device="cuda")
     g = torch.randn(b, s, d, generator=gen, device="cuda")
@@ -222,13 +244,18 @@ def test_fused_contextualization_bwd_kernel(gen, b, s, nv, dnv, d):
                                                 return_lse=True)
         return bwd(q, k, cc, lse, gg, scale)
 
-    bf = torch.bfloat16
-    kernel = grads(qk.to(bf), c.to(bf), g.to(bf), bk.fused_ctx_bwd)
-    plain = grads(qk.to(bf), c.to(bf), g.to(bf), bk.fused_ctx_bwd_ref)
-    ref = grads(qk.to(bf).float(), c.to(bf).float(), g.to(bf).float(),
+    before = _build.KERNELS["fused_contextualization_bwd"].launches
+    kernel = grads(qk.to(dt), c.to(dt), g.to(dt), bk.fused_ctx_bwd)
+    assert _build.KERNELS["fused_contextualization_bwd"].launches == before + 1
+    ref = grads(qk.to(dt).float(), c.to(dt).float(), g.to(dt).float(),
                 bk.fused_ctx_bwd_ref)
+    if dt == torch.float32:
+        for a, r in zip(kernel, ref):
+            _f32_close(a, r)
+        return
+    plain = grads(qk.to(dt), c.to(dt), g.to(dt), bk.fused_ctx_bwd_ref)
     for name, a, p, r in zip(("dq", "dk", "dc"), kernel, plain, ref):
-        assert a.dtype == bf, name
+        assert a.dtype == dt, name
         _within_2x(a, p, r)
 
 
@@ -245,7 +272,7 @@ def test_fused_contextualization_lse_and_autograd(gen, dt, misalign):
     _, rlse = bk.contextualization_reference(q.float(), k.float(), c.float(),
                                              0.3, return_lse=True)
     assert torch.allclose(lse, rlse, rtol=1e-4, atol=1e-3)
-    if dt == torch.bfloat16 and not misalign:
+    if not misalign:
         x = qk.detach().requires_grad_(True)
         cc = c.detach().requires_grad_(True)
         _build.reset_launches()
@@ -256,3 +283,23 @@ def test_fused_contextualization_lse_and_autograd(gen, dt, misalign):
         assert counts["fused_contextualization_bwd"] == 1
         assert torch.isfinite(x.grad.float()).all()
         assert torch.isfinite(cc.grad.float()).all()
+
+
+def test_train_cli_smoke_at_its_defaults(gen, tmp_path):
+    """The training CLI on the card at its default dtype (f32) and model
+    (backpack-micro), as a user would start it: K3 and K5 in f32."""
+    import numpy as np
+    from backpacks_flash_attn_tpu_torch.data import lm_dataset as lmd
+    from backpacks_flash_attn_tpu_torch.training import train_cli
+
+    rc = train_cli.RunConfig(corpus="unused", workdir=str(tmp_path / "run"),
+                             mode="smoke")
+    assert (rc.dtype, rc.device) == ("float32", "cuda")
+    tokens = np.random.default_rng(0).integers(0, 4096, 40_000)
+    rc.corpus = lmd.save_corpus(tokens.astype(np.uint16), str(tmp_path), "c")
+    _build.reset_launches()
+    out = train_cli.run(rc)
+    counts = _build.launch_counts()
+    assert out["steps"] == 3 and np.isfinite(out["final_metrics"]["loss"])
+    assert np.isfinite(out["val"]["ppl"])
+    assert counts["flash_attention"] > 0 and counts["flash_attention_bwd"] > 0
