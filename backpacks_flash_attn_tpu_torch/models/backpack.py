@@ -24,7 +24,9 @@ from ..config import BackpackConfig
 from ..ops import _build, dense, norms, quant
 from ..ops.attention import MASK_VALUE
 from ..ops.backpack_kernels import fused_contextualization
-from ..ops.decode_attention import decode_attention, decode_attention_flat_multi
+from ..ops.decode_attention import (decode_attention,
+                                    decode_attention_flat_multi,
+                                    decode_attention_mixed)
 from ..utils import prng
 from . import gpt as gpt_lib
 
@@ -200,6 +202,10 @@ class BackpackCache:
       content:       (E, S, d) per-token sense vectors
       content_scale: (E, S) f32 int8 dequant scales (int8 cache only)
 
+    The mixed low-bit cache (bits 4) keeps ctx_k int8 in the even/odd split
+    layout (E, dnv_pad, 2, S/2) and the senses int4 pair-packed
+    (E, S/2, d), both scales (E, 2, S/2).
+
     Updated IN PLACE by backpack_forward_with_cache (JAX returns new
     caches); copy the tensors before a call whose old state you need."""
     gpt: gpt_lib.KVCache
@@ -213,17 +219,44 @@ class BackpackCache:
     def quantized(self) -> bool:
         return self.content.dtype == torch.int8
 
+    @property
+    def bits(self) -> int:
+        """Stored precision of the ctx-K and sense caches: 16, 8, or 4,
+        told apart by the scale layout as in JAX."""
+        if not self.quantized:
+            return 16
+        return 4 if self.content_scale.dim() == 3 else 8
+
 
 def init_backpack_cache(cfg: BackpackConfig, batch: int, max_seqlen: int,
-                        dtype=torch.bfloat16, device="cuda") -> BackpackCache:
+                        dtype=torch.bfloat16, device="cuda", *,
+                        bits: int = 8,
+                        kv_bits: Optional[int] = None) -> BackpackCache:
     """dtype int8: INT8 GPT-KV, ctx-K and sense caches with per-position
-    f32 scales (the int4 caches come with the low-bit slice)."""
+    f32 scales. bits=4 (with dtype int8) makes the ctx-K and sense caches
+    the mixed low-bit cache (see BackpackCache); kv_bits sets the GPT KV
+    cache's precision apart (default: bits), as in JAX (:500)."""
     device = _build.resolve_device(device)
+    kv_bits = bits if kv_bits is None else kv_bits
     e, S = batch * cfg.num_senses, max_seqlen
+    gpt = gpt_lib.init_kv_cache(cfg, batch, max_seqlen, dtype, device,
+                                bits=kv_bits)
+    if dtype == torch.int8 and bits == 4:
+        if S % 2:
+            raise ValueError(f"int4 caches need an even max_seqlen, got {S}")
+        ones = lambda: torch.ones((e, 2, S // 2), dtype=torch.float32,
+                                  device=device)
+        return BackpackCache(
+            gpt=gpt,
+            ctx_k=torch.zeros((e, cfg.sense_head_dim_padded, 2, S // 2),
+                              dtype=dtype, device=device),
+            content=torch.zeros((e, S // 2, cfg.n_embd), dtype=dtype,
+                                device=device),
+            length=0, content_scale=ones(), ctx_k_scale=ones())
     scales = dtype == torch.int8
     ones = lambda: torch.ones((e, S), dtype=torch.float32, device=device)
     return BackpackCache(
-        gpt=gpt_lib.init_kv_cache(cfg, batch, max_seqlen, dtype, device),
+        gpt=gpt,
         ctx_k=torch.zeros((e, cfg.sense_head_dim_padded, S), dtype=dtype,
                           device=device),
         content=torch.zeros((e, S, cfg.n_embd), dtype=dtype, device=device),
@@ -240,7 +273,9 @@ def backpack_forward_with_cache(
     """Run ``input_ids`` (prefill, or decode s == 1) through the
     incremental path: logits (b, s, vocab) for the new tokens. Writes the
     new keys, senses (and scales) into ``cache`` IN PLACE, advances its
-    length, and returns it.
+    length, and returns it. Over the mixed low-bit cache a decode step
+    runs K8; multi-token calls (prefill, continuation) take the prefill
+    branch over the dequantized prefix and must start at an even length.
 
     window: static length bucket (caller-guaranteed length + s <= window);
     every cache read covers only the first ``window`` columns."""
@@ -250,8 +285,11 @@ def backpack_forward_with_cache(
     nv, d = cfg.num_senses, cfg.n_embd
     dnv, dnv_pad = cfg.sense_head_dim, cfg.sense_head_dim_padded
     e = b * nv
-    max_s = cache.ctx_k.shape[-1]
+    q4 = cache.bits == 4
+    max_s = cache.ctx_k.shape[-1] * (2 if q4 else 1)
     S = max_s if window is None else min(window, max_s)
+    if q4:
+        gpt_lib.check_even_offset(offset, s)
     contextl, _ = gpt_lib.gpt_forward_with_cache(
         params["gpt"], cfg, input_ids, cache.gpt, window=window)
     q, k_new = context_qk(params, cfg, contextl)       # (b, s, nv, dnv)
@@ -260,7 +298,22 @@ def backpack_forward_with_cache(
     k_flat = k_new.permute(0, 2, 3, 1).reshape(e, dnv, s)
     if dnv_pad != dnv:
         k_flat = torch.nn.functional.pad(k_flat, (0, 0, 0, dnv_pad - dnv))
-    if cache.quantized:
+    if q4:
+        # int8 keys into the even/odd split planes, int4 senses pair-packed
+        k8, ksc = quant.quantize_activations_int8(k_flat, axis=1)
+        s4, ssc = quant.quantize_activations_int4(senses_t, axis=2)
+        if s == 1:
+            cache.ctx_k[:, :, offset % 2, offset // 2] = k8[:, :, 0]
+            gpt_lib.store4_step(cache.content, s4, offset, axis=1)
+        else:
+            k8p = torch.nn.functional.pad(k8, (0, s % 2))
+            c0, n2 = offset // 2, k8p.shape[-1] // 2
+            cache.ctx_k[..., c0:c0 + n2] = torch.stack(
+                [k8p[..., 0::2], k8p[..., 1::2]], dim=2)
+            gpt_lib.store4_prefill(cache.content, s4, offset, axis=1)
+        gpt_lib.store_pair_scale(cache.ctx_k_scale, ksc[:, 0, :], offset)
+        gpt_lib.store_pair_scale(cache.content_scale, ssc[..., 0], offset)
+    elif cache.quantized:
         k8, ksc = quant.quantize_activations_int8(k_flat, axis=1)
         s8, ssc = quant.quantize_activations_int8(senses_t, axis=2)
         cache.ctx_k[:, :, offset:new_len] = k8
@@ -272,39 +325,56 @@ def backpack_forward_with_cache(
         cache.content[:, offset:new_len] = senses_t
 
     scale = cfg.sense_head_dim ** -0.5
-    ctx_k_r, content_r = cache.ctx_k[:, :, :S], cache.content[:, :S]
-    ks_r = cache.ctx_k_scale[:, :S] if cache.quantized else None
-    vs = cache.content_scale[:, :S] if cache.quantized else None
-    if s <= gpt_lib.FLAT_MULTI_MAX:
+    if q4:
+        S2 = -(-S // 2)
+        ctx_k_r, content_r = cache.ctx_k[..., :S2], cache.content[:, :S2]
+        ks_r, vs = cache.ctx_k_scale[..., :S2], cache.content_scale[..., :S2]
+    else:
+        ctx_k_r, content_r = cache.ctx_k[:, :, :S], cache.content[:, :S]
+        ks_r = cache.ctx_k_scale[:, :S] if cache.quantized else None
+        vs = cache.content_scale[:, :S] if cache.quantized else None
+    if s <= gpt_lib.FLAT_MULTI_MAX and (s == 1 or not q4):
         # ONE pass over the stored-precision caches: per-sense softmax over
-        # the cached keys and the weighted sense sum (K1 when s == 1)
+        # the cached keys and the weighted sense sum (K1 when s == 1, K8
+        # over the mixed cache)
         q_s = (q.float() * scale).to(q.dtype)
         if dnv_pad != dnv:
             q_s = torch.nn.functional.pad(q_s, (0, dnv_pad - dnv))
         q_flat = q_s.transpose(1, 2).reshape(e, s, dnv_pad)
         if s == 1:
-            out = decode_attention(q_flat[:, 0].contiguous(), ctx_k_r, ks_r,
-                                   content_r, vs, new_len)[:, None]
+            decode = decode_attention_mixed if q4 else decode_attention
+            out = decode(q_flat[:, 0].contiguous(), ctx_k_r, ks_r, content_r,
+                         vs, new_len)[:, None]
         else:
             out = decode_attention_flat_multi(q_flat, ctx_k_r, ks_r,
                                               content_r, vs, new_len)
         outputs = out.reshape(b, nv, s, d).float().sum(dim=1).to(contextl.dtype)
     else:
         # prefill: materialize the alpha rows of the s new queries
+        if q4:
+            # dequantize the low-bit prefix once: keys re-interleave from
+            # the split planes, senses unpack
+            S = 2 * content_r.shape[1]
+            ctx_k_r = (ctx_k_r.transpose(2, 3).reshape(e, dnv_pad, S).float()
+                       * quant.interleave_pair_scales(ks_r)[:, None, :]
+                       ).to(contextl.dtype)
+            content_r = gpt_lib.dequantize_pairs(content_r, vs, 1,
+                                                 contextl.dtype)
+        fold8 = cache.quantized and not q4
         ctx_k4 = ctx_k_r.reshape(b, nv, dnv_pad, S)
         content4 = content_r.reshape(b, nv, S, d)
         q_pad = (torch.nn.functional.pad(q, (0, dnv_pad - dnv))
                  if dnv_pad != dnv else q)
         scores = torch.einsum("bthd,bhds->bhts", q_pad.float(),
                               ctx_k4.to(q.dtype).float() * scale)
-        if cache.quantized:
+        if fold8:
             scores = scores * ks_r.reshape(b, nv, S)[:, :, None, :]
         qpos = torch.arange(s, device=q.device)[:, None]
         kpos = torch.arange(S, device=q.device)[None, :]
         scores = torch.where((kpos <= qpos + offset)[None, None], scores,
                              MASK_VALUE)
         alpha = torch.softmax(scores, dim=-1).to(contextl.dtype)
-        if cache.quantized:
+        if fold8:
             alpha = alpha * vs.reshape(b, nv, S)[:, :, None, :].to(alpha.dtype)
         outputs = torch.einsum("bkts,bksd->btd", alpha.float(),
                                content4.to(contextl.dtype).float()
@@ -375,10 +445,12 @@ class BackpackLM(torch.nn.Module):
         """``backpack_forward`` (train=, rng=, fused_ctx=, ... pass through)."""
         return backpack_forward(self.params, self.cfg, input_ids, **kw)
 
-    def init_cache(self, batch: int, max_seqlen: int,
-                   dtype=torch.bfloat16) -> BackpackCache:
+    def init_cache(self, batch: int, max_seqlen: int, dtype=torch.bfloat16,
+                   *, bits: int = 8,
+                   kv_bits: Optional[int] = None) -> BackpackCache:
         return init_backpack_cache(self.cfg, batch, max_seqlen, dtype,
-                                   device=self.device)
+                                   device=self.device, bits=bits,
+                                   kv_bits=kv_bits)
 
     @torch.no_grad()
     def step(self, input_ids: torch.Tensor, cache: BackpackCache,

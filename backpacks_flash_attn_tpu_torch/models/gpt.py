@@ -20,7 +20,9 @@ from ..config import GPTConfig
 from ..ops import _build, dense, norms, quant
 from ..ops.attention import mha
 from ..utils import prng
-from ..ops.decode_attention import decode_attention, decode_attention_flat_multi
+from ..ops.decode_attention import (decode_attention,
+                                    decode_attention_flat_multi,
+                                    decode_attention_int4)
 
 Params = Dict[str, Any]
 
@@ -202,6 +204,10 @@ class KVCache:
       k_scale/v_scale: (n_layer, E, max_seqlen) f32 dequant scales (int8)
       length:  number of valid positions (a Python int: uniform batch)
 
+    int4 caches pack positions pairwise (ops/quant.py): k (n_layer, E,
+    head_dim, max_seqlen/2), v (n_layer, E, max_seqlen/2, head_dim), scales
+    (n_layer, E, 2, max_seqlen/2).
+
     The cache functions update these tensors IN PLACE (JAX returns new
     ones); callers that need the old state copy it first."""
     k: torch.Tensor
@@ -214,13 +220,33 @@ class KVCache:
     def quantized(self) -> bool:
         return self.k.dtype == torch.int8
 
+    @property
+    def bits(self) -> int:
+        """Stored precision: 16 (fp), 8, or 4, told apart by the scale
+        layout as in JAX (int4 scales carry the parity axis)."""
+        if not self.quantized:
+            return 16
+        return 4 if self.k_scale is not None and self.k_scale.dim() == 4 else 8
+
 
 def init_kv_cache(cfg: GPTConfig, batch: int, max_seqlen: int,
-                  dtype=torch.bfloat16, device="cuda") -> KVCache:
-    """dtype int8 stores INT8 caches with per-position f32 scales (the int4
-    pair-packed caches come with the low-bit slice)."""
+                  dtype=torch.bfloat16, device="cuda", *,
+                  bits: int = 8) -> KVCache:
+    """dtype int8 stores INT8 caches with per-position f32 scales; with
+    bits=4 as well, int4 caches pair-packed along positions (max_seqlen
+    even), scales in the (E, 2, S/2) parity layout. Decode steps write a
+    nibble in place; multi-token writes must start at an even length."""
     device = _build.resolve_device(device)
     L, e, dh, S = cfg.n_layer, batch * cfg.n_head, cfg.head_dim, max_seqlen
+    if dtype == torch.int8 and bits == 4:
+        if S % 2:
+            raise ValueError(f"int4 caches need an even max_seqlen, got {S}")
+        ones = lambda: torch.ones((L, e, 2, S // 2), dtype=torch.float32,
+                                  device=device)
+        return KVCache(
+            k=torch.zeros((L, e, dh, S // 2), dtype=dtype, device=device),
+            v=torch.zeros((L, e, S // 2, dh), dtype=dtype, device=device),
+            length=0, k_scale=ones(), v_scale=ones())
     k_scale = v_scale = None
     if dtype == torch.int8:
         k_scale = torch.ones((L, e, S), dtype=torch.float32, device=device)
@@ -228,6 +254,73 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_seqlen: int,
     return KVCache(k=torch.zeros((L, e, dh, S), dtype=dtype, device=device),
                    v=torch.zeros((L, e, S, dh), dtype=dtype, device=device),
                    length=0, k_scale=k_scale, v_scale=v_scale)
+
+
+# ---------------------------------------------------------------- int4 writes
+#
+# The scalar-offset forms of JAX's _store4_step/_store4_scale (:805-832)
+# and _store4_prefill/_store4_prefill_scale (:838-862), written in place.
+# `buf` is the per-layer view; `axis` its packed-column axis.
+
+def _col(buf: torch.Tensor, axis: int, start: int, stop: int):
+    idx = [slice(None)] * buf.dim()
+    idx[axis] = slice(start, stop)
+    return tuple(idx)
+
+
+def store4_step(buf: torch.Tensor, nib: torch.Tensor, offset: int,
+                axis: int) -> None:
+    """One position's nibbles (size 1 on ``axis``) into packed column
+    offset // 2: a read-modify-write of that byte column."""
+    idx = _col(buf, axis, offset // 2, offset // 2 + 1)
+    buf[idx] = quant.rmw_nibble(buf[idx], nib, offset % 2)
+
+
+def store4_prefill(buf: torch.Tensor, nib: torch.Tensor, offset: int,
+                   axis: int) -> None:
+    """s positions' nibbles packed pairwise into the columns from
+    offset // 2 (offset even). An odd s leaves the last high nibble zero:
+    masked by the length, and filled by the next decode step's RMW."""
+    s = nib.shape[axis]
+    if s % 2:
+        pad = [0, 0] * (nib.dim() - axis % nib.dim())
+        pad[-1] = 1
+        nib = torch.nn.functional.pad(nib, pad)
+    packed = quant.pack_int4_pairs(nib, axis)
+    c0 = offset // 2
+    buf[_col(buf, axis, c0, c0 + packed.shape[axis])] = packed
+
+
+def store_pair_scale(buf: torch.Tensor, sc: torch.Tensor,
+                     offset: int) -> None:
+    """Per-position scales sc (E, s) into the (E, 2, S/2) parity layout
+    from position ``offset``: one (parity, column) entry when s == 1, else
+    the (E, 2, ceil(s/2)) block at column offset // 2 (offset even; an odd
+    s pads the last odd scale with 1.0)."""
+    s = sc.shape[1]
+    if s == 1:
+        buf[:, offset % 2, offset // 2] = sc[:, 0]
+        return
+    if s % 2:
+        sc = torch.nn.functional.pad(sc, (0, 1), value=1.0)
+    c0 = offset // 2
+    buf[:, :, c0:c0 + (s + 1) // 2] = sc.reshape(sc.shape[0], -1, 2
+                                                 ).transpose(1, 2)
+
+
+def check_even_offset(offset: int, s: int) -> None:
+    if s > 1 and offset % 2:
+        raise ValueError(f"int4 caches take multi-token writes at an even "
+                         f"length only, got {s} tokens at length {offset}")
+
+
+def dequantize_pairs(packed: torch.Tensor, sc2: torch.Tensor, axis: int,
+                     dtype) -> torch.Tensor:
+    """Pair-packed nibbles and their (E, 2, n) scales -> values in dtype,
+    positions interleaved along ``axis`` (1 or 2 of a per-layer view)."""
+    scales = quant.interleave_pair_scales(sc2)
+    scales = scales[:, None, :] if axis == 2 else scales[..., None]
+    return (quant.unpack_int4_pairs(packed, axis).float() * scales).to(dtype)
 
 
 def gpt_forward_with_cache(
@@ -238,23 +331,29 @@ def gpt_forward_with_cache(
     writing the new keys/values into ``cache`` IN PLACE and advancing its
     length. Returns (hidden, cache).
 
-    Three attention branches: s == 1 -> decode kernel (K1) over the
-    stored-precision cache; s <= FLAT_MULTI_MAX -> the flat multi-query
-    contraction; otherwise prefill -> flash (K3) over the (dequantized)
-    cache prefix with ``seq_lengths = new length`` and a causal offset.
+    Three attention branches: s == 1 -> decode kernel (K1, or K8 over int4
+    caches) over the stored-precision cache; s <= FLAT_MULTI_MAX -> the
+    flat multi-query contraction (int4 caches take the prefill branch, as
+    in JAX); otherwise prefill -> flash (K3) over the (dequantized) cache
+    prefix with ``seq_lengths = new length`` and a causal offset.
 
     window: static upper bound on the valid length after this call
     (caller-guaranteed length + s <= window); attention reads only the
-    first ``window`` cache columns."""
+    first ``window`` cache columns (int4: ceil(window / 2) packed
+    columns)."""
     _check_supported(cfg)
     b, s = input_ids.shape
     offset = cache.length
     new_len = offset + s
-    S_all = cache.k.shape[-1]
+    q4 = cache.bits == 4
+    S_all = cache.k.shape[-1] * (2 if q4 else 1)
     if new_len > S_all or (window is not None and new_len > window):
         raise ValueError(f"cache overflow: length {offset} + {s} exceeds "
                          f"max {S_all} / window {window}")
+    if q4:
+        check_even_offset(offset, s)
     W = S_all if window is None else min(window, S_all)
+    W2 = -(-W // 2)                     # int4: packed columns of the window
     dev = input_ids.device
     position_ids = offset + torch.arange(s, device=dev)[None, :]
     hidden = embed(params, cfg, input_ids, position_ids)
@@ -269,7 +368,15 @@ def gpt_forward_with_cache(
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         kt_new = k.permute(0, 2, 3, 1).reshape(e, dk, s)
         v_new = v.transpose(1, 2).reshape(e, s, dk)
-        if cache.quantized:
+        if q4:
+            k4q, ks = quant.quantize_activations_int4(kt_new, axis=1)
+            v4q, vs = quant.quantize_activations_int4(v_new, axis=2)
+            store = store4_step if s == 1 else store4_prefill
+            store(cache.k[li], k4q, offset, axis=2)
+            store(cache.v[li], v4q, offset, axis=1)
+            store_pair_scale(cache.k_scale[li], ks[:, 0, :], offset)
+            store_pair_scale(cache.v_scale[li], vs[..., 0], offset)
+        elif cache.quantized:
             k8, ks = quant.quantize_activations_int8(kt_new, axis=1)
             v8, vs = quant.quantize_activations_int8(v_new, axis=2)
             cache.k[li, :, :, offset:new_len] = k8
@@ -279,14 +386,19 @@ def gpt_forward_with_cache(
         else:
             cache.k[li, :, :, offset:new_len] = kt_new
             cache.v[li, :, offset:new_len] = v_new
-        kt_c, v_c = cache.k[li, :, :, :W], cache.v[li, :, :W]
-        k_sc = cache.k_scale[li, :, :W] if cache.quantized else None
-        v_sc = cache.v_scale[li, :, :W] if cache.quantized else None
+        if q4:
+            kt_c, v_c = cache.k[li, :, :, :W2], cache.v[li, :, :W2]
+            k_sc, v_sc = cache.k_scale[li, ..., :W2], cache.v_scale[li, ..., :W2]
+        else:
+            kt_c, v_c = cache.k[li, :, :, :W], cache.v[li, :, :W]
+            k_sc = cache.k_scale[li, :, :W] if cache.quantized else None
+            v_sc = cache.v_scale[li, :, :W] if cache.quantized else None
         if s == 1:
             q_flat = (q[:, 0].float() * scale).to(q.dtype).reshape(e, dk)
-            ctx = decode_attention(q_flat, kt_c, k_sc, v_c, v_sc, new_len)
+            decode = decode_attention_int4 if q4 else decode_attention
+            ctx = decode(q_flat, kt_c, k_sc, v_c, v_sc, new_len)
             ctx = ctx.reshape(b, 1, h, dk)
-        elif s <= FLAT_MULTI_MAX:
+        elif s <= FLAT_MULTI_MAX and not q4:
             qf = (q.float() * scale).to(q.dtype)
             q_flat = qf.transpose(1, 2).reshape(e, s, dk)
             ctx = decode_attention_flat_multi(q_flat, kt_c, k_sc, v_c, v_sc,
@@ -295,13 +407,17 @@ def gpt_forward_with_cache(
         else:
             # prefill: attend over the cache prefix (keys already quantized
             # for INT8 caches); one relayout per prefill, never per step
-            if cache.quantized:
+            if q4:
+                kd = dequantize_pairs(kt_c, k_sc, 2, q.dtype)
+                vd = dequantize_pairs(v_c, v_sc, 1, q.dtype)
+            elif cache.quantized:
                 kd = (kt_c.float() * k_sc[:, None, :]).to(q.dtype)
                 vd = (v_c.float() * v_sc[..., None]).to(q.dtype)
             else:
                 kd, vd = kt_c.to(q.dtype), v_c.to(q.dtype)
-            kd = kd.reshape(b, h, dk, W).permute(0, 3, 1, 2).contiguous()
-            vd = vd.reshape(b, h, W, dk).transpose(1, 2)
+            Wd = vd.shape[1]
+            kd = kd.reshape(b, h, dk, Wd).permute(0, 3, 1, 2).contiguous()
+            vd = vd.reshape(b, h, Wd, dk).transpose(1, 2)
             lens = torch.full((b,), new_len, dtype=torch.int32, device=dev)
             ctx = mha(q, kd, vd, causal=True, softmax_scale=scale,
                       seq_lengths=lens, q_offset=offset)

@@ -72,6 +72,13 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "backpacks_flash_attn_tpu/ops/flash_attention.py:794"),
     Kernel("fused_contextualization_bwd", "fused_contextualization_bwd.cu",
            "backpacks_flash_attn_tpu/ops/backpack_kernels.py:345"),
+    # K8: one source, built twice so that each key format counts its own
+    # launches (int4 keys: the GPT layers; split int8 keys: the Backpack
+    # combine over the mixed cache)
+    Kernel("lowbit_decode_int4", "lowbit_decode_attention.cu",
+           "backpacks_flash_attn_tpu/ops/decode_attention.py:667"),
+    Kernel("lowbit_decode_mixed", "lowbit_decode_attention.cu",
+           "backpacks_flash_attn_tpu/ops/decode_attention.py:808"),
 )}
 
 

@@ -1,9 +1,12 @@
-"""Single-query decode attention over (possibly INT8) caches (kernel K1).
+"""Single-query decode attention over INT8 caches (kernel K1) and over the
+low-bit int4 and mixed caches (kernel K8).
 
 Port of ``backpacks_flash_attn_tpu/ops/decode_attention.py``: the contract
 of ``decode_attention_fused`` (:77), ``decode_attention_ref`` (:117) and
 ``decode_attention_flat`` (:134), plus ``decode_attention_flat_multi``
-(:1065) in plain PyTorch. Shapes (E = batch * heads, one problem per row):
+(:1065) in plain PyTorch; the low-bit section below ports the int4 and
+mixed forms (:520-1062). K1's shapes (E = batch * heads, one problem per
+row):
 
   q:  (E, dk)        bf16/f32, pre-scaled by the softmax scale
   kt: (E, dk, S)     int8/bf16/f32 — the key cache stored TRANSPOSED
@@ -25,10 +28,12 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, quant
 
 NEG = -1e30
 _K1 = _build.KERNELS["decode_attention"]
+_K8 = {False: _build.KERNELS["lowbit_decode_int4"],
+       True: _build.KERNELS["lowbit_decode_mixed"]}
 _KV_DTYPES = {torch.bfloat16: (torch.int8, torch.bfloat16),
               torch.float32: (torch.int8, torch.float32)}
 
@@ -109,6 +114,141 @@ def decode_attention(q: torch.Tensor, kt: torch.Tensor,
         vs.stride(0) if vs is not None else 0,
         code[q.dtype], code[kt.dtype])
     return out
+
+
+# ---------------------------------------------------------------- low-bit (K8)
+#
+# Caches with int4 pair-packed values (ops/quant.py pair packing): packed
+# column j holds positions 2j and 2j+1; scales (E, 2, S/2) carry the parity
+# on the middle axis. Keys are pair-packed too (``*_int4``) or int8 in the
+# even/odd split layout (E, dk, 2, S/2) (``*_mixed``, the Backpack's
+# contextualization keys). The even and odd halves are scored apart and
+# softmaxed together, so a window of w positions is the first ceil(w/2)
+# packed columns.
+
+def _lowbit_ref(q, k_lo, k_hi, ks2, v4, vs2, length):
+    cdt = _compute_dtype(q)
+    E, S2 = q.shape[0], v4.shape[1]
+    lengths = _row_lengths(length, E, q.device)
+    qc = q.to(cdt)
+    s_e = torch.einsum("ed,eds->es", qc, k_lo.to(cdt)).float() * ks2[:, 0]
+    s_o = torch.einsum("ed,eds->es", qc, k_hi.to(cdt)).float() * ks2[:, 1]
+    j = torch.arange(S2, device=q.device)[None, :]
+    s_e = torch.where(2 * j < lengths[:, None], s_e, NEG)
+    s_o = torch.where(2 * j + 1 < lengths[:, None], s_o, NEG)
+    p = torch.softmax(torch.cat([s_e, s_o], dim=1), dim=-1)
+    p_e = p[:, :S2] * vs2[:, 0]
+    p_o = p[:, S2:] * vs2[:, 1]
+    v_lo, v_hi = quant.unpack_int4_pairs_split(v4)
+    out = (torch.einsum("es,esd->ed", p_e.to(cdt), v_lo.to(cdt)).float()
+           + torch.einsum("es,esd->ed", p_o.to(cdt), v_hi.to(cdt)).float())
+    return out.to(q.dtype)
+
+
+def decode_attention_flat_int4(q, kt4, ks2, v4, vs2, length):
+    """Plain version of K8 over int4 caches (JAX :532): q (E, dk)
+    pre-scaled; kt4 (E, dk, S/2) and v4 (E, S/2, dv) pair-packed; ks2, vs2
+    (E, 2, S/2) f32. Returns (E, dv) in q's dtype."""
+    k_lo, k_hi = quant.unpack_int4_pairs_split(kt4)
+    return _lowbit_ref(q, k_lo, k_hi, ks2, v4, vs2, length)
+
+
+def decode_attention_flat_mixed(q, k8, ks2, v4, vs2, length):
+    """Plain version of K8 over the mixed cache (JAX :763): k8
+    (E, dk, 2, S/2) int8 in the even/odd split layout, the rest as in
+    :func:`decode_attention_flat_int4`."""
+    return _lowbit_ref(q, k8[:, :, 0], k8[:, :, 1], ks2, v4, vs2, length)
+
+
+def _lowbit_kernel(q, keys, ks2, v4, vs2, length, split_keys: bool):
+    e, dk = q.shape
+    _build.check_cuda_tensor("q", q, _KV_DTYPES.keys(), 2)
+    _build.check_cuda_tensor("keys", keys, (torch.int8,), 4 if split_keys else 3)
+    _build.check_cuda_tensor("v4", v4, (torch.int8,), 3)
+    s2, dv = v4.shape[1], v4.shape[2]
+    kshape = (e, dk, 2, s2) if split_keys else (e, dk, s2)
+    if keys.shape != kshape or v4.shape[0] != e:
+        raise ValueError(f"shapes q {tuple(q.shape)} keys {tuple(keys.shape)} "
+                         f"v4 {tuple(v4.shape)} disagree")
+    for name, sc in (("ks2", ks2), ("vs2", vs2)):
+        _build.check_cuda_tensor(name, sc, (torch.float32,), 3)
+        if sc.shape != (e, 2, s2):
+            raise ValueError(f"{name} shape {tuple(sc.shape)} != {(e, 2, s2)}")
+    if dk > 256 or dv % 16 or dv > 1024 or s2 > 4096:
+        raise ValueError(f"lowbit_decode_attention kernel takes dk <= 256, "
+                         f"dv % 16 == 0 and dv <= 1024, S/2 <= 4096; got "
+                         f"dk={dk} dv={dv} S/2={s2}")
+    if v4.data_ptr() % 16 or v4.stride(0) % 16 or v4.stride(1) % 16:
+        raise ValueError("lowbit_decode_attention kernel needs 16-byte aligned "
+                         "value rows")
+    lens_ptr, scalar_len = _build.Ptr.of(None), 0
+    if isinstance(length, int):
+        scalar_len = length
+    else:
+        lens = torch.as_tensor(length, device=q.device).to(torch.int32)
+        lens = lens.reshape(-1).expand(e).contiguous()
+        lens_ptr = _build.Ptr.of(lens)
+    out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
+    if e:
+        P = _build.Ptr.of
+        _build.launch(
+            _K8[split_keys], "lowbit_decode_attention_launch", P(q), P(keys), P(ks2), P(v4),
+            P(vs2), lens_ptr, P(out), e, dk, s2, dv, scalar_len, q.stride(0),
+            keys.stride(0), keys.stride(1), keys.stride(2) if split_keys else 0,
+            ks2.stride(0), ks2.stride(1), v4.stride(0), v4.stride(1),
+            vs2.stride(0), vs2.stride(1), _build.DTYPE_CODE[q.dtype],
+            int(split_keys))
+    return out
+
+
+def decode_attention_int4(q, kt4, ks2, v4, vs2, length):
+    """Single-step attention over int4 caches (K8, ``csrc/lowbit_decode_
+    attention.cu``; the contract of JAX's dispatcher :745). CPU tensors,
+    and every call inside ``_build.plain_path()``, take
+    :func:`decode_attention_flat_int4`; otherwise a CUDA tensor launches
+    the kernel or raises. Operands may be strided views (a layer of a
+    stacked cache, a window slice): the kernel reads them in place."""
+    if not q.is_cuda or not _build.kernels_enabled():
+        return decode_attention_flat_int4(q, kt4, ks2, v4, vs2, length)
+    return _lowbit_kernel(q, kt4, ks2, v4, vs2, length, split_keys=False)
+
+
+def decode_attention_mixed(q, k8, ks2, v4, vs2, length):
+    """Single-step attention over the mixed cache (K8 with split int8
+    keys; JAX :859). Dispatch as in :func:`decode_attention_int4`."""
+    if not q.is_cuda or not _build.kernels_enabled():
+        return decode_attention_flat_mixed(q, k8, ks2, v4, vs2, length)
+    return _lowbit_kernel(q, k8, ks2, v4, vs2, length, split_keys=True)
+
+
+def _layer_window(layer, window_cols, k_all, ks_all, v_all, vs_all):
+    k, ks, v, vs = k_all[layer], ks_all[layer], v_all[layer], vs_all[layer]
+    if window_cols is not None and window_cols < v.shape[1]:
+        w = window_cols
+        k, ks, v, vs = k[..., :w], ks[..., :w], v[:, :w], vs[..., :w]
+    return k, ks, v, vs
+
+
+def decode_attention_int4_stacked(layer, q, k_all, ks_all, v_all, vs_all,
+                                  length, *, window_cols=None):
+    """Single-step int4 attention over layer ``layer`` of stacked caches
+    (JAX :1010): k_all (L, E, dk, S/2), ks_all/vs_all (L, E, 2, S/2),
+    v_all (L, E, S/2, dv); window_cols reads only the first window_cols
+    packed columns. The layer and the window are views, never copies.
+    Returns ``out`` alone: JAX's entry also returns the cache buffers it
+    donates through the kernel, which PyTorch, writing in place, needs not."""
+    return decode_attention_int4(
+        q, *_layer_window(layer, window_cols, k_all, ks_all, v_all, vs_all),
+        length)
+
+
+def decode_attention_mixed_stacked(layer, q, k_all, ks_all, v_all, vs_all,
+                                   length, *, window_cols=None):
+    """Mixed variant of :func:`decode_attention_int4_stacked` (JAX :1042):
+    k_all (L, E, dk, 2, S/2) split int8 keys."""
+    return decode_attention_mixed(
+        q, *_layer_window(layer, window_cols, k_all, ks_all, v_all, vs_all),
+        length)
 
 
 def decode_attention_flat_multi(q, kt, ks, v, vs, length):

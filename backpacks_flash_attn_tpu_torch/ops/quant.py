@@ -15,6 +15,10 @@ On the card every ``QuantWeight`` goes through :func:`quant_matmul` (K2,
 ``csrc/quant_matmul.cu``), INT8 per-channel included: PyTorch has no
 int8-weight x bf16-activation product, and dequantizing first would write a
 bf16 copy of every weight to device memory each call.
+
+The activation quantizers and the int4 pair packing of the low-bit decode
+caches (``quantize_activations_int4``, ``pack_int4_pairs``, ``rmw_nibble``
+...) keep the JAX package's byte convention bit for bit.
 """
 
 from __future__ import annotations
@@ -203,4 +207,78 @@ def quantize_activations_int8(x: torch.Tensor, axis: int = -1):
     scale = torch.clamp_min(absmax / 127.0, 1e-10)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def quantize_activations_int4(x: torch.Tensor, axis: int = -1):
+    """Dynamic per-row INT4 quantization (the int4 caches): q int8 nibble
+    values in [-7, 7], not yet packed (pair packing along the position axis
+    is the cache layout), and scale with the reduced axis kept."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp_min(absmax / 7.0, 1e-10)
+    q = torch.clamp(torch.round(xf / scale), -7, 7).to(torch.int8)
+    return q, scale
+
+
+# ------------------------------------------------------- int4 pair packing
+#
+# The decode caches' convention: packed column j holds position 2j in the
+# LOW nibble and 2j+1 in the HIGH nibble. Readers never interleave: the
+# decode attention scores the even and odd halves separately and softmaxes
+# them jointly, so a window of w positions is the first ceil(w/2) columns.
+# Scales ride as (..., 2, S/2): parity on the second-to-last axis.
+
+def _every_other(q: torch.Tensor, axis: int, start: int) -> torch.Tensor:
+    idx = [slice(None)] * q.dim()
+    idx[axis] = slice(start, None, 2)
+    return q[tuple(idx)]
+
+
+def pack_int4_pairs(q: torch.Tensor, axis: int) -> torch.Tensor:
+    """Pack nibble values in [-8, 7] pairwise along ``axis`` (even length):
+    out[.., j, ..] = (q[.., 2j+1, ..] << 4) | (q[.., 2j, ..] & 0xF)."""
+    if q.shape[axis] % 2:
+        raise ValueError(f"axis {axis} of {tuple(q.shape)} has odd length")
+    lo = _every_other(q, axis, 0).to(torch.int32) & 0xF
+    hi = (_every_other(q, axis, 1).to(torch.int32) & 0xF) << 4
+    return _to_int8_bytes(lo | hi)
+
+
+def unpack_int4_pairs_split(p4: torch.Tensor):
+    """(lo, hi) sign-extended nibble values, not interleaved: the even and
+    odd position halves the decode attention reads."""
+    u = p4.to(torch.int32) & 0xFF
+    lo = _sign_extend4(u & 0xF)
+    hi = _sign_extend4(u >> 4)
+    return lo.to(torch.int8), hi.to(torch.int8)
+
+
+def unpack_int4_pairs(p4: torch.Tensor, axis: int) -> torch.Tensor:
+    """Interleaved unpack along ``axis`` (the prefill's dequantization):
+    the inverse of :func:`pack_int4_pairs`."""
+    axis = axis % p4.dim()
+    lo, hi = unpack_int4_pairs_split(p4)
+    shape = list(p4.shape)
+    shape[axis] *= 2
+    return torch.stack([lo, hi], dim=axis + 1).reshape(shape)
+
+
+def interleave_pair_scales(sc2: torch.Tensor) -> torch.Tensor:
+    """(..., 2, n) per-(parity, packed column) scales -> (..., 2n)
+    per-position scales."""
+    if sc2.shape[-2] != 2:
+        raise ValueError(f"expected a parity axis of 2, got {tuple(sc2.shape)}")
+    return sc2.transpose(-1, -2).reshape(*sc2.shape[:-2], 2 * sc2.shape[-1])
+
+
+def rmw_nibble(old: torch.Tensor, nib: torch.Tensor, parity) -> torch.Tensor:
+    """Replace one nibble of packed bytes: parity 0 -> low, 1 -> high
+    (``parity`` an int or a tensor broadcasting against ``old``). A decode
+    step's write is this read-modify-write of one packed column."""
+    o = old.to(torch.int32)
+    n = nib.to(torch.int32) & 0xF
+    even = (o & -16) | n            # -16 == ~0xF
+    odd = (o & 0xF) | (n << 4)
+    par = torch.as_tensor(parity, device=old.device)
+    return _to_int8_bytes(torch.where(par == 0, even, odd) & 0xFF)
 

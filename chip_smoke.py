@@ -11,14 +11,24 @@ Phases, each printing one JSON line:
             version: the kernel's max error against an f32 plain reference
             must be at most twice the bf16 plain version's. Times (CUDA
             events, median of 25, L2 flushed before each), the bound, and one
-            PyTorch library call computing the same function.
+            PyTorch library call computing the same function. K8 (int4
+            and mixed) against its plain version at the GPT decode and
+            Backpack combine shapes, library = SDPA over the dequantized
+            cache.
 4. serve    backpack-small at full width, random weights from a seeded
             generator, 128 requests with 32-token prompts: batched prefill,
             then 224 greedy tokens (window 128 below position 128, 256
-            after), in bf16 (bf16 caches) and in INT8 (INT8 weights and
-            caches). Tokens/s, launch counts (reset just before, read just
-            after each run), and the first 8 teacher-forced steps of the
-            kernel path against the plain path under the same 2x rule.
+            after), in bf16 (bf16 caches), in INT8 (INT8 weights and
+            caches), and with INT8 weights over the low-bit caches: kv4
+            (INT8 ctx-K and senses, int4 GPT KV) and int4 (the mixed
+            ctx-K/sense cache, int4 GPT KV). Tokens/s, launch counts (reset
+            just before, read just after each run; per decode step the
+            low-bit runs must launch K8 over the int4 KV once per layer and
+            the combine once, K8 over the mixed cache or K1), and the first
+            8 teacher-forced steps of the kernel path against the plain
+            path in the same cache configuration under the same 2x rule.
+            Device time by kernel from torch.profiler over all 224 steps
+            (bf16, INT8) or the first 32 (kv4, int4).
 5. forward  backpack_forward at (8, 512) in bf16 through K3 and K4, logits
             against the plain path under the 2x rule.
 6. train    backpack-small at full width and depth, bf16 weights from the
@@ -189,6 +199,51 @@ def kernel_cases(gen):
                     q[None, :, None, :], lk, lv, attn_mask=m, scale=1.0)[0, :, 0],
                 bytes=nbytes, flops=2 * n * (dk + dv))))
 
+    # K8: int4 at the GPT decode shape (E = 128*12, dk = dv = 64; a 512
+    # cache read under the 256 window, a strided slice of 128 of its 256
+    # packed columns) and mixed at the Backpack shape (E = 128*16, split
+    # int8 keys dk 64, dv 768, S 512); random per-row lengths, the first odd
+    for kind, label, E, dv, S, W in (("int4", "gpt", 128 * 12, 64, 512, 256),
+                                     ("mixed", "backpack", 128 * 16, 768, 512, 512)):
+        dk, S2, W2 = 64, S // 2, W // 2
+        lens = torch.randint(1, W + 1, (E,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        lens[0] = W - 1
+        q = (randn(E, dk) * 0.125).to(bf)
+        kshape = (E, dk, 2, S2) if kind == "mixed" else (E, dk, S2)
+        keys = torch.randint(-127, 128, kshape, generator=gen, device=dev,
+                             dtype=torch.int8)[..., :W2]
+        v = torch.randint(-128, 128, (E, S2, dv), generator=gen, device=dev,
+                          dtype=torch.int8)[:, :W2]
+        ks = (torch.rand(E, 2, S2, generator=gen, device=dev)
+              * (0.05 / 16 if kind == "mixed" else 0.05))[..., :W2]
+        vs = (torch.rand(E, 2, S2, generator=gen, device=dev) * 0.05)[..., :W2]
+        fn = da.decode_attention_mixed if kind == "mixed" else da.decode_attention_int4
+        flat = (da.decode_attention_flat_mixed if kind == "mixed"
+                else da.decode_attention_flat_int4)
+        args = (q, keys, ks, v, vs, lens)
+        ref_args = (q.float(), keys, ks, v, vs, lens)
+        # the library yardstick: SDPA over the dequantized, interleaved cache
+        if kind == "mixed":
+            kq = keys.transpose(2, 3).reshape(E, dk, W)
+        else:
+            kq = quant.unpack_int4_pairs(keys, 2)
+        kd = kq.float() * quant.interleave_pair_scales(ks)[:, None, :]
+        vd = quant.unpack_int4_pairs(v, 1).float() * quant.interleave_pair_scales(vs)[..., None]
+        lk, lv = kd.transpose(1, 2).to(bf)[None], vd.to(bf)[None]
+        mask = (torch.arange(W, device=dev)[None, :] < lens[:, None])[None, :, None, :]
+        n = lens.sum().item()
+        cols = ((lens + 1) // 2).sum().item()
+        kbytes = dk * (2 if kind == "mixed" else 1)
+        nbytes = (q.numel() * 2 + cols * (kbytes + dv + 16) + E * dv * 2 + E * 4)
+        cases.append((f"lowbit_decode_{kind}", f"{label}-{kind} E={E} S={S} window={W} dv={dv}", dict(
+            kernel=lambda a=args, fn=fn: fn(*a),
+            plain=lambda a=args, fn=flat: fn(*a),
+            ref=lambda a=ref_args, fn=flat: fn(*a),
+            library=lambda q=q, lk=lk, lv=lv, m=mask: F.scaled_dot_product_attention(
+                q[None, :, None, :], lk, lv, attn_mask=m, scale=1.0)[0, :, 0],
+            bytes=nbytes, flops=2 * n * (dk + dv))))
+
     # K2: (128 and 4096) x 768 @ 768 x {2304, 768, 3072, 50304} int8, the
     # fc2 3072 x 768, and one grouped INT4 case
     shapes = [(768, n, 8, None) for n in (2304, 768, 3072, 50264)] + [(3072, 768, 8, None)]
@@ -337,6 +392,10 @@ def train_kernel_cases(gen):
         bytes=2 * (2 * cq.numel() + c.numel() + b * s * dd),
         flops=2 * cpairs * (dnv + dd))))
 
+    # each backward takes the LSE of its own path's forward, as in training
+    # (K4's for K6): the plain bf16 combine rounds its scores to bf16, so its
+    # LSE lies ~1e-2 off the f32 scores K6 recomputes, and alpha with it
+    _, klse = bk._fwd_kernel(cq, ck, c, cscale)
     _, clse = bk.contextualization_reference(cq, ck, c, cscale, return_lse=True)
     _, clse32 = bk.contextualization_reference(cq.float(), ck.float(), c.float(),
                                                cscale, return_lse=True)
@@ -347,7 +406,7 @@ def train_kernel_cases(gen):
                                               scale=cscale).sum(dim=1)
     cases.append(("fused_contextualization_bwd",
                   f"train b={b} s={s} nv={nv} dnv={dnv} d={dd}", dict(
-        kernel=lambda: bk.fused_ctx_bwd(cq, ck, c, clse, g, cscale),
+        kernel=lambda: bk.fused_ctx_bwd(cq, ck, c, klse, g, cscale),
         plain=lambda: bk.fused_ctx_bwd_ref(cq, ck, c, clse, g, cscale),
         ref=lambda: bk.fused_ctx_bwd_ref(cq.float(), ck.float(), c.float(),
                                          clse32, g.float(), cscale),
@@ -371,6 +430,8 @@ HEADLINE = {
     "fused_contextualization": "b=8",
     "flash_attention_bwd": "train",
     "fused_contextualization_bwd": "train",
+    "lowbit_decode_int4": "gpt-int4",
+    "lowbit_decode_mixed": "backpack-mixed",
 }
 # the run whose launch counts stand for each kernel in that line
 LAUNCH_RUN = {
@@ -380,6 +441,8 @@ LAUNCH_RUN = {
     "fused_contextualization": "forward",
     "flash_attention_bwd": "train_einsum",
     "fused_contextualization_bwd": "train_fused",
+    "lowbit_decode_int4": "serve_int4",
+    "lowbit_decode_mixed": "serve_int4",
 }
 
 
@@ -407,8 +470,22 @@ def phase_kernels(cases, results):
 
 BATCH, PROMPT, MAX_LEN = 128, 32, 512
 SEGMENTS = [(128 - PROMPT, 128), (128, 256)]      # 224 greedy tokens
+SHORT_PROFILE = [(32, 128)]       # the stretch the low-bit runs profile
 COMPARE_STEPS = 8
 FWD_BATCH, FWD_LEN = 8, 512
+# the serve runs' cache configurations (init_backpack_cache keywords)
+CACHES = {
+    "bf16": dict(dtype=torch.bfloat16),
+    "f32": dict(dtype=torch.float32),
+    "int8": dict(dtype=torch.int8),
+    "kv4": dict(dtype=torch.int8, bits=8, kv_bits=4),    # INT8 ctx-K/senses, int4 GPT KV
+    "int4": dict(dtype=torch.int8, bits=4),              # mixed ctx-K/senses, int4 GPT KV
+}
+
+
+def new_cache(cfg, cache):
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    return bp.init_backpack_cache(cfg, BATCH, MAX_LEN, **CACHES[cache])
 
 
 def decode(model_params, cfg, cache, token, segments, record=None):
@@ -426,69 +503,71 @@ def decode(model_params, cfg, cache, token, segments, record=None):
 SERVE_PASSES = 3
 
 
-def serve_once(params, cfg, cache_dtype, prompt, tokens=None):
-    """One prefill + 224 greedy tokens on a fresh cache: (prefill s,
-    decode s); the generated tokens are appended to `tokens`."""
+def serve_once(params, cfg, cache, prompt, tokens=None, segments=SEGMENTS):
+    """One prefill + the greedy tokens of `segments` on a fresh cache:
+    (prefill s, decode s, the launch counts read right after the prefill);
+    the generated tokens are appended to `tokens`."""
     from backpacks_flash_attn_tpu_torch.models import backpack as bp
-    cache = bp.init_backpack_cache(cfg, BATCH, MAX_LEN, cache_dtype)
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    kv = new_cache(cfg, cache)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = bp.backpack_forward_with_cache(params, cfg, prompt, cache)
+    logits, kv = bp.backpack_forward_with_cache(params, cfg, prompt, kv)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    counts = _build.launch_counts()
     first = logits[:, -1].argmax(-1)[:, None]
     if tokens is not None:
         tokens.append(first)
-    decode(params, cfg, cache, first, SEGMENTS, tokens)
+    decode(params, cfg, kv, first, segments, tokens)
     torch.cuda.synchronize()
-    return t1 - t0, time.perf_counter() - t1
+    return t1 - t0, time.perf_counter() - t1, counts
 
 
-def serve_run(label, params, cfg, cache_dtype, prompt):
+def serve_run(label, params, cfg, cache, prompt):
     """The main path, SERVE_PASSES times after a warm-up: returns the run's
     record (median prefill/decode times, tokens/s, the launch counts of
-    the first pass alone) and the first pass's tokens."""
-    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    the first pass alone, of its prefill and per decode step) and the
+    first pass's tokens."""
     from backpacks_flash_attn_tpu_torch.ops import _build
 
     # warm-up on a throwaway cache (allocator, cuBLAS heuristics)
-    cache = bp.init_backpack_cache(cfg, BATCH, MAX_LEN, cache_dtype)
-    logits, cache = bp.backpack_forward_with_cache(params, cfg, prompt, cache)
-    decode(params, cfg, cache, logits[:, -1].argmax(-1)[:, None], [(4, 128)])
-    del cache
+    serve_once(params, cfg, cache, prompt, segments=[(4, 128)])
 
     tokens = []
     _build.reset_launches()
-    times = [serve_once(params, cfg, cache_dtype, prompt, tokens)]
+    first = serve_once(params, cfg, cache, prompt, tokens)
     counts = _build.launch_counts()
-    times += [serve_once(params, cfg, cache_dtype, prompt)
-              for _ in range(SERVE_PASSES - 1)]
-    n_tokens = BATCH * sum(n for n, _ in SEGMENTS)
+    times = [first[:2]] + [serve_once(params, cfg, cache, prompt)[:2]
+                           for _ in range(SERVE_PASSES - 1)]
+    steps = sum(n for n, _ in SEGMENTS)
+    n_tokens = BATCH * steps
     decode_s = statistics.median(t for _, t in times)
-    out = dict(phase="serve", run=label,
+    out = dict(phase="serve", run=label, cache=label,
                prefill_s=statistics.median(p for p, _ in times),
                decode_s=decode_s, decode_s_passes=[t for _, t in times],
                decode_tokens=n_tokens, tokens_per_s=n_tokens / decode_s,
-               launches=counts)
+               launches=counts, launches_prefill=first[2],
+               launches_per_decode_step={k: (counts[k] - first[2][k]) / steps
+                                         for k in counts})
     emit(out)
     return out, torch.cat(tokens, dim=1)
 
 
-def profile_decode(params, cfg, cache_dtype, prompt):
-    """Device time by kernel over the same decode the serve run times (a
-    fresh prefill, then every step of SEGMENTS), with torch.profiler
-    (kernel events only)."""
+def profile_decode(params, cfg, cache, prompt, segments):
+    """Device time by kernel over the decode steps of `segments` after a
+    fresh prefill, with torch.profiler (kernel events only)."""
     from torch.profiler import ProfilerActivity, profile
 
     from backpacks_flash_attn_tpu_torch.models import backpack as bp
-    steps = sum(n for n, _ in SEGMENTS)
-    cache = bp.init_backpack_cache(cfg, BATCH, MAX_LEN, cache_dtype)
-    logits, cache = bp.backpack_forward_with_cache(params, cfg, prompt, cache)
+    steps = sum(n for n, _ in segments)
+    kv = new_cache(cfg, cache)
+    logits, kv = bp.backpack_forward_with_cache(params, cfg, prompt, kv)
     token = logits[:, -1].argmax(-1)[:, None]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode(params, cfg, cache, token, SEGMENTS)
+        decode(params, cfg, kv, token, segments)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -499,8 +578,8 @@ def profile_decode(params, cfg, cache_dtype, prompt):
         if us > 0:
             rows.append((us, ev.key, ev.count))
     rows.sort(reverse=True)
-    del cache
-    return dict(steps=steps,
+    del kv
+    return dict(steps=steps, segments=segments,
                 wall_ms_per_step_profiled=wall * 1e3 / steps,
                 device_ms_per_step=sum(us for us, _, _ in rows) / 1e3 / steps,
                 top=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
@@ -508,17 +587,14 @@ def profile_decode(params, cfg, cache_dtype, prompt):
                      for us, k, c in rows[:12]])
 
 
-def teacher_forced(params, ref_params, cfg, cache_dtype, ref_dtype, prompt, gen_tokens):
+def teacher_forced(params, ref_params, cfg, cache, ref_cache, prompt, gen_tokens):
     """Logits of the first COMPARE_STEPS decode steps (and the prefill) on
     the same tokens: kernel path, plain path, f32 plain reference."""
     from backpacks_flash_attn_tpu_torch.models import backpack as bp
     from backpacks_flash_attn_tpu_torch.ops import _build
 
-    caches = {
-        "kernel": bp.init_backpack_cache(cfg, BATCH, MAX_LEN, cache_dtype),
-        "plain": bp.init_backpack_cache(cfg, BATCH, MAX_LEN, cache_dtype),
-        "ref": bp.init_backpack_cache(cfg, BATCH, MAX_LEN, ref_dtype),
-    }
+    caches = {"kernel": new_cache(cfg, cache), "plain": new_cache(cfg, cache),
+              "ref": new_cache(cfg, ref_cache)}
     errs = {"kernel": 0.0, "plain": 0.0, "kernel_vs_plain": 0.0}
     chunks = [(prompt, None)] + [(gen_tokens[:, i:i + 1], 128)
                                  for i in range(COMPARE_STEPS)]
@@ -544,6 +620,23 @@ def teacher_forced(params, ref_params, cfg, cache_dtype, ref_dtype, prompt, gen_
     return errs
 
 
+def _check_lowbit_launches(run, cfg):
+    """Per decode step: K8 over the int4 GPT KV once per layer in both
+    low-bit runs; the Backpack combine by K8 over the mixed cache (int4)
+    or by K1 over the INT8 ctx-K/senses (kv4); K3 once per layer in the
+    prefill."""
+    per_step, prefill = run["launches_per_decode_step"], run["launches_prefill"]
+    mixed = run["cache"] == "int4"
+    want = {"lowbit_decode_int4": cfg.n_layer, "lowbit_decode_mixed": int(mixed),
+            "decode_attention": int(not mixed)}
+    for name, n in want.items():
+        if per_step[name] != n:
+            raise AssertionError(f"serve {run['run']}: {name} launched "
+                                 f"{per_step[name]} times a decode step, want {n}")
+    if per_step["quant_matmul"] <= 0 or prefill["flash_attention"] != cfg.n_layer:
+        raise AssertionError(f"serve {run['run']}: launches {run['launches']}")
+
+
 def phase_serve(gen, results):
     from backpacks_flash_attn_tpu_torch.config import backpack_small
     from backpacks_flash_attn_tpu_torch.models import backpack as bp
@@ -555,15 +648,11 @@ def phase_serve(gen, results):
                            device=DEV)
 
     log("serve: bf16")
-    run, gen_tokens = serve_run("bf16", params, cfg, torch.bfloat16, prompt)
+    run, gen_tokens = serve_run("bf16", params, cfg, "bf16", prompt)
     params32 = _map_tensors(params, lambda t: t.float())
-    errs = teacher_forced(params, params32, cfg, torch.bfloat16, torch.float32,
-                          prompt, gen_tokens)
+    _teacher_forced_gate(run, params, params32, cfg, "f32", prompt, gen_tokens)
     del params32
-    run["teacher_forced_max_abs_err"] = errs["kernel"]
-    run["teacher_forced_plain_bf16_err"] = errs["plain"]
-    emit({"phase": "serve", "run": "bf16", "teacher_forced": errs})
-    _add_profile(run, params, cfg, torch.bfloat16, prompt)
+    _add_profile(run, params, cfg, prompt)
     results["serve_bf16"] = run
 
     log("serve: int8 (quantizing)")
@@ -573,27 +662,50 @@ def phase_serve(gen, results):
                                       act_dtype=torch.float32)
     del params
     torch.cuda.empty_cache()
-    run, gen_tokens = serve_run("int8", qparams, cfg, torch.int8, prompt)
+    run, gen_tokens = serve_run("int8", qparams, cfg, "int8", prompt)
     counts = run["launches"]
     for name in ("decode_attention", "quant_matmul", "flash_attention"):
         if counts[name] <= 0:
             raise AssertionError(f"INT8 serve run launched {name} no time")
-    errs = teacher_forced(qparams, q32, cfg, torch.int8, torch.int8, prompt, gen_tokens)
-    run["teacher_forced_max_abs_err"] = errs["kernel"]
-    run["teacher_forced_plain_bf16_err"] = errs["plain"]
-    emit({"phase": "serve", "run": "int8", "teacher_forced": errs})
-    _add_profile(run, qparams, cfg, torch.int8, prompt)
+    _teacher_forced_gate(run, qparams, q32, cfg, "int8", prompt, gen_tokens)
+    _add_profile(run, qparams, cfg, prompt)
     results["serve_int8"] = run
+
+    # the low-bit caches under the same INT8 weights: (8, 4) INT8 senses
+    # with int4 KV, (4, None) the mixed cache with int4 KV; each profiles
+    # a short stretch of its decode
+    for label in ("kv4", "int4"):
+        log(f"serve: {label}")
+        run, gen_tokens = serve_run(label, qparams, cfg, label, prompt)
+        _check_lowbit_launches(run, cfg)
+        _teacher_forced_gate(run, qparams, q32, cfg, label, prompt, gen_tokens)
+        _add_profile(run, qparams, cfg, prompt, SHORT_PROFILE)
+        results[f"serve_{label}"] = run
     return cfg
 
 
-def _add_profile(run, params, cfg, cache_dtype, prompt):
+def _teacher_forced_gate(run, params, ref_params, cfg, ref_cache, prompt, gen_tokens):
+    errs = teacher_forced(params, ref_params, cfg, run["cache"], ref_cache, prompt,
+                          gen_tokens)
+    run["teacher_forced_max_abs_err"] = errs["kernel"]
+    run["teacher_forced_plain_bf16_err"] = errs["plain"]
+    emit({"phase": "serve", "run": run["run"], "teacher_forced": errs})
+
+
+def _add_profile(run, params, cfg, prompt, segments=SEGMENTS):
     """Idle share = 1 - device ms / wall ms per step, both over the same
-    segments: against the unprofiled timed run (the headline) and against
-    the profiled run itself (which carries the profiler's host overhead).
-    No clamp: a negative share would expose an inconsistent reading."""
-    prof = profile_decode(params, cfg, cache_dtype, prompt)
-    step_ms = run["decode_s"] * 1e3 / sum(n for n, _ in SEGMENTS)
+    steps: against unprofiled wall time (for SEGMENTS the timed passes'
+    median, the headline; for a shorter stretch one unprofiled decode of
+    it) and against the profiled run itself (which carries the profiler's
+    host overhead). No clamp: a negative share would expose an
+    inconsistent reading."""
+    prof = profile_decode(params, cfg, run["cache"], prompt, segments)
+    steps = sum(n for n, _ in segments)
+    if segments == SEGMENTS:
+        step_ms = run["decode_s"] * 1e3 / steps
+    else:
+        step_ms = serve_once(params, cfg, run["cache"], prompt,
+                             segments=segments)[1] * 1e3 / steps
     prof["wall_ms_per_step"] = step_ms
     prof["device_idle_share"] = 1 - prof["device_ms_per_step"] / step_ms
     prof["device_idle_share_profiled"] = (

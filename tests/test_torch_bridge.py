@@ -28,7 +28,7 @@ from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as tbk
 from backpacks_flash_attn_tpu_torch.ops import decode_attention as tda
 from backpacks_flash_attn_tpu_torch.ops import flash_attention as tfa
 from backpacks_flash_attn_tpu_torch.ops import quant as tq
-from backpacks_flash_attn_tpu_torch.eval import perplexity
+from backpacks_flash_attn_tpu_torch.eval import perplexity, quant_gates
 from backpacks_flash_attn_tpu_torch.training import train_cli
 from backpacks_flash_attn_tpu_torch.utils import generation as tgen
 from backpacks_flash_attn_tpu_torch.utils.weights import params_from_numpy
@@ -103,7 +103,9 @@ def test_params_from_numpy_round_trips_quantized_tree(jax_params):
 def test_port_imports_no_jax():
     """Statically: no import of jax or of the JAX package in the port or
     chip_smoke.py. Dynamically: with both blocked, the port imports and
-    runs a tiny CPU forward, a cached decode step and a training step."""
+    runs a tiny CPU forward, a cached decode step, a decode step over the
+    low-bit (4, None) caches, the quant-gates module and a training
+    step."""
     pattern = re.compile(r"^\s*(import|from) +(jax|backpacks_flash_attn_tpu)\b",
                          re.M)
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
@@ -122,6 +124,12 @@ logits = bp.backpack_forward(params, cfg, ids)
 cache = bp.init_backpack_cache(cfg, 2, 16, torch.float32, device="cpu")
 step, _ = bp.backpack_forward_with_cache(params, cfg, ids, cache)
 assert torch.allclose(step, logits, atol=1e-5), (step - logits).abs().max()
+from backpacks_flash_attn_tpu_torch.eval import quant_gates
+cache4 = bp.init_backpack_cache(cfg, 2, 16, torch.int8, device="cpu", bits=4)
+assert (cache4.bits, cache4.gpt.bits) == (4, 4)
+_, cache4 = bp.backpack_forward_with_cache(params, cfg, ids, cache4)
+low, cache4 = bp.backpack_forward_with_cache(params, cfg, ids[:, :1], cache4)
+assert cache4.length == 7 and torch.isfinite(low).all()
 from backpacks_flash_attn_tpu_torch.training import train, train_cli
 from backpacks_flash_attn_tpu_torch.utils import prng
 tp = train.trainable(params)
@@ -152,6 +160,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(jax_params):
         lambda: tgpt.init_gpt(cfg, gen),
         lambda: tbp.init_backpack_cache(cfg, 1, 8),
         lambda: tgpt.init_kv_cache(cfg, 1, 8),
+        lambda: tbp.init_backpack_cache(cfg, 1, 8, torch.int8, bits=4),
+        lambda: quant_gates.run_cache_gates(params, cfg,
+                                            np.zeros(64, np.uint16), 8),
         lambda: params_from_numpy(np_tree),
         lambda: tgen.generate_backpack(params, cfg, ids, 6),
         lambda: train_cli.run(train_cli.RunConfig(corpus="unused.npy")),

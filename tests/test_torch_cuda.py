@@ -229,10 +229,15 @@ def test_flash_attention_autograd_launches_k3_and_k5(gen, dt, expanded):
     (torch.bfloat16, 2, 100, 3, 48, 200),       # ragged tiles, slabs and d chunks
     (torch.bfloat16, 1, 64, 4, 48, 768),
     (torch.bfloat16, 1, 33, 2, 16, 64),
+    (torch.bfloat16, 2, 512, 16, 48, 768),      # the training shape's rows
     (torch.float32, 2, 100, 3, 48, 200),
     (torch.float32, 1, 70, 2, 44, 300),         # dnv and d off every tile size
 ])
 def test_fused_contextualization_bwd_kernel(gen, dt, b, s, nv, dnv, d):
+    """Each path's backward takes the LSE of its own forward, as in
+    training: K4's for K6. (The plain bf16 forward rounds its scores to
+    bf16; its LSE under K6's f32 scores skews alpha, which pushed K6's
+    error past twice the plain path's at the training shape.)"""
     qk = torch.randn(b, s, 2, nv, dnv, generator=gen, device="cuda")
     c = torch.randn(b, s, nv, d, generator=gen, device="cuda")
     g = torch.randn(b, s, d, generator=gen, device="cuda")
@@ -240,8 +245,11 @@ def test_fused_contextualization_bwd_kernel(gen, dt, b, s, nv, dnv, d):
 
     def grads(x, cc, gg, bwd):
         q, k = x[:, :, 0], x[:, :, 1]                        # strided views
-        _, lse = bk.contextualization_reference(q, k, cc, scale,
-                                                return_lse=True)
+        if bwd is bk.fused_ctx_bwd:
+            _, lse = bk._fwd_kernel(q, k, cc, scale)
+        else:
+            _, lse = bk.contextualization_reference(q, k, cc, scale,
+                                                    return_lse=True)
         return bwd(q, k, cc, lse, gg, scale)
 
     before = _build.KERNELS["fused_contextualization_bwd"].launches
@@ -303,3 +311,79 @@ def test_train_cli_smoke_at_its_defaults(gen, tmp_path):
     assert out["steps"] == 3 and np.isfinite(out["final_metrics"]["loss"])
     assert np.isfinite(out["val"]["ppl"])
     assert counts["flash_attention"] > 0 and counts["flash_attention_bwd"] > 0
+
+
+@pytest.mark.parametrize("kind,qdt,dv", [
+    ("int4", torch.float32, 64),
+    ("int4", torch.bfloat16, 64),
+    ("int4", torch.bfloat16, 48),               # 85 column groups
+    ("mixed", torch.float32, 768),
+    ("mixed", torch.bfloat16, 768),
+])
+def test_lowbit_decode_attention_kernel(gen, kind, qdt, dv):
+    """K8 on layer 1 of stacked (3, ...) caches under a 100-column window
+    (both strided views, read in place): rows of length 0 (uniform over
+    the window), 1, odd and even, the window's full 200 positions, and a
+    scalar odd length."""
+    L, E, dk, S2, w = 3, 6, 64, 160, 100
+    dev = "cuda"
+    stacked = (da.decode_attention_mixed_stacked if kind == "mixed"
+               else da.decode_attention_int4_stacked)
+    name = f"lowbit_decode_{kind}"
+    q = (torch.randn(E, dk, generator=gen, device=dev) * 0.3).to(qdt)
+    kshape = (L, E, dk, 2, S2) if kind == "mixed" else (L, E, dk, S2)
+    keys = torch.randint(-127, 128, kshape, generator=gen, device=dev,
+                         dtype=torch.int8)
+    v = torch.randint(-128, 128, (L, E, S2, dv), generator=gen, device=dev,
+                      dtype=torch.int8)
+    kscale = 0.05 / (16 if kind == "mixed" else 1)
+    ks = torch.rand(L, E, 2, S2, generator=gen, device=dev) * kscale
+    vs = torch.rand(L, E, 2, S2, generator=gen, device=dev) * 0.05
+    lens = torch.tensor([0, 1, 2, 77, 2 * w - 1, 2 * w], dtype=torch.int32,
+                        device=dev)
+    for length in (lens, 37):
+        args = (keys, ks, v, vs, length)
+        before = _build.KERNELS[name].launches
+        out = stacked(1, q, *args, window_cols=w)
+        assert _build.KERNELS[name].launches == before + 1
+        with _build.plain_path():
+            plain = stacked(1, q, *args, window_cols=w)
+            ref = stacked(1, q.float(), *args, window_cols=w)
+        assert out.shape == (E, dv) and out.dtype == qdt
+        if qdt == torch.float32:
+            _f32_close(out, ref)
+        else:
+            _within_2x(out, plain, ref)
+
+
+def test_quant_gates_cli_smoke(gen, tmp_path):
+    """The quant-gates CLI on the card, at smoke size, on the workdir of a
+    2-step run of the training CLI (backpack-micro at its f32 default):
+    INT8 and grouped INT4 weights through K2, the cached prefill over the
+    four cache configurations through K3."""
+    import json
+    from contextlib import redirect_stdout
+    from io import StringIO
+
+    import numpy as np
+    from backpacks_flash_attn_tpu_torch.data import lm_dataset as lmd
+    from backpacks_flash_attn_tpu_torch.eval import quant_gates
+    from backpacks_flash_attn_tpu_torch.training import train_cli
+
+    tokens = np.random.default_rng(1).integers(0, 4096, 40_000)
+    corpus = lmd.save_corpus(tokens.astype(np.uint16), str(tmp_path), "c")
+    workdir = str(tmp_path / "run")
+    train_cli.run(train_cli.RunConfig(corpus=corpus, workdir=workdir,
+                                      steps=2, seqlen=128, warmup_steps=1))
+    _build.reset_launches()
+    buf = StringIO()
+    with redirect_stdout(buf):
+        quant_gates.main(["--workdir", workdir, "--corpus", corpus,
+                          "--seqlen", "128", "--max-batches", "1",
+                          "--val-fraction", "0.05"])
+    counts = _build.launch_counts()
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert out["checkpoint_step"] == 2
+    for key, value in out.items():
+        assert np.isfinite(value), key
+    assert counts["quant_matmul"] > 0 and counts["flash_attention"] > 0
