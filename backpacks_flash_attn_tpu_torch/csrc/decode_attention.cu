@@ -17,11 +17,21 @@
 // int8 is dequantized in registers; all arithmetic is f32. Only positions
 // below the row's length are read, so a window slice of the cache costs no
 // copy and the early steps of a long window read little.
+//
+// The (m, l) form (mo, lo non-null; counted apart as decode_attention_ml) also
+// writes each row's softmax state for the staged serving decode, which merges
+// this main segment with a short segment over the staging block
+// (merge_softmax_segments, decode_attention.py:1270): m = the row max of the
+// valid scores, in the units of the scores above, and l = sum exp(s - m) over
+// the same positions, so that out * l is the unnormalized segment. A row with
+// no valid position returns (0, NEG, 0), as stage_segment_attention does, and
+// the merge weighs it out.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr float kNeg = -1e30f;   // decode_attention.py NEG
 
 struct Vec4 {
   float x, y, z, w;
@@ -50,7 +60,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kt,
                         const float* __restrict__ ks, const TKV* __restrict__ v,
                         const float* __restrict__ vs, const int* __restrict__ lengths,
-                        TQ* __restrict__ out, int dk, int S, int dv, int scalar_len,
+                        TQ* __restrict__ out, float* __restrict__ mo, float* __restrict__ lo,
+                        int dk, int S, int dv, int scalar_len,
                         long long q_se, long long kt_se, long long kt_sd, long long v_se,
                         long long v_ss, long long ks_se, long long vs_se) {
   extern __shared__ float smem[];
@@ -66,6 +77,15 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kt,
   // softmax of the reference does when every score is NEG
   const bool empty = len <= 0;
   const int n = empty ? S : min(len, S);
+  if (empty && mo != nullptr) {   // the (m, l) form: an empty segment
+    for (int d = tid; d < dv; d += kThreads)
+      out[static_cast<long long>(e) * dv + d] = from_f32<TQ>(0.f);
+    if (tid == 0) {
+      mo[e] = kNeg;
+      lo[e] = 0.f;
+    }
+    return;
+  }
 
   for (int d = tid; d < dk; d += kThreads) qs[d] = to_f32(q[e * q_se + d]);
   __syncthreads();
@@ -90,7 +110,12 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kt,
     p[s] = x;
     local_sum += x;
   }
-  const float inv = 1.f / block_sum(local_sum, red);
+  const float tot = block_sum(local_sum, red);
+  const float inv = 1.f / tot;
+  if (mo != nullptr && tid == 0) {
+    mo[e] = m;
+    lo[e] = tot;
+  }
   for (int s = tid; s < n; s += kThreads)
     p[s] = p[s] * inv * (vs != nullptr ? vs[e * vs_se + s] : 1.f);
   __syncthreads();
@@ -128,8 +153,8 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kt,
 
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* kt, const void* ks, const void* v, const void* vs,
-           const void* lengths, void* out, long long E, long long dk, long long S,
-           long long dv, long long scalar_len, long long q_se, long long kt_se,
+           const void* lengths, void* out, void* mo, void* lo, long long E, long long dk,
+           long long S, long long dv, long long scalar_len, long long q_se, long long kt_se,
            long long kt_sd, long long v_se, long long v_ss, long long ks_se, long long vs_se,
            cudaStream_t stream) {
   const long long groups = kThreads / (dv / 4);
@@ -137,7 +162,8 @@ int launch(const void* q, const void* kt, const void* ks, const void* v, const v
   decode_attention_kernel<TQ, TKV><<<static_cast<unsigned>(E), kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(kt), static_cast<const float*>(ks),
       static_cast<const TKV*>(v), static_cast<const float*>(vs),
-      static_cast<const int*>(lengths), static_cast<TQ*>(out), static_cast<int>(dk),
+      static_cast<const int*>(lengths), static_cast<TQ*>(out), static_cast<float*>(mo),
+      static_cast<float*>(lo), static_cast<int>(dk),
       static_cast<int>(S), static_cast<int>(dv), static_cast<int>(scalar_len), q_se, kt_se,
       kt_sd, v_se, v_ss, ks_se, vs_se);
   return static_cast<int>(cudaGetLastError());
@@ -147,14 +173,15 @@ int launch(const void* q, const void* kt, const void* ks, const void* v, const v
 
 extern "C" int decode_attention_launch(const void* q, const void* kt, const void* ks,
                                        const void* v, const void* vs, const void* lengths,
-                                       void* out, long long E, long long dk, long long S,
+                                       void* out, void* mo, void* lo, long long E,
+                                       long long dk, long long S,
                                        long long dv, long long scalar_len, long long q_se,
                                        long long kt_se, long long kt_sd, long long v_se,
                                        long long v_ss, long long ks_se, long long vs_se,
                                        long long q_dtype, long long kv_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K1_ARGS q, kt, ks, v, vs, lengths, out, E, dk, S, dv, scalar_len, q_se, kt_se, kt_sd, \
-                v_se, v_ss, ks_se, vs_se, st
+#define K1_ARGS q, kt, ks, v, vs, lengths, out, mo, lo, E, dk, S, dv, scalar_len, q_se, kt_se, \
+                kt_sd, v_se, v_ss, ks_se, vs_se, st
   if (q_dtype == DT_BF16 && kv_dtype == DT_I8) return launch<__nv_bfloat16, int8_t>(K1_ARGS);
   if (q_dtype == DT_BF16 && kv_dtype == DT_BF16)
     return launch<__nv_bfloat16, __nv_bfloat16>(K1_ARGS);

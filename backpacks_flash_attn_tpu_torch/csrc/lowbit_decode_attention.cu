@@ -26,6 +26,15 @@
 // memory. Nibbles are sign-extended in registers, all arithmetic is f32. Only the valid
 // packed prefix ceil(len / 2) is read, and every operand is addressed through its strides,
 // so a layer view of a stacked cache and a window slice cost no copy.
+//
+// K8-ml, the (m, l) form (mo, lo non-null), replaces _stacked_call(return_ml=True) (:990,
+// _stacked_int4_ml_kernel :922, the mo_ref/lo_ref epilogue of _lowbit_decode_body :651)
+// behind decode_attention_int4_staged_ml (:1205): the main segment of the staged low-bit
+// serving decode, valid below base_len, merged with a segment over the int8 staging block.
+// It also writes each row's softmax state: m = the max over the valid scores of BOTH
+// parities (taken before any exp), l = sum exp(s - m) over the same positions with that
+// same m, in the units of the scores above. A row with no valid position returns
+// (0, NEG, 0), as the Pallas body does, and the merge weighs it out.
 #include "common.cuh"
 
 namespace {
@@ -34,6 +43,7 @@ constexpr int kThreads = 256;
 constexpr int kVec = 16;    // value bytes per thread per load (one uint4)
 constexpr int kBatch = 8;   // key rows loaded before they are used
 constexpr int kMaxSplit = 8;
+constexpr float kNeg = -1e30f;  // decode_attention.py NEG
 
 // nibble n (0 = lowest) of a 32-bit word, sign-extended
 __device__ __forceinline__ float nibble(uint32_t w, int n) {
@@ -57,7 +67,8 @@ __global__ void __launch_bounds__(kThreads)
 lowbit_decode_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ keys,
                      const float* __restrict__ ks2, const int8_t* __restrict__ v4,
                      const float* __restrict__ vs2, const int* __restrict__ lengths,
-                     TQ* __restrict__ out, int dk, int S2, int dv, int scalar_len,
+                     TQ* __restrict__ out, float* __restrict__ mo, float* __restrict__ lo,
+                     int dk, int S2, int dv, int scalar_len,
                      long long q_se, long long k_se, long long k_sd, long long k_sp,
                      long long ks_se, long long ks_sp, long long v_se, long long v_ss,
                      long long vs_se, long long vs_sp) {
@@ -76,6 +87,15 @@ lowbit_decode_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ keys,
   const bool empty = len <= 0;
   const int n2 = empty ? S2 : min((len + 1) >> 1, S2);  // packed columns read
   const int n_odd = empty ? S2 : min(len >> 1, S2);     // columns whose odd half is valid
+  if (empty && mo != nullptr) {   // the (m, l) form: an empty segment
+    for (int d = tid; d < dv; d += kThreads)
+      out[static_cast<long long>(e) * dv + d] = from_f32<TQ>(0.f);
+    if (tid == 0) {
+      mo[e] = kNeg;
+      lo[e] = 0.f;
+    }
+    return;
+  }
 
   for (int d = tid; d < dk; d += kThreads) qs[d] = to_f32(q[e * q_se + d]);
   __syncthreads();
@@ -148,7 +168,12 @@ lowbit_decode_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ keys,
     po[j] = xo;
     local_sum += xe + xo;
   }
-  const float inv = 1.f / block_sum(local_sum, red);
+  const float tot = block_sum(local_sum, red);
+  const float inv = 1.f / tot;
+  if (mo != nullptr && tid == 0) {
+    mo[e] = m;
+    lo[e] = tot;
+  }
   const float* vsr = vs2 + e * vs_se;
   for (int j = tid; j < n2; j += kThreads) {
     pe[j] *= inv * vsr[j];
@@ -190,10 +215,10 @@ lowbit_decode_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ keys,
 
 template <typename TQ, bool kSplit>
 int launch(const void* q, const void* keys, const void* ks2, const void* v4, const void* vs2,
-           const void* lengths, void* out, long long E, long long dk, long long S2,
-           long long dv, long long scalar_len, long long q_se, long long k_se, long long k_sd,
-           long long k_sp, long long ks_se, long long ks_sp, long long v_se, long long v_ss,
-           long long vs_se, long long vs_sp, cudaStream_t stream) {
+           const void* lengths, void* out, void* mo, void* lo, long long E, long long dk,
+           long long S2, long long dv, long long scalar_len, long long q_se, long long k_se,
+           long long k_sd, long long k_sp, long long ks_se, long long ks_sp, long long v_se,
+           long long v_ss, long long vs_se, long long vs_sp, cudaStream_t stream) {
   const long long groups = kThreads / (dv / kVec);
   const long long part = groups * dv > 2 * kThreads ? groups * dv : 2 * kThreads;
   const size_t smem = static_cast<size_t>(dk + 2 * S2 + 32 + part) * sizeof(float);
@@ -201,9 +226,9 @@ int launch(const void* q, const void* keys, const void* ks2, const void* v4, con
       static_cast<const TQ*>(q), static_cast<const int8_t*>(keys),
       static_cast<const float*>(ks2), static_cast<const int8_t*>(v4),
       static_cast<const float*>(vs2), static_cast<const int*>(lengths), static_cast<TQ*>(out),
-      static_cast<int>(dk), static_cast<int>(S2), static_cast<int>(dv),
-      static_cast<int>(scalar_len), q_se, k_se, k_sd, k_sp, ks_se, ks_sp, v_se, v_ss, vs_se,
-      vs_sp);
+      static_cast<float*>(mo), static_cast<float*>(lo), static_cast<int>(dk),
+      static_cast<int>(S2), static_cast<int>(dv), static_cast<int>(scalar_len), q_se, k_se,
+      k_sd, k_sp, ks_se, ks_sp, v_se, v_ss, vs_se, vs_sp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -211,13 +236,14 @@ int launch(const void* q, const void* keys, const void* ks2, const void* v4, con
 
 extern "C" int lowbit_decode_attention_launch(
     const void* q, const void* keys, const void* ks2, const void* v4, const void* vs2,
-    const void* lengths, void* out, long long E, long long dk, long long S2, long long dv,
-    long long scalar_len, long long q_se, long long k_se, long long k_sd, long long k_sp,
-    long long ks_se, long long ks_sp, long long v_se, long long v_ss, long long vs_se,
-    long long vs_sp, long long q_dtype, long long split_keys, void* stream) {
+    const void* lengths, void* out, void* mo, void* lo, long long E, long long dk,
+    long long S2, long long dv, long long scalar_len, long long q_se, long long k_se,
+    long long k_sd, long long k_sp, long long ks_se, long long ks_sp, long long v_se,
+    long long v_ss, long long vs_se, long long vs_sp, long long q_dtype, long long split_keys,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K8_ARGS q, keys, ks2, v4, vs2, lengths, out, E, dk, S2, dv, scalar_len, q_se, k_se, \
-                k_sd, k_sp, ks_se, ks_sp, v_se, v_ss, vs_se, vs_sp, st
+#define K8_ARGS q, keys, ks2, v4, vs2, lengths, out, mo, lo, E, dk, S2, dv, scalar_len, q_se, \
+                k_se, k_sd, k_sp, ks_se, ks_sp, v_se, v_ss, vs_se, vs_sp, st
   if (q_dtype == DT_BF16 && !split_keys) return launch<__nv_bfloat16, false>(K8_ARGS);
   if (q_dtype == DT_BF16 && split_keys) return launch<__nv_bfloat16, true>(K8_ARGS);
   if (q_dtype == DT_F32 && !split_keys) return launch<float, false>(K8_ARGS);

@@ -16,7 +16,7 @@ Training splits the dropout keys as the JAX package does (``utils.prng``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -26,7 +26,9 @@ from ..ops.attention import MASK_VALUE
 from ..ops.backpack_kernels import fused_contextualization
 from ..ops.decode_attention import (decode_attention,
                                     decode_attention_flat_multi,
-                                    decode_attention_mixed)
+                                    decode_attention_flat_multi_staged,
+                                    decode_attention_mixed,
+                                    decode_attention_staged)
 from ..utils import prng
 from . import gpt as gpt_lib
 
@@ -201,19 +203,29 @@ class BackpackCache:
                      quantized
       content:       (E, S, d) per-token sense vectors
       content_scale: (E, S) f32 int8 dequant scales (int8 cache only)
+      length:        a Python int, or (batch,) int32 per-slot lengths
 
     The mixed low-bit cache (bits 4) keeps ctx_k int8 in the even/odd split
     layout (E, dnv_pad, 2, S/2) and the senses int4 pair-packed
     (E, S/2, d), both scales (E, 2, S/2).
+
+    The staging block (serving; its pointer, positions and base_len live on
+    the nested gpt cache): ctx_k_stage (E, C, dnv_pad), content_stage
+    (E, C, d) in the cache dtype, ctx_ks_stage/content_ss_stage (E, C) f32
+    (int8 caches).
 
     Updated IN PLACE by backpack_forward_with_cache (JAX returns new
     caches); copy the tensors before a call whose old state you need."""
     gpt: gpt_lib.KVCache
     ctx_k: torch.Tensor
     content: torch.Tensor
-    length: int
+    length: Union[int, torch.Tensor]
     content_scale: Optional[torch.Tensor] = None
     ctx_k_scale: Optional[torch.Tensor] = None
+    ctx_k_stage: Optional[torch.Tensor] = None
+    ctx_ks_stage: Optional[torch.Tensor] = None
+    content_stage: Optional[torch.Tensor] = None
+    content_ss_stage: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
@@ -227,23 +239,35 @@ class BackpackCache:
             return 16
         return 4 if self.content_scale.dim() == 3 else 8
 
+    @property
+    def staged(self) -> bool:
+        return self.ctx_k_stage is not None
+
 
 def init_backpack_cache(cfg: BackpackConfig, batch: int, max_seqlen: int,
                         dtype=torch.bfloat16, device="cuda", *,
-                        bits: int = 8,
-                        kv_bits: Optional[int] = None) -> BackpackCache:
+                        bits: int = 8, kv_bits: Optional[int] = None,
+                        per_slot: bool = False,
+                        stage: int = 0) -> BackpackCache:
     """dtype int8: INT8 GPT-KV, ctx-K and sense caches with per-position
     f32 scales. bits=4 (with dtype int8) makes the ctx-K and sense caches
     the mixed low-bit cache (see BackpackCache); kv_bits sets the GPT KV
-    cache's precision apart (default: bits), as in JAX (:500)."""
+    cache's precision apart (default: bits), as in JAX (:500). per_slot
+    gives each row its own length; stage > 0 adds the staging blocks (not
+    with the mixed cache, as in JAX; with kv_bits=4 the GPT stage is
+    int8)."""
     device = _build.resolve_device(device)
     kv_bits = bits if kv_bits is None else kv_bits
     e, S = batch * cfg.num_senses, max_seqlen
     gpt = gpt_lib.init_kv_cache(cfg, batch, max_seqlen, dtype, device,
-                                bits=kv_bits)
+                                bits=kv_bits, per_slot=per_slot, stage=stage)
+    length = (torch.zeros((batch,), dtype=torch.int32, device=device)
+              if per_slot else 0)
     if dtype == torch.int8 and bits == 4:
         if S % 2:
             raise ValueError(f"int4 caches need an even max_seqlen, got {S}")
+        if stage:
+            raise ValueError("the mixed low-bit cache takes no staging block")
         ones = lambda: torch.ones((e, 2, S // 2), dtype=torch.float32,
                                   device=device)
         return BackpackCache(
@@ -252,23 +276,130 @@ def init_backpack_cache(cfg: BackpackConfig, batch: int, max_seqlen: int,
                               dtype=dtype, device=device),
             content=torch.zeros((e, S // 2, cfg.n_embd), dtype=dtype,
                                 device=device),
-            length=0, content_scale=ones(), ctx_k_scale=ones())
+            length=length, content_scale=ones(), ctx_k_scale=ones())
     scales = dtype == torch.int8
-    ones = lambda: torch.ones((e, S), dtype=torch.float32, device=device)
+    ones = lambda n: torch.ones((e, n), dtype=torch.float32, device=device)
+    stage_kw = {}
+    if stage:
+        stage_kw = dict(
+            ctx_k_stage=torch.zeros((e, stage, cfg.sense_head_dim_padded),
+                                    dtype=dtype, device=device),
+            content_stage=torch.zeros((e, stage, cfg.n_embd), dtype=dtype,
+                                      device=device),
+            ctx_ks_stage=ones(stage) if scales else None,
+            content_ss_stage=ones(stage) if scales else None)
     return BackpackCache(
         gpt=gpt,
         ctx_k=torch.zeros((e, cfg.sense_head_dim_padded, S), dtype=dtype,
                           device=device),
         content=torch.zeros((e, S, cfg.n_embd), dtype=dtype, device=device),
-        length=0,
-        content_scale=ones() if scales else None,
-        ctx_k_scale=ones() if scales else None,
-    )
+        length=length,
+        content_scale=ones(S) if scales else None,
+        ctx_k_scale=ones(S) if scales else None,
+        **stage_kw)
+
+
+def insert_cache_slot(big: BackpackCache, small: BackpackCache,
+                      slot: int) -> BackpackCache:
+    """Copy a batch-1 cache (a freshly prefilled request) into row ``slot``
+    of a per-slot batch cache, in place (JAX :315), and return it. The
+    flat-E layouts put slot b's rows at [b * rows_per_slot, (b+1) *
+    rows_per_slot). A staged cache drops the slot's staged entries and sets
+    its flushed horizon to the prefill length (the prefill went to the
+    main rows)."""
+    g_big, g_small = big.gpt, small.gpt
+    h = g_small.k.shape[1]          # rows per slot of the GPT cache
+    nv = small.ctx_k.shape[0]       # rows per slot of the Backpack caches
+    gr, br = slice(slot * h, (slot + 1) * h), slice(slot * nv, (slot + 1) * nv)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        dst = getattr(g_big, name)
+        if dst is not None:
+            dst[:, gr] = getattr(g_small, name)
+    for name in ("ctx_k", "ctx_k_scale", "content", "content_scale"):
+        dst = getattr(big, name)
+        if dst is not None:
+            dst[br] = getattr(small, name)
+    n = small.length
+    if isinstance(n, torch.Tensor):
+        n = n.reshape(-1)[:1]
+    g_big.length[slot:slot + 1] = n
+    big.length[slot:slot + 1] = n
+    if g_big.staged:
+        g_big.stage_pos[slot] = -1
+        g_big.base_len[slot:slot + 1] = n
+    return big
+
+
+def flush_cache(cache: BackpackCache, window: Optional[int] = None
+                ) -> BackpackCache:
+    """Merge the staging blocks into the main caches and reset the stage
+    (JAX :366), in place: gpt.flush_kv_cache for the KV stack, the same
+    indexed writes for the contextualization-key and sense caches. The
+    serving engine calls it every ~C decode steps and before steps that
+    read the unstaged cache."""
+    if not cache.staged:
+        return cache
+    g = cache.gpt
+    b = g.stage_pos.shape[0]
+    S = cache.ctx_k.shape[-1]
+    w = S if window is None else min(window, S)
+    rows, cols, pos = gpt_lib.stage_targets(g.stage_pos, cache.length,
+                                            cache.ctx_k.shape[0] // b, w)
+    cache.ctx_k[rows, :, pos] = cache.ctx_k_stage[rows, cols]
+    cache.content[rows, pos] = cache.content_stage[rows, cols]
+    if cache.ctx_k_scale is not None:
+        cache.ctx_k_scale[rows, pos] = cache.ctx_ks_stage[rows, cols]
+        cache.content_scale[rows, pos] = cache.content_ss_stage[rows, cols]
+    gpt_lib.flush_kv_cache(g, window=window)
+    return cache
+
+
+def extract_cache_slot(big: BackpackCache, row: int,
+                       cfg: BackpackConfig) -> BackpackCache:
+    """Row ``row`` of a batch cache as a batch-1 cache (JAX :417), the
+    inverse of insert_cache_slot: views of the row's tensors, no staging
+    block. Its length is an int when ``big``'s is, else the (1,) slice of
+    the per-slot lengths (reading it as an int would wait on the card)."""
+    h, nv = cfg.n_head, cfg.num_senses
+    gr, br = slice(row * h, (row + 1) * h), slice(row * nv, (row + 1) * nv)
+    g = big.gpt
+
+    def take(t, rows):
+        return None if t is None else t[:, rows]
+
+    def length(n):
+        return n if isinstance(n, int) else n[row:row + 1]
+
+    gpt_cache = gpt_lib.KVCache(
+        k=take(g.k, gr), v=take(g.v, gr), length=length(g.length),
+        k_scale=take(g.k_scale, gr), v_scale=take(g.v_scale, gr))
+    rows = lambda t: None if t is None else t[br]
+    return BackpackCache(
+        gpt=gpt_cache, ctx_k=big.ctx_k[br], content=big.content[br],
+        length=length(big.length), content_scale=rows(big.content_scale),
+        ctx_k_scale=rows(big.ctx_k_scale))
+
+
+def _weights_es(sense_weights, b: int, nv: int, max_s: int):
+    """sense_weights -> (E, max_s) f32 multiplicative key weights (JAX
+    :720): (nv,) for every row, (b, nv) per request, or (b, S, nv) per
+    position."""
+    if sense_weights is None:
+        return None
+    w = sense_weights.float()
+    if w.dim() == 1:
+        w = w[None, :, None].expand(b, nv, max_s)
+    elif w.dim() == 2:
+        w = w[:, :, None].expand(b, nv, max_s)
+    else:
+        w = w.permute(0, 2, 1)
+    return w.reshape(b * nv, max_s)
 
 
 def backpack_forward_with_cache(
     params: Params, cfg: BackpackConfig, input_ids: torch.Tensor,
     cache: BackpackCache, *, window: Optional[int] = None,
+    sense_weights: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, BackpackCache]:
     """Run ``input_ids`` (prefill, or decode s == 1) through the
     incremental path: logits (b, s, vocab) for the new tokens. Writes the
@@ -276,11 +407,19 @@ def backpack_forward_with_cache(
     length, and returns it. Over the mixed low-bit cache a decode step
     runs K8; multi-token calls (prefill, continuation) take the prefill
     branch over the dequantized prefix and must start at an even length.
+    Per-slot caches write each row at its own offset; on a staged cache a
+    step of s <= min(FLAT_MULTI_MAX, C) tokens appends to the staging
+    blocks and the combine merges the main segment (K1's (m, l) form) with
+    the staged one.
 
     window: static length bucket (caller-guaranteed length + s <= window);
-    every cache read covers only the first ``window`` columns."""
+    every cache read covers only the first ``window`` columns.
+    sense_weights: multiplicative per-sense weights on the combine's keys
+    (JAX :720): (nv,), (b, nv) per request or (b, S, nv) per position;
+    folded into the value scales (unstaged caches only)."""
     b, s = input_ids.shape
     offset = cache.length
+    vec = isinstance(offset, torch.Tensor)
     new_len = offset + s
     nv, d = cfg.num_senses, cfg.n_embd
     dnv, dnv_pad = cfg.sense_head_dim, cfg.sense_head_dim_padded
@@ -288,66 +427,126 @@ def backpack_forward_with_cache(
     q4 = cache.bits == 4
     max_s = cache.ctx_k.shape[-1] * (2 if q4 else 1)
     S = max_s if window is None else min(window, max_s)
-    if q4:
+    staged = cache.staged and vec and s <= min(gpt_lib.FLAT_MULTI_MAX,
+                                               cache.ctx_k_stage.shape[1])
+    if staged and sense_weights is not None:
+        raise ValueError("a staged step takes no sense weights: flush and "
+                         "step the unstaged cache (the serving engine's "
+                         "plain view)")
+    if q4 and s > 1 and vec:
+        raise ValueError("int4 caches take multi-token writes at a uniform "
+                         "(scalar) offset only")
+    if q4 and not vec:
         gpt_lib.check_even_offset(offset, s)
-    contextl, _ = gpt_lib.gpt_forward_with_cache(
+    row_off = gpt_lib.per_row(offset, nv) if vec else offset
+    lens = gpt_lib.per_row(new_len, nv) if vec else new_len
+    ptr0 = cache.gpt.stage_ptr
+    contextl, gpt_cache = gpt_lib.gpt_forward_with_cache(
         params["gpt"], cfg, input_ids, cache.gpt, window=window)
     q, k_new = context_qk(params, cfg, contextl)       # (b, s, nv, dnv)
     senses_new = content_forward(params, cfg, input_ids)  # (b, s, nv, d)
     senses_t = senses_new.transpose(1, 2).reshape(e, s, d)
-    k_flat = k_new.permute(0, 2, 3, 1).reshape(e, dnv, s)
-    if dnv_pad != dnv:
-        k_flat = torch.nn.functional.pad(k_flat, (0, 0, 0, dnv_pad - dnv))
-    if q4:
-        # int8 keys into the even/odd split planes, int4 senses pair-packed
-        k8, ksc = quant.quantize_activations_int8(k_flat, axis=1)
-        s4, ssc = quant.quantize_activations_int4(senses_t, axis=2)
-        if s == 1:
-            cache.ctx_k[:, :, offset % 2, offset // 2] = k8[:, :, 0]
-            gpt_lib.store4_step(cache.content, s4, offset, axis=1)
+    if staged:
+        # append at the stage pointer the GPT write started from
+        cols = slice(ptr0, ptr0 + s)
+        k_st = k_new.transpose(1, 2).reshape(e, s, dnv)
+        if dnv_pad != dnv:
+            k_st = torch.nn.functional.pad(k_st, (0, dnv_pad - dnv))
+        if cache.quantized:
+            k8, kss = quant.quantize_activations_int8(k_st, axis=2)
+            s8, sss = quant.quantize_activations_int8(senses_t, axis=2)
+            cache.ctx_k_stage[:, cols] = k8
+            cache.content_stage[:, cols] = s8
+            cache.ctx_ks_stage[:, cols] = kss[..., 0]
+            cache.content_ss_stage[:, cols] = sss[..., 0]
         else:
-            k8p = torch.nn.functional.pad(k8, (0, s % 2))
-            c0, n2 = offset // 2, k8p.shape[-1] // 2
-            cache.ctx_k[..., c0:c0 + n2] = torch.stack(
-                [k8p[..., 0::2], k8p[..., 1::2]], dim=2)
-            gpt_lib.store4_prefill(cache.content, s4, offset, axis=1)
-        gpt_lib.store_pair_scale(cache.ctx_k_scale, ksc[:, 0, :], offset)
-        gpt_lib.store_pair_scale(cache.content_scale, ssc[..., 0], offset)
-    elif cache.quantized:
-        k8, ksc = quant.quantize_activations_int8(k_flat, axis=1)
-        s8, ssc = quant.quantize_activations_int8(senses_t, axis=2)
-        cache.ctx_k[:, :, offset:new_len] = k8
-        cache.ctx_k_scale[:, offset:new_len] = ksc[:, 0, :]
-        cache.content[:, offset:new_len] = s8
-        cache.content_scale[:, offset:new_len] = ssc[..., 0]
+            cache.ctx_k_stage[:, cols] = k_st.to(cache.ctx_k_stage.dtype)
+            cache.content_stage[:, cols] = senses_t.to(cache.content_stage.dtype)
     else:
-        cache.ctx_k[:, :, offset:new_len] = k_flat
-        cache.content[:, offset:new_len] = senses_t
+        k_flat = k_new.permute(0, 2, 3, 1).reshape(e, dnv, s)
+        if dnv_pad != dnv:
+            k_flat = torch.nn.functional.pad(k_flat, (0, 0, 0, dnv_pad - dnv))
+        if q4:
+            # int8 keys into the even/odd split planes, int4 senses
+            # pair-packed
+            k8, ksc = quant.quantize_activations_int8(k_flat, axis=1)
+            s4, ssc = quant.quantize_activations_int4(senses_t, axis=2)
+            if s == 1:
+                gpt_lib.store_split8_step(cache.ctx_k, k8, row_off, window)
+                gpt_lib.rmw_nibble_axis_windowed(cache.content, s4, row_off,
+                                                 1, window)
+                gpt_lib.update_pair_scale(cache.ctx_k_scale, ksc[:, 0, 0],
+                                          row_off, window)
+                gpt_lib.update_pair_scale(cache.content_scale, ssc[:, 0, 0],
+                                          row_off, window)
+            else:
+                k8p = torch.nn.functional.pad(k8, (0, s % 2))
+                c0, n2 = offset // 2, k8p.shape[-1] // 2
+                cache.ctx_k[..., c0:c0 + n2] = torch.stack(
+                    [k8p[..., 0::2], k8p[..., 1::2]], dim=2)
+                gpt_lib.store4_prefill(cache.content, s4, offset, axis=1)
+                gpt_lib.store_pair_scale(cache.ctx_k_scale, ksc[:, 0, :],
+                                         offset)
+                gpt_lib.store_pair_scale(cache.content_scale, ssc[..., 0],
+                                         offset)
+        elif cache.quantized:
+            k8, ksc = quant.quantize_activations_int8(k_flat, axis=1)
+            s8, ssc = quant.quantize_activations_int8(senses_t, axis=2)
+            write = gpt_lib.update_rows_axis_windowed
+            write(cache.ctx_k, k8, row_off, 2, window)
+            write(cache.ctx_k_scale, ksc[:, 0, :], row_off, 1, window)
+            write(cache.content, s8, row_off, 1, window)
+            write(cache.content_scale, ssc[..., 0], row_off, 1, window)
+        else:
+            gpt_lib.update_rows_axis_windowed(cache.ctx_k, k_flat, row_off, 2,
+                                              window)
+            gpt_lib.update_rows_axis_windowed(cache.content, senses_t,
+                                              row_off, 1, window)
 
     scale = cfg.sense_head_dim ** -0.5
+    w = _weights_es(sense_weights, b, nv, max_s)
     if q4:
         S2 = -(-S // 2)
         ctx_k_r, content_r = cache.ctx_k[..., :S2], cache.content[:, :S2]
         ks_r, vs = cache.ctx_k_scale[..., :S2], cache.content_scale[..., :S2]
+        if w is not None and s == 1:
+            # (E, S) per-position weights -> the (E, 2, S/2) parity layout
+            vs = vs * w.reshape(e, -1, 2).transpose(1, 2)[..., :S2]
     else:
         ctx_k_r, content_r = cache.ctx_k[:, :, :S], cache.content[:, :S]
         ks_r = cache.ctx_k_scale[:, :S] if cache.quantized else None
         vs = cache.content_scale[:, :S] if cache.quantized else None
+        if w is not None and s <= gpt_lib.FLAT_MULTI_MAX:
+            vs = w[:, :S] if vs is None else vs * w[:, :S]
     if s <= gpt_lib.FLAT_MULTI_MAX and (s == 1 or not q4):
         # ONE pass over the stored-precision caches: per-sense softmax over
         # the cached keys and the weighted sense sum (K1 when s == 1, K8
-        # over the mixed cache)
+        # over the mixed cache; on a staged cache K1's (m, l) form merged
+        # with the staged segment)
         q_s = (q.float() * scale).to(q.dtype)
         if dnv_pad != dnv:
             q_s = torch.nn.functional.pad(q_s, (0, dnv_pad - dnv))
         q_flat = q_s.transpose(1, 2).reshape(e, s, dnv_pad)
-        if s == 1:
+        if staged:
+            g = gpt_cache
+            stage = (gpt_lib.per_row(g.base_len, nv), cache.ctx_k_stage,
+                     cache.ctx_ks_stage, cache.content_stage,
+                     cache.content_ss_stage, gpt_lib.per_row(g.stage_pos, nv),
+                     lens)
+            if s == 1:
+                out = decode_attention_staged(
+                    q_flat[:, 0].contiguous(), ctx_k_r, ks_r, content_r, vs,
+                    *stage)[:, None]
+            else:
+                out = decode_attention_flat_multi_staged(
+                    q_flat, ctx_k_r, ks_r, content_r, vs, *stage)
+        elif s == 1:
             decode = decode_attention_mixed if q4 else decode_attention
             out = decode(q_flat[:, 0].contiguous(), ctx_k_r, ks_r, content_r,
-                         vs, new_len)[:, None]
+                         vs, lens)[:, None]
         else:
             out = decode_attention_flat_multi(q_flat, ctx_k_r, ks_r,
-                                              content_r, vs, new_len)
+                                              content_r, vs, lens)
         outputs = out.reshape(b, nv, s, d).float().sum(dim=1).to(contextl.dtype)
     else:
         # prefill: materialize the alpha rows of the s new queries
@@ -371,11 +570,18 @@ def backpack_forward_with_cache(
             scores = scores * ks_r.reshape(b, nv, S)[:, :, None, :]
         qpos = torch.arange(s, device=q.device)[:, None]
         kpos = torch.arange(S, device=q.device)[None, :]
-        scores = torch.where((kpos <= qpos + offset)[None, None], scores,
-                             MASK_VALUE)
+        if vec:
+            causal = kpos[None] <= qpos[None] + offset[:, None, None]
+            scores = torch.where(causal[:, None], scores, MASK_VALUE)
+        else:
+            scores = torch.where((kpos <= qpos + offset)[None, None], scores,
+                                 MASK_VALUE)
         alpha = torch.softmax(scores, dim=-1).to(contextl.dtype)
         if fold8:
             alpha = alpha * vs.reshape(b, nv, S)[:, :, None, :].to(alpha.dtype)
+        if w is not None:
+            alpha = alpha * w.reshape(b, nv, max_s)[:, :, None, :S].to(
+                alpha.dtype)
         outputs = torch.einsum("bkts,bksd->btd", alpha.float(),
                                content4.to(contextl.dtype).float()
                                ).to(contextl.dtype)
@@ -446,18 +652,19 @@ class BackpackLM(torch.nn.Module):
         return backpack_forward(self.params, self.cfg, input_ids, **kw)
 
     def init_cache(self, batch: int, max_seqlen: int, dtype=torch.bfloat16,
-                   *, bits: int = 8,
-                   kv_bits: Optional[int] = None) -> BackpackCache:
+                   **kw) -> BackpackCache:
+        """``init_backpack_cache`` on the module's device (bits=,
+        kv_bits=, per_slot=, stage= pass through)."""
         return init_backpack_cache(self.cfg, batch, max_seqlen, dtype,
-                                   device=self.device, bits=bits,
-                                   kv_bits=kv_bits)
+                                   device=self.device, **kw)
 
     @torch.no_grad()
     def step(self, input_ids: torch.Tensor, cache: BackpackCache,
-             window: Optional[int] = None):
-        """One cached prefill or decode step (cache updated in place)."""
+             window: Optional[int] = None, **kw):
+        """One cached prefill or decode step (cache updated in place;
+        sense_weights= passes through)."""
         return backpack_forward_with_cache(self.params, self.cfg, input_ids,
-                                           cache, window=window)
+                                           cache, window=window, **kw)
 
     def generate(self, input_ids: torch.Tensor, max_length: int, **kw):
         from ..utils.generation import generate_backpack

@@ -4,15 +4,16 @@ Port of ``backpacks_flash_attn_tpu/models/gpt.py``: pure functions over a
 dict of tensors in the JAX tree layout (kernels ``(in, out)``, layers
 stacked on a leading ``n_layer`` axis), the reordered residual
 ("Attn/MLP -> Add -> LN", final LN as the last layer's norm2, first LN
-hoisted to ``ln_0``), the f32 residual stream, and the flat-E KV cache.
-Where JAX scans over layers, the port loops. In training the dropout keys
+hoisted to ``ln_0``), the f32 residual stream, and the flat-E KV cache
+with its per-slot lengths and staging block (serving). Where JAX scans
+over layers, the port loops. In training the dropout keys
 split as in JAX (``utils.prng``), so every mask is JAX's bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -22,7 +23,12 @@ from ..ops.attention import mha
 from ..utils import prng
 from ..ops.decode_attention import (decode_attention,
                                     decode_attention_flat_multi,
-                                    decode_attention_int4)
+                                    decode_attention_flat_multi_staged,
+                                    decode_attention_int4,
+                                    decode_attention_int4_ml,
+                                    decode_attention_staged,
+                                    merge_softmax_segments,
+                                    stage_segment_attention)
 
 Params = Dict[str, Any]
 
@@ -202,19 +208,37 @@ class KVCache:
       k:       (n_layer, E, head_dim, max_seqlen) — TRANSPOSED keys
       v:       (n_layer, E, max_seqlen, head_dim)
       k_scale/v_scale: (n_layer, E, max_seqlen) f32 dequant scales (int8)
-      length:  number of valid positions (a Python int: uniform batch)
+      length:  number of valid positions: a Python int (uniform batch), or
+               a (batch,) int32 tensor on the cache's device (per-slot
+               serving rows, ``per_slot=True``)
 
     int4 caches pack positions pairwise (ops/quant.py): k (n_layer, E,
     head_dim, max_seqlen/2), v (n_layer, E, max_seqlen/2, head_dim), scales
     (n_layer, E, 2, max_seqlen/2).
 
+    The staging block (serving, ``stage=C``): single- and few-token writes
+    append at the scalar ``stage_ptr`` instead of writing each row at its
+    own position, and :func:`flush_kv_cache` merges the block into the main
+    cache every ~C steps. k_stage/v_stage (n_layer, E, C, head_dim) in the
+    cache dtype (int8 for int4 caches), ks_stage/vs_stage (n_layer, E, C)
+    f32 (quantized caches); stage_pos (batch, C) int32 logical positions
+    (-1 free); base_len (batch,) the lengths at the last flush, below which
+    the main cache is valid.
+
     The cache functions update these tensors IN PLACE (JAX returns new
     ones); callers that need the old state copy it first."""
     k: torch.Tensor
     v: torch.Tensor
-    length: int
+    length: Union[int, torch.Tensor]
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    k_stage: Optional[torch.Tensor] = None
+    v_stage: Optional[torch.Tensor] = None
+    ks_stage: Optional[torch.Tensor] = None
+    vs_stage: Optional[torch.Tensor] = None
+    stage_pos: Optional[torch.Tensor] = None
+    stage_ptr: int = 0
+    base_len: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
@@ -228,16 +252,41 @@ class KVCache:
             return 16
         return 4 if self.k_scale is not None and self.k_scale.dim() == 4 else 8
 
+    @property
+    def staged(self) -> bool:
+        return self.k_stage is not None
+
 
 def init_kv_cache(cfg: GPTConfig, batch: int, max_seqlen: int,
                   dtype=torch.bfloat16, device="cuda", *,
-                  bits: int = 8) -> KVCache:
+                  bits: int = 8, per_slot: bool = False,
+                  stage: int = 0) -> KVCache:
     """dtype int8 stores INT8 caches with per-position f32 scales; with
     bits=4 as well, int4 caches pair-packed along positions (max_seqlen
     even), scales in the (E, 2, S/2) parity layout. Decode steps write a
-    nibble in place; multi-token writes must start at an even length."""
+    nibble in place; multi-token writes must start at an even length.
+    per_slot=True gives each row its own length (a (batch,) tensor);
+    stage > 0 (per_slot only) adds the ``stage``-column staging block (int8
+    for int4 caches)."""
     device = _build.resolve_device(device)
+    if stage and not per_slot:
+        raise ValueError("staging is a serving-slot (per_slot) feature")
     L, e, dh, S = cfg.n_layer, batch * cfg.n_head, cfg.head_dim, max_seqlen
+    length = (torch.zeros((batch,), dtype=torch.int32, device=device)
+              if per_slot else 0)
+    stage_kw = {}
+    if stage:
+        quantized = dtype == torch.int8
+        stage_kw = dict(
+            k_stage=torch.zeros((L, e, stage, dh), dtype=dtype, device=device),
+            v_stage=torch.zeros((L, e, stage, dh), dtype=dtype, device=device),
+            ks_stage=(torch.ones((L, e, stage), dtype=torch.float32,
+                                 device=device) if quantized else None),
+            vs_stage=(torch.ones((L, e, stage), dtype=torch.float32,
+                                 device=device) if quantized else None),
+            stage_pos=torch.full((batch, stage), -1, dtype=torch.int32,
+                                 device=device),
+            base_len=torch.zeros((batch,), dtype=torch.int32, device=device))
     if dtype == torch.int8 and bits == 4:
         if S % 2:
             raise ValueError(f"int4 caches need an even max_seqlen, got {S}")
@@ -246,14 +295,95 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_seqlen: int,
         return KVCache(
             k=torch.zeros((L, e, dh, S // 2), dtype=dtype, device=device),
             v=torch.zeros((L, e, S // 2, dh), dtype=dtype, device=device),
-            length=0, k_scale=ones(), v_scale=ones())
+            length=length, k_scale=ones(), v_scale=ones(), **stage_kw)
     k_scale = v_scale = None
     if dtype == torch.int8:
         k_scale = torch.ones((L, e, S), dtype=torch.float32, device=device)
         v_scale = torch.ones((L, e, S), dtype=torch.float32, device=device)
     return KVCache(k=torch.zeros((L, e, dh, S), dtype=dtype, device=device),
                    v=torch.zeros((L, e, S, dh), dtype=dtype, device=device),
-                   length=0, k_scale=k_scale, v_scale=v_scale)
+                   length=length, k_scale=k_scale, v_scale=v_scale, **stage_kw)
+
+
+def stage_targets(stage_pos: torch.Tensor, length: torch.Tensor,
+                  rows_per_slot: int, bound: int):
+    """The staged entries a flush writes: those with 0 <= pos < length and
+    pos < bound. Returns (rows, cols, pos) over the flat-E rows (each slot's
+    entry repeated for its rows_per_slot rows): row e, staging column, and
+    logical position. Valid entries are unique per (row, position): a write
+    invalidates every staged entry at or past its offset. One host sync
+    (the selection), once per flush."""
+    valid = ((stage_pos >= 0) & (stage_pos < length[:, None])
+             & (stage_pos < bound))
+    slot, col = valid.nonzero(as_tuple=True)
+    h = rows_per_slot
+    rows = (slot[:, None] * h
+            + torch.arange(h, device=slot.device)[None, :]).reshape(-1)
+    return (rows, col.repeat_interleave(h),
+            stage_pos[slot, col].long().repeat_interleave(h))
+
+
+def reset_stage(cache: KVCache) -> None:
+    """Empty the staging block after a flush: the main cache now holds
+    every position below ``length``."""
+    cache.stage_pos.fill_(-1)
+    cache.stage_ptr = 0
+    cache.base_len.copy_(cache.length)
+
+
+def flush_kv_cache(cache: KVCache, window: Optional[int] = None) -> KVCache:
+    """Merge the staging block into the main cache and reset the stage (JAX
+    :227), in place: each valid staged column is written at its logical
+    position (JAX streams the window through a one-hot product; the port
+    writes the indexed columns). base_len advances to length. window
+    bounds the positions written, as the bucketed reads do."""
+    if not cache.staged:
+        return cache
+    if cache.bits == 4:
+        return _flush_kv_cache_packed(cache, window)
+    b = cache.stage_pos.shape[0]
+    S = cache.k.shape[-1]
+    w = S if window is None else min(window, S)
+    rows, cols, pos = stage_targets(cache.stage_pos, cache.length,
+                                    cache.k.shape[1] // b, w)
+    # advanced indices around a slice put the index dimension first
+    cache.k[:, rows, :, pos] = cache.k_stage[:, rows, cols].transpose(0, 1)
+    cache.v[:, rows, pos] = cache.v_stage[:, rows, cols]
+    if cache.k_scale is not None:
+        cache.k_scale[:, rows, pos] = cache.ks_stage[:, rows, cols]
+        cache.v_scale[:, rows, pos] = cache.vs_stage[:, rows, cols]
+    reset_stage(cache)
+    return cache
+
+
+def _flush_kv_cache_packed(cache: KVCache,
+                           window: Optional[int] = None) -> KVCache:
+    """flush_kv_cache for the packed int4 main cache (JAX :283): dequantize
+    each staged int8 column, re-quantize it per position to int4 (round
+    half to even, as jnp.round) and write its nibbles into packed column
+    pos // 2 at parity pos % 2, one parity at a time so that two positions
+    of one byte both land."""
+    b = cache.stage_pos.shape[0]
+    S2 = cache.k.shape[-1]
+    w2 = S2 if window is None else min(-(-window // 2), S2)
+    rows, cols, pos = stage_targets(cache.stage_pos, cache.length,
+                                    cache.k.shape[1] // b, 2 * w2)
+    for parity in (0, 1):
+        sel = pos % 2 == parity
+        r, c, col = rows[sel], cols[sel], pos[sel] // 2
+        for buf, sc_buf, st, st_sc, kt_layout in (
+                (cache.k, cache.k_scale, cache.k_stage, cache.ks_stage, True),
+                (cache.v, cache.v_scale, cache.v_stage, cache.vs_stage, False)):
+            vals = st[:, r, c].float() * st_sc[:, r, c][..., None]  # (L, n, d)
+            nib, sc = quant.quantize_activations_int4(vals, axis=-1)
+            if kt_layout:
+                buf[:, r, :, col] = quant.rmw_nibble(
+                    buf[:, r, :, col], nib.transpose(0, 1), parity)
+            else:
+                buf[:, r, col] = quant.rmw_nibble(buf[:, r, col], nib, parity)
+            sc_buf[:, :, parity][:, r, col] = sc[..., 0]
+    reset_stage(cache)
+    return cache
 
 
 # ---------------------------------------------------------------- int4 writes
@@ -323,6 +453,140 @@ def dequantize_pairs(packed: torch.Tensor, sc2: torch.Tensor, axis: int,
     return (quant.unpack_int4_pairs(packed, axis).float() * scales).to(dtype)
 
 
+# ---------------------------------------------------------------- per-row writes
+#
+# The serving cache writes each row at its own offset. JAX streams the
+# window through a masked select (gpt.py:524-697) because XLA:TPU lowers a
+# per-row scatter to a serial loop; PyTorch writes the b rows by indexing
+# (index_put_), in place. A write at or past the bound (the window, else
+# the buffer's length) is dropped, as JAX's masked write drops it: such an
+# index is clamped to the last in-bound column and writes back the value
+# that column gets anyway, so no host sync is needed to find it.
+
+def _rows_like(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    return t.reshape(t.shape[0], *([1] * (ndim - 1)))
+
+
+def _masked_row_write(buf: torch.Tensor, new: torch.Tensor,
+                      offsets: torch.Tensor, axis: int,
+                      bound: Optional[int] = None) -> None:
+    """buf (E, ...) <- new (E, ...) along ``axis`` at per-row offsets (E,)
+    (JAX :524), in place; positions >= bound are not written."""
+    E, s = buf.shape[0], new.shape[axis]
+    W = buf.shape[axis] if bound is None else min(bound, buf.shape[axis])
+    view = buf.movedim(axis, 1)
+    off = offsets.to(torch.long).reshape(E, 1)
+    rows = torch.arange(E, device=buf.device)[:, None]
+    idx = (off + torch.arange(s, device=buf.device)[None, :]).clamp(max=W - 1)
+    vals = new.movedim(axis, 1).to(buf.dtype)[rows, (idx - off).clamp(min=0)]
+    view[rows, idx] = torch.where(_rows_like(off < W, vals.dim()), vals,
+                                  view[rows, idx])
+
+
+def update_rows_axis(buf: torch.Tensor, new: torch.Tensor, offsets,
+                     axis: int) -> None:
+    """buf (E, ...) <- new (E, ...) along ``axis`` (absolute, counting the
+    row axis) at a scalar offset or per-row (E,) offsets (JAX :570)."""
+    if isinstance(offsets, torch.Tensor):
+        _masked_row_write(buf, new, offsets, axis)
+        return
+    buf[_col(buf, axis, offsets, offsets + new.shape[axis])] = new.to(buf.dtype)
+
+
+def update_rows_axis_windowed(buf: torch.Tensor, new: torch.Tensor, offsets,
+                              axis: int, window: Optional[int]) -> None:
+    """update_rows_axis with per-row writes bounded by ``window`` (JAX
+    :582; callers guarantee max(offsets) + s <= window for the rows that
+    matter)."""
+    if isinstance(offsets, torch.Tensor):
+        _masked_row_write(buf, new, offsets, axis, window)
+    else:
+        update_rows_axis(buf, new, offsets, axis)
+
+
+def _packed_bound(buf: torch.Tensor, axis: int, window: Optional[int]) -> int:
+    S2 = buf.shape[axis]
+    return S2 if window is None else min(-(-window // 2), S2)
+
+
+def rmw_nibble_axis_windowed(buf: torch.Tensor, nib: torch.Tensor, offsets,
+                             axis: int, window: Optional[int] = None) -> None:
+    """ONE position's nibbles (size 1 on ``axis``) into a pair-packed cache
+    at scalar or per-row (E,) position offsets (JAX :601): packed column
+    offset // 2, parity offset % 2, a read-modify-write of that byte per
+    row. Per-row writes at columns >= ceil(window / 2) are dropped."""
+    if not isinstance(offsets, torch.Tensor):
+        store4_step(buf, nib, offsets, axis)
+        return
+    E = buf.shape[0]
+    w2 = _packed_bound(buf, axis, window)
+    view = buf.movedim(axis, 1)                            # (E, S2, ...)
+    off = offsets.to(torch.long)
+    rows = torch.arange(E, device=buf.device)
+    idx = (off // 2).clamp(max=w2 - 1)
+    old = view[rows, idx]                                  # (E, ...)
+    new = quant.rmw_nibble(old, nib.movedim(axis, 1)[:, 0],
+                           _rows_like(off % 2, old.dim()))
+    view[rows, idx] = torch.where(_rows_like(off // 2 < w2, old.dim()), new,
+                                  old)
+
+
+def store_split8_step(buf: torch.Tensor, val: torch.Tensor, offsets,
+                      window: Optional[int] = None) -> None:
+    """ONE position into an even/odd split int8 key cache (JAX :640): buf
+    (E, dk, 2, S/2) <- val (E, dk, 1) at (parity, packed column) =
+    (offset % 2, offset // 2), scalar or per-row offsets."""
+    if not isinstance(offsets, torch.Tensor):
+        buf[:, :, offsets % 2, offsets // 2] = val[..., 0].to(buf.dtype)
+        return
+    w2 = _packed_bound(buf, 3, window)
+    off = offsets.to(torch.long)
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    par, idx = off % 2, (off // 2).clamp(max=w2 - 1)
+    old = buf[rows, :, par, idx]                           # (E, dk)
+    buf[rows, :, par, idx] = torch.where((off // 2 < w2)[:, None],
+                                         val[..., 0].to(buf.dtype), old)
+
+
+def update_pair_scale(scale_buf: torch.Tensor, val: torch.Tensor, offsets,
+                      window: Optional[int] = None) -> None:
+    """scale_buf (E, 2, S/2) <- val (E,) at (parity, packed column) =
+    (offset % 2, offset // 2), scalar or per-row offsets (JAX :666)."""
+    if not isinstance(offsets, torch.Tensor):
+        scale_buf[:, offsets % 2, offsets // 2] = val
+        return
+    w2 = _packed_bound(scale_buf, 2, window)
+    off = offsets.to(torch.long)
+    rows = torch.arange(scale_buf.shape[0], device=scale_buf.device)
+    par, idx = off % 2, (off // 2).clamp(max=w2 - 1)
+    scale_buf[rows, par, idx] = torch.where(off // 2 < w2, val.float(),
+                                            scale_buf[rows, par, idx])
+
+
+# ---------------------------------------------------------------- cached forward
+
+def per_row(x, h: int):
+    """A (b,) per-slot tensor repeated over each slot's h flat-E rows."""
+    return x.repeat_interleave(h, dim=0)
+
+
+def _stage_write(cache: KVCache, offset: torch.Tensor, s: int,
+                 staged: bool) -> None:
+    """The stage bookkeeping of a write at per-row ``offset`` (JAX
+    :783-795): every staged entry at or past the offset is stale
+    (speculative rollback, slot re-prefill) and is dropped; a staged write
+    records its columns' positions at the stage pointer."""
+    pos = cache.stage_pos
+    pos.masked_fill_(pos >= offset[:, None], -1)
+    if staged:
+        ptr = cache.stage_ptr
+        if ptr + s > pos.shape[1]:
+            raise ValueError(f"staging block full: {ptr} + {s} columns > "
+                             f"{pos.shape[1]}; flush first")
+        pos[:, ptr:ptr + s] = (offset[:, None]
+                               + torch.arange(s, device=pos.device)[None, :])
+
+
 def gpt_forward_with_cache(
     params: Params, cfg: GPTConfig, input_ids: torch.Tensor, cache: KVCache, *,
     window: Optional[int] = None,
@@ -337,6 +601,13 @@ def gpt_forward_with_cache(
     in JAX); otherwise prefill -> flash (K3) over the (dequantized) cache
     prefix with ``seq_lengths = new length`` and a causal offset.
 
+    Per-slot caches (tensor lengths) write each row at its own offset. On
+    a staged cache, writes of s <= min(FLAT_MULTI_MAX, C) tokens append to
+    the staging block and attend over two segments: the main cache below
+    base_len through K1's (m, l) form (K8-ml over int4 caches), the staged
+    columns in plain PyTorch, merged; a larger write goes to the main cache
+    and advances base_len.
+
     window: static upper bound on the valid length after this call
     (caller-guaranteed length + s <= window); attention reads only the
     first ``window`` cache columns (int4: ceil(window / 2) packed
@@ -344,48 +615,95 @@ def gpt_forward_with_cache(
     _check_supported(cfg)
     b, s = input_ids.shape
     offset = cache.length
+    vec = isinstance(offset, torch.Tensor)
     new_len = offset + s
     q4 = cache.bits == 4
     S_all = cache.k.shape[-1] * (2 if q4 else 1)
-    if new_len > S_all or (window is not None and new_len > window):
+    if not vec and (new_len > S_all or (window is not None and new_len > window)):
         raise ValueError(f"cache overflow: length {offset} + {s} exceeds "
                          f"max {S_all} / window {window}")
-    if q4:
+    staged = cache.staged and vec and s <= min(FLAT_MULTI_MAX,
+                                               cache.stage_pos.shape[1])
+    if q4 and s > 1 and (vec or cache.staged):
+        raise ValueError("int4 caches take multi-token writes at a uniform "
+                         "(scalar) offset only, and staged int4 caches "
+                         "single-token steps only")
+    if q4 and not vec:
         check_even_offset(offset, s)
     W = S_all if window is None else min(window, S_all)
     W2 = -(-W // 2)                     # int4: packed columns of the window
     dev = input_ids.device
-    position_ids = offset + torch.arange(s, device=dev)[None, :]
+    h, dk = cfg.n_head, cfg.head_dim
+    e = b * h
+    if vec:
+        # rows past the model's positions (idle serving slots keep
+        # advancing) gather the last one, as JAX's clamped gather does
+        position_ids = (offset[:, None].long()
+                        + torch.arange(s, device=dev)[None, :]
+                        ).clamp(max=max(cfg.n_positions - 1, 0))
+        offs_e, lens_e = per_row(offset, h), per_row(new_len, h)
+    else:
+        position_ids = offset + torch.arange(s, device=dev)[None, :]
+        offs_e, lens_e = offset, new_len
+    if cache.staged:
+        ptr0 = cache.stage_ptr
+        _stage_write(cache, offset, s, staged)
+        if staged:
+            cache.stage_ptr = ptr0 + s
+            base_e = per_row(cache.base_len, h)
+            pos_e = per_row(cache.stage_pos, h)
     hidden = embed(params, cfg, input_ids, position_ids)
     hidden, residual = norms.dropout_add_layer_norm(
         hidden, None, params["ln_0"]["weight"], params["ln_0"]["bias"],
         0.0, cfg.layer_norm_epsilon)
-    h, dk = cfg.n_head, cfg.head_dim
-    e = b * h
     for li, scale in enumerate(_softmax_scales(cfg)):
         lp = tree_index(params["layers"], li)
         qkv = dense.linear(hidden, lp["Wqkv"]).reshape(b, s, 3, h, dk)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        kt_new = k.permute(0, 2, 3, 1).reshape(e, dk, s)
         v_new = v.transpose(1, 2).reshape(e, s, dk)
-        if q4:
-            k4q, ks = quant.quantize_activations_int4(kt_new, axis=1)
-            v4q, vs = quant.quantize_activations_int4(v_new, axis=2)
-            store = store4_step if s == 1 else store4_prefill
-            store(cache.k[li], k4q, offset, axis=2)
-            store(cache.v[li], v4q, offset, axis=1)
-            store_pair_scale(cache.k_scale[li], ks[:, 0, :], offset)
-            store_pair_scale(cache.v_scale[li], vs[..., 0], offset)
-        elif cache.quantized:
-            k8, ks = quant.quantize_activations_int8(kt_new, axis=1)
-            v8, vs = quant.quantize_activations_int8(v_new, axis=2)
-            cache.k[li, :, :, offset:new_len] = k8
-            cache.v[li, :, offset:new_len] = v8
-            cache.k_scale[li, :, offset:new_len] = ks[:, 0, :]
-            cache.v_scale[li, :, offset:new_len] = vs[..., 0]
+        if staged:
+            # append at the stage pointer; the main cache is untouched
+            # until flush_kv_cache
+            k_st_new = k.transpose(1, 2).reshape(e, s, dk)
+            cols = slice(ptr0, ptr0 + s)
+            if cache.quantized:
+                k8, kss = quant.quantize_activations_int8(k_st_new, axis=2)
+                v8, vss = quant.quantize_activations_int8(v_new, axis=2)
+                cache.k_stage[li, :, cols] = k8
+                cache.v_stage[li, :, cols] = v8
+                cache.ks_stage[li, :, cols] = kss[..., 0]
+                cache.vs_stage[li, :, cols] = vss[..., 0]
+            else:
+                cache.k_stage[li, :, cols] = k_st_new.to(cache.k_stage.dtype)
+                cache.v_stage[li, :, cols] = v_new.to(cache.v_stage.dtype)
         else:
-            cache.k[li, :, :, offset:new_len] = kt_new
-            cache.v[li, :, offset:new_len] = v_new
+            kt_new = k.permute(0, 2, 3, 1).reshape(e, dk, s)
+            if q4:
+                k4q, ks = quant.quantize_activations_int4(kt_new, axis=1)
+                v4q, vs = quant.quantize_activations_int4(v_new, axis=2)
+                if vec:
+                    rmw_nibble_axis_windowed(cache.k[li], k4q, offs_e, 2, W)
+                    rmw_nibble_axis_windowed(cache.v[li], v4q, offs_e, 1, W)
+                    update_pair_scale(cache.k_scale[li], ks[:, 0, 0], offs_e, W)
+                    update_pair_scale(cache.v_scale[li], vs[:, 0, 0], offs_e, W)
+                else:
+                    store = store4_step if s == 1 else store4_prefill
+                    store(cache.k[li], k4q, offset, axis=2)
+                    store(cache.v[li], v4q, offset, axis=1)
+                    store_pair_scale(cache.k_scale[li], ks[:, 0, :], offset)
+                    store_pair_scale(cache.v_scale[li], vs[..., 0], offset)
+            elif cache.quantized:
+                k8, ks = quant.quantize_activations_int8(kt_new, axis=1)
+                v8, vs = quant.quantize_activations_int8(v_new, axis=2)
+                update_rows_axis_windowed(cache.k[li], k8, offs_e, 2, W)
+                update_rows_axis_windowed(cache.v[li], v8, offs_e, 1, W)
+                update_rows_axis_windowed(cache.k_scale[li], ks[:, 0, :],
+                                          offs_e, 1, W)
+                update_rows_axis_windowed(cache.v_scale[li], vs[..., 0],
+                                          offs_e, 1, W)
+            else:
+                update_rows_axis_windowed(cache.k[li], kt_new, offs_e, 2, W)
+                update_rows_axis_windowed(cache.v[li], v_new, offs_e, 1, W)
         if q4:
             kt_c, v_c = cache.k[li, :, :, :W2], cache.v[li, :, :W2]
             k_sc, v_sc = cache.k_scale[li, ..., :W2], cache.v_scale[li, ..., :W2]
@@ -393,16 +711,40 @@ def gpt_forward_with_cache(
             kt_c, v_c = cache.k[li, :, :, :W], cache.v[li, :, :W]
             k_sc = cache.k_scale[li, :, :W] if cache.quantized else None
             v_sc = cache.v_scale[li, :, :W] if cache.quantized else None
-        if s == 1:
+        if staged:
+            qf = (q.float() * scale).to(q.dtype)
+            stage = (cache.k_stage[li], cache.ks_stage[li] if cache.quantized
+                     else None, cache.v_stage[li],
+                     cache.vs_stage[li] if cache.quantized else None, pos_e,
+                     lens_e)
+            if q4:
+                # K8-ml over the read-only packed cache, valid to base_len,
+                # merged with the int8 stage segment
+                q_flat = qf[:, 0].reshape(e, dk)
+                main = decode_attention_int4_ml(q_flat, kt_c, k_sc, v_c, v_sc,
+                                                base_e)
+                ctx = merge_softmax_segments(
+                    *main, *stage_segment_attention(q_flat, *stage))
+                ctx = ctx.reshape(b, 1, h, dk)
+            elif s == 1:
+                ctx = decode_attention_staged(qf[:, 0].reshape(e, dk), kt_c,
+                                              k_sc, v_c, v_sc, base_e, *stage)
+                ctx = ctx.reshape(b, 1, h, dk)
+            else:
+                q_flat = qf.transpose(1, 2).reshape(e, s, dk)
+                ctx = decode_attention_flat_multi_staged(
+                    q_flat, kt_c, k_sc, v_c, v_sc, base_e, *stage)
+                ctx = ctx.reshape(b, h, s, dk).transpose(1, 2)
+        elif s == 1:
             q_flat = (q[:, 0].float() * scale).to(q.dtype).reshape(e, dk)
             decode = decode_attention_int4 if q4 else decode_attention
-            ctx = decode(q_flat, kt_c, k_sc, v_c, v_sc, new_len)
+            ctx = decode(q_flat, kt_c, k_sc, v_c, v_sc, lens_e)
             ctx = ctx.reshape(b, 1, h, dk)
         elif s <= FLAT_MULTI_MAX and not q4:
             qf = (q.float() * scale).to(q.dtype)
             q_flat = qf.transpose(1, 2).reshape(e, s, dk)
             ctx = decode_attention_flat_multi(q_flat, kt_c, k_sc, v_c, v_sc,
-                                              new_len)
+                                              lens_e)
             ctx = ctx.reshape(b, h, s, dk).transpose(1, 2)
         else:
             # prefill: attend over the cache prefix (keys already quantized
@@ -418,13 +760,18 @@ def gpt_forward_with_cache(
             Wd = vd.shape[1]
             kd = kd.reshape(b, h, dk, Wd).permute(0, 3, 1, 2).contiguous()
             vd = vd.reshape(b, h, Wd, dk).transpose(1, 2)
-            lens = torch.full((b,), new_len, dtype=torch.int32, device=dev)
+            lens = (new_len.to(torch.int32) if vec else
+                    torch.full((b,), new_len, dtype=torch.int32, device=dev))
             ctx = mha(q, kd, vd, causal=True, softmax_scale=scale,
                       seq_lengths=lens, q_offset=offset)
         mixer_out = dense.linear(ctx.reshape(b, s, cfg.n_embd), lp["out_proj"])
         hidden, residual = _mlp_and_norms(hidden, residual, lp, mixer_out,
                                           cfg)
     cache.length = new_len
+    if cache.staged and not staged:
+        # a large write on a staged cache went to the main cache: every
+        # row's flushed horizon advances with it (JAX :1086)
+        cache.base_len.copy_(new_len)
     return hidden, cache
 
 

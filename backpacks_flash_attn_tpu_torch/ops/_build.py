@@ -79,6 +79,13 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "backpacks_flash_attn_tpu/ops/decode_attention.py:667"),
     Kernel("lowbit_decode_mixed", "lowbit_decode_attention.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:808"),
+    # the (m, l) forms of K1 and K8 (int4 keys), the main segments of the
+    # staged serving decode; built again from the same sources so that
+    # their launches count apart
+    Kernel("decode_attention_ml", "decode_attention.cu",
+           "backpacks_flash_attn_tpu/ops/decode_attention.py:77"),
+    Kernel("lowbit_decode_int4_ml", "lowbit_decode_attention.cu",
+           "backpacks_flash_attn_tpu/ops/decode_attention.py:1205"),
 )}
 
 

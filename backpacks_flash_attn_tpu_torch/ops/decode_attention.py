@@ -1,11 +1,12 @@
 """Single-query decode attention over INT8 caches (kernel K1) and over the
-low-bit int4 and mixed caches (kernel K8).
+low-bit int4 and mixed caches (kernel K8), and the staged serving decode.
 
 Port of ``backpacks_flash_attn_tpu/ops/decode_attention.py``: the contract
 of ``decode_attention_fused`` (:77), ``decode_attention_ref`` (:117) and
 ``decode_attention_flat`` (:134), plus ``decode_attention_flat_multi``
 (:1065) in plain PyTorch; the low-bit section below ports the int4 and
-mixed forms (:520-1062). K1's shapes (E = batch * heads, one problem per
+mixed forms (:520-1062), the staged section the two-segment decode of the
+serving cache (:1097-1279). K1's shapes (E = batch * heads, one problem per
 row):
 
   q:  (E, dk)        bf16/f32, pre-scaled by the softmax scale
@@ -31,9 +32,11 @@ import torch
 from . import _build, quant
 
 NEG = -1e30
-_K1 = _build.KERNELS["decode_attention"]
+_K1 = {False: _build.KERNELS["decode_attention"],
+       True: _build.KERNELS["decode_attention_ml"]}
 _K8 = {False: _build.KERNELS["lowbit_decode_int4"],
        True: _build.KERNELS["lowbit_decode_mixed"]}
+_K8_ML = _build.KERNELS["lowbit_decode_int4_ml"]
 _KV_DTYPES = {torch.bfloat16: (torch.int8, torch.bfloat16),
               torch.float32: (torch.int8, torch.float32)}
 
@@ -46,6 +49,36 @@ def _row_lengths(length, e: int, device) -> torch.Tensor:
 
 def _compute_dtype(q: torch.Tensor):
     return torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+
+
+def _lengths_arg(length, e: int, device):
+    """(lengths tensor or None, scalar length) as the kernels take them."""
+    if isinstance(length, int):
+        return None, length
+    lens = torch.as_tensor(length, device=device).to(torch.int32)
+    return lens.reshape(-1).expand(e).contiguous(), 0
+
+
+def _ml_outputs(e: int, device):
+    """The (m, l) outputs of a kernel's (m, l) form: f32 (E, 1) views."""
+    ml = torch.empty((2, e, 1), dtype=torch.float32, device=device)
+    return ml[0], ml[1]
+
+
+def _segment(s, ok, vs, v, cdt, out_dtype):
+    """The normalized output and (m, l) of one softmax segment: s (E, n)
+    f32 scores, ok (E, n) valid, vs (E, n) value scales or None, v
+    (E, n, dv). The Pallas body's epilogue (:617-655): m over the valid
+    scores, exp(s - m) zeroed where invalid, l their sum; an all-masked row
+    returns (0, NEG, 0)."""
+    s = torch.where(ok, s, NEG)
+    m = s.amax(dim=1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), 0.0)
+    l = p.sum(dim=1, keepdim=True)
+    if vs is not None:
+        p = p * vs
+    o = torch.einsum("es,esd->ed", p.to(cdt), v.to(cdt)).float()
+    return (o / torch.where(l == 0.0, 1.0, l)).to(out_dtype), m, l
 
 
 def decode_attention_ref(q, kt, ks, v, vs, length):
@@ -65,6 +98,19 @@ def decode_attention_ref(q, kt, ks, v, vs, length):
     return torch.einsum("es,esd->ed", p.to(cdt), v.to(cdt)).to(q.dtype)
 
 
+def decode_attention_ml_ref(q, kt, ks, v, vs, length):
+    """Plain version of K1's (m, l) form: (out, m, l), m and l f32 (E, 1),
+    the softmax state of the row in the units of the scores (q pre-scaled,
+    times ks). An all-masked row returns (0, NEG, 0)."""
+    cdt = _compute_dtype(q)
+    s = torch.einsum("ed,eds->es", q.to(cdt), kt.to(cdt)).float()
+    if ks is not None:
+        s = s * ks
+    pos = torch.arange(v.shape[1], device=q.device)[None, :]
+    ok = pos < _row_lengths(length, q.shape[0], q.device)[:, None]
+    return _segment(s, ok, vs, v, cdt, q.dtype)
+
+
 def decode_attention(q: torch.Tensor, kt: torch.Tensor,
                      ks: Optional[torch.Tensor], v: torch.Tensor,
                      vs: Optional[torch.Tensor], length) -> torch.Tensor:
@@ -74,6 +120,19 @@ def decode_attention(q: torch.Tensor, kt: torch.Tensor,
     kernel or raises."""
     if not q.is_cuda or not _build.kernels_enabled():
         return decode_attention_ref(q, kt, ks, v, vs, length)
+    return _k1_kernel(q, kt, ks, v, vs, length, ml=False)
+
+
+def decode_attention_ml(q, kt, ks, v, vs, length):
+    """K1's (m, l) form, the main segment of the staged decode: (out, m, l)
+    as :func:`decode_attention_ml_ref` (counted as ``decode_attention_ml``).
+    Dispatch as in :func:`decode_attention`."""
+    if not q.is_cuda or not _build.kernels_enabled():
+        return decode_attention_ml_ref(q, kt, ks, v, vs, length)
+    return _k1_kernel(q, kt, ks, v, vs, length, ml=True)
+
+
+def _k1_kernel(q, kt, ks, v, vs, length, ml: bool):
     e, dk = q.shape
     _build.check_cuda_tensor("q", q, _KV_DTYPES.keys(), 2)
     _build.check_cuda_tensor("kt", kt, _KV_DTYPES[q.dtype], 3)
@@ -96,24 +155,19 @@ def decode_attention(q: torch.Tensor, kt: torch.Tensor,
     if (v.data_ptr() % vec_bytes or v.stride(0) % 4 or v.stride(1) % 4):
         raise ValueError("decode_attention kernel needs 4-element aligned "
                          "value rows")
-    lens_ptr, scalar_len = _build.Ptr.of(None), 0
-    if isinstance(length, int):
-        scalar_len = length
-    else:
-        lens = torch.as_tensor(length, device=q.device).to(torch.int32)
-        lens = lens.reshape(-1).expand(e).contiguous()
-        lens_ptr = _build.Ptr.of(lens)
+    lens, scalar_len = _lengths_arg(length, e, q.device)
     out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
+    m, l = _ml_outputs(e, q.device) if ml else (None, None)
     P = _build.Ptr.of
     code = _build.DTYPE_CODE
     _build.launch(
-        _K1, "decode_attention_launch", P(q), P(kt), P(ks), P(v), P(vs),
-        lens_ptr, P(out), e, dk, s_len, dv, scalar_len,
+        _K1[ml], "decode_attention_launch", P(q), P(kt), P(ks), P(v), P(vs),
+        P(lens), P(out), P(m), P(l), e, dk, s_len, dv, scalar_len,
         q.stride(0), kt.stride(0), kt.stride(1), v.stride(0), v.stride(1),
         ks.stride(0) if ks is not None else 0,
         vs.stride(0) if vs is not None else 0,
         code[q.dtype], code[kt.dtype])
-    return out
+    return (out, m, l) if ml else out
 
 
 # ---------------------------------------------------------------- low-bit (K8)
@@ -126,7 +180,7 @@ def decode_attention(q: torch.Tensor, kt: torch.Tensor,
 # softmaxed together, so a window of w positions is the first ceil(w/2)
 # packed columns.
 
-def _lowbit_ref(q, k_lo, k_hi, ks2, v4, vs2, length):
+def _lowbit_ref(q, k_lo, k_hi, ks2, v4, vs2, length, ml=False):
     cdt = _compute_dtype(q)
     E, S2 = q.shape[0], v4.shape[1]
     lengths = _row_lengths(length, E, q.device)
@@ -134,12 +188,19 @@ def _lowbit_ref(q, k_lo, k_hi, ks2, v4, vs2, length):
     s_e = torch.einsum("ed,eds->es", qc, k_lo.to(cdt)).float() * ks2[:, 0]
     s_o = torch.einsum("ed,eds->es", qc, k_hi.to(cdt)).float() * ks2[:, 1]
     j = torch.arange(S2, device=q.device)[None, :]
+    v_lo, v_hi = quant.unpack_int4_pairs_split(v4)
+    if ml:
+        # one segment over both parities: m before any exp, l with that m
+        ok = torch.cat([2 * j < lengths[:, None], 2 * j + 1 < lengths[:, None]],
+                       dim=1)
+        return _segment(torch.cat([s_e, s_o], dim=1), ok,
+                        torch.cat([vs2[:, 0], vs2[:, 1]], dim=1),
+                        torch.cat([v_lo, v_hi], dim=1), cdt, q.dtype)
     s_e = torch.where(2 * j < lengths[:, None], s_e, NEG)
     s_o = torch.where(2 * j + 1 < lengths[:, None], s_o, NEG)
     p = torch.softmax(torch.cat([s_e, s_o], dim=1), dim=-1)
     p_e = p[:, :S2] * vs2[:, 0]
     p_o = p[:, S2:] * vs2[:, 1]
-    v_lo, v_hi = quant.unpack_int4_pairs_split(v4)
     out = (torch.einsum("es,esd->ed", p_e.to(cdt), v_lo.to(cdt)).float()
            + torch.einsum("es,esd->ed", p_o.to(cdt), v_hi.to(cdt)).float())
     return out.to(q.dtype)
@@ -153,6 +214,15 @@ def decode_attention_flat_int4(q, kt4, ks2, v4, vs2, length):
     return _lowbit_ref(q, k_lo, k_hi, ks2, v4, vs2, length)
 
 
+def decode_attention_flat_int4_ml(q, kt4, ks2, v4, vs2, length):
+    """Plain version of K8-ml: (out, m, l) of the int4 segment, the Pallas
+    ml body's results (:922, epilogue :651-655); JAX's XLA branch of
+    ``decode_attention_int4_staged_ml`` (:1211-1239) agrees on every row
+    with a valid position (an all-masked row returns (0, NEG, 0))."""
+    k_lo, k_hi = quant.unpack_int4_pairs_split(kt4)
+    return _lowbit_ref(q, k_lo, k_hi, ks2, v4, vs2, length, ml=True)
+
+
 def decode_attention_flat_mixed(q, k8, ks2, v4, vs2, length):
     """Plain version of K8 over the mixed cache (JAX :763): k8
     (E, dk, 2, S/2) int8 in the even/odd split layout, the rest as in
@@ -160,7 +230,8 @@ def decode_attention_flat_mixed(q, k8, ks2, v4, vs2, length):
     return _lowbit_ref(q, k8[:, :, 0], k8[:, :, 1], ks2, v4, vs2, length)
 
 
-def _lowbit_kernel(q, keys, ks2, v4, vs2, length, split_keys: bool):
+def _lowbit_kernel(q, keys, ks2, v4, vs2, length, split_keys: bool,
+                   ml: bool = False):
     e, dk = q.shape
     _build.check_cuda_tensor("q", q, _KV_DTYPES.keys(), 2)
     _build.check_cuda_tensor("keys", keys, (torch.int8,), 4 if split_keys else 3)
@@ -181,24 +252,20 @@ def _lowbit_kernel(q, keys, ks2, v4, vs2, length, split_keys: bool):
     if v4.data_ptr() % 16 or v4.stride(0) % 16 or v4.stride(1) % 16:
         raise ValueError("lowbit_decode_attention kernel needs 16-byte aligned "
                          "value rows")
-    lens_ptr, scalar_len = _build.Ptr.of(None), 0
-    if isinstance(length, int):
-        scalar_len = length
-    else:
-        lens = torch.as_tensor(length, device=q.device).to(torch.int32)
-        lens = lens.reshape(-1).expand(e).contiguous()
-        lens_ptr = _build.Ptr.of(lens)
+    lens, scalar_len = _lengths_arg(length, e, q.device)
     out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
+    m, l = _ml_outputs(e, q.device) if ml else (None, None)
     if e:
         P = _build.Ptr.of
         _build.launch(
-            _K8[split_keys], "lowbit_decode_attention_launch", P(q), P(keys), P(ks2), P(v4),
-            P(vs2), lens_ptr, P(out), e, dk, s2, dv, scalar_len, q.stride(0),
+            _K8_ML if ml else _K8[split_keys], "lowbit_decode_attention_launch",
+            P(q), P(keys), P(ks2), P(v4), P(vs2), P(lens), P(out), P(m), P(l),
+            e, dk, s2, dv, scalar_len, q.stride(0),
             keys.stride(0), keys.stride(1), keys.stride(2) if split_keys else 0,
             ks2.stride(0), ks2.stride(1), v4.stride(0), v4.stride(1),
             vs2.stride(0), vs2.stride(1), _build.DTYPE_CODE[q.dtype],
             int(split_keys))
-    return out
+    return (out, m, l) if ml else out
 
 
 def decode_attention_int4(q, kt4, ks2, v4, vs2, length):
@@ -211,6 +278,16 @@ def decode_attention_int4(q, kt4, ks2, v4, vs2, length):
     if not q.is_cuda or not _build.kernels_enabled():
         return decode_attention_flat_int4(q, kt4, ks2, v4, vs2, length)
     return _lowbit_kernel(q, kt4, ks2, v4, vs2, length, split_keys=False)
+
+
+def decode_attention_int4_ml(q, kt4, ks2, v4, vs2, length):
+    """K8-ml: (out, m, l) over int4 caches, as
+    :func:`decode_attention_flat_int4_ml` (counted as
+    ``lowbit_decode_int4_ml``). Dispatch as in :func:`decode_attention_int4`."""
+    if not q.is_cuda or not _build.kernels_enabled():
+        return decode_attention_flat_int4_ml(q, kt4, ks2, v4, vs2, length)
+    return _lowbit_kernel(q, kt4, ks2, v4, vs2, length, split_keys=False,
+                          ml=True)
 
 
 def decode_attention_mixed(q, k8, ks2, v4, vs2, length):
@@ -272,3 +349,130 @@ def decode_attention_flat_multi(q, kt, ks, v, vs, length):
         p = p * vs[:, None, :]
     out = torch.einsum("ets,esd->etd", p.to(cdt), v.to(cdt))
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------- staged
+#
+# The staging-block serving cache (models/gpt.py): decode appends each
+# step's keys and values to a C-column block at a scalar pointer and a flush
+# merges the block into the main cache every ~C steps. A step attends over
+# two segments: the main cache, valid below base_len (the length at the
+# last flush), and the staged columns, valid where 0 <= st_pos < length.
+
+def decode_attention_flat_staged(q, kt, ks, v, vs, base_len,
+                                 k_st, ks_st, v_st, vs_st, st_pos, length):
+    """Plain two-segment decode attention (JAX :1097), one softmax over
+    both: main kt (E, dk, W) / v (E, W, dv) with (E, W) scales or None,
+    valid where pos < base_len; staged k_st (E, C, dk) / v_st (E, C, dv)
+    with (E, C) scales or None, valid where 0 <= st_pos < length. Returns
+    (E, dv) in q's dtype."""
+    cdt = _compute_dtype(q)
+    E = q.shape[0]
+    base = _row_lengths(base_len, E, q.device)
+    lens = _row_lengths(length, E, q.device)
+    s_m = torch.einsum("ed,eds->es", q.to(cdt), kt.to(cdt)).float()
+    if ks is not None:
+        s_m = s_m * ks
+    pos = torch.arange(kt.shape[-1], device=q.device)[None, :]
+    s_m = torch.where(pos < base[:, None], s_m, NEG)
+    s_s = torch.einsum("ed,ecd->ec", q.to(cdt), k_st.to(cdt)).float()
+    if ks_st is not None:
+        s_s = s_s * ks_st
+    s_s = torch.where((st_pos >= 0) & (st_pos < lens[:, None]), s_s, NEG)
+    p = torch.softmax(torch.cat([s_m, s_s], dim=1), dim=-1)
+    p_m, p_s = p[:, :s_m.shape[1]], p[:, s_m.shape[1]:]
+    if vs is not None:
+        p_m = p_m * vs
+    if vs_st is not None:
+        p_s = p_s * vs_st
+    out = (torch.einsum("es,esd->ed", p_m.to(cdt), v.to(cdt)).float()
+           + torch.einsum("ec,ecd->ed", p_s.to(cdt), v_st.to(cdt)).float())
+    return out.to(q.dtype)
+
+
+def decode_attention_flat_multi_staged(q, kt, ks, v, vs, base_len,
+                                       k_st, ks_st, v_st, vs_st, st_pos,
+                                       length):
+    """Staged :func:`decode_attention_flat_multi` (JAX :1149): q (E, t, dk)
+    rows at positions length - t + u, written to the staging block before
+    the call; the main segment is valid below base_len for every row, the
+    staged one under the causal limit st_pos < length - (t-1-u). Returns
+    (E, t, dv)."""
+    cdt = _compute_dtype(q)
+    E, t, _ = q.shape
+    base = _row_lengths(base_len, E, q.device)
+    lens = _row_lengths(length, E, q.device)
+    s_m = torch.einsum("etd,eds->ets", q.to(cdt), kt.to(cdt)).float()
+    if ks is not None:
+        s_m = s_m * ks[:, None, :]
+    pos = torch.arange(kt.shape[-1], device=q.device)[None, None, :]
+    s_m = torch.where(pos < base[:, None, None], s_m, NEG)
+    s_s = torch.einsum("etd,ecd->etc", q.to(cdt), k_st.to(cdt)).float()
+    if ks_st is not None:
+        s_s = s_s * ks_st[:, None, :]
+    limit = (lens[:, None, None]
+             - (t - 1 - torch.arange(t, device=q.device))[None, :, None])
+    ok = (st_pos[:, None, :] >= 0) & (st_pos[:, None, :] < limit)
+    s_s = torch.where(ok, s_s, NEG)
+    p = torch.softmax(torch.cat([s_m, s_s], dim=2), dim=-1)
+    p_m, p_s = p[:, :, :s_m.shape[2]], p[:, :, s_m.shape[2]:]
+    if vs is not None:
+        p_m = p_m * vs[:, None, :]
+    if vs_st is not None:
+        p_s = p_s * vs_st[:, None, :]
+    out = (torch.einsum("ets,esd->etd", p_m.to(cdt), v.to(cdt)).float()
+           + torch.einsum("etc,ecd->etd", p_s.to(cdt), v_st.to(cdt)).float())
+    return out.to(q.dtype)
+
+
+def stage_segment_attention(q, k_st, ks_st, v_st, vs_st, st_pos, length):
+    """(out, m, l) of the stage segment (JAX :1245): k_st/v_st (E, C, d)
+    staged columns with (E, C) scales or None; st_pos (E, C) logical
+    positions (-1 free, valid below length). Normalized out; an all-masked
+    row returns (0, NEG, 0) so that :func:`merge_softmax_segments` weighs
+    it out. Plain PyTorch on every device: C <= 64 columns."""
+    cdt = _compute_dtype(q)
+    lens = _row_lengths(length, q.shape[0], q.device)
+    s = torch.einsum("ed,ecd->ec", q.to(cdt), k_st.to(cdt)).float()
+    if ks_st is not None:
+        s = s * ks_st
+    ok = (st_pos >= 0) & (st_pos < lens[:, None])
+    return _segment(s, ok, vs_st, v_st, cdt, q.dtype)
+
+
+def merge_softmax_segments(o1, m1, l1, o2, m2, l2, dtype=None):
+    """Flash-style combination of two normalized softmax segments (JAX
+    :1270); both empty (a slot just admitted) gives 0."""
+    dtype = dtype or o1.dtype
+    m = torch.maximum(m1, m2)
+    w1 = l1 * torch.exp(m1 - m)
+    w2 = l2 * torch.exp(m2 - m)
+    tot = torch.clamp_min(w1 + w2, 1e-30)
+    return ((o1.float() * w1 + o2.float() * w2) / tot).to(dtype)
+
+
+def decode_attention_staged(q, kt, ks, v, vs, base_len,
+                            k_st, ks_st, v_st, vs_st, st_pos, length):
+    """The staged decode step of the port (the contract of
+    :func:`decode_attention_flat_staged`): K1's (m, l) form over the main
+    segment, read in place below base_len at stored precision, then the
+    plain stage segment and the merge. JAX leaves this step to one fused
+    XLA contraction; in PyTorch that contraction would materialize the
+    dequantized window (at batch 128 and window 256 the Backpack combine
+    alone would write ~0.8 GB a step), so the main segment takes the
+    kernel, as unstaged decode does."""
+    o_m, m_m, l_m = decode_attention_ml(q, kt, ks, v, vs, base_len)
+    o_s, m_s, l_s = stage_segment_attention(q, k_st, ks_st, v_st, vs_st,
+                                            st_pos, length)
+    return merge_softmax_segments(o_m, m_m, l_m, o_s, m_s, l_s)
+
+
+def decode_attention_int4_staged_ml(layer, q, k_all, ks_all, v_all, vs_all,
+                                    base_len, *, window_cols=None):
+    """Main-segment attention over layer ``layer`` of the packed int4 caches
+    (JAX :1205), valid below base_len: (out, m, l) through K8-ml, the layer
+    and the window read in place. Returns no cache buffers: JAX's entry
+    donates them through its kernel, PyTorch needs not."""
+    return decode_attention_int4_ml(
+        q, *_layer_window(layer, window_cols, k_all, ks_all, v_all, vs_all),
+        base_len)

@@ -223,6 +223,8 @@ def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
         if t.shape != q.shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != q's")
     _build.check_cuda_tensor("lse", lse, (torch.float32,), 3)
+    if lse.shape != (b, h, sq):
+        raise ValueError(f"lse: shape {tuple(lse.shape)} != {(b, h, sq)}")
     lse = lse.contiguous()
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)

@@ -1,10 +1,12 @@
-"""Greedy generation: KV-cached Backpack decode and the recompute oracle.
+"""Generation: KV-cached Backpack decode (greedy or sampled) and the
+recompute oracle.
 
-Port of ``backpacks_flash_attn_tpu/utils/generation.py``
-(``generate_backpack`` :89, greedy; ``generate_backpack_recompute`` :144).
+Port of ``backpacks_flash_attn_tpu/utils/generation.py`` (``_select_next``
+:31, ``generate_backpack`` :89, ``generate_backpack_recompute`` :144).
 PyTorch runs eagerly, so the decode loop is a Python loop over cached steps
-(JAX compiles it as one scan). Sampling, top-k/top-p and interventions come
-with a later slice.
+(JAX compiles it as one scan). Sampling keys are ``utils.prng`` keys, split
+as JAX splits them, and the Gumbel draw is ``jax.random.categorical``'s on
+those keys.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from ..config import BackpackConfig
 from ..models import backpack as bp
 from ..ops import _build
+from . import prng
 
 
 class GenerationOutput(NamedTuple):
@@ -23,28 +26,69 @@ class GenerationOutput(NamedTuple):
     scores: Optional[torch.Tensor]    # (b, n_generated, vocab) or None
 
 
+def _select_next(logits: torch.Tensor, rng: Optional[torch.Tensor],
+                 temperature: float, top_k: int,
+                 top_p: float = 1.0) -> torch.Tensor:
+    """Greedy if rng is None, else temperature (+ optional top-k and/or
+    nucleus top-p) sampling with ``rng``'s Gumbel draw (JAX :31)."""
+    if rng is None:
+        return logits.argmax(dim=-1)
+    logits = logits.float() / max(temperature, 1e-6)
+    if top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[..., -top_k][..., None]
+        logits = torch.where(logits < kth, -torch.inf, logits)
+    if top_p < 1.0:
+        # keep the smallest prefix of descending-prob tokens with cumulative
+        # probability > top_p (the last kept token crosses the threshold)
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs < top_p
+        cutoff = torch.where(keep, sorted_logits, torch.inf).amin(
+            dim=-1, keepdim=True)
+        logits = torch.where(logits < cutoff, -torch.inf, logits)
+    return prng.categorical(rng, logits)
+
+
 @torch.inference_mode()
 def generate_backpack(params, cfg: BackpackConfig, input_ids: torch.Tensor,
-                      max_length: int, *, output_scores: bool = False,
+                      max_length: int, *, rng: Optional[torch.Tensor] = None,
+                      greedy: Optional[bool] = None, temperature: float = 1.0,
+                      top_k: int = 0, top_p: float = 1.0,
+                      output_scores: bool = False,
+                      sense_weights: Optional[torch.Tensor] = None,
                       cache_dtype=torch.bfloat16,
                       device="cuda") -> GenerationOutput:
-    """Incremental greedy Backpack generation: one prefill, then one cached
-    decode step per new token, on a cache allocated on ``device``."""
+    """Incremental Backpack generation: one prefill, then one cached decode
+    step per new token, on a cache allocated on ``device``. Greedy unless
+    ``rng`` (a ``utils.prng`` key) is given with a positive temperature;
+    token t samples with ``fold_in(rng, t + 1)`` past the first, which
+    takes ``fold_in(rng, 0)``, as JAX's scan does. sense_weights threads
+    through every step."""
+    if greedy is None:
+        greedy = rng is None or temperature <= 0
+    if temperature <= 0:
+        temperature = 1.0
+    key = None if greedy else rng
     b, prompt_len = input_ids.shape
     if max_length <= prompt_len:
         raise ValueError(f"max_length {max_length} leaves no token to "
                          f"generate after a {prompt_len}-token prompt")
     cache = bp.init_backpack_cache(cfg, b, max_length, cache_dtype,
                                    device=device)
-    logits, cache = bp.backpack_forward_with_cache(params, cfg, input_ids,
-                                                   cache)
+    logits, cache = bp.backpack_forward_with_cache(
+        params, cfg, input_ids, cache, sense_weights=sense_weights)
     scores = [logits[:, -1]]
-    tokens = [scores[-1].argmax(dim=-1)]
-    for _ in range(max_length - prompt_len - 1):
+    tokens = [_select_next(scores[-1], None if key is None
+                           else prng.fold_in(key, 0), temperature, top_k,
+                           top_p)]
+    for i in range(1, max_length - prompt_len):
         logits, cache = bp.backpack_forward_with_cache(
-            params, cfg, tokens[-1][:, None], cache)
+            params, cfg, tokens[-1][:, None], cache,
+            sense_weights=sense_weights)
         scores.append(logits[:, -1])
-        tokens.append(scores[-1].argmax(dim=-1))
+        tokens.append(_select_next(
+            scores[-1], None if key is None else prng.fold_in(key, i + 1),
+            temperature, top_k, top_p))
     sequences = torch.cat([input_ids, torch.stack(tokens, dim=1)], dim=1)
     return GenerationOutput(
         sequences=sequences,

@@ -1,5 +1,5 @@
 """Counter-based keys: the port's copy of the ``jax.random`` calls on the
-training path.
+training and sampling paths.
 
 Keys are threefry2x32 keys, as ``jax.random.PRNGKey`` makes them with
 ``jax_threefry_partitionable=True`` (the default of the JAX versions the
@@ -7,7 +7,8 @@ package is tested against): a ``(..., 2)`` tensor of 32-bit words. The
 words are held in int64 tensors on the CPU and masked to 32 bits after every
 add, shift and multiply, so the bits are those of ``jax.random`` exactly.
 The dropout sites and the flash kernels read their seeds from these keys;
-the work is a few keys per training step, done on the host.
+the work is a few keys per training step, done on the host. Sampling draws
+its Gumbel noise from a key on the logits' device (:func:`categorical`).
 """
 
 from __future__ import annotations
@@ -49,6 +50,36 @@ def threefry2x32(k1, k2, x1, x2):
         x[0] = (x[0] + ks[(i + 1) % 3]) & MASK32
         x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & MASK32
     return x[0], x[1]
+
+
+def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (32-bit): threefry of the
+    row-major counter of each element, the two output words XORed
+    (``prng._threefry_random_bits_partitionable``); int64 in [0, 2^32)."""
+    n = 1
+    for d in shape:
+        n *= d
+    count = torch.arange(n, dtype=torch.int64, device=device)
+    k = _u32(key)
+    b1, b2 = threefry2x32(k[0], k[1], count >> 32, count & MASK32)
+    return (b1 ^ b2).reshape(tuple(shape))
+
+
+def gumbel(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in f32 (its "low" mode): uniforms
+    from the top 23 bits as a float in [1, 2) less 1, floored at the
+    smallest normal, then -log(-log(u))."""
+    bits = random_bits(key, shape, device)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(torch.clamp_min(f + tiny, tiny)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)``: the Gumbel-max
+    draw over the last axis (f32 logits)."""
+    g = gumbel(key, logits.shape, logits.device)
+    return torch.argmax(g + logits.float(), dim=-1)
 
 
 def PRNGKey(seed: int) -> torch.Tensor:

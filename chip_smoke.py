@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port (backpacks_flash_attn_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,serve,forward,train] [--out DIR]
+    python3 chip_smoke.py [--phases device,build,kernels,serve,engine,forward,train]
+                          [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -14,7 +15,9 @@ Phases, each printing one JSON line:
             PyTorch library call computing the same function. K8 (int4
             and mixed) against its plain version at the GPT decode and
             Backpack combine shapes, library = SDPA over the dequantized
-            cache.
+            cache; the (m, l) forms of the staged decode, K8-ml at the GPT
+            int4 shape and K1-ml at the staged INT8 GPT and Backpack
+            combine shapes, each on out, m and l.
 4. serve    backpack-small at full width, random weights from a seeded
             generator, 128 requests with 32-token prompts: batched prefill,
             then 224 greedy tokens (window 128 below position 128, 256
@@ -29,9 +32,25 @@ Phases, each printing one JSON line:
             path in the same cache configuration under the same 2x rule.
             Device time by kernel from torch.profiler over all 224 steps
             (bf16, INT8) or the first 32 (kv4, int4).
-5. forward  backpack_forward at (8, 512) in bf16 through K3 and K4, logits
+5. engine   serve-engine: ServingEngine over INT8 weights and INT8 caches
+            at its defaults (stage 64, windows 128/256/384/512), 128 slots,
+            max_seqlen 512, 256 greedy requests (prompts of 16-64 tokens,
+            64-224 new tokens, from the seeded generator), so that slots
+            retire and refill: stats(), launches (K1's (m, l) form 13 times
+            a decode step, plain K1 never, K2 50 a step and a prefill, K3
+            12 a prefill), a profiled 32-step stretch (idle share), and the
+            share of requests whose tokens equal the same engine's under
+            plain_path() (reported, not gated). serve-staged-kv4: the model
+            path over the staged int4-KV cache (INT8 ctx-K and senses):
+            128 prompts of 32 tokens prefilled at a scalar length and
+            inserted as the engine admits, then 224 greedy steps under
+            windows 128/256, flushing whenever 64 staged columns fill; K8-ml
+            12 and K1-ml 1 a step. Then the teacher-forced gate of 8 decode
+            steps in the staged INT8 and staged kv4 configurations, ragged
+            slot lengths, a 4-column stage (a flush inside the steps).
+6. forward  backpack_forward at (8, 512) in bf16 through K3 and K4, logits
             against the plain path under the 2x rule.
-6. train    backpack-small at full width and depth, bf16 weights from the
+7. train    backpack-small at full width and depth, bf16 weights from the
             seeded generator, AdamW (warmup 10, lr 6e-4) on a bigram corpus
             over the first 4096 ids. Two runs at batch 32 x 512: (a) the
             einsum combine, 40 steps, (b) fused_ctx=True (K4 forward, K6
@@ -318,6 +337,79 @@ def kernel_cases(gen):
             scale=scale).sum(dim=1),
         bytes=2 * (2 * q.numel() + c.numel() + b * s * d),
         flops=2 * pairs * (dnv + d))))
+    return cases + ml_kernel_cases(gen)
+
+
+def ml_kernel_cases(gen):
+    """The (m, l) forms, main segments of the staged serving decode, each
+    over a 256 window of a 512 cache (strided slices) with ragged base
+    lengths, one row at 0 (an empty main segment): K8-ml at the GPT int4
+    shape (E = 128*12, dk = dv = 64), K1-ml at the staged INT8 GPT shape
+    and at the Backpack combine (E = 128*16, dk 64, dv 768). Each holds
+    out, m and l against its plain version; the library yardstick is SDPA
+    over the dequantized window (the empty row attends column 0 there)."""
+    from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
+    from backpacks_flash_attn_tpu_torch.ops import quant
+
+    dev, bf = DEV, torch.bfloat16
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    S, W, dk = 512, 256, 64
+    cases = []
+
+    def sdpa(q, kd, vd, lens):
+        mask = torch.arange(W, device=dev)[None, :] < lens.clamp(min=1)[:, None]
+        lk, lv = kd.transpose(1, 2).to(bf)[None], vd.to(bf)[None]
+        return lambda: F.scaled_dot_product_attention(
+            q[None, :, None, :], lk, lv, attn_mask=mask[None, :, None, :],
+            scale=1.0)[0, :, 0]
+
+    # K8-ml: pair-packed int4 keys and values, (E, 2, S/2) scales
+    E, dv, S2, W2 = 128 * 12, 64, S // 2, W // 2
+    lens = torch.randint(0, W + 1, (E,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[0], lens[1] = 0, W - 1
+    q = (randn(E, dk) * 0.125).to(bf)
+    keys = torch.randint(-128, 128, (E, dk, S2), generator=gen, device=dev,
+                         dtype=torch.int8)[..., :W2]
+    v = torch.randint(-128, 128, (E, S2, dv), generator=gen, device=dev,
+                      dtype=torch.int8)[:, :W2]
+    ks = (torch.rand(E, 2, S2, generator=gen, device=dev) * 0.05)[..., :W2]
+    vs = (torch.rand(E, 2, S2, generator=gen, device=dev) * 0.05)[..., :W2]
+    args = (q, keys, ks, v, vs, lens)
+    kd = quant.unpack_int4_pairs(keys, 2).float() * quant.interleave_pair_scales(ks)[:, None, :]
+    vd = quant.unpack_int4_pairs(v, 1).float() * quant.interleave_pair_scales(vs)[..., None]
+    n = lens.sum().item()
+    cols = ((lens + 1) // 2).sum().item()
+    cases.append(("lowbit_decode_int4_ml", f"gpt-int4-ml E={E} S={S} window={W} dv={dv}", dict(
+        kernel=lambda a=args: da.decode_attention_int4_ml(*a),
+        plain=lambda a=args: da.decode_attention_flat_int4_ml(*a),
+        ref=lambda a=args: da.decode_attention_flat_int4_ml(a[0].float(), *a[1:]),
+        library=sdpa(q, kd, vd, lens),
+        bytes=q.numel() * 2 + cols * (dk + dv + 16) + E * dv * 2 + E * 12,
+        flops=2 * n * (dk + dv))))
+
+    # K1-ml: INT8 keys and values with per-position scales
+    for label, E, dv in (("gpt-int8-ml", 128 * 12, 64),
+                         ("backpack-int8-ml", 128 * 16, 768)):
+        lens = torch.randint(0, W + 1, (E,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        lens[0], lens[1] = 0, W
+        q = (randn(E, dk) * 0.125).to(bf)
+        kt = torch.randint(-127, 128, (E, dk, S), generator=gen, device=dev,
+                           dtype=torch.int8)[..., :W]
+        v = torch.randint(-127, 128, (E, S, dv), generator=gen, device=dev,
+                          dtype=torch.int8)[:, :W]
+        ks = (torch.rand(E, S, generator=gen, device=dev) * 0.05)[:, :W]
+        vs = (torch.rand(E, S, generator=gen, device=dev) * 0.05)[:, :W]
+        args = (q, kt, ks, v, vs, lens)
+        n = lens.sum().item()
+        cases.append(("decode_attention_ml", f"{label} E={E} S={S} window={W} dv={dv}", dict(
+            kernel=lambda a=args: da.decode_attention_ml(*a),
+            plain=lambda a=args: da.decode_attention_ml_ref(*a),
+            ref=lambda a=args: da.decode_attention_ml_ref(a[0].float(), *a[1:]),
+            library=sdpa(q, kt.float() * ks[:, None, :], v.float() * vs[..., None], lens),
+            bytes=(q.numel() * 2 + n * (dk + dv + 8) + E * dv * 2 + E * 12),
+            flops=2 * n * (dk + dv))))
     return cases
 
 
@@ -355,6 +447,12 @@ def train_kernel_cases(gen):
             qT, kT, vT, is_causal=True, scale=scale, dropout_p=p).transpose(1, 2),
         bytes=4 * tensor + b * h * s * 4, flops=4 * pairs * d)))
 
+    # each backward takes the LSE of its own path's forward, as in training
+    # (K3's for K5): the plain bf16 forward rounds its scores to bf16, so
+    # its LSE lies off the f32 scores K5 recomputes, and P with it
+    k3out, k3lse = fa._flash_fwd_kernel(q, k, v, scale=scale, seq_lengths=None,
+                                        q_offsets=None, causal=True,
+                                        dropout_p=p, seed=seed)
     out, lse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
     out32, lse32 = fa.flash_attention_ref(q32, k32, v32, return_lse=True, **kw)
     with torch.enable_grad():
@@ -363,7 +461,7 @@ def train_kernel_cases(gen):
                                               scale=scale, dropout_p=p)
     ldo = dout.transpose(1, 2)
     cases.append(("flash_attention_bwd", f"train b={b} h={h} s={s} p={p}", dict(
-        kernel=lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw),
+        kernel=lambda: fa.flash_attention_bwd(q, k, v, k3out, k3lse, dout, **kw),
         plain=lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw),
         ref=lambda: fa.flash_attention_bwd_ref(q32, k32, v32, out32, lse32,
                                                dout.float(), **kw),
@@ -432,6 +530,8 @@ HEADLINE = {
     "fused_contextualization_bwd": "train",
     "lowbit_decode_int4": "gpt-int4",
     "lowbit_decode_mixed": "backpack-mixed",
+    "decode_attention_ml": "gpt-int8-ml",
+    "lowbit_decode_int4_ml": "gpt-int4-ml",
 }
 # the run whose launch counts stand for each kernel in that line
 LAUNCH_RUN = {
@@ -443,6 +543,8 @@ LAUNCH_RUN = {
     "fused_contextualization_bwd": "train_fused",
     "lowbit_decode_int4": "serve_int4",
     "lowbit_decode_mixed": "serve_int4",
+    "decode_attention_ml": "serve_engine",
+    "lowbit_decode_int4_ml": "serve_staged_kv4",
 }
 
 
@@ -454,7 +556,8 @@ def phase_kernels(cases, results):
         ek, ep = two_x(f"{name} [{label}]", out, plain, ref)
         lib_out = c["library"]()
         lib_err = (max_err(lib_out, ref) if isinstance(lib_out, torch.Tensor)
-                   and "dropout" not in label else None)
+                   and isinstance(ref, torch.Tensor) and "dropout" not in label
+                   else None)
         row = dict(case=label, max_abs_err=ek, plain_bf16_err=ep,
                    library_err=lib_err,
                    ms=time_ms(c["kernel"]), plain_ms=time_ms(c["plain"]),
@@ -565,7 +668,9 @@ def profile_decode(params, cfg, cache, prompt, segments):
     logits, kv = bp.backpack_forward_with_cache(params, cfg, prompt, kv)
     token = logits[:, -1].argmax(-1)[:, None]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # kernel events only: the host ops' events are not read, and summing
+    # them over 224 steps took the profiler about a minute a run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         decode(params, cfg, kv, token, segments)
         torch.cuda.synchronize()
@@ -573,7 +678,7 @@ def profile_decode(params, cfg, cache, prompt, segments):
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue            # host ops; their kernels are listed themselves
+            continue
         us = ev.self_device_time_total
         if us > 0:
             rows.append((us, ev.key, ev.count))
@@ -719,6 +824,294 @@ def _map_tensors(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
     return fn(tree)
+
+
+# ------------------------------------------------------------------ engine
+
+ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_PROFILE = 128, 256, (64, 32)
+ENGINE_PROMPT, ENGINE_NEW = (16, 64), (64, 224)
+STAGE = 64                    # ServingEngine's default stage_tokens
+GATE_STAGE, GATE_LENS = 4, (16, 24, 32, 40)
+
+
+def gemms(cfg):
+    """K2 launches of one forward over INT8 weights: the four linears of
+    each GPT layer, ctx_attn.Wqkv and the lm head (the senses are a
+    gathered table)."""
+    return 4 * cfg.n_layer + 2
+
+
+def engine_requests(cfg, gen):
+    """ENGINE_REQUESTS greedy requests from the seeded generator: prompts of
+    16-64 tokens, budgets of 64-224 new tokens."""
+    n = ENGINE_REQUESTS
+    lens = torch.randint(ENGINE_PROMPT[0], ENGINE_PROMPT[1] + 1, (n,),
+                         generator=gen, device=DEV).tolist()
+    budgets = torch.randint(ENGINE_NEW[0], ENGINE_NEW[1] + 1, (n,),
+                            generator=gen, device=DEV).tolist()
+    ids = torch.randint(0, cfg.vocab_size, (n, ENGINE_PROMPT[1]),
+                        generator=gen, device=DEV).tolist()
+    return [(ids[i][:lens[i]], budgets[i]) for i in range(n)]
+
+
+def new_engine(params, cfg):
+    from backpacks_flash_attn_tpu_torch.serving.engine import ServingEngine
+    return ServingEngine(params, cfg, max_slots=ENGINE_SLOTS,
+                         max_seqlen=MAX_LEN, cache_dtype=torch.int8, eos_id=-1,
+                         stage_tokens=STAGE)
+
+
+def engine_run(params, cfg, requests):
+    """Serve every request to completion on a fresh engine: (tokens per
+    request, stats())."""
+    eng = new_engine(params, cfg)
+    rids = [eng.submit(p, max_new_tokens=n) for p, n in requests]
+    results = eng.run()
+    torch.cuda.synchronize()
+    stats = eng.stats()
+    del eng
+    return [results[r].tokens for r in rids], stats
+
+
+def profile_engine(params, cfg, requests):
+    """Wall ms per step of ENGINE_PROFILE[1] steps after ENGINE_PROFILE[0]
+    (past the first admission wave), unprofiled, then device ms per step by
+    kernel over the next as many steps with torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = new_engine(params, cfg)
+    for p, n in requests:
+        eng.submit(p, max_new_tokens=n)
+    skip, steps = ENGINE_PROFILE
+    for _ in range(skip):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    # kernel events only: the host ops' events would slow the profiler's
+    # summary by a minute and are not read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_prof = (time.perf_counter() - t0) * 1e3 / steps
+    del eng
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    device = sum(us for us, _, _ in rows) / 1e3 / steps
+    return dict(steps=steps, after_steps=skip, wall_ms_per_step=wall,
+                wall_ms_per_step_profiled=wall_prof,
+                device_ms_per_step=device,
+                device_idle_share=1 - device / wall,
+                device_idle_share_profiled=1 - device / wall_prof,
+                top=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
+                          calls_per_step=c / steps) for us, k, c in rows[:12]])
+
+
+def phase_engine(gen, results):
+    """serve-engine: ServingEngine over INT8 weights and INT8 caches at its
+    defaults (stage 64, windows 128/256/384/512), 128 slots, 256 greedy
+    requests; serve-staged-kv4: the model path over the staged int4-KV
+    cache; then the teacher-forced gates of both staged configurations."""
+    from backpacks_flash_attn_tpu_torch.config import backpack_small
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.models import quantized as qz
+    from backpacks_flash_attn_tpu_torch.ops import _build
+
+    cfg = backpack_small(vocab_size=50257)
+    params = bp.init_backpack(cfg, gen, dtype=torch.bfloat16)
+    qparams = qz.quantize_backpack_params(params, cfg, bits=8)
+    q32 = qz.quantize_backpack_params(params, cfg, bits=8,
+                                      act_dtype=torch.float32)
+    del params
+    requests = engine_requests(cfg, gen)
+
+    log("engine: warm-up")
+    engine_run(qparams, cfg, [(p, 8) for p, _ in requests[:ENGINE_SLOTS]])
+    log("engine: serve-engine")
+    _build.reset_launches()
+    tokens, stats = engine_run(qparams, cfg, requests)
+    counts = _build.launch_counts()
+    D, P, G = stats["decode_steps"], stats["prefill_dispatches"], gemms(cfg)
+    want = {"decode_attention_ml": (cfg.n_layer + 1) * D, "decode_attention": 0,
+            "quant_matmul": G * (D + P), "flash_attention": cfg.n_layer * P}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"serve-engine: {name} launched {counts[name]} "
+                                 f"times, want {n} ({D} steps, {P} prefills)")
+    if stats["completed"] != ENGINE_REQUESTS or not stats.get("flushes"):
+        raise AssertionError(f"serve-engine: stats {stats}")
+    if any(len(t) != n for t, (_, n) in zip(tokens, requests)):
+        raise AssertionError("serve-engine: a request ended early")
+    log("engine: plain path")
+    with _build.plain_path():
+        plain_tokens, plain_stats = engine_run(qparams, cfg, requests)
+    same = sum(a == b for a, b in zip(tokens, plain_tokens)) / len(tokens)
+    run = dict(phase="engine", run="serve_engine", stats=stats, launches=counts,
+               launches_per_decode_step={
+                   "decode_attention_ml": counts["decode_attention_ml"] / D,
+                   "decode_attention": counts["decode_attention"] / D,
+                   "quant_matmul": (counts["quant_matmul"] - G * P) / D},
+               share_equal_to_plain_path=same,
+               plain_path_tokens_per_s=plain_stats["tokens_per_s"])
+    log("engine: profile")
+    run["profile"] = profile_engine(qparams, cfg, requests)
+    emit(run)
+    results["serve_engine"] = run
+
+    log("engine: serve-staged-kv4")
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                           device=DEV)
+    results["serve_staged_kv4"] = staged_kv4_run(qparams, cfg, prompt)
+
+    log("engine: staged teacher-forced gates")
+    gates = {}
+    for label, kw in (("int8", CACHES["int8"]), ("kv4", CACHES["kv4"])):
+        gates[label] = staged_gate(qparams, q32, cfg, kw, gen)
+        emit({"phase": "engine", "staged_gate": label, **gates[label]})
+    results["staged_gates"] = gates
+
+
+def staged_prefill(params, cfg, prompts, lens, cache_kw, stage):
+    """A per-slot staged cache whose rows are prefilled in groups at scalar
+    lengths (int4 caches take multi-token writes at a uniform offset only)
+    and inserted as the engine admits them. Returns (cache, last logits)."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    b = prompts.shape[0]
+    cache = bp.init_backpack_cache(cfg, b, MAX_LEN, per_slot=True, stage=stage,
+                                   **cache_kw)
+    group = b // len(lens)
+    last = []
+    for g, n in enumerate(lens):
+        small = bp.init_backpack_cache(cfg, group, MAX_LEN, **cache_kw)
+        logits, small = bp.backpack_forward_with_cache(
+            params, cfg, prompts[g * group:(g + 1) * group, :n], small)
+        for i in range(group):
+            bp.insert_cache_slot(cache, bp.extract_cache_slot(small, i, cfg),
+                                 g * group + i)
+        last.append(logits[:, -1])
+        del small
+    return cache, torch.cat(last)
+
+
+def staged_kv4_once(params, cfg, prompt, segments, record=None):
+    """Prefill at a scalar length and insert, then greedy steps over the
+    staged int4-KV cache, flushing whenever STAGE staged columns fill:
+    (decode s, flushes)."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    cache, last = staged_prefill(params, cfg, prompt, (PROMPT,), CACHES["kv4"],
+                                 STAGE)
+    token = last.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0, flushes = time.perf_counter(), 0
+    for n_steps, window in segments:
+        for _ in range(n_steps):
+            if cache.gpt.stage_ptr == STAGE:
+                bp.flush_cache(cache)
+                flushes += 1
+            logits, cache = bp.backpack_forward_with_cache(
+                params, cfg, token, cache, window=window)
+            token = logits[:, -1].argmax(-1)[:, None]
+            if record is not None:
+                record.append(token)
+    torch.cuda.synchronize()
+    del cache
+    return time.perf_counter() - t0, flushes
+
+
+def staged_kv4_run(params, cfg, prompt):
+    """serve-staged-kv4: 128 prompts of 32 tokens, then 224 greedy steps
+    under windows 128/256 over the staged int4-KV cache (INT8 ctx-K and
+    senses): per decode step K8-ml once per GPT layer and K1-ml once for
+    the combine. Decode s median of SERVE_PASSES after a warm-up; device
+    time by kernel over a 32-step stretch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    staged_kv4_once(params, cfg, prompt, [(4, 128)])
+    _build.reset_launches()
+    toks = []
+    first = staged_kv4_once(params, cfg, prompt, SEGMENTS, toks)
+    counts = _build.launch_counts()
+    times = [first[0]] + [staged_kv4_once(params, cfg, prompt, SEGMENTS)[0]
+                          for _ in range(SERVE_PASSES - 1)]
+    steps = sum(n for n, _ in SEGMENTS)
+    per_step = {k: v / steps for k, v in counts.items()}
+    want = {"lowbit_decode_int4_ml": cfg.n_layer, "decode_attention_ml": 1,
+            "decode_attention": 0, "lowbit_decode_int4": 0}
+    # the prefill launches K2 and K3 too; the rest are the decode steps'
+    prefill = {"quant_matmul": gemms(cfg), "flash_attention": cfg.n_layer}
+    per_step.update({k: (counts[k] - n) / steps for k, n in prefill.items()})
+    for name, n in want.items():
+        if per_step[name] != n:
+            raise AssertionError(f"serve-staged-kv4: {name} launched "
+                                 f"{per_step[name]} times a step, want {n}")
+    decode_s = statistics.median(times)
+    short = SHORT_PROFILE[0][0]
+    wall = staged_kv4_once(params, cfg, prompt, SHORT_PROFILE)[0] * 1e3 / short
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        staged_kv4_once(params, cfg, prompt, SHORT_PROFILE)
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    device = sum(us for us, _, _ in rows) / 1e3 / short
+    out = dict(phase="engine", run="serve_staged_kv4", decode_s=decode_s,
+               decode_s_passes=times, tokens_per_s=BATCH * steps / decode_s,
+               flushes=first[1], launches=counts,
+               launches_per_decode_step=per_step,
+               profile=dict(steps=short, wall_ms_per_step=wall,
+                            device_ms_per_step=device,
+                            device_idle_share=1 - device / wall,
+                            top=[dict(name=k[:80], ms_per_step=us / 1e3 / short,
+                                      calls_per_step=c / short)
+                                 for us, k, c in rows[:12]]))
+    emit(out)
+    return out
+
+
+def staged_gate(params, ref_params, cfg, cache_kw, gen):
+    """Teacher-forced logits of COMPARE_STEPS decode steps over a staged
+    cache of BATCH slots with ragged lengths (four groups prefilled at 16,
+    24, 32 and 40 tokens), a GATE_STAGE-column stage so that a flush falls
+    inside the steps: kernel path vs plain path vs the f32 plain reference
+    (the same INT8 codes, f32 activations), under the 2x rule."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    import contextlib
+
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, max(GATE_LENS)),
+                            generator=gen, device=DEV)
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, COMPARE_STEPS),
+                         generator=gen, device=DEV)
+    outs = {}
+    for path in ("kernel", "plain", "ref"):
+        p = ref_params if path == "ref" else params
+        ctx = contextlib.nullcontext() if path == "kernel" else _build.plain_path()
+        with ctx:
+            cache, _ = staged_prefill(p, cfg, prompts, GATE_LENS, cache_kw,
+                                      GATE_STAGE)
+            logits, flushes = [], 0
+            for t in range(COMPARE_STEPS):
+                if cache.gpt.stage_ptr == GATE_STAGE:
+                    bp.flush_cache(cache)
+                    flushes += 1
+                lg, cache = bp.backpack_forward_with_cache(
+                    p, cfg, toks[:, t:t + 1], cache, window=128)
+                logits.append(lg.float())
+        outs[path] = torch.cat(logits, dim=1)
+        del cache
+    if not flushes or not torch.isfinite(outs["kernel"]).all():
+        raise AssertionError(f"staged gate: flushes {flushes}")
+    ek, ep = two_x("staged teacher-forced logits", outs["kernel"],
+                   outs["plain"], outs["ref"])
+    return dict(max_abs_err=ek, plain_bf16_err=ep, flushes=flushes,
+                kernel_vs_plain=max_err(outs["kernel"], outs["plain"]))
 
 
 # ------------------------------------------------------------------ forward
@@ -1012,7 +1405,8 @@ def phase_train(gen, results):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,serve,forward,train")
+    ap.add_argument("--phases",
+                    default="device,build,kernels,serve,engine,forward,train")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"))
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -1047,6 +1441,8 @@ def main():
             phase_kernels(kernel_cases(gen), results.setdefault("kernels", {}))
         if "serve" in phases:
             phase_serve(gen, results)
+        if "engine" in phases:
+            phase_engine(gen, results)
         if "forward" in phases:
             log("forward")
             phase_forward(gen, results)

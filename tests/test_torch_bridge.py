@@ -29,6 +29,7 @@ from backpacks_flash_attn_tpu_torch.ops import decode_attention as tda
 from backpacks_flash_attn_tpu_torch.ops import flash_attention as tfa
 from backpacks_flash_attn_tpu_torch.ops import quant as tq
 from backpacks_flash_attn_tpu_torch.eval import perplexity, quant_gates
+from backpacks_flash_attn_tpu_torch.serving.engine import ServingEngine
 from backpacks_flash_attn_tpu_torch.training import train_cli
 from backpacks_flash_attn_tpu_torch.utils import generation as tgen
 from backpacks_flash_attn_tpu_torch.utils.weights import params_from_numpy
@@ -104,8 +105,8 @@ def test_port_imports_no_jax():
     """Statically: no import of jax or of the JAX package in the port or
     chip_smoke.py. Dynamically: with both blocked, the port imports and
     runs a tiny CPU forward, a cached decode step, a decode step over the
-    low-bit (4, None) caches, the quant-gates module and a training
-    step."""
+    low-bit (4, None) caches, the quant-gates module, a training step, and
+    the serving engine over a staged cache (its C++ scheduler built)."""
     pattern = re.compile(r"^\s*(import|from) +(jax|backpacks_flash_attn_tpu)\b",
                          re.M)
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
@@ -138,6 +139,12 @@ step_fn = train.make_train_step(cfg, fused_ctx=True)
 batch = {"input_ids": torch.randint(0, cfg.vocab_size, (2, 9))}
 state, metrics = step_fn(state, batch, prng.PRNGKey(0))
 assert state.step == 1 and torch.isfinite(metrics["loss"])
+from backpacks_flash_attn_tpu_torch.serving.engine import ServingEngine
+eng = ServingEngine(params, cfg, max_slots=2, max_seqlen=32, eos_id=-1,
+                    cache_dtype=torch.int8, stage_tokens=4, device="cpu")
+outs = eng.generate([[1, 2, 3], [4, 5, 6, 7, 8, 9, 10, 11, 12]],
+                    max_new_tokens=6)
+assert [len(o) for o in outs] == [6, 6] and eng.stats()["flushes"] >= 1
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
 print("ok", tuple(logits.shape))
 """
@@ -165,6 +172,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(jax_params):
                                             np.zeros(64, np.uint16), 8),
         lambda: params_from_numpy(np_tree),
         lambda: tgen.generate_backpack(params, cfg, ids, 6),
+        lambda: ServingEngine(params, cfg),
+        lambda: tbp.init_backpack_cache(cfg, 1, 8, per_slot=True, stage=4),
         lambda: train_cli.run(train_cli.RunConfig(corpus="unused.npy")),
         lambda: perplexity.evaluate_perplexity(
             lambda x: x, np.zeros(64, np.uint16), 8, 2),
@@ -201,6 +210,16 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     assert all(torch.equal(x, y) for x, y in zip(
         tbk.fused_ctx_bwd(qc, kc, cc, clse, g, 0.5),
         tbk.fused_ctx_bwd_ref(qc, kc, cc, clse, g, 0.5)))
+    lens = torch.tensor([0, 3, 10, 7])
+    assert all(torch.equal(x, y) for x, y in zip(
+        tda.decode_attention_ml(q, kt, None, v, None, lens),
+        tda.decode_attention_ml_ref(q, kt, None, v, None, lens)))
+    k4 = torch.randint(-128, 128, (4, 8, 5), dtype=torch.int8)
+    v4 = torch.randint(-128, 128, (4, 5, 16), dtype=torch.int8)
+    sc = torch.rand(4, 2, 5)
+    assert all(torch.equal(x, y) for x, y in zip(
+        tda.decode_attention_int4_ml(q, k4, sc, v4, sc, lens),
+        tda.decode_attention_flat_int4_ml(q, k4, sc, v4, sc, lens)))
     assert _build.launch_counts() == {k: 0 for k in _build.KERNELS}
     with pytest.raises(NotImplementedError, match="attn_bias"):
         tfa.flash_attention(a, b, c, attn_bias=torch.zeros(5, 7))

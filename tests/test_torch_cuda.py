@@ -175,6 +175,7 @@ def _f32_close(out, ref):
     (torch.bfloat16, 2, 70, 3, True, 0.0),
     (torch.bfloat16, 2, 130, 2, True, 0.1),
     (torch.bfloat16, 1, 96, 3, False, 0.2),
+    (torch.bfloat16, 2, 512, 4, True, 0.1),      # the training shape's rows
     (torch.float32, 2, 70, 3, True, 0.0),
     (torch.float32, 2, 130, 2, True, 0.1),
     (torch.float32, 1, 45, 3, False, 0.2),
@@ -186,13 +187,22 @@ def test_flash_attention_bwd_kernel(gen, dt, b, s, h, causal, dropout_p):
     kw = dict(causal=causal, softmax_scale=0.125, dropout_p=dropout_p,
               seed=seed)
 
-    def grads(x, go, bwd):
+    def grads(x, go, bwd, fwd_kernel=False):
+        """Each backward takes its own path's forward, as in training (K3's
+        for K5): a plain bf16 forward's LSE comes from bf16-rounded scores,
+        off the f32 scores K5 recomputes."""
         q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]        # strided views
-        out, lse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        if fwd_kernel:
+            out, lse = fa._flash_fwd_kernel(
+                q, k, v, scale=0.125, seq_lengths=None, q_offsets=None,
+                causal=causal, dropout_p=dropout_p, seed=seed)
+        else:
+            out, lse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
         return bwd(q, k, v, out, lse, go, **kw)
 
     before = _build.KERNELS["flash_attention_bwd"].launches
-    kernel = grads(qkv.to(dt), dout.to(dt), fa.flash_attention_bwd)
+    kernel = grads(qkv.to(dt), dout.to(dt), fa.flash_attention_bwd,
+                   fwd_kernel=True)
     assert _build.KERNELS["flash_attention_bwd"].launches == before + 1
     ref = grads(qkv.to(dt).float(), dout.to(dt).float(),
                 fa.flash_attention_bwd_ref)
@@ -387,3 +397,188 @@ def test_quant_gates_cli_smoke(gen, tmp_path):
     for key, value in out.items():
         assert np.isfinite(value), key
     assert counts["quant_matmul"] > 0 and counts["flash_attention"] > 0
+
+
+def _ml_close(out, plain, ref, qdt):
+    """(out, m, l) of an (m, l) kernel form: each output within 1e-5 of
+    the f32 plain version (f32), or under the 2x rule (bf16)."""
+    for o, p, r in zip(out, plain, ref):
+        if qdt == torch.float32:
+            _f32_close(o, r)
+        else:
+            _within_2x(o, p, r)
+
+
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_lowbit_decode_int4_ml_kernel(gen, qdt):
+    """K8-ml on layer 1 of stacked int4 caches under a 100-column window,
+    ragged base lengths with one at 0 (an empty main segment: (0, NEG, 0)),
+    then merged with a stage segment as the staged decode merges them."""
+    L, E, dk, dv, S2, w, C = 3, 6, 64, 64, 160, 100, 8
+    dev = "cuda"
+    q = (torch.randn(E, dk, generator=gen, device=dev) * 0.3).to(qdt)
+    keys = torch.randint(-128, 128, (L, E, dk, S2), generator=gen, device=dev,
+                         dtype=torch.int8)
+    v = torch.randint(-128, 128, (L, E, S2, dv), generator=gen, device=dev,
+                      dtype=torch.int8)
+    ks, vs = torch.rand(2, L, E, 2, S2, generator=gen, device=dev) * 0.05
+    base = torch.tensor([0, 1, 2, 77, 2 * w - 1, 2 * w], dtype=torch.int32,
+                        device=dev)
+    args = (keys, ks, v, vs, base)
+    before = _build.KERNELS["lowbit_decode_int4_ml"].launches
+    out = da.decode_attention_int4_staged_ml(1, q, *args, window_cols=w)
+    assert _build.KERNELS["lowbit_decode_int4_ml"].launches == before + 1
+    with _build.plain_path():
+        plain = da.decode_attention_int4_staged_ml(1, q, *args, window_cols=w)
+        ref = da.decode_attention_int4_staged_ml(1, q.float(), *args,
+                                                 window_cols=w)
+    assert (out[0][0] == 0).all() and out[1][0, 0] == da.NEG and out[2][0, 0] == 0
+    _ml_close(out, plain, ref, qdt)
+    k_st = torch.randint(-127, 128, (E, C, dk), generator=gen, device=dev,
+                         dtype=torch.int8)
+    v_st = torch.randint(-127, 128, (E, C, dv), generator=gen, device=dev,
+                         dtype=torch.int8)
+    ks_st, vs_st = torch.rand(2, E, C, generator=gen, device=dev) * 0.05
+    pos = base[:, None] + torch.arange(C, device=dev)[None, :]
+    pos[2:4, 5:] = -1
+    stage = lambda qq: da.stage_segment_attention(qq, k_st, ks_st, v_st, vs_st,
+                                                  pos, base + C)
+    merged = da.merge_softmax_segments(*out, *stage(q))
+    with _build.plain_path():
+        mplain = da.merge_softmax_segments(*plain, *stage(q))
+    mref = da.merge_softmax_segments(*ref, *stage(q.float()))
+    if qdt == torch.float32:
+        _f32_close(merged, mref)
+    else:
+        _within_2x(merged, mplain, mref)
+
+
+@pytest.mark.parametrize("qdt,kvdt,dv", [
+    (torch.float32, torch.int8, 64),
+    (torch.bfloat16, torch.int8, 64),
+    (torch.bfloat16, torch.int8, 768),
+    (torch.bfloat16, torch.bfloat16, 768),
+])
+def test_decode_attention_ml_kernel_and_staged_route(gen, qdt, kvdt, dv):
+    """K1-ml over a window slice, ragged base lengths with one at 0; then
+    the staged decode route (K1-ml + stage segment + merge) against the
+    plain one-softmax decode_attention_flat_staged."""
+    E, dk, S, C, dev = 6, 64, 120, 8, "cuda"
+    q = (torch.randn(E, dk, generator=gen, device=dev) * 0.3).to(qdt)
+    if kvdt == torch.int8:
+        kt = torch.randint(-127, 128, (E, dk, S + 8), generator=gen, device=dev,
+                           dtype=torch.int8)[..., :S]
+        v = torch.randint(-127, 128, (E, S + 8, dv), generator=gen, device=dev,
+                          dtype=torch.int8)[:, :S]
+        ks, vs = (torch.rand(2, E, S + 8, generator=gen, device=dev) * 0.02)[..., :S]
+        k_st = torch.randint(-127, 128, (E, C, dk), generator=gen, device=dev,
+                             dtype=torch.int8)
+        v_st = torch.randint(-127, 128, (E, C, dv), generator=gen, device=dev,
+                             dtype=torch.int8)
+        ks_st, vs_st = torch.rand(2, E, C, generator=gen, device=dev) * 0.02
+    else:
+        kt = torch.randn(E, dk, S + 8, generator=gen, device=dev).to(kvdt)[..., :S]
+        v = torch.randn(E, S + 8, dv, generator=gen, device=dev).to(kvdt)[:, :S]
+        k_st = torch.randn(E, C, dk, generator=gen, device=dev).to(kvdt)
+        v_st = torch.randn(E, C, dv, generator=gen, device=dev).to(kvdt)
+        ks = vs = ks_st = vs_st = None
+    base = torch.tensor([0, 1, 60, S, 7, 33], dtype=torch.int32, device=dev)
+    before = _build.KERNELS["decode_attention_ml"].launches
+    out = da.decode_attention_ml(q, kt, ks, v, vs, base)
+    assert _build.KERNELS["decode_attention_ml"].launches == before + 1
+    plain = da.decode_attention_ml_ref(q, kt, ks, v, vs, base)
+    ref = da.decode_attention_ml_ref(q.float(), kt, ks, v, vs, base)
+    _ml_close(out, plain, ref, qdt)
+    pos = base[:, None] + torch.arange(C, device=dev)[None, :]
+    pos[1, :] = -1                                   # row 1: empty stage
+    lens = base + C
+    st = (base, k_st, ks_st, v_st, vs_st, pos, lens)
+    staged = da.decode_attention_staged(q, kt, ks, v, vs, *st)
+    with _build.plain_path():
+        splain = da.decode_attention_flat_staged(q, kt, ks, v, vs, *st)
+    sref = da.decode_attention_flat_staged(q.float(), kt, ks, v, vs, *st)
+    if qdt == torch.float32:
+        _f32_close(staged, sref)
+    else:
+        _within_2x(staged, splain, sref)
+
+
+def _backpack_d64():
+    """backpack-test widened to K3's head dim of 64."""
+    from backpacks_flash_attn_tpu_torch.config import BackpackConfig
+    return BackpackConfig(vocab_size=512, n_positions=128, n_embd=128,
+                          n_head=2, n_layer=2, num_senses=4,
+                          scale_attn_by_inverse_layer_idx=True,
+                          pad_vocab_size_multiple=8)
+
+
+def test_serving_engine_on_the_card(gen):
+    """A short ServingEngine run (backpack-test widened to K3's head dim,
+    INT8 caches, a 4-column
+    stage so that it flushes): every decode step launches K1's (m, l) form
+    once per GPT layer and once for the combine, and plain K1 never."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.serving.engine import ServingEngine
+
+    cfg = _backpack_d64()
+    params = bp.init_backpack(cfg, torch.Generator().manual_seed(0),
+                              device="cuda")
+    params["gpt"]["wte"] *= 20.0
+    rng = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, 512, (n,), generator=rng).tolist()
+               for n in (3, 9, 17, 5, 12)]
+
+    eng = ServingEngine(params, cfg, max_slots=3, max_seqlen=64,
+                        cache_dtype=torch.int8, eos_id=-1, stage_tokens=4)
+    _build.reset_launches()
+    got, stats = eng.generate(prompts, max_new_tokens=9), eng.stats()
+    counts = _build.launch_counts()
+    steps = stats["decode_steps"]
+    assert stats["flushes"] >= 2 and all(len(t) == 9 for t in got)
+    assert counts["decode_attention_ml"] == (cfg.n_layer + 1) * steps
+    assert counts["decode_attention"] == 0
+
+
+def test_staged_kv4_decode_launches_k8_ml(gen):
+    """Staged decode over an int4 GPT cache (INT8 ctx-K and senses): K8-ml
+    once per GPT layer a step, K1-ml once for the combine, through a flush;
+    logits finite and within 2e-2 of the largest of the plain path's (each
+    path quantizes its own activations into the caches, and a value on a
+    rounding boundary may take the neighbouring int4 code in one of them;
+    a wrong position or parity moves them by the logits' own size)."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+
+    cfg = _backpack_d64()
+    params = bp.init_backpack(cfg, torch.Generator().manual_seed(0),
+                              device="cuda")
+    b, steps = 3, 6
+    ids = torch.randint(0, 512, (b, 8 + steps), generator=torch.Generator(
+        ).manual_seed(2)).cuda()
+
+    def decode():
+        small = bp.init_backpack_cache(cfg, b, 32, torch.int8, bits=8,
+                                       kv_bits=4)
+        big = bp.init_backpack_cache(cfg, b, 32, torch.int8, bits=8,
+                                     kv_bits=4, per_slot=True, stage=4)
+        bp.backpack_forward_with_cache(params, cfg, ids[:, :8], small)
+        for i in range(b):
+            bp.insert_cache_slot(big, bp.extract_cache_slot(small, i, cfg), i)
+        out = []
+        for t in range(steps):
+            if big.gpt.stage_ptr == 4:
+                bp.flush_cache(big)
+            logits, big = bp.backpack_forward_with_cache(
+                params, cfg, ids[:, 8 + t:9 + t], big, window=16)
+            out.append(logits)
+        return torch.cat(out, dim=1)
+
+    _build.reset_launches()
+    got = decode()
+    counts = _build.launch_counts()
+    assert counts["lowbit_decode_int4_ml"] == cfg.n_layer * steps
+    assert counts["decode_attention_ml"] == steps
+    assert counts["lowbit_decode_int4"] == counts["decode_attention"] == 0
+    with _build.plain_path():
+        want = decode()
+    assert torch.isfinite(got).all()
+    assert _err(got, want) <= 2e-2 * want.abs().max().item()
