@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from ..config import GPTConfig
-from ..ops import _build, dense, norms, quant
+from ..ops import _build, dense, norms, quant, rotary
 from ..ops.attention import mha
 from ..utils import prng
 from ..ops.decode_attention import (decode_attention,
@@ -48,9 +48,9 @@ def _softmax_scales(cfg: GPTConfig) -> list:
 
 
 def _check_supported(cfg: GPTConfig) -> None:
-    if cfg.moe_experts or cfg.rotary_emb_dim or cfg.attn_dwconv:
-        raise NotImplementedError("MoE, rotary and dwconv GPT variants are "
-                                  "not ported yet")
+    if cfg.moe_experts or cfg.attn_dwconv:
+        raise NotImplementedError("MoE and dwconv GPT variants are not "
+                                  "ported yet (ROADMAP Queue 1 item 7)")
 
 
 def tree_index(tree, i: int):
@@ -122,7 +122,8 @@ def take_embedding(wte, input_ids: torch.Tensor,
 
 def embed(params: Params, cfg: GPTConfig, input_ids: torch.Tensor,
           position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Word + learned-position embeddings."""
+    """Word + learned-position embeddings; word only when ``n_positions``
+    is 0 (rotary models, JAX :441)."""
     hidden = take_embedding(params["wte"], input_ids, quant_act_dtype(params))
     if cfg.n_positions > 0:
         if position_ids is None:
@@ -157,14 +158,19 @@ def check_remat(remat) -> None:
 def _block(hidden, residual, lp, scale, cfg: GPTConfig, *, train: bool,
            rngs):
     """One pre-norm block with the reordered residual (JAX ``_block`` :372):
-    attention dropout in the flash kernel, then two dropout+add+LN sites,
-    keyed by the three splits of the layer's key."""
+    rotary on q and k after the qkv split, attention dropout in the flash
+    kernel, then two dropout+add+LN sites, keyed by the three splits of the
+    layer's key."""
     b, s, _ = hidden.shape
     qkv = dense.linear(hidden, lp["Wqkv"])
     qkv = qkv.reshape(b, s, 3, cfg.n_head, cfg.head_dim)
     r_attn, r_d1, r_d2 = (prng.split(rngs, 3) if rngs is not None
                           else (None, None, None))
-    ctx = mha(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=True,
+    q, k = qkv[:, :, 0], qkv[:, :, 1]
+    if cfg.rotary_emb_dim > 0:
+        q, k = rotary.apply_rotary_qk(q, k, cfg.rotary_emb_dim,
+                                      scale_base=cfg.rotary_emb_scale_base)
+    ctx = mha(q, k, qkv[:, :, 2], causal=True,
               softmax_scale=scale, dropout_p=cfg.attn_pdrop,
               dropout_rng=r_attn, deterministic=not train)
     mixer_out = dense.linear(ctx.reshape(b, s, cfg.n_embd), lp["out_proj"])
@@ -660,6 +666,11 @@ def gpt_forward_with_cache(
         lp = tree_index(params["layers"], li)
         qkv = dense.linear(hidden, lp["Wqkv"]).reshape(b, s, 3, h, dk)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if cfg.rotary_emb_dim > 0:
+            # before the cache write, so cached keys are rotated (JAX :871)
+            q, k = rotary.apply_rotary_qk(
+                q, k, cfg.rotary_emb_dim, seqlen_offset=offset,
+                scale_base=cfg.rotary_emb_scale_base)
         v_new = v.transpose(1, 2).reshape(e, s, dk)
         if staged:
             # append at the stage pointer; the main cache is untouched

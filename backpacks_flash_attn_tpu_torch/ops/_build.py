@@ -1,11 +1,13 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Every kernel lives in ``csrc/<name>.cu`` with a plain C entry point. It is
-compiled with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the
-root of the checkout (a directory ``.gitignore`` lists) on first CUDA use,
-rebuilt whenever its source or the shared header changes, and loaded with
-``ctypes``. Nothing here runs at import time: the CPU tests import every
-module on machines with no ``nvcc`` and no card.
+Every kernel lives in a ``csrc/*.cu`` source with a plain C entry point.
+Each source is compiled once with ``nvcc`` for ``sm_90a`` into
+``build/torch_kernels/`` at the root of the checkout (a directory
+``.gitignore`` lists) on first CUDA use, rebuilt whenever it or the shared
+header changes, and loaded with ``ctypes``; kernels that share a source
+share its library and count their launches apart. Nothing here runs at
+import time: the CPU tests import every module on machines with no
+``nvcc`` and no card.
 
 Each :class:`Kernel` carries a ``launches`` counter that its wrapper bumps
 once per launch, so a run can show that the main path went through the
@@ -56,7 +58,7 @@ class Kernel:
         for part in (CSRC / "common.cuh", CSRC / self.source):
             h.update(part.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"lib{Path(self.source).stem}_{h.hexdigest()[:16]}.so"
 
 
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
@@ -72,20 +74,29 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "backpacks_flash_attn_tpu/ops/flash_attention.py:794"),
     Kernel("fused_contextualization_bwd", "fused_contextualization_bwd.cu",
            "backpacks_flash_attn_tpu/ops/backpack_kernels.py:345"),
-    # K8: one source, built twice so that each key format counts its own
-    # launches (int4 keys: the GPT layers; split int8 keys: the Backpack
-    # combine over the mixed cache)
+    # K8: one source whose two key formats count their launches apart (int4
+    # keys: the GPT layers; split int8 keys: the Backpack combine over the
+    # mixed cache)
     Kernel("lowbit_decode_int4", "lowbit_decode_attention.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:667"),
     Kernel("lowbit_decode_mixed", "lowbit_decode_attention.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:808"),
     # the (m, l) forms of K1 and K8 (int4 keys), the main segments of the
-    # staged serving decode; built again from the same sources so that
-    # their launches count apart
+    # staged serving decode
     Kernel("decode_attention_ml", "decode_attention.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:77"),
     Kernel("lowbit_decode_int4_ml", "lowbit_decode_attention.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:1205"),
+    # K7, the fused MLP forward of training
+    Kernel("fused_mlp_fwd", "fused_mlp.cu",
+           "backpacks_flash_attn_tpu/ops/fused_mlp.py:81"),
+    # K9, block-sparse attention: the forward and the two backward kernels
+    Kernel("blocksparse_fwd", "blocksparse_attention.cu",
+           "backpacks_flash_attn_tpu/ops/flash_attention.py:1185"),
+    Kernel("blocksparse_bwd_dq", "blocksparse_attention.cu",
+           "backpacks_flash_attn_tpu/ops/flash_attention.py:1242"),
+    Kernel("blocksparse_bwd_dkv", "blocksparse_attention.cu",
+           "backpacks_flash_attn_tpu/ops/flash_attention.py:1284"),
 )}
 
 
@@ -106,25 +117,28 @@ def build_all(names: Optional[List[str]] = None) -> float:
     with the compiler's output if any build fails."""
     t0 = time.perf_counter()
     todo = [KERNELS[n] for n in (names or list(KERNELS))]
-    missing = [k for k in todo if not k.library_path().exists()]
+    missing = {}
+    for k in todo:
+        if not k.library_path().exists():
+            missing.setdefault(k.library_path(), []).append(k)
     if missing:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = []
-        for k in missing:
-            out = k.library_path()
+        for out, users in missing.items():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / k.source)]
-            procs.append((k, out, tmp, subprocess.Popen(
+                   str(CSRC / users[0].source)]
+            procs.append((users, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         failed = []
-        for k, out, tmp, proc in procs:
+        for users, out, tmp, proc in procs:
             log, _ = proc.communicate()
-            k.build_log = log
+            for k in users:
+                k.build_log = log
             if proc.returncode != 0:
-                failed.append(f"{k.source}:\n{log}")
+                failed.append(f"{users[0].source}:\n{log}")
             else:
                 os.replace(tmp, out)
         if failed:

@@ -18,8 +18,13 @@ the softmax before dropout (JAX :250-259).
 The differentiable entry (no ``seq_lengths``/``q_offsets``, as in JAX)
 saves ``(q, k, v, out, lse)`` and the seed; its backward is K5 on the card
 and :func:`flash_attention_bwd_ref` on the CPU. The ragged/offset entry is
-inference only. An additive bias and block masks wait for the BERT/ViT and
-long-context items of the ROADMAP.
+inference only. An additive bias waits for the BERT/ViT item of the
+ROADMAP.
+
+Block-sparse attention (kernel K9) is :func:`flash_blocksparse_attention`
+(JAX :1415): the same online softmax over only the (block_q, block_k) tiles
+a blockmask marks, forward through ``_bs_fwd`` (:1185) and backward through
+``_bs_bwd_rule`` (:1362).
 """
 
 from __future__ import annotations
@@ -39,6 +44,9 @@ NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 DROPOUT_ROUNDS = 2
 _K3 = _build.KERNELS["flash_attention"]
 _K5 = _build.KERNELS["flash_attention_bwd"]
+_K9 = _build.KERNELS["blocksparse_fwd"]
+_K9_DQ = _build.KERNELS["blocksparse_bwd_dq"]
+_K9_DKV = _build.KERNELS["blocksparse_bwd_dkv"]
 
 
 def _per_seq(x, b: int, device, default: int) -> torch.Tensor:
@@ -98,6 +106,25 @@ def _valid_mask(b, sq, sk, causal, seq_lengths, q_offsets, device):
     return mask
 
 
+def _attend_ref(q, k, v, mask, scale, keep=None, dropout_p: float = 0.0):
+    """Softmax attention under a validity mask that broadcasts to (b, h, sq,
+    sk): the two products in the working dtype (bf16 stays bf16), scores
+    and softmax in f32, zero output and an LSE of ``NEG_INF`` for fully
+    masked rows; ``keep`` drops un-normalised probabilities after the sum.
+    -> (out (b, sq, h, d), lse (b, h, sq) f32)."""
+    s = torch.einsum("bthd,bshd->bhts", q, k.to(q.dtype)).float() * scale
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    if keep is not None:
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_p)), 0.0)
+    o = torch.einsum("bhts,bshd->bthd", p.to(q.dtype), v.to(q.dtype)).float()
+    out = (o / l_safe.permute(0, 2, 1, 3)).to(q.dtype)
+    return out, (m + torch.log(l_safe))[..., 0]
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
                         softmax_scale: Optional[float] = None,
@@ -111,21 +138,36 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     dev = q.device
-    s = torch.einsum("bthd,bshd->bhts", q, k.to(q.dtype)).float() * scale
     mask = _valid_mask(b, sq, sk, causal, seq_lengths, q_offsets, dev)
-    s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(s - m), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    l_safe = torch.where(l == 0.0, 1.0, l)
-    if dropout_p > 0.0:
-        keep = _keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, dev)
-        p = torch.where(keep, p * (1.0 / (1.0 - dropout_p)), 0.0)
-    o = torch.einsum("bhts,bshd->bthd", p.to(q.dtype), v.to(q.dtype)).float()
-    out = (o / l_safe.permute(0, 2, 1, 3)).to(q.dtype)
-    if return_lse:
-        return out, (m + torch.log(l_safe))[..., 0]
-    return out
+    keep = (_keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, dev)
+            if dropout_p > 0.0 else None)
+    out, lse = _attend_ref(q, k, v, mask, scale, keep, dropout_p)
+    return (out, lse) if return_lse else out
+
+
+def _attend_bwd_ref(q, k, v, out, lse, dout, mask, scale, keep=None,
+                    dropout_p: float = 0.0):
+    """Gradients of :func:`_attend_ref` from its LSE: p = exp(s - lse) under
+    the mask, delta = rowsum(dO * O), ds = p * (dp - delta); the products in
+    the working dtype, the rest in f32. -> (dq, dk, dv) in the input
+    dtypes."""
+    cdt = q.dtype
+    dout = dout.to(cdt)
+    s = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bthd,bshd->bhts", dout, v).float()
+    if keep is not None:
+        inv = 1.0 / (1.0 - dropout_p)
+        p_v = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    else:
+        p_v = p
+    delta = (out.float() * dout.float()).sum(-1).permute(0, 2, 1)[..., None]
+    ds = (p * (dp - delta)).to(cdt)
+    dv = torch.einsum("bhts,bthd->bshd", p_v.to(cdt), dout).float()
+    dq = torch.einsum("bhts,bshd->bthd", ds, k).float() * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, q).float() * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -139,25 +181,11 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    cdt, dev = q.dtype, q.device
-    dout = dout.to(cdt)
-    s = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
-    mask = _valid_mask(b, sq, sk, causal, None, None, dev)
-    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
-    dp = torch.einsum("bthd,bshd->bhts", dout, v).float()
-    if dropout_p > 0.0:
-        keep = _keep_mask(seed, dropout_p, b, h, sq, sk, None, dev)
-        inv = 1.0 / (1.0 - dropout_p)
-        p_v = torch.where(keep, p * inv, 0.0)
-        dp = torch.where(keep, dp * inv, 0.0)
-    else:
-        p_v = p
-    delta = (out.float() * dout.float()).sum(-1).permute(0, 2, 1)[..., None]
-    ds = (p * (dp - delta)).to(cdt)
-    dv = torch.einsum("bhts,bthd->bshd", p_v.to(cdt), dout).float()
-    dq = torch.einsum("bhts,bshd->bthd", ds, k).float() * scale
-    dk = torch.einsum("bhts,bthd->bshd", ds, q).float() * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    mask = _valid_mask(b, sq, sk, causal, None, None, q.device)
+    keep = (_keep_mask(seed, dropout_p, b, h, sq, sk, None, q.device)
+            if dropout_p > 0.0 else None)
+    return _attend_bwd_ref(q, k, v, out, lse, dout, mask, scale, keep,
+                           dropout_p)
 
 
 # ------------------------------------------------------------ kernels
@@ -172,7 +200,8 @@ def _check_qkv(q, k, v, dtypes):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} disagree")
     if d != 64:
-        raise ValueError(f"flash attention kernels take head dim 64, got {d}")
+        raise ValueError(f"flash attention kernels take head dim 64, got {d} "
+                         f"(other head dims: ROADMAP Queue 2)")
 
 
 def _dropout_args(dropout_p, seed):
@@ -293,7 +322,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     dropout_rng: Optional[torch.Tensor] = None,
                     q_offsets=None,
                     attn_bias=None,
-                    blockmask=None,
                     return_lse: bool = False):
     """q (b, sq, h, d); k, v (b, sk, h, d) -> (b, sq, h, d) in q's dtype
     [, lse (b, h, sq) f32]. CPU tensors, and every call inside
@@ -306,9 +334,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if attn_bias is not None:
         raise NotImplementedError("attn_bias comes with BERT/ViT (ROADMAP "
                                   "Queue 1 item 7)")
-    if blockmask is not None:
-        raise NotImplementedError("blockmask comes with the long-context "
-                                  "kernels (ROADMAP Queue 2, K9)")
     seed = (0, 0)
     if dropout_p > 0.0:
         if dropout_rng is None:
@@ -328,4 +353,217 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         out, lse = flash_attention_ref(q, k, v, softmax_scale=scale,
                                        return_lse=True, **kw)
+    return (out, lse) if return_lse else out
+
+
+# ------------------------------------------------------------ block-sparse (K9)
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def blocksparse_active(blockmask: torch.Tensor, causal: bool, block_q: int,
+                       block_k: int) -> torch.Tensor:
+    """The active tiles (n_qb, n_kb) bool, with the causal pre-filter of JAX
+    ``_bs_active`` (:1175): a tile whose first key lies past the last row of
+    its query block is dropped. The per-element causal mask still applies
+    inside the tiles that stay."""
+    active = blockmask.to(torch.bool)
+    if causal:
+        n_qb, n_kb = active.shape
+        dev = active.device
+        reach = (torch.arange(n_qb, device=dev)[:, None] + 1) * block_q
+        active = active & (torch.arange(n_kb, device=dev)[None, :] * block_k
+                           < reach)
+    return active
+
+
+def _bs_mask(active, b, sq, sk, block_q, block_k, causal, seq_lengths):
+    """The element mask (b, 1, sq, sk) of the block-sparse op: an active
+    tile, a key below min(seq_len, sk), and, if causal, key <= query."""
+    dev = active.device
+    qi = torch.arange(sq, device=dev)
+    kj = torch.arange(sk, device=dev)
+    mask = active[qi // block_q][:, kj // block_k]
+    if causal:
+        mask = mask & (kj[None, :] <= qi[:, None])
+    lens = _per_seq(seq_lengths, b, dev, sk)
+    keys = kj[None, :] < torch.clamp(lens, max=sk)[:, None]        # (b, sk)
+    return (mask[None] & keys[:, None, :])[:, None]
+
+
+def blocksparse_attention_ref(q, k, v, active, *, causal: bool, block_q: int,
+                              block_k: int, seq_lengths=None):
+    """Plain version of K9's forward: the dense masked softmax over q, which
+    the caller has already scaled (JAX :1439). -> (out (b, sq, h, d),
+    lse (b, h, sq) f32); a row with no valid key gives 0 and ``NEG_INF``."""
+    b, sq = q.shape[:2]
+    mask = _bs_mask(active, b, sq, k.shape[1], block_q, block_k, causal,
+                    seq_lengths)
+    return _attend_ref(q, k, v, mask, 1.0)
+
+
+def blocksparse_attention_bwd_ref(q, k, v, out, lse, dout, active, *,
+                                  causal: bool, block_q: int, block_k: int):
+    """Plain version of K9's backward (both kernels): the dense recomputed
+    backward under the forward's mask. -> (dq, dk, dv)."""
+    b, sq = q.shape[:2]
+    mask = _bs_mask(active, b, sq, k.shape[1], block_q, block_k, causal, None)
+    return _attend_bwd_ref(q, k, v, out, lse, dout, mask, 1.0)
+
+
+def _bs_args(active, block_q, block_k):
+    """The active mask as the kernels read it (int32, row-major), and the
+    tile sizes they take: multiples of their 64-row tiles."""
+    if block_q % 64 or block_k % 64:
+        raise ValueError(f"the block-sparse kernels take block_q and block_k "
+                         f"in multiples of 64, got {block_q} and {block_k}")
+    if max(active.shape) > 512:
+        raise ValueError(f"the block-sparse kernels take at most 512 blocks a "
+                         f"row or column, got {tuple(active.shape)}")
+    return active.to(torch.int32).contiguous()
+
+
+def _bs_fwd_kernel(q, k, v, active, *, causal, block_q, block_k,
+                   seq_lengths=None):
+    """K9 forward (``csrc/blocksparse_attention.cu``): bf16 on tensor cores
+    or f32 SIMT, d = 64, pre-scaled q. -> (out, lse) as the plain version."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
+    q, k, v = (_build.kernel_operand(t) for t in (q, k, v))
+    act = _bs_args(active, block_q, block_k)
+    lens = _per_seq(seq_lengths, b, q.device, sk).to(torch.int32).contiguous()
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    P = _build.Ptr.of
+    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    _build.launch(_K9, "blocksparse_fwd_launch", P(q), P(k), P(v), P(out),
+                  P(lse), P(act), P(lens), b, h, sq, sk, *act.shape, block_q,
+                  block_k, *strides, 1.0, int(causal),
+                  _build.DTYPE_CODE[q.dtype])
+    return out, lse
+
+
+def _bs_bwd_operands(q, k, v, out, lse, dout, active, block_q, block_k):
+    b, sq, h, d = q.shape
+    _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
+    q, k, v, dout = (_build.kernel_operand(t)
+                     for t in (q, k, v, dout.to(q.dtype)))
+    if dout.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} / dout {tuple(dout.shape)} "
+                         f"!= q's {tuple(q.shape)}")
+    _build.check_cuda_tensor("lse", lse, (torch.float32,), 3)
+    if lse.shape != (b, h, sq):
+        raise ValueError(f"lse: shape {tuple(lse.shape)} != {(b, h, sq)}")
+    # delta = rowsum(out * dout) in f32 (JAX :1376, an XLA op there too)
+    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+    strides = [s for t in (q, k, v, dout) for s in t.stride()[:3]]
+    return (q, k, v, dout, lse.contiguous(), delta,
+            _bs_args(active, block_q, block_k), strides)
+
+
+def _bs_bwd_dq_kernel(q, k, v, out, lse, dout, active, *, causal, block_q,
+                      block_k):
+    """K9's dq kernel: one block per 64-row query tile over its active key
+    tiles. -> dq (b, sq, h, d), contiguous."""
+    q, k, v, dout, lse, delta, act, strides = _bs_bwd_operands(
+        q, k, v, out, lse, dout, active, block_q, block_k)
+    b, sq, h, d = q.shape
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    P = _build.Ptr.of
+    _build.launch(_K9_DQ, "blocksparse_bwd_dq_launch", P(q), P(k), P(v),
+                  P(dout), P(lse), P(delta), P(dq), P(act), b, h, sq,
+                  k.shape[1], *act.shape, block_q, block_k, *strides, 1.0,
+                  int(causal), _build.DTYPE_CODE[q.dtype])
+    return dq
+
+
+def _bs_bwd_dkv_kernel(q, k, v, out, lse, dout, active, *, causal, block_q,
+                       block_k):
+    """K9's dk/dv kernel: one block per 64-key tile over the active query
+    tiles of its column. -> (dk, dv) (b, sk, h, d), contiguous."""
+    q, k, v, dout, lse, delta, act, strides = _bs_bwd_operands(
+        q, k, v, out, lse, dout, active, block_q, block_k)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    P = _build.Ptr.of
+    _build.launch(_K9_DKV, "blocksparse_bwd_dkv_launch", P(q), P(k), P(v),
+                  P(dout), P(lse), P(delta), P(dk), P(dv), P(act), b, h, sq,
+                  sk, *act.shape, block_q, block_k, *strides, 1.0,
+                  int(causal), _build.DTYPE_CODE[q.dtype])
+    return dk, dv
+
+
+class _BlockSparseAttention(torch.autograd.Function):
+    """K9 forward, K9 backward (JAX ``_blocksparse_bhsd``'s custom_vjp,
+    :1327-1410) over pre-scaled q: saves (q, k, v, out, lse) and the active
+    mask. The path is decided once, at the forward, as in
+    :class:`_FlashAttention`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, active, causal, block_q, block_k, use_kernel):
+        kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+        fn = _bs_fwd_kernel if use_kernel else blocksparse_attention_ref
+        out, lse = fn(q, k, v, active, **kw)
+        ctx.save_for_backward(q, k, v, out, lse, active)
+        ctx.kw = kw
+        ctx.use_kernel = use_kernel
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, active = ctx.saved_tensors
+        args = (q, k, v, out, lse, dout, active)
+        if ctx.use_kernel:
+            dq = _bs_bwd_dq_kernel(*args, **ctx.kw)
+            dk, dv = _bs_bwd_dkv_kernel(*args, **ctx.kw)
+        else:
+            dq, dk, dv = blocksparse_attention_bwd_ref(*args, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_blocksparse_attention(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, blockmask, *,
+                                causal: bool = True,
+                                softmax_scale: Optional[float] = None,
+                                seq_lengths=None,
+                                block_q: int = 256, block_k: int = 256,
+                                return_lse: bool = False):
+    """Block-sparse FlashAttention (JAX :1415). q (b, sq, h, d); k, v
+    (b, sk, h, d); blockmask (ceil(sq / block_q), ceil(sk / block_k)), 1
+    for the tiles attended. -> (b, sq, h, d) in q's dtype [, lse (b, h, sq)
+    f32].
+
+    q is scaled and rounded to its dtype first, as in JAX; tiles with 0 in
+    the blockmask contribute nothing, a row with no active tile gives 0.
+    Without ``seq_lengths`` the op is differentiable in q, k, v (K9's two
+    backward kernels); with it, keys at or past ``seq_lengths[b]`` are
+    masked and the op is forward only, as in JAX. CPU tensors, and every
+    call inside ``_build.plain_path()``, take the plain versions; otherwise
+    a CUDA tensor launches K9 (bf16 or f32, d = 64, block_q and block_k
+    multiples of 64) or raises."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    q = (q.float() * scale).to(q.dtype)
+    block_q = min(block_q, _round_up(sq, 128))
+    block_k = min(block_k, _round_up(sk, 128))
+    n_qb, n_kb = -(-sq // block_q), -(-sk // block_k)
+    blockmask = torch.as_tensor(blockmask, device=q.device)
+    if tuple(blockmask.shape) != (n_qb, n_kb):
+        raise ValueError(f"blockmask shape {tuple(blockmask.shape)} != "
+                         f"{(n_qb, n_kb)}")
+    active = blocksparse_active(blockmask, causal, block_q, block_k)
+    use_kernel = q.is_cuda and _build.kernels_enabled()
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    if seq_lengths is None:
+        out, lse = _BlockSparseAttention.apply(q, k, v, active, causal,
+                                               block_q, block_k, use_kernel)
+    else:
+        fn = _bs_fwd_kernel if use_kernel else blocksparse_attention_ref
+        out, lse = fn(q, k, v, active, seq_lengths=seq_lengths, **kw)
     return (out, lse) if return_lse else out

@@ -1,13 +1,13 @@
 """Drive the PyTorch/CUDA port (backpacks_flash_attn_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases device,build,kernels,serve,engine,forward,train]
-                          [--out DIR]
+    python3 chip_smoke.py [--phases device,build,kernels,serve,engine,forward,train,
+                                    longctx,train8k,generate] [--out DIR]
 
 Phases, each printing one JSON line:
 
 1. device   the card's name and its nvidia-smi name and power limit.
-2. build    compile the hand-written kernels (csrc/*.cu, one nvcc each,
-            all at once) and report the seconds.
+2. build    compile the hand-written kernels (csrc/*.cu, one nvcc per
+            source, all at once) and report the seconds.
 3. kernels  each kernel at the main path's shapes against its plain PyTorch
             version: the kernel's max error against an f32 plain reference
             must be at most twice the bf16 plain version's. Times (CUDA
@@ -69,7 +69,31 @@ Phases, each printing one JSON line:
             the loss and of the global gradient norm (bias) within 2x the
             plain path's plus 3 standard errors.
             The kernels phase also holds K3 with dropout, K4, K5 and K6 at
-            the training shapes.
+            the training shapes, and the long-context kernels: K7 (the
+            fused MLP forward) at gpt3-small's training MLP, 16384 tokens,
+            768 -> 3072 -> 768, bf16 and f32; K9's forward (out, LSE) at
+            b 4, s 4096, h 12 under bench_longctx.py's band mask (band
+            1024 + global block 0, 256 x 256 blocks), again with per-row
+            key lengths and with a query block that has no active tile,
+            and K9's dq and dk/dv kernels.
+8. longctx  bench_longctx.py on the card: at s = 2048, 4096, 8192 (b =
+            16384 / s, h 12, d 64, bf16) the causal flash forward (K3) and
+            forward + backward (K3 + K5): ms, TFLOP/s, peak memory; the
+            block-sparse forward + backward (K9) under the band mask: ms,
+            density, peak memory; each with the launches of one call
+            (counts reset just before, read just after).
+9. train8k  gpt3-small with rotary embeddings (gpt3s-flash-rotary-8k) at
+            full width and depth, bf16 weights from the seeded generator,
+            AdamW, dropout on, the fused-MLP switch (BACKPACKS_FUSED_MLP)
+            on, batch 2 x 8192, no remat: step ms (median of 10 after 2
+            warm-up), tokens/s, MFU, peak memory, the losses, K3, K5 and
+            K7 12 launches each step, one profiled step; then the gradient
+            gate (as in train) on 5 batches of 1 x 2048.
+10. generate generate_gpt on that model: batch 8, a 2048-token prompt, 64
+            greedy tokens, bf16 cache: seconds, tokens/s, the prefill apart,
+            K3 12 a prefill and K1 12 a decode step, a profile of 8 decode
+            steps, and the teacher-forced gate of the last prompt position
+            and the first 8 decode steps under the 2x rule.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -94,6 +118,7 @@ import torch.nn.functional as F
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor core
+PEAK_F32_FLOP_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
 REPS = 25
 DEV = "cuda"
 
@@ -141,9 +166,9 @@ def time_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=PEAK_BF16_FLOP_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -518,9 +543,137 @@ def train_kernel_cases(gen):
     return cases
 
 
+# ------------------------------------------------------------------ long context
+
+LONG_H, LONG_D, BS_BLOCK, BS_BAND = 12, 64, 256, 1024
+MLP_T, MLP_D, MLP_INNER = 16384, 768, 3072     # gpt3-small's MLP at 2 x 8192
+BS_B, BS_S = 4, 4096                            # the K9 kernel cases
+
+
+def band_blockmask(s):
+    """bench_longctx.py's block mask over BS_BLOCK tiles: a causal local
+    band of BS_BAND positions plus the global block 0; its density against
+    the causal lower triangle of blocks."""
+    n = s // BS_BLOCK
+    qi = torch.arange(n)[:, None]
+    kj = torch.arange(n)[None, :]
+    mask = ((kj <= qi) & ((qi - kj) < max(BS_BAND // BS_BLOCK, 1))) | (kj == 0)
+    density = (mask.sum() / (qi >= kj).sum()).item()
+    return mask.to(torch.int32).to(DEV), density
+
+
+def longctx_kernel_cases(gen):
+    """K7 at the gpt3-small training MLP (16384 tokens, 768 -> 3072 -> 768,
+    gelu_new) in bf16 and f32, and K9 at b 4, s 4096, h 12, d 64 under the
+    band mask: the forward (out and LSE; then per-row key lengths, one
+    sequence short; then a query block with no active tile), and the dq and
+    dk/dv kernels, each backward from its own path's forward. q is
+    pre-scaled, as flash_blocksparse_attention hands it to the kernels.
+    Library yardsticks: matmul + gelu + matmul (cuBLAS); SDPA with the
+    blockmask expanded to a dense boolean mask, forward and autograd
+    backward. Made outside inference mode (the backward yardstick is an
+    autograd call)."""
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+    from backpacks_flash_attn_tpu_torch.ops import fused_mlp as fm
+
+    bf = torch.bfloat16
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    cases = []
+
+    T, d, inner = MLP_T, MLP_D, MLP_INNER
+    mlp = (randn(T, d), randn(d, inner) * 0.02, randn(inner) * 0.02,
+           randn(inner, d) * 0.02, randn(d) * 0.02)
+    for dt, rate in ((bf, PEAK_BF16_FLOP_PER_S), (torch.float32, PEAK_F32_FLOP_PER_S)):
+        args = tuple(t.to(dt) for t in mlp)
+        ref_args = tuple(t.float() for t in args)
+        nbytes = (sum(t.numel() for t in args) + T * (inner + d)) * args[0].element_size()
+        case = dict(
+            kernel=lambda a=args: fm.mlp_fwd_fused(*a),
+            plain=lambda a=args: fm.mlp_fwd_fused_ref(*a),
+            ref=lambda a=ref_args: fm.mlp_fwd_fused_ref(*a),
+            library=lambda a=args: F.gelu(a[0] @ a[1] + a[2], approximate="tanh") @ a[3] + a[4],
+            bytes=nbytes, flops=4 * T * d * inner, flop_rate=rate)
+        if dt == torch.float32:
+            case["f32_rtol"] = 1e-5          # f32 sums of 768 and 3072 terms
+        cases.append(("fused_mlp_fwd", f"T={T} {d}->{inner}->{d} gelu_new "
+                      f"{str(dt).split('.')[-1]}", case))
+
+    b, s, h, dh = BS_B, BS_S, LONG_H, LONG_D
+    q = (randn(b, s, h, dh) * 0.125).to(bf)
+    k, v, dout = (randn(b, s, h, dh).to(bf) for _ in range(3))
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    bm, density = band_blockmask(s)
+    kw = dict(causal=True, block_q=BS_BLOCK, block_k=BS_BLOCK)
+    act = fa.blocksparse_active(bm, True, BS_BLOCK, BS_BLOCK)
+    tensor = b * s * h * dh * 2
+    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
+    lens = torch.full((b,), s, dtype=torch.int32, device=DEV)
+    lens[1:] = torch.randint(1, s + 1, (b - 1,), generator=gen, device=DEV,
+                             dtype=torch.int32)
+    lens[0] = s // 3
+    mid = bm.shape[0] // 2
+    empty = bm.clone()
+    empty[mid] = 0                   # query block `mid` has no active tile
+
+    def check_empty(out):
+        o, lse = out
+        rows = slice(mid * BS_BLOCK, (mid + 1) * BS_BLOCK)
+        if not ((o[:, rows] == 0).all() and (lse[:, :, rows] == fa.NEG_INF).all()):
+            raise AssertionError("blocksparse_fwd: a query block with no active "
+                                 "tile gave a non-zero row or a finite LSE")
+
+    for label, mask, seq in (("band", bm, None), ("ragged", bm, lens),
+                             ("empty-row", empty, None)):
+        a = fa.blocksparse_active(mask, True, BS_BLOCK, BS_BLOCK)
+        emask = fa._bs_mask(a, b, s, s, BS_BLOCK, BS_BLOCK, True, seq)
+        pairs = int(emask.sum().item()) * h
+        fkw = dict(kw, seq_lengths=seq)
+        case = dict(
+            kernel=lambda a=a, fkw=fkw: fa._bs_fwd_kernel(q, k, v, a, **fkw),
+            plain=lambda a=a, fkw=fkw: fa.blocksparse_attention_ref(q, k, v, a, **fkw),
+            ref=lambda a=a, fkw=fkw: fa.blocksparse_attention_ref(q32, k32, v32, a, **fkw),
+            library=lambda m=emask: F.scaled_dot_product_attention(
+                qT, kT, vT, attn_mask=m, scale=1.0).transpose(1, 2),
+            bytes=4 * tensor + b * h * s * 4, flops=4 * pairs * dh)
+        if label == "empty-row":
+            case["check"] = check_empty
+        cases.append(("blocksparse_fwd", f"{label} b={b} h={h} s={s} "
+                      f"density={density:.3f}", case))
+
+    emask = fa._bs_mask(act, b, s, s, BS_BLOCK, BS_BLOCK, True, None)
+    pairs = int(emask.sum().item()) * h
+    kout, klse = fa._bs_fwd_kernel(q, k, v, act, **kw)
+    pout, plse = fa.blocksparse_attention_ref(q, k, v, act, **kw)
+    rout, rlse = fa.blocksparse_attention_ref(q32, k32, v32, act, **kw)
+    with torch.enable_grad():
+        lq, lk, lv = (t.detach().requires_grad_() for t in (qT, kT, vT))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=emask,
+                                              scale=1.0)
+    ldo = dout.transpose(1, 2)
+    bwd = dict(
+        plain=lambda: fa.blocksparse_attention_bwd_ref(q, k, v, pout, plse, dout, act, **kw),
+        ref=lambda: fa.blocksparse_attention_bwd_ref(q32, k32, v32, rout, rlse,
+                                                     dout.float(), act, **kw),
+        library=lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True))
+    # dq reads q, k, v, dO, lse, delta and writes dq: S, dP and dQ; dk/dv
+    # reads the same and writes dk, dv: S, dP, dV and dK
+    cases.append(("blocksparse_bwd_dq", f"band b={b} h={h} s={s}", dict(
+        kernel=lambda: fa._bs_bwd_dq_kernel(q, k, v, kout, klse, dout, act, **kw),
+        plain=lambda: bwd["plain"]()[0], ref=lambda: bwd["ref"]()[0],
+        library=bwd["library"], bytes=5 * tensor + 2 * b * h * s * 4,
+        flops=6 * pairs * dh)))
+    cases.append(("blocksparse_bwd_dkv", f"band b={b} h={h} s={s}", dict(
+        kernel=lambda: fa._bs_bwd_dkv_kernel(q, k, v, kout, klse, dout, act, **kw),
+        plain=lambda: bwd["plain"]()[1:], ref=lambda: bwd["ref"]()[1:],
+        library=bwd["library"], bytes=6 * tensor + 2 * b * h * s * 4,
+        flops=8 * pairs * dh)))
+    return cases
+
+
 # the case whose numbers stand for each kernel in the {"kernels"} line: the
 # one the INT8 decode step (K1, K2), the INT8 prefill (K3), the forward
-# (K4) and the training step (K5, K6) run
+# (K4), the training step (K5, K6), the 8k training step (K7) and the
+# long-context block-sparse run (K9) run
 HEADLINE = {
     "decode_attention": "backpack-int8",
     "quant_matmul": "M=128 K=768 N=50264 int8",
@@ -532,6 +685,10 @@ HEADLINE = {
     "lowbit_decode_mixed": "backpack-mixed",
     "decode_attention_ml": "gpt-int8-ml",
     "lowbit_decode_int4_ml": "gpt-int4-ml",
+    "fused_mlp_fwd": f"T={MLP_T} {MLP_D}->{MLP_INNER}->{MLP_D} gelu_new bfloat16",
+    "blocksparse_fwd": "band",
+    "blocksparse_bwd_dq": "band",
+    "blocksparse_bwd_dkv": "band",
 }
 # the run whose launch counts stand for each kernel in that line
 LAUNCH_RUN = {
@@ -545,15 +702,33 @@ LAUNCH_RUN = {
     "lowbit_decode_mixed": "serve_int4",
     "decode_attention_ml": "serve_engine",
     "lowbit_decode_int4_ml": "serve_staged_kv4",
+    "fused_mlp_fwd": "train_8k",
+    "blocksparse_fwd": "longctx",
+    "blocksparse_bwd_dq": "longctx",
+    "blocksparse_bwd_dkv": "longctx",
 }
 
 
 def phase_kernels(cases, results):
+    """Each case: the kernel against its plain version under the 2x rule
+    (an f32 case, whose plain version is its reference, within
+    ``f32_rtol`` of the reference's largest magnitude instead), an optional
+    ``check`` of the kernel's output, and the times."""
     from backpacks_flash_attn_tpu_torch.ops import _build
     for name, label, c in cases:
         out, plain, ref = c["kernel"](), c["plain"](), c["ref"]()
         torch.cuda.synchronize()
-        ek, ep = two_x(f"{name} [{label}]", out, plain, ref)
+        if "f32_rtol" in c:
+            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+            ek, ep = max(max_err(o, r) for o, r in zip(outs, refs)), None
+            scale = max(r.abs().max().item() for r in refs)
+            if ek > c["f32_rtol"] * max(1.0, scale):
+                raise AssertionError(f"{name} [{label}]: f32 kernel error {ek:.3e} "
+                                     f"> {c['f32_rtol']} x {scale:.3e}")
+        else:
+            ek, ep = two_x(f"{name} [{label}]", out, plain, ref)
+        if "check" in c:
+            c["check"](out)
         lib_out = c["library"]()
         lib_err = (max_err(lib_out, ref) if isinstance(lib_out, torch.Tensor)
                    and isinstance(ref, torch.Tensor) and "dropout" not in label
@@ -562,7 +737,8 @@ def phase_kernels(cases, results):
                    library_err=lib_err,
                    ms=time_ms(c["kernel"]), plain_ms=time_ms(c["plain"]),
                    library_ms=time_ms(c["library"]))
-        row["bound_ms"], row["bound_by"] = bound(c["bytes"], c["flops"])
+        row["bound_ms"], row["bound_by"] = bound(
+            c["bytes"], c["flops"], c.get("flop_rate", PEAK_BF16_FLOP_PER_S))
         results.setdefault(name, []).append(row)
         emit({"phase": "kernels", "kernel": name, **row})
         del out, plain, ref, lib_out
@@ -657,39 +833,43 @@ def serve_run(label, params, cfg, cache, prompt):
     return out, torch.cat(tokens, dim=1)
 
 
+def _kernel_profile(fn):
+    """fn() under torch.profiler, kernel events only (the host ops' events
+    are not read: summing them over 224 decode steps took the profiler
+    about a minute a run): its wall seconds and (device us, kernel, calls)
+    rows, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.self_device_time_total > 0), reverse=True)
+    return wall, rows
+
+
+def _per_step(wall, rows, steps, top=12):
+    return dict(steps=steps, wall_ms_per_step_profiled=wall * 1e3 / steps,
+                device_ms_per_step=sum(us for us, _, _ in rows) / 1e3 / steps,
+                top=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
+                          calls_per_step=c / steps) for us, k, c in rows[:top]])
+
+
 def profile_decode(params, cfg, cache, prompt, segments):
     """Device time by kernel over the decode steps of `segments` after a
-    fresh prefill, with torch.profiler (kernel events only)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    fresh prefill."""
     from backpacks_flash_attn_tpu_torch.models import backpack as bp
     steps = sum(n for n, _ in segments)
     kv = new_cache(cfg, cache)
     logits, kv = bp.backpack_forward_with_cache(params, cfg, prompt, kv)
     token = logits[:, -1].argmax(-1)[:, None]
-    torch.cuda.synchronize()
-    # kernel events only: the host ops' events are not read, and summing
-    # them over 224 steps took the profiler about a minute a run
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        decode(params, cfg, kv, token, segments)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.self_device_time_total
-        if us > 0:
-            rows.append((us, ev.key, ev.count))
-    rows.sort(reverse=True)
+    wall, rows = _kernel_profile(lambda: decode(params, cfg, kv, token, segments))
     del kv
-    return dict(steps=steps, segments=segments,
-                wall_ms_per_step_profiled=wall * 1e3 / steps,
-                device_ms_per_step=sum(us for us, _, _ in rows) / 1e3 / steps,
-                top=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
-                          calls_per_step=c / steps)
-                     for us, k, c in rows[:12]])
+    return dict(_per_step(wall, rows, steps), segments=segments)
 
 
 def teacher_forced(params, ref_params, cfg, cache, ref_cache, prompt, gen_tokens):
@@ -1161,13 +1341,12 @@ def _rel(a, ref):
     return ((a - ref).norm() / ref.norm()).item()
 
 
-def _gate_step(cfg, params, batch, fused_ctx):
+def _gate_step(params, batch, forward, picks):
     """One training step's per-token losses, global gradient norm, whole
     gradient and chosen gradients on three paths: kernels in bf16, plain in
-    bf16, plain in f32 (the reference)."""
+    bf16, plain in f32 (the reference). forward(params, x, key) -> logits."""
     import contextlib
 
-    from backpacks_flash_attn_tpu_torch.models import backpack as bp
     from backpacks_flash_attn_tpu_torch.ops import _build
     from backpacks_flash_attn_tpu_torch.ops.cross_entropy import cross_entropy
     from backpacks_flash_attn_tpu_torch.training import train as tl
@@ -1175,20 +1354,13 @@ def _gate_step(cfg, params, batch, fused_ctx):
 
     key = prng.fold_in(prng.PRNGKey(1), 0)
     x, y = batch["input_ids"][:, :-1], batch["input_ids"][:, 1:]
-    picks = {
-        "wte": lambda p: p["gpt"]["wte"],
-        "gpt.layers[0].Wqkv": lambda p: p["gpt"]["layers"]["Wqkv"]["kernel"][0],
-        "gpt.layers[-1].Wqkv": lambda p: p["gpt"]["layers"]["Wqkv"]["kernel"][-1],
-        "ctx_attn.Wqkv": lambda p: p["ctx_attn"]["Wqkv"]["kernel"],
-    }
     outs = {}
     for path, dtype in (("kernel", torch.bfloat16), ("plain", torch.bfloat16),
                         ("ref", torch.float32)):
         p = tl.trainable(_map_tensors(params, lambda t: t.to(dtype)))
         ctx = contextlib.nullcontext() if path == "kernel" else _build.plain_path()
         with ctx:
-            logits = bp.backpack_forward(p, cfg, x, train=True, rng=key,
-                                         fused_ctx=fused_ctx)
+            logits = forward(p, x, key)
             per_token, _ = cross_entropy(logits, y)
             per_token.mean().backward()          # make_loss_fn's loss
         grads = _map_tensors(p, lambda t: t.grad)
@@ -1222,20 +1394,20 @@ def _bias_gate(name, draws):
                                  f"{abs(bp):.3e} + 3 x stderr {se:.3e}")
 
 
-def gradient_gate(cfg, params, batches, fused_ctx):
-    """Over GATE_BATCHES batches, kernel path (bf16) vs plain path (bf16)
-    against the f32 plain reference. On each batch, the relative error of
-    the per-token losses, the whole gradient (every leaf as one vector) and
-    the gradients of wte, the first and last GPT layer's Wqkv and
-    ctx_attn.Wqkv: the kernel's at most 2x the plain path's (or 0). Pooled
-    over the batches, the signed error of the loss (one draw per sequence:
-    its mean per-token error, nats) and of the global gradient norm (one
-    relative draw per batch), under _bias_gate."""
+def gradient_gate(label, params, batches, forward, picks):
+    """Over the batches, kernel path (bf16) vs plain path (bf16) against
+    the f32 plain reference. On each batch, the relative error of the
+    per-token losses, the whole gradient (every leaf as one vector) and the
+    gradients `picks` names (wte, the first and last GPT layer's Wqkv, and
+    the Backpack's ctx_attn.Wqkv): the kernel's at most 2x the plain
+    path's (or 0). Pooled over the batches, the signed error of the loss
+    (one draw per sequence: its mean per-token error, nats) and of the
+    global gradient norm (one relative draw per batch), under _bias_gate."""
     errs, failed = [], []
     draws = {"loss_bias": {"kernel": [], "plain": []},
              "grad_norm_bias": {"kernel": [], "plain": []}}
     for batch in batches:
-        outs = _gate_step(cfg, params, batch, fused_ctx)
+        outs = _gate_step(params, batch, forward, picks)
         ref = outs["ref"]
         row = {}
         for k in outs["kernel"]:
@@ -1265,7 +1437,7 @@ def gradient_gate(cfg, params, batches, fused_ctx):
         if msg:
             failed.append(msg)
     if failed:
-        raise AssertionError(f"gradient gate (fused_ctx={fused_ctx}): "
+        raise AssertionError(f"gradient gate ({label}): "
                              + "; ".join(failed) + f" (all: {out})")
     return out
 
@@ -1289,11 +1461,13 @@ def _profile_step(step_once):
                 top=[dict(name=k[:80], ms=us / 1e3, calls=c) for us, k, c in rows[:15]])
 
 
-def train_run(label, cfg, params, stream, n_steps, fused_ctx):
-    """n_steps of make_train_step (AdamW, warmup 10, lr 6e-4) from a copy of
-    params: the loss and the kernel launches of every step (counts reset
-    just before the step, read just after), step ms over the steps after
-    TRAIN_WARMUP, tokens/s, MFU, peak memory, and one profiled step."""
+def train_run(label, cfg, params, batches, step_fn, check_launches, **meta):
+    """len(batches) - 1 steps of step_fn (AdamW, warmup 10, lr 6e-4) from a
+    copy of params: the loss and the kernel launches of every step (counts
+    reset just before the step, read just after; check_launches(counts)
+    returns what is wrong with them, or None), step ms over the steps after
+    TRAIN_WARMUP, tokens/s, MFU, peak memory, and one profiled step on the
+    last batch."""
     from backpacks_flash_attn_tpu_torch.ops import _build
     from backpacks_flash_attn_tpu_torch.training import callbacks as cb
     from backpacks_flash_attn_tpu_torch.training import train as tl
@@ -1302,11 +1476,8 @@ def train_run(label, cfg, params, stream, n_steps, fused_ctx):
     p = tl.trainable(_map_tensors(params, lambda t: t.clone()))
     state = tl.TrainState(p, tl.make_optimizer(p, lr=6e-4, warmup_steps=10,
                                                total_steps=1000), 0)
-    step_fn = tl.make_train_step(cfg, fused_ctx=fused_ctx)
     rng = prng.PRNGKey(1)
-    batches = [next(stream)[0] for _ in range(n_steps + 1)]
-    batches = [{"input_ids": torch.from_numpy(np.concatenate([x, y[:, -1:]], 1)
-                                              ).long().to(DEV)} for x, y in batches]
+    n_steps = len(batches) - 1
     losses, launches, times = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1322,25 +1493,22 @@ def train_run(label, cfg, params, stream, n_steps, fused_ctx):
             raise AssertionError(f"train {label}: non-finite loss at step {i}")
     peak = torch.cuda.max_memory_allocated()
     for i, counts in enumerate(launches):
-        if counts["flash_attention"] != cfg.n_layer or \
-                counts["flash_attention_bwd"] != cfg.n_layer:
-            raise AssertionError(f"train {label} step {i}: K3/K5 launches "
-                                 f"{counts}, want {cfg.n_layer} each")
-        if fused_ctx and counts["fused_contextualization_bwd"] < 1:
-            raise AssertionError(f"train {label} step {i}: K6 never launched")
+        msg = check_launches(counts)
+        if msg:
+            raise AssertionError(f"train {label} step {i}: {msg}")
     prof = _profile_step(lambda: step_fn(state, batches[n_steps], rng))
     timed = times[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]
     step_s = statistics.median(timed)
-    tokens = TRAIN_BATCH * TRAIN_LEN
-    flops = cb.flop_count(cfg, state.params, TRAIN_BATCH, TRAIN_LEN)
+    b, s = batches[0]["input_ids"].shape
+    tokens = b * (s - 1)
+    flops = cb.flop_count(cfg, state.params, b, s - 1)
     prof["device_idle_share"] = 1 - prof["device_ms"] / (step_s * 1e3)
-    out = dict(phase="train", run=label, fused_ctx=fused_ctx,
-               shape=[TRAIN_BATCH, TRAIN_LEN], steps=n_steps,
-               step_ms=step_s * 1e3, step_ms_timed=[t * 1e3 for t in timed],
+    out = dict(phase="train", run=label, **meta, shape=[b, s - 1],
+               steps=n_steps, step_ms=step_s * 1e3,
+               step_ms_timed=[t * 1e3 for t in timed],
                tokens_per_s=tokens / step_s,
                flops_per_step=flops, mfu=flops / step_s / PEAK_BF16_FLOP_PER_S,
-               mfu_formula=("(6 N tokens + 12 n_layer s d tokens + 6 s nv (dnv + d) "
-                            "tokens) / step_s / 989e12"),
+               mfu_formula="training/callbacks.flop_count / step_s / 989e12",
                peak_memory_bytes=peak, launches_per_step=launches[0],
                launches=_sum_counts(launches), losses=losses, profile=prof)
     emit(out)
@@ -1348,6 +1516,12 @@ def train_run(label, cfg, params, stream, n_steps, fused_ctx):
     del state, p, batches
     torch.cuda.empty_cache()
     return out, trained
+
+
+def _lm_batches(pairs):
+    """(x, y) arrays of lmd.batches -> {'input_ids': (b, s + 1)} on the card."""
+    return [{"input_ids": torch.from_numpy(np.concatenate([x, y[:, -1:]], 1)
+                                           ).long().to(DEV)} for x, y in pairs]
 
 
 def _sum_counts(rows):
@@ -1359,6 +1533,7 @@ def phase_train(gen, results):
     from backpacks_flash_attn_tpu_torch.data import lm_dataset as lmd
     from backpacks_flash_attn_tpu_torch.data.synthetic import bigram_corpus
     from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.training import train as tl
 
     cfg = backpack_small(vocab_size=50257)
     n_tokens = (LEARN_STEPS + 2) * TRAIN_BATCH * (TRAIN_LEN + 1) * 2
@@ -1366,14 +1541,30 @@ def phase_train(gen, results):
                                 n_successors=4, seed=0)
     ds = lmd.LMDataset(toks, TRAIN_LEN)
     params = bp.init_backpack(cfg, gen, dtype=torch.bfloat16)
-
+    picks = {
+        "wte": lambda p: p["gpt"]["wte"],
+        "gpt.layers[0].Wqkv": lambda p: p["gpt"]["layers"]["Wqkv"]["kernel"][0],
+        "gpt.layers[-1].Wqkv": lambda p: p["gpt"]["layers"]["Wqkv"]["kernel"][-1],
+        "ctx_attn.Wqkv": lambda p: p["ctx_attn"]["Wqkv"]["kernel"],
+    }
     trained = {}
     for label, fused, n in (("train_einsum", False, LEARN_STEPS),
                             ("train_fused", True, TRAIN_WARMUP + TRAIN_TIMED)):
         log(f"train: {label}")
         stream = lmd.batches(ds, TRAIN_BATCH, lmd.SamplerState(seed=0))
-        results[label], trained[label] = train_run(label, cfg, params, stream,
-                                                   n, fused)
+        batches = _lm_batches(next(stream)[0] for _ in range(n + 1))
+
+        def check(counts, fused=fused):
+            if counts["flash_attention"] != cfg.n_layer or \
+                    counts["flash_attention_bwd"] != cfg.n_layer:
+                return f"K3/K5 launches {counts}, want {cfg.n_layer} each"
+            if fused and counts["fused_contextualization_bwd"] < 1:
+                return "K6 never launched"
+            return None
+
+        results[label], trained[label] = train_run(
+            label, cfg, params, batches, tl.make_train_step(cfg, fused_ctx=fused),
+            check, fused_ctx=fused)
     del trained["train_fused"]
 
     # at the initial weights every logit is ~0 and the loss sits within an
@@ -1381,11 +1572,12 @@ def phase_train(gen, results):
     # run (a)'s last step
     log("train: gradient gate")
     gate_stream = lmd.batches(ds, GATE_BATCH, lmd.SamplerState(seed=1))
-    gate_batches = [{"input_ids": torch.from_numpy(
-        np.concatenate([x, y[:, -1:]], 1)).long().to(DEV)}
-        for (x, y), _ in (next(gate_stream) for _ in range(GATE_BATCHES))]
-    gate = {f"fused_ctx={f}": gradient_gate(cfg, trained["train_einsum"],
-                                            gate_batches, f)
+    gate_batches = _lm_batches(xy for xy, _ in (next(gate_stream)
+                                                for _ in range(GATE_BATCHES)))
+    gate = {f"fused_ctx={f}": gradient_gate(
+        f"fused_ctx={f}", trained["train_einsum"], gate_batches,
+        lambda p, x, key, f=f: bp.backpack_forward(p, cfg, x, train=True, rng=key,
+                                                   fused_ctx=f), picks)
             for f in (False, True)}
     emit({"phase": "train", "gradient_gate": gate})
     results["train_gate"] = gate
@@ -1401,12 +1593,245 @@ def phase_train(gen, results):
                              f"over {LEARN_STEPS} steps, want >= 1")
 
 
+# ------------------------------------------------------------------ longctx
+
+LONGCTX_SEQLENS, LONGCTX_TOKENS, LONGCTX_REPS = (2048, 4096, 8192), 16384, 5
+K9 = ("blocksparse_fwd", "blocksparse_bwd_dq", "blocksparse_bwd_dkv")
+
+
+def _launched(fn, names):
+    """Run fn once with the launch counts reset just before and read just
+    after; fail if a kernel of `names` was not launched."""
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    _build.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    missing = [n for n in names if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"{missing} launched no time: {counts}")
+    return {n: counts[n] for n in names}
+
+
+def _timed(fn, reps=LONGCTX_REPS):
+    """ms (median of reps, L2 flushed) and the peak device memory (MB)
+    while fn runs."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(fn, reps)
+    return ms, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def phase_longctx(gen, results):
+    """bench_longctx.py on the card: at s = 2048, 4096, 8192 (b = 16384 / s,
+    h 12, d 64, bf16) the causal flash forward (K3) and forward + backward
+    (K3 + K5), with TFLOP/s on bench_longctx's count (causal half of 2 or 7
+    s^2 products), and the block-sparse forward + backward (K9) under the
+    band mask; ms, peak memory, and the launches of one call of each."""
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+
+    bf = torch.bfloat16
+    runs, totals = {}, dict.fromkeys(K9, 0)
+    for s in LONGCTX_SEQLENS:
+        b = LONGCTX_TOKENS // s
+        q, k, v, g = (torch.randn(b, s, LONG_H, LONG_D, generator=gen,
+                                  device=DEV).to(bf) for _ in range(4))
+        ql, kl, vl = (t.requires_grad_() for t in (q.clone(), k.clone(), v.clone()))
+        bm, density = band_blockmask(s)
+        flops = lambda n_dots: n_dots * 2 * b * LONG_H * s * s * LONG_D * 0.5
+        fns = {
+            "flash_fwd": (lambda: fa.flash_attention(q, k, v, causal=True),
+                          ("flash_attention",), 2),
+            "flash_fwd_bwd": (lambda: torch.autograd.grad(
+                fa.flash_attention(ql, kl, vl, causal=True), (ql, kl, vl), g),
+                ("flash_attention", "flash_attention_bwd"), 7),
+            "blocksparse_fwd_bwd": (lambda: torch.autograd.grad(
+                fa.flash_blocksparse_attention(ql, kl, vl, bm, causal=True,
+                                               block_q=BS_BLOCK, block_k=BS_BLOCK),
+                (ql, kl, vl), g), K9, None),
+        }
+        row = {"batch": b}
+        for name, (fn, kernels, n_dots) in fns.items():
+            launches = _launched(fn, kernels)
+            ms, peak = _timed(fn)
+            row[name] = dict(ms=ms, peak_mb=peak, launches=launches)
+            if n_dots:
+                row[name]["tflops"] = flops(n_dots) / ms / 1e9
+            else:
+                row[name]["density"] = density
+                for n in K9:
+                    totals[n] += launches[n]
+        emit({"phase": "longctx", "seqlen": s, **row})
+        runs[f"s{s}"] = row
+        del q, k, v, g, ql, kl, vl
+        torch.cuda.empty_cache()
+    results["longctx"] = {"runs": runs, "launches": totals}
+
+
+# ------------------------------------------------------------------ train-8k
+
+LONG_BATCH, LONG_LEN, GPT_GATE_LEN = 2, 8192, 2048
+GPT_PICKS = {
+    "wte": lambda p: p["wte"],
+    "layers[0].Wqkv": lambda p: p["layers"]["Wqkv"]["kernel"][0],
+    "layers[-1].Wqkv": lambda p: p["layers"]["Wqkv"]["kernel"][-1],
+}
+
+
+def phase_train8k(gen, results, cfg, params):
+    """gpt3-small with rotary embeddings (the reference's
+    gpt3s-flash-rotary-8k) at batch 2 x 8192, bf16 weights, AdamW, dropout
+    on, the fused-MLP switch on, no remat: TRAIN_WARMUP + TRAIN_TIMED steps
+    (K3, K5 and K7 once a layer each step). Then the gradient gate at
+    GATE_BATCHES batches of 1 x 2048 (where the plain path's attention
+    fits), at the weights of the last step."""
+    from backpacks_flash_attn_tpu_torch.models import gpt
+    from backpacks_flash_attn_tpu_torch.ops import dense
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+
+    def check(counts):
+        bad = {n: counts[n] for n in ("flash_attention", "flash_attention_bwd",
+                                      "fused_mlp_fwd") if counts[n] != cfg.n_layer}
+        return f"launches {bad}, want {cfg.n_layer} each" if bad else None
+
+    ids = lambda b, s: {"input_ids": torch.randint(
+        0, cfg.vocab_size, (b, s + 1), generator=gen, device=DEV)}
+    switch = dense._FUSED_MLP
+    dense._FUSED_MLP = True
+    try:
+        log("train-8k")
+        batches = [ids(LONG_BATCH, LONG_LEN) for _ in range(TRAIN_WARMUP + TRAIN_TIMED + 1)]
+        results["train_8k"], trained = train_run(
+            "train_8k", cfg, params, batches, tl.make_train_step(cfg, model="gpt"),
+            check, model="gpt3_small(rotary=True)")
+        del batches
+        log("train-8k: gradient gate")
+        gate_batches = [ids(1, GPT_GATE_LEN) for _ in range(GATE_BATCHES)]
+        gate = gradient_gate(
+            "gpt3s rotary 1 x 2048", trained, gate_batches,
+            lambda p, x, key: gpt.gpt_lm_forward(p, cfg, x, train=True, rng=key),
+            GPT_PICKS)
+    finally:
+        dense._FUSED_MLP = switch
+    emit({"phase": "train8k", "gradient_gate": gate})
+    results["train_8k_gate"] = gate
+    del trained
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ gpt-generate
+
+GEN_BATCH, GEN_PROMPT, GEN_TOKENS = 8, 2048, 64
+
+
+def _gpt_teacher_forced(params, ref_params, cfg, prompt, tokens):
+    """The last prefill position's logits and those of the first
+    COMPARE_STEPS decode steps on the same tokens: kernel path (bf16 cache),
+    plain path (bf16), f32 plain reference (f32 weights and cache)."""
+    from backpacks_flash_attn_tpu_torch.models import gpt
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    import contextlib
+
+    L = GEN_PROMPT + COMPARE_STEPS
+    outs = {}
+    for path in ("kernel", "plain", "ref"):
+        p = ref_params if path == "ref" else params
+        dt = torch.float32 if path == "ref" else torch.bfloat16
+        ctx = contextlib.nullcontext() if path == "kernel" else _build.plain_path()
+        with ctx:
+            cache = gpt.init_kv_cache(cfg, GEN_BATCH, L, dt, device=DEV)
+            steps = []
+            for ids in [prompt] + [tokens[:, i:i + 1] for i in range(COMPARE_STEPS)]:
+                hidden, cache = gpt.gpt_forward_with_cache(p, cfg, ids, cache)
+                steps.append(gpt.lm_logits(p, cfg, hidden[:, -1:]).float())
+        outs[path] = torch.cat(steps, dim=1)
+        del cache
+    ek, ep = two_x("gpt-generate teacher-forced logits", outs["kernel"],
+                   outs["plain"], outs["ref"])
+    return dict(kernel=ek, plain_bf16=ep,
+                kernel_vs_plain=max_err(outs["kernel"], outs["plain"]))
+
+
+def phase_generate(gen, results, cfg, params):
+    """generate_gpt on the rotary gpt3-small: batch 8, a 2048-token prompt,
+    64 greedy tokens, bf16 cache; seconds and tokens/s (the prefill timed
+    apart), K3 once a layer for the prefill and K1 once a layer a decode
+    step; then the teacher-forced gate of the first 8 decode steps."""
+    from backpacks_flash_attn_tpu_torch.models import gpt
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.utils.generation import generate_gpt
+
+    prompt = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
+                           generator=gen, device=DEV)
+    L = GEN_PROMPT + GEN_TOKENS
+    generate_gpt(params, cfg, prompt[:, :128], 136, device=DEV)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = gpt.init_kv_cache(cfg, GEN_BATCH, L, device=DEV)
+    gpt.lm_logits(params, cfg, gpt.gpt_forward_with_cache(params, cfg, prompt, cache)[0])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    del cache
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = generate_gpt(params, cfg, prompt, L, device=DEV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    steps = GEN_TOKENS - 1
+    want = {"flash_attention": cfg.n_layer, "decode_attention": cfg.n_layer * steps}
+    if any(counts[n] != w for n, w in want.items()):
+        raise AssertionError(f"gpt-generate launches {counts}, want {want}")
+    tokens = out.sequences[:, GEN_PROMPT:]
+    cache = gpt.init_kv_cache(cfg, GEN_BATCH, L, device=DEV)
+    gpt.gpt_forward_with_cache(params, cfg, prompt, cache)
+
+    def decode_steps():
+        for i in range(COMPARE_STEPS):
+            hidden, _ = gpt.gpt_forward_with_cache(params, cfg, tokens[:, i:i + 1], cache)
+            gpt.lm_logits(params, cfg, hidden).argmax(-1)
+
+    profile = _per_step(*_kernel_profile(decode_steps), COMPARE_STEPS, top=8)
+    profile["device_idle_share"] = 1 - (profile["device_ms_per_step"]
+                                        / profile["wall_ms_per_step_profiled"])
+    del cache
+    log("gpt-generate: teacher-forced gate")
+    gate = _gpt_teacher_forced(params, _map_tensors(params, lambda t: t.float()),
+                               cfg, prompt, tokens)
+    run = dict(phase="generate", run="gpt_generate", batch=GEN_BATCH,
+               prompt=GEN_PROMPT, new_tokens=GEN_TOKENS, seconds=seconds,
+               prefill_s=prefill_s, tokens_per_s=GEN_BATCH * GEN_TOKENS / seconds,
+               decode_tokens_per_s=GEN_BATCH * steps / (seconds - prefill_s),
+               launches=counts, launches_per_decode_step=counts["decode_attention"] / steps,
+               profile=profile, teacher_forced=gate)
+    emit(run)
+    results["gpt_generate"] = run
+
+
+def phase_gpt(gen, results, phases):
+    """The rotary gpt3-small of the train-8k and gpt-generate runs, at full
+    width and depth (12 layers, 768, 12 heads, vocab 50257 padded to
+    50264), bf16 weights from the seeded generator."""
+    from backpacks_flash_attn_tpu_torch.config import gpt3_small
+    from backpacks_flash_attn_tpu_torch.models import gpt
+
+    cfg = gpt3_small(rotary=True, vocab_size=50257)
+    params = gpt.init_gpt(cfg, gen, dtype=torch.bfloat16, device=DEV)
+    if "train8k" in phases:
+        phase_train8k(gen, results, cfg, params)
+    if "generate" in phases:
+        log("gpt-generate")
+        with torch.inference_mode():
+            phase_generate(gen, results, cfg, params)
+
+
 # ------------------------------------------------------------------ main
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="device,build,kernels,serve,engine,forward,train")
+                    default="device,build,kernels,serve,engine,forward,train,"
+                            "longctx,train8k,generate")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"))
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -1430,8 +1855,9 @@ def main():
     emit({"phase": "build", "seconds": seconds,
           "kernels": sorted(_build.KERNELS)})
     args.out.mkdir(parents=True, exist_ok=True)
+    reports = {k.source: k.build_log for k in _build.KERNELS.values()}
     (args.out / "ptxas.txt").write_text("\n".join(
-        f"== {k.source}\n{k.build_log}" for k in _build.KERNELS.values()))
+        f"== {src}\n{text}" for src, text in reports.items()))
     results["build_s"] = seconds
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1451,8 +1877,17 @@ def main():
         with torch.no_grad():
             phase_kernels(train_kernel_cases(gen), results.setdefault("kernels", {}))
         torch.cuda.empty_cache()
+        log("kernels: long context")
+        with torch.no_grad():
+            phase_kernels(longctx_kernel_cases(gen), results["kernels"])
+        torch.cuda.empty_cache()
     if "train" in phases:
         phase_train(gen, results)
+    if "longctx" in phases:
+        log("longctx")
+        phase_longctx(gen, results)
+    if "train8k" in phases or "generate" in phases:
+        phase_gpt(gen, results, phases)
 
     line = []
     for k in _build.KERNELS.values():

@@ -105,8 +105,10 @@ def test_port_imports_no_jax():
     """Statically: no import of jax or of the JAX package in the port or
     chip_smoke.py. Dynamically: with both blocked, the port imports and
     runs a tiny CPU forward, a cached decode step, a decode step over the
-    low-bit (4, None) caches, the quant-gates module, a training step, and
-    the serving engine over a staged cache (its C++ scheduler built)."""
+    low-bit (4, None) caches, the quant-gates module, a training step, the
+    serving engine over a staged cache (its C++ scheduler built), a rotary
+    GPT training step with the fused-MLP switch on, generate_gpt, and the
+    block-sparse op."""
     pattern = re.compile(r"^\s*(import|from) +(jax|backpacks_flash_attn_tpu)\b",
                          re.M)
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
@@ -145,6 +147,25 @@ eng = ServingEngine(params, cfg, max_slots=2, max_seqlen=32, eos_id=-1,
 outs = eng.generate([[1, 2, 3], [4, 5, 6, 7, 8, 9, 10, 11, 12]],
                     max_new_tokens=6)
 assert [len(o) for o in outs] == [6, 6] and eng.stats()["flushes"] >= 1
+from backpacks_flash_attn_tpu_torch.config import GPTConfig
+from backpacks_flash_attn_tpu_torch.models import gpt
+from backpacks_flash_attn_tpu_torch.ops import dense, flash_attention as fa
+from backpacks_flash_attn_tpu_torch.utils.generation import generate_gpt
+dense._FUSED_MLP = True
+gcfg = GPTConfig(vocab_size=512, n_positions=0, n_embd=128, n_head=2,
+                 n_layer=2, rotary_emb_fraction=0.5)
+gp = train.trainable(gpt.init_gpt(gcfg, torch.Generator().manual_seed(0),
+                                  device="cpu"))
+gstate = train.TrainState(gp, train.make_optimizer(gp, warmup_steps=1), 0)
+gstate, gm = train.make_train_step(gcfg, model="gpt")(gstate, batch,
+                                                      prng.PRNGKey(0))
+assert torch.isfinite(gm["loss"])
+seq = generate_gpt(gp, gcfg, ids, 10, device="cpu").sequences
+assert seq.shape == (2, 10)
+x = torch.randn(1, 256, 2, 16)
+bso = fa.flash_blocksparse_attention(x, x, x, torch.ones(2, 2), block_q=128,
+                                     block_k=128)
+assert torch.isfinite(bso).all()
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
 print("ok", tuple(logits.shape))
 """
@@ -172,6 +193,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(jax_params):
                                             np.zeros(64, np.uint16), 8),
         lambda: params_from_numpy(np_tree),
         lambda: tgen.generate_backpack(params, cfg, ids, 6),
+        lambda: tgen.generate_gpt(params["gpt"], cfg, ids, 6),
         lambda: ServingEngine(params, cfg),
         lambda: tbp.init_backpack_cache(cfg, 1, 8, per_slot=True, stage=4),
         lambda: train_cli.run(train_cli.RunConfig(corpus="unused.npy")),
@@ -220,6 +242,20 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
     assert all(torch.equal(x, y) for x, y in zip(
         tda.decode_attention_int4_ml(q, k4, sc, v4, sc, lens),
         tda.decode_attention_flat_int4_ml(q, k4, sc, v4, sc, lens)))
+    from backpacks_flash_attn_tpu_torch.ops import fused_mlp as tfm
+    g2 = torch.Generator().manual_seed(1)
+    x, w1, w2, b1, b2 = (torch.randn(*s, generator=g2)
+                         for s in ((5, 8), (8, 16), (16, 8), (16,), (8,)))
+    assert all(torch.equal(u, w) for u, w in zip(
+        tfm.mlp_fwd_fused(x, w1, b1, w2, b2),
+        tfm.mlp_fwd_fused_ref(x, w1, b1, w2, b2)))
+    act = tfa.blocksparse_active(torch.tensor([[1, 0], [1, 1]]), True, 4, 4)
+    assert torch.equal(
+        tfa.flash_blocksparse_attention(a, a, a, torch.tensor([[1, 0], [1, 1]]),
+                                        block_q=4, block_k=4),
+        tfa.blocksparse_attention_ref((a.float() * 0.25).to(a.dtype), a, a,
+                                      act, causal=True, block_q=4,
+                                      block_k=4)[0])
     assert _build.launch_counts() == {k: 0 for k in _build.KERNELS}
     with pytest.raises(NotImplementedError, match="attn_bias"):
         tfa.flash_attention(a, b, c, attn_bias=torch.zeros(5, 7))

@@ -582,3 +582,247 @@ def test_staged_kv4_decode_launches_k8_ml(gen):
         want = decode()
     assert torch.isfinite(got).all()
     assert _err(got, want) <= 2e-2 * want.abs().max().item()
+
+
+# ------------------------------------------------------------ K7, K9
+
+@pytest.mark.parametrize("dt,T,d_in,inner,d_out,act", [
+    (torch.bfloat16, 1000, 128, 512, 128, "gelu_new"),   # ragged token tile
+    (torch.bfloat16, 300, 768, 3072, 768, "gelu_new"),   # gpt3-small widths
+    (torch.bfloat16, 96, 256, 512, 1024, "gelu"),        # two column slabs
+    (torch.float32, 1000, 128, 512, 128, "sqrelu"),
+    (torch.float32, 77, 768, 1024, 768, "relu"),
+])
+def test_fused_mlp_kernel(gen, dt, T, d_in, inner, d_out, act):
+    from backpacks_flash_attn_tpu_torch.ops import fused_mlp as fm
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = r(T, d_in).to(dt)
+    w1, w2 = (r(d_in, inner) * d_in ** -0.5).to(dt), (r(inner, d_out) * inner ** -0.5).to(dt)
+    b1, b2 = (r(inner) * 0.1).to(dt), (r(d_out) * 0.1).to(dt)
+    before = _build.KERNELS["fused_mlp_fwd"].launches
+    out = fm.mlp_fwd_fused(x, w1, b1, w2, b2, activation=act)
+    assert _build.KERNELS["fused_mlp_fwd"].launches == before + 1
+    ref = fm.mlp_fwd_fused_ref(*(t.float() for t in (x, w1, b1, w2, b2)),
+                               activation=act)
+    for got, want in zip(out, ref):
+        assert got.dtype == dt
+        if dt == torch.float32:
+            _f32_close(got, want)
+    if dt == torch.bfloat16:
+        plain = fm.mlp_fwd_fused_ref(x, w1, b1, w2, b2, activation=act)
+        for got, p, want in zip(out, plain, ref):
+            _within_2x(got, p, want)
+
+
+def test_dense_mlp_takes_k7_under_the_switch(gen, monkeypatch):
+    """dense.mlp with BACKPACKS_FUSED_MLP's switch on: the forward launches
+    K7 once, the backward recomputes from its h_pre; forward and gradients
+    match the switch-off path within the bf16 rule."""
+    from backpacks_flash_attn_tpu_torch.ops import dense
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    params = {"fc1": {"kernel": r(128, 512) * 0.08, "bias": r(512) * 0.1},
+              "fc2": {"kernel": r(512, 128) * 0.04, "bias": r(128) * 0.1}}
+    x = r(2, 40, 128)
+    g = r(2, 40, 128)
+
+    def run(switch, dt):
+        monkeypatch.setattr(dense, "_FUSED_MLP", switch)
+        p = {k: {n: t.to(dt).requires_grad_() for n, t in v.items()}
+             for k, v in params.items()}
+        xi = x.to(dt).requires_grad_()
+        out = dense.mlp(xi, p, "gelu_new")
+        out.backward(g.to(dt))
+        return [out, xi.grad] + [p[k][n].grad for k in p for n in p[k]]
+
+    before = _build.KERNELS["fused_mlp_fwd"].launches
+    fused = run(True, torch.bfloat16)
+    assert _build.KERNELS["fused_mlp_fwd"].launches == before + 1
+    plain = run(False, torch.bfloat16)
+    assert _build.KERNELS["fused_mlp_fwd"].launches == before + 1
+    ref = run(False, torch.float32)
+    for a, p, want in zip(fused, plain, ref):
+        _within_2x(a, p, want)
+
+
+def _band_mask(n_qb, n_kb, band):
+    """bench_longctx.py's causal local band plus global block 0."""
+    qi = torch.arange(n_qb)[:, None]
+    kj = torch.arange(n_kb)[None, :]
+    return (((kj <= qi) & ((qi - kj) < band)) | (kj == 0)).to(torch.int32)
+
+
+@pytest.mark.parametrize("dt,b,sq,sk,h,block,causal,mask", [
+    (torch.bfloat16, 2, 384, 384, 3, 128, True, "band"),
+    (torch.bfloat16, 1, 200, 330, 2, 128, False, "random"),   # sq != sk
+    (torch.float32, 2, 384, 384, 3, 128, True, "random"),
+    (torch.float32, 1, 130, 260, 2, 64, False, "band"),
+])
+def test_blocksparse_kernels(gen, dt, b, sq, sk, h, block, causal, mask):
+    """K9 forward (out, LSE) and its dq and dk/dv kernels against the plain
+    versions; query block 1 has no active tile (zero out, NEG_INF LSE);
+    each backward takes its own path's forward."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    q = (r(b, sq, h, 64) * 0.125).to(dt)            # pre-scaled, as the op does
+    k, v, dout = r(b, sk, h, 64).to(dt), r(b, sk, h, 64).to(dt), r(b, sq, h, 64).to(dt)
+    n_qb, n_kb = -(-sq // block), -(-sk // block)
+    bm = (_band_mask(n_qb, n_kb, 2) if mask == "band" else
+          (torch.rand(n_qb, n_kb, generator=torch.Generator().manual_seed(3)) < 0.6).int())
+    bm[1] = 0
+    act = fa.blocksparse_active(bm.cuda(), causal, block, block)
+    kw = dict(causal=causal, block_q=block, block_k=block)
+
+    def path(fwd, bwd_dq, bwd_dkv, qq, kk, vv, go):
+        out, lse = fwd(qq, kk, vv, act, **kw)
+        if bwd_dq is None:
+            return (out, lse, *fa.blocksparse_attention_bwd_ref(
+                qq, kk, vv, out, lse, go, act, **kw))
+        return (out, lse, bwd_dq(qq, kk, vv, out, lse, go, act, **kw),
+                *bwd_dkv(qq, kk, vv, out, lse, go, act, **kw))
+
+    _build.reset_launches()
+    kernel = path(fa._bs_fwd_kernel, fa._bs_bwd_dq_kernel, fa._bs_bwd_dkv_kernel,
+                  q, k, v, dout)
+    counts = _build.launch_counts()
+    assert [counts[n] for n in ("blocksparse_fwd", "blocksparse_bwd_dq",
+                                "blocksparse_bwd_dkv")] == [1, 1, 1]
+    ref = path(fa.blocksparse_attention_ref, None, None, q.float(), k.float(),
+               v.float(), dout.float())
+    out, lse = kernel[:2]
+    assert (out[:, block:2 * block] == 0).all()
+    assert (lse[:, :, block:2 * block] == fa.NEG_INF).all()
+    live = lse > fa.NEG_INF / 2
+    assert torch.equal(live, ref[1] > fa.NEG_INF / 2)
+    assert torch.allclose(lse[live], ref[1][live], rtol=1e-5, atol=1e-4)
+    names = ("out", "lse", "dq", "dk", "dv")
+    if dt == torch.float32:
+        for name, a, want in zip(names, kernel, ref):
+            if name != "lse":
+                _f32_close(a, want)
+        return
+    plain = path(fa.blocksparse_attention_ref, None, None, q, k, v, dout)
+    for name, a, p, want in zip(names, kernel, plain, ref):
+        if name != "lse":
+            _within_2x(a, p, want)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_blocksparse_ragged_forward(gen, dt):
+    """Per-row key lengths (forward only), one of them 0: that row's output
+    is 0 and its LSE NEG_INF."""
+    b, s, h, block = 3, 320, 2, 64
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(dt)
+    q, k, v = r(b, s, h, 64), r(b, s, h, 64), r(b, s, h, 64)
+    lens = torch.tensor([0, 130, 320], device="cuda")
+    bm = _band_mask(5, 5, 3).cuda()
+    kw = dict(causal=True, softmax_scale=0.125, block_q=block, block_k=block,
+              seq_lengths=lens, return_lse=True)
+    before = _build.KERNELS["blocksparse_fwd"].launches
+    out, lse = fa.flash_blocksparse_attention(q, k, v, bm, **kw)
+    assert _build.KERNELS["blocksparse_fwd"].launches == before + 1
+    with _build.plain_path():
+        ref, rlse = fa.flash_blocksparse_attention(q.float(), k.float(),
+                                                   v.float(), bm, **kw)
+        plain = fa.flash_blocksparse_attention(q, k, v, bm, **kw)[0]
+    assert (out[0] == 0).all() and (lse[0] == fa.NEG_INF).all()
+    assert torch.allclose(lse[1:], rlse[1:], rtol=1e-5, atol=1e-4)
+    if dt == torch.float32:
+        _f32_close(out, ref)
+    else:
+        _within_2x(out, plain, ref)
+
+
+def test_blocksparse_autograd_launches_k9(gen):
+    x = torch.randn(2, 256, 3, 2, 64, generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    bm = _band_mask(2, 2, 1).cuda()
+    _build.reset_launches()
+    out = fa.flash_blocksparse_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2],
+                                         bm, block_q=128, block_k=128)
+    out.float().square().sum().backward()
+    counts = _build.launch_counts()
+    assert [counts[n] for n in ("blocksparse_fwd", "blocksparse_bwd_dq",
+                                "blocksparse_bwd_dkv")] == [1, 1, 1]
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 0
+    assert torch.isfinite(x.grad.float()).all()
+
+
+def test_cuda_tensors_never_take_k7_k9_plain_paths(gen, monkeypatch):
+    """With the plain versions replaced by a trap, the wrappers still run on
+    CUDA tensors (kernels only), and a shape the kernels refuse raises
+    instead of falling back."""
+    from backpacks_flash_attn_tpu_torch.ops import fused_mlp as fm
+
+    def trap(*a, **kw):
+        raise AssertionError("a CUDA tensor took the plain path")
+
+    for mod, name in ((fm, "mlp_fwd_fused_ref"),
+                      (fa, "blocksparse_attention_ref"),
+                      (fa, "blocksparse_attention_bwd_ref")):
+        monkeypatch.setattr(mod, name, trap)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+    fm.mlp_fwd_fused(r(64, 128), r(128, 256), r(256), r(256, 128), r(128))
+    x = r(1, 128, 3, 2, 64).requires_grad_(True)
+    bm = torch.ones(1, 1, dtype=torch.int32, device="cuda")
+    fa.flash_blocksparse_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2], bm,
+                                   block_q=128, block_k=128).sum().backward()
+    fa.flash_blocksparse_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2], bm,
+                                   block_q=128, block_k=128,
+                                   seq_lengths=torch.tensor([77], device="cuda"))
+    with pytest.raises(ValueError, match="multiples"):
+        fm.mlp_fwd_fused(r(8, 96), r(96, 256), r(256), r(256, 96), r(96))
+    with pytest.raises(ValueError, match="head dim 64"):
+        y = r(1, 128, 2, 32)
+        fa.flash_blocksparse_attention(y, y, y, bm, block_q=128, block_k=128)
+
+
+def _rotary_gpt():
+    """A two-layer rotary GPT at K3's head dim of 64 (fraction 0.5: 32
+    rotated channels), no learned positions."""
+    from backpacks_flash_attn_tpu_torch.config import GPTConfig
+    return GPTConfig(vocab_size=512, n_positions=0, n_embd=128, n_head=2,
+                     n_layer=2, rotary_emb_fraction=0.5,
+                     pad_vocab_size_multiple=8)
+
+
+def test_generate_gpt_rotary_launches_k3_and_k1(gen):
+    """generate_gpt on a rotary GPT in f32: K3 once a layer for the prefill,
+    K1 once a layer a decode step; tokens and scores equal the plain
+    path's (f32 sums in another order)."""
+    from backpacks_flash_attn_tpu_torch.models import gpt
+    from backpacks_flash_attn_tpu_torch.utils.generation import generate_gpt
+    cfg = _rotary_gpt()
+    params = gpt.init_gpt(cfg, torch.Generator().manual_seed(0), device="cuda")
+    params["wte"] *= 20.0
+    ids = torch.randint(0, 512, (3, 11), generator=torch.Generator().manual_seed(1)).cuda()
+    kw = dict(output_scores=True, cache_dtype=torch.float32)
+    _build.reset_launches()
+    got = generate_gpt(params, cfg, ids, 20, **kw)
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layer
+    assert counts["decode_attention"] == cfg.n_layer * (20 - 11 - 1)
+    with _build.plain_path():
+        want = generate_gpt(params, cfg, ids, 20, **kw)
+    assert torch.equal(got.sequences, want.sequences)
+    assert _err(got.scores, want.scores) <= 1e-4 * want.scores.abs().max().item()
+
+
+def test_rotary_gpt_train_step_launches_k7(gen, monkeypatch):
+    """A training step of the rotary GPT with the fused-MLP switch on: K3,
+    K5 and K7 once a layer, a finite loss."""
+    from backpacks_flash_attn_tpu_torch.models import gpt
+    from backpacks_flash_attn_tpu_torch.ops import dense
+    from backpacks_flash_attn_tpu_torch.training import train
+    from backpacks_flash_attn_tpu_torch.utils import prng
+    monkeypatch.setattr(dense, "_FUSED_MLP", True)
+    cfg = _rotary_gpt()
+    params = train.trainable(gpt.init_gpt(cfg, torch.Generator().manual_seed(0),
+                                          dtype=torch.bfloat16, device="cuda"))
+    state = train.TrainState(params, train.make_optimizer(params, warmup_steps=1), 0)
+    step = train.make_train_step(cfg, model="gpt")
+    batch = {"input_ids": torch.randint(0, 512, (2, 65), device="cuda")}
+    _build.reset_launches()
+    state, m = step(state, batch, prng.PRNGKey(0))
+    counts = _build.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd", "fused_mlp_fwd"):
+        assert counts[name] == cfg.n_layer, (name, counts)
+    assert torch.isfinite(m["loss"])
