@@ -23,9 +23,13 @@
 // step loads (cp.async) while fc2 runs and the W2 chunk while fc1 runs. The
 // weights are re-read from L2 by every token tile (9.4 MB a tile at
 // gpt3-small): that traffic, and one block per SM, are what bound this
-// first version. Outputs wider than 768 are split into column slabs (grid
-// y) that each recompute fc1; slab 0 writes h_pre. f32 operands take a
-// SIMT version (16-token tiles, 16-column chunks, every product in f32).
+// first version. Past d_in 1024 the x tile no longer fits beside the W1
+// chunk, so fc1 streams x and W1 together in 128-row pieces of d_in (the
+// same products in the same order; x is then re-read from L2 once a
+// chunk). Outputs wider than 768 are split into column slabs (grid y) that
+// each recompute fc1; slab 0 writes h_pre. f32 operands take a SIMT
+// version (16-token tiles, 16-column chunks, x and W1 streamed in 128-row
+// pieces of d_in, every product in f32).
 #include "common.cuh"
 
 namespace {
@@ -33,6 +37,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr int BT = 32, BI = 32, kThreads = 256;
 constexpr int LDW1 = BI + 8, LDA = BI + 8;  // 80-byte smem rows
+constexpr int KC = 128;         // rows of d_in a streamed fc1 piece covers
+constexpr int XRES_MAX = 1024;  // widest d_in whose x tile stays in smem
 
 __device__ __forceinline__ float activate(float x, int act) {
   switch (act) {
@@ -74,9 +80,46 @@ __device__ __forceinline__ void load_async(bf16* dst, int ld, const bf16* src, l
   }
 }
 
+// columns [k0, k0 + cols) of the BT-token x tile from row t0 into shared
+// memory with leading dimension ldx; rows past T are zero
+__device__ __forceinline__ void load_x_async(bf16* Xs, int ldx, const bf16* x, int t0, int T,
+                                             int d_in, int k0, int cols) {
+  const int per_row = cols / 8;
+  for (int i = threadIdx.x; i < BT * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i % per_row) * 8;
+    if (t0 + r < T)
+      cp_async16(Xs + r * ldx + c, x + static_cast<long long>(t0 + r) * d_in + k0 + c);
+    else
+      *reinterpret_cast<uint4*>(Xs + r * ldx + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// fc1 over k_len rows of d_in (a multiple of 64): this warp's 16 x 8 of the
+// 32 x 32 pre-activation chunk, in four independent accumulator chains over
+// k (chain j takes the 16-row steps ks = j mod 4) so that the tensor-core
+// latency overlaps
+__device__ __forceinline__ void fc1_mma(float (&hp)[4][4], const bf16* Xs, int ldx,
+                                        const bf16* W1s, int k_len, int rg, int cg) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const bf16* xa = Xs + (16 * rg + g) * ldx + 2 * tq;
+  for (int k0 = 0; k0 < k_len / 16; k0 += 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ks = k0 + j;
+      const uint32_t a[4] = {ld32(xa + ks * 16), ld32(xa + 8 * ldx + ks * 16),
+                             ld32(xa + ks * 16 + 8), ld32(xa + 8 * ldx + ks * 16 + 8)};
+      uint32_t bfr[2];
+      ldmatrix_x2_trans(bfr, W1s + (ks * 16 + (lane & 15)) * LDW1 + cg * 8);
+      mma_16816(hp[j], a, bfr);
+    }
+  }
+}
+
 // NF: n-fragments of 8 columns a warp owns in fc2; the block's slab of out
-// columns is 4 * 8 * NF wide
-template <int NF>
+// columns is 4 * 8 * NF wide. XRES: the x tile stays in shared memory and
+// the whole W1 chunk is prefetched during fc2; otherwise fc1 streams x and
+// W1 in KC-row pieces of d_in.
+template <int NF, bool XRES>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                     const bf16* __restrict__ b1, const bf16* __restrict__ w2,
@@ -84,10 +127,10 @@ mlp_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                     bf16* __restrict__ hpre, int T, int d_in, int inner, int d_out, int act) {
   constexpr int SLAB = 32 * NF, LDW2 = SLAB + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldx = d_in + 8;
+  const int k_rows = XRES ? d_in : KC, ldx = k_rows + 8;
   bf16* Xs = reinterpret_cast<bf16*>(smem_raw);  // BT x ldx
-  bf16* W1s = Xs + BT * ldx;                     // d_in x LDW1 ([k][n])
-  bf16* W2s = W1s + d_in * LDW1;                 // BI x LDW2 ([k][n])
+  bf16* W1s = Xs + BT * ldx;                     // k_rows x LDW1 ([k][n])
+  bf16* W2s = W1s + k_rows * LDW1;               // BI x LDW2 ([k][n])
   bf16* As = W2s + BI * LDW2;                    // BT x LDA, activated chunk
 
   const int t0 = blockIdx.x * BT, n0 = blockIdx.y * SLAB;
@@ -95,18 +138,11 @@ mlp_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tq = lane & 3;
   const int rg = warp & 1, cg = warp >> 1;  // 16-row group, column group
 
-  // x tile (rows past T are zero) and W1 chunk 0, then W2 chunk 0
-  {
-    const int per_row = d_in / 8;
-    for (int i = threadIdx.x; i < BT * per_row; i += kThreads) {
-      const int r = i / per_row, c = (i % per_row) * 8;
-      if (t0 + r < T)
-        cp_async16(Xs + r * ldx + c, x + static_cast<long long>(t0 + r) * d_in + c);
-      else
-        *reinterpret_cast<uint4*>(Xs + r * ldx + c) = make_uint4(0u, 0u, 0u, 0u);
-    }
+  // (resident) x tile and W1 chunk 0, then W2 chunk 0
+  if (XRES) {
+    load_x_async(Xs, ldx, x, t0, T, d_in, 0, d_in);
+    load_async(W1s, LDW1, w1, inner, d_in, BI);
   }
-  load_async(W1s, LDW1, w1, inner, d_in, BI);
   cp_async_commit();
   load_async(W2s, LDW2, w2 + n0, d_out, BI, SLAB);
   cp_async_commit();
@@ -115,23 +151,21 @@ mlp_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   zero(acc);
   const int n_chunks = inner / BI;
   for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<1>();  // x and W1 chunk c have landed
-    __syncthreads();
-    // fc1: this warp's 16 x 8 of the 32 x 32 pre-activation chunk, in
-    // four independent accumulator chains over k (d_in is a multiple of
-    // 64) so that the tensor-core latency overlaps
     float hp[4][4];
     zero(hp);
-    const bf16* xa = Xs + (16 * rg + g) * ldx + 2 * tq;
-    for (int k0 = 0; k0 < d_in / 16; k0 += 4) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ks = k0 + j;
-        const uint32_t a[4] = {ld32(xa + ks * 16), ld32(xa + 8 * ldx + ks * 16),
-                               ld32(xa + ks * 16 + 8), ld32(xa + 8 * ldx + ks * 16 + 8)};
-        uint32_t bfr[2];
-        ldmatrix_x2_trans(bfr, W1s + (ks * 16 + (lane & 15)) * LDW1 + cg * 8);
-        mma_16816(hp[j], a, bfr);
+    if (XRES) {
+      cp_async_wait<1>();  // x and W1 chunk c have landed
+      __syncthreads();
+      fc1_mma(hp, Xs, ldx, W1s, d_in, rg, cg);
+    } else {
+      for (int k0 = 0; k0 < d_in; k0 += KC) {
+        __syncthreads();  // the previous piece is consumed
+        load_x_async(Xs, ldx, x, t0, T, d_in, k0, KC);
+        load_async(W1s, LDW1, w1 + static_cast<long long>(k0) * inner + c * BI, inner, KC, BI);
+        cp_async_commit();
+        cp_async_wait<0>();  // this piece (and W2 chunk c) have landed
+        __syncthreads();
+        fc1_mma(hp, Xs, ldx, W1s, KC, rg, cg);
       }
     }
     float hc[4];
@@ -149,7 +183,7 @@ mlp_fwd_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
           activate(__low2float(h), act), activate(__high2float(h), act));
     }
     __syncthreads();  // As complete; W1s free
-    if (c + 1 < n_chunks) load_async(W1s, LDW1, w1 + (c + 1) * BI, inner, d_in, BI);
+    if (XRES && c + 1 < n_chunks) load_async(W1s, LDW1, w1 + (c + 1) * BI, inner, d_in, BI);
     cp_async_commit();
     cp_async_wait<1>();  // W2 chunk c has landed
     __syncthreads();
@@ -203,43 +237,45 @@ mlp_fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                    const float* __restrict__ b1, const float* __restrict__ w2,
                    const float* __restrict__ b2, float* __restrict__ out,
                    float* __restrict__ hpre, int T, int d_in, int inner, int d_out, int act) {
-  constexpr int SLAB = 16 * NJ;
+  constexpr int SLAB = 16 * NJ, LDX = KC + 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldx = d_in + 4;
-  float* Xs = reinterpret_cast<float*>(smem_raw);  // FT x ldx
-  float* W1s = Xs + FT * ldx;                      // d_in x FI
-  float* W2s = W1s + d_in * FI;                    // FI x SLAB
+  float* Xs = reinterpret_cast<float*>(smem_raw);  // FT x LDX, a piece of x
+  float* W1s = Xs + FT * LDX;                      // KC x FI
+  float* W2s = W1s + KC * FI;                      // FI x SLAB
   float* As = W2s + FI * SLAB;                     // FT x (FI + 1)
 
   const int t0 = blockIdx.x * FT, n0 = blockIdx.y * SLAB;
   const bool write_h = blockIdx.y == 0;
   const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
-  for (int i = threadIdx.x; i < FT * d_in / 4; i += kThreads) {
-    const int rr = i / (d_in / 4), cc = (i % (d_in / 4)) * 4;
-    *reinterpret_cast<float4*>(Xs + rr * ldx + cc) =
-        t0 + rr < T
-            ? *reinterpret_cast<const float4*>(x + static_cast<long long>(t0 + rr) * d_in + cc)
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
   float acc[NJ];
 #pragma unroll
   for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
 
   for (int c0 = 0; c0 < inner; c0 += FI) {
-    __syncthreads();  // the previous chunk is consumed (and x staged)
-    for (int i = threadIdx.x; i < d_in * FI / 4; i += kThreads) {
-      const int k = i / (FI / 4), cc = (i % (FI / 4)) * 4;
-      *reinterpret_cast<float4*>(W1s + k * FI + cc) =
-          *reinterpret_cast<const float4*>(w1 + static_cast<long long>(k) * inner + c0 + cc);
-    }
-    for (int i = threadIdx.x; i < FI * SLAB / 4; i += kThreads) {
-      const int k = i / (SLAB / 4), cc = (i % (SLAB / 4)) * 4;
-      *reinterpret_cast<float4*>(W2s + k * SLAB + cc) =
-          *reinterpret_cast<const float4*>(w2 + static_cast<long long>(c0 + k) * d_out + n0 + cc);
-    }
-    __syncthreads();
     float h = 0.f;
-    for (int k = 0; k < d_in; ++k) h += Xs[r * ldx + k] * W1s[k * FI + c];
+    for (int k0 = 0; k0 < d_in; k0 += KC) {
+      __syncthreads();  // the previous piece (and chunk) is consumed
+      for (int i = threadIdx.x; i < FT * KC / 4; i += kThreads) {
+        const int rr = i / (KC / 4), cc = (i % (KC / 4)) * 4;
+        *reinterpret_cast<float4*>(Xs + rr * LDX + cc) =
+            t0 + rr < T ? *reinterpret_cast<const float4*>(
+                              x + static_cast<long long>(t0 + rr) * d_in + k0 + cc)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      for (int i = threadIdx.x; i < KC * FI / 4; i += kThreads) {
+        const int k = i / (FI / 4), cc = (i % (FI / 4)) * 4;
+        *reinterpret_cast<float4*>(W1s + k * FI + cc) = *reinterpret_cast<const float4*>(
+            w1 + static_cast<long long>(k0 + k) * inner + c0 + cc);
+      }
+      if (k0 == 0)
+        for (int i = threadIdx.x; i < FI * SLAB / 4; i += kThreads) {
+          const int k = i / (SLAB / 4), cc = (i % (SLAB / 4)) * 4;
+          *reinterpret_cast<float4*>(W2s + k * SLAB + cc) = *reinterpret_cast<const float4*>(
+              w2 + static_cast<long long>(c0 + k) * d_out + n0 + cc);
+        }
+      __syncthreads();
+      for (int k = 0; k < KC; ++k) h += Xs[r * LDX + k] * W1s[k * FI + c];
+    }
     h += b1[c0 + c];
     if (write_h && t0 + r < T) hpre[static_cast<long long>(t0 + r) * inner + c0 + c] = h;
     As[r * (FI + 1) + c] = activate(h, act);
@@ -263,13 +299,13 @@ struct Args {
   int T, d_in, inner, d_out, act;
 };
 
-template <int SLAB>
+template <int SLAB, bool XRES>
 int launch_bf16(const Args& a, cudaStream_t st) {
   constexpr int NF = SLAB / 32;
-  const size_t smem = sizeof(bf16) * (static_cast<size_t>(BT) * (a.d_in + 8) +
-                                      static_cast<size_t>(a.d_in) * LDW1 +
+  const size_t k_rows = XRES ? a.d_in : KC;
+  const size_t smem = sizeof(bf16) * (BT * (k_rows + 8) + k_rows * LDW1 +
                                       static_cast<size_t>(BI) * (SLAB + 8) + BT * LDA);
-  auto kern = mlp_fwd_bf16_kernel<NF>;
+  auto kern = mlp_fwd_bf16_kernel<NF, XRES>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -284,8 +320,7 @@ int launch_bf16(const Args& a, cudaStream_t st) {
 template <int SLAB>
 int launch_f32(const Args& a, cudaStream_t st) {
   constexpr int NJ = SLAB / 16;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(FT) * (a.d_in + 4) +
-                                       static_cast<size_t>(a.d_in) * FI +
+  const size_t smem = sizeof(float) * (static_cast<size_t>(FT) * (KC + 4) + KC * FI +
                                        static_cast<size_t>(FI) * SLAB + FT * (FI + 1));
   auto kern = mlp_fwd_f32_kernel<NJ>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -302,7 +337,8 @@ int launch_f32(const Args& a, cudaStream_t st) {
 
 template <int SLAB>
 int launch(const Args& a, long long dtype, cudaStream_t st) {
-  if (dtype == DT_BF16) return launch_bf16<SLAB>(a, st);
+  if (dtype == DT_BF16)
+    return a.d_in <= XRES_MAX ? launch_bf16<SLAB, true>(a, st) : launch_bf16<SLAB, false>(a, st);
   if (dtype == DT_F32) return launch_f32<SLAB>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -311,13 +347,13 @@ int launch(const Args& a, long long dtype, cudaStream_t st) {
 
 // x (T, d_in), w1 (d_in, inner), b1 (inner,), w2 (inner, d_out), b2 (d_out,)
 // -> out (T, d_out), hpre (T, inner); all contiguous, one dtype (bf16 or
-// f32); d_in <= 1024, every dim a multiple of 128
+// f32); every dim a multiple of 128
 extern "C" int fused_mlp_fwd_launch(const void* x, const void* w1, const void* b1, const void* w2,
                                     const void* b2, void* out, void* hpre, long long T,
                                     long long d_in, long long inner, long long d_out,
                                     long long act, long long dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d_in % 128 || inner % 128 || d_out % 128 || d_in > 1024 || T <= 0)
+  if (d_in % 128 || inner % 128 || d_out % 128 || T <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, w1, b1, w2, b2, out, hpre, static_cast<int>(T), static_cast<int>(d_in),
                static_cast<int>(inner), static_cast<int>(d_out), static_cast<int>(act)};

@@ -155,21 +155,31 @@ def check_remat(remat) -> None:
                                   f"(ROADMAP Queue 1 item 6)")
 
 
+def _rotary_tables(cfg: GPTConfig, s: int, offset, device):
+    """The rotary tables of one forward over s positions from ``offset``
+    (an int or per-row (b,)), shared by all its layers; None without
+    rotary."""
+    if cfg.rotary_emb_dim <= 0:
+        return None
+    return rotary.rotary_tables(s, cfg.rotary_emb_dim, seqlen_offset=offset,
+                                scale_base=cfg.rotary_emb_scale_base,
+                                device=device)
+
+
 def _block(hidden, residual, lp, scale, cfg: GPTConfig, *, train: bool,
-           rngs):
+           rngs, rot):
     """One pre-norm block with the reordered residual (JAX ``_block`` :372):
-    rotary on q and k after the qkv split, attention dropout in the flash
-    kernel, then two dropout+add+LN sites, keyed by the three splits of the
-    layer's key."""
+    rotary on q and k after the qkv split (``rot``: the forward's
+    :func:`_rotary_tables`), attention dropout in the flash kernel, then two
+    dropout+add+LN sites, keyed by the three splits of the layer's key."""
     b, s, _ = hidden.shape
     qkv = dense.linear(hidden, lp["Wqkv"])
     qkv = qkv.reshape(b, s, 3, cfg.n_head, cfg.head_dim)
     r_attn, r_d1, r_d2 = (prng.split(rngs, 3) if rngs is not None
                           else (None, None, None))
     q, k = qkv[:, :, 0], qkv[:, :, 1]
-    if cfg.rotary_emb_dim > 0:
-        q, k = rotary.apply_rotary_qk(q, k, cfg.rotary_emb_dim,
-                                      scale_base=cfg.rotary_emb_scale_base)
+    if rot is not None:
+        q, k = rotary.rotate_qk(q, k, rot)
     ctx = mha(q, k, qkv[:, :, 2], causal=True,
               softmax_scale=scale, dropout_p=cfg.attn_pdrop,
               dropout_rng=r_attn, deterministic=not train)
@@ -197,10 +207,12 @@ def gpt_forward(params: Params, cfg: GPTConfig, input_ids: torch.Tensor, *,
         deterministic=not train)
     layer_rngs = (prng.split(r_layers, cfg.n_layer) if r_layers is not None
                   else None)
+    rot = _rotary_tables(cfg, input_ids.shape[1], 0, input_ids.device)
     for li, scale in enumerate(_softmax_scales(cfg)):
         hidden, residual = _block(
             hidden, residual, tree_index(params["layers"], li), scale, cfg,
-            train=train, rngs=None if layer_rngs is None else layer_rngs[li])
+            train=train, rngs=None if layer_rngs is None else layer_rngs[li],
+            rot=rot)
     return hidden
 
 
@@ -662,15 +674,14 @@ def gpt_forward_with_cache(
     hidden, residual = norms.dropout_add_layer_norm(
         hidden, None, params["ln_0"]["weight"], params["ln_0"]["bias"],
         0.0, cfg.layer_norm_epsilon)
+    rot = _rotary_tables(cfg, s, offset, dev)
     for li, scale in enumerate(_softmax_scales(cfg)):
         lp = tree_index(params["layers"], li)
         qkv = dense.linear(hidden, lp["Wqkv"]).reshape(b, s, 3, h, dk)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if cfg.rotary_emb_dim > 0:
+        if rot is not None:
             # before the cache write, so cached keys are rotated (JAX :871)
-            q, k = rotary.apply_rotary_qk(
-                q, k, cfg.rotary_emb_dim, seqlen_offset=offset,
-                scale_base=cfg.rotary_emb_scale_base)
+            q, k = rotary.rotate_qk(q, k, rot)
         v_new = v.transpose(1, 2).reshape(e, s, dk)
         if staged:
             # append at the stage pointer; the main cache is untouched

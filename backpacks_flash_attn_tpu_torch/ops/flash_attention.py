@@ -511,11 +511,10 @@ class _BlockSparseAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, out, lse, active)
         ctx.kw = kw
         ctx.use_kernel = use_kernel
-        ctx.mark_non_differentiable(lse)
-        return out, lse
+        return out
 
     @staticmethod
-    def backward(ctx, dout, _dlse):
+    def backward(ctx, dout):
         q, k, v, out, lse, active = ctx.saved_tensors
         args = (q, k, v, out, lse, dout, active)
         if ctx.use_kernel:
@@ -531,12 +530,10 @@ def flash_blocksparse_attention(q: torch.Tensor, k: torch.Tensor,
                                 causal: bool = True,
                                 softmax_scale: Optional[float] = None,
                                 seq_lengths=None,
-                                block_q: int = 256, block_k: int = 256,
-                                return_lse: bool = False):
+                                block_q: int = 256, block_k: int = 256):
     """Block-sparse FlashAttention (JAX :1415). q (b, sq, h, d); k, v
     (b, sk, h, d); blockmask (ceil(sq / block_q), ceil(sk / block_k)), 1
-    for the tiles attended. -> (b, sq, h, d) in q's dtype [, lse (b, h, sq)
-    f32].
+    for the tiles attended. -> (b, sq, h, d) in q's dtype.
 
     q is scaled and rounded to its dtype first, as in JAX; tiles with 0 in
     the blockmask contribute nothing, a row with no active tile gives 0.
@@ -561,9 +558,7 @@ def flash_blocksparse_attention(q: torch.Tensor, k: torch.Tensor,
     use_kernel = q.is_cuda and _build.kernels_enabled()
     kw = dict(causal=causal, block_q=block_q, block_k=block_k)
     if seq_lengths is None:
-        out, lse = _BlockSparseAttention.apply(q, k, v, active, causal,
-                                               block_q, block_k, use_kernel)
-    else:
-        fn = _bs_fwd_kernel if use_kernel else blocksparse_attention_ref
-        out, lse = fn(q, k, v, active, seq_lengths=seq_lengths, **kw)
-    return (out, lse) if return_lse else out
+        return _BlockSparseAttention.apply(q, k, v, active, causal, block_q,
+                                           block_k, use_kernel)
+    fn = _bs_fwd_kernel if use_kernel else blocksparse_attention_ref
+    return fn(q, k, v, active, seq_lengths=seq_lengths, **kw)[0]

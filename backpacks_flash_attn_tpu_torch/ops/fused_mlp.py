@@ -38,7 +38,7 @@ def mlp_fwd_fused_ref(x, w1, b1, w2, b2, *, activation: str = "gelu_new"):
 
 def _mlp_fwd_kernel(x, w1, b1, w2, b2, *, activation):
     """K7 (``csrc/fused_mlp.cu``): bf16 on tensor cores or f32 SIMT, all
-    operands one dtype, d_in <= 1024 and every dim a multiple of 128."""
+    operands one dtype, every dim a multiple of 128."""
     d_in, inner = w1.shape
     d_out = w2.shape[1]
     xm = x.reshape(-1, d_in)
@@ -50,10 +50,9 @@ def _mlp_fwd_kernel(x, w1, b1, w2, b2, *, activation):
     if w2.shape[0] != inner or b1.shape != (inner,) or b2.shape != (d_out,):
         raise ValueError(f"shapes w1 {tuple(w1.shape)} b1 {tuple(b1.shape)} "
                          f"w2 {tuple(w2.shape)} b2 {tuple(b2.shape)} disagree")
-    if d_in % 128 or inner % 128 or d_out % 128 or d_in > 1024:
+    if d_in % 128 or inner % 128 or d_out % 128:
         raise ValueError(f"the fused MLP kernel takes dims that are multiples "
-                         f"of 128 and d_in <= 1024, got {d_in} -> {inner} -> "
-                         f"{d_out}")
+                         f"of 128, got {d_in} -> {inner} -> {d_out}")
     if activation not in ACT_CODE:
         raise ValueError(f"activation {activation!r} not in {list(ACT_CODE)}")
     xm, w1, w2 = (t if _build.aligned16(t) and t.is_contiguous()

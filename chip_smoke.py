@@ -547,6 +547,7 @@ def train_kernel_cases(gen):
 
 LONG_H, LONG_D, BS_BLOCK, BS_BAND = 12, 64, 256, 1024
 MLP_T, MLP_D, MLP_INNER = 16384, 768, 3072     # gpt3-small's MLP at 2 x 8192
+MLP_D_LARGE, MLP_INNER_LARGE = 1536, 6144       # gpt3-large's: x streamed over d_in
 BS_B, BS_S = 4, 4096                            # the K9 kernel cases
 
 
@@ -562,6 +563,37 @@ def band_blockmask(s):
     return mask.to(torch.int32).to(DEV), density
 
 
+def _mlp_case(mlp, dt, rate):
+    """A K7 case over the f32 draws mlp = (x, w1, b1, w2, b2) cast to dt."""
+    from backpacks_flash_attn_tpu_torch.ops import fused_mlp as fm
+
+    args = tuple(t.to(dt) for t in mlp)
+    ref_args = tuple(t.float() for t in args)
+    (T, d), inner = args[0].shape, args[1].shape[1]
+    nbytes = (sum(t.numel() for t in args) + T * (inner + d)) * args[0].element_size()
+    case = dict(
+        kernel=lambda a=args: fm.mlp_fwd_fused(*a),
+        plain=lambda a=args: fm.mlp_fwd_fused_ref(*a),
+        ref=lambda a=ref_args: fm.mlp_fwd_fused_ref(*a),
+        library=lambda a=args: F.gelu(a[0] @ a[1] + a[2], approximate="tanh") @ a[3] + a[4],
+        bytes=nbytes, flops=4 * T * d * inner, flop_rate=rate)
+    if dt == torch.float32:
+        case["f32_rtol"] = 1e-5          # f32 sums of d_in and inner terms
+    return ("fused_mlp_fwd", f"T={T} {d}->{inner}->{d} gelu_new "
+            f"{str(dt).split('.')[-1]}", case)
+
+
+def wide_mlp_cases(gen):
+    """K7 at gpt3-large's MLP widths (16384 tokens, 1536 -> 6144 -> 1536,
+    bf16), where fc1 streams x over d_in. Drawn after every other phase,
+    so that the random data of the phases before it stay as they were."""
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    T, d, inner = MLP_T, MLP_D_LARGE, MLP_INNER_LARGE
+    mlp = (randn(T, d), randn(d, inner) * 0.02, randn(inner) * 0.02,
+           randn(inner, d) * 0.02, randn(d) * 0.02)
+    return [_mlp_case(mlp, torch.bfloat16, PEAK_BF16_FLOP_PER_S)]
+
+
 def longctx_kernel_cases(gen):
     """K7 at the gpt3-small training MLP (16384 tokens, 768 -> 3072 -> 768,
     gelu_new) in bf16 and f32, and K9 at b 4, s 4096, h 12, d 64 under the
@@ -574,7 +606,6 @@ def longctx_kernel_cases(gen):
     backward. Made outside inference mode (the backward yardstick is an
     autograd call)."""
     from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
-    from backpacks_flash_attn_tpu_torch.ops import fused_mlp as fm
 
     bf = torch.bfloat16
     randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
@@ -584,19 +615,7 @@ def longctx_kernel_cases(gen):
     mlp = (randn(T, d), randn(d, inner) * 0.02, randn(inner) * 0.02,
            randn(inner, d) * 0.02, randn(d) * 0.02)
     for dt, rate in ((bf, PEAK_BF16_FLOP_PER_S), (torch.float32, PEAK_F32_FLOP_PER_S)):
-        args = tuple(t.to(dt) for t in mlp)
-        ref_args = tuple(t.float() for t in args)
-        nbytes = (sum(t.numel() for t in args) + T * (inner + d)) * args[0].element_size()
-        case = dict(
-            kernel=lambda a=args: fm.mlp_fwd_fused(*a),
-            plain=lambda a=args: fm.mlp_fwd_fused_ref(*a),
-            ref=lambda a=ref_args: fm.mlp_fwd_fused_ref(*a),
-            library=lambda a=args: F.gelu(a[0] @ a[1] + a[2], approximate="tanh") @ a[3] + a[4],
-            bytes=nbytes, flops=4 * T * d * inner, flop_rate=rate)
-        if dt == torch.float32:
-            case["f32_rtol"] = 1e-5          # f32 sums of 768 and 3072 terms
-        cases.append(("fused_mlp_fwd", f"T={T} {d}->{inner}->{d} gelu_new "
-                      f"{str(dt).split('.')[-1]}", case))
+        cases.append(_mlp_case(mlp, dt, rate))
 
     b, s, h, dh = BS_B, BS_S, LONG_H, LONG_D
     q = (randn(b, s, h, dh) * 0.125).to(bf)
@@ -1768,7 +1787,9 @@ def phase_generate(gen, results, cfg, params):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cache = gpt.init_kv_cache(cfg, GEN_BATCH, L, device=DEV)
-    gpt.lm_logits(params, cfg, gpt.gpt_forward_with_cache(params, cfg, prompt, cache)[0])
+    # the prefill that generate_gpt runs: the LM head on the last position
+    hidden, _ = gpt.gpt_forward_with_cache(params, cfg, prompt, cache)
+    gpt.lm_logits(params, cfg, hidden[:, -1:]).argmax(-1)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     del cache
@@ -1888,6 +1909,10 @@ def main():
         phase_longctx(gen, results)
     if "train8k" in phases or "generate" in phases:
         phase_gpt(gen, results, phases)
+    if "kernels" in phases:
+        log("kernels: K7 at gpt3-large's widths")
+        with torch.no_grad():
+            phase_kernels(wide_mlp_cases(gen), results["kernels"])
 
     line = []
     for k in _build.KERNELS.values():

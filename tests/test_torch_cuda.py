@@ -592,6 +592,9 @@ def test_staged_kv4_decode_launches_k8_ml(gen):
     (torch.bfloat16, 96, 256, 512, 1024, "gelu"),        # two column slabs
     (torch.float32, 1000, 128, 512, 128, "sqrelu"),
     (torch.float32, 77, 768, 1024, 768, "relu"),
+    (torch.bfloat16, 200, 1536, 1024, 1536, "gelu_new"),  # x streamed over d_in
+    (torch.bfloat16, 70, 1280, 640, 1280, "relu"),       # streamed, five slabs
+    (torch.float32, 50, 1280, 512, 1280, "gelu"),
 ])
 def test_fused_mlp_kernel(gen, dt, T, d_in, inner, d_out, act):
     from backpacks_flash_attn_tpu_torch.ops import fused_mlp as fm
@@ -614,16 +617,18 @@ def test_fused_mlp_kernel(gen, dt, T, d_in, inner, d_out, act):
             _within_2x(got, p, want)
 
 
-def test_dense_mlp_takes_k7_under_the_switch(gen, monkeypatch):
+@pytest.mark.parametrize("d,inner", [(128, 512), (1536, 1024)])
+def test_dense_mlp_takes_k7_under_the_switch(gen, monkeypatch, d, inner):
     """dense.mlp with BACKPACKS_FUSED_MLP's switch on: the forward launches
     K7 once, the backward recomputes from its h_pre; forward and gradients
-    match the switch-off path within the bf16 rule."""
+    match the switch-off path within the bf16 rule. d 1536: gpt3-large's
+    width, where K7 streams x over d_in."""
     from backpacks_flash_attn_tpu_torch.ops import dense
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    params = {"fc1": {"kernel": r(128, 512) * 0.08, "bias": r(512) * 0.1},
-              "fc2": {"kernel": r(512, 128) * 0.04, "bias": r(128) * 0.1}}
-    x = r(2, 40, 128)
-    g = r(2, 40, 128)
+    params = {"fc1": {"kernel": r(d, inner) * d ** -0.5, "bias": r(inner) * 0.1},
+              "fc2": {"kernel": r(inner, d) * inner ** -0.5, "bias": r(d) * 0.1}}
+    x = r(2, 40, d)
+    g = r(2, 40, d)
 
     def run(switch, dt):
         monkeypatch.setattr(dense, "_FUSED_MLP", switch)
@@ -715,14 +720,21 @@ def test_blocksparse_ragged_forward(gen, dt):
     lens = torch.tensor([0, 130, 320], device="cuda")
     bm = _band_mask(5, 5, 3).cuda()
     kw = dict(causal=True, softmax_scale=0.125, block_q=block, block_k=block,
-              seq_lengths=lens, return_lse=True)
+              seq_lengths=lens)
     before = _build.KERNELS["blocksparse_fwd"].launches
-    out, lse = fa.flash_blocksparse_attention(q, k, v, bm, **kw)
+    out = fa.flash_blocksparse_attention(q, k, v, bm, **kw)
     assert _build.KERNELS["blocksparse_fwd"].launches == before + 1
     with _build.plain_path():
-        ref, rlse = fa.flash_blocksparse_attention(q.float(), k.float(),
-                                                   v.float(), bm, **kw)
-        plain = fa.flash_blocksparse_attention(q, k, v, bm, **kw)[0]
+        ref = fa.flash_blocksparse_attention(q.float(), k.float(), v.float(),
+                                             bm, **kw)
+        plain = fa.flash_blocksparse_attention(q, k, v, bm, **kw)
+    # the LSE from K9's forward and its plain version, over the pre-scaled q
+    act = fa.blocksparse_active(bm, True, block, block)
+    qs = (q.float() * 0.125).to(dt)
+    lkw = dict(causal=True, block_q=block, block_k=block, seq_lengths=lens)
+    lse = fa._bs_fwd_kernel(qs, k, v, act, **lkw)[1]
+    rlse = fa.blocksparse_attention_ref(qs.float(), k.float(), v.float(), act,
+                                        **lkw)[1]
     assert (out[0] == 0).all() and (lse[0] == fa.NEG_INF).all()
     assert torch.allclose(lse[1:], rlse[1:], rtol=1e-5, atol=1e-4)
     if dt == torch.float32:

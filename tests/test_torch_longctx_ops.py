@@ -56,10 +56,13 @@ def _torch_tree(p):
     return {k: {n: _t(v) for n, v in d.items()} for k, d in p.items()}
 
 
-@pytest.mark.parametrize("t,activation", [(256, "gelu_new"),
-                                          (1000, "sqrelu")])   # 1000: padding
-def test_fused_mlp_plain_matches_pallas_interpret(t, activation):
-    d, inner = 128, 512
+@pytest.mark.parametrize("t,activation,d", [
+    (256, "gelu_new", 128),
+    (1000, "sqrelu", 128),      # 1000: padding
+    (40, "gelu", 1536),         # gpt3-large's width
+])
+def test_fused_mlp_plain_matches_pallas_interpret(t, activation, d):
+    inner = 512
     p = _mlp_params(0, d, inner)
     x = np.random.default_rng(1).normal(size=(t, d)).astype(np.float32)
     args = (p["fc1"]["kernel"], p["fc1"]["bias"], p["fc2"]["kernel"],
@@ -120,6 +123,7 @@ def test_supported_matches_jax_case_for_case():
         "wide output": (_mlp_params(4, 128, 256, 4096), "relu"),
         "square output": (_mlp_params(4, 128, 256, 2048), "sqrelu"),
         "inner 640": (_mlp_params(4, 128, 640), "gelu"),
+        "gpt3-large widths": (_mlp_params(4, 1536, 512, 1536), "gelu_new"),
     }
     for name, (p, act) in cases.items():
         assert tfm.supported(_torch_tree(p), act) == jfm.supported(p, act), name
@@ -181,11 +185,15 @@ def test_blocksparse_ragged_forward_and_lse_match_jax():
     jo = jfa.flash_blocksparse_attention(*map(jnp.asarray, (q, k, v)),
                                          jnp.asarray(bm),
                                          seq_lengths=jnp.asarray(lens), **kw)
-    to, tlse = tfa.flash_blocksparse_attention(*map(_t, (q, k, v)), _t(bm),
-                                               seq_lengths=_t(lens),
-                                               return_lse=True, **kw)
+    to = tfa.flash_blocksparse_attention(*map(_t, (q, k, v)), _t(bm),
+                                         seq_lengths=_t(lens), **kw)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo),
                                atol=ATOL_ATTENTION, rtol=0)
+    # the LSE from the plain version of K9's forward, over the pre-scaled q
+    tact = tfa.blocksparse_active(_t(bm), True, block, block)
+    _, tlse = tfa.blocksparse_attention_ref(
+        _t(q * 0.25), _t(k), _t(v), tact, causal=True, block_q=block,
+        block_k=block, seq_lengths=_t(lens))
     pad = lambda x: jnp.pad(jnp.asarray(x.transpose(0, 2, 1, 3)),
                             ((0, 0), (0, 0), (0, 0), (0, 128 - d)))
     active = jfa._bs_active(jnp.asarray(bm, jnp.float32), True, 5, 5, block,
