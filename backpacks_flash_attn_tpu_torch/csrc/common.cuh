@@ -204,6 +204,30 @@ inline DropoutParams make_dropout(long long seed0, long long seed1, long long th
   return d;
 }
 
+// Four consecutive elements as f32 (4-element aligned pointers): one 16-,
+// 8- or 4-byte load.
+struct Vec4 {
+  float x, y, z, w;
+};
+
+__device__ __forceinline__ Vec4 load4(const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return {v.x, v.y, v.z, v.w};
+}
+
+__device__ __forceinline__ Vec4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return {a.x, a.y, b.x, b.y};
+}
+
+__device__ __forceinline__ Vec4 load4(const int8_t* p) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  return {static_cast<float>(v.x), static_cast<float>(v.y), static_cast<float>(v.z),
+          static_cast<float>(v.w)};
+}
+
 // Block-wide reductions; every thread gets the result. `red` holds >= 32
 // floats of shared memory and may be reused right after the call.
 __device__ __forceinline__ float block_max(float v, float* red) {

@@ -33,28 +33,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e30f;   // decode_attention.py NEG
 
-struct Vec4 {
-  float x, y, z, w;
-};
-
-__device__ __forceinline__ Vec4 load4(const float* p) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  return {v.x, v.y, v.z, v.w};
-}
-
-__device__ __forceinline__ Vec4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return {a.x, a.y, b.x, b.y};
-}
-
-__device__ __forceinline__ Vec4 load4(const int8_t* p) {
-  const char4 v = *reinterpret_cast<const char4*>(p);
-  return {static_cast<float>(v.x), static_cast<float>(v.y), static_cast<float>(v.z),
-          static_cast<float>(v.w)};
-}
-
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kt,

@@ -1,7 +1,10 @@
 """Multi-head attention: the plain reference and the entry to K3/K5.
 
 Port of ``backpacks_flash_attn_tpu/ops/attention.py`` (``mha_reference``
-:50, ``mha`` :81). Layout (b, s, h, dh) as in the JAX package.
+:50, ``mha`` :81, ``mha_qkv_packed`` :117, and the single-step cache
+attention over the (b, S, h, dh) layout, ``decode_attention`` :143 and
+``decode_attention_quant`` :167). Layout (b, s, h, dh) as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_qkv_packed
 
 # The reference's additive mask constant.
 MASK_VALUE = -10000.0
@@ -77,3 +80,67 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            dropout_p=dropout_p if dropout_active else 0.0,
                            dropout_rng=dropout_rng if dropout_active else None,
                            q_offsets=q_offset if has_offset else None)
+
+
+def mha_qkv_packed(qkv: torch.Tensor, *, causal: bool = True,
+                   softmax_scale: Optional[float] = None,
+                   dropout_p: float = 0.0,
+                   dropout_rng: Optional[torch.Tensor] = None,
+                   deterministic: bool = True) -> torch.Tensor:
+    """Fused-QKV self-attention entry (JAX :117): qkv (b, s, 3, h, dh) ->
+    (b, s, h, dh) through :func:`flash_attention_qkv_packed` (K3, K5
+    backward), dropout as in :func:`mha`."""
+    dropout_active = dropout_p > 0.0 and not deterministic
+    return flash_attention_qkv_packed(
+        qkv, causal=causal, softmax_scale=softmax_scale,
+        dropout_p=dropout_p if dropout_active else 0.0,
+        dropout_rng=dropout_rng if dropout_active else None)
+
+
+def _cache_softmax(scores: torch.Tensor, cache_len) -> torch.Tensor:
+    """softmax over the cache columns of scores (b, h, t, S), the columns
+    at or past cache_len (scalar or (b,)) masked with -10000 (JAX's
+    MASK_VALUE, not NEG: a row with no valid column attends uniformly)."""
+    b, S = scores.shape[0], scores.shape[-1]
+    lens = torch.as_tensor(cache_len, device=scores.device).reshape(-1, 1)
+    valid = torch.arange(S, device=scores.device)[None, :] < lens.expand(b, 1)
+    return torch.softmax(torch.where(valid[:, None, None, :], scores,
+                                     MASK_VALUE), dim=-1)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len, *,
+                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Single-step attention over a (b, S, h, dh) cache (JAX :143): q (b,
+    1, h, dh), cache_len (b,) or scalar valid positions. As JAX, the scale
+    multiplies k in its dtype, the products sum in f32 and the
+    probabilities take v's dtype. Plain PyTorch on every device (JAX's is an
+    XLA contraction; the port's cache decode runs K1 over the flat-E
+    layouts of ``ops/decode_attention.py``)."""
+    scale = (softmax_scale if softmax_scale is not None
+             else 1.0 / math.sqrt(q.shape[-1]))
+    scores = torch.einsum("bthd,bshd->bhts", q.float(),
+                          (k_cache * scale).float())
+    attn = _cache_softmax(scores, cache_len).to(v_cache.dtype)
+    return torch.einsum("bhts,bshd->bthd", attn.float(),
+                        v_cache.float()).to(q.dtype)
+
+
+def decode_attention_quant(q: torch.Tensor, k_cache: torch.Tensor,
+                           k_scale: torch.Tensor, v_cache: torch.Tensor,
+                           v_scale: torch.Tensor, cache_len, *,
+                           softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`decode_attention` over an INT8 (b, S, h, dh) cache with (b, S,
+    h, 1) f32 scales folded into the scores and the probabilities (JAX
+    :167); the probabilities and the cache take q's dtype. Plain PyTorch on
+    every device, as :func:`decode_attention`."""
+    scale = (softmax_scale if softmax_scale is not None
+             else 1.0 / math.sqrt(q.shape[-1]))
+    cdt = q.dtype
+    scores = torch.einsum("bthd,bshd->bhts", (q * scale).float(),
+                          k_cache.to(cdt).float())
+    scores = scores * k_scale[..., 0].permute(0, 2, 1)[:, :, None, :]
+    attn = _cache_softmax(scores, cache_len)
+    attn = (attn * v_scale[..., 0].permute(0, 2, 1)[:, :, None, :]).to(cdt)
+    return torch.einsum("bhts,bshd->bthd", attn.float(),
+                        v_cache.to(cdt).float()).to(cdt)

@@ -1,13 +1,16 @@
-"""Single-query decode attention over INT8 caches (kernel K1) and over the
-low-bit int4 and mixed caches (kernel K8), and the staged serving decode.
+"""Single-query decode attention over INT8 caches (kernel K1 and its three
+redesigns) and over the low-bit int4 and mixed caches (kernel K8), and the
+staged serving decode.
 
 Port of ``backpacks_flash_attn_tpu/ops/decode_attention.py``: the contract
 of ``decode_attention_fused`` (:77), ``decode_attention_ref`` (:117) and
 ``decode_attention_flat`` (:134), plus ``decode_attention_flat_multi``
-(:1065) in plain PyTorch; the low-bit section below ports the int4 and
-mixed forms (:520-1062), the staged section the two-segment decode of the
-serving cache (:1097-1279). K1's shapes (E = batch * heads, one problem per
-row):
+(:1065) in plain PyTorch; K1's redesigns ``decode_attention_gathered``
+(:238), ``decode_attention_selector`` (:365) and
+``decode_attention_blockdiag`` (:465); the low-bit section below ports the
+int4 and mixed forms (:520-1062), the staged section the two-segment decode
+of the serving cache (:1097-1279). K1's shapes (E = batch * heads, one
+problem per row):
 
   q:  (E, dk)        bf16/f32, pre-scaled by the softmax scale
   kt: (E, dk, S)     int8/bf16/f32 — the key cache stored TRANSPOSED
@@ -37,6 +40,16 @@ _K1 = {False: _build.KERNELS["decode_attention"],
 _K8 = {False: _build.KERNELS["lowbit_decode_int4"],
        True: _build.KERNELS["lowbit_decode_mixed"]}
 _K8_ML = _build.KERNELS["lowbit_decode_int4_ml"]
+_GATHERED = _build.KERNELS["decode_attention_gathered"]
+_SELECTOR = _build.KERNELS["decode_attention_selector"]
+_BLOCKDIAG = _build.KERNELS["decode_attention_blockdiag"]
+# dynamic shared memory a block may take on the H100 (227 KB)
+_SMEM_BYTES = 232448
+# the gathered kernel splits rows until E x chunks reaches this many CTAs
+# per SM (its partial kernel runs 256 threads, so up to 8 fit on an SM)
+_GATHERED_CTAS_PER_SM = 4
+# warps of a selector/blockdiag CTA: a warp a row, up to 32 rows
+_MAX_ROW_WARPS = 32
 _KV_DTYPES = {torch.bfloat16: (torch.int8, torch.bfloat16),
               torch.float32: (torch.int8, torch.float32)}
 
@@ -132,29 +145,43 @@ def decode_attention_ml(q, kt, ks, v, vs, length):
     return _k1_kernel(q, kt, ks, v, vs, length, ml=True)
 
 
-def _k1_kernel(q, kt, ks, v, vs, length, ml: bool):
+def _check_operands(q, kt, ks, v, vs, name: str, v_transposed: bool = False):
+    """Validate K1's operands (and its redesigns'): -> (E, dk, S, dv)."""
     e, dk = q.shape
     _build.check_cuda_tensor("q", q, _KV_DTYPES.keys(), 2)
     _build.check_cuda_tensor("kt", kt, _KV_DTYPES[q.dtype], 3)
     _build.check_cuda_tensor("v", v, (kt.dtype,), 3)
-    s_len, dv = v.shape[1], v.shape[2]
+    s_len, dv = (v.shape[2], v.shape[1]) if v_transposed else (v.shape[1], v.shape[2])
     if kt.shape != (e, dk, s_len) or v.shape[0] != e:
         raise ValueError(f"shapes q {tuple(q.shape)} kt {tuple(kt.shape)} "
                          f"v {tuple(v.shape)} disagree")
-    for name, sc in (("ks", ks), ("vs", vs)):
+    for sname, sc in (("ks", ks), ("vs", vs)):
         if sc is not None:
-            _build.check_cuda_tensor(name, sc, (torch.float32,), 2)
+            _build.check_cuda_tensor(sname, sc, (torch.float32,), 2)
             if sc.shape != (e, s_len):
-                raise ValueError(f"{name} shape {tuple(sc.shape)} != "
+                raise ValueError(f"{sname} shape {tuple(sc.shape)} != "
                                  f"{(e, s_len)}")
-    if dk > 256 or dv % 4 or dv > 1024 or s_len > 8192:
-        raise ValueError(f"decode_attention kernel takes dk <= 256, "
-                         f"dv % 4 == 0 and dv <= 1024, S <= 8192; got "
-                         f"dk={dk} dv={dv} S={s_len}")
+    if dk > 256 or dv > 1024 or (not v_transposed and dv % 4):
+        raise ValueError(f"{name} kernel takes dk <= 256, dv <= 1024 (a "
+                         f"multiple of 4 over (E, S, dv) values); got dk={dk} "
+                         f"dv={dv}")
     vec_bytes = 4 * v.element_size()
-    if (v.data_ptr() % vec_bytes or v.stride(0) % 4 or v.stride(1) % 4):
-        raise ValueError("decode_attention kernel needs 4-element aligned "
-                         "value rows")
+    if not v_transposed and (v.data_ptr() % vec_bytes or v.stride(0) % 4
+                             or v.stride(1) % 4):
+        raise ValueError(f"{name} kernel needs 4-element aligned value rows")
+    return e, dk, s_len, dv
+
+
+def _scale_strides(ks, vs):
+    return (ks.stride(0) if ks is not None else 0,
+            vs.stride(0) if vs is not None else 0)
+
+
+def _k1_kernel(q, kt, ks, v, vs, length, ml: bool):
+    e, dk, s_len, dv = _check_operands(q, kt, ks, v, vs, "decode_attention")
+    if s_len > 8192:
+        raise ValueError(f"decode_attention kernel takes S <= 8192, got {s_len} "
+                         f"(decode_attention_gathered takes any S)")
     lens, scalar_len = _lengths_arg(length, e, q.device)
     out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
     m, l = _ml_outputs(e, q.device) if ml else (None, None)
@@ -164,10 +191,257 @@ def _k1_kernel(q, kt, ks, v, vs, length, ml: bool):
         _K1[ml], "decode_attention_launch", P(q), P(kt), P(ks), P(v), P(vs),
         P(lens), P(out), P(m), P(l), e, dk, s_len, dv, scalar_len,
         q.stride(0), kt.stride(0), kt.stride(1), v.stride(0), v.stride(1),
-        ks.stride(0) if ks is not None else 0,
-        vs.stride(0) if vs is not None else 0,
-        code[q.dtype], code[kt.dtype])
+        *_scale_strides(ks, vs), code[q.dtype], code[kt.dtype])
     return (out, m, l) if ml else out
+
+
+def decode_attention_flat(q, kt, ks, v, vs, length, *,
+                          length_buckets: bool = False):
+    """JAX's production decode contraction (:134), the contract of
+    :func:`decode_attention`. ``length_buckets`` (JAX: read only the
+    smallest of S/4, S/2, S covering the longest row) changes nothing here:
+    K1 already reads only each row's valid prefix, and the plain version's
+    masked columns add exact zeros, so the result equals
+    ``length_buckets=False`` exactly (JAX's test of the flag:
+    tests/ops/test_decode_attention.py:48)."""
+    del length_buckets
+    return decode_attention(q, kt, ks, v, vs, length)
+
+
+# ------------------------------------------------------------ K1's redesigns
+#
+# The three TPU redesigns of K1 compute K1's function on other schedules. On
+# the card each is a kernel of its own in ``csrc/decode_attention_variants.cu``
+# (counted as ``decode_attention_gathered`` / ``_selector`` / ``_blockdiag``);
+# their plain versions follow the Pallas bodies' numerics in the working
+# dtype: bf16 operands, products accumulated in f32, p cast to bf16 before
+# the value product.
+
+def _exact(t: torch.Tensor, cdt) -> torch.Tensor:
+    """t rounded to the working dtype, as f32: a product of two such tensors
+    accumulates in f32 exactly as a bf16 matrix unit with f32 sums does."""
+    return t.to(cdt).float()
+
+
+def _gathered_block(s_len: int, block_s: int) -> int:
+    """JAX's block rule (:253-256): halve block_s (not below 128) until it
+    divides S, else one block of the whole width."""
+    while s_len % block_s != 0 and block_s > 128:
+        block_s //= 2
+    return block_s if s_len % block_s == 0 else s_len
+
+
+def decode_attention_gathered_ref(q, kt, ks, v, vs, length, *,
+                                  rows_per_program: int = 8,
+                                  block_s: int = 128):
+    """Plain version of K1-gathered (JAX ``_gathered_kernel`` :184): the
+    online softmax over S-blocks of JAX's block width, in block order, with
+    f32 state; a row of length 0 returns 0 (K1 attends uniformly there). A
+    block past a row's length adds exactly 0 and rescales by exactly 1, so
+    ``rows_per_program``'s grouping (which blocks JAX skips) cannot change
+    the result and is accepted for JAX's signature only."""
+    del rows_per_program
+    cdt = _compute_dtype(q)
+    e, s_len, dv = q.shape[0], v.shape[1], v.shape[2]
+    bs = _gathered_block(s_len, block_s)
+    lens = _row_lengths(length, e, q.device)[:, None]
+    qc = _exact(q, cdt)
+    acc = torch.zeros((e, dv), dtype=torch.float32, device=q.device)
+    m = torch.full((e, 1), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((e, 1), dtype=torch.float32, device=q.device)
+    for j0 in range(0, s_len, bs):
+        blk = slice(j0, j0 + bs)
+        s = torch.einsum("ed,eds->es", qc, _exact(kt[:, :, blk], cdt))
+        if ks is not None:
+            s = s * ks[:, blk]
+        valid = torch.arange(j0, j0 + bs, device=q.device)[None, :] < lens
+        s = torch.where(valid, s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        l = l * corr + p.sum(dim=1, keepdim=True)
+        m = m_new
+        if vs is not None:
+            p = p * vs[:, blk]
+        acc = acc * corr + torch.einsum("es,esd->ed", _exact(p, cdt),
+                                        _exact(v[:, blk], cdt))
+    return (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
+
+
+def _whole_row_probs(q, ks, vs, length, s):
+    """The selector and blockdiag forms' softmax: f32 scores s (E, S) ->
+    normalized probabilities times vs; a row of length 0 attends uniformly
+    (every score NEG)."""
+    if ks is not None:
+        s = s * ks
+    pos = torch.arange(s.shape[1], device=q.device)[None, :]
+    s = torch.where(pos < _row_lengths(length, q.shape[0], q.device)[:, None],
+                    s, NEG)
+    p = torch.softmax(s, dim=-1)
+    return p * vs if vs is not None else p
+
+
+def decode_attention_selector_ref(q, kt, ks, v, vs, length, *,
+                                  rows_per_program: int = 8,
+                                  v_transposed: bool = False):
+    """Plain version of K1-selector (JAX ``_selector_kernel`` :311): each
+    score the f32 sum of q * k products rounded to the working dtype (the
+    elementwise product before the selector dot); p normalized, times vs,
+    rounded to the working dtype and multiplied with v in it, the products
+    summed in f32 (:357-359). v is (E, S, dv), or (E, dv, S) with
+    ``v_transposed``. ``rows_per_program`` groups rows only."""
+    del rows_per_program
+    cdt = _compute_dtype(q)
+    vt = v if v_transposed else v.transpose(1, 2)
+    s = (kt.to(cdt) * q.to(cdt)[:, :, None]).float().sum(dim=1)
+    p = _whole_row_probs(q, ks, vs, length, s)
+    out = (vt.to(cdt) * p.to(cdt)[:, None, :]).float().sum(dim=2)
+    return out.to(q.dtype)
+
+
+def decode_attention_blockdiag_ref(q, kt, ks, v, vs, length, *,
+                                   rows_per_program: Optional[int] = None):
+    """Plain version of K1-blockdiag (JAX ``_blockdiag_kernel`` :415): the
+    scores as a working-dtype product accumulated in f32, p normalized,
+    times vs and cast to the working dtype, the value product accumulated in
+    f32 (:449-458). ``rows_per_program`` groups rows only."""
+    del rows_per_program
+    cdt = _compute_dtype(q)
+    s = torch.einsum("ed,eds->es", _exact(q, cdt), _exact(kt, cdt))
+    p = _whole_row_probs(q, ks, vs, length, s)
+    out = torch.einsum("es,esd->ed", _exact(p, cdt), _exact(v, cdt))
+    return out.to(q.dtype)
+
+
+def _gathered_chunks(e: int, s_len: int, block_s: int, device):
+    """The kernel's split of S: chunks of whole block_s blocks (the width
+    the caller passes; the last chunk ends at S), at most 2048 positions
+    unless one block is wider, and enough of them that E rows give
+    ``_GATHERED_CTAS_PER_SM`` CTAs an SM. -> (chunk width, number of
+    chunks)."""
+    n_blocks = -(-s_len // block_s)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_chunk = max(1, 2048 // block_s)
+    want = min(n_blocks, max(-(-_GATHERED_CTAS_PER_SM * sms // max(e, 1)),
+                             -(-n_blocks // per_chunk)))
+    chunk_blocks = min(per_chunk, -(-n_blocks // want))
+    return chunk_blocks * block_s, -(-n_blocks // chunk_blocks)
+
+
+def _gathered_kernel(q, kt, ks, v, vs, length, block_s: int):
+    e, dk, s_len, dv = _check_operands(q, kt, ks, v, vs, "decode_attention_gathered")
+    if block_s < 1:
+        raise ValueError(f"block_s must be positive, got {block_s}")
+    chunk, n_chunks = _gathered_chunks(e, s_len, block_s, q.device)
+    groups = 256 // (dv // 4)          # the partial kernel's s groups
+    if (dk + chunk + 32 + groups * dv) * 4 > _SMEM_BYTES:
+        raise ValueError(f"decode_attention_gathered kernel: block_s {block_s} "
+                         f"too wide for shared memory")
+    lens, scalar_len = _lengths_arg(length, e, q.device)
+    out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
+    if e == 0 or s_len == 0:
+        return out.zero_()
+    ws_acc = torch.empty((e, n_chunks, dv), dtype=torch.float32, device=q.device)
+    ws_ml = torch.empty((e, n_chunks, 2), dtype=torch.float32, device=q.device)
+    P = _build.Ptr.of
+    code = _build.DTYPE_CODE
+    _build.launch(
+        _GATHERED, "decode_attention_gathered_launch", P(q), P(kt), P(ks), P(v),
+        P(vs), P(lens), P(out), P(ws_acc), P(ws_ml), e, dk, s_len, dv,
+        scalar_len, chunk, n_chunks, q.stride(0), kt.stride(0), kt.stride(1),
+        v.stride(0), v.stride(1), *_scale_strides(ks, vs), code[q.dtype],
+        code[kt.dtype])
+    return out
+
+
+def _rows_kernel(kernel, q, kt, ks, v, vs, length, rows: int,
+                 v_transposed: bool):
+    """The selector (values (E, dv, S)) or blockdiag (values (E, S, dv))
+    kernel: ``rows`` rows a CTA, a warp a row up to 32; fewer warps, each
+    looping over rows, when their score rows would overflow shared
+    memory."""
+    e, dk, s_len, dv = _check_operands(q, kt, ks, v, vs, kernel.name,
+                                       v_transposed)
+    warps = min(rows, _MAX_ROW_WARPS)
+    while warps > 1 and warps * (dk + s_len) * 4 > _SMEM_BYTES:
+        warps //= 2
+    if (dk + s_len) * 4 > _SMEM_BYTES:
+        raise ValueError(f"{kernel.name} kernel holds a row's S = {s_len} "
+                         f"scores in shared memory; use decode_attention_"
+                         f"gathered for longer rows")
+    lens, scalar_len = _lengths_arg(length, e, q.device)
+    out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
+    if e == 0:
+        return out
+    P = _build.Ptr.of
+    code = _build.DTYPE_CODE
+    _build.launch(
+        kernel, "decode_attention_rows_launch", P(q), P(kt), P(ks), P(v), P(vs),
+        P(lens), P(out), e, dk, s_len, dv, scalar_len, rows, warps,
+        int(v_transposed), q.stride(0), kt.stride(0), kt.stride(1), v.stride(0),
+        v.stride(1), *_scale_strides(ks, vs), code[q.dtype], code[kt.dtype])
+    return out
+
+
+def _halve_until_divides(rows: int, e: int) -> int:
+    while rows > 1 and e % rows != 0:
+        rows //= 2
+    return rows
+
+
+def decode_attention_gathered(q, kt, ks, v, vs, length, *,
+                              rows_per_program: int = 8, block_s: int = 128):
+    """Length-adaptive decode attention (K1-gathered, JAX :238), K1's
+    contract; a row of length 0 returns 0. CPU tensors, and every call
+    inside ``_build.plain_path()``, take
+    :func:`decode_attention_gathered_ref`; otherwise a CUDA tensor launches
+    the kernel (``csrc/decode_attention_variants.cu``, split-KV over chunks
+    of whole ``block_s`` blocks, any S) or raises. ``rows_per_program`` and
+    ``block_s`` are JAX's contract: on the card they choose the schedule
+    only, never the result."""
+    if not q.is_cuda or not _build.kernels_enabled():
+        return decode_attention_gathered_ref(q, kt, ks, v, vs, length,
+                                             rows_per_program=rows_per_program,
+                                             block_s=block_s)
+    return _gathered_kernel(q, kt, ks, v, vs, length, block_s)
+
+
+def decode_attention_selector(q, kt, ks, v, vs, length, *,
+                              rows_per_program: int = 8,
+                              v_transposed: bool = False):
+    """Selector decode attention (K1-selector, JAX :365), K1's contract; v
+    may come as (E, dv, S) with ``v_transposed``, JAX's production layout
+    for this kernel. Dispatch as in :func:`decode_attention_gathered`: the
+    kernel reads the transposed values natively; with ``v_transposed=False``
+    the wrapper first makes the contiguous transposed copy JAX's
+    ``swapaxes`` makes (:379). Rows are grouped ``rows_per_program`` to a
+    CTA (halved until it divides E), one warp a row."""
+    if not q.is_cuda or not _build.kernels_enabled():
+        return decode_attention_selector_ref(q, kt, ks, v, vs, length,
+                                             rows_per_program=rows_per_program,
+                                             v_transposed=v_transposed)
+    vt = v if v_transposed else v.transpose(1, 2).contiguous()
+    rows = _halve_until_divides(rows_per_program, q.shape[0])
+    return _rows_kernel(_SELECTOR, q, kt, ks, vt, vs, length, rows,
+                        v_transposed=True)
+
+
+def decode_attention_blockdiag(q, kt, ks, v, vs, length, *,
+                               rows_per_program: Optional[int] = None):
+    """Block-diagonal decode attention (K1-blockdiag, JAX :465), K1's
+    contract. Dispatch as in :func:`decode_attention_gathered`. Rows are
+    grouped per CTA by JAX's rule (:480-485), halving included, which can
+    fall under its stated floor of 8 (ROADMAP Queue 3)."""
+    if not q.is_cuda or not _build.kernels_enabled():
+        return decode_attention_blockdiag_ref(q, kt, ks, v, vs, length,
+                                              rows_per_program=rows_per_program)
+    e, s_len, dv = q.shape[0], v.shape[1], v.shape[2]
+    if rows_per_program is None:
+        cand = max(8, min(32, (2 << 20) // max(s_len * dv, 1)))
+        rows_per_program = 1 << (cand.bit_length() - 1)
+    rows = _halve_until_divides(rows_per_program, e)
+    return _rows_kernel(_BLOCKDIAG, q, kt, ks, v, vs, length, rows,
+                        v_transposed=False)
 
 
 # ---------------------------------------------------------------- low-bit (K8)
@@ -231,7 +505,10 @@ def decode_attention_flat_mixed(q, k8, ks2, v4, vs2, length):
 
 
 def _lowbit_kernel(q, keys, ks2, v4, vs2, length, split_keys: bool,
-                   ml: bool = False):
+                   ml: bool = False, empty_zero: bool = False):
+    """K8 (or K8-ml with ``ml``). ``empty_zero``: a row of length 0 gives 0,
+    as the Pallas body does, instead of attending uniformly (the (m, l)
+    epilogue's output; m and l are dropped)."""
     e, dk = q.shape
     _build.check_cuda_tensor("q", q, _KV_DTYPES.keys(), 2)
     _build.check_cuda_tensor("keys", keys, (torch.int8,), 4 if split_keys else 3)
@@ -254,7 +531,7 @@ def _lowbit_kernel(q, keys, ks2, v4, vs2, length, split_keys: bool,
                          "value rows")
     lens, scalar_len = _lengths_arg(length, e, q.device)
     out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
-    m, l = _ml_outputs(e, q.device) if ml else (None, None)
+    m, l = _ml_outputs(e, q.device) if ml or empty_zero else (None, None)
     if e:
         P = _build.Ptr.of
         _build.launch(
@@ -296,6 +573,36 @@ def decode_attention_mixed(q, k8, ks2, v4, vs2, length):
     if not q.is_cuda or not _build.kernels_enabled():
         return decode_attention_flat_mixed(q, k8, ks2, v4, vs2, length)
     return _lowbit_kernel(q, k8, ks2, v4, vs2, length, split_keys=True)
+
+
+def decode_attention_int4_blockdiag(q, kt4, ks2, v4, vs2, length, *,
+                                    rows_per_program: int = 8,
+                                    block_s2: Optional[int] = None):
+    """JAX's direct Pallas int4 entry (:667): K8 over int4 caches, a row of
+    length 0 giving 0 as the Pallas body does (the dispatcher
+    :func:`decode_attention_int4` attends uniformly there, as JAX's XLA
+    form). Plain version: :func:`decode_attention_flat_int4_ml`'s output.
+    ``rows_per_program`` and ``block_s2`` are the TPU's tiling: accepted,
+    not used (K8 takes a CTA a row and the whole valid prefix)."""
+    del rows_per_program, block_s2
+    if not q.is_cuda or not _build.kernels_enabled():
+        return decode_attention_flat_int4_ml(q, kt4, ks2, v4, vs2, length)[0]
+    return _lowbit_kernel(q, kt4, ks2, v4, vs2, length, split_keys=False,
+                          empty_zero=True)
+
+
+def decode_attention_mixed_blockdiag(q, k8, ks2, v4, vs2, length, *,
+                                     rows_per_program: int = 8,
+                                     block_s2: Optional[int] = None):
+    """JAX's direct Pallas mixed entry (:808): K8 over split int8 keys and
+    int4 values, a row of length 0 giving 0. As
+    :func:`decode_attention_int4_blockdiag`."""
+    del rows_per_program, block_s2
+    if not q.is_cuda or not _build.kernels_enabled():
+        return _lowbit_ref(q, k8[:, :, 0], k8[:, :, 1], ks2, v4, vs2, length,
+                           ml=True)[0]
+    return _lowbit_kernel(q, k8, ks2, v4, vs2, length, split_keys=True,
+                          empty_zero=True)
 
 
 def _layer_window(layer, window_cols, k_all, ks_all, v_all, vs_all):

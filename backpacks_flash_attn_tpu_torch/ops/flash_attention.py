@@ -356,6 +356,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
+def flash_attention_qkv_packed(qkv: torch.Tensor, *, causal: bool = True,
+                               softmax_scale: Optional[float] = None,
+                               dropout_p: float = 0.0,
+                               dropout_rng: Optional[torch.Tensor] = None,
+                               block_q: int = 512, block_k: int = 512):
+    """Fused-QKV self-attention (JAX :1497): qkv (b, s, 3, h, d) -> (b, s,
+    h, d), differentiable in qkv. K3 and K5 read q, k and v as strided views
+    of the packed tensor, so nothing is copied. ``block_q``/``block_k`` are
+    the TPU's tiling: accepted, not used."""
+    del block_q, block_k
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"qkv must be (b, s, 3, h, d), got {tuple(qkv.shape)}")
+    return flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                           causal=causal, softmax_scale=softmax_scale,
+                           dropout_p=dropout_p, dropout_rng=dropout_rng)
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             softmax_scale: Optional[float] = None,
+                             seq_lengths=None, block_q: int = 256,
+                             block_k: int = 512):
+    """The forward with its log-sum-exp (JAX :1538): (out (b, sq, h, d),
+    lse (b, h, sq) f32), through K3 on the card. ``block_q``/``block_k``:
+    the TPU's tiling, not used."""
+    del block_q, block_k
+    return flash_attention(q, k, v, causal=causal, softmax_scale=softmax_scale,
+                           seq_lengths=seq_lengths, return_lse=True)
+
+
 # ------------------------------------------------------------ block-sparse (K9)
 
 def _round_up(x: int, m: int) -> int:

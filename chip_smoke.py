@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port (backpacks_flash_attn_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases device,build,kernels,serve,engine,forward,train,
-                                    longctx,train8k,generate] [--out DIR]
+                                    longctx,train8k,generate,decode_kernels] [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -66,8 +66,11 @@ Phases, each printing one JSON line:
             per-token losses, the whole gradient (every leaf as one vector)
             and the gradients of wte, the first and last GPT layer's Wqkv
             and ctx_attn.Wqkv; pooled over the batches, the signed error of
-            the loss and of the global gradient norm (bias) within 2x the
-            plain path's plus 3 standard errors.
+            the global gradient norm (bias) within 2x the plain path's plus
+            3 standard errors, and that of the loss the same way with both
+            paths taken net of a shared path (the bf16 model with its
+            attention computed in f32 on the bf16 activations), whose bias
+            at given weights both paths carry.
             The kernels phase also holds K3 with dropout, K4, K5 and K6 at
             the training shapes, and the long-context kernels: K7 (the
             fused MLP forward) at gpt3-small's training MLP, 16384 tokens,
@@ -94,6 +97,19 @@ Phases, each printing one JSON line:
             K3 12 a prefill and K1 12 a decode step, a profile of 8 decode
             steps, and the teacher-forced gate of the last prompt position
             and the first 8 decode steps under the 2x rule.
+11. decode_kernels  bench_int4_kernels.py's comparison, extended: at its
+            six shapes (backpack-small's batch-128 decode: GPT KV, E 1536,
+            dk = dv = 64, and the Backpack combine, E 2048, dk 64, dv 768;
+            S 128/256/512), under full lengths and ragged ones with an
+            empty row, one call each of K1, K1-gathered, K1-selector (values
+            transposed, and transposed by the wrapper), K1-blockdiag over
+            INT8 caches and of K8 over the int4 and mixed caches through
+            JAX's direct entries; K1 and gathered at gpt-generate's decode
+            shape (E 96, S 2112, bf16); gathered at S 16384. Each call
+            against its plain version under the 2x rule, timed beside SDPA
+            over the dequantized cache, and launch-gated: the counts reset
+            just before it and read just after, its own kernel once and no
+            other. Drawn after every other phase, so their data stay put.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -104,6 +120,7 @@ no CUDA device it exits non-zero before printing any result. TF32 is off
 """
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -708,6 +725,9 @@ HEADLINE = {
     "blocksparse_fwd": "band",
     "blocksparse_bwd_dq": "band",
     "blocksparse_bwd_dkv": "band",
+    "decode_attention_gathered": "gpt-generate",
+    "decode_attention_selector": "gpt_kv-int8 S=512 full vt=True",
+    "decode_attention_blockdiag": "gpt_kv-int8 S=512 full",
 }
 # the run whose launch counts stand for each kernel in that line
 LAUNCH_RUN = {
@@ -725,6 +745,9 @@ LAUNCH_RUN = {
     "blocksparse_fwd": "longctx",
     "blocksparse_bwd_dq": "longctx",
     "blocksparse_bwd_dkv": "longctx",
+    "decode_attention_gathered": "decode_kernels",
+    "decode_attention_selector": "decode_kernels",
+    "decode_attention_blockdiag": "decode_kernels",
 }
 
 
@@ -732,9 +755,21 @@ def phase_kernels(cases, results):
     """Each case: the kernel against its plain version under the 2x rule
     (an f32 case, whose plain version is its reference, within
     ``f32_rtol`` of the reference's largest magnitude instead), an optional
-    ``check`` of the kernel's output, and the times."""
+    ``check`` of the kernel's output, and the times. A case with ``gate``
+    first runs its call alone, the launch counts reset just before and read
+    just after: it must launch kernel ``gate`` exactly once and no other."""
     from backpacks_flash_attn_tpu_torch.ops import _build
+    made = []
     for name, label, c in cases:
+        launches = None
+        if "gate" in c:
+            _build.reset_launches()
+            c["kernel"]()
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in _build.launch_counts().items() if n}
+            if launches != {c["gate"]: 1}:
+                raise AssertionError(f"{name} [{label}]: launches {launches}, "
+                                     f"want {c['gate']} once")
         out, plain, ref = c["kernel"](), c["plain"](), c["ref"]()
         torch.cuda.synchronize()
         if "f32_rtol" in c:
@@ -758,10 +793,14 @@ def phase_kernels(cases, results):
                    library_ms=time_ms(c["library"]))
         row["bound_ms"], row["bound_by"] = bound(
             c["bytes"], c["flops"], c.get("flop_rate", PEAK_BF16_FLOP_PER_S))
+        if launches is not None:
+            row["launches"] = launches
         results.setdefault(name, []).append(row)
+        made.append(row)
         emit({"phase": "kernels", "kernel": name, **row})
         del out, plain, ref, lib_out
     _build.reset_launches()
+    return made
 
 
 # ------------------------------------------------------------------ serve
@@ -1282,7 +1321,6 @@ def staged_gate(params, ref_params, cfg, cache_kw, gen):
     (the same INT8 codes, f32 activations), under the 2x rule."""
     from backpacks_flash_attn_tpu_torch.models import backpack as bp
     from backpacks_flash_attn_tpu_torch.ops import _build
-    import contextlib
 
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, max(GATE_LENS)),
                             generator=gen, device=DEV)
@@ -1360,11 +1398,41 @@ def _rel(a, ref):
     return ((a - ref).norm() / ref.norm()).item()
 
 
+@contextlib.contextmanager
+def f32_attention():
+    """Inside plain_path(): K3's and K4's plain versions compute in f32 on
+    the bf16 activations they are handed and round their outputs back to
+    bf16, as the kernels do (K7's plain version already accumulates in
+    f32). The rest of the model stays in bf16, so this path's error against
+    the f32 reference is the part of the bf16 error that the kernel path
+    and the plain path share."""
+    from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as bk
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+
+    flash, ctx = fa.flash_attention_ref, bk.contextualization_reference
+
+    def flash32(q, k, v, **kw):
+        out = flash(q.float(), k.float(), v.float(), **kw)
+        return (out[0].to(q.dtype), out[1]) if isinstance(out, tuple) else out.to(q.dtype)
+
+    def ctx32(q, k, content, scale, return_lse=False):
+        out = ctx(q.float(), k.float(), content.float(), scale, return_lse=return_lse)
+        return ((out[0].to(content.dtype), out[1]) if return_lse
+                else out.to(content.dtype))
+
+    fa.flash_attention_ref, bk.contextualization_reference = flash32, ctx32
+    try:
+        yield
+    finally:
+        fa.flash_attention_ref, bk.contextualization_reference = flash, ctx
+
+
 def _gate_step(params, batch, forward, picks):
     """One training step's per-token losses, global gradient norm, whole
     gradient and chosen gradients on three paths: kernels in bf16, plain in
-    bf16, plain in f32 (the reference). forward(params, x, key) -> logits."""
-    import contextlib
+    bf16, plain in f32 (the reference); and the per-token losses of the
+    shared path (bf16, f32_attention()). forward(params, x, key) ->
+    logits."""
 
     from backpacks_flash_attn_tpu_torch.ops import _build
     from backpacks_flash_attn_tpu_torch.ops.cross_entropy import cross_entropy
@@ -1394,7 +1462,10 @@ def _gate_step(params, batch, forward, picks):
         leaves = dict(tl.named_leaves(outs[path].pop("grads")))
         diff = sum((leaves[k].float() - g).square().sum() for k, g in ref_leaves)
         outs[path]["all_grads"] = diff.sqrt() / outs["ref"]["grad_norm"]
-    return outs
+    p = _map_tensors(params, lambda t: t.to(torch.bfloat16))
+    with torch.no_grad(), _build.plain_path(), f32_attention():
+        shared, _ = cross_entropy(forward(p, x, key), y)
+    return outs, shared.float()
 
 
 def _bias_gate(name, draws):
@@ -1402,15 +1473,29 @@ def _bias_gate(name, draws):
     the kernel path's mean must be within twice the bf16 plain path's plus
     three standard errors of a mean (pooled over both paths' draws), so that
     a bias several times the rounding noise of a mean fails, and a mean
-    that is one draw of that noise does not."""
+    that is one draw of that noise does not. With ``shared`` draws (the
+    shared path's errors on the same sequences) each path's draws are taken
+    against them first: the check then holds the kernel path's own bias to
+    the plain path's own, whatever the bias of the bf16 activations both
+    share at these weights."""
     k, p = (torch.tensor(draws[path], dtype=torch.float64)
             for path in ("kernel", "plain"))
+    row = {"kernel": k.mean().item(), "plain_bf16": p.mean().item(),
+           "draws": len(k)}
+    own = ""
+    if "shared" in draws:
+        s = torch.tensor(draws["shared"], dtype=torch.float64)
+        k, p = k - s, p - s
+        row.update(shared=s.mean().item(), kernel_own=k.mean().item(),
+                   plain_own=p.mean().item())
+        own = " own"
     se = math.sqrt((k.var().item() + p.var().item()) / 2 / len(k))
     bk, bp = k.mean().item(), p.mean().item()
-    row = {"kernel": bk, "plain_bf16": bp, "stderr": se, "draws": len(k)}
-    ok = abs(bk) <= 2 * abs(bp) + 3 * se
-    return row, None if ok else (f"{name}: kernel bias {bk:.3e} > 2x plain "
-                                 f"{abs(bp):.3e} + 3 x stderr {se:.3e}")
+    bound = 2 * abs(bp) + 3 * se
+    row.update(stderr=se, share_of_bound=abs(bk) / bound)
+    return row, None if abs(bk) <= bound else (
+        f"{name}: kernel{own} bias {bk:.3e} > 2x plain{own} {abs(bp):.3e} "
+        f"+ 3 x stderr {se:.3e}")
 
 
 def gradient_gate(label, params, batches, forward, picks):
@@ -1420,13 +1505,14 @@ def gradient_gate(label, params, batches, forward, picks):
     gradients `picks` names (wte, the first and last GPT layer's Wqkv, and
     the Backpack's ctx_attn.Wqkv): the kernel's at most 2x the plain
     path's (or 0). Pooled over the batches, the signed error of the loss
-    (one draw per sequence: its mean per-token error, nats) and of the
-    global gradient norm (one relative draw per batch), under _bias_gate."""
+    (one draw per sequence: its mean per-token error, nats; each path's own
+    part, net of the shared path's) and of the global gradient norm (one
+    relative draw per batch), under _bias_gate."""
     errs, failed = [], []
-    draws = {"loss_bias": {"kernel": [], "plain": []},
+    draws = {"loss_bias": {"kernel": [], "plain": [], "shared": []},
              "grad_norm_bias": {"kernel": [], "plain": []}}
     for batch in batches:
-        outs = _gate_step(params, batch, forward, picks)
+        outs, shared = _gate_step(params, batch, forward, picks)
         ref = outs["ref"]
         row = {}
         for k in outs["kernel"]:
@@ -1445,6 +1531,8 @@ def gradient_gate(label, params, batches, forward, picks):
             draws["loss_bias"][path] += d.mean(dim=1).tolist()
             draws["grad_norm_bias"][path].append(
                 ((outs[path]["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]).item())
+        draws["loss_bias"]["shared"] += (shared - ref["loss_per_token"]
+                                         ).mean(dim=1).tolist()
         row["loss"] = ref["loss_per_token"].mean().item()
         errs.append(row)
         del outs, ref
@@ -1749,7 +1837,6 @@ def _gpt_teacher_forced(params, ref_params, cfg, prompt, tokens):
     plain path (bf16), f32 plain reference (f32 weights and cache)."""
     from backpacks_flash_attn_tpu_torch.models import gpt
     from backpacks_flash_attn_tpu_torch.ops import _build
-    import contextlib
 
     L = GEN_PROMPT + COMPARE_STEPS
     outs = {}
@@ -1846,13 +1933,210 @@ def phase_gpt(gen, results, phases):
             phase_generate(gen, results, cfg, params)
 
 
+# ------------------------------------------------------------------ decode kernels
+
+# bench_int4_kernels.py's shapes, backpack-small's batch-128 decode: the GPT
+# KV rows (E = 128 x 12 heads, dk = dv = 64) and the Backpack combine (E =
+# 128 x 16 senses, dk 64, dv 768), each at S = 128, 256, 512
+DECODE_BATCH, DECODE_SEQLENS = 128, (128, 256, 512)
+DECODE_SHAPES = (("gpt_kv", DECODE_BATCH * 12, 64, 64),
+                 ("combine", DECODE_BATCH * 16, 64, 768))
+DECODE_LONG_S = 16384
+# gpt-generate's decode: E = batch 8 x 12 heads over the 2048 + 64 cache
+GEN_ROWS, GEN_WIDTH = GEN_BATCH * 12, GEN_PROMPT + GEN_TOKENS
+# positions each form reads: the gathered form and the direct K8 entries
+# skip an empty row (0 out); K1, the selector and blockdiag attend uniformly
+# over the whole width there
+UNIFORM_EMPTY = ("decode_attention", "decode_attention_selector",
+                 "decode_attention_blockdiag")
+
+
+def _positions(name, lens, s):
+    n = lens.clamp(0, s)
+    if name in UNIFORM_EMPTY:
+        n = torch.where(lens <= 0, s, n)
+    return int(n.sum().item())
+
+
+def _dequantized(kd, vd):
+    """SDPA's operands from a dequantized cache: kd (E, dk, S), vd (E, S,
+    dv) -> bf16 (1, E, S, dk), (1, E, S, dv)."""
+    return kd.transpose(1, 2).to(torch.bfloat16)[None], vd.to(torch.bfloat16)[None]
+
+
+def _sdpa(q, lk, lv, lens):
+    """SDPA over a dequantized cache (_dequantized); an empty row attends
+    column 0 (SDPA's all-masked row is NaN)."""
+    S = lk.shape[2]
+    mask = (torch.arange(S, device=DEV)[None, :] < lens.clamp(min=1)[:, None])
+    return lambda: F.scaled_dot_product_attention(
+        q[None, :, None, :], lk, lv, attn_mask=mask[None, :, None, :],
+        scale=1.0)[0, :, 0]
+
+
+def _k1_form_cases(label, q, kt, ks, v, vs, lens, library, forms):
+    """Gated cases of K1 and its redesigns over one cache (kt (E, dk, S), v
+    (E, S, dv), (E, S) scales or None): forms are (name, call label, entry,
+    plain, keywords, values)."""
+    e, dk = q.shape
+    s, dv = v.shape[1], v.shape[2]
+    kvb = kt.element_size()
+    cases = []
+    for name, form, fn, plain, kw, vals in forms:
+        n = _positions(name, lens, s)
+        args = (q, kt, ks, vals, vs, lens)
+        ref_args = (q.float(), kt, ks, vals, vs, lens)
+        cases.append((name, f"{label}{form}", dict(
+            gate=name,
+            kernel=lambda a=args, fn=fn, kw=kw: fn(*a, **kw),
+            plain=lambda a=args, fn=plain, kw=kw: fn(*a, **kw),
+            ref=lambda a=ref_args, fn=plain, kw=kw: fn(*a, **kw),
+            library=library,
+            bytes=(q.numel() * 2 + n * (dk + dv) * kvb
+                   + (8 * n if ks is not None else 0) + e * dv * 2 + e * 4),
+            flops=2 * n * (dk + dv))))
+    return cases
+
+
+def _k1_forms(da, v, vt, names=None):
+    """K1 and its redesigns as (name, label suffix, entry, plain version,
+    keywords, values): v (E, S, dv), vt its (E, dv, S) copy for the
+    selector's native layout; ``names`` keeps some."""
+    forms = [
+        ("decode_attention", "", da.decode_attention, da.decode_attention_ref, {}, v),
+        ("decode_attention_gathered", "", da.decode_attention_gathered,
+         da.decode_attention_gathered_ref, {}, v),
+        ("decode_attention_selector", " vt=True", da.decode_attention_selector,
+         da.decode_attention_selector_ref, {"v_transposed": True}, vt),
+        ("decode_attention_selector", " vt=False", da.decode_attention_selector,
+         da.decode_attention_selector_ref, {"v_transposed": False}, v),
+        ("decode_attention_blockdiag", "", da.decode_attention_blockdiag,
+         da.decode_attention_blockdiag_ref, {}, v),
+    ]
+    return [f for f in forms if names is None or f[0] in names]
+
+
+def decode_problem_cases(gen, shape, e, dk, dv, s):
+    """bench_int4_kernels.make_problem on the card (q x 0.3, keys and values
+    N(0, 1) quantized per position to INT8 and to int4, pair-packed, the
+    mixed cache's split int8 keys) and its cases under full lengths and
+    under ragged ones with row 0 empty: K1, gathered, selector (values
+    transposed, and transposed by the wrapper), blockdiag over the INT8
+    cache; K8 over the int4 and the mixed caches through JAX's direct
+    entries. Library: SDPA over each dequantized cache."""
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
+    from backpacks_flash_attn_tpu_torch.ops import quant
+
+    randn = lambda *sz: torch.randn(*sz, generator=gen, device=DEV)
+    q = (randn(e, dk) * 0.3).to(torch.bfloat16)
+    k, v = randn(e, dk, s), randn(e, s, dv)
+    k8, ks8 = quant.quantize_activations_int8(k, axis=1)
+    v8, vs8 = quant.quantize_activations_int8(v, axis=2)
+    k4, ks4 = quant.quantize_activations_int4(k, axis=1)
+    v4, vs4 = quant.quantize_activations_int4(v, axis=2)
+    pairs = lambda sc: sc.reshape(e, s // 2, 2).transpose(1, 2).contiguous()
+    kt4, v4p = quant.pack_int4_pairs(k4, axis=2), quant.pack_int4_pairs(v4, axis=1)
+    ks2, vs2, ks2b = pairs(ks4[:, 0]), pairs(vs4[:, :, 0]), pairs(ks8[:, 0])
+    k8s = torch.stack([k8[:, :, 0::2], k8[:, :, 1::2]], dim=2)
+    ks, vs = ks8[:, 0].contiguous(), vs8[:, :, 0].contiguous()
+    v8t = v8.transpose(1, 2).contiguous()
+    ragged = torch.randint(1, s + 1, (e,), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    ragged[0] = 0
+    full = torch.full((e,), s, dtype=torch.int32, device=DEV)
+    caches = {"int8": _dequantized(k8.float() * ks8, v8.float() * vs8),
+              "int4": _dequantized(k4.float() * ks4, v4.float() * vs4)}
+    caches["mixed"] = (caches["int8"][0], caches["int4"][1])
+    del k, v, k4, v4
+    cases = []
+    for tag, lens in (("full", full), ("ragged", ragged)):
+        label = f"{shape}-int8 S={s} {tag}"
+        cases += _k1_form_cases(label, q, k8, ks, v8, vs, lens,
+                                _sdpa(q, *caches["int8"], lens), _k1_forms(da, v8, v8t))
+        cols = int(((lens.clamp(0, s) + 1) // 2).sum().item())
+        n = int(lens.clamp(0, s).sum().item())
+        for kind, keys, kscale, kbytes in (("int4", kt4, ks2, dk),
+                                           ("mixed", k8s, ks2b, 2 * dk)):
+            fn = getattr(da, f"decode_attention_{kind}_blockdiag")
+            args = (q, keys, kscale, v4p, vs2, lens)
+            ref_args = (q.float(), keys, kscale, v4p, vs2, lens)
+
+            def plain(*a, fn=fn):
+                with _build.plain_path():
+                    return fn(*a)
+
+            cases.append((f"lowbit_decode_{kind}", f"{shape}-{kind} S={s} {tag}", dict(
+                gate=f"lowbit_decode_{kind}",
+                kernel=lambda a=args, fn=fn: fn(*a),
+                plain=lambda a=args, p=plain: p(*a),
+                ref=lambda a=ref_args, p=plain: p(*a),
+                library=_sdpa(q, *caches[kind], lens),
+                bytes=q.numel() * 2 + cols * (kbytes + dv + 16) + e * dv * 2 + e * 4,
+                flops=2 * n * (dk + dv))))
+    return cases
+
+
+def decode_long_cases(gen):
+    """gpt-generate's decode shape (E = 96, dk = dv = 64, S = 2112, bf16
+    cache, lengths 2048-2112: K1 and gathered), then gathered alone at S =
+    16384, past K1's 8192 (lengths 8192-16384)."""
+    from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
+
+    bf = torch.bfloat16
+    cases = []
+    for label, s, lo, names in (
+            ("gpt-generate", GEN_WIDTH, GEN_PROMPT, ("decode_attention",
+                                                    "decode_attention_gathered")),
+            ("long", DECODE_LONG_S, DECODE_LONG_S // 2, ("decode_attention_gathered",))):
+        e, d = GEN_ROWS, LONG_D
+        q = (torch.randn(e, d, generator=gen, device=DEV) * 0.125).to(bf)
+        kt = torch.randn(e, d, s, generator=gen, device=DEV).to(bf)
+        v = torch.randn(e, s, d, generator=gen, device=DEV).to(bf)
+        lens = torch.randint(lo, s + 1, (e,), generator=gen, device=DEV,
+                             dtype=torch.int32)
+        cases += _k1_form_cases(f"{label} E={e} S={s} bf16", q, kt, None, v, None,
+                                lens, _sdpa(q, *_dequantized(kt, v), lens),
+                                _k1_forms(da, v, None, names))
+    return cases
+
+
+def phase_decode_kernels(gen, results):
+    """bench_int4_kernels.py's comparison on the card, extended: every
+    decode kernel form at its six shapes under full and ragged lengths, at
+    gpt-generate's decode shape, and the gathered form at S = 16384. Each
+    call's launches are gated (its own kernel once, no other); the launches
+    of those gated calls are this path's counts."""
+    rows = results.setdefault("kernels", {})
+    totals = {}
+    problems = [(shape, e, dk, dv, s) for shape, e, dk, dv in DECODE_SHAPES
+                for s in DECODE_SEQLENS]
+    for shape, e, dk, dv, s in problems:
+        log(f"decode kernels: {shape} S={s}")
+        cases = decode_problem_cases(gen, shape, e, dk, dv, s)
+        _run_gated(cases, rows, totals)
+        del cases
+        torch.cuda.empty_cache()
+    log("decode kernels: gpt-generate's shape, S = 16384")
+    _run_gated(decode_long_cases(gen), rows, totals)
+    torch.cuda.empty_cache()
+    results["decode_kernels"] = {"launches": totals}
+    emit({"phase": "decode_kernels", "launches": totals})
+
+
+def _run_gated(cases, rows, totals):
+    for row in phase_kernels(cases, rows):
+        for name, n in row["launches"].items():
+            totals[name] = totals.get(name, 0) + n
+
+
 # ------------------------------------------------------------------ main
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,serve,engine,forward,train,"
-                            "longctx,train8k,generate")
+                            "longctx,train8k,generate,decode_kernels")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"))
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -1913,6 +2197,9 @@ def main():
         log("kernels: K7 at gpt3-large's widths")
         with torch.no_grad():
             phase_kernels(wide_mlp_cases(gen), results["kernels"])
+    if "decode_kernels" in phases:
+        with torch.inference_mode():
+            phase_decode_kernels(gen, results)
 
     line = []
     for k in _build.KERNELS.values():

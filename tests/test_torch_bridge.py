@@ -102,16 +102,17 @@ def test_params_from_numpy_round_trips_quantized_tree(jax_params):
 
 
 def test_port_imports_no_jax():
-    """Statically: no import of jax or of the JAX package in the port or
-    chip_smoke.py. Dynamically: with both blocked, the port imports and
-    runs a tiny CPU forward, a cached decode step, a decode step over the
-    low-bit (4, None) caches, the quant-gates module, a training step, the
-    serving engine over a staged cache (its C++ scheduler built), a rotary
-    GPT training step with the fused-MLP switch on, generate_gpt, and the
-    block-sparse op."""
+    """Statically: no import of jax or of the JAX package in the port,
+    chip_smoke.py or chip_gate_sweep.py. Dynamically: with both blocked,
+    the port imports and runs a tiny CPU forward, a cached decode step, a
+    decode step over the low-bit (4, None) caches, the quant-gates module,
+    a training step, the serving engine over a staged cache (its C++
+    scheduler built), a rotary GPT training step with the fused-MLP switch
+    on, generate_gpt, the block-sparse op and K1's three redesigns."""
     pattern = re.compile(r"^\s*(import|from) +(jax|backpacks_flash_attn_tpu)\b",
                          re.M)
-    for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
+    for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py",
+                 REPO / "chip_gate_sweep.py"]:
         assert not pattern.search(path.read_text()), path
     code = """
 import sys
@@ -166,6 +167,11 @@ x = torch.randn(1, 256, 2, 16)
 bso = fa.flash_blocksparse_attention(x, x, x, torch.ones(2, 2), block_q=128,
                                      block_k=128)
 assert torch.isfinite(bso).all()
+from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
+dq, dkt, dv = torch.randn(4, 8), torch.randn(4, 8, 40), torch.randn(4, 40, 16)
+for fn in (da.decode_attention_gathered, da.decode_attention_selector,
+           da.decode_attention_blockdiag):
+    assert fn(dq, dkt, None, dv, None, 33).shape == (4, 16)
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
 print("ok", tuple(logits.shape))
 """

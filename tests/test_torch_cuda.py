@@ -838,3 +838,122 @@ def test_rotary_gpt_train_step_launches_k7(gen, monkeypatch):
     for name in ("flash_attention", "flash_attention_bwd", "fused_mlp_fwd"):
         assert counts[name] == cfg.n_layer, (name, counts)
     assert torch.isfinite(m["loss"])
+
+
+_REDESIGNS = {
+    "gathered": (da.decode_attention_gathered, da.decode_attention_gathered_ref, {}),
+    "selector": (da.decode_attention_selector, da.decode_attention_selector_ref,
+                 {"v_transposed": False}),
+    "selector-vt": (da.decode_attention_selector, da.decode_attention_selector_ref,
+                    {"v_transposed": True}),
+    "blockdiag": (da.decode_attention_blockdiag, da.decode_attention_blockdiag_ref, {}),
+}
+
+
+def _k1_operands(gen, qdt, kvdt, E, S, dv, pad=16):
+    """K1's operands as window slices of caches pad columns wider: q (E, 64)
+    pre-scaled, kt (E, 64, S), v (E, S, dv), int8 with (E, S) scales or
+    kvdt without."""
+    dk, dev = 64, "cuda"
+    q = (torch.randn(E, dk, generator=gen, device=dev) * 0.3).to(qdt)
+    if kvdt == torch.int8:
+        kt = torch.randint(-127, 128, (E, dk, S + pad), generator=gen, device=dev,
+                           dtype=torch.int8)
+        v = torch.randint(-127, 128, (E, S + pad, dv), generator=gen, device=dev,
+                          dtype=torch.int8)
+        ks = torch.rand(E, S + pad, generator=gen, device=dev)[:, :S] * 0.02
+        vs = torch.rand(E, S + pad, generator=gen, device=dev)[:, :S] * 0.02
+    else:
+        kt = torch.randn(E, dk, S + pad, generator=gen, device=dev).to(kvdt)
+        v = torch.randn(E, S + pad, dv, generator=gen, device=dev).to(kvdt)
+        ks = vs = None
+    return q, kt[:, :, :S], ks, v[:, :S], vs
+
+
+@pytest.mark.parametrize("form", list(_REDESIGNS))
+@pytest.mark.parametrize("qdt,kvdt,E,S,dv", [
+    (torch.float32, torch.float32, 6, 300, 64),
+    (torch.float32, torch.int8, 5, 40, 768),
+    (torch.bfloat16, torch.int8, 6, 100, 64),
+    (torch.bfloat16, torch.bfloat16, 6, 33, 768),
+    (torch.bfloat16, torch.int8, 13, 2112, 128),   # odd E, several chunks
+])
+def test_decode_attention_redesign_kernels(gen, form, qdt, kvdt, E, S, dv):
+    """K1-gathered, K1-selector (values transposed by the wrapper, and
+    passed transposed) and K1-blockdiag against their plain versions on
+    window slices: per-row lengths with an empty row (0 from the gathered
+    form, uniform from the others), and a scalar length; each call launches
+    its own kernel once and never K1."""
+    fn, ref_fn, kw = _REDESIGNS[form]
+    name = "decode_attention_" + form.split("-")[0]
+    q, kt, ks, v, vs = _k1_operands(gen, qdt, kvdt, E, S, dv)
+    if kw.get("v_transposed"):      # a window of a wider (E, dv, S + 16) cache
+        v = torch.nn.functional.pad(v.transpose(1, 2), (0, 16)).contiguous()[:, :, :S]
+    lens = torch.tensor(([0, 1, S // 2, S, 7, 3] * 3)[:E], dtype=torch.int32,
+                        device="cuda")
+    for length in (lens, 5):
+        _build.reset_launches()
+        out = fn(q, kt, ks, v, vs, length, **kw)
+        counts = _build.launch_counts()
+        assert counts[name] == 1 and counts["decode_attention"] == 0, counts
+        assert out.shape == (E, dv) and out.dtype == qdt
+        ref = ref_fn(q.float(), kt.float(), ks, v.float(), vs, length, **kw)
+        if qdt == torch.float32:
+            _f32_close(out, ref)
+        else:
+            _within_2x(out, ref_fn(q, kt, ks, v, vs, length, **kw), ref)
+        if form == "gathered" and length is lens:
+            assert (out[0] == 0).all()
+
+
+def test_gathered_kernel_past_k1s_width(gen):
+    """S = 16384, past K1's 8192: ragged lengths over the whole width, an
+    empty row (exactly 0), bf16 over bf16, 2x rule against the f32 plain
+    version."""
+    E, S = 12, 16384
+    q, kt, ks, v, vs = _k1_operands(gen, torch.bfloat16, torch.bfloat16, E, S, 64)
+    lens = torch.randint(1, S + 1, (E,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lens[0], lens[1] = 0, S
+    before = _build.KERNELS["decode_attention_gathered"].launches
+    out = da.decode_attention_gathered(q, kt, ks, v, vs, lens)
+    assert _build.KERNELS["decode_attention_gathered"].launches == before + 1
+    assert (out[0] == 0).all()
+    ref = da.decode_attention_gathered_ref(q.float(), kt.float(), None, v.float(),
+                                           None, lens)
+    _within_2x(out, da.decode_attention_gathered_ref(q, kt, None, v, None, lens), ref)
+    with pytest.raises(ValueError, match="S <= 8192"):
+        da.decode_attention(q, kt, ks, v, vs, lens)
+
+
+@pytest.mark.parametrize("kind", ["int4", "mixed"])
+def test_direct_lowbit_entries_kernel(gen, kind):
+    """JAX's direct K8 entries: K8 (counted as its key format, not as the
+    (m, l) form) with a zero-length row giving exactly 0."""
+    E, dk, S2, dv = 6, 64, 96, 64 if kind == "int4" else 768
+    dev, name = "cuda", f"lowbit_decode_{kind}"
+    q = (torch.randn(E, dk, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+    kshape = (E, dk, 2, S2) if kind == "mixed" else (E, dk, S2)
+    keys = torch.randint(-127, 128, kshape, generator=gen, device=dev, dtype=torch.int8)
+    v = torch.randint(-128, 128, (E, S2, dv), generator=gen, device=dev, dtype=torch.int8)
+    ks = torch.rand(E, 2, S2, generator=gen, device=dev) * (0.05 / (16 if kind == "mixed" else 1))
+    vs = torch.rand(E, 2, S2, generator=gen, device=dev) * 0.05
+    lens = torch.tensor([0, 1, 2, 77, 2 * S2 - 1, 2 * S2], dtype=torch.int32, device=dev)
+    entry = getattr(da, f"decode_attention_{kind}_blockdiag")
+    _build.reset_launches()
+    out = entry(q, keys, ks, v, vs, lens)
+    counts = _build.launch_counts()
+    assert counts[name] == 1 and counts["lowbit_decode_int4_ml"] == 0, counts
+    assert (out[0] == 0).all()
+    with _build.plain_path():
+        plain = entry(q, keys, ks, v, vs, lens)
+        ref = entry(q.float(), keys, ks, v, vs, lens)
+    _within_2x(out, plain, ref)
+
+
+def test_decode_attention_flat_launches_k1(gen):
+    q, kt, ks, v, vs = _k1_operands(gen, torch.bfloat16, torch.int8, 4, 512, 64)
+    before = _build.KERNELS["decode_attention"].launches
+    out = da.decode_attention_flat(q, kt, ks, v, vs, 300, length_buckets=True)
+    assert _build.KERNELS["decode_attention"].launches == before + 1
+    assert torch.equal(out, da.decode_attention(q, kt, ks, v, vs, 300))
