@@ -66,6 +66,21 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's cp.async groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -182,14 +197,19 @@ __device__ __forceinline__ bool dropout_keep(const DropoutParams& dp, uint32_t b
                                              uint32_t q_pos, uint32_t k_pos) {
   uint32_t x = dp.seed0 ^ (q_pos * 0x9E3779B9u) ^ (k_pos * 0x85EBCA77u) ^ (bh * 0xC2B2AE3Du);
   x += dp.seed1;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    x ^= x >> 16;
-    x *= 0x85EBCA6Bu;
-    x ^= x >> 13;
-    x *= 0xC2B2AE35u;
-    x ^= x >> 16;
-  }
+  // the two rounds (x ^= x >> 16, x *= 0x85EBCA6B, x ^= x >> 13,
+  // x *= 0xC2B2AE35, x ^= x >> 16), with the first round's closing
+  // x ^= x >> 16 and the second's opening one cancelled (shifts distribute
+  // over xor and x >> 32 is 0) and the two multiplies between them folded
+  // (0xC2B2AE35 * 0x85EBCA6B = 0xD1CBA227 mod 2^32): the same bits, 11
+  // integer operations instead of 16
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xD1CBA227u;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
   return x < dp.thr;
 }
 

@@ -211,26 +211,33 @@ def _dropout_args(dropout_p, seed):
     return (0, 0, 0, 1.0, 0)
 
 
+def _per_seq_arg(x, b: int, device) -> Optional[torch.Tensor]:
+    """A per-sequence kernel argument as (b,) int32, or None (a NULL
+    pointer: the kernel's default), so the common call launches nothing
+    but the kernel."""
+    return None if x is None else _per_seq(x, b, device, 0).to(
+        torch.int32).contiguous()
+
+
 def _flash_fwd_kernel(q, k, v, *, causal, scale, seq_lengths, q_offsets,
                       dropout_p, seed):
-    """K3 (``csrc/flash_attention.cu``): bf16 or f32, d = 64, any outer
-    strides. Returns (out (b, sq, h, d), lse (b, h, sq) f32)."""
+    """K3 (``csrc/flash_attention.cu``): bf16 on tensor cores (q, k and v
+    rows 16-byte aligned, scale > 0) or on its SIMT loop (f32, unaligned
+    bf16); d = 64, any outer strides. Returns (out (b, sq, h, d), lse
+    (b, h, sq) f32)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
-    lens = _per_seq(seq_lengths, b, q.device, sk).to(torch.int32).contiguous()
-    offs = _per_seq(q_offsets, b, q.device, 0).to(torch.int32).contiguous()
+    lens = _per_seq_arg(seq_lengths, b, q.device)
+    offs = _per_seq_arg(q_offsets, b, q.device)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
     _build.launch(
         _K3, "flash_attention_launch", P(q), P(k), P(v), P(out), P(lse),
-        P(lens), P(offs), b, h, sq, sk,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        float(scale), int(causal), *_dropout_args(dropout_p, seed),
-        _build.DTYPE_CODE[q.dtype])
+        P(lens), P(offs), b, h, sq, sk, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], float(scale), int(causal),
+        *_dropout_args(dropout_p, seed), _build.DTYPE_CODE[q.dtype])
     return out, lse
 
 
@@ -342,10 +349,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     d = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     use_kernel = q.is_cuda and _build.kernels_enabled()
-    if seq_lengths is None and q_offsets is None:
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if needs_grad and seq_lengths is None and q_offsets is None:
         out, lse = _FlashAttention.apply(q, k, v, causal, float(scale),
                                          float(dropout_p), seed, use_kernel)
         return (out, lse) if return_lse else out
+    # no graph to record (or the inference-only ragged entry): the forward
+    # alone, without the autograd Function's overhead
     kw = dict(causal=causal, seq_lengths=seq_lengths, q_offsets=q_offsets,
               dropout_p=dropout_p, seed=seed)
     if use_kernel:

@@ -72,7 +72,10 @@ Phases, each printing one JSON line:
             attention computed in f32 on the bf16 activations), whose bias
             at given weights both paths carry.
             The kernels phase also holds K3 with dropout, K4, K5 and K6 at
-            the training shapes, and the long-context kernels: K7 (the
+            the training shapes (K3's bf16 cases run its tensor-core loop:
+            mma.sync over 64-query tiles up to sq 1024, 128 past it, 32 at
+            the prefill's sq = 32, K/V through a cp.async ring; f32 and
+            unaligned bf16 its SIMT loop), and the long-context kernels: K7 (the
             fused MLP forward) at gpt3-small's training MLP, 16384 tokens,
             768 -> 3072 -> 768, bf16 and f32; K9's forward (out, LSE) at
             b 4, s 4096, h 12 under bench_longctx.py's band mask (band
@@ -110,6 +113,8 @@ Phases, each printing one JSON line:
             over the dequantized cache, and launch-gated: the counts reset
             just before it and read just after, its own kernel once and no
             other. Drawn after every other phase, so their data stay put.
+            Then (with kernels) K3 at train-8k's sequence, 1 x 8192, h 12,
+            causal, dropout 0.1, drawn last: bound by its flops, SDPA beside.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -609,6 +614,32 @@ def wide_mlp_cases(gen):
     mlp = (randn(T, d), randn(d, inner) * 0.02, randn(inner) * 0.02,
            randn(inner, d) * 0.02, randn(d) * 0.02)
     return [_mlp_case(mlp, torch.bfloat16, PEAK_BF16_FLOP_PER_S)]
+
+
+def long_flash_cases(gen):
+    """K3 at train-8k's per-sequence shape (1 x 8192, h 12, d 64, bf16),
+    causal, dropout 0.1, where its flops bound it; library = SDPA with the
+    same dropout rate (its own mask). Drawn after every other phase, so
+    that the random data of the phases before it stay as they were."""
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    b, s, h, d, p, scale = 1, LONG_LEN, LONG_H, LONG_D, 0.1, LONG_D ** -0.5
+    seed = (0x2468ACE, 0x13579BDF)
+    q, k, v = (randn(b, s, h, d).to(torch.bfloat16) for _ in range(3))
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(causal=True, softmax_scale=scale, dropout_p=p, seed=seed)
+    pairs = b * h * s * (s + 1) // 2
+    return [("flash_attention", f"train8k-dropout b={b} h={h} s={s} p={p}", dict(
+        kernel=lambda: fa._flash_fwd_kernel(q, k, v, scale=scale, seq_lengths=None,
+                                            q_offsets=None, causal=True,
+                                            dropout_p=p, seed=seed)[0],
+        plain=lambda: fa.flash_attention_ref(q, k, v, **kw),
+        ref=lambda: fa.flash_attention_ref(q32, k32, v32, **kw),
+        library=lambda: F.scaled_dot_product_attention(
+            qT, kT, vT, is_causal=True, scale=scale, dropout_p=p).transpose(1, 2),
+        bytes=4 * q.numel() * 2 + b * h * s * 4, flops=4 * pairs * d))]
 
 
 def longctx_kernel_cases(gen):
@@ -2200,6 +2231,12 @@ def main():
     if "decode_kernels" in phases:
         with torch.inference_mode():
             phase_decode_kernels(gen, results)
+    if "kernels" in phases:
+        log("kernels: K3 at train-8k's sequence")
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            phase_kernels(long_flash_cases(gen), results["kernels"])
+        torch.cuda.empty_cache()
 
     line = []
     for k in _build.KERNELS.values():

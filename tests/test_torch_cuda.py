@@ -94,23 +94,44 @@ def test_quant_matmul_kernel(gen, bits, gs, M, K, N):
         quant.quant_matmul(x.float(), qw)        # the kernel takes bf16 only
 
 
-@pytest.mark.parametrize("dt,b,sq,sk,lens,offs,causal", [
-    (torch.float32, 2, 70, 70, None, None, True),
-    (torch.float32, 2, 9, 80, [0, 33], [5, 24], True),
-    (torch.bfloat16, 2, 40, 40, None, None, True),
-    (torch.float32, 1, 20, 50, [50], None, False),
+@pytest.mark.parametrize("dt,b,sq,sk,lens,offs,causal,layout", [
+    (torch.float32, 2, 70, 70, None, None, True, "contiguous"),
+    (torch.float32, 2, 9, 80, [0, 33], [5, 24], True, "contiguous"),
+    (torch.bfloat16, 2, 40, 40, None, None, True, "contiguous"),
+    (torch.float32, 1, 20, 50, [50], None, False, "contiguous"),
+    # bf16 on tensor cores: sq off the 128-row tile, sk off the 64-key tile
+    (torch.bfloat16, 2, 150, 190, [190, 101], [40, 0], True, "contiguous"),
+    # the serve prefill's 32 queries over a 512-column cache, ragged
+    # offsets, one empty sequence
+    (torch.bfloat16, 4, 32, 512, [0, 32, 300, 512], [0, 0, 268, 480], True,
+     "contiguous"),
+    (torch.bfloat16, 2, 70, 130, [130, 77], None, False, "contiguous"),
+    (torch.bfloat16, 2, 200, 200, None, None, True, "packed"),     # mha's views
+    (torch.bfloat16, 2, 70, 90, [90, 45], [20, 3], True, "misaligned"),  # SIMT
 ])
-def test_flash_attention_kernel(gen, dt, b, sq, sk, lens, offs, causal):
+def test_flash_attention_kernel(gen, dt, b, sq, sk, lens, offs, causal, layout):
     h, dev = 3, "cuda"
-    r = lambda s: torch.randn(*s, generator=gen, device=dev).to(dt)
-    q, k, v = r((b, sq, h, 64)), r((b, sk, h, 64)), r((b, sk, h, 64))
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dt)
+    if layout == "packed":              # views of one (b, s, 3, h, d) tensor
+        qkv = r(b, sq, 3, h, 64)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    elif layout == "misaligned":        # rows 2 bytes off 16: the SIMT route
+        q, k, v = (r(n, s_, h, 65)[..., 1:] for n, s_ in ((b, sq), (b, sk), (b, sk)))
+        assert not any(_build.aligned16(t) for t in (q, k, v))
+    else:
+        q, k, v = r(b, sq, h, 64), r(b, sk, h, 64), r(b, sk, h, 64)
     kw = dict(causal=causal, softmax_scale=0.2,
               seq_lengths=None if lens is None else torch.tensor(lens, device=dev),
               q_offsets=None if offs is None else torch.tensor(offs, device=dev))
+    before = _build.KERNELS["flash_attention"].launches
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert _build.KERNELS["flash_attention"].launches == before + 1
     ref, rlse = fa.flash_attention_ref(q.float(), k.float(), v.float(),
                                        return_lse=True, **kw)
     assert torch.allclose(lse, rlse, rtol=1e-5, atol=1e-4)
+    for i, n in enumerate(lens or []):
+        if n == 0:                      # an empty sequence: 0 and NEG_INF
+            assert (out[i] == 0).all() and (lse[i] == fa.NEG_INF).all()
     if dt == torch.float32:
         assert _err(out, ref) <= F32_ATOL
     else:
@@ -142,6 +163,8 @@ def test_fused_contextualization_kernel(gen, dt, b, s, nv, dnv, d, misalign):
     (torch.float32, 0.1, None),
     (torch.bfloat16, 0.1, None),
     (torch.float32, 0.3, [3, 17]),
+    (torch.bfloat16, 0.3, [3, 17]),       # tensor cores, sq 70 over sk 90
+    (torch.bfloat16, 0.2, [20, 0]),
 ])
 def test_flash_attention_dropout_kernel(gen, dt, dropout_p, offs):
     from backpacks_flash_attn_tpu_torch.utils import prng
@@ -217,22 +240,45 @@ def test_flash_attention_bwd_kernel(gen, dt, b, s, h, causal, dropout_p):
         _within_2x(a, p, r)
 
 
-@pytest.mark.parametrize("dt,expanded", [(torch.bfloat16, False),
-                                         (torch.bfloat16, True),
-                                         (torch.float32, True)])
-def test_flash_attention_autograd_launches_k3_and_k5(gen, dt, expanded):
+@pytest.mark.parametrize("dt,expanded,dropout_p,s", [
+    (torch.bfloat16, False, 0.1, 64),
+    (torch.bfloat16, True, 0.1, 64),
+    (torch.float32, True, 0.1, 64),
+    # K3's tensor-core forward then K5 at p = 0.3: both must draw the same
+    # keep mask, or the gradients leave the 2x rule
+    (torch.bfloat16, False, 0.3, 200),
+])
+def test_flash_attention_autograd_launches_k3_and_k5(gen, dt, expanded,
+                                                     dropout_p, s):
+    """flash_attention + backward as training calls it, on the kernel path
+    and on the plain path (the plain forward's own LSE into the plain
+    backward), gradients against the f32 plain path."""
     from backpacks_flash_attn_tpu_torch.utils import prng
-    x = torch.randn(2, 64, 3, 2, 64, generator=gen, device="cuda").to(
-        dt).requires_grad_(True)
+    qkv = torch.randn(2, s, 3, 2, 64, generator=gen, device="cuda").to(dt)
+
+    def grads(x):
+        x = x.detach().requires_grad_(True)
+        out = fa.flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2],
+                                 dropout_p=dropout_p,
+                                 dropout_rng=prng.PRNGKey(0))
+        # out.sum() hands the backward a stride-0 cotangent
+        (out.sum() if expanded else out.float().square().sum()).backward()
+        return x.grad
+
     _build.reset_launches()
-    out = fa.flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2],
-                             dropout_p=0.1, dropout_rng=prng.PRNGKey(0))
-    # out.sum() hands the backward a stride-0 cotangent
-    (out.sum() if expanded else out.float().square().sum()).backward()
+    kernel = grads(qkv)
     counts = _build.launch_counts()
     assert counts["flash_attention"] == 1
     assert counts["flash_attention_bwd"] == 1
-    assert torch.isfinite(x.grad.float()).all()
+    assert torch.isfinite(kernel.float()).all()
+    with _build.plain_path():
+        ref = grads(qkv.float())
+        plain = None if dt == torch.float32 else grads(qkv)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        if dt == torch.float32:
+            _f32_close(kernel[:, :, i], ref[:, :, i])
+        else:
+            _within_2x(kernel[:, :, i], plain[:, :, i], ref[:, :, i])
 
 
 @pytest.mark.parametrize("dt,b,s,nv,dnv,d", [

@@ -95,6 +95,35 @@ def test_flash_attention_dropout_fwd_and_grads_match_jax(rng, causal):
                                    err_msg=f"d{name}")
 
 
+def test_flash_attention_ref_dropout_offsets_match_jax_fwd(rng):
+    """K3's plain version with dropout and per-sequence q_offsets, sq != sk
+    and an empty sequence, against JAX's ``_flash_fwd`` (its Pallas body in
+    interpret mode): out and LSE. The dropout hash takes the absolute query
+    position q_offsets[b] + i, which K3 on the card hashes too."""
+    b, sq, sk, h, d = 3, 12, 40, 2, 16
+    q = rng.normal(size=(b, sq, h, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, sk, h, d)).astype(np.float32)
+            for _ in range(2))
+    lens = np.array([40, 0, 29], np.int32)      # sequence 1 is empty
+    offs = np.array([28, 0, 9], np.int32)
+    scale, p = 0.3, 0.3
+    seed = jax.random.key_data(jax.random.PRNGKey(7)).astype(jnp.uint32)
+    sw = lambda a: jnp.swapaxes(jnp.asarray(a), 1, 2)
+    jout, jlse = jfa._flash_fwd(sw(q), sw(k), sw(v), jnp.asarray(lens), scale,
+                                True, 256, 256, dropout_p=p, seed=seed,
+                                q_offsets=jnp.asarray(offs))
+    out, lse = tfa.flash_attention_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, softmax_scale=scale, seq_lengths=torch.from_numpy(lens),
+        q_offsets=torch.from_numpy(offs), dropout_p=p,
+        seed=prng.seed_words(prng.PRNGKey(7)), return_lse=True)
+    np.testing.assert_allclose(_np(out), np.swapaxes(np.asarray(jout), 1, 2),
+                               atol=1e-5)
+    np.testing.assert_allclose(_np(lse), np.asarray(jlse), atol=1e-5,
+                               rtol=1e-6)
+    assert (_np(out)[1] == 0).all() and (_np(lse)[1] == tfa.NEG_INF).all()
+
+
 def test_fused_contextualization_grads_match_jax(rng):
     b, s, nv, dnv, d = 2, 37, 3, 8, 24
     q, k = (rng.normal(size=(b, s, nv, dnv)).astype(np.float32)
