@@ -4,8 +4,10 @@ Port of ``backpacks_flash_attn_tpu/ops/fused_mlp.py`` (``mlp_fwd_fused``
 :81 -> ``_mlp_fwd_kernel`` :51, ``supported`` :137). Returns ``(out,
 h_pre)``: the pre-activation is rounded to x's dtype and the activation is
 applied to that rounded value (JAX :65-70), which is what the backward of
-``ops/dense.py`` recomputes from; the activation itself never reaches
-device memory. On the card the forward is ``csrc/fused_mlp.cu``.
+``ops/dense.py`` recomputes from. On the card the forward is
+``csrc/fused_mlp.cu``: two GEMM passes split at h_pre, the activation
+passed between them through a transient (T, inner) buffer that lives for
+the call only.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def mlp_fwd_fused_ref(x, w1, b1, w2, b2, *, activation: str = "gelu_new"):
 
 def _mlp_fwd_kernel(x, w1, b1, w2, b2, *, activation):
     """K7 (``csrc/fused_mlp.cu``): bf16 on tensor cores or f32 SIMT, all
-    operands one dtype, every dim a multiple of 128."""
+    operands one dtype, every dim a multiple of 128. The activated operand
+    of pass 2 goes through a scratch buffer freed when the call returns."""
     d_in, inner = w1.shape
     d_out = w2.shape[1]
     xm = x.reshape(-1, d_in)
@@ -61,9 +64,10 @@ def _mlp_fwd_kernel(x, w1, b1, w2, b2, *, activation):
     T = xm.shape[0]
     out = torch.empty((T, d_out), dtype=dt, device=xm.device)
     hpre = torch.empty((T, inner), dtype=dt, device=xm.device)
+    act = torch.empty((T, inner), dtype=dt, device=xm.device)
     P = _build.Ptr.of
     _build.launch(_K7, "fused_mlp_fwd_launch", P(xm), P(w1), P(b1), P(w2),
-                  P(b2), P(out), P(hpre), T, d_in, inner, d_out,
+                  P(b2), P(out), P(hpre), P(act), T, d_in, inner, d_out,
                   ACT_CODE[activation], _build.DTYPE_CODE[dt])
     lead = x.shape[:-1]
     return out.reshape(*lead, d_out), hpre.reshape(*lead, inner)

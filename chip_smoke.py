@@ -114,7 +114,9 @@ Phases, each printing one JSON line:
             just before it and read just after, its own kernel once and no
             other. Drawn after every other phase, so their data stay put.
             Then (with kernels) K3 at train-8k's sequence, 1 x 8192, h 12,
-            causal, dropout 0.1, drawn last: bound by its flops, SDPA beside.
+            causal, dropout 0.1: bound by its flops, SDPA beside; and last
+            K7 at gpt3-small's widths over 16384 - 37 tokens (bf16), a
+            partial last token tile.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -569,7 +571,7 @@ def train_kernel_cases(gen):
 
 LONG_H, LONG_D, BS_BLOCK, BS_BAND = 12, 64, 256, 1024
 MLP_T, MLP_D, MLP_INNER = 16384, 768, 3072     # gpt3-small's MLP at 2 x 8192
-MLP_D_LARGE, MLP_INNER_LARGE = 1536, 6144       # gpt3-large's: x streamed over d_in
+MLP_D_LARGE, MLP_INNER_LARGE = 1536, 6144       # gpt3-large's MLP widths
 BS_B, BS_S = 4, 4096                            # the K9 kernel cases
 
 
@@ -607,10 +609,21 @@ def _mlp_case(mlp, dt, rate):
 
 def wide_mlp_cases(gen):
     """K7 at gpt3-large's MLP widths (16384 tokens, 1536 -> 6144 -> 1536,
-    bf16), where fc1 streams x over d_in. Drawn after every other phase,
-    so that the random data of the phases before it stay as they were."""
+    bf16). Drawn after every other phase, so that the random data of the
+    phases before it stay as they were."""
     randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
     T, d, inner = MLP_T, MLP_D_LARGE, MLP_INNER_LARGE
+    mlp = (randn(T, d), randn(d, inner) * 0.02, randn(inner) * 0.02,
+           randn(inner, d) * 0.02, randn(d) * 0.02)
+    return [_mlp_case(mlp, torch.bfloat16, PEAK_BF16_FLOP_PER_S)]
+
+
+def ragged_mlp_cases(gen):
+    """K7 at gpt3-small's MLP widths over 16384 - 37 tokens (bf16), whose
+    last 128-row tile is partial. Drawn last of all, so that the random
+    data of every phase before it stay as they were."""
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    T, d, inner = MLP_T - 37, MLP_D, MLP_INNER
     mlp = (randn(T, d), randn(d, inner) * 0.02, randn(inner) * 0.02,
            randn(inner, d) * 0.02, randn(d) * 0.02)
     return [_mlp_case(mlp, torch.bfloat16, PEAK_BF16_FLOP_PER_S)]
@@ -1582,7 +1595,8 @@ def gradient_gate(label, params, batches, forward, picks):
 
 def _profile_step(step_once):
     """Device ms by kernel over one training step (torch.profiler, kernel
-    events only) and the step's wall ms under the profiler."""
+    events only): the largest 15 and every kernel of the port; and the
+    step's wall ms under the profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1596,7 +1610,11 @@ def _profile_step(step_once):
                    and ev.self_device_time_total > 0), reverse=True)
     return dict(wall_ms_profiled=wall * 1e3,
                 device_ms=sum(us for us, _, _ in rows) / 1e3,
-                top=[dict(name=k[:80], ms=us / 1e3, calls=c) for us, k, c in rows[:15]])
+                top=[dict(name=k[:80], ms=us / 1e3, calls=c) for us, k, c in rows[:15]],
+                # every kernel in an anonymous namespace, however small: the
+                # port's (csrc/ keeps them there) and a few of PyTorch's
+                port=[dict(name=k[:80], ms=us / 1e3, calls=c) for us, k, c in rows
+                      if k.removeprefix("void ").startswith("(anonymous namespace)::")])
 
 
 def train_run(label, cfg, params, batches, step_fn, check_launches, **meta):
@@ -1842,6 +1860,9 @@ def phase_train8k(gen, results, cfg, params):
         results["train_8k"], trained = train_run(
             "train_8k", cfg, params, batches, tl.make_train_step(cfg, model="gpt"),
             check, model="gpt3_small(rotary=True)")
+        run = results["train_8k"]
+        log(f"train-8k: {run['step_ms']:.1f} ms a step, peak memory "
+            f"{run['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
         del batches
         log("train-8k: gradient gate")
         gate_batches = [ids(1, GPT_GATE_LEN) for _ in range(GATE_BATCHES)]
@@ -2236,6 +2257,10 @@ def main():
         torch.cuda.empty_cache()
         with torch.no_grad():
             phase_kernels(long_flash_cases(gen), results["kernels"])
+        torch.cuda.empty_cache()
+        log("kernels: K7 over a ragged token count")
+        with torch.no_grad():
+            phase_kernels(ragged_mlp_cases(gen), results["kernels"])
         torch.cuda.empty_cache()
 
     line = []

@@ -635,12 +635,17 @@ def test_staged_kv4_decode_launches_k8_ml(gen):
 @pytest.mark.parametrize("dt,T,d_in,inner,d_out,act", [
     (torch.bfloat16, 1000, 128, 512, 128, "gelu_new"),   # ragged token tile
     (torch.bfloat16, 300, 768, 3072, 768, "gelu_new"),   # gpt3-small widths
-    (torch.bfloat16, 96, 256, 512, 1024, "gelu"),        # two column slabs
+    (torch.bfloat16, 96, 256, 512, 1024, "gelu"),        # d_out wider than d_in
     (torch.float32, 1000, 128, 512, 128, "sqrelu"),
     (torch.float32, 77, 768, 1024, 768, "relu"),
-    (torch.bfloat16, 200, 1536, 1024, 1536, "gelu_new"),  # x streamed over d_in
-    (torch.bfloat16, 70, 1280, 640, 1280, "relu"),       # streamed, five slabs
+    (torch.bfloat16, 200, 1536, 1024, 1536, "gelu_new"),  # gpt3-large's d_in
+    (torch.bfloat16, 70, 1280, 640, 1280, "relu"),       # five N tiles of 256 in pass 2
     (torch.float32, 50, 1280, 512, 1280, "gelu"),
+    (torch.bfloat16, 1, 768, 3072, 768, "gelu_new"),     # one token
+    (torch.bfloat16, 16384 - 37, 768, 3072, 768, "gelu_new"),  # train-8k's, last tile partial
+    (torch.bfloat16, 130, 256, 640, 384, "relu"),        # N tiles of 128 only
+    (torch.bfloat16, 257, 256, 512, 256, "gelu_fast"),
+    (torch.float32, 100, 1536, 1024, 1536, "gelu_new"),  # the widest f32 case
 ])
 def test_fused_mlp_kernel(gen, dt, T, d_in, inner, d_out, act):
     from backpacks_flash_attn_tpu_torch.ops import fused_mlp as fm
@@ -663,12 +668,33 @@ def test_fused_mlp_kernel(gen, dt, T, d_in, inner, d_out, act):
             _within_2x(got, p, want)
 
 
+def test_fused_mlp_frees_its_scratch(gen):
+    """K7 passes the activation between its two GEMM passes through a
+    scratch buffer: after the call only out and h_pre stay allocated. Every
+    buffer is under 1 MB and a multiple of 512 bytes, so the caching
+    allocator hands out blocks of exactly their size."""
+    from backpacks_flash_attn_tpu_torch.ops import fused_mlp as fm
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    T, d, inner, dt = 300, 256, 1024, torch.bfloat16
+    args = [r(T, d), r(d, inner) * d ** -0.5, r(inner) * 0.1,
+            r(inner, d) * inner ** -0.5, r(d) * 0.1]
+    args = [t.to(dt) for t in args]
+    fm.mlp_fwd_fused(*args)          # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    live = torch.cuda.memory_stats()["allocation.all.current"]
+    out, hpre = fm.mlp_fwd_fused(*args)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.current"] == live + 2
+    assert torch.cuda.memory_allocated() == before + (out.numel() + hpre.numel()) * 2
+
+
 @pytest.mark.parametrize("d,inner", [(128, 512), (1536, 1024)])
 def test_dense_mlp_takes_k7_under_the_switch(gen, monkeypatch, d, inner):
     """dense.mlp with BACKPACKS_FUSED_MLP's switch on: the forward launches
     K7 once, the backward recomputes from its h_pre; forward and gradients
     match the switch-off path within the bf16 rule. d 1536: gpt3-large's
-    width, where K7 streams x over d_in."""
+    width."""
     from backpacks_flash_attn_tpu_torch.ops import dense
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     params = {"fc1": {"kernel": r(d, inner) * d ** -0.5, "bias": r(inner) * 0.1},
