@@ -12,9 +12,11 @@ package's:
   operation order as JAX (``wf / scale``), so ``q`` is bit-identical.
 
 On the card every ``QuantWeight`` goes through :func:`quant_matmul` (K2,
-``csrc/quant_matmul.cu``), INT8 per-channel included: PyTorch has no
-int8-weight x bf16-activation product, and dequantizing first would write a
-bf16 copy of every weight to device memory each call.
+``csrc/quant_matmul.cu``), INT8 per-channel included, with the linear's
+bias added in the kernel's epilogue: PyTorch has no int8-weight x
+bf16-activation product, and dequantizing first would write a bf16 copy of
+every weight to device memory each call. :func:`_k2_schedule` picks the
+kernel's tile width and K split for each shape.
 
 The activation quantizers and the int4 pair packing of the low-bit decode
 caches (``quantize_activations_int4``, ``pack_int4_pairs``, ``rmw_nibble``
@@ -24,6 +26,7 @@ caches (``quantize_activations_int4``, ``pack_int4_pairs``, ``rmw_nibble``
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -135,20 +138,74 @@ def dequantize_weight(qw: QuantWeight, dtype=torch.bfloat16) -> torch.Tensor:
 
 # ---------------------------------------------------------------- kernel K2
 
+# BK and kMaxSplits in csrc/quant_matmul.cu: the ring's slice of K rows (a
+# split chunk's unit) and the largest split (one thread-block cluster); its
+# C entry rejects a schedule that breaks either
+_K2_SLICE = 64
+_K2_MAX_SPLITS = 8
+_K2_SMS = 132       # the H100's SMs: the schedule's default without a device
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_schedule(M: int, K: int, N: int, sms: int = _K2_SMS):
+    """K2's launch shape for x (M, K) @ (K, N), N a multiple of 128, on a
+    card of ``sms`` SMs: ``(bn, splits, chunk)``.
+
+    A CTA takes 128 rows (all of them at decode's M = 128, so each weight
+    byte leaves device memory once) and ``bn`` columns: 128 where those
+    tiles alone fill the card (the lm-head, every prefill), else 64, or 32
+    where 64-column slabs cannot make a full wave in 8 chunks. When the tiles
+    number fewer than the card's SMs, K is cut into ``splits`` chunks of
+    ``chunk`` rows (whole 64-row slices; the last chunk may be shorter,
+    down to 32 rows) so that the CTAs make a full wave; a chunk's f32
+    partial goes to a workspace and the chunks of a tile, one cluster, sum
+    it in chunk order. The weight format does not change the shape: the
+    ring's slice is 64 K rows for int8 and INT4 alike."""
+    m_tiles = -(-M // 128)
+    slices = -(-K // _K2_SLICE)
+    if (N // 128) * m_tiles >= sms:
+        return 128, 1, slices * _K2_SLICE
+    for bn in (64, 32):
+        want = -(-sms // (m_tiles * N // bn))
+        per_chunk = max(1, slices // want, -(-slices // _K2_MAX_SPLITS))
+        if m_tiles * (N // bn) * -(-slices // per_chunk) >= sms:
+            break
+    chunk = per_chunk * _K2_SLICE
+    return bn, -(-K // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def quant_matmul_ref(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:
     """Plain version of K2: dequantize to x's dtype, then one product in
     that dtype (f32 accumulation inside the product)."""
     return x @ dequantize_weight(qw, x.dtype)
 
 
-def quant_matmul(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:
-    """x (..., in) @ dequant(qw) -> (..., d_out), dequantization fused into
-    the GEMM (K2). CPU tensors, and every call inside
-    ``_build.plain_path()``, take :func:`quant_matmul_ref`; otherwise a
-    CUDA tensor launches the kernel, which takes bf16 x, int8/int4 weights
-    with (groups, out) f32 scales and emits bf16, or raises."""
+def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The bias in f32 on the rounded product, rounded again (JAX's
+    quant_linear)."""
+    if bias is None:
+        return y
+    return (y.float() + bias.float()).to(y.dtype)
+
+
+def quant_matmul(x: torch.Tensor, qw: QuantWeight,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (..., in) @ dequant(qw) [+ bias] -> (..., d_out), dequantization
+    fused into the GEMM (K2). CPU tensors, and every call inside
+    ``_build.plain_path()``, take :func:`quant_matmul_ref` and add the bias
+    eagerly; otherwise a CUDA tensor launches the kernel, which takes bf16
+    x, int8/int4 weights with (groups, out) f32 scales and an f32 or bf16
+    bias of d_out values, and emits bf16, or raises. The kernel adds the
+    bias in its epilogue exactly as the eager add does (round, add in f32,
+    round). A split schedule (:func:`_k2_schedule`) allocates its f32
+    partials here; the call still counts one launch."""
     if not x.is_cuda or not _build.kernels_enabled():
-        return quant_matmul_ref(x, qw)
+        return _add_bias(quant_matmul_ref(x, qw), bias)
     d_in = x.shape[-1]
     _build.check_cuda_tensor("x", x, (torch.bfloat16,), x.dim())
     _build.check_cuda_tensor("q", qw.q, (torch.int8,), 2)
@@ -165,13 +222,22 @@ def quant_matmul(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:
     if d_in % 32 or n_pad % 128 or d_in % groups or qw.d_out > n_pad:
         raise ValueError(f"quant_matmul kernel needs in % 32 == 0 and a "
                          f"128-padded out, got in={d_in} out={n_pad}")
+    if bias is not None:
+        _build.check_cuda_tensor("bias", bias, (torch.float32, torch.bfloat16), 1)
+        if bias.shape[0] != qw.d_out:
+            raise ValueError(f"bias of {bias.shape[0]} values for d_out={qw.d_out}")
     x2 = x.reshape(-1, d_in).contiguous()
     m = x2.shape[0]
     out = torch.empty((m, qw.d_out), dtype=torch.bfloat16, device=x.device)
     if m:
+        bn, splits, chunk = _k2_schedule(m, d_in, n_pad, _sm_count(x.device.index))
+        ws = (torch.empty((splits, m, n_pad), dtype=torch.float32, device=x.device)
+              if splits > 1 else None)
         P = _build.Ptr.of
         _build.launch(_K2, "quant_matmul_launch", P(x2), P(qw.q), P(qw.scale),
-                      P(out), m, d_in, n_pad, qw.d_out, groups, qw.bits)
+                      P(bias), _build.DTYPE_CODE[bias.dtype] if bias is not None else 0,
+                      P(out), P(ws), m, d_in, n_pad, qw.d_out, groups, qw.bits,
+                      bn, splits, chunk)
     return out.reshape(*x.shape[:-1], qw.d_out)
 
 
@@ -189,12 +255,10 @@ def is_quantized(p) -> bool:
 
 
 def quant_linear(x: torch.Tensor, qp: QuantWeight) -> torch.Tensor:
-    """Quantized analogue of dense.linear: :func:`quant_matmul`, then the
-    bias in f32."""
-    y = quant_matmul(x, qp)
-    if qp.bias is not None:
-        y = (y.float() + qp.bias.float()).to(y.dtype)
-    return y
+    """Quantized analogue of dense.linear: :func:`quant_matmul` with the
+    bias in f32 on the rounded product (in K2's epilogue on the card,
+    eagerly on the plain path)."""
+    return quant_matmul(x, qp, bias=qp.bias)
 
 
 # ---------------------------------------------------------------- activations

@@ -17,7 +17,12 @@ Phases, each printing one JSON line:
             Backpack combine shapes, library = SDPA over the dequantized
             cache; the (m, l) forms of the staged decode, K8-ml at the GPT
             int4 shape and K1-ml at the staged INT8 GPT and Backpack
-            combine shapes, each on out, m and l.
+            combine shapes, each on out, m and l. K2 (the INT8/INT4
+            weight-dequant GEMM) at the decode step's shapes (M 128:
+            768 -> 2304, 768, 3072, 50264; 3072 -> 768; grouped INT4 g128)
+            and the prefill's (M 4096), library torch.matmul on the bf16
+            weight, each launch-gated and also timed by the profiler's
+            device time and by the host's microseconds a call.
 4. serve    backpack-small at full width, random weights from a seeded
             generator, 128 requests with 32-token prompts: batched prefill,
             then 224 greedy tokens (window 128 below position 128, 256
@@ -31,7 +36,8 @@ Phases, each printing one JSON line:
             8 teacher-forced steps of the kernel path against the plain
             path in the same cache configuration under the same 2x rule.
             Device time by kernel from torch.profiler over all 224 steps
-            (bf16, INT8) or the first 32 (kv4, int4).
+            (bf16, INT8) or the first 32 (kv4, int4), K2's device ms a step
+            among it.
 5. engine   serve-engine: ServingEngine over INT8 weights and INT8 caches
             at its defaults (stage 64, windows 128/256/384/512), 128 slots,
             max_seqlen 512, 256 greedy requests (prompts of 16-64 tokens,
@@ -116,7 +122,13 @@ Phases, each printing one JSON line:
             Then (with kernels) K3 at train-8k's sequence, 1 x 8192, h 12,
             causal, dropout 0.1: bound by its flops, SDPA beside; and last
             K7 at gpt3-small's widths over 16384 - 37 tokens (bf16), a
-            partial last token tile.
+            partial last token tile. Last, K2 at ctx_attn.Wqkv's decode
+            shape (768 -> 1536) and at fc1's with a bf16 bias through
+            quant_linear (the bias in K2's epilogue, checked bit-equal to K2
+            followed by the eager f32 add), both launch-gated; then the "K2
+            a decode step" row: the 50 launches' kernel and library event,
+            device and host times and bounds summed (12 x the four layer
+            shapes, ctx_attn, the lm-head).
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -188,6 +200,42 @@ def time_ms(fn, reps=REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=REPS):
+    """Device time of fn's kernels a call from torch.profiler, the L2
+    flushed before each call (the flush's own kernel left out): each
+    kernel at its mean time a launch, times its launches a call (its
+    recorded launches over ``reps``, rounded up; the profiler has left
+    launches out of its record late in a long run). -> (ms, launches
+    recorded a call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush_l2()
+            fn()
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count
+              and "fill" not in ev.key.lower()]
+    us = sum(ev.self_device_time_total / ev.count * -(-ev.count // reps) for ev in events)
+    return us / 1e3, sum(ev.count for ev in events) / reps
+
+
+def host_us(fn, calls=200):
+    """Host microseconds a call: calls back to back, no synchronisation
+    between them (the launch queue absorbs them)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def bound(nbytes, flops, flop_rate=PEAK_BF16_FLOP_PER_S):
@@ -314,22 +362,9 @@ def kernel_cases(gen):
 
     # K2: (128 and 4096) x 768 @ 768 x {2304, 768, 3072, 50304} int8, the
     # fc2 3072 x 768, and one grouped INT4 case
-    shapes = [(768, n, 8, None) for n in (2304, 768, 3072, 50264)] + [(3072, 768, 8, None)]
-    for M in (128, 4096):
-        for K, N, bits, gs in shapes + ([(768, 3072, 4, 128)] if M == 128 else []):
-            w = randn(K, N) * 0.02
-            qw = quant.quantize_weight(w, bits, gs)
-            x = randn(M, K).to(bf)
-            wd = quant.dequantize_weight(qw, bf)
-            nbytes = (x.numel() * 2 + qw.q.numel() + qw.scale.numel() * 4
-                      + M * N * 2)
-            cases.append(("quant_matmul", f"M={M} K={K} N={N} int{bits}"
-                          + (f" g{gs}" if gs else ""), dict(
-                kernel=lambda x=x, qw=qw: quant.quant_matmul(x, qw),
-                plain=lambda x=x, qw=qw: quant.quant_matmul_ref(x, qw),
-                ref=lambda x=x, qw=qw: quant.quant_matmul_ref(x.float(), qw),
-                library=lambda x=x, wd=wd: torch.matmul(x, wd),
-                bytes=nbytes, flops=2 * M * K * N)))
+    for M in (K2_DECODE_M, K2_PREFILL_M):
+        for K, N, bits, gs in K2_SHAPES + ([(768, 3072, 4, 128)] if M == K2_DECODE_M else []):
+            cases.append(k2_case(gen, M, K, N, bits, gs))
 
     # K3: the cached prefill (128, 12, 32 queries over a 512-column cache,
     # seq_lengths = offset + 32) and the (8, 12, 512) causal forward; the
@@ -629,6 +664,77 @@ def ragged_mlp_cases(gen):
     return [_mlp_case(mlp, torch.bfloat16, PEAK_BF16_FLOP_PER_S)]
 
 
+# K2's shapes: backpack-small's INT8 linears (Wqkv, out_proj, fc1, the
+# lm-head at its 50264-wide kernel case, fc2) at decode's M and the
+# prefill's, and the decode step's launches of each (K, N): 12 layers x the
+# four layer shapes, ctx_attn.Wqkv, the lm-head
+K2_DECODE_M, K2_PREFILL_M = 128, 4096
+K2_SHAPES = [(768, n, 8, None) for n in (2304, 768, 3072, 50264)] + [(3072, 768, 8, None)]
+K2_DECODE_STEP = {(768, 2304): 12, (768, 768): 12, (768, 3072): 12, (3072, 768): 12,
+                  (768, 1536): 1, (768, 50264): 1}
+
+
+def k2_case(gen, M, K, N, bits=8, gs=None, bias=False):
+    """One K2 case, launch-gated, with its device and host times: x (M, K)
+    bf16 @ quantize_weight(N(0, 0.02) (K, N)), drawn in that order, library
+    torch.matmul on the dequantized bf16 weight. With ``bias`` (bf16, drawn
+    last) it runs through ``quant_linear``, the bias in K2's epilogue,
+    checked bit-equal to K2 followed by the eager f32 add, library
+    torch.addmm."""
+    from backpacks_flash_attn_tpu_torch.ops import quant
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    bf = torch.bfloat16
+    qw = quant.quantize_weight(randn(K, N) * 0.02, bits, gs)
+    x = randn(M, K).to(bf)
+    wd = quant.dequantize_weight(qw, bf)
+    label = f"M={M} K={K} N={N} int{bits}" + (f" g{gs}" if gs else "")
+    nbytes = x.numel() * 2 + qw.q.numel() + qw.scale.numel() * 4 + M * N * 2
+    run = dict(kernel=lambda: quant.quant_matmul(x, qw),
+               plain=lambda: quant.quant_matmul_ref(x, qw),
+               ref=lambda: quant.quant_matmul_ref(x.float(), qw),
+               library=lambda: torch.matmul(x, wd))
+    if bias:
+        qw.bias = (randn(N) * 0.1).to(bf)
+        label += " bias"
+        nbytes += N * 2
+
+        def check(out):
+            if not torch.equal(out, quant._add_bias(quant.quant_matmul(x, qw), qw.bias)):
+                raise AssertionError("K2's fused bias differs from the eager add")
+        run = dict(kernel=lambda: quant.quant_linear(x, qw),
+                   plain=lambda: quant._add_bias(quant.quant_matmul_ref(x, qw), qw.bias),
+                   ref=lambda: quant._add_bias(quant.quant_matmul_ref(x.float(), qw), qw.bias),
+                   library=lambda: torch.addmm(qw.bias, x, wd), check=check)
+    return ("quant_matmul", label, dict(run, bytes=nbytes, flops=2 * M * K * N,
+                                        gate="quant_matmul", device_times=True))
+
+
+def k2_extra_cases(gen):
+    """K2 at ctx_attn.Wqkv's decode shape (768 -> 1536), and fc1's with a
+    bf16 bias. Drawn after every other phase, so that their random data
+    stay as they were."""
+    return [k2_case(gen, K2_DECODE_M, 768, 1536),
+            k2_case(gen, K2_DECODE_M, 768, 3072, bias=True)]
+
+
+def k2_decode_step(results):
+    """The "K2 a decode step" row: each case's kernel and library
+    (torch.matmul on the bf16 weight) event, device and host times and its
+    bound, summed over the step's 50 launches (the kernels phase's M = 128
+    INT8 per-channel cases, no bias)."""
+    rows = {r["case"]: r for r in results.get("kernels", {}).get("quant_matmul", [])}
+    keys = ("ms", "library_ms", "device_ms", "library_device_ms", "host_us",
+            "library_host_us", "bound_ms")
+    step = {"launches": 0, **{key: 0.0 for key in keys}}
+    for (k, n), count in K2_DECODE_STEP.items():
+        row = rows[f"M={K2_DECODE_M} K={k} N={n} int8"]
+        step["launches"] += count
+        for key in keys:
+            step[key] += count * row[key]
+    results["k2_decode_step"] = step
+    emit({"phase": "kernels", "k2_decode_step": step})
+
+
 def long_flash_cases(gen):
     """K3 at train-8k's per-sequence shape (1 x 8192, h 12, d 64, bf16),
     causal, dropout 0.1, where its flops bound it; library = SDPA with the
@@ -835,6 +941,10 @@ def phase_kernels(cases, results):
                    library_err=lib_err,
                    ms=time_ms(c["kernel"]), plain_ms=time_ms(c["plain"]),
                    library_ms=time_ms(c["library"]))
+        if c.get("device_times"):
+            row["device_ms"], row["device_launches"] = device_ms(c["kernel"])
+            row["library_device_ms"], row["library_device_launches"] = device_ms(c["library"])
+            row.update(host_us=host_us(c["kernel"]), library_host_us=host_us(c["library"]))
         row["bound_ms"], row["bound_by"] = bound(
             c["bytes"], c["flops"], c.get("flop_rate", PEAK_BF16_FLOP_PER_S))
         if launches is not None:
@@ -957,6 +1067,8 @@ def _kernel_profile(fn):
 def _per_step(wall, rows, steps, top=12):
     return dict(steps=steps, wall_ms_per_step_profiled=wall * 1e3 / steps,
                 device_ms_per_step=sum(us for us, _, _ in rows) / 1e3 / steps,
+                k2_device_ms_per_step=sum(us for us, k, _ in rows
+                                          if "quant_matmul" in k) / 1e3 / steps,
                 top=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
                           calls_per_step=c / steps) for us, k, c in rows[:top]])
 
@@ -2262,6 +2374,10 @@ def main():
         with torch.no_grad():
             phase_kernels(ragged_mlp_cases(gen), results["kernels"])
         torch.cuda.empty_cache()
+        log("kernels: K2 at ctx_attn's shape and with a bias; K2 a decode step")
+        with torch.inference_mode():
+            phase_kernels(k2_extra_cases(gen), results["kernels"])
+        k2_decode_step(results)
 
     line = []
     for k in _build.KERNELS.values():

@@ -103,7 +103,7 @@ def test_params_from_numpy_round_trips_quantized_tree(jax_params):
 
 def test_port_imports_no_jax():
     """Statically: no import of jax or of the JAX package in the port,
-    chip_smoke.py or chip_gate_sweep.py. Dynamically: with both blocked,
+    chip_smoke.py, chip_gate_sweep.py or bench_quant_matmul.py. Dynamically: with both blocked,
     the port imports and runs a tiny CPU forward, a cached decode step, a
     decode step over the low-bit (4, None) caches, the quant-gates module,
     a training step, the serving engine over a staged cache (its C++
@@ -112,7 +112,7 @@ def test_port_imports_no_jax():
     pattern = re.compile(r"^\s*(import|from) +(jax|backpacks_flash_attn_tpu)\b",
                          re.M)
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py",
-                 REPO / "chip_gate_sweep.py"]:
+                 REPO / "chip_gate_sweep.py", REPO / "bench_quant_matmul.py"]:
         assert not pattern.search(path.read_text()), path
     code = """
 import sys

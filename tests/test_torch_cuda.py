@@ -78,20 +78,74 @@ def test_decode_attention_kernel(gen, qdt, kvdt, E, S, dv):
             _within_2x(out, da.decode_attention_ref(q, kt, ks, v, vs, length), ref)
 
 
-@pytest.mark.parametrize("bits,gs,M,K,N", [(8, None, 70, 64, 200),
-                                           (4, None, 5, 96, 256),
-                                           (8, 32, 3, 64, 130),
-                                           (4, 32, 65, 64, 100)])
+@pytest.mark.parametrize("bits,gs,M,K,N", [
+    (8, None, 70, 64, 200),
+    (4, None, 5, 96, 256),
+    (8, 32, 3, 64, 130),
+    (4, 32, 65, 64, 100),
+    # the decode step's shapes at M = 128: Wqkv, out_proj, fc1, fc2,
+    # ctx_attn.Wqkv (split K) and the lm-head (odd d_out, 128-column tiles)
+    (8, None, 128, 768, 2304),
+    (8, None, 128, 768, 768),
+    (8, None, 128, 768, 3072),
+    (8, None, 128, 3072, 768),
+    (8, None, 128, 768, 1536),
+    (8, None, 128, 768, 50257),
+    # M off the 128-row tile, and the prefill's (no split, 128 x 128 tiles)
+    (8, None, 1, 768, 768),
+    (8, None, 127, 768, 768),
+    (8, None, 129, 768, 768),
+    (8, None, 4096, 768, 768),
+    # grouped scales: INT4 g128 (split K) and INT8 g64
+    (4, 128, 128, 3072, 768),
+    (8, 64, 128, 768, 2304),
+    # 128-column tiles: grouped INT4, and K = 96 (a partial slice)
+    (4, 128, 256, 768, 33000),
+    (8, None, 3, 96, 17000),
+])
 def test_quant_matmul_kernel(gen, bits, gs, M, K, N):
     w = torch.randn(K, N, generator=gen, device="cuda") * 0.05
     qw = quant.quantize_weight(w, bits, gs)
     x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    before = _build.KERNELS["quant_matmul"].launches
     out = quant.quant_matmul(x, qw)
+    assert _build.KERNELS["quant_matmul"].launches == before + 1
     assert out.shape == (M, N) and out.dtype == torch.bfloat16
     _within_2x(out, quant.quant_matmul_ref(x, qw),
                quant.quant_matmul_ref(x.float(), qw))
     with pytest.raises(ValueError):
         quant.quant_matmul(x.float(), qw)        # the kernel takes bf16 only
+
+
+@pytest.mark.parametrize("bits,gs,K,N", [(8, None, 3072, 768), (4, 128, 768, 2304)])
+def test_quant_matmul_is_deterministic(gen, bits, gs, K, N):
+    """Split K sums its chunks' partials in a fixed order: two calls give
+    the same bits."""
+    assert quant._k2_schedule(128, K, quant._round_up(N, 128), quant._sm_count(0))[1] > 1
+    qw = quant.quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * 0.05,
+                               bits, gs)
+    x = torch.randn(128, K, generator=gen, device="cuda").to(torch.bfloat16)
+    assert torch.equal(quant.quant_matmul(x, qw), quant.quant_matmul(x, qw))
+
+
+@pytest.mark.parametrize("bias_dtype,M,K,N,gs", [
+    (torch.bfloat16, 128, 768, 2304, None),     # split K
+    (torch.float32, 128, 3072, 768, None),
+    (torch.bfloat16, 128, 768, 50257, None),    # no split, odd d_out
+    (torch.float32, 7, 96, 200, 32),            # grouped, a partial chunk
+])
+def test_quant_linear_fused_bias_bit_equal(gen, bias_dtype, M, K, N, gs):
+    """quant_linear on the card adds the bias in K2's epilogue: bit-equal to
+    quant_matmul followed by the eager f32 add."""
+    qw = quant.quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * 0.05,
+                               8, gs)
+    qw.bias = (torch.randn(N, generator=gen, device="cuda") * 0.5).to(bias_dtype)
+    x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    before = _build.KERNELS["quant_matmul"].launches
+    fused = quant.quant_linear(x, qw)
+    assert _build.KERNELS["quant_matmul"].launches == before + 1
+    eager = (quant.quant_matmul(x, qw).float() + qw.bias.float()).to(torch.bfloat16)
+    assert torch.equal(fused, eager)
 
 
 @pytest.mark.parametrize("dt,b,sq,sk,lens,offs,causal,layout", [
