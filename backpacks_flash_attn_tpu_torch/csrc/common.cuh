@@ -88,6 +88,37 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem)
                : "r"(s));
 }
 
+// 2^x in one MUFU instruction (exp2f adds a range reduction); meant for
+// x <= 0: a result below 2^-126 flushes to 0, and 2^-inf is 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rows [r0, r0 + ROWS) of a row-strided (?, W) bf16 matrix into dst
+// (leading dimension LDS), 16 bytes a cp.async: thread i copies chunk
+// i % (W / 8) of rows i / (W / 8), i / (W / 8) + kThreads / (W / 8), ...;
+// rows at or past `valid` are zero-filled without a read
+template <int ROWS, int kThreads, int W = 64, int LDS = W + 8>
+__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                long long st, int r0, int valid) {
+  constexpr int kStep = kThreads / (W / 8);
+  static_assert(ROWS % kStep == 0, "whole rows a pass");
+  const int r = threadIdx.x / (W / 8), c = (threadIdx.x % (W / 8)) * 8;
+  dst += r * LDS + c;
+  src += (r0 + r) * st + c;
+#pragma unroll 4
+  for (int rr = r0 + r; rr < r0 + ROWS; rr += kStep) {
+    if (rr < valid)
+      cp_async16(dst, src);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    dst += kStep * LDS;
+    src += kStep * st;
+  }
+}
+
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -270,6 +301,20 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   v = warp_sum(v);
   __syncthreads();
   return v;
+}
+
+// the dynamic shared memory of kernel Kern, set once per device (the
+// attribute is per device; setting it on every launch costs host time)
+template <auto Kern>
+cudaError_t allow_smem(size_t smem) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
 }
 
 extern "C" const char* kernel_error_string(int code) {

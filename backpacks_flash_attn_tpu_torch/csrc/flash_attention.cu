@@ -73,29 +73,6 @@ constexpr int LD = D + 8;    // 144-byte smem rows: 16-byte aligned, ldmatrix co
 constexpr int kStages = 2;   // K/V tiles in the cp.async ring
 constexpr float kLn2 = 0.6931471805599453f;
 
-// rows [r0, r0 + ROWS) of a row-strided (?, D) bf16 matrix into dst
-// (leading dimension LD), 16 bytes a cp.async: thread i copies chunk i % 8
-// of rows i / 8, i / 8 + kThreads / 8, ...; rows at or past `valid` are
-// zero-filled without a read
-template <int ROWS, int kThreads>
-__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src, long long st, int r0,
-                                                int valid) {
-  constexpr int kStep = kThreads / (D / 8);
-  static_assert(ROWS % kStep == 0, "whole rows a pass");
-  const int r = threadIdx.x / (D / 8), c = (threadIdx.x % (D / 8)) * 8;
-  dst += r * LD + c;
-  src += (r0 + r) * st + c;
-#pragma unroll 4
-  for (int rr = r0 + r; rr < r0 + ROWS; rr += kStep) {
-    if (rr < valid)
-      cp_async16(dst, src);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    dst += kStep * LD;
-    src += kStep * st;
-  }
-}
-
 struct MmaArgs {
   const bf16 *q, *k, *v;
   bf16* out;
@@ -106,14 +83,6 @@ struct MmaArgs {
   float scale_log2;  // softmax scale * log2(e), > 0
   DropoutParams drop;
 };
-
-// 2^x in one MUFU instruction (exp2f adds a range reduction); x <= 0 here,
-// and a result below 2^-126 flushes to 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // max of the NF pairs (nf, e) a lane holds for one row (accumulator half
 // `half`), as a tree
@@ -346,20 +315,6 @@ __global__ void __launch_bounds__(32 * WARPS, 16 / (WARPS * MT))
         a.lse[(static_cast<long long>(b) * a.H + h) * a.sq + row] =
             lv == 0.f ? FLASH_NEG_INF : (w.m[mt][half] + log2f(lv)) * kLn2;
     }
-}
-
-// the dynamic shared memory of kernel Kern, set once per device (the
-// attribute is per device; setting it on every launch costs host time)
-template <auto Kern>
-cudaError_t allow_smem(size_t smem) {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err == cudaSuccess && dev < 64) done[dev] = true;
-  return err;
 }
 
 template <int WARPS, int MT, bool DROP>

@@ -413,20 +413,6 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, Epi<fl
   }
 }
 
-// the dynamic shared memory of kernel Kern, set once per device (the
-// attribute is per device; setting it on every launch costs host time)
-template <auto Kern>
-cudaError_t allow_smem(size_t smem) {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err == cudaSuccess && dev < 64) done[dev] = true;
-  return err;
-}
-
 template <bool FC1>
 cudaError_t gemm_f32(const float* A, const float* B, const Epi<float>& e, int K, cudaStream_t st) {
   const unsigned blocks = ((e.M + FBM - 1) / FBM) * (e.N / FBN);

@@ -167,17 +167,27 @@ def load(kernel: Kernel) -> ctypes.CDLL:
 
 
 def launch(kernel: Kernel, symbol: str, *args) -> None:
-    """Call the C entry ``symbol`` of ``kernel`` on the current stream (the
-    stream is appended as the last argument); raise on a non-zero
-    ``cudaGetLastError()``; count the launch."""
+    """Call the C entry ``symbol`` of ``kernel`` on the device of its first
+    tensor operand (a ``Ptr`` made from a CUDA tensor) and that device's
+    current stream (appended as the last argument); raise on a non-zero
+    ``cudaGetLastError()``; count the launch. The C entries launch on the
+    current CUDA device, so a device guard is entered when the operands lie
+    on another one."""
     lib = load(kernel)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = [_ctype(a) for a in args] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    current = torch.cuda.current_device()
+    dev = next((a.device for a in args
+                if isinstance(a, Ptr) and a.device is not None), current)
     # the raw stream query: a few microseconds cheaper a launch than
     # building a torch.cuda.Stream
-    rc = fn(*args, torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
+    if dev == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{kernel.name}: CUDA error {rc} ({msg})")
@@ -195,11 +205,17 @@ def _ctype(arg):
 
 
 class Ptr(ctypes.c_void_p):
-    """A device pointer argument (``Ptr.of(tensor)``; None -> NULL)."""
+    """A device pointer argument (``Ptr.of(tensor)``; None -> NULL) and the
+    index of the CUDA device it lies on (None: no tensor, or not CUDA)."""
+    device: Optional[int] = None
 
     @classmethod
     def of(cls, t: Optional[torch.Tensor]) -> "Ptr":
-        return cls(None if t is None else t.data_ptr())
+        if t is None:
+            return cls(None)
+        p = cls(t.data_ptr())
+        p.device = t.device.index
+        return p
 
 
 def reset_launches() -> None:

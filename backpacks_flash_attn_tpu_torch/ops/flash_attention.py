@@ -18,8 +18,8 @@ the softmax before dropout (JAX :250-259).
 The differentiable entry (no ``seq_lengths``/``q_offsets``, as in JAX)
 saves ``(q, k, v, out, lse)`` and the seed; its backward is K5 on the card
 and :func:`flash_attention_bwd_ref` on the CPU. The ragged/offset entry is
-inference only. An additive bias waits for the BERT/ViT item of the
-ROADMAP.
+inference only. An additive score bias (and K5's ``dbias``) waits for
+ROADMAP Queue 2 item 3.
 
 Block-sparse attention (kernel K9) is :func:`flash_blocksparse_attention`
 (JAX :1415): the same online softmax over only the (block_q, block_k) tiles
@@ -241,10 +241,19 @@ def _flash_fwd_kernel(q, k, v, *, causal, scale, seq_lengths, q_offsets,
     return out, lse
 
 
+def _k5_key_tile(s: int) -> int:
+    """Keys a CTA of K5's bf16 kernel takes: 128 (8 warps, half the dq
+    atomics a query row receives) up to s 1024, 64 (4 warps, two CTAs an
+    SM) past it; on the H100 each was the faster at 512 and at 8192
+    (``bench_flash_bwd.py --key-tiles 64,128``)."""
+    return 128 if s <= 1024 else 64
+
+
 def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
                       dropout_p, seed):
     """K5 (``csrc/flash_attention_bwd.cu``): bf16 on tensor cores (rows
-    16-byte aligned, else copied contiguous first) or f32 SIMT; d = 64,
+    16-byte aligned, else copied contiguous first; dq summed in an f32
+    workspace, so its last bits vary between runs) or f32 SIMT; d = 64,
     sq == sk, no lengths or offsets. -> (dq, dk, dv), contiguous."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -265,14 +274,18 @@ def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # bf16: the f32 dq accumulator, then the LSE and delta tables padded to
+    # whole 64-query tiles; f32: delta
+    ws_len = (b * sq * h * d + 2 * b * h * _round_up(sq, 64)
+              if q.dtype == torch.bfloat16 else b * h * sq)
+    ws = torch.empty(ws_len, dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
     strides = [s for t in (q, k, v, out, dout) for s in t.stride()[:3]]
     _build.launch(
         _K5, "flash_attention_bwd_launch", P(q), P(k), P(v), P(out),
-        P(dout), P(lse), P(delta), P(dq), P(dk), P(dv), b, h, sq, *strides,
+        P(dout), P(lse), P(ws), P(dq), P(dk), P(dv), b, h, sq, *strides,
         float(softmax_scale), int(causal), *_dropout_args(dropout_p, seed),
-        _build.DTYPE_CODE[q.dtype])
+        _k5_key_tile(sq), _build.DTYPE_CODE[q.dtype])
     return dq, dk, dv
 
 
@@ -339,8 +352,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 or f32 as the forward).
     dropout_rng: a key of ``utils.prng`` (required when dropout_p > 0)."""
     if attn_bias is not None:
-        raise NotImplementedError("attn_bias comes with BERT/ViT (ROADMAP "
-                                  "Queue 1 item 7)")
+        raise NotImplementedError("attn_bias (a score bias in K3, dbias in "
+                                  "K5) comes with ROADMAP Queue 2 item 3")
     seed = (0, 0)
     if dropout_p > 0.0:
         if dropout_rng is None:

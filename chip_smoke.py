@@ -128,7 +128,11 @@ Phases, each printing one JSON line:
             followed by the eager f32 add), both launch-gated; then the "K2
             a decode step" row: the 50 launches' kernel and library event,
             device and host times and bounds summed (12 x the four layer
-            shapes, ctx_attn, the lm-head).
+            shapes, ctx_attn, the lm-head). Last, K5 at train-8k's shape
+            (2 x 8192, h 12, causal, dropout 0.1; its plain versions four
+            heads at a time), bound by its flops, SDPA's backward beside;
+            it and the training-shape K5 case are launch-gated, with
+            device and host times.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -497,6 +501,83 @@ def ml_kernel_cases(gen):
     return cases
 
 
+def plain_attention_by_heads(q, k, v, *, scale, p, seed, heads, grads_of=None):
+    """flash_attention_ref (causal, dropout p; grads_of None: -> (out, lse))
+    or flash_attention_bwd_ref (grads_of = (out, lse, dout): -> (dq, dk,
+    dv)) computed over chunks of ``heads`` heads, each with the masks of its
+    absolute positions (bh = b * H + h): the same function element for
+    element, in pieces whose (s, s) score tensors fit the card at s 8192."""
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+    b, s, h, _ = q.shape
+    mask = fa._valid_mask(1, s, s, True, None, None, q.device)
+    pos = torch.arange(s, device=q.device)
+    rows = []
+    for bi in range(b):
+        chunks = []
+        for h0 in range(0, h, heads):
+            hs = slice(h0, min(h, h0 + heads))
+            bh = (bi * h + torch.arange(h0, hs.stop, device=q.device))[None, :, None, None]
+            keep = fa.dropout_keep_positions(seed, bh, pos[:, None], pos[None, :], p)
+            part = lambda t: t[bi:bi + 1, :, hs]
+            if grads_of is None:
+                chunks.append(fa._attend_ref(part(q), part(k), part(v), mask, scale, keep, p))
+            else:
+                out, lse, dout = grads_of
+                chunks.append(fa._attend_bwd_ref(
+                    part(q), part(k), part(v), part(out), lse[bi:bi + 1, hs], part(dout),
+                    mask, scale, keep, p))
+            del keep
+        # (1, s, hc, d) tensors join along heads (dim 2), an lse (1, hc, s) on dim 1
+        rows.append([torch.cat(parts, dim=2 if parts[0].dim() == 4 else 1)
+                     for parts in zip(*chunks)])
+    return tuple(torch.cat(parts, dim=0) for parts in zip(*rows))
+
+
+def k5_case(label, q, k, v, dout, seed, p, scale, heads=None):
+    """K5 against its plain version (causal, dropout p), each backward from
+    its own path's forward as in training (K3's for K5: the plain bf16
+    forward rounds its scores to bf16, so its LSE lies off the f32 scores K5
+    recomputes, and P with it); launch-gated, with device and host times;
+    library = SDPA's autograd backward (its own dropout mask, so its error
+    is not reported), timed on a graph built once. ``heads``: compute the
+    plain versions a few heads at a time (plain_attention_by_heads). Draws
+    no random numbers. Made outside inference mode."""
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = q.shape
+    kw = dict(causal=True, softmax_scale=scale, dropout_p=p, seed=seed)
+    q32, k32, v32, d32 = (t.float() for t in (q, k, v, dout))
+    k3out, k3lse = fa._flash_fwd_kernel(q, k, v, scale=scale, seq_lengths=None,
+                                        q_offsets=None, causal=True,
+                                        dropout_p=p, seed=seed)
+    if heads is None:
+        fwd = lambda *t: fa.flash_attention_ref(*t, return_lse=True, **kw)
+        bwd = lambda *t: fa.flash_attention_bwd_ref(*t, **kw)
+    else:
+        hk = dict(scale=scale, p=p, seed=seed, heads=heads)
+        fwd = lambda *t: plain_attention_by_heads(*t, **hk)
+        bwd = lambda q_, k_, v_, o_, l_, g_: plain_attention_by_heads(
+            q_, k_, v_, grads_of=(o_, l_, g_), **hk)
+    out, lse = fwd(q, k, v)
+    out32, lse32 = fwd(q32, k32, v32)
+    with torch.enable_grad():
+        lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                              scale=scale, dropout_p=p)
+    ldo = dout.transpose(1, 2)
+    pairs = b * h * s * (s + 1) // 2
+    tensor = b * s * h * d * 2                           # one bf16 (b, s, h, d)
+    return ("flash_attention_bwd", label, dict(
+        kernel=lambda: fa.flash_attention_bwd(q, k, v, k3out, k3lse, dout, **kw),
+        plain=lambda: bwd(q, k, v, out, lse, dout),
+        ref=lambda: bwd(q32, k32, v32, out32, lse32, d32),
+        library=lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True),
+        # read q, k, v, out, dO and lse once, write dq, dk, dv; the five
+        # causal products (S recomputed, dP, dV, dQ, dK)
+        bytes=8 * tensor + b * h * s * 4, flops=10 * pairs * d,
+        gate="flash_attention_bwd", device_times=True))
+
+
 def train_kernel_cases(gen):
     """K3 with dropout, K4, K5 and K6 at the training shapes (batch 32 x
     512, backpack-small; q and k strided views, as the model makes them).
@@ -531,29 +612,7 @@ def train_kernel_cases(gen):
             qT, kT, vT, is_causal=True, scale=scale, dropout_p=p).transpose(1, 2),
         bytes=4 * tensor + b * h * s * 4, flops=4 * pairs * d)))
 
-    # each backward takes the LSE of its own path's forward, as in training
-    # (K3's for K5): the plain bf16 forward rounds its scores to bf16, so
-    # its LSE lies off the f32 scores K5 recomputes, and P with it
-    k3out, k3lse = fa._flash_fwd_kernel(q, k, v, scale=scale, seq_lengths=None,
-                                        q_offsets=None, causal=True,
-                                        dropout_p=p, seed=seed)
-    out, lse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
-    out32, lse32 = fa.flash_attention_ref(q32, k32, v32, return_lse=True, **kw)
-    with torch.enable_grad():
-        lq, lk, lv = (t.detach().requires_grad_() for t in (qT, kT, vT))
-        lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
-                                              scale=scale, dropout_p=p)
-    ldo = dout.transpose(1, 2)
-    cases.append(("flash_attention_bwd", f"train b={b} h={h} s={s} p={p}", dict(
-        kernel=lambda: fa.flash_attention_bwd(q, k, v, k3out, k3lse, dout, **kw),
-        plain=lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw),
-        ref=lambda: fa.flash_attention_bwd_ref(q32, k32, v32, out32, lse32,
-                                               dout.float(), **kw),
-        library=lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo,
-                                            retain_graph=True),
-        # read q, k, v, out, dO and lse once, write dq, dk, dv; the five
-        # causal products (S recomputed, dP, dV, dQ, dK)
-        bytes=8 * tensor + b * h * s * 4, flops=10 * pairs * d)))
+    cases.append(k5_case(f"train b={b} h={h} s={s} p={p}", q, k, v, dout, seed, p, scale))
 
     nv, dnv, dd = 16, 48, 768
     qk = randn(b, s, 2, nv, dnv).to(bf)
@@ -854,6 +913,18 @@ def longctx_kernel_cases(gen):
         library=bwd["library"], bytes=6 * tensor + 2 * b * h * s * 4,
         flops=8 * pairs * dh)))
     return cases
+
+
+def long_flash_bwd_cases(gen):
+    """K5 at train-8k's shape (2 x 8192, h 12, d 64, bf16), causal, dropout
+    0.1, where its flops bound it (0.52 ms); library = SDPA's backward. The
+    plain versions run four heads at a time. Drawn after every other
+    phase's data, so that their inputs stay as they were."""
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    b, s, h, d, p = LONG_BATCH, LONG_LEN, LONG_H, LONG_D, 0.1
+    q, k, v, dout = (randn(b, s, h, d).to(torch.bfloat16) for _ in range(4))
+    return [k5_case(f"train8k b={b} h={h} s={s} p={p}", q, k, v, dout,
+                    (0x2468ACE, 0x13579BDF), p, d ** -0.5, heads=4)]
 
 
 # the case whose numbers stand for each kernel in the {"kernels"} line: the
@@ -2378,6 +2449,11 @@ def main():
         with torch.inference_mode():
             phase_kernels(k2_extra_cases(gen), results["kernels"])
         k2_decode_step(results)
+        log("kernels: K5 at train-8k's shape")
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            phase_kernels(long_flash_bwd_cases(gen), results["kernels"])
+        torch.cuda.empty_cache()
 
     line = []
     for k in _build.KERNELS.values():

@@ -274,6 +274,56 @@ def test_plain_path_switch_is_scoped():
     assert _build.kernels_enabled()
 
 
+def test_launch_runs_on_the_tensors_device(monkeypatch):
+    """A kernel launch whose operands lie on a device other than the
+    current one enters that device's guard and takes that device's stream;
+    operands on the current device (or none) take no guard. The CUDA
+    queries are stubbed: only the index the launch path picks is checked."""
+    import contextlib
+    import types
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda i: calls.append(("stream", i)) or 1000 + i,
+                        raising=False)
+
+    @contextlib.contextmanager
+    def guard(i):
+        calls.append(("enter", i))
+        yield
+        calls.append(("exit", i))
+
+    monkeypatch.setattr(torch.cuda, "device", guard)
+
+    class Entry:
+        argtypes = None
+
+        def __call__(self, *args):
+            calls.append(("launch", args[-1]))
+            return 0
+
+    lib = types.SimpleNamespace(entry=Entry(), kernel_error_string=None)
+    kernel = _build.Kernel("stub", "stub.cu", "", lib=lib)
+
+    def tensor(index):
+        return types.SimpleNamespace(data_ptr=lambda: 4096,
+                                     device=torch.device("cuda", index))
+
+    for index, want in ((1, [("enter", 1), ("stream", 1), ("launch", 1001),
+                             ("exit", 1)]),
+                        (0, [("stream", 0), ("launch", 1000)])):
+        calls.clear()
+        _build.launch(kernel, "entry", _build.Ptr.of(None),
+                      _build.Ptr.of(tensor(index)), 3, 0.5)
+        assert calls == want, (index, calls)
+    calls.clear()
+    _build.launch(kernel, "entry", 3)
+    assert calls == [("stream", 0), ("launch", 1000)]
+    assert kernel.launches == 3
+    assert _build.Ptr.of(torch.zeros(2)).device is None     # a CPU tensor
+
+
 def test_backpack_module_matches_functions(jax_params):
     cfg = tcfg.backpack_test()
     params = params_from_numpy(jax.tree.map(np.asarray, jax_params),

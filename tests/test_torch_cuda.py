@@ -248,17 +248,41 @@ def _f32_close(out, ref):
     assert _err(out, ref) <= F32_ATOL * max(1.0, ref.abs().max().item())
 
 
-@pytest.mark.parametrize("dt,b,s,h,causal,dropout_p", [
-    (torch.bfloat16, 2, 70, 3, True, 0.0),
-    (torch.bfloat16, 2, 130, 2, True, 0.1),
-    (torch.bfloat16, 1, 96, 3, False, 0.2),
-    (torch.bfloat16, 2, 512, 4, True, 0.1),      # the training shape's rows
-    (torch.float32, 2, 70, 3, True, 0.0),
-    (torch.float32, 2, 130, 2, True, 0.1),
-    (torch.float32, 1, 45, 3, False, 0.2),
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dt,b,s,h,causal,dropout_p,key_tile,layout", [
+    (BF16, 2, 70, 3, True, 0.0, None, "packed"),
+    (BF16, 2, 130, 2, True, 0.1, None, "packed"),
+    (BF16, 1, 96, 3, False, 0.2, None, "packed"),
+    (BF16, 2, 512, 4, True, 0.1, None, "packed"),   # the training shape's rows
+    # s off both key-tile widths, causal and not, at each width
+    (BF16, 2, 70, 3, False, 0.1, 64, "packed"),
+    (BF16, 2, 130, 2, True, 0.0, 64, "packed"),
+    (BF16, 1, 200, 2, False, 0.1, 64, "packed"),
+    (BF16, 2, 70, 3, True, 0.1, 128, "packed"),
+    (BF16, 1, 130, 2, False, 0.0, 128, "packed"),
+    (BF16, 1, 200, 2, True, 0.1, 128, "packed"),
+    # heads-major views: (b, h, s, 3, 64) storage, read in place
+    (BF16, 2, 200, 2, True, 0.1, 64, "bhsd"),
+    (BF16, 1, 130, 3, False, 0.2, 128, "bhsd"),
+    (BF16, 1, 8192, 2, True, 0.1, None, "packed"),  # train-8k's sequence
+    (F32, 2, 70, 3, True, 0.0, None, "packed"),
+    (F32, 2, 130, 2, True, 0.1, None, "packed"),
+    (F32, 1, 45, 3, False, 0.2, None, "packed"),
 ])
-def test_flash_attention_bwd_kernel(gen, dt, b, s, h, causal, dropout_p):
-    qkv = torch.randn(b, s, 3, h, 64, generator=gen, device="cuda")
+def test_flash_attention_bwd_kernel(gen, monkeypatch, dt, b, s, h, causal,
+                                    dropout_p, key_tile, layout):
+    """K5 against its plain version; q, k and v are strided views of one
+    packed tensor. key_tile forces the bf16 kernel's key-tile width (None:
+    the wrapper's choice)."""
+    if key_tile is not None:
+        monkeypatch.setattr(fa, "_k5_key_tile", lambda s: key_tile)
+    if layout == "packed":
+        qkv = torch.randn(b, s, 3, h, 64, generator=gen, device="cuda")
+    else:
+        qkv = torch.randn(b, h, s, 3, 64, generator=gen,
+                          device="cuda").permute(0, 2, 3, 1, 4)
     dout = torch.randn(b, s, h, 64, generator=gen, device="cuda")
     seed = (12345, 678)
     kw = dict(causal=causal, softmax_scale=0.125, dropout_p=dropout_p,
@@ -277,21 +301,47 @@ def test_flash_attention_bwd_kernel(gen, dt, b, s, h, causal, dropout_p):
             out, lse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
         return bwd(q, k, v, out, lse, go, **kw)
 
+    x = qkv.to(dt)
+    assert x.stride() == qkv.stride()       # the layout reaches the kernel
     before = _build.KERNELS["flash_attention_bwd"].launches
-    kernel = grads(qkv.to(dt), dout.to(dt), fa.flash_attention_bwd,
-                   fwd_kernel=True)
+    kernel = grads(x, dout.to(dt), fa.flash_attention_bwd, fwd_kernel=True)
     assert _build.KERNELS["flash_attention_bwd"].launches == before + 1
-    ref = grads(qkv.to(dt).float(), dout.to(dt).float(),
-                fa.flash_attention_bwd_ref)
+    ref = grads(x.float(), dout.to(dt).float(), fa.flash_attention_bwd_ref)
     if dt == torch.float32:
         for name, a, r in zip(("dq", "dk", "dv"), kernel, ref):
             assert a.is_contiguous(), name
             _f32_close(a, r)
         return
-    plain = grads(qkv.to(dt), dout.to(dt), fa.flash_attention_bwd_ref)
+    plain = grads(x, dout.to(dt), fa.flash_attention_bwd_ref)
     for name, a, p, r in zip(("dq", "dk", "dv"), kernel, plain, ref):
         assert a.dtype == dt and a.is_contiguous(), name
         _within_2x(a, p, r)
+
+
+def test_flash_attention_bwd_kernel_run_to_run(gen, monkeypatch):
+    """K5 twice on the same inputs, at each key-tile width: dk and dv are
+    bit-equal (each CTA owns its keys' rows), dq, whose f32 partials land
+    in an order that varies between runs, holds the 2x rule in each run."""
+    b, s, h = 2, 1000, 4
+    kw = dict(causal=True, softmax_scale=0.125, dropout_p=0.1, seed=(7, 9))
+    q, k, v, dout = (torch.randn(b, s, h, 64, generator=gen, device="cuda")
+                     for _ in range(4))
+    out32, lse32 = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    ref = fa.flash_attention_bwd_ref(q, k, v, out32, lse32, dout, **kw)
+    qb, kb, vb, db = (t.to(BF16) for t in (q, k, v, dout))
+    pout, plse = fa.flash_attention_ref(qb, kb, vb, return_lse=True, **kw)
+    plain = fa.flash_attention_bwd_ref(qb, kb, vb, pout, plse, db, **kw)
+    out, lse = fa._flash_fwd_kernel(qb, kb, vb, scale=0.125, seq_lengths=None,
+                                    q_offsets=None, causal=True,
+                                    dropout_p=0.1, seed=(7, 9))
+    for key_tile in (64, 128):
+        monkeypatch.setattr(fa, "_k5_key_tile", lambda s: key_tile)
+        first, second = (fa.flash_attention_bwd(qb, kb, vb, out, lse, db, **kw)
+                         for _ in range(2))
+        assert torch.equal(first[1], second[1]), key_tile     # dk
+        assert torch.equal(first[2], second[2]), key_tile     # dv
+        for run in (first, second):
+            _within_2x(run[0], plain[0], ref[0])
 
 
 @pytest.mark.parametrize("dt,expanded,dropout_p,s", [
