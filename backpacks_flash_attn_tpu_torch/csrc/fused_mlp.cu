@@ -33,9 +33,7 @@
 // 16-byte row chunks, the activation applied chunk by chunk. f32: 128 x 128
 // tiles of 256 threads, 8 x 8 outputs a thread, K in steps of 8 through
 // double-buffered shared memory, every product in f32 (no TF32).
-#include <cuda.h>  // CUtensorMap and its enums only; the encoder comes through the runtime
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -104,54 +102,6 @@ struct WTile {
   static_assert(kConsumers * 64 * (BN + 8) * 2 <= kWStages * kStage, "staging");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// the box at (column c0, row c1) of a tensor map into shared memory,
-// completing on barrier bar
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (stored in 16-byte units)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
 // d (64 x N, f32, the warpgroup's accumulator fragments) = A (64 x 16,
 // K-major) * B (16 x N, N-major: the transpose bit set), plus d if acc
 template <int N>
@@ -211,10 +161,6 @@ __device__ __forceinline__ void wgmma_bf16<256>(float* d, uint64_t da, uint64_t 
       : "l"(da), "l"(db), "r"(acc));
 }
 
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // The epilogue of a warpgroup's 64 x BN accumulator tile at (m0, n0): bias
 // in f32 and rounding into shared memory (`staged`, 64 rows of BN + 8),
 // then whole rows out in 16-byte chunks, rows past M skipped; for FC1 each
@@ -256,14 +202,6 @@ __device__ __forceinline__ void epilogue_staged(const float (&acc)[BN / 2], cons
       *reinterpret_cast<uint4*>(e.out1 + off) = a;
     }
   }
-}
-
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous products
-template <int NR>
-__device__ __forceinline__ void fence_acc(float (&acc)[NR]) {
-#pragma unroll
-  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(acc[i])::"memory");
 }
 
 // C (M, N) = A (M, K) @ B (K, N) through the epilogue; A and B row-major
@@ -418,29 +356,6 @@ cudaError_t gemm_f32(const float* A, const float* B, const Epi<float>& e, int K,
   const unsigned blocks = ((e.M + FBM - 1) / FBM) * (e.N / FBN);
   gemm_f32_kernel<FC1><<<blocks, kFThreads, 0, st>>>(A, B, e, K);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
-// against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // a row-major (rows, cols) bf16 matrix in boxes of box_rows x 64 columns

@@ -3,7 +3,7 @@
 Every kernel lives in a ``csrc/*.cu`` source with a plain C entry point.
 Each source is compiled once with ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/`` at the root of the checkout (a directory
-``.gitignore`` lists) on first CUDA use, rebuilt whenever it or the shared
+``.gitignore`` lists) on first CUDA use, rebuilt whenever it or a shared
 header changes, and loaded with ``ctypes``; kernels that share a source
 share its library and count their launches apart. Nothing here runs at
 import time: the CPU tests import every module on machines with no
@@ -23,6 +23,7 @@ import contextlib
 import contextvars
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -55,7 +56,7 @@ class Kernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256()
-        for part in (CSRC / "common.cuh", CSRC / self.source):
+        for part in (*sorted(CSRC.glob("*.cuh")), CSRC / self.source):
             h.update(part.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{Path(self.source).stem}_{h.hexdigest()[:16]}.so"
@@ -251,6 +252,13 @@ def plain_path() -> Iterator[None]:
 
 
 # ------------------------------------------------------------ devices
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The streaming multiprocessors of a CUDA device (the launch shapes of
+    K2 and K4 are sized to fill them)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
 
 def resolve_device(device) -> torch.device:
     """The device an entry point allocates on. CUDA is the default of every

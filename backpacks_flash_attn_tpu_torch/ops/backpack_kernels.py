@@ -78,24 +78,42 @@ def _check(q, k, content, dtypes):
                          f"got {dnv}")
 
 
+def _k4_rows(b: int, s: int, d: int, sms: int = 132) -> int:
+    """Query rows of each tile of K4's bf16 kernel on a card of ``sms`` SMs.
+
+    A block owns two tiles (i and n - 1 - i, so every block does the same
+    products) and 192 columns of d. At 64 rows a block reads each content
+    tile once, for both its tiles at a time where both see it; at 128 rows
+    each read serves 128 rows of one tile, with half the blocks. 128 is
+    taken where its blocks alone fill the card (the training's 32 x 512),
+    else 64 (the forward's 8 x 512: 128 blocks); see PERF.md."""
+    pairs = (-(-s // 128) + 1) // 2
+    return 128 if pairs * -(-d // 192) * b >= sms else 64
+
+
 def _fwd_kernel(q, k, content, scale):
-    """K4 (``csrc/fused_contextualization.cu``): bf16 on tensor cores when
-    the rows of q, k and content are 16-byte aligned and dnv % 8 == 0, else
-    f32 or bf16 SIMT; dnv <= 64, any outer strides. -> (out (b, s, d), lse
-    (b, nv, s) f32)."""
+    """K4 (``csrc/fused_contextualization.cu``): bf16 on tensor cores (an
+    LSE pass, then P @ content on wgmma over TMA loads in tiles of
+    :func:`_k4_rows` query rows) when the rows of q, k and content are 16-byte
+    aligned and dnv % 8 == 0, else f32 or bf16 SIMT; dnv <= 64, any outer
+    strides. -> (out (b, s, d), lse (b, nv, s) f32)."""
     b, s, nv, dnv = q.shape
     d = content.shape[-1]
     _check(q, k, content, (torch.bfloat16, torch.float32))
     out = torch.empty((b, s, d), dtype=content.dtype, device=q.device)
     lse = torch.empty((b, nv, s), dtype=torch.float32, device=q.device)
+    # the row LSEs in log2 units, rows padded to a multiple of 128
+    s_pad = -(-s // 128) * 128
+    ws = torch.empty((b * nv, s_pad), dtype=torch.float32, device=q.device)
+    rows = _k4_rows(b, s, d, _build.sm_count(q.device.index))
     P = _build.Ptr.of
     _build.launch(
         _K4, "fused_contextualization_launch", P(q), P(k), P(content), P(lse),
-        P(out), b, s, nv, dnv, d,
+        P(ws), P(out), b, s, nv, dnv, d,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         content.stride(0), content.stride(1), content.stride(2),
-        float(scale), _build.DTYPE_CODE[content.dtype])
+        s_pad, rows, float(scale), _build.DTYPE_CODE[content.dtype])
     return out, lse
 
 

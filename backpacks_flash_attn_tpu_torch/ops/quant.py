@@ -174,11 +174,6 @@ def _k2_schedule(M: int, K: int, N: int, sms: int = _K2_SMS):
     return bn, -(-K // chunk), chunk
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def quant_matmul_ref(x: torch.Tensor, qw: QuantWeight) -> torch.Tensor:
     """Plain version of K2: dequantize to x's dtype, then one product in
     that dtype (f32 accumulation inside the product)."""
@@ -230,7 +225,7 @@ def quant_matmul(x: torch.Tensor, qw: QuantWeight,
     m = x2.shape[0]
     out = torch.empty((m, qw.d_out), dtype=torch.bfloat16, device=x.device)
     if m:
-        bn, splits, chunk = _k2_schedule(m, d_in, n_pad, _sm_count(x.device.index))
+        bn, splits, chunk = _k2_schedule(m, d_in, n_pad, _build.sm_count(x.device.index))
         ws = (torch.empty((splits, m, n_pad), dtype=torch.float32, device=x.device)
               if splits > 1 else None)
         P = _build.Ptr.of

@@ -132,7 +132,11 @@ Phases, each printing one JSON line:
             (2 x 8192, h 12, causal, dropout 0.1; its plain versions four
             heads at a time), bound by its flops, SDPA's backward beside;
             it and the training-shape K5 case are launch-gated, with
-            device and host times.
+            device and host times. Last of all, K4 at backpack-mini's
+            widths (8 x 512, nv 16, dnv 40, d 640: a partial last column
+            slab), beside SDPA per head summed; every K4 case (the
+            forward's 8 x 512 and training's 32 x 512 too) is
+            launch-gated, with device and host times.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -410,22 +414,42 @@ def kernel_cases(gen):
             library=lib, bytes=nbytes, flops=4 * pairs * d)))
 
     # K4: (8, 512, 16, 48) with d = 768
-    b, s, nv, dnv, d = 8, 512, 16, 48, 768
-    qk = randn(b, s, 2, nv, dnv).to(bf)
-    q, k = qk[:, :, 0], qk[:, :, 1]
-    c = randn(b, s, nv, d).to(bf)
+    qk = randn(8, 512, 2, 16, 48).to(bf)
+    cases.append(k4_case("", qk[:, :, 0], qk[:, :, 1], randn(8, 512, 16, 768).to(bf)))
+    return cases + ml_kernel_cases(gen)
+
+
+def k4_case(label, q, k, c):
+    """K4 against its plain version: q, k (b, s, nv, dnv), c (b, s, nv, d),
+    scale dnv^-1/2; launch-gated, with device and host times; library =
+    SDPA per sense head (value width d), summed over the heads. Draws no
+    random numbers."""
+    from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as bk
+
+    b, s, nv, dnv = q.shape
+    d = c.shape[-1]
     scale = dnv ** -0.5
     pairs = b * nv * s * (s + 1) // 2
-    cases.append(("fused_contextualization", f"b={b} s={s} nv={nv} dnv={dnv} d={d}", dict(
+    qT, kT, cT = (t.transpose(1, 2) for t in (q, k, c))
+    return ("fused_contextualization", f"{label}b={b} s={s} nv={nv} dnv={dnv} d={d}", dict(
         kernel=lambda: bk.fused_contextualization(q, k, c, scale),
         plain=lambda: bk.contextualization_reference(q, k, c, scale),
         ref=lambda: bk.contextualization_reference(q.float(), k.float(), c.float(), scale),
         library=lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), c.transpose(1, 2), is_causal=True,
-            scale=scale).sum(dim=1),
+            qT, kT, cT, is_causal=True, scale=scale).sum(dim=1),
+        # read q, k and content once, write out; the score and value
+        # products over the causal pairs
         bytes=2 * (2 * q.numel() + c.numel() + b * s * d),
-        flops=2 * pairs * (dnv + d))))
-    return cases + ml_kernel_cases(gen)
+        flops=2 * pairs * (dnv + d),
+        gate="fused_contextualization", device_times=True))
+
+
+def k4_mini_cases(gen):
+    """K4 at backpack-mini's widths (nv 16, dnv 40, d 640: a partial last
+    column slab) at the forward's (8, 512)."""
+    qk = torch.randn(8, 512, 2, 16, 40, generator=gen, device=DEV).to(torch.bfloat16)
+    c = torch.randn(8, 512, 16, 640, generator=gen, device=DEV).to(torch.bfloat16)
+    return [k4_case("mini ", qk[:, :, 0], qk[:, :, 1], c)]
 
 
 def ml_kernel_cases(gen):
@@ -621,17 +645,7 @@ def train_kernel_cases(gen):
     g = randn(b, s, dd).to(bf)
     cscale = dnv ** -0.5
     cpairs = b * nv * s * (s + 1) // 2
-    cqT, ckT, cT = (t.transpose(1, 2) for t in (cq, ck, c))
-    cases.append(("fused_contextualization",
-                  f"train b={b} s={s} nv={nv} dnv={dnv} d={dd}", dict(
-        kernel=lambda: bk.fused_contextualization(cq, ck, c, cscale),
-        plain=lambda: bk.contextualization_reference(cq, ck, c, cscale),
-        ref=lambda: bk.contextualization_reference(cq.float(), ck.float(), c.float(),
-                                                   cscale),
-        library=lambda: F.scaled_dot_product_attention(
-            cqT, ckT, cT, is_causal=True, scale=cscale).sum(dim=1),
-        bytes=2 * (2 * cq.numel() + c.numel() + b * s * dd),
-        flops=2 * cpairs * (dnv + dd))))
+    cases.append(k4_case("train ", cq, ck, c))
 
     # each backward takes the LSE of its own path's forward, as in training
     # (K4's for K6): the plain bf16 combine rounds its scores to bf16, so its
@@ -2454,6 +2468,9 @@ def main():
         with torch.no_grad():
             phase_kernels(long_flash_bwd_cases(gen), results["kernels"])
         torch.cuda.empty_cache()
+        log("kernels: K4 at backpack-mini's widths")
+        with torch.inference_mode():
+            phase_kernels(k4_mini_cases(gen), results["kernels"])
 
     line = []
     for k in _build.KERNELS.values():

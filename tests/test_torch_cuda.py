@@ -121,7 +121,7 @@ def test_quant_matmul_kernel(gen, bits, gs, M, K, N):
 def test_quant_matmul_is_deterministic(gen, bits, gs, K, N):
     """Split K sums its chunks' partials in a fixed order: two calls give
     the same bits."""
-    assert quant._k2_schedule(128, K, quant._round_up(N, 128), quant._sm_count(0))[1] > 1
+    assert quant._k2_schedule(128, K, quant._round_up(N, 128), _build.sm_count(0))[1] > 1
     qw = quant.quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * 0.05,
                                bits, gs)
     x = torch.randn(128, K, generator=gen, device="cuda").to(torch.bfloat16)
@@ -192,25 +192,55 @@ def test_flash_attention_kernel(gen, dt, b, sq, sk, lens, offs, causal, layout):
         _within_2x(out, fa.flash_attention_ref(q, k, v, **kw), ref)
 
 
-@pytest.mark.parametrize("dt,b,s,nv,dnv,d,misalign", [
-    (torch.float32, 2, 40, 3, 48, 144, 0),
-    (torch.bfloat16, 1, 33, 4, 48, 128, 0),      # tensor-core path
-    (torch.bfloat16, 2, 100, 3, 40, 800, 0),     # two d chunks, the second partial
-    (torch.bfloat16, 1, 70, 2, 48, 96, 1),       # unaligned content: SIMT path
-    (torch.bfloat16, 1, 40, 17, 44, 64, 0),      # dnv % 8 != 0: SIMT path
+@pytest.mark.parametrize("dt,b,s,nv,dnv,d,misalign,rows", [
+    (torch.float32, 2, 40, 3, 48, 144, 0, None),
+    (torch.bfloat16, 1, 33, 4, 48, 128, 0, None),      # tensor-core path
+    (torch.bfloat16, 2, 100, 3, 40, 800, 0, None),     # five slabs, the last partial
+    (torch.bfloat16, 1, 70, 2, 48, 96, 1, None),       # unaligned content: SIMT path
+    (torch.bfloat16, 1, 40, 17, 44, 64, 0, None),      # dnv % 8 != 0: SIMT path
+    # s off both tile widths (an odd count of 64-row tiles too), under
+    # each row tiling of the wgmma kernel
+    (torch.bfloat16, 1, 70, 3, 48, 768, 0, 64),
+    (torch.bfloat16, 2, 200, 4, 48, 768, 0, 128),
+    (torch.bfloat16, 1, 200, 3, 48, 768, 0, 64),
+    (torch.bfloat16, 2, 70, 3, 48, 768, 0, 128),
+    (torch.bfloat16, 1, 300, 3, 48, 768, 0, 64),
+    (torch.bfloat16, 2, 512, 16, 48, 768, 0, None),    # backpack-small's widths
+    (torch.bfloat16, 1, 300, 16, 40, 640, 0, None),    # backpack-mini's: a partial slab
+    (torch.bfloat16, 2, 130, 16, 24, 384, 0, None),    # backpack-micro's
+    (torch.bfloat16, 1, 70, 2, 48, 64, 0, None),       # d 64 on tensor cores
+    (torch.bfloat16, 1, 300, 2, 32, 800, 0, 128),
 ])
-def test_fused_contextualization_kernel(gen, dt, b, s, nv, dnv, d, misalign):
+def test_fused_contextualization_kernel(gen, monkeypatch, dt, b, s, nv, dnv, d,
+                                        misalign, rows):
+    if rows is not None:
+        monkeypatch.setattr(bk, "_k4_rows", lambda *a: rows)
     qk = torch.randn(b, s, 2, nv, dnv, generator=gen, device="cuda").to(dt)
     q, k = qk[:, :, 0], qk[:, :, 1]                      # strided views
     c = torch.randn(b, s, nv, d + misalign, generator=gen,
                     device="cuda").to(dt)[..., misalign:]
+    before = _build.KERNELS["fused_contextualization"].launches
     out = bk.fused_contextualization(q, k, c, dnv ** -0.5)
+    assert _build.KERNELS["fused_contextualization"].launches == before + 1
     ref = bk.contextualization_reference(q.float(), k.float(), c.float(),
                                          dnv ** -0.5)
     if dt == torch.float32:
         assert _err(out, ref) <= F32_ATOL
     else:
         _within_2x(out, bk.contextualization_reference(q, k, c, dnv ** -0.5), ref)
+
+
+def test_fused_contextualization_kernel_run_to_run(gen, monkeypatch):
+    """K4's bf16 kernels sum in a fixed order: out and LSE are bit-equal
+    from run to run, under both row tilings."""
+    b, s, nv, dnv, d = 2, 200, 16, 48, 768
+    qk = torch.randn(b, s, 2, nv, dnv, generator=gen, device="cuda").bfloat16()
+    c = torch.randn(b, s, nv, d, generator=gen, device="cuda").bfloat16()
+    for rows in (64, 128):
+        monkeypatch.setattr(bk, "_k4_rows", lambda *a, rows=rows: rows)
+        out, lse = bk._fwd_kernel(qk[:, :, 0], qk[:, :, 1], c, dnv ** -0.5)
+        again, lse_again = bk._fwd_kernel(qk[:, :, 0], qk[:, :, 1], c, dnv ** -0.5)
+        assert torch.equal(out, again) and torch.equal(lse, lse_again), rows
 
 
 @pytest.mark.parametrize("dt,dropout_p,offs", [
