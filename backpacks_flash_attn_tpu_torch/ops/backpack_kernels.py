@@ -117,14 +117,33 @@ def _fwd_kernel(q, k, content, scale):
     return out, lse
 
 
+def _k6_heads(b: int, s: int, nv: int, d: int, sms: int = 132) -> int:
+    """Sense heads a CTA of K6's bf16 dcontent pass walks on a card of
+    ``sms`` SMs.
+
+    A CTA owns two key tiles (j and n - 1 - j: the same products for every
+    CTA) and 192 columns of d, for each of its heads in turn; its ring runs
+    on across the heads, so a long walk pays the ring's fill and drain once.
+    The heads are spread over as few CTAs as make about four waves (the
+    training's 32 x 512 at nv 16: 512 CTAs walking all 16 heads; mini's 8 x
+    512: 512 CTAs of 4); see PERF.md."""
+    units = b * ((-(-s // 64) + 1) // 2) * -(-d // 192) * nv
+    return max(1, min(nv, -(-units // (4 * sms))))
+
+
 def _bwd_kernel(q, k, content, lse, g, scale):
     """K6 (``csrc/fused_contextualization_bwd.cu``): bf16 on tensor cores
     (dnv % 8 == 0, d % 8 == 0; rows 16-byte aligned, else copied contiguous
-    first) or f32 SIMT; dnv <= 64. -> (dq, dk, dcontent), contiguous."""
+    first): a delta pass, the dcontent pass (:func:`_k6_heads` sense heads a
+    CTA) and the main pass (dP once for dq and dk) on wgmma over TMA rings,
+    then dq out of its f32 accumulator; or f32 SIMT; dnv <= 64. The
+    workspaces (the log2 LSE and delta tables, the f32 dq accumulator) are
+    allocated here for the call. -> (dq, dk, dcontent), contiguous."""
     b, s, nv, dnv = q.shape
     d = content.shape[-1]
     _check(q, k, content, (torch.bfloat16, torch.float32))
-    if content.dtype == torch.bfloat16 and (dnv % 8 or d % 8):
+    bf16 = content.dtype == torch.bfloat16
+    if bf16 and (dnv % 8 or d % 8):
         raise ValueError(f"fused_ctx_bwd kernel takes dnv % 8 == 0 and "
                          f"d % 8 == 0 in bf16, got {dnv} and {d}")
     q, k, content, g = (_build.kernel_operand(t)
@@ -134,18 +153,26 @@ def _bwd_kernel(q, k, content, lse, g, scale):
         raise ValueError(f"g: shape {tuple(g.shape)} != {(b, s, d)}")
     _build.check_cuda_tensor("lse", lse, (torch.float32,), 3)
     lse = lse.contiguous()
-    dq = torch.empty((b, s, nv, dnv), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, s, nv, dnv), dtype=k.dtype, device=q.device)
-    dc = torch.empty((b, s, nv, d), dtype=content.dtype, device=q.device)
-    delta = torch.empty((b, nv, s), dtype=torch.float32, device=q.device)
+    dev = q.device
+    dq = torch.empty((b, s, nv, dnv), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, s, nv, dnv), dtype=k.dtype, device=dev)
+    dc = torch.empty((b, s, nv, d), dtype=content.dtype, device=dev)
+    # per (batch, head) row tables padded to whole 64-row tiles
+    s_pad = -(-s // 64) * 64
+    delta = torch.empty((b * nv, s_pad), dtype=torch.float32, device=dev)
+    lse2 = torch.empty_like(delta) if bf16 else None
+    dq_acc = (torch.empty((b, s, nv, dnv), dtype=torch.float32, device=dev)
+              if bf16 else None)
     P = _build.Ptr.of
     _build.launch(
         _K6, "fused_contextualization_bwd_launch", P(q), P(k), P(content),
-        P(g), P(lse), P(delta), P(dq), P(dk), P(dc), b, s, nv, dnv, d,
+        P(g), P(lse), P(lse2), P(delta), P(dq_acc), P(dq), P(dk), P(dc),
+        b, s, nv, dnv, d,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         content.stride(0), content.stride(1), content.stride(2),
-        g.stride(0), g.stride(1), float(scale),
+        g.stride(0), g.stride(1), s_pad,
+        _k6_heads(b, s, nv, d, _build.sm_count(dev.index)), float(scale),
         _build.DTYPE_CODE[content.dtype])
     return dq, dk, dc
 

@@ -15,8 +15,8 @@ unpack the other one with ``git archive`` into a directory that
    d 640), through ``chip_smoke.k4_case`` and ``phase_kernels``: errors
    under the 2x rule, one launch a call, CUDA-event ms, profiler device ms
    and host microseconds a call, each beside SDPA per sense head summed,
-   and the bound; then the device ms a call of each kernel of the launch
-   (the LSE pass and the product apart). ``--rows`` (a tree whose wrapper
+   and the bound; then the device ms and recorded launches a call of each
+   kernel of the launch (the LSE pass and the product apart). ``--rows`` (a tree whose wrapper
    has ``_k4_rows``) repeats the cases at each forced query-row tiling.
 2. forward-bf16: ``chip_smoke.phase_forward`` three times (backpack-small,
    8 x 512, K3 and K4; tokens/s of one timed forward each).
@@ -39,9 +39,10 @@ import torch
 
 import chip_smoke as cs
 
-# the kernels of K4 (the parent's and this tree's) and of K6, by name
+# the kernels of K4 and of K6 (the parents' and this tree's), by name
 K4_KERNELS = ("ctx_lse_kernel", "ctx_pv_kernel", "ctx_wgmma_kernel", "fused_ctx_simt_kernel")
-K6_KERNELS = ("dq_kernel", "dk_kernel", "dc_kernel")
+K6_KERNELS = ("dq_kernel", "dk_kernel", "dc_kernel", "ctx_bwd_dp_kernel", "ctx_bwd_dc_kernel",
+              "ctx_bwd_convert_kernel")
 
 
 def _base(name):
@@ -49,8 +50,9 @@ def _base(name):
 
 
 def kernel_split(fn, reps=cs.REPS):
-    """Device ms a call of each kernel fn launches (torch.profiler, the L2
-    flushed before each call, the flush's own kernel left out)."""
+    """Device ms a call and recorded launches a call of each kernel fn
+    launches (torch.profiler, the L2 flushed before each call, the flush's
+    own kernel left out)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -59,7 +61,8 @@ def kernel_split(fn, reps=cs.REPS):
             cs.flush_l2()
             fn()
         torch.cuda.synchronize()
-    return {ev.key[:80]: ev.self_device_time_total / 1e3 / reps
+    return {ev.key[:80]: dict(ms=ev.self_device_time_total / 1e3 / reps,
+                              launches=ev.count / reps)
             for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count
             and "fill" not in ev.key.lower()}

@@ -136,7 +136,11 @@ Phases, each printing one JSON line:
             widths (8 x 512, nv 16, dnv 40, d 640: a partial last column
             slab), beside SDPA per head summed; every K4 case (the
             forward's 8 x 512 and training's 32 x 512 too) is
-            launch-gated, with device and host times.
+            launch-gated, with device and host times. Then K6 at
+            backpack-mini's widths (8 x 512, nv 16, dnv 40, d 640), SDPA's
+            backward per head beside; both K6 cases (training's 32 x 512
+            too) take K4's LSE, are launch-gated (K6's four launches count
+            once) and carry device and host times.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -643,36 +647,56 @@ def train_kernel_cases(gen):
     cq, ck = qk[:, :, 0], qk[:, :, 1]
     c = randn(b, s, nv, dd).to(bf)
     g = randn(b, s, dd).to(bf)
-    cscale = dnv ** -0.5
-    cpairs = b * nv * s * (s + 1) // 2
     cases.append(k4_case("train ", cq, ck, c))
+    cases.append(k6_case("train ", cq, ck, c, g))
+    return cases
 
-    # each backward takes the LSE of its own path's forward, as in training
-    # (K4's for K6): the plain bf16 combine rounds its scores to bf16, so its
-    # LSE lies ~1e-2 off the f32 scores K6 recomputes, and alpha with it
-    _, klse = bk._fwd_kernel(cq, ck, c, cscale)
-    _, clse = bk.contextualization_reference(cq, ck, c, cscale, return_lse=True)
-    _, clse32 = bk.contextualization_reference(cq.float(), ck.float(), c.float(),
-                                               cscale, return_lse=True)
+
+def k6_case(label, q, k, c, g):
+    """K6 against its plain version: q, k (b, s, nv, dnv), c (b, s, nv, d),
+    g = dO (b, s, d), scale dnv^-1/2. Each backward takes the LSE of its own
+    path's forward, as in training (K4's for K6): the plain bf16 combine
+    rounds its scores to bf16, so its LSE lies ~1e-2 off the f32 scores K6
+    recomputes, and alpha with it. Launch-gated, with device and host
+    times; library = SDPA's autograd backward per sense head (value width
+    d, the heads summed), timed on a graph built once. Draws no random
+    numbers. Made outside inference mode."""
+    from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as bk
+
+    b, s, nv, dnv = q.shape
+    d = c.shape[-1]
+    scale = dnv ** -0.5
+    pairs = b * nv * s * (s + 1) // 2
+    _, klse = bk._fwd_kernel(q, k, c, scale)
+    _, plse = bk.contextualization_reference(q, k, c, scale, return_lse=True)
+    _, lse32 = bk.contextualization_reference(q.float(), k.float(), c.float(),
+                                              scale, return_lse=True)
     with torch.enable_grad():
-        hq, hk, hc = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (cq, ck, c))
+        hq, hk, hc = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, c))
         hout = F.scaled_dot_product_attention(hq, hk, hc, is_causal=True,
-                                              scale=cscale).sum(dim=1)
-    cases.append(("fused_contextualization_bwd",
-                  f"train b={b} s={s} nv={nv} dnv={dnv} d={dd}", dict(
-        kernel=lambda: bk.fused_ctx_bwd(cq, ck, c, klse, g, cscale),
-        plain=lambda: bk.fused_ctx_bwd_ref(cq, ck, c, clse, g, cscale),
-        ref=lambda: bk.fused_ctx_bwd_ref(cq.float(), ck.float(), c.float(),
-                                         clse32, g.float(), cscale),
-        library=lambda: torch.autograd.grad(hout, (hq, hk, hc), g,
-                                            retain_graph=True),
+                                              scale=scale).sum(dim=1)
+    return ("fused_contextualization_bwd", f"{label}b={b} s={s} nv={nv} dnv={dnv} d={d}", dict(
+        kernel=lambda: bk.fused_ctx_bwd(q, k, c, klse, g, scale),
+        plain=lambda: bk.fused_ctx_bwd_ref(q, k, c, plse, g, scale),
+        ref=lambda: bk.fused_ctx_bwd_ref(q.float(), k.float(), c.float(),
+                                         lse32, g.float(), scale),
+        library=lambda: torch.autograd.grad(hout, (hq, hk, hc), g, retain_graph=True),
         # read q, k, content, dO, lse once, write dq, dk, dcontent; the
         # products S (recomputed) and dP and alpha^T dO over d, dS k and
         # dS^T q over dnv
-        bytes=2 * (4 * cq.numel() + 2 * c.numel() + g.numel()) + b * nv * s * 4,
-        flops=2 * cpairs * (3 * dnv + 2 * dd))))
-    return cases
+        bytes=2 * (4 * q.numel() + 2 * c.numel() + g.numel()) + b * nv * s * 4,
+        flops=2 * pairs * (3 * dnv + 2 * d),
+        gate="fused_contextualization_bwd", device_times=True))
+
+
+def k6_mini_cases(gen):
+    """K6 at backpack-mini's widths (nv 16, dnv 40, d 640: a partial last
+    column slab) at (8, 512)."""
+    bf = torch.bfloat16
+    qk = torch.randn(8, 512, 2, 16, 40, generator=gen, device=DEV).to(bf)
+    c = torch.randn(8, 512, 16, 640, generator=gen, device=DEV).to(bf)
+    g = torch.randn(8, 512, 640, generator=gen, device=DEV).to(bf)
+    return [k6_case("mini ", qk[:, :, 0], qk[:, :, 1], c, g)]
 
 
 # ------------------------------------------------------------------ long context
@@ -2471,6 +2495,9 @@ def main():
         log("kernels: K4 at backpack-mini's widths")
         with torch.inference_mode():
             phase_kernels(k4_mini_cases(gen), results["kernels"])
+        log("kernels: K6 at backpack-mini's widths")
+        with torch.no_grad():
+            phase_kernels(k6_mini_cases(gen), results["kernels"])
 
     line = []
     for k in _build.KERNELS.values():
