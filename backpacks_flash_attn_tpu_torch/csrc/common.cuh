@@ -279,6 +279,13 @@ __device__ __forceinline__ Vec4 load4(const int8_t* p) {
           static_cast<float>(v.w)};
 }
 
+// cluster-wide barrier: release before, acquire after, so that each CTA's
+// writes (to device or shared memory) are visible to the cluster's other CTAs
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // Block-wide reductions; every thread gets the result. `red` holds >= 32
 // floats of shared memory and may be reused right after the call.
 __device__ __forceinline__ float block_max(float v, float* red) {

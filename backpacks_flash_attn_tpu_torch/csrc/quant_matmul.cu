@@ -250,13 +250,6 @@ __device__ __forceinline__ void slice_mma(float (&acc)[MT][2 * NJ][4],
   }
 }
 
-// cluster-wide barrier: release before, acquire after, so that each CTA's
-// workspace writes are visible to the cluster's other CTAs
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // One BM x BN tile of out; with a split (gridDim.z chunks of K, one cluster
 // along z), the tile of one chunk. 8 warps as WM (rows) x 8/WM (columns); a
 // warp owns MT m16 tiles x NJ 16-column groups, two n8 products each.

@@ -28,6 +28,7 @@ row, so the window costs no copy.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -177,11 +178,77 @@ def _scale_strides(ks, vs):
             vs.stride(0) if vs is not None else 0)
 
 
+# K1's launch shape (csrc/decode_attention.cu): shared memory an SM and a
+# block may take on the H100, and what the card reserves a block
+_SM_SMEM, _BLOCK_SMEM, _SMEM_RESERVED = 233472, _SMEM_BYTES, 1024
+_K1_MAX_SPLIT = 8
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _k1_warp_tile(qpl: int, elt: int) -> int:
+    """Positions of a group tile one K1 warp owns: 32 bytes of keys a d row
+    for narrow rows (qpl 1), 8 for wide ones; at least 4."""
+    return max(4, (32 if qpl == 1 else 8) // elt)
+
+
+def _k1_group_bytes(qpl: int, dk: int, dv: int, elt: int, wr: int, stages: int) -> int:
+    """Shared memory of one K1 row group of ``wr`` warps (the kernel's
+    ``Layout``): ``stages`` ring stages [keys dk x Tg | values Tg x dv
+    (16-byte rows) | ks, vs Tg f32], q (dk f32) and each warp's
+    probabilities (Tw f32), Tg = wr x Tw."""
+    tw, p = _k1_warp_tile(qpl, elt), 16 // elt
+    tg, dvp = wr * tw, -(-dv // p) * p
+    stage = _round16(_round16(dk * tg * elt) + _round16(tg * dvp * elt) + 8 * tg)
+    return stages * stage + _round16(4 * dk) + wr * _round16(4 * tw)
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_schedule(e: int, dk: int, dv: int, s_len: int, elt: int, sms: int = 132):
+    """K1's launch shape for E rows of an S-wide cache of ``elt``-byte
+    elements on a card of ``sms`` SMs: ``(qpl, warps, rows, split,
+    stages)``.
+
+    The ``warps / rows`` warps of a row share a cp.async ring of
+    ``stages`` stages and stream the row in group tiles, each warp its own
+    slice of every tile with its own online softmax; the row's warps, and
+    the ``split`` CTAs of its cluster, merge at the end. ``qpl`` is the
+    4-column quads of dv a lane accumulates: narrow rows (dv <= 128) take
+    one and 32 bytes of keys a d row a warp; wider rows 2, 4, 6 or 8 (the
+    fewest that cover dv: 6 at the Backpack combine's 768) and 8 bytes.
+    A row takes 4 warps (a key row of a narrow group tile is then one
+    128-byte run). A CTA of narrow rows takes 2 rows, or 1 row of 8 warps
+    (256-byte runs) when the rows are fewer than two an SM, or when two
+    rows' rings do not fit a block; a CTA of wide rows takes 1 row. Where
+    one row a CTA still leaves SMs without one, S is split over a cluster
+    of ``split`` CTAs (the least power of two that gives every SM a CTA, at
+    most 8, and each CTA at least two group tiles at the full width). The
+    ring takes the most stages (up to 4) with which as many CTAs fit an SM
+    as the grid puts on one (at most 3), and at least 2."""
+    quads = -(-dv // 4)
+    qpl = next(c for c in (1, 2, 4, 6, 8) if 32 * c >= quads)
+    wr, rows = 4, (2 if qpl == 1 else 1)
+    if qpl == 1 and -(-e // 2) < sms:
+        wr, rows = 8, 1
+    while rows > 1 and rows * _k1_group_bytes(qpl, dk, dv, elt, wr, 2) > _BLOCK_SMEM:
+        rows //= 2
+    split = 1
+    tiles = -(-s_len // (wr * _k1_warp_tile(qpl, elt)))
+    while -(-e // rows) * split < sms and split < _K1_MAX_SPLIT and 4 * split <= tiles:
+        split *= 2
+    per_sm = min(3, -(-(-(-e // rows) * split) // sms))
+    stages = 2
+    for s in (4, 3):
+        if per_sm * (rows * _k1_group_bytes(qpl, dk, dv, elt, wr, s) + _SMEM_RESERVED) <= _SM_SMEM:
+            stages = s
+            break
+    return qpl, wr * rows, rows, split, stages
+
+
 def _k1_kernel(q, kt, ks, v, vs, length, ml: bool):
     e, dk, s_len, dv = _check_operands(q, kt, ks, v, vs, "decode_attention")
-    if s_len > 8192:
-        raise ValueError(f"decode_attention kernel takes S <= 8192, got {s_len} "
-                         f"(decode_attention_gathered takes any S)")
     lens, scalar_len = _lengths_arg(length, e, q.device)
     out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
     m, l = _ml_outputs(e, q.device) if ml else (None, None)
@@ -191,7 +258,9 @@ def _k1_kernel(q, kt, ks, v, vs, length, ml: bool):
         _K1[ml], "decode_attention_launch", P(q), P(kt), P(ks), P(v), P(vs),
         P(lens), P(out), P(m), P(l), e, dk, s_len, dv, scalar_len,
         q.stride(0), kt.stride(0), kt.stride(1), v.stride(0), v.stride(1),
-        *_scale_strides(ks, vs), code[q.dtype], code[kt.dtype])
+        *_scale_strides(ks, vs), code[q.dtype], code[kt.dtype],
+        *_k1_schedule(e, dk, dv, s_len, kt.element_size(),
+                      _build.sm_count(q.device.index)))
     return (out, m, l) if ml else out
 
 

@@ -12,7 +12,10 @@ Phases, each printing one JSON line:
             version: the kernel's max error against an f32 plain reference
             must be at most twice the bf16 plain version's. Times (CUDA
             events, median of 25, L2 flushed before each), the bound, and one
-            PyTorch library call computing the same function. K8 (int4
+            PyTorch library call computing the same function; K1's
+            cases (and K1-ml's) also the profiler's device ms (each kernel
+            at its mean time a launch times its recorded launches) and the
+            host's microseconds a call. K8 (int4
             and mixed) against its plain version at the GPT decode and
             Backpack combine shapes, library = SDPA over the dequantized
             cache; the (m, l) forms of the staged decode, K8-ml at the GPT
@@ -36,8 +39,8 @@ Phases, each printing one JSON line:
             8 teacher-forced steps of the kernel path against the plain
             path in the same cache configuration under the same 2x rule.
             Device time by kernel from torch.profiler over all 224 steps
-            (bf16, INT8) or the first 32 (kv4, int4), K2's device ms a step
-            among it.
+            (bf16, INT8) or the first 32 (kv4, int4), K2's and K1's device
+            ms a step among it (K1's recorded launches beside).
 5. engine   serve-engine: ServingEngine over INT8 weights and INT8 caches
             at its defaults (stage 64, windows 128/256/384/512), 128 slots,
             max_seqlen 512, 256 greedy requests (prompts of 16-64 tokens,
@@ -104,8 +107,9 @@ Phases, each printing one JSON line:
 10. generate generate_gpt on that model: batch 8, a 2048-token prompt, 64
             greedy tokens, bf16 cache: seconds, tokens/s, the prefill apart,
             K3 12 a prefill and K1 12 a decode step, a profile of 8 decode
-            steps, and the teacher-forced gate of the last prompt position
-            and the first 8 decode steps under the 2x rule.
+            steps (K1's device ms a step among it), and the teacher-forced
+            gate of the last prompt position and the first 8 decode steps
+            under the 2x rule.
 11. decode_kernels  bench_int4_kernels.py's comparison, extended: at its
             six shapes (backpack-small's batch-128 decode: GPT KV, E 1536,
             dk = dv = 64, and the Backpack combine, E 2048, dk 64, dv 768;
@@ -114,7 +118,8 @@ Phases, each printing one JSON line:
             transposed, and transposed by the wrapper), K1-blockdiag over
             INT8 caches and of K8 over the int4 and mixed caches through
             JAX's direct entries; K1 and gathered at gpt-generate's decode
-            shape (E 96, S 2112, bf16); gathered at S 16384. Each call
+            shape (E 96, S 2112, bf16: K1 on a cluster of 2 CTAs a row) and
+            at S 16384, with device and host times. Each call
             against its plain version under the 2x rule, timed beside SDPA
             over the dequantized cache, and launch-gated: the counts reset
             just before it and read just after, its own kernel once and no
@@ -140,7 +145,10 @@ Phases, each printing one JSON line:
             backpack-mini's widths (8 x 512, nv 16, dnv 40, d 640), SDPA's
             backward per head beside; both K6 cases (training's 32 x 512
             too) take K4's LSE, are launch-gated (K6's four launches count
-            once) and carry device and host times.
+            once) and carry device and host times. Last, K1 at the INT8
+            serve's own decode lengths (every row at 64 under the 128
+            window, at 224 under the 256 window of a 512 cache; GPT rows
+            and the combine), launch-gated, with device and host times.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -198,6 +206,21 @@ def flush_l2():
     _FLUSH.zero_()
 
 
+_FLUSH_READ = None
+
+
+def flush_l2_clean():
+    """Evict the L2 by reading (summing) a buffer larger than it: the lines
+    left are clean, so the next launch writes none of the flush back to
+    device memory (flush_l2's zeroing leaves up to the L2's 50 MB dirty for
+    the timed kernel to write back). Its kernel is a reduce_kernel."""
+    global _FLUSH_READ
+    if _FLUSH_READ is None:
+        with torch.inference_mode(False):
+            _FLUSH_READ = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+    _FLUSH_READ.sum()
+
+
 def time_ms(fn, reps=REPS):
     fn()
     torch.cuda.synchronize()
@@ -214,24 +237,26 @@ def time_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=REPS):
+def device_ms(fn, reps=REPS, clean=False):
     """Device time of fn's kernels a call from torch.profiler, the L2
-    flushed before each call (the flush's own kernel left out): each
-    kernel at its mean time a launch, times its launches a call (its
-    recorded launches over ``reps``, rounded up; the profiler has left
-    launches out of its record late in a long run). -> (ms, launches
-    recorded a call)."""
+    flushed before each call (the flush's own kernel left out; ``clean``:
+    by flush_l2_clean): each kernel at its mean time a launch, times its
+    launches a call (its recorded launches over ``reps``, rounded up; the
+    profiler has left launches out of its record late in a long run). ->
+    (ms, launches recorded a call)."""
     from torch.profiler import ProfilerActivity, profile
+    flush, skip = (flush_l2_clean, "reduce_kernel") if clean else (flush_l2, "fill")
+    flush()                 # the flush buffer is made outside the record
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            flush_l2()
+            flush()
             fn()
         torch.cuda.synchronize()
     events = [ev for ev in prof.key_averages()
               if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count
-              and "fill" not in ev.key.lower()]
+              and skip not in ev.key.lower()]
     us = sum(ev.self_device_time_total / ev.count * -(-ev.count // reps) for ev in events)
     return us / 1e3, sum(ev.count for ev in events) / reps
 
@@ -279,20 +304,16 @@ def two_x(name, out, plain, ref):
 
 # ------------------------------------------------------------------ kernels
 
-def kernel_cases(gen):
-    """(kernel name, case label, run dict) for every main-path shape."""
-    from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as bk
+def k1_cases(gen):
+    """K1: GPT rows (E = 128*12, dv = 64) and Backpack rows (E = 128*16,
+    dv = 768) over a 512 window, ragged per-row lengths, bf16 and int8;
+    CUDA-event, profiler device and host times beside SDPA's."""
     from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
-    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
-    from backpacks_flash_attn_tpu_torch.ops import quant
 
     dev = DEV
     bf = torch.bfloat16
     randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
     cases = []
-
-    # K1: GPT rows (E = 128*12, dv = 64) and Backpack rows (E = 128*16,
-    # dv = 768) over a 512 window, ragged per-row lengths, bf16 and int8
     for label, E, dv in (("gpt", 128 * 12, 64), ("backpack", 128 * 16, 768)):
         S, dk = 512, 64
         lens = torch.randint(1, S + 1, (E,), generator=gen, device=dev,
@@ -325,7 +346,21 @@ def kernel_cases(gen):
                 ref=lambda a=ref_args: da.decode_attention_ref(*a),
                 library=lambda q=q, lk=lk, lv=lv, m=mask: F.scaled_dot_product_attention(
                     q[None, :, None, :], lk, lv, attn_mask=m, scale=1.0)[0, :, 0],
-                bytes=nbytes, flops=2 * n * (dk + dv))))
+                bytes=nbytes, flops=2 * n * (dk + dv), device_times=True)))
+    return cases
+
+
+def kernel_cases(gen):
+    """(kernel name, case label, run dict) for every main-path shape."""
+    from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as bk
+    from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+    from backpacks_flash_attn_tpu_torch.ops import quant
+
+    dev = DEV
+    bf = torch.bfloat16
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    cases = k1_cases(gen)
 
     # K8: int4 at the GPT decode shape (E = 128*12, dk = dv = 64; a 512
     # cache read under the 256 window, a strided slice of 128 of its 256
@@ -525,7 +560,7 @@ def ml_kernel_cases(gen):
             ref=lambda a=args: da.decode_attention_ml_ref(a[0].float(), *a[1:]),
             library=sdpa(q, kt.float() * ks[:, None, :], v.float() * vs[..., None], lens),
             bytes=(q.numel() * 2 + n * (dk + dv + 8) + E * dv * 2 + E * 12),
-            flops=2 * n * (dk + dv))))
+            flops=2 * n * (dk + dv), device_times=True)))
     return cases
 
 
@@ -1173,11 +1208,20 @@ def _kernel_profile(fn):
     return wall, rows
 
 
+def k1_per_step(rows, steps):
+    """K1's device ms and recorded launches a step (both forms share one
+    kernel symbol) from a profile's (device us, kernel, calls) rows."""
+    mine = [(us, c) for us, k, c in rows if "decode_attention_kernel" in k]
+    return dict(k1_device_ms_per_step=sum(us for us, _ in mine) / 1e3 / steps,
+                k1_recorded_launches_per_step=sum(c for _, c in mine) / steps)
+
+
 def _per_step(wall, rows, steps, top=12):
     return dict(steps=steps, wall_ms_per_step_profiled=wall * 1e3 / steps,
                 device_ms_per_step=sum(us for us, _, _ in rows) / 1e3 / steps,
                 k2_device_ms_per_step=sum(us for us, k, _ in rows
                                           if "quant_matmul" in k) / 1e3 / steps,
+                **k1_per_step(rows, steps),
                 top=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
                           calls_per_step=c / steps) for us, k, c in rows[:top]])
 
@@ -1412,6 +1456,7 @@ def profile_engine(params, cfg, requests):
                 device_ms_per_step=device,
                 device_idle_share=1 - device / wall,
                 device_idle_share_profiled=1 - device / wall_prof,
+                **k1_per_step(rows, steps),
                 top=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
                           calls_per_step=c / steps) for us, k, c in rows[:12]])
 
@@ -1571,6 +1616,7 @@ def staged_kv4_run(params, cfg, prompt):
                profile=dict(steps=short, wall_ms_per_step=wall,
                             device_ms_per_step=device,
                             device_idle_share=1 - device / wall,
+                            **k1_per_step(rows, short),
                             top=[dict(name=k[:80], ms_per_step=us / 1e3 / short,
                                       calls_per_step=c / short)
                                  for us, k, c in rows[:12]]))
@@ -2247,10 +2293,11 @@ def _sdpa(q, lk, lv, lens):
         scale=1.0)[0, :, 0]
 
 
-def _k1_form_cases(label, q, kt, ks, v, vs, lens, library, forms):
+def _k1_form_cases(label, q, kt, ks, v, vs, lens, library, forms, device_times=False):
     """Gated cases of K1 and its redesigns over one cache (kt (E, dk, S), v
     (E, S, dv), (E, S) scales or None): forms are (name, call label, entry,
-    plain, keywords, values)."""
+    plain, keywords, values); ``device_times`` adds profiler device and host
+    times."""
     e, dk = q.shape
     s, dv = v.shape[1], v.shape[2]
     kvb = kt.element_size()
@@ -2267,7 +2314,7 @@ def _k1_form_cases(label, q, kt, ks, v, vs, lens, library, forms):
             library=library,
             bytes=(q.numel() * 2 + n * (dk + dv) * kvb
                    + (8 * n if ks is not None else 0) + e * dv * 2 + e * 4),
-            flops=2 * n * (dk + dv))))
+            flops=2 * n * (dk + dv), device_times=device_times)))
     return cases
 
 
@@ -2352,8 +2399,8 @@ def decode_problem_cases(gen, shape, e, dk, dv, s):
 
 def decode_long_cases(gen):
     """gpt-generate's decode shape (E = 96, dk = dv = 64, S = 2112, bf16
-    cache, lengths 2048-2112: K1 and gathered), then gathered alone at S =
-    16384, past K1's 8192 (lengths 8192-16384)."""
+    cache, lengths 2048-2112), then S = 16384 (lengths 8192-16384): K1 and
+    gathered, with profiler device and host times."""
     from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
 
     bf = torch.bfloat16
@@ -2361,7 +2408,8 @@ def decode_long_cases(gen):
     for label, s, lo, names in (
             ("gpt-generate", GEN_WIDTH, GEN_PROMPT, ("decode_attention",
                                                     "decode_attention_gathered")),
-            ("long", DECODE_LONG_S, DECODE_LONG_S // 2, ("decode_attention_gathered",))):
+            ("long", DECODE_LONG_S, DECODE_LONG_S // 2, ("decode_attention",
+                                                         "decode_attention_gathered"))):
         e, d = GEN_ROWS, LONG_D
         q = (torch.randn(e, d, generator=gen, device=DEV) * 0.125).to(bf)
         kt = torch.randn(e, d, s, generator=gen, device=DEV).to(bf)
@@ -2370,7 +2418,34 @@ def decode_long_cases(gen):
                              dtype=torch.int32)
         cases += _k1_form_cases(f"{label} E={e} S={s} bf16", q, kt, None, v, None,
                                 lens, _sdpa(q, *_dequantized(kt, v), lens),
-                                _k1_forms(da, v, None, names))
+                                _k1_forms(da, v, None, names), device_times=True)
+    return cases
+
+
+def k1_serve_cases(gen):
+    """K1 at the INT8 serve's own decode lengths: every row at 64 under the
+    128 window and at 224 under the 256 window of a 512-column cache
+    (window slices), at the GPT rows (E = 128 x 12, dk = dv = 64) and the
+    Backpack combine (E = 128 x 16, dv 768); launch-gated, with profiler
+    device and host times, SDPA over the dequantized window beside."""
+    from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
+
+    cases = []
+    for shape, e, dv in (("gpt", BATCH * 12, 64), ("combine", BATCH * 16, 768)):
+        q = (torch.randn(e, 64, generator=gen, device=DEV) * 0.125).to(torch.bfloat16)
+        kt = torch.randint(-127, 128, (e, 64, MAX_LEN), generator=gen, device=DEV,
+                           dtype=torch.int8)
+        v = torch.randint(-127, 128, (e, MAX_LEN, dv), generator=gen, device=DEV,
+                          dtype=torch.int8)
+        ks, vs = torch.rand(2, e, MAX_LEN, generator=gen, device=DEV) * 0.05
+        for window, length in ((128, 64), (256, 224)):
+            lens = torch.full((e,), length, dtype=torch.int32, device=DEV)
+            w = (kt[..., :window], ks[:, :window], v[:, :window], vs[:, :window])
+            lk, lv = _dequantized(w[0].float() * w[1][:, None, :], w[2].float() * w[3][..., None])
+            cases += _k1_form_cases(
+                f"serve-{shape}-int8 E={e} window={window} len={length}", q, w[0], w[1],
+                w[2], w[3], lens, _sdpa(q, lk, lv, lens),
+                _k1_forms(da, w[2], None, ("decode_attention",)), device_times=True)
     return cases
 
 
@@ -2498,6 +2573,10 @@ def main():
         log("kernels: K6 at backpack-mini's widths")
         with torch.no_grad():
             phase_kernels(k6_mini_cases(gen), results["kernels"])
+        log("kernels: K1 at the INT8 serve's decode lengths")
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            phase_kernels(k1_serve_cases(gen), results["kernels"])
 
     line = []
     for k in _build.KERNELS.values():

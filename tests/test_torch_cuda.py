@@ -78,6 +78,90 @@ def test_decode_attention_kernel(gen, qdt, kvdt, E, S, dv):
             _within_2x(out, da.decode_attention_ref(q, kt, ks, v, vs, length), ref)
 
 
+def _k1_window(gen, qdt, kvdt, E, S, dv, offset):
+    """K1's operands as windows of wider caches: q (E, 64) pre-scaled, kt
+    (E, 64, S), v (E, S, dv) and (E, S) scales (int8) starting ``offset``
+    columns into caches 16 columns wider (kt, scales) and ``offset`` + dv
+    wide rows (v): offset 0 keeps every row 16-byte aligned, 1 (keys and
+    scales) and 4 (values) leave none aligned."""
+    dk, dev = 64, "cuda"
+    q = (torch.randn(E, dk, generator=gen, device=dev) * 0.3).to(qdt)
+    W, vo = S + 16, 4 * min(offset, 1)
+    if kvdt == torch.int8:
+        kt = torch.randint(-127, 128, (E, dk, W), generator=gen, device=dev, dtype=torch.int8)
+        v = torch.randint(-127, 128, (E, S, dv + vo), generator=gen, device=dev,
+                          dtype=torch.int8)
+        ks, vs = (torch.rand(2, E, W, generator=gen, device=dev) * 0.02)[..., offset:offset + S]
+    else:
+        kt = torch.randn(E, dk, W, generator=gen, device=dev).to(kvdt)
+        v = torch.randn(E, S, dv + vo, generator=gen, device=dev).to(kvdt)
+        ks = vs = None
+    return q, kt[..., offset:offset + S], ks, v[..., vo:vo + dv], vs
+
+
+# (label, q dtype, cache dtype, E, S, dv, column offset, lengths): the
+# redesigned K1's schedules
+K1_SCHEDULES = [
+    # gpt-generate's decode: 96 rows, S split over a cluster of 2
+    ("gpt-generate", torch.bfloat16, torch.bfloat16, 96, 2112, 64, 0, "long"),
+    # split rows of length 0 and 1 among long ones
+    ("split short rows", torch.bfloat16, torch.bfloat16, 96, 2112, 64, 0, "short"),
+    ("split short rows int8", torch.bfloat16, torch.int8, 40, 1000, 64, 0, "short"),
+    # an odd E: off the 2 rows a CTA of narrow rows (the last CTA holds one)
+    ("E off rows", torch.bfloat16, torch.int8, 1537, 512, 64, 0, "ragged"),
+    # aligned and unaligned windows at the GPT and combine widths
+    ("gpt unaligned", torch.bfloat16, torch.int8, 300, 300, 64, 1, "ragged"),
+    ("gpt bf16 unaligned", torch.bfloat16, torch.bfloat16, 200, 300, 64, 1, "ragged"),
+    ("combine aligned", torch.bfloat16, torch.int8, 64, 512, 768, 0, "ragged"),
+    ("combine unaligned", torch.bfloat16, torch.int8, 33, 200, 768, 1, "ragged"),
+    ("combine bf16 unaligned", torch.bfloat16, torch.bfloat16, 20, 333, 768, 1, "ragged"),
+    # S past the old 8192 cap: the largest cluster
+    ("S 16384", torch.bfloat16, torch.bfloat16, 12, 16384, 64, 0, "long"),
+    # the f32 oracles under a split, narrow and wide
+    ("f32 split", torch.float32, torch.float32, 10, 1000, 64, 0, "short"),
+    ("f32 int8 wide split", torch.float32, torch.int8, 9, 700, 768, 1, "short"),
+]
+
+
+@pytest.mark.parametrize("ml", [False, True])
+@pytest.mark.parametrize("label,qdt,kvdt,E,S,dv,offset,lens", K1_SCHEDULES)
+def test_decode_attention_k1_schedules(gen, ml, label, qdt, kvdt, E, S, dv, offset, lens):
+    """K1 and K1-ml at each schedule of the redesigned kernel, per-row and
+    scalar lengths (a scalar 0: every row empty): one launch a call; f32
+    within 1e-5 of the f32 plain version, bf16 under the 2x rule against
+    it; empty rows uniform over S (K1) or (0, NEG, 0) (K1-ml)."""
+    dev = "cuda"
+    q, kt, ks, v, vs = _k1_window(gen, qdt, kvdt, E, S, dv, offset)
+    if lens == "long":
+        rows = torch.randint(S - 64, S + 1, (E,), generator=gen, device=dev, dtype=torch.int32)
+    else:
+        rows = torch.randint(1, S + 1, (E,), generator=gen, device=dev, dtype=torch.int32)
+    if lens == "short":
+        rows[0], rows[1], rows[2] = 0, 1, S
+    split = da._k1_schedule(E, 64, dv, S, kt.element_size(), _build.sm_count(0))[3]
+    if label.startswith(("gpt-generate", "split", "S 16384", "f32", "combine aligned")):
+        assert split > 1, label
+    name = "decode_attention_ml" if ml else "decode_attention"
+    fn = da.decode_attention_ml if ml else da.decode_attention
+    ref_fn = da.decode_attention_ml_ref if ml else da.decode_attention_ref
+    for length in (rows, S - 5, 0):
+        before = _build.KERNELS[name].launches
+        out = fn(q, kt, ks, v, vs, length)
+        assert _build.KERNELS[name].launches == before + 1
+        ref = ref_fn(q.float(), kt.float(), ks, v.float(), vs, length)
+        if ml:
+            empty = rows <= 0 if length is rows else torch.full_like(rows, length <= 0,
+                                                                       dtype=torch.bool)
+            assert (out[0][empty] == 0).all() and (out[1][empty] == da.NEG).all()
+            assert (out[2][empty] == 0).all()
+            if not empty.all():     # every row empty: both paths exact
+                _ml_close(out, ref_fn(q, kt, ks, v, vs, length), ref, qdt)
+        elif qdt == torch.float32:
+            _f32_close(out, ref)
+        else:
+            _within_2x(out, ref_fn(q, kt, ks, v, vs, length), ref)
+
+
 @pytest.mark.parametrize("bits,gs,M,K,N", [
     (8, None, 70, 64, 200),
     (4, None, 5, 96, 256),
@@ -1154,9 +1238,9 @@ def test_decode_attention_redesign_kernels(gen, form, qdt, kvdt, E, S, dv):
 
 
 def test_gathered_kernel_past_k1s_width(gen):
-    """S = 16384, past K1's 8192: ragged lengths over the whole width, an
-    empty row (exactly 0), bf16 over bf16, 2x rule against the f32 plain
-    version."""
+    """S = 16384: ragged lengths over the whole width, an empty row
+    (exactly 0), bf16 over bf16, 2x rule against the f32 plain version; K1
+    at the same width."""
     E, S = 12, 16384
     q, kt, ks, v, vs = _k1_operands(gen, torch.bfloat16, torch.bfloat16, E, S, 64)
     lens = torch.randint(1, S + 1, (E,), generator=gen, device="cuda",
@@ -1169,8 +1253,10 @@ def test_gathered_kernel_past_k1s_width(gen):
     ref = da.decode_attention_gathered_ref(q.float(), kt.float(), None, v.float(),
                                            None, lens)
     _within_2x(out, da.decode_attention_gathered_ref(q, kt, None, v, None, lens), ref)
-    with pytest.raises(ValueError, match="S <= 8192"):
-        da.decode_attention(q, kt, ks, v, vs, lens)
+    # K1 takes any S too (it keeps no score row): uniform over S on row 0
+    out = da.decode_attention(q, kt, ks, v, vs, lens)
+    _within_2x(out, da.decode_attention_ref(q, kt, ks, v, vs, lens),
+               da.decode_attention_ref(q.float(), kt.float(), None, v.float(), None, lens))
 
 
 @pytest.mark.parametrize("kind", ["int4", "mixed"])
