@@ -189,20 +189,57 @@ def _round16(x: int) -> int:
 
 
 def _k1_warp_tile(qpl: int, elt: int) -> int:
-    """Positions of a group tile one K1 warp owns: 32 bytes of keys a d row
-    for narrow rows (qpl 1), 8 for wide ones; at least 4."""
+    """Columns of a group tile one K1 (or K8) warp owns: 32 bytes of keys a
+    d row for narrow rows (qpl 1), 8 for wide ones; at least 4 (K8: packed
+    columns of one byte)."""
     return max(4, (32 if qpl == 1 else 8) // elt)
 
 
-def _k1_group_bytes(qpl: int, dk: int, dv: int, elt: int, wr: int, stages: int) -> int:
-    """Shared memory of one K1 row group of ``wr`` warps (the kernel's
-    ``Layout``): ``stages`` ring stages [keys dk x Tg | values Tg x dv
-    (16-byte rows) | ks, vs Tg f32], q (dk f32) and each warp's
-    probabilities (Tw f32), Tg = wr x Tw."""
+def _k1_group_bytes(qpl: int, dk: int, dv: int, elt: int, wr: int, stages: int,
+                    kr: int = 1, np_: int = 1) -> int:
+    """Shared memory of one K1 (or K8) row group of ``wr`` warps (the
+    kernel's ``Layout``, csrc/decode_attention.cuh): ``stages`` ring stages
+    [keys kr x dk x Tg | values Tg x dv (16-byte rows) | ks, vs np_ x Tg
+    f32], q (dk f32) and each warp's probabilities (np_ x Tw f32), Tg = wr x
+    Tw columns. K8: a column is a packed column (np_ = 2 positions, one
+    byte), kr = 2 key runs over the mixed cache."""
     tw, p = _k1_warp_tile(qpl, elt), 16 // elt
     tg, dvp = wr * tw, -(-dv // p) * p
-    stage = _round16(_round16(dk * tg * elt) + _round16(tg * dvp * elt) + 8 * tg)
-    return stages * stage + _round16(4 * dk) + wr * _round16(4 * tw)
+    stage = _round16(_round16(kr * dk * tg * elt) + _round16(tg * dvp * elt) + 8 * np_ * tg)
+    return stages * stage + _round16(4 * dk) + wr * _round16(4 * np_ * tw)
+
+
+def _quads(dv: int) -> int:
+    """qpl: the fewest 4-column quads a lane that cover dv (1, 2, 4, 6, 8)."""
+    return next(c for c in (1, 2, 4, 6, 8) if 32 * c >= -(-dv // 4))
+
+
+def _row_schedule(e: int, dk: int, dv: int, s_len: int, elt: int, sms: int,
+                  wr: int, rows: int, kr: int = 1, np_: int = 1, stages=None):
+    """The rest of the launch shape K1 and K8 share, for CTAs of ``rows``
+    rows of ``wr`` warps over ``s_len`` columns: fewer rows, then fewer
+    warps, while a CTA's ring of 2 stages does not fit a block; S split over
+    a cluster where the CTAs leave SMs idle (see :func:`_k1_schedule`); and,
+    unless given, the deepest ring (2-4 stages) with which as many CTAs fit
+    an SM as the grid puts there (at most 3)."""
+    qpl = _quads(dv)
+    group = lambda w, st: _k1_group_bytes(qpl, dk, dv, elt, w, st, kr, np_)
+    while rows > 1 and rows * group(wr, 2) > _BLOCK_SMEM:
+        rows //= 2
+    while wr > 2 and group(wr, 2) > _BLOCK_SMEM:   # K8's split int8 keys at large dk
+        wr //= 2
+    split = 1
+    tiles = -(-s_len // (wr * _k1_warp_tile(qpl, elt)))
+    while -(-e // rows) * split < sms and split < _K1_MAX_SPLIT and 4 * split <= tiles:
+        split *= 2
+    if stages is None:
+        per_sm = min(3, -(-(-(-e // rows) * split) // sms))
+        stages = 2
+        for s in (4, 3):
+            if per_sm * (rows * group(wr, s) + _SMEM_RESERVED) <= _SM_SMEM:
+                stages = s
+                break
+    return qpl, wr * rows, rows, split, stages
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,24 +264,10 @@ def _k1_schedule(e: int, dk: int, dv: int, s_len: int, elt: int, sms: int = 132)
     most 8, and each CTA at least two group tiles at the full width). The
     ring takes the most stages (up to 4) with which as many CTAs fit an SM
     as the grid puts on one (at most 3), and at least 2."""
-    quads = -(-dv // 4)
-    qpl = next(c for c in (1, 2, 4, 6, 8) if 32 * c >= quads)
-    wr, rows = 4, (2 if qpl == 1 else 1)
-    if qpl == 1 and -(-e // 2) < sms:
+    wr, rows = 4, (2 if _quads(dv) == 1 else 1)
+    if _quads(dv) == 1 and -(-e // 2) < sms:
         wr, rows = 8, 1
-    while rows > 1 and rows * _k1_group_bytes(qpl, dk, dv, elt, wr, 2) > _BLOCK_SMEM:
-        rows //= 2
-    split = 1
-    tiles = -(-s_len // (wr * _k1_warp_tile(qpl, elt)))
-    while -(-e // rows) * split < sms and split < _K1_MAX_SPLIT and 4 * split <= tiles:
-        split *= 2
-    per_sm = min(3, -(-(-(-e // rows) * split) // sms))
-    stages = 2
-    for s in (4, 3):
-        if per_sm * (rows * _k1_group_bytes(qpl, dk, dv, elt, wr, s) + _SMEM_RESERVED) <= _SM_SMEM:
-            stages = s
-            break
-    return qpl, wr * rows, rows, split, stages
+    return _row_schedule(e, dk, dv, s_len, elt, sms, wr, rows)
 
 
 def _k1_kernel(q, kt, ks, v, vs, length, ml: bool):
@@ -573,11 +596,34 @@ def decode_attention_flat_mixed(q, k8, ks2, v4, vs2, length):
     return _lowbit_ref(q, k8[:, :, 0], k8[:, :, 1], ks2, v4, vs2, length)
 
 
+@functools.lru_cache(maxsize=None)
+def _k8_schedule(e: int, dk: int, dv: int, s2: int, split_keys: bool, sms: int = 132):
+    """K8's launch shape for E rows of S/2 = ``s2`` packed columns on a card
+    of ``sms`` SMs: ``(qpl, warps, rows, split, stages)``, over K8's layout
+    (a packed column is two positions, one byte a d row of int4 keys, two
+    runs of one over the mixed cache's split int8 keys, one byte a value
+    channel); a warp takes K1's 32 packed columns of a narrow row, 8 of a
+    wide one. The serve's rows are short (64 or 128 packed columns under
+    its windows) and a row's work small, so a CTA takes several rows of 2
+    warps, which puts more rows on an SM (``probe_k8.py``, PERF.md): 4
+    narrow rows, 2 wide ones up to 128 packed columns, 1 wide row of 4
+    warps past that. Where such CTAs would leave SMs idle, a CTA takes one
+    row, K1's 8 warps (narrow) or 4 (wide), with S split over a cluster
+    where even that leaves SMs idle. A ring of 2 stages."""
+    if _quads(dv) == 1:
+        wr, rows = (2, 4) if -(-e // 4) >= sms else (8, 1)
+    else:
+        wr, rows = (2, 2) if s2 <= 128 and -(-e // 2) >= sms else (4, 1)
+    return _row_schedule(e, dk, dv, s2, 1, sms, wr, rows, kr=2 if split_keys else 1,
+                         np_=2, stages=2)
+
+
 def _lowbit_kernel(q, keys, ks2, v4, vs2, length, split_keys: bool,
                    ml: bool = False, empty_zero: bool = False):
     """K8 (or K8-ml with ``ml``). ``empty_zero``: a row of length 0 gives 0,
     as the Pallas body does, instead of attending uniformly (the (m, l)
-    epilogue's output; m and l are dropped)."""
+    epilogue's output; m and l are dropped). Any S: the kernel streams the
+    valid packed prefix with an online softmax."""
     e, dk = q.shape
     _build.check_cuda_tensor("q", q, _KV_DTYPES.keys(), 2)
     _build.check_cuda_tensor("keys", keys, (torch.int8,), 4 if split_keys else 3)
@@ -591,13 +637,9 @@ def _lowbit_kernel(q, keys, ks2, v4, vs2, length, split_keys: bool,
         _build.check_cuda_tensor(name, sc, (torch.float32,), 3)
         if sc.shape != (e, 2, s2):
             raise ValueError(f"{name} shape {tuple(sc.shape)} != {(e, 2, s2)}")
-    if dk > 256 or dv % 16 or dv > 1024 or s2 > 4096:
+    if dk > 256 or dv % 16 or dv > 1024:
         raise ValueError(f"lowbit_decode_attention kernel takes dk <= 256, "
-                         f"dv % 16 == 0 and dv <= 1024, S/2 <= 4096; got "
-                         f"dk={dk} dv={dv} S/2={s2}")
-    if v4.data_ptr() % 16 or v4.stride(0) % 16 or v4.stride(1) % 16:
-        raise ValueError("lowbit_decode_attention kernel needs 16-byte aligned "
-                         "value rows")
+                         f"dv % 16 == 0 and dv <= 1024; got dk={dk} dv={dv}")
     lens, scalar_len = _lengths_arg(length, e, q.device)
     out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
     m, l = _ml_outputs(e, q.device) if ml or empty_zero else (None, None)
@@ -610,7 +652,8 @@ def _lowbit_kernel(q, keys, ks2, v4, vs2, length, split_keys: bool,
             keys.stride(0), keys.stride(1), keys.stride(2) if split_keys else 0,
             ks2.stride(0), ks2.stride(1), v4.stride(0), v4.stride(1),
             vs2.stride(0), vs2.stride(1), _build.DTYPE_CODE[q.dtype],
-            int(split_keys))
+            int(split_keys),
+            *_k8_schedule(e, dk, dv, s2, split_keys, _build.sm_count(q.device.index)))
     return (out, m, l) if ml else out
 
 
@@ -652,7 +695,8 @@ def decode_attention_int4_blockdiag(q, kt4, ks2, v4, vs2, length, *,
     :func:`decode_attention_int4` attends uniformly there, as JAX's XLA
     form). Plain version: :func:`decode_attention_flat_int4_ml`'s output.
     ``rows_per_program`` and ``block_s2`` are the TPU's tiling: accepted,
-    not used (K8 takes a CTA a row and the whole valid prefix)."""
+    not used (K8 streams each row's whole valid prefix on its own
+    schedule)."""
     del rows_per_program, block_s2
     if not q.is_cuda or not _build.kernels_enabled():
         return decode_attention_flat_int4_ml(q, kt4, ks2, v4, vs2, length)[0]

@@ -1,6 +1,15 @@
-"""The backpack-small gradient gate of ``chip_smoke.py`` over many initial weights.
+"""The gradient gates of ``chip_smoke.py`` over many initial weights.
 
-    python3 chip_gate_sweep.py [--seeds 0-9] [--out DIR]
+    python3 chip_gate_sweep.py [--model backpack|gpt] [--seeds 0-9] [--repeat N] [--out DIR]
+
+``--model gpt``: train-8k's gate. For each seed: rotary gpt3-small's bf16
+weights from a CUDA generator seeded with it, ``chip_smoke.gate_weights``
+(12 AdamW steps at 1 x 2048 on the plain path, deterministic), then
+chip_smoke's gradient gate (fused MLP on) on 5 batches of 1 x 2048 drawn
+from the same generator; ``--repeat`` runs each seed that many times, so
+that a reading can be seen to repeat. One JSON line a run.
+
+The default, ``--model backpack``, is backpack-small's gate:
 
 For each seed: backpack-small's bf16 weights from a CUDA generator seeded
 with it, the 40 AdamW steps of chip_smoke's train-einsum run (32 x 512,
@@ -154,23 +163,69 @@ def sweep_seed(seed, cfg, ds, gate_batches, picks):
     return rows
 
 
+def sweep_gpt_seed(seed, cfg, run):
+    """train-8k's gate at the weights gate_weights makes from the seeded
+    initial weights; the reading recorded whether the gate passes or not."""
+    from backpacks_flash_attn_tpu_torch.models import gpt
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(seed)
+    params = gpt.init_gpt(cfg, gen, dtype=torch.bfloat16, device=cs.DEV)
+    gate_batches = [{"input_ids": torch.randint(0, cfg.vocab_size, (1, cs.GPT_GATE_LEN + 1),
+                                                generator=gen, device=cs.DEV)}
+                    for _ in range(cs.GATE_BATCHES)]
+    trained = cs.gate_weights(cfg, params)
+    del params
+    try:
+        gate, failure = cs.gradient_gate(
+            f"gpt3s rotary seed {seed}", trained, gate_batches,
+            lambda p, x, key: gpt.gpt_lm_forward(p, cfg, x, train=True, rng=key),
+            cs.GPT_PICKS), None
+    except AssertionError as exc:
+        gate, failure = None, str(exc)
+    del trained
+    torch.cuda.empty_cache()
+    row = {"model": "gpt", "seed": seed, "run": run, "gate": gate, "gate_failure": failure}
+    if gate:
+        row["loss_bias_share_of_bound"] = gate["loss_bias"]["share_of_bound"]
+        row["grad_norm_bias_share_of_bound"] = gate["grad_norm_bias"]["share_of_bound"]
+    cs.emit(row)
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("backpack", "gpt"), default="backpack")
     ap.add_argument("--seeds", default="0-9")
+    ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--out", type=Path, default=Path("build/gate_sweep"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_gate_sweep: no CUDA device")
-    from backpacks_flash_attn_tpu_torch.config import backpack_small
+    from backpacks_flash_attn_tpu_torch.config import backpack_small, gpt3_small
     from backpacks_flash_attn_tpu_torch.data import lm_dataset as lmd
     from backpacks_flash_attn_tpu_torch.data.synthetic import bigram_corpus
-    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.ops import _build, dense
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = cs.nvidia_smi_line()
     cs.emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
     _build.build_all()
+    if args.model == "gpt":
+        cfg = gpt3_small(rotary=True, vocab_size=50257)
+        dense._FUSED_MLP = True
+        rows = []
+        for seed in _seeds(args.seeds):
+            for run in range(args.repeat):
+                cs.log(f"gate sweep (gpt): seed {seed}, run {run}")
+                rows.append(sweep_gpt_seed(seed, cfg, run))
+        args.out.mkdir(parents=True, exist_ok=True)
+        (args.out / "gate_sweep_gpt.json").write_text(json.dumps(
+            {"nvidia_smi": smi, "rows": rows}, indent=1))
+        failed = [(r["seed"], r["run"]) for r in rows if r["gate_failure"]]
+        cs.emit({"gate_failures": failed, "runs": len(rows)})
+        print(smi, flush=True)
+        return
     cfg = backpack_small(vocab_size=50257)
     n_tokens = (cs.LEARN_STEPS + 2) * cs.TRAIN_BATCH * (cs.TRAIN_LEN + 1) * 2
     toks, _ = bigram_corpus(n_tokens, vocab_size=cs.BIGRAM_VOCAB, n_successors=4,

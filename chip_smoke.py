@@ -18,7 +18,8 @@ Phases, each printing one JSON line:
             host's microseconds a call. K8 (int4
             and mixed) against its plain version at the GPT decode and
             Backpack combine shapes, library = SDPA over the dequantized
-            cache; the (m, l) forms of the staged decode, K8-ml at the GPT
+            cache, with device and host times as K1's (every K8 and K8-ml
+            case has them); the (m, l) forms of the staged decode, K8-ml at the GPT
             int4 shape and K1-ml at the staged INT8 GPT and Backpack
             combine shapes, each on out, m and l. K2 (the INT8/INT4
             weight-dequant GEMM) at the decode step's shapes (M 128:
@@ -39,8 +40,9 @@ Phases, each printing one JSON line:
             8 teacher-forced steps of the kernel path against the plain
             path in the same cache configuration under the same 2x rule.
             Device time by kernel from torch.profiler over all 224 steps
-            (bf16, INT8) or the first 32 (kv4, int4), K2's and K1's device
-            ms a step among it (K1's recorded launches beside).
+            (bf16, INT8) or the first 32 (kv4, int4), K2's, K1's and K8's
+            device ms a step among it (K1's and K8's recorded launches
+            beside).
 5. engine   serve-engine: ServingEngine over INT8 weights and INT8 caches
             at its defaults (stage 64, windows 128/256/384/512), 128 slots,
             max_seqlen 512, 256 greedy requests (prompts of 16-64 tokens,
@@ -103,7 +105,10 @@ Phases, each printing one JSON line:
             on, batch 2 x 8192, no remat: step ms (median of 10 after 2
             warm-up), tokens/s, MFU, peak memory, the losses, K3, K5 and
             K7 12 launches each step, one profiled step; then the gradient
-            gate (as in train) on 5 batches of 1 x 2048.
+            gate (as in train) on 5 batches of 1 x 2048, at weights that
+            every run of one tree reproduces: the seeded weights trained 12
+            AdamW steps at 1 x 2048 on the plain path under
+            torch.use_deterministic_algorithms (gate_weights).
 10. generate generate_gpt on that model: batch 8, a 2048-token prompt, 64
             greedy tokens, bf16 cache: seconds, tokens/s, the prefill apart,
             K3 12 a prefill and K1 12 a decode step, a profile of 8 decode
@@ -149,6 +154,10 @@ Phases, each printing one JSON line:
             serve's own decode lengths (every row at 64 under the 128
             window, at 224 under the 256 window of a 512 cache; GPT rows
             and the combine), launch-gated, with device and host times.
+            Then K8 the same way at the low-bit serves' own lengths (K8
+            int4 and K8-ml at the GPT rows, K8 mixed at the combine), and
+            K8 int4 past the old kernel's S/2 cap of 4096: E 96, S 16384
+            (8192 packed columns), lengths 8192-16384.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -162,6 +171,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -171,6 +181,10 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# cuBLAS's workspace as PyTorch sizes it on an H100, named so that
+# torch.use_deterministic_algorithms admits cuBLAS calls (gate_weights)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor core
@@ -350,18 +364,17 @@ def k1_cases(gen):
     return cases
 
 
-def kernel_cases(gen):
-    """(kernel name, case label, run dict) for every main-path shape."""
-    from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as bk
+def k8_cases(gen):
+    """K8 at the kernels phase's shapes (drawn where kernel_cases always drew
+    them): int4 keys at the GPT decode shape, split int8 keys at the
+    Backpack combine's; with profiler device and host times."""
     from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
-    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
     from backpacks_flash_attn_tpu_torch.ops import quant
 
     dev = DEV
     bf = torch.bfloat16
     randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    cases = k1_cases(gen)
-
+    cases = []
     # K8: int4 at the GPT decode shape (E = 128*12, dk = dv = 64; a 512
     # cache read under the 256 window, a strided slice of 128 of its 256
     # packed columns) and mixed at the Backpack shape (E = 128*16, split
@@ -405,7 +418,21 @@ def kernel_cases(gen):
             ref=lambda a=ref_args, fn=flat: fn(*a),
             library=lambda q=q, lk=lk, lv=lv, m=mask: F.scaled_dot_product_attention(
                 q[None, :, None, :], lk, lv, attn_mask=m, scale=1.0)[0, :, 0],
-            bytes=nbytes, flops=2 * n * (dk + dv))))
+            bytes=nbytes, flops=2 * n * (dk + dv), device_times=True)))
+    return cases
+
+
+def kernel_cases(gen):
+    """(kernel name, case label, run dict) for every main-path shape."""
+    from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as bk
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+
+    dev = DEV
+    bf = torch.bfloat16
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    cases = k1_cases(gen)
+
+    cases += k8_cases(gen)
 
     # K2: (128 and 4096) x 768 @ 768 x {2304, 768, 3072, 50304} int8, the
     # fc2 3072 x 768, and one grouped INT4 case
@@ -537,7 +564,7 @@ def ml_kernel_cases(gen):
         ref=lambda a=args: da.decode_attention_flat_int4_ml(a[0].float(), *a[1:]),
         library=sdpa(q, kd, vd, lens),
         bytes=q.numel() * 2 + cols * (dk + dv + 16) + E * dv * 2 + E * 12,
-        flops=2 * n * (dk + dv))))
+        flops=2 * n * (dk + dv), device_times=True)))
 
     # K1-ml: INT8 keys and values with per-position scales
     for label, E, dv in (("gpt-int8-ml", 128 * 12, 64),
@@ -1216,12 +1243,20 @@ def k1_per_step(rows, steps):
                 k1_recorded_launches_per_step=sum(c for _, c in mine) / steps)
 
 
+def k8_per_step(rows, steps):
+    """K8's device ms and recorded launches a step (its forms, K8-ml
+    included, share one kernel symbol) from a profile's rows."""
+    mine = [(us, c) for us, k, c in rows if "lowbit_decode" in k]
+    return dict(k8_device_ms_per_step=sum(us for us, _ in mine) / 1e3 / steps,
+                k8_recorded_launches_per_step=sum(c for _, c in mine) / steps)
+
+
 def _per_step(wall, rows, steps, top=12):
     return dict(steps=steps, wall_ms_per_step_profiled=wall * 1e3 / steps,
                 device_ms_per_step=sum(us for us, _, _ in rows) / 1e3 / steps,
                 k2_device_ms_per_step=sum(us for us, k, _ in rows
                                           if "quant_matmul" in k) / 1e3 / steps,
-                **k1_per_step(rows, steps),
+                **k1_per_step(rows, steps), **k8_per_step(rows, steps),
                 top=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
                           calls_per_step=c / steps) for us, k, c in rows[:top]])
 
@@ -1616,7 +1651,7 @@ def staged_kv4_run(params, cfg, prompt):
                profile=dict(steps=short, wall_ms_per_step=wall,
                             device_ms_per_step=device,
                             device_idle_share=1 - device / wall,
-                            **k1_per_step(rows, short),
+                            **k1_per_step(rows, short), **k8_per_step(rows, short),
                             top=[dict(name=k[:80], ms_per_step=us / 1e3 / short,
                                       calls_per_step=c / short)
                                  for us, k, c in rows[:12]]))
@@ -2101,13 +2136,51 @@ GPT_PICKS = {
 }
 
 
+GATE_TRAIN_STEPS, GATE_TRAIN_SEED = TRAIN_WARMUP + TRAIN_TIMED, 8
+
+
+def gate_weights(cfg, params, steps=GATE_TRAIN_STEPS, seed=GATE_TRAIN_SEED):
+    """The weights train-8k's gradient gate runs at: ``params`` (not
+    modified) trained ``steps`` AdamW steps (the timed run's optimizer) at
+    the gate's own 1 x GPT_GATE_LEN, dropout on, on the plain path under
+    torch.use_deterministic_algorithms, on random tokens from a generator
+    of their own seeded ``seed`` (so that no phase's draws move): the same
+    bits in every run of one tree and one seed. The timed run's weights
+    are not: their bits follow the order of K5's dq atomics. At the initial
+    weights every logit is ~0 and the gate would hold nothing."""
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+    from backpacks_flash_attn_tpu_torch.utils import prng
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    batches = [{"input_ids": torch.randint(0, cfg.vocab_size, (1, GPT_GATE_LEN + 1),
+                                           generator=g, device=DEV)} for _ in range(steps)]
+    p = tl.trainable(_map_tensors(params, lambda t: t.clone()))
+    state = tl.TrainState(p, tl.make_optimizer(p, lr=6e-4, warmup_steps=10,
+                                               total_steps=1000), 0)
+    step = tl.make_train_step(cfg, model="gpt")
+    rng = prng.PRNGKey(1)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with _build.plain_path():
+            for batch in batches:
+                state, _ = step(state, batch, rng)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    out = _map_tensors(state.params, lambda t: t.detach())
+    del state, p
+    return out
+
+
 def phase_train8k(gen, results, cfg, params):
     """gpt3-small with rotary embeddings (the reference's
     gpt3s-flash-rotary-8k) at batch 2 x 8192, bf16 weights, AdamW, dropout
     on, the fused-MLP switch on, no remat: TRAIN_WARMUP + TRAIN_TIMED steps
     (K3, K5 and K7 once a layer each step). Then the gradient gate at
     GATE_BATCHES batches of 1 x 2048 (where the plain path's attention
-    fits), at the weights of the last step."""
+    fits), at gate_weights(params): reproducible weights, unlike the timed
+    run's."""
     from backpacks_flash_attn_tpu_torch.models import gpt
     from backpacks_flash_attn_tpu_torch.ops import dense
     from backpacks_flash_attn_tpu_torch.training import train as tl
@@ -2124,7 +2197,7 @@ def phase_train8k(gen, results, cfg, params):
     try:
         log("train-8k")
         batches = [ids(LONG_BATCH, LONG_LEN) for _ in range(TRAIN_WARMUP + TRAIN_TIMED + 1)]
-        results["train_8k"], trained = train_run(
+        results["train_8k"], _ = train_run(
             "train_8k", cfg, params, batches, tl.make_train_step(cfg, model="gpt"),
             check, model="gpt3_small(rotary=True)")
         run = results["train_8k"]
@@ -2133,12 +2206,15 @@ def phase_train8k(gen, results, cfg, params):
         del batches
         log("train-8k: gradient gate")
         gate_batches = [ids(1, GPT_GATE_LEN) for _ in range(GATE_BATCHES)]
+        trained = gate_weights(cfg, params)
         gate = gradient_gate(
             "gpt3s rotary 1 x 2048", trained, gate_batches,
             lambda p, x, key: gpt.gpt_lm_forward(p, cfg, x, train=True, rng=key),
             GPT_PICKS)
     finally:
         dense._FUSED_MLP = switch
+    gate["weights"] = dict(steps=GATE_TRAIN_STEPS, seed=GATE_TRAIN_SEED,
+                           shape=[1, GPT_GATE_LEN], path="plain, deterministic")
     emit({"phase": "train8k", "gradient_gate": gate})
     results["train_8k_gate"] = gate
     del trained
@@ -2314,7 +2390,7 @@ def _k1_form_cases(label, q, kt, ks, v, vs, lens, library, forms, device_times=F
             library=library,
             bytes=(q.numel() * 2 + n * (dk + dv) * kvb
                    + (8 * n if ks is not None else 0) + e * dv * 2 + e * 4),
-            flops=2 * n * (dk + dv), device_times=device_times)))
+            flops=2 * n * (dk + dv), device_times=True)))
     return cases
 
 
@@ -2393,7 +2469,7 @@ def decode_problem_cases(gen, shape, e, dk, dv, s):
                 ref=lambda a=ref_args, p=plain: p(*a),
                 library=_sdpa(q, *caches[kind], lens),
                 bytes=q.numel() * 2 + cols * (kbytes + dv + 16) + e * dv * 2 + e * 4,
-                flops=2 * n * (dk + dv))))
+                flops=2 * n * (dk + dv), device_times=True)))
     return cases
 
 
@@ -2447,6 +2523,88 @@ def k1_serve_cases(gen):
                 w[2], w[3], lens, _sdpa(q, lk, lv, lens),
                 _k1_forms(da, w[2], None, ("decode_attention",)), device_times=True)
     return cases
+
+
+def _k8_case(kind, label, q, keys, ks, v, vs, lens):
+    """A gated K8 case over a pair-packed cache (keys int4 (E, dk, S/2) or
+    split int8 (E, dk, 2, S/2), values (E, S/2, dv), (E, 2, S/2) scales):
+    ``kind`` int4, mixed or int4_ml, through the dispatcher (K8) or the (m,
+    l) form (K8-ml); its plain version under the 2x rule, SDPA over the
+    dequantized, interleaved cache beside (an empty row attends column 0
+    there), the bytes of the valid packed columns, device and host times.
+    Draws no random numbers."""
+    from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
+    from backpacks_flash_attn_tpu_torch.ops import quant
+
+    e, dk = q.shape
+    dv, w2 = v.shape[2], v.shape[1]
+    fn, flat = {"int4": (da.decode_attention_int4, da.decode_attention_flat_int4),
+                "mixed": (da.decode_attention_mixed, da.decode_attention_flat_mixed),
+                "int4_ml": (da.decode_attention_int4_ml,
+                            da.decode_attention_flat_int4_ml)}[kind]
+    kq = (keys.transpose(2, 3).reshape(e, dk, 2 * w2) if kind == "mixed"
+          else quant.unpack_int4_pairs(keys, 2))
+    kd = kq.float() * quant.interleave_pair_scales(ks)[:, None, :]
+    vd = quant.unpack_int4_pairs(v, 1).float() * quant.interleave_pair_scales(vs)[..., None]
+    valid = lens.clamp(0, 2 * w2)
+    if kind != "int4_ml":       # the dispatcher's empty row reads every column
+        valid = torch.where(lens <= 0, 2 * w2, valid)
+    n, cols = int(valid.sum().item()), int(((valid + 1) // 2).sum().item())
+    kbytes = dk * (2 if kind == "mixed" else 1)
+    args = (q, keys, ks, v, vs, lens)
+    return (f"lowbit_decode_{kind}", label, dict(
+        gate=f"lowbit_decode_{kind}",
+        kernel=lambda a=args: fn(*a),
+        plain=lambda a=args: flat(*a),
+        ref=lambda a=args: flat(a[0].float(), *a[1:]),
+        library=_sdpa(q, *_dequantized(kd, vd), lens),
+        bytes=(q.numel() * 2 + cols * (kbytes + dv + 16) + e * dv * 2
+               + e * (12 if kind == "int4_ml" else 4)),
+        flops=2 * n * (dk + dv), device_times=True))
+
+
+def k8_serve_cases(gen):
+    """K8 and K8-ml at the low-bit serves' own decode lengths: every row at
+    64 under the 128 window and at 224 under the 256 window of a 512-column
+    cache (window slices of 64 and 128 of its 256 packed columns): K8 int4
+    and K8-ml at the GPT rows (E = 128 x 12, dk = dv = 64), K8 mixed at the
+    Backpack combine (E = 128 x 16, dv 768); launch-gated, with profiler
+    device and host times, SDPA over the dequantized window beside."""
+    s2 = MAX_LEN // 2
+    cases = []
+    for kind, shape, e, dv in (("int4", "gpt", BATCH * 12, 64),
+                               ("int4_ml", "gpt", BATCH * 12, 64),
+                               ("mixed", "combine", BATCH * 16, 768)):
+        q = (torch.randn(e, 64, generator=gen, device=DEV) * 0.125).to(torch.bfloat16)
+        kshape = (e, 64, 2, s2) if kind == "mixed" else (e, 64, s2)
+        keys = torch.randint(-128, 128, kshape, generator=gen, device=DEV, dtype=torch.int8)
+        v = torch.randint(-128, 128, (e, s2, dv), generator=gen, device=DEV, dtype=torch.int8)
+        ks, vs = torch.rand(2, e, 2, s2, generator=gen, device=DEV) * 0.05
+        if kind == "mixed":
+            ks = ks / 16
+        for window, length in ((128, 64), (256, 224)):
+            w2 = window // 2
+            lens = torch.full((e,), length, dtype=torch.int32, device=DEV)
+            cases.append(_k8_case(
+                kind, f"serve-{shape}-{kind} E={e} window={window} len={length}", q,
+                keys[..., :w2], ks[..., :w2], v[:, :w2], vs[..., :w2], lens))
+    return cases
+
+
+def k8_long_cases(gen):
+    """K8 int4 past the old kernel's cap (S/2 <= 4096): gpt-generate's rows
+    (E = 96, dk = dv = 64) over S = 16384 positions (8192 packed columns),
+    lengths 8192-16384 with one odd; launch-gated, with device and host
+    times."""
+    e, s2 = GEN_ROWS, DECODE_LONG_S // 2
+    q = (torch.randn(e, 64, generator=gen, device=DEV) * 0.125).to(torch.bfloat16)
+    keys = torch.randint(-128, 128, (e, 64, s2), generator=gen, device=DEV, dtype=torch.int8)
+    v = torch.randint(-128, 128, (e, s2, 64), generator=gen, device=DEV, dtype=torch.int8)
+    ks, vs = torch.rand(2, e, 2, s2, generator=gen, device=DEV) * 0.05
+    lens = torch.randint(DECODE_LONG_S // 2, DECODE_LONG_S + 1, (e,), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    lens[0] = DECODE_LONG_S - 1
+    return [_k8_case("int4", f"long-int4 E={e} S={DECODE_LONG_S}", q, keys, ks, v, vs, lens)]
 
 
 def phase_decode_kernels(gen, results):
@@ -2577,6 +2735,10 @@ def main():
         torch.cuda.empty_cache()
         with torch.inference_mode():
             phase_kernels(k1_serve_cases(gen), results["kernels"])
+        log("kernels: K8 at the low-bit serves' decode lengths and past S/2 4096")
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            phase_kernels(k8_serve_cases(gen) + k8_long_cases(gen), results["kernels"])
 
     line = []
     for k in _build.KERNELS.values():

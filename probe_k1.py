@@ -4,8 +4,10 @@ other launch shapes, at the shapes the model paths launch it at.
 
     python3 probe_k1.py [--variants NAME,...] [--out FILE]
 
-Source variants (text substitutions, each built with the package's nvcc
-flags into ``build/probe_k1/`` and swapped in as K1's library):
+Source variants (text substitutions in ``csrc/decode_attention.cu`` and
+the header ``csrc/decode_attention.cuh`` that holds the kernel's body,
+each built with the package's nvcc flags into ``build/probe_k1/NAME/`` and
+swapped in as K1's library):
 
     full        the kernel as it is
     no_loads    no copy into the ring (the tiles hold whatever is there)
@@ -58,7 +60,8 @@ import chip_smoke as cs
 from backpacks_flash_attn_tpu_torch.ops import _build
 from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
 
-SOURCE = _build.CSRC / "decode_attention.cu"
+# the kernel's entry file and the header that holds its body
+SOURCES = (_build.CSRC / "decode_attention.cu", _build.CSRC / "decode_attention.cuh")
 OUT_DIR = _build.BUILD_DIR.parent / "probe_k1"
 NO_SCORES = ("      for (int d = g; d < a.dk; d += G) {", "      for (int d = g; d < 0; d += G) {")
 NO_VALUES = ("  for (int s = ps0; s < nv; s += PS) {", "  for (int s = ps0; s < 0; s += PS) {")
@@ -80,7 +83,7 @@ VARIANTS = {
     "no_vflat": [("  a.vflat = a.vvec && v_ss == dv;", "  a.vflat = 0;")],
     "guarded_values": [("    if (full)  // every lane owns QPL quads", "    if (false)  // every lane owns QPL quads")],
     "no_swizzle": [("  const int swz_mask = KCg >= 2 ? KCg - 2 : 0;", "  const int swz_mask = 0;")],
-    "always_rescale": [("    if (alpha < 1.f)  // warp-uniform: the max moved", "    if (true)")],
+    "always_rescale": [("    if (alpha < 1.f) {  // warp-uniform: the max moved", "    if (true) {")],
     "int8_cvt_cheap": [("""__device__ __forceinline__ float4 quad(const int8_t* p) {
   return i8x4_f32(*reinterpret_cast<const uint32_t*>(p));
 }""", """__device__ __forceinline__ float4 quad(const int8_t* p) {
@@ -96,32 +99,39 @@ VARIANTS = {
 }
 
 
-def variant_source(name, subs):
-    """The source of a variant; raises if a substitution is not found (so
-    that no build starts)."""
-    text = SOURCE.read_text()
+def variant_source(name, subs, sources=SOURCES):
+    """{file name: text} of a variant: each substitution replaced wherever
+    it occurs in the sources (the header's K1 and K8 paths alike); raises
+    if one occurs nowhere (so that no build starts)."""
+    texts = {p.name: p.read_text() for p in sources}
     for old, new in subs:
-        if text.count(old) != 1:
-            raise AssertionError(f"{name}: substitution not found once: {old[:60]!r}")
-        text = text.replace(old, new)
-    return text
+        if not any(old in t for t in texts.values()):
+            raise AssertionError(f"{name}: substitution not found: {old[:60]!r}")
+        texts = {f: t.replace(old, new) for f, t in texts.items()}
+    return texts
 
 
-def build(name, text):
-    src = OUT_DIR / f"{name}.cu"
-    src.write_text(text)
-    lib = OUT_DIR / f"lib{name}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(src)]
+def build(name, texts, out_dir=OUT_DIR):
+    """Compile a variant's entry file (the first of ``texts``) from its own
+    directory, whose copy of the header the quoted include finds first."""
+    d = out_dir / name
+    d.mkdir(parents=True, exist_ok=True)
+    for f, text in texts.items():
+        (d / f).write_text(text)
+    lib = d / f"lib{name}.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
+           str(d / next(iter(texts)))]
     return name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
 
 
-def ptxas_summary(log):
+def ptxas_summary(log, kernel="decode_attention_kernel"):
     """Registers and spill bytes of each kernel instance."""
     lines, out = log.splitlines(), []
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "decode_attention_kernel" in line:
-            out.append(f"{line.split('_Z')[-1][:60]}: {' '.join(lines[i + 1:i + 3]).strip()}")
+        if "Compiling entry function" in line and kernel in line:
+            info = [x.strip() for x in lines[i + 1:i + 5] if "spill" in x or "Used" in x]
+            out.append(f"{line.split(kernel)[-1][:40]}: {' '.join(info)}")
     return out
 
 

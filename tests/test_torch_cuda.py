@@ -1284,6 +1284,111 @@ def test_direct_lowbit_entries_kernel(gen, kind):
     _within_2x(out, plain, ref)
 
 
+def _k8_window(gen, qdt, mixed, E, S2, dv, offset, dk=64):
+    """K8's operands as window slices of S2 packed columns (``offset`` on)
+    of caches 16 columns wider, values ``offset`` x 8 channels into rows 8
+    wider: offset 0 keeps every row 16-byte aligned, 1 leaves none aligned
+    (the kernel's element copies)."""
+    dev = "cuda"
+    q = (torch.randn(E, dk, generator=gen, device=dev) * 0.3).to(qdt)
+    W, vo = S2 + 16, 8 * min(offset, 1)
+    kshape = (E, dk, 2, W) if mixed else (E, dk, W)
+    keys = torch.randint(-128, 128, kshape, generator=gen, device=dev, dtype=torch.int8)
+    v = torch.randint(-128, 128, (E, W, dv + vo), generator=gen, device=dev, dtype=torch.int8)
+    ks, vs = torch.rand(2, E, 2, W, generator=gen, device=dev) * 0.05
+    if mixed:
+        ks = ks / 16
+    cols = slice(offset, offset + S2)
+    return q, keys[..., cols], ks[..., cols], v[:, cols, vo:vo + dv], vs[..., cols]
+
+
+# (label, q dtype, split int8 keys, E, S/2, dv, offset, lengths, dk): the
+# redesigned K8's schedules
+K8_SCHEDULES = [
+    # the GPT rows' 4 rows of 2 warps a CTA, an E off the rows a CTA
+    ("rows a CTA", torch.bfloat16, False, 601, 128, 64, 0, "ragged", 64),
+    ("rows a CTA mixed", torch.bfloat16, True, 599, 64, 64, 0, "ragged", 64),
+    # several tiles a row, unaligned windows (element copies), dv 48 (lanes
+    # short of a full quad set), other dk
+    ("ring", torch.bfloat16, False, 300, 300, 64, 0, "ragged", 64),
+    ("ring unaligned", torch.bfloat16, False, 200, 300, 48, 1, "ragged", 80),
+    ("mixed unaligned", torch.bfloat16, True, 150, 257, 64, 1, "ragged", 64),
+    ("combine", torch.bfloat16, True, 64, 256, 768, 0, "ragged", 64),
+    ("combine int4 unaligned", torch.bfloat16, False, 33, 200, 768, 1, "ragged", 64),
+    # few rows: S split over a cluster, short rows among long ones
+    ("split short rows", torch.bfloat16, False, 40, 1000, 64, 0, "short", 64),
+    ("split mixed wide", torch.bfloat16, True, 9, 700, 768, 0, "short", 64),
+    # S past 8192 positions (the old kernel's cap was S/2 4096)
+    ("S 12000", torch.bfloat16, False, 12, 6000, 64, 0, "long", 64),
+    ("S 12000 mixed", torch.bfloat16, True, 6, 6000, 128, 0, "long", 256),
+    # the f32 oracles
+    ("f32 rows a CTA", torch.float32, False, 602, 128, 64, 0, "short", 64),
+    ("f32 split mixed", torch.float32, True, 10, 1000, 768, 1, "short", 64),
+]
+
+
+# each schedule through the dispatcher, the (m, l) form (int4 keys only,
+# as decode_attention_int4_staged_ml takes them) and the direct entries
+K8_FORMS = [(form, *case) for case in K8_SCHEDULES
+            for form in (("k8", "direct") if case[2] else ("k8", "ml", "direct"))]
+
+
+@pytest.mark.parametrize("form,label,qdt,mixed,E,S2,dv,offset,lens,dk", K8_FORMS)
+def test_lowbit_decode_k8_schedules(gen, form, label, qdt, mixed, E, S2, dv, offset, lens, dk):
+    """K8 at each schedule of the redesigned kernel through the dispatcher
+    (empty rows uniform over all S positions), the (m, l) form (int4 keys;
+    empty rows (0, NEG, 0)) and JAX's direct entries (empty rows 0), per-row
+    lengths (odd and even, 0, 1, the whole width) and scalar ones: one
+    launch a call of its own counter; f32 within 1e-5 of the f32 plain
+    version, bf16 under the 2x rule against it."""
+    dev, S = "cuda", 2 * S2
+    q, keys, ks, v, vs = _k8_window(gen, qdt, mixed, E, S2, dv, offset, dk)
+    if lens == "long":
+        rows = torch.randint(S - 129, S + 1, (E,), generator=gen, device=dev, dtype=torch.int32)
+    else:
+        rows = torch.randint(1, S + 1, (E,), generator=gen, device=dev, dtype=torch.int32)
+    rows[0], rows[1] = 0 if lens != "long" else S, 1 if lens == "short" else S - 1
+    sched = da._k8_schedule(E, dk, dv, S2, mixed, _build.sm_count(0))
+    if label.startswith(("rows a CTA", "f32 rows a CTA")):
+        assert sched[1:3] == (8, 4), sched
+    if label.startswith(("split", "S 12000", "f32 split")):
+        assert sched[3] > 1, sched
+    kind = "mixed" if mixed else "int4"
+    if form == "ml":
+        name, fn, plain = ("lowbit_decode_int4_ml", da.decode_attention_int4_ml,
+                           da.decode_attention_flat_int4_ml)
+    elif form == "direct":
+        name, fn = f"lowbit_decode_{kind}", getattr(da, f"decode_attention_{kind}_blockdiag")
+
+        def plain(*a, fn=fn):
+            with _build.plain_path():
+                return fn(*a)
+    else:
+        name, fn = f"lowbit_decode_{kind}", getattr(da, f"decode_attention_{kind}")
+        plain = getattr(da, f"decode_attention_flat_{kind}")
+    for length in (rows, S - 3, 0):
+        before = _build.KERNELS[name].launches
+        out = fn(q, keys, ks, v, vs, length)
+        assert _build.KERNELS[name].launches == before + 1
+        ref = plain(q.float(), keys, ks, v, vs, length)
+        empty = (rows <= 0) if length is rows else torch.full_like(rows, length <= 0,
+                                                                    dtype=torch.bool)
+        if form == "ml":
+            assert (out[0][empty] == 0).all() and (out[1][empty] == da.NEG).all()
+            assert (out[2][empty] == 0).all()
+            if not empty.all():
+                _ml_close(out, plain(q, keys, ks, v, vs, length), ref, qdt)
+            continue
+        if form == "direct":
+            assert (out[empty] == 0).all()
+            if empty.all():
+                continue
+        if qdt == torch.float32:
+            _f32_close(out, ref)
+        else:
+            _within_2x(out, plain(q, keys, ks, v, vs, length), ref)
+
+
 def test_decode_attention_flat_launches_k1(gen):
     q, kt, ks, v, vs = _k1_operands(gen, torch.bfloat16, torch.int8, 4, 512, 64)
     before = _build.KERNELS["decode_attention"].launches
