@@ -98,13 +98,13 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     # K7, the fused MLP forward of training
     Kernel("fused_mlp_fwd", "fused_mlp.cu",
            "backpacks_flash_attn_tpu/ops/fused_mlp.py:81"),
-    # K9, block-sparse attention: the forward and the two backward kernels
+    # K9, block-sparse attention: the forward on K3's body, and the backward
+    # on K5's single pass, which replaces both of JAX's backward bodies
+    # (_bs_bwd_dq_kernel :1242, _bs_bwd_dkv_kernel :1284, called from :1362)
     Kernel("blocksparse_fwd", "blocksparse_attention.cu",
            "backpacks_flash_attn_tpu/ops/flash_attention.py:1185"),
-    Kernel("blocksparse_bwd_dq", "blocksparse_attention.cu",
-           "backpacks_flash_attn_tpu/ops/flash_attention.py:1242"),
-    Kernel("blocksparse_bwd_dkv", "blocksparse_attention.cu",
-           "backpacks_flash_attn_tpu/ops/flash_attention.py:1284"),
+    Kernel("blocksparse_bwd", "blocksparse_attention_bwd.cu",
+           "backpacks_flash_attn_tpu/ops/flash_attention.py:1362"),
 )}
 
 

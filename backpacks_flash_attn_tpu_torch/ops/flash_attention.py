@@ -30,7 +30,7 @@ a blockmask marks, forward through ``_bs_fwd`` (:1185) and backward through
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,8 +45,7 @@ DROPOUT_ROUNDS = 2
 _K3 = _build.KERNELS["flash_attention"]
 _K5 = _build.KERNELS["flash_attention_bwd"]
 _K9 = _build.KERNELS["blocksparse_fwd"]
-_K9_DQ = _build.KERNELS["blocksparse_bwd_dq"]
-_K9_DKV = _build.KERNELS["blocksparse_bwd_dkv"]
+_K9_BWD = _build.KERNELS["blocksparse_bwd"]
 
 
 def _per_seq(x, b: int, device, default: int) -> torch.Tensor:
@@ -465,116 +464,201 @@ def blocksparse_attention_bwd_ref(q, k, v, out, lse, dout, active, *,
     return _attend_bwd_ref(q, k, v, out, lse, dout, mask, 1.0)
 
 
-def _bs_args(active, block_q, block_k):
-    """The active mask as the kernels read it (int32, row-major), and the
-    tile sizes they take: multiples of their 64-row tiles."""
-    if block_q % 64 or block_k % 64:
+_BS_TILE = 64      # the rows of a K9 tile: its blocks split into 64s
+
+
+def _k9_rows(sq: int, block_q: int) -> int:
+    """Query rows a CTA of K9's bf16 forward takes: K3's rule
+    (``csrc/flash_attention.cuh`` ``k3_rows``: 32 at sq <= 32, 64 up to sq
+    1024, 128 past it), held to a divisor of block_q."""
+    rows = 32 if sq <= 32 else 64 if sq <= 1024 else 128
+    return rows if block_q % rows == 0 else _BS_TILE
+
+
+def _k9_key_tile(sq: int, sk: int, block_k: int) -> int:
+    """Keys a CTA of K9's bf16 backward takes: K5's rule
+    (:func:`_k5_key_tile` at the longer side), held to a divisor of
+    block_k."""
+    tile = _k5_key_tile(max(sq, sk))
+    return tile if block_k % tile == 0 else _BS_TILE
+
+
+class BsTables(NamedTuple):
+    """What K9's kernels walk, built once a call on the operands' device
+    (``csrc/blocksparse_tables.cuh``, launched by the forward's C entry;
+    :func:`_bs_tables` is its plain version). ``row_idx[i, :row_cnt[i]]``:
+    query block i's active key blocks in order (JAX ``_bs_fwd``'s ``tbl`` /
+    ``cnt``, :1197-1202), its inactive ones after them;
+    ``col_idx[j, :col_cnt[j]]``: key block j's active query blocks, the
+    backward's columns. ``fwd_order``: the forward's query tiles of
+    ``rows`` rows, most key tiles first; ``bwd_order``: the backward's key
+    tiles of ``key_tile`` keys, most query tiles first. All int32."""
+    row_idx: torch.Tensor
+    row_cnt: torch.Tensor
+    col_idx: torch.Tensor
+    col_cnt: torch.Tensor
+    fwd_order: torch.Tensor
+    bwd_order: torch.Tensor
+    rows: int
+    key_tile: int
+
+
+def _active_lists(active: torch.Tensor):
+    """Each row's active columns in order, first, and their count."""
+    idx = torch.argsort((~active).to(torch.int32), dim=1, stable=True)
+    return idx.to(torch.int32).contiguous(), active.sum(1, dtype=torch.int32)
+
+
+def _check_blocks(block_q: int, block_k: int) -> None:
+    if block_q % _BS_TILE or block_k % _BS_TILE:
         raise ValueError(f"the block-sparse kernels take block_q and block_k "
-                         f"in multiples of 64, got {block_q} and {block_k}")
-    if max(active.shape) > 512:
-        raise ValueError(f"the block-sparse kernels take at most 512 blocks a "
-                         f"row or column, got {tuple(active.shape)}")
-    return active.to(torch.int32).contiguous()
+                         f"in multiples of {_BS_TILE}, got {block_q} and {block_k}")
 
 
-def _bs_fwd_kernel(q, k, v, active, *, causal, block_q, block_k,
+def _bs_tables(active: torch.Tensor, sq: int, sk: int, *, causal: bool,
+               block_q: int, block_k: int) -> BsTables:
+    """Plain version of the table kernels (:class:`BsTables`) from the
+    active tiles (n_qb, n_kb) (causal pre-filter applied), in tensor ops.
+    A CTA's work is the 64-row tiles its walk visits: the forward's query
+    tile of ``rows`` rows takes the 64-key tiles of its row's active blocks
+    below its last visible key (causal: its last row; and sk); the
+    backward's key tile takes the 64-query tiles of its column's active
+    blocks from its first key on (causal) and below sq."""
+    _check_blocks(block_q, block_k)
+    dev, active = active.device, active.to(torch.bool)
+    rows, key_tile = _k9_rows(sq, block_q), _k9_key_tile(sq, sk, block_k)
+    row_idx, row_cnt = _active_lists(active)
+    col_idx, col_cnt = _active_lists(active.t())
+    cdiv = lambda x: (x + _BS_TILE - 1) // _BS_TILE
+
+    q0 = torch.arange(0, sq, rows, device=dev)
+    end = torch.clamp(q0 + rows, max=min(sq, sk)) if causal else torch.full_like(q0, sk)
+    k_lo = torch.arange(active.shape[1], device=dev) * block_k
+    keys = (torch.minimum(end[:, None], k_lo + block_k) - k_lo).clamp(min=0)
+    fwd_work = (active[q0 // block_q] * cdiv(keys)).sum(1)
+
+    k0 = torch.arange(0, sk, key_tile, device=dev)
+    q_lo = torch.arange(active.shape[0], device=dev) * block_q
+    first = torch.maximum(q_lo[None, :], k0[:, None]) if causal else q_lo[None, :]
+    queries = (torch.clamp(q_lo + block_q, max=sq)[None, :] - first).clamp(min=0)
+    bwd_work = (active.t()[k0 // block_k] * cdiv(queries)).sum(1)
+
+    order = lambda w: torch.argsort(-w, stable=True).to(torch.int32)
+    return BsTables(row_idx, row_cnt, col_idx, col_cnt, order(fwd_work),
+                    order(bwd_work), rows, key_tile)
+
+
+def _bs_table_buffers(n_qb: int, n_kb: int, sq: int, sk: int, block_q: int,
+                      block_k: int, device):
+    """Room for the table kernels' output, one int32 allocation: the
+    :class:`BsTables` views and the kernels' work scratch."""
+    _check_blocks(block_q, block_k)
+    rows, key_tile = _k9_rows(sq, block_q), _k9_key_tile(sq, sk, block_k)
+    n_qt, n_kt = -(-sq // rows), -(-sk // key_tile)
+    sizes = (n_qb * n_kb, n_qb, n_kb * n_qb, n_kb, n_qt, n_kt, n_qt + n_kt)
+    parts = torch.empty(sum(sizes), dtype=torch.int32, device=device).split(sizes)
+    tables = BsTables(parts[0].view(n_qb, n_kb), parts[1], parts[2].view(n_kb, n_qb),
+                      parts[3], parts[4], parts[5], rows, key_tile)
+    return tables, parts[6]
+
+
+def _bs_fwd_kernel(q, k, v, blockmask, *, causal, block_q, block_k,
                    seq_lengths=None):
-    """K9 forward (``csrc/blocksparse_attention.cu``): bf16 on tensor cores
-    or f32 SIMT, d = 64, pre-scaled q. -> (out, lse) as the plain version."""
+    """K9 forward (``csrc/blocksparse_attention.cu``), one C entry: the tile
+    tables built from the blockmask (the causal pre-filter applied there),
+    then the attention, bf16 on K3's tensor-core body or f32 SIMT; d = 64,
+    pre-scaled q. -> (out, lse, tables); (out, lse) as the plain version's,
+    the tables for the backward."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
     q, k, v = (_build.kernel_operand(t) for t in (q, k, v))
-    act = _bs_args(active, block_q, block_k)
-    lens = _per_seq(seq_lengths, b, q.device, sk).to(torch.int32).contiguous()
+    mask = blockmask.to(torch.int32).contiguous()
+    tables, work = _bs_table_buffers(*mask.shape, sq, sk, block_q, block_k, q.device)
+    lens = _per_seq_arg(seq_lengths, b, q.device)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
-    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
     _build.launch(_K9, "blocksparse_fwd_launch", P(q), P(k), P(v), P(out),
-                  P(lse), P(act), P(lens), b, h, sq, sk, *act.shape, block_q,
-                  block_k, *strides, 1.0, int(causal),
+                  P(lse), P(lens), P(mask), *(P(x) for x in tables[:6]), P(work),
+                  b, h, sq, sk, *mask.shape, block_q, block_k, tables.rows,
+                  tables.key_tile, *strides, 1.0, int(causal),
                   _build.DTYPE_CODE[q.dtype])
-    return out, lse
+    return out, lse, tables
 
 
-def _bs_bwd_operands(q, k, v, out, lse, dout, active, block_q, block_k):
+def _bs_bwd_kernel(q, k, v, out, lse, dout, tables: BsTables, *, causal,
+                   block_q, block_k):
+    """K9 backward (``csrc/blocksparse_attention_bwd.cu``), one C entry over
+    the tables its forward built: bf16 on K5's single pass (prep, main,
+    convert; dq summed in an f32 workspace, so its last bits vary between
+    runs) or f32 SIMT; d = 64, any sq and sk. -> (dq, dk, dv),
+    contiguous."""
     b, sq, h, d = q.shape
+    sk = k.shape[1]
     _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
-    q, k, v, dout = (_build.kernel_operand(t)
-                     for t in (q, k, v, dout.to(q.dtype)))
-    if dout.shape != q.shape or out.shape != q.shape:
-        raise ValueError(f"out {tuple(out.shape)} / dout {tuple(dout.shape)} "
-                         f"!= q's {tuple(q.shape)}")
+    q, k, v, out, dout = (_build.kernel_operand(t)
+                          for t in (q, k, v, out, dout.to(q.dtype)))
+    for name, x in (("out", out), ("dout", dout)):
+        _build.check_cuda_tensor(name, x, (q.dtype,), 4)
+        if x.shape != q.shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)} != q's")
     _build.check_cuda_tensor("lse", lse, (torch.float32,), 3)
     if lse.shape != (b, h, sq):
         raise ValueError(f"lse: shape {tuple(lse.shape)} != {(b, h, sq)}")
-    # delta = rowsum(out * dout) in f32 (JAX :1376, an XLA op there too)
-    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
-    strides = [s for t in (q, k, v, dout) for s in t.stride()[:3]]
-    return (q, k, v, dout, lse.contiguous(), delta,
-            _bs_args(active, block_q, block_k), strides)
-
-
-def _bs_bwd_dq_kernel(q, k, v, out, lse, dout, active, *, causal, block_q,
-                      block_k):
-    """K9's dq kernel: one block per 64-row query tile over its active key
-    tiles. -> dq (b, sq, h, d), contiguous."""
-    q, k, v, dout, lse, delta, act, strides = _bs_bwd_operands(
-        q, k, v, out, lse, dout, active, block_q, block_k)
-    b, sq, h, d = q.shape
+    lse = lse.contiguous()
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    P = _build.Ptr.of
-    _build.launch(_K9_DQ, "blocksparse_bwd_dq_launch", P(q), P(k), P(v),
-                  P(dout), P(lse), P(delta), P(dq), P(act), b, h, sq,
-                  k.shape[1], *act.shape, block_q, block_k, *strides, 1.0,
-                  int(causal), _build.DTYPE_CODE[q.dtype])
-    return dq
-
-
-def _bs_bwd_dkv_kernel(q, k, v, out, lse, dout, active, *, causal, block_q,
-                       block_k):
-    """K9's dk/dv kernel: one block per 64-key tile over the active query
-    tiles of its column. -> (dk, dv) (b, sk, h, d), contiguous."""
-    q, k, v, dout, lse, delta, act, strides = _bs_bwd_operands(
-        q, k, v, out, lse, dout, active, block_q, block_k)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    # as K5's: bf16 the f32 dq accumulator and the LSE and delta tables
+    # padded to whole 64-query tiles; f32 delta
+    ws_len = (b * sq * h * d + 2 * b * h * _round_up(sq, _BS_TILE)
+              if q.dtype == torch.bfloat16 else b * h * sq)
+    ws = torch.empty(ws_len, dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
-    _build.launch(_K9_DKV, "blocksparse_bwd_dkv_launch", P(q), P(k), P(v),
-                  P(dout), P(lse), P(delta), P(dk), P(dv), P(act), b, h, sq,
-                  sk, *act.shape, block_q, block_k, *strides, 1.0,
-                  int(causal), _build.DTYPE_CODE[q.dtype])
-    return dk, dv
+    strides = [s for x in (q, k, v, out, dout) for s in x.stride()[:3]]
+    _build.launch(_K9_BWD, "blocksparse_bwd_launch", P(q), P(k), P(v),
+                  P(out), P(dout), P(lse), P(ws), P(dq), P(dk), P(dv),
+                  *(P(x) for x in tables[:4]), P(tables.bwd_order), b, h, sq,
+                  sk, *tables.row_idx.shape, block_q, block_k,
+                  tables.key_tile, *strides, 1.0, int(causal),
+                  _build.DTYPE_CODE[q.dtype])
+    return dq, dk, dv
 
 
 class _BlockSparseAttention(torch.autograd.Function):
     """K9 forward, K9 backward (JAX ``_blocksparse_bhsd``'s custom_vjp,
-    :1327-1410) over pre-scaled q: saves (q, k, v, out, lse) and the active
-    mask. The path is decided once, at the forward, as in
+    :1327-1410) over pre-scaled q: saves (q, k, v, out, lse) and, on the
+    kernel path, keeps the tile tables the forward built, so that a
+    forward-plus-backward call builds them once; the plain path saves the
+    active tiles too. ``active``: the active tiles (the plain path), or the
+    blockmask itself (the kernel path, whose table kernels apply the
+    causal pre-filter). The path is decided once, at the forward, as in
     :class:`_FlashAttention`."""
 
     @staticmethod
     def forward(ctx, q, k, v, active, causal, block_q, block_k, use_kernel):
         kw = dict(causal=causal, block_q=block_q, block_k=block_k)
-        fn = _bs_fwd_kernel if use_kernel else blocksparse_attention_ref
-        out, lse = fn(q, k, v, active, **kw)
-        ctx.save_for_backward(q, k, v, out, lse, active)
+        if use_kernel:
+            out, lse, ctx.tables = _bs_fwd_kernel(q, k, v, active, **kw)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out, lse = blocksparse_attention_ref(q, k, v, active, **kw)
+            ctx.save_for_backward(q, k, v, out, lse, active)
         ctx.kw = kw
         ctx.use_kernel = use_kernel
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse, active = ctx.saved_tensors
-        args = (q, k, v, out, lse, dout, active)
         if ctx.use_kernel:
-            dq = _bs_bwd_dq_kernel(*args, **ctx.kw)
-            dk, dv = _bs_bwd_dkv_kernel(*args, **ctx.kw)
+            q, k, v, out, lse = ctx.saved_tensors
+            dq, dk, dv = _bs_bwd_kernel(q, k, v, out, lse, dout, ctx.tables, **ctx.kw)
         else:
-            dq, dk, dv = blocksparse_attention_bwd_ref(*args, **ctx.kw)
+            q, k, v, out, lse, active = ctx.saved_tensors
+            dq, dk, dv = blocksparse_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                       active, **ctx.kw)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -590,16 +674,18 @@ def flash_blocksparse_attention(q: torch.Tensor, k: torch.Tensor,
 
     q is scaled and rounded to its dtype first, as in JAX; tiles with 0 in
     the blockmask contribute nothing, a row with no active tile gives 0.
-    Without ``seq_lengths`` the op is differentiable in q, k, v (K9's two
-    backward kernels); with it, keys at or past ``seq_lengths[b]`` are
+    Without ``seq_lengths`` the op is differentiable in q, k, v (K9's
+    backward, one C entry); with it, keys at or past ``seq_lengths[b]`` are
     masked and the op is forward only, as in JAX. CPU tensors, and every
     call inside ``_build.plain_path()``, take the plain versions; otherwise
     a CUDA tensor launches K9 (bf16 or f32, d = 64, block_q and block_k
-    multiples of 64) or raises."""
+    multiples of 64, any number of blocks) or raises."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    q = (q.float() * scale).to(q.dtype)
+    # rounded to q's dtype after an f32 product, as JAX's q.astype(f32) *
+    # scale -> q.dtype: PyTorch multiplies a bf16 tensor by a scalar in f32
+    q = q * scale
     block_q = min(block_q, _round_up(sq, 128))
     block_k = min(block_k, _round_up(sk, 128))
     n_qb, n_kb = -(-sq // block_q), -(-sk // block_k)
@@ -607,8 +693,10 @@ def flash_blocksparse_attention(q: torch.Tensor, k: torch.Tensor,
     if tuple(blockmask.shape) != (n_qb, n_kb):
         raise ValueError(f"blockmask shape {tuple(blockmask.shape)} != "
                          f"{(n_qb, n_kb)}")
-    active = blocksparse_active(blockmask, causal, block_q, block_k)
     use_kernel = q.is_cuda and _build.kernels_enabled()
+    # the kernels' table pass applies the causal pre-filter itself
+    active = (blockmask if use_kernel
+              else blocksparse_active(blockmask, causal, block_q, block_k))
     kw = dict(causal=causal, block_q=block_q, block_k=block_k)
     if seq_lengths is None:
         return _BlockSparseAttention.apply(q, k, v, active, causal, block_q,

@@ -92,7 +92,7 @@ Phases, each printing one JSON line:
             b 4, s 4096, h 12 under bench_longctx.py's band mask (band
             1024 + global block 0, 256 x 256 blocks), again with per-row
             key lengths and with a query block that has no active tile,
-            and K9's dq and dk/dv kernels.
+            and K9's backward (dq, dk, dv: one C entry, one launch count).
 8. longctx  bench_longctx.py on the card: at s = 2048, 4096, 8192 (b =
             16384 / s, h 12, d 64, bf16) the causal flash forward (K3) and
             forward + backward (K3 + K5): ms, TFLOP/s, peak memory; the
@@ -157,7 +157,10 @@ Phases, each printing one JSON line:
             Then K8 the same way at the low-bit serves' own lengths (K8
             int4 and K8-ml at the GPT rows, K8 mixed at the combine), and
             K8 int4 past the old kernel's S/2 cap of 4096: E 96, S 16384
-            (8192 packed columns), lengths 8192-16384.
+            (8192 packed columns), lengths 8192-16384. Last, K9 past the
+            old kernels' cap of 512 blocks a row or column (block 64,
+            non-causal, a random mask): the forward at sq 128 over sk
+            33,280 and the backward at sq 33,280 over sk 128.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -424,12 +427,8 @@ def k8_cases(gen):
 
 def kernel_cases(gen):
     """(kernel name, case label, run dict) for every main-path shape."""
-    from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as bk
-    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
-
-    dev = DEV
     bf = torch.bfloat16
-    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
     cases = k1_cases(gen)
 
     cases += k8_cases(gen)
@@ -440,9 +439,25 @@ def kernel_cases(gen):
         for K, N, bits, gs in K2_SHAPES + ([(768, 3072, 4, 128)] if M == K2_DECODE_M else []):
             cases.append(k2_case(gen, M, K, N, bits, gs))
 
-    # K3: the cached prefill (128, 12, 32 queries over a 512-column cache,
-    # seq_lengths = offset + 32) and the (8, 12, 512) causal forward; the
-    # bytes count the key/value columns the masks leave readable
+    cases += k3_cases(gen)
+
+    # K4: (8, 512, 16, 48) with d = 768
+    qk = randn(8, 512, 2, 16, 48).to(bf)
+    cases.append(k4_case("", qk[:, :, 0], qk[:, :, 1], randn(8, 512, 16, 768).to(bf)))
+    return cases + ml_kernel_cases(gen)
+
+
+def k3_cases(gen):
+    """K3: the cached prefill (128, 12, 32 queries over a 512-column cache,
+    seq_lengths = offset + 32), the same with per-sequence offsets, and the
+    (8, 12, 512) causal forward; the bytes count the key/value columns the
+    masks leave readable."""
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+
+    dev = DEV
+    bf = torch.bfloat16
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    cases = []
     for label, b, sq, sk, ragged in (("prefill", 128, 32, 512, False),
                                      ("ragged", 128, 32, 512, True),
                                      ("forward", 8, 512, 512, False)):
@@ -478,11 +493,7 @@ def kernel_cases(gen):
             ref=lambda a=(q, k, v), kw=kw: fa.flash_attention_ref(
                 *(t.float() for t in a), **kw),
             library=lib, bytes=nbytes, flops=4 * pairs * d)))
-
-    # K4: (8, 512, 16, 48) with d = 768
-    qk = randn(8, 512, 2, 16, 48).to(bf)
-    cases.append(k4_case("", qk[:, :, 0], qk[:, :, 1], randn(8, 512, 16, 768).to(bf)))
-    return cases + ml_kernel_cases(gen)
+    return cases
 
 
 def k4_case(label, q, k, c):
@@ -924,13 +935,15 @@ def longctx_kernel_cases(gen):
     """K7 at the gpt3-small training MLP (16384 tokens, 768 -> 3072 -> 768,
     gelu_new) in bf16 and f32, and K9 at b 4, s 4096, h 12, d 64 under the
     band mask: the forward (out and LSE; then per-row key lengths, one
-    sequence short; then a query block with no active tile), and the dq and
-    dk/dv kernels, each backward from its own path's forward. q is
-    pre-scaled, as flash_blocksparse_attention hands it to the kernels.
-    Library yardsticks: matmul + gelu + matmul (cuBLAS); SDPA with the
-    blockmask expanded to a dense boolean mask, forward and autograd
-    backward. Made outside inference mode (the backward yardstick is an
-    autograd call)."""
+    sequence short; then a query block with no active tile), and the
+    backward (dq, dk, dv in one C entry) from the kernel's own forward. q
+    is pre-scaled and the blockmask int32, as flash_blocksparse_attention
+    hands them to the kernels; the forward's C entry builds the tile
+    tables (timed with it), the backward reads the ones its forward built,
+    as in the op. Library yardsticks: matmul + gelu + matmul
+    (cuBLAS); SDPA with the blockmask expanded to a dense boolean mask,
+    forward and autograd backward. Made outside inference mode (the
+    backward yardstick is an autograd call)."""
     from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
 
     bf = torch.bfloat16
@@ -946,12 +959,7 @@ def longctx_kernel_cases(gen):
     b, s, h, dh = BS_B, BS_S, LONG_H, LONG_D
     q = (randn(b, s, h, dh) * 0.125).to(bf)
     k, v, dout = (randn(b, s, h, dh).to(bf) for _ in range(3))
-    q32, k32, v32 = q.float(), k.float(), v.float()
     bm, density = band_blockmask(s)
-    kw = dict(causal=True, block_q=BS_BLOCK, block_k=BS_BLOCK)
-    act = fa.blocksparse_active(bm, True, BS_BLOCK, BS_BLOCK)
-    tensor = b * s * h * dh * 2
-    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
     lens = torch.full((b,), s, dtype=torch.int32, device=DEV)
     lens[1:] = torch.randint(1, s + 1, (b - 1,), generator=gen, device=DEV,
                              dtype=torch.int32)
@@ -969,49 +977,106 @@ def longctx_kernel_cases(gen):
 
     for label, mask, seq in (("band", bm, None), ("ragged", bm, lens),
                              ("empty-row", empty, None)):
-        a = fa.blocksparse_active(mask, True, BS_BLOCK, BS_BLOCK)
-        emask = fa._bs_mask(a, b, s, s, BS_BLOCK, BS_BLOCK, True, seq)
-        pairs = int(emask.sum().item()) * h
-        fkw = dict(kw, seq_lengths=seq)
-        case = dict(
-            kernel=lambda a=a, fkw=fkw: fa._bs_fwd_kernel(q, k, v, a, **fkw),
-            plain=lambda a=a, fkw=fkw: fa.blocksparse_attention_ref(q, k, v, a, **fkw),
-            ref=lambda a=a, fkw=fkw: fa.blocksparse_attention_ref(q32, k32, v32, a, **fkw),
-            library=lambda m=emask: F.scaled_dot_product_attention(
-                qT, kT, vT, attn_mask=m, scale=1.0).transpose(1, 2),
-            bytes=4 * tensor + b * h * s * 4, flops=4 * pairs * dh)
+        case = k9_fwd_case(q, k, v, mask, True, BS_BLOCK, seq)
         if label == "empty-row":
             case["check"] = check_empty
         cases.append(("blocksparse_fwd", f"{label} b={b} h={h} s={s} "
                       f"density={density:.3f}", case))
+    cases.append(("blocksparse_bwd", f"band b={b} h={h} s={s}",
+                  k9_bwd_case(q, k, v, dout, bm, True, BS_BLOCK)))
+    return cases
 
-    emask = fa._bs_mask(act, b, s, s, BS_BLOCK, BS_BLOCK, True, None)
-    pairs = int(emask.sum().item()) * h
-    kout, klse = fa._bs_fwd_kernel(q, k, v, act, **kw)
+
+def _k9_pairs(q, k, act, causal, block, seq=None):
+    """The valid (query, key) pairs of a K9 call and its dense mask."""
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+    b, sq, h = q.shape[:3]
+    emask = fa._bs_mask(act, b, sq, k.shape[1], block, block, causal, seq)
+    return int(emask.sum().item()) * h, emask
+
+
+def k9_fwd_case(q, k, v, mask, causal, block, seq=None):
+    """K9's forward C entry (the tile tables built from the int32 blockmask,
+    then out and LSE over pre-scaled bf16 q) against the plain forward over
+    the active tiles; library = SDPA under the dense boolean mask. Draws
+    nothing."""
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+    b, sq, h, dh = q.shape
+    act = fa.blocksparse_active(mask, causal, block, block)
+    pairs, emask = _k9_pairs(q, k, act, causal, block, seq)
+    kw = dict(causal=causal, block_q=block, block_k=block, seq_lengths=seq)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
+    return dict(
+        kernel=lambda: fa._bs_fwd_kernel(q, k, v, mask, **kw)[:2],
+        plain=lambda: fa.blocksparse_attention_ref(q, k, v, act, **kw),
+        ref=lambda: fa.blocksparse_attention_ref(q32, k32, v32, act, **kw),
+        library=lambda: F.scaled_dot_product_attention(
+            qT, kT, vT, attn_mask=emask, scale=1.0).transpose(1, 2),
+        # read q, k, v once, write out and the LSE; the two products over
+        # the valid pairs
+        bytes=2 * (2 * q.numel() + 2 * k.numel()) + b * h * sq * 4,
+        flops=4 * pairs * dh)
+
+
+def k9_bwd_case(q, k, v, dout, mask, causal, block):
+    """K9's backward C entry (over the tables its forward built) from the
+    kernel's own forward, against the plain backward from the plain
+    forward; library = SDPA's autograd backward under the dense boolean
+    mask. Draws nothing."""
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+    b, sq, h, dh = q.shape
+    act = fa.blocksparse_active(mask, causal, block, block)
+    pairs, emask = _k9_pairs(q, k, act, causal, block)
+    kw = dict(causal=causal, block_q=block, block_k=block)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    kout, klse, tables = fa._bs_fwd_kernel(q, k, v, mask, **kw)
     pout, plse = fa.blocksparse_attention_ref(q, k, v, act, **kw)
     rout, rlse = fa.blocksparse_attention_ref(q32, k32, v32, act, **kw)
     with torch.enable_grad():
-        lq, lk, lv = (t.detach().requires_grad_() for t in (qT, kT, vT))
-        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=emask,
-                                              scale=1.0)
+        lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=emask, scale=1.0)
     ldo = dout.transpose(1, 2)
-    bwd = dict(
+    return dict(
+        kernel=lambda: fa._bs_bwd_kernel(q, k, v, kout, klse, dout, tables, **kw),
         plain=lambda: fa.blocksparse_attention_bwd_ref(q, k, v, pout, plse, dout, act, **kw),
         ref=lambda: fa.blocksparse_attention_bwd_ref(q32, k32, v32, rout, rlse,
                                                      dout.float(), act, **kw),
-        library=lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True))
-    # dq reads q, k, v, dO, lse, delta and writes dq: S, dP and dQ; dk/dv
-    # reads the same and writes dk, dv: S, dP, dV and dK
-    cases.append(("blocksparse_bwd_dq", f"band b={b} h={h} s={s}", dict(
-        kernel=lambda: fa._bs_bwd_dq_kernel(q, k, v, kout, klse, dout, act, **kw),
-        plain=lambda: bwd["plain"]()[0], ref=lambda: bwd["ref"]()[0],
-        library=bwd["library"], bytes=5 * tensor + 2 * b * h * s * 4,
-        flops=6 * pairs * dh)))
-    cases.append(("blocksparse_bwd_dkv", f"band b={b} h={h} s={s}", dict(
-        kernel=lambda: fa._bs_bwd_dkv_kernel(q, k, v, kout, klse, dout, act, **kw),
-        plain=lambda: bwd["plain"]()[1:], ref=lambda: bwd["ref"]()[1:],
-        library=bwd["library"], bytes=6 * tensor + 2 * b * h * s * 4,
-        flops=8 * pairs * dh)))
+        library=lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True),
+        # read q, k, v, out, dO once, write dq, dk, dv (8 bf16 tensors),
+        # and two f32 rows (the LSE read, delta made and read); the five
+        # products (S recomputed, dP, dV, dQ, dK) over the valid pairs
+        bytes=2 * 4 * (q.numel() + k.numel()) + 2 * b * h * sq * 4,
+        flops=10 * pairs * dh)
+
+
+K9_CAP_LEN, K9_CAP_SHORT, K9_CAP_BLOCK = 33280, 128, 64
+
+
+def k9_past_cap_cases(gen):
+    """K9 past the old kernels' 512-block cap, at block 64, non-causal, a
+    random blockmask of density ~0.5, b 1, h 12: the forward with sq 128
+    over sk 33,280 (520 key blocks a row) and the backward with sq 33,280
+    over sk 128 (520 query blocks a column). Drawn after every other
+    phase's data, so that their inputs stay as they were."""
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    bf = torch.bfloat16
+    cases = []
+    h, dh, blk = LONG_H, LONG_D, K9_CAP_BLOCK
+    for label, sq, sk in (("past-cap fwd", K9_CAP_SHORT, K9_CAP_LEN),
+                          ("past-cap bwd", K9_CAP_LEN, K9_CAP_SHORT)):
+        q = (randn(1, sq, h, dh) * 0.125).to(bf)
+        k, v = (randn(1, sk, h, dh).to(bf) for _ in range(2))
+        dout = randn(1, sq, h, dh).to(bf)
+        n_qb, n_kb = -(-sq // blk), -(-sk // blk)
+        mask = (torch.rand(n_qb, n_kb, generator=gen, device=DEV) < 0.5).to(torch.int32)
+        shape = f"sq={sq} sk={sk} block={blk} blocks={max(n_qb, n_kb)} h={h}"
+        if label.endswith("fwd"):
+            cases.append(("blocksparse_fwd", f"{label} {shape}",
+                          k9_fwd_case(q, k, v, mask, False, blk)))
+        else:
+            cases.append(("blocksparse_bwd", f"{label} {shape}",
+                          k9_bwd_case(q, k, v, dout, mask, False, blk)))
     return cases
 
 
@@ -1044,8 +1109,7 @@ HEADLINE = {
     "lowbit_decode_int4_ml": "gpt-int4-ml",
     "fused_mlp_fwd": f"T={MLP_T} {MLP_D}->{MLP_INNER}->{MLP_D} gelu_new bfloat16",
     "blocksparse_fwd": "band",
-    "blocksparse_bwd_dq": "band",
-    "blocksparse_bwd_dkv": "band",
+    "blocksparse_bwd": "band",
     "decode_attention_gathered": "gpt-generate",
     "decode_attention_selector": "gpt_kv-int8 S=512 full vt=True",
     "decode_attention_blockdiag": "gpt_kv-int8 S=512 full",
@@ -1064,8 +1128,7 @@ LAUNCH_RUN = {
     "lowbit_decode_int4_ml": "serve_staged_kv4",
     "fused_mlp_fwd": "train_8k",
     "blocksparse_fwd": "longctx",
-    "blocksparse_bwd_dq": "longctx",
-    "blocksparse_bwd_dkv": "longctx",
+    "blocksparse_bwd": "longctx",
     "decode_attention_gathered": "decode_kernels",
     "decode_attention_selector": "decode_kernels",
     "decode_attention_blockdiag": "decode_kernels",
@@ -2054,7 +2117,7 @@ def phase_train(gen, results):
 # ------------------------------------------------------------------ longctx
 
 LONGCTX_SEQLENS, LONGCTX_TOKENS, LONGCTX_REPS = (2048, 4096, 8192), 16384, 5
-K9 = ("blocksparse_fwd", "blocksparse_bwd_dq", "blocksparse_bwd_dkv")
+K9 = ("blocksparse_fwd", "blocksparse_bwd")
 
 
 def _launched(fn, names):
@@ -2739,6 +2802,10 @@ def main():
         torch.cuda.empty_cache()
         with torch.inference_mode():
             phase_kernels(k8_serve_cases(gen) + k8_long_cases(gen), results["kernels"])
+        log("kernels: K9 past the old 512-block cap")
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            phase_kernels(k9_past_cap_cases(gen), results["kernels"])
 
     line = []
     for k in _build.KERNELS.values():

@@ -987,6 +987,45 @@ def _band_mask(n_qb, n_kb, band):
     return (((kj <= qi) & ((qi - kj) < band)) | (kj == 0)).to(torch.int32)
 
 
+def _bs_paths(act, kw, q, k, v, dout, kernel):
+    """K9's forward then its backward from that forward's (out, LSE): the
+    kernels (counted: one launch each) or the plain versions."""
+    if kernel:
+        out, lse, tables = fa._bs_fwd_kernel(q, k, v, act, **kw)
+        return (out, lse, *fa._bs_bwd_kernel(q, k, v, out, lse, dout, tables, **kw))
+    out, lse = fa.blocksparse_attention_ref(q, k, v, act, **kw)
+    return (out, lse, *fa.blocksparse_attention_bwd_ref(q, k, v, out, lse, dout, act, **kw))
+
+
+def _bs_check(act, kw, q, k, v, dout, empty_block=None):
+    """The kernels (a forward and a backward launch) against the f32 plain
+    reference: f32 within F32_ATOL, bf16 within 2x the bf16 plain version;
+    the LSE of live rows close, dead rows at NEG_INF in both."""
+    _build.reset_launches()
+    kernel = _bs_paths(act, kw, q, k, v, dout, True)
+    counts = _build.launch_counts()
+    assert [counts[n] for n in ("blocksparse_fwd", "blocksparse_bwd")] == [1, 1]
+    ref = _bs_paths(act, kw, q.float(), k.float(), v.float(), dout.float(), False)
+    out, lse = kernel[:2]
+    if empty_block is not None:
+        rows = slice(empty_block * kw["block_q"], (empty_block + 1) * kw["block_q"])
+        assert (out[:, rows] == 0).all()
+        assert (lse[:, :, rows] == fa.NEG_INF).all()
+    live = lse > fa.NEG_INF / 2
+    assert torch.equal(live, ref[1] > fa.NEG_INF / 2)
+    assert torch.allclose(lse[live], ref[1][live], rtol=1e-5, atol=1e-4)
+    names = ("out", "lse", "dq", "dk", "dv")
+    if q.dtype == torch.float32:
+        for name, a, want in zip(names, kernel, ref):
+            if name != "lse":
+                _f32_close(a, want)
+        return
+    plain = _bs_paths(act, kw, q, k, v, dout, False)
+    for name, a, p, want in zip(names, kernel, plain, ref):
+        if name != "lse":
+            _within_2x(a, p, want)
+
+
 @pytest.mark.parametrize("dt,b,sq,sk,h,block,causal,mask", [
     (torch.bfloat16, 2, 384, 384, 3, 128, True, "band"),
     (torch.bfloat16, 1, 200, 330, 2, 128, False, "random"),   # sq != sk
@@ -994,9 +1033,9 @@ def _band_mask(n_qb, n_kb, band):
     (torch.float32, 1, 130, 260, 2, 64, False, "band"),
 ])
 def test_blocksparse_kernels(gen, dt, b, sq, sk, h, block, causal, mask):
-    """K9 forward (out, LSE) and its dq and dk/dv kernels against the plain
-    versions; query block 1 has no active tile (zero out, NEG_INF LSE);
-    each backward takes its own path's forward."""
+    """K9 forward (out, LSE) and its backward (one C entry) against the
+    plain versions; query block 1 has no active tile (zero out, NEG_INF
+    LSE); each backward takes its own path's forward."""
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     q = (r(b, sq, h, 64) * 0.125).to(dt)            # pre-scaled, as the op does
     k, v, dout = r(b, sk, h, 64).to(dt), r(b, sk, h, 64).to(dt), r(b, sq, h, 64).to(dt)
@@ -1005,40 +1044,65 @@ def test_blocksparse_kernels(gen, dt, b, sq, sk, h, block, causal, mask):
           (torch.rand(n_qb, n_kb, generator=torch.Generator().manual_seed(3)) < 0.6).int())
     bm[1] = 0
     act = fa.blocksparse_active(bm.cuda(), causal, block, block)
-    kw = dict(causal=causal, block_q=block, block_k=block)
+    _bs_check(act, dict(causal=causal, block_q=block, block_k=block), q, k, v, dout, 1)
 
-    def path(fwd, bwd_dq, bwd_dkv, qq, kk, vv, go):
-        out, lse = fwd(qq, kk, vv, act, **kw)
-        if bwd_dq is None:
-            return (out, lse, *fa.blocksparse_attention_bwd_ref(
-                qq, kk, vv, out, lse, go, act, **kw))
-        return (out, lse, bwd_dq(qq, kk, vv, out, lse, go, act, **kw),
-                *bwd_dkv(qq, kk, vv, out, lse, go, act, **kw))
 
-    _build.reset_launches()
-    kernel = path(fa._bs_fwd_kernel, fa._bs_bwd_dq_kernel, fa._bs_bwd_dkv_kernel,
-                  q, k, v, dout)
-    counts = _build.launch_counts()
-    assert [counts[n] for n in ("blocksparse_fwd", "blocksparse_bwd_dq",
-                                "blocksparse_bwd_dkv")] == [1, 1, 1]
-    ref = path(fa.blocksparse_attention_ref, None, None, q.float(), k.float(),
-               v.float(), dout.float())
-    out, lse = kernel[:2]
-    assert (out[:, block:2 * block] == 0).all()
-    assert (lse[:, :, block:2 * block] == fa.NEG_INF).all()
-    live = lse > fa.NEG_INF / 2
-    assert torch.equal(live, ref[1] > fa.NEG_INF / 2)
-    assert torch.allclose(lse[live], ref[1][live], rtol=1e-5, atol=1e-4)
-    names = ("out", "lse", "dq", "dk", "dv")
-    if dt == torch.float32:
-        for name, a, want in zip(names, kernel, ref):
-            if name != "lse":
-                _f32_close(a, want)
-        return
-    plain = path(fa.blocksparse_attention_ref, None, None, q, k, v, dout)
-    for name, a, p, want in zip(names, kernel, plain, ref):
-        if name != "lse":
-            _within_2x(a, p, want)
+@pytest.mark.parametrize("sq,sk,block_q,block_k", [
+    (320, 200, 128, 64),     # more queries than keys; the key tile 64 (block_k)
+    (200, 320, 64, 128),     # fewer; 128-key tiles
+    (1100, 900, 256, 256),   # 128-row forward tiles, 64-key backward tiles
+])
+def test_blocksparse_bf16_causal_sq_ne_sk(gen, sq, sk, block_q, block_k):
+    """The bf16 single-pass backward (K5's kernels over K9's column walk)
+    with sq != sk and causal masking (key <= query), unequal blocks, a
+    random mask."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+    q = (r(2, sq, 2, 64).float() * 0.125).to(torch.bfloat16)
+    k, v, dout = r(2, sk, 2, 64), r(2, sk, 2, 64), r(2, sq, 2, 64)
+    n_qb, n_kb = -(-sq // block_q), -(-sk // block_k)
+    bm = (torch.rand(n_qb, n_kb, generator=torch.Generator().manual_seed(4)) < 0.7).int()
+    act = fa.blocksparse_active(bm.cuda(), True, block_q, block_k)
+    _bs_check(act, dict(causal=True, block_q=block_q, block_k=block_k), q, k, v, dout)
+
+
+@pytest.mark.parametrize("causal,sq,sk,block_q,block_k", [
+    (True, 4096, 4096, 256, 256),    # chip_smoke's band shape: 128-row tiles
+    (False, 200, 330, 128, 64),
+    (True, 1300, 900, 128, 128),
+    (False, 128, 33280, 64, 64),     # 520 blocks a row
+])
+def test_blocksparse_table_kernels_match_plain(gen, causal, sq, sk, block_q, block_k):
+    """The tables the forward's C entry builds from an int32 blockmask (the
+    causal pre-filter applied there) equal the plain version's over the
+    active tiles, bit for bit: the lists with the inactive blocks after
+    the active ones, the counts and both launch orders."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = r(1, sq, 1, 64), r(1, sk, 1, 64), r(1, sk, 1, 64)
+    n_qb, n_kb = -(-sq // block_q), -(-sk // block_k)
+    bm = (torch.rand(n_qb, n_kb, generator=torch.Generator().manual_seed(6)) < 0.5).int().cuda()
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    built = fa._bs_fwd_kernel(q, k, v, bm, **kw)[2]
+    plain = fa._bs_tables(fa.blocksparse_active(bm, **kw), sq, sk, **kw)
+    assert (built.rows, built.key_tile) == (plain.rows, plain.key_tile)
+    for name, a, want in zip(fa.BsTables._fields, built, plain):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, want), name
+
+
+@pytest.mark.parametrize("sq,sk", [(128, 33280), (33280, 128)])
+def test_blocksparse_past_the_old_512_block_cap(gen, sq, sk):
+    """Block 64 over 33,280 keys (520 key blocks a row: the forward's
+    list) or queries (520 query blocks a column: the backward's), where
+    the old kernels refused more than 512; non-causal, a random mask;
+    bf16 under the 2x rule against the plain version."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+    q = (r(1, sq, 2, 64).float() * 0.125).to(torch.bfloat16)
+    k, v, dout = r(1, sk, 2, 64), r(1, sk, 2, 64), r(1, sq, 2, 64)
+    n_qb, n_kb = -(-sq // 64), -(-sk // 64)
+    assert max(n_qb, n_kb) == 520
+    bm = (torch.rand(n_qb, n_kb, generator=torch.Generator().manual_seed(5)) < 0.5).int()
+    act = fa.blocksparse_active(bm.cuda(), False, 64, 64)
+    _bs_check(act, dict(causal=False, block_q=64, block_k=64), q, k, v, dout)
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
@@ -1083,8 +1147,7 @@ def test_blocksparse_autograd_launches_k9(gen):
                                          bm, block_q=128, block_k=128)
     out.float().square().sum().backward()
     counts = _build.launch_counts()
-    assert [counts[n] for n in ("blocksparse_fwd", "blocksparse_bwd_dq",
-                                "blocksparse_bwd_dkv")] == [1, 1, 1]
+    assert [counts[n] for n in ("blocksparse_fwd", "blocksparse_bwd")] == [1, 1]
     assert counts["flash_attention"] == counts["flash_attention_bwd"] == 0
     assert torch.isfinite(x.grad.float()).all()
 
