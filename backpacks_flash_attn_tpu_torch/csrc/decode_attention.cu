@@ -69,7 +69,16 @@
 //
 // The kernel body with its ring, copies and merge lives in
 // decode_attention.cuh, which K8 (lowbit_decode_attention.cu) shares over
-// its low-bit layouts.
+// its low-bit layouts and K1-selector (decode_attention_selector.cu) over
+// (E, dv, S) values.
+//
+// K1-blockdiag is this kernel too. It replaces the TPU kernel
+// decode_attention_blockdiag (decode_attention.py:465, Pallas body
+// _blockdiag_kernel :415), which computes K1's function with the per-row
+// matvecs turned into block-diagonal MXU products over JAX's rows a program
+// (:475-481). At ~2 flops a byte the H100 needs no such trick, so the op
+// wrapper launches this entry on K1's schedule (counted apart, as
+// decode_attention_blockdiag); JAX's rows a program choose nothing here.
 #include "decode_attention.cuh"
 
 namespace {
@@ -80,18 +89,20 @@ decode_attention_kernel(const Args a) {
   decode_rows<TQ, TKV, QPL, FMT_K1>(a);
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch_qpl(const Args& a, long long qpl, cudaStream_t st) {
-  constexpr int elt = sizeof(TKV);
-  switch (qpl) {
-    case 1: return launch_rows<decode_attention_kernel<TQ, TKV, 1>>(a, elt, 1, 1, 1, st);
-    case 2: return launch_rows<decode_attention_kernel<TQ, TKV, 2>>(a, elt, 2, 1, 1, st);
-    case 4: return launch_rows<decode_attention_kernel<TQ, TKV, 4>>(a, elt, 4, 1, 1, st);
-    case 6: return launch_rows<decode_attention_kernel<TQ, TKV, 6>>(a, elt, 6, 1, 1, st);
-    case 8: return launch_rows<decode_attention_kernel<TQ, TKV, 8>>(a, elt, 8, 1, 1, st);
-    default: return cudaErrorInvalidValue;
+struct Launch {
+  template <typename TQ, typename TKV>
+  static cudaError_t run(const Args& a, long long qpl, cudaStream_t st) {
+    constexpr int elt = sizeof(TKV);
+    switch (qpl) {
+      case 1: return launch_rows<decode_attention_kernel<TQ, TKV, 1>>(a, elt, 1, FMT_K1, st);
+      case 2: return launch_rows<decode_attention_kernel<TQ, TKV, 2>>(a, elt, 2, FMT_K1, st);
+      case 4: return launch_rows<decode_attention_kernel<TQ, TKV, 4>>(a, elt, 4, FMT_K1, st);
+      case 6: return launch_rows<decode_attention_kernel<TQ, TKV, 6>>(a, elt, 6, FMT_K1, st);
+      case 8: return launch_rows<decode_attention_kernel<TQ, TKV, 8>>(a, elt, 8, FMT_K1, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
-}
+};
 
 }  // namespace
 
@@ -109,38 +120,7 @@ extern "C" int decode_attention_launch(const void* q, const void* kt, const void
                                        long long q_dtype, long long kv_dtype, long long qpl,
                                        long long warps, long long rows, long long split,
                                        long long stages, void* stream) {
-  if (!schedule_ok(warps, rows, split, stages, dk, dv, qpl) || (mo == nullptr) != (lo == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (E == 0) return 0;
-  const long long elt = kv_dtype == DT_I8 ? 1 : kv_dtype == DT_BF16 ? 2 : 4;
-  const long long P = 16 / elt;
-  Args a;
-  a.q = q, a.kt = kt, a.ks = static_cast<const float*>(ks), a.v = v;
-  a.vs = static_cast<const float*>(vs), a.lengths = static_cast<const int*>(lengths);
-  a.out = out, a.mo = static_cast<float*>(mo), a.lo = static_cast<float*>(lo);
-  a.q_se = q_se, a.kt_se = kt_se, a.kt_sd = kt_sd, a.v_se = v_se, a.v_ss = v_ss;
-  a.ks_se = ks_se, a.vs_se = vs_se, a.k_sp = a.ks_sp = a.vs_sp = 0;
-  a.E = static_cast<int>(E), a.dk = static_cast<int>(dk), a.S = static_cast<int>(S);
-  a.dv = static_cast<int>(dv), a.scalar_len = static_cast<int>(scalar_len);
-  a.rows = static_cast<int>(rows), a.wr = static_cast<int>(warps / rows);
-  a.split = static_cast<int>(split), a.stages = static_cast<int>(stages);
-  a.kvec = aligned(kt, 16) && kt_se % P == 0 && kt_sd % P == 0;
-  a.vvec = aligned(v, 16) && v_se % P == 0 && v_ss % P == 0 && dv % P == 0;
-  a.vflat = a.vvec && v_ss == dv;
-  a.ksvec = ks == nullptr || (aligned(ks, 16) && ks_se % 4 == 0);
-  a.vsvec = vs == nullptr || (aligned(vs, 16) && vs_se % 4 == 0);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (q_dtype == DT_BF16 && kv_dtype == DT_I8)
-    err = launch_qpl<__nv_bfloat16, int8_t>(a, qpl, st);
-  else if (q_dtype == DT_BF16 && kv_dtype == DT_BF16)
-    err = launch_qpl<__nv_bfloat16, __nv_bfloat16>(a, qpl, st);
-  else if (q_dtype == DT_F32 && kv_dtype == DT_I8)
-    err = launch_qpl<float, int8_t>(a, qpl, st);
-  else if (q_dtype == DT_F32 && kv_dtype == DT_F32)
-    err = launch_qpl<float, float>(a, qpl, st);
-  else
-    err = cudaErrorInvalidValue;
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return k1_entry<Launch>(FMT_K1, q, kt, ks, v, vs, lengths, out, mo, lo, E, dk, S, dv, scalar_len,
+                          q_se, kt_se, kt_sd, v_se, v_ss, ks_se, vs_se, q_dtype, kv_dtype, qpl,
+                          warps, rows, split, stages, stream);
 }

@@ -1,8 +1,10 @@
-// The single-query decode attention of K1 (decode_attention.cu) and K8
-// (lowbit_decode_attention.cu): one kernel body over three key/value formats.
+// The single-query decode attention of K1 and K1-blockdiag
+// (decode_attention.cu), K1-selector (decode_attention_selector.cu) and K8
+// (lowbit_decode_attention.cu): one kernel body over four key/value formats.
 //
 //   FMT_K1     K1: kt (E, dk, S) and v (E, S, dv) of one element type (f32,
 //              bf16 or int8), scales (E, S) or none.
+//   FMT_VT     the selector: as FMT_K1, values (E, dv, S) (any dv >= 1).
 //   FMT_INT4   K8: packed column j of kt4 (E, dk, S/2) and v4 (E, S/2, dv)
 //              holds positions 2j (low nibble) and 2j + 1 (high nibble);
 //              scales (E, 2, S/2), the parity on the middle axis.
@@ -26,6 +28,15 @@
 // -136 x (the lane's share of sum q), the values subtract 136 x (the
 // lane's sum of weights) before the merge. Products of a bf16 q with such a
 // value are exact in f32.
+//
+// FMT_VT's value tile is channel-major: channel c's Tg positions are one
+// 16-byte-chunked row of the slab (the copies run along s, as the cache
+// does), rows ordered by c % 4 then c / 4 and chunks swizzled by row, so that
+// the lanes of a load (one channel of each lane's quad) hit distinct banks.
+// The warp's slice of a row is one or two units of U = min(16, Tw elt) bytes;
+// a lane reads a unit of each of its channels as one 16- or 8-byte word and
+// the unit's weights once, then does U / elt FMAs a word. The accumulators
+// keep FMT_K1's layout (a lane's quads lq + LP j), so the merge is shared.
 #pragma once
 
 #include "common.cuh"
@@ -38,7 +49,7 @@ constexpr float kNeg = -1e30f;   // decode_attention.py NEG
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNibOff = 136.f;
 
-enum { FMT_K1 = 0, FMT_INT4 = 1, FMT_MIXED = 2 };
+enum { FMT_K1 = 0, FMT_INT4 = 1, FMT_MIXED = 2, FMT_VT = 3 };
 
 // four int8 (one word) as f32: the byte, offset by 128, becomes the low
 // mantissa byte of 2^23 (__byte_perm with 0x4B000000), and one subtraction
@@ -104,25 +115,25 @@ template <> struct RawOf<1> { using T = uint8_t; };
 template <> struct RawOf<2> { using T = uint16_t; };
 template <> struct RawOf<4> { using T = uint32_t; };
 
-// n elements of a 16-byte chunk from src to dst (src in bounds for them);
+// n elements of a 16-byte chunk from src to dst (src in bounds for them),
+// the rest of the chunk zeroed (all of it where n <= 0: src is not read);
 // vec: one cp.async (src 16-byte aligned), else element by element
 template <typename TKV>
 __device__ __forceinline__ void copy_chunk(TKV* dst, const TKV* src, int n, bool vec) {
   constexpr int P = 16 / sizeof(TKV);
   using Raw = typename RawOf<sizeof(TKV)>::T;
-  if (vec) {
+  if (n <= 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  } else if (vec) {
     cp_async16_part(dst, src, min(n, P) * static_cast<int>(sizeof(TKV)));
   } else {
     const Raw* s = reinterpret_cast<const Raw*>(src);
     Raw* d = reinterpret_cast<Raw*>(dst);
 #pragma unroll
-    for (int i = 0; i < P; ++i)
-      if (i < n) d[i] = s[i];
+    for (int i = 0; i < P; ++i) d[i] = i < n ? s[i] : Raw(0);
   }
 }
 
-// a tile's NP runs of nv f32 scales (run r at src + r * sp) into the ring,
-// run r at Tg floats; chunks t, t + threads, ...
 template <int NP>
 __device__ __forceinline__ void copy_scales(float* dst, const float* src, long long sp, int Tg,
                                             int nv, int t, int threads, bool vec) {
@@ -136,25 +147,27 @@ __device__ __forceinline__ void copy_scales(float* dst, const float* src, long l
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
 // A row group's shared memory: `stages` ring stages [K (kr x dk rows of Tg
-// columns, 16-byte chunks swizzled by row) | V (Tg x dvp) | ks (np x Tg
-// f32) | vs (np x Tg f32)], then q (dk f32) and each warp's p * vs (np x
-// Tw f32). kr: key runs a d row, np: positions a column (both 1 for K1).
+// columns, 16-byte chunks swizzled by row) | V (Tg x dvp; vt: round4(dv)
+// channel rows of vcs = round16(Tg elt) bytes) | ks (np x Tg f32) | vs (np x
+// Tg f32)], then q (dk f32) and each warp's p * vs (np x Tw f32). kr: key
+// runs a d row, np: positions a column (both 1 for K1 and the selector).
 // A warp's Tw columns hold 32 bytes of keys a d row of narrow rows, 8 of
 // wide ones (K8: as many packed columns, twice the positions); at least 4.
 // After the stream the warps' partials (m, l, pad, pad, acc[dv]) reuse the
 // ring, warp w's at w * part (a stage's value tile alone is wr * Tw * dv
 // elements, >= 8 * wr * dv bytes).
 struct Layout {
-  int Tw, Tg, dvp, v_off, ks_off, vs_off, stage, q_off, p_off, part, group;
+  int Tw, Tg, dvp, vcs, v_off, ks_off, vs_off, stage, q_off, p_off, part, group;
   __host__ __device__ Layout(int elt, int qpl, int dk, int dv, int wr, int stages, int kr = 1,
-                             int np = 1) {
+                             int np = 1, bool vt = false) {
     Tw = (qpl == 1 ? 32 : 8) / elt;
     if (Tw < 4) Tw = 4;
     Tg = wr * Tw;
     const int P = 16 / elt;
     dvp = (dv + P - 1) / P * P;
+    vcs = round16(Tg * elt);
     v_off = round16(kr * dk * Tg * elt);
-    ks_off = v_off + round16(Tg * dvp * elt);
+    ks_off = v_off + (vt ? ((dv + 3) & ~3) * vcs : round16(Tg * dvp * elt));
     vs_off = ks_off + 4 * np * Tg;
     stage = round16(vs_off + 4 * np * Tg);
     q_off = stages * stage;
@@ -245,23 +258,90 @@ __device__ __forceinline__ void values(float (&acc)[QPL][4], float& wsum, const 
   }
 }
 
+// a + the U bytes at p (U / elt elements) times w
+template <typename TKV, int U>
+__device__ __forceinline__ float unit_dot(const unsigned char* p, const float (&w)[U / sizeof(TKV)],
+                                          float a) {
+  uint32_t x[U / 4];
+  if constexpr (U == 16) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    x[0] = t.x, x[1] = t.y;
+  }
+#pragma unroll
+  for (int i = 0; i < U / 4; ++i) {
+    if constexpr (sizeof(TKV) == 1) {
+      const float4 f = i8x4_f32(x[i]);
+      a = fmaf(w[4 * i], f.x, a);
+      a = fmaf(w[4 * i + 1], f.y, a);
+      a = fmaf(w[4 * i + 2], f.z, a);
+      a = fmaf(w[4 * i + 3], f.w, a);
+    } else if constexpr (sizeof(TKV) == 2) {
+      a = fmaf(w[2 * i], __uint_as_float(x[i] << 16), a);
+      a = fmaf(w[2 * i + 1], __uint_as_float(x[i] & 0xffff0000u), a);
+    } else {
+      a = fmaf(w[i], __uint_as_float(x[i]), a);
+    }
+  }
+  return a;
+}
+
+// acc += p * v over the warp's slice of a channel-major value tile
+// (FMT_VT): the slice of a channel row is nu units of U bytes starting at
+// byte wb; lane set ps0 takes units ps0, ps0 + PS, ... below the warp's nv
+// positions, reads their weights once and a unit of each of its quads'
+// channels (GUARD: quads at or past Qd, channels at or past dv skipped). Row
+// r holds channel 4 (r % Qd) + r / Qd, its chunk t at t ^ ((r >> vsh) & vm).
+template <typename TKV, int QPL, int U, bool GUARD>
+__device__ __forceinline__ void values_vt(float (&acc)[QPL][4], const unsigned char* Vb,
+                                          const float* pt, int wb, int nu, int ps0, int PS,
+                                          int nv, int vcs, int vsh, int vm, int LP, int lq,
+                                          int Qd, int dv) {
+  constexpr int UP = U / sizeof(TKV);  // positions a unit
+  for (int u = ps0; u < nu && u * UP < nv; u += PS) {
+    float w[UP];
+#pragma unroll
+    for (int i = 0; i < UP; i += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(pt + u * UP + i);
+      w[i] = f.x, w[i + 1] = f.y, w[i + 2] = f.z, w[i + 3] = f.w;
+    }
+    const int b = wb + u * U, t = b >> 4, h = b & 15;
+#pragma unroll
+    for (int j = 0; j < QPL; ++j) {
+      const int qd = lq + LP * j;
+      if (GUARD && qd >= Qd) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (GUARD && 4 * qd + k >= dv) continue;
+        const int r = k * Qd + qd;
+        acc[j][k] =
+            unit_dot<TKV, U>(Vb + r * vcs + ((t ^ ((r >> vsh) & vm)) << 4) + h, w, acc[j][k]);
+      }
+    }
+  }
+}
+
 // The kernel body. QPL: column quads a lane accumulates (1 for narrow rows;
 // 2, 4, 6 or 8 for wider ones, 6 for the Backpack combine's 768); Tw, a
 // warp's columns of a group tile, follows from it and the element size
 // (K8: 1 byte a column).
 template <typename TQ, typename TKV, int QPL, int FMT>
 __device__ __forceinline__ void decode_rows(const Args& a) {
-  constexpr int NP = FMT == FMT_K1 ? 1 : 2;   // positions a column
+  constexpr bool VT = FMT == FMT_VT;
+  constexpr int NP = FMT == FMT_K1 || VT ? 1 : 2;  // positions a column
   constexpr int KR = FMT == FMT_MIXED ? 2 : 1;  // key runs a d row
   constexpr int elt = sizeof(TKV);
   constexpr int P = 16 / elt;  // elements a 16-byte chunk
   constexpr int Tw = (QPL == 1 ? 32 : 8) / elt < 4 ? 4 : (QPL == 1 ? 32 : 8) / elt;
   constexpr int PCS = Tw / 4;  // score lanes along the warp's columns
   constexpr int G = 32 / PCS;  // score lanes along dk
+  constexpr int U = Tw * elt < 16 ? Tw * elt : 16;  // FMT_VT: bytes a value unit
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Layout L(elt, QPL, a.dk, a.dv, a.wr, a.stages, KR, NP);
+  const Layout L(elt, QPL, a.dk, a.dv, a.wr, a.stages, KR, NP, VT);
   const int Tg = L.Tg, KCg = Tg / P;  // columns and key chunks a group tile row
   const int C = a.split, rank = blockIdx.x % C, rowblock = blockIdx.x / C;
   const int r_local = warp / a.wr, wi = warp % a.wr;
@@ -293,6 +373,11 @@ __device__ __forceinline__ void decode_rows(const Args& a) {
 
   const int VCH = L.dvp / P;  // value chunks a position
   const int vq = gthreads / VCH, vrm = gthreads % VCH;
+  const int Qd = (a.dv + 3) / 4;  // column quads of dv
+  // FMT_VT: 2^kcs chunks a channel row; row r's chunks swizzled by
+  // (r >> vsh) & vm, so that 8 consecutive rows spread over a bank period
+  const int KCv = L.vcs >> 4, kcs = __ffs(KCv) - 1;
+  const int vm = min(KCv, 8) - 1, vsh = KCv >= 8 ? 0 : 3 - kcs;
 
   auto load = [&](int slot, int tile) {
     unsigned char* st = base + slot * L.stage;
@@ -315,7 +400,14 @@ __device__ __forceinline__ void decode_rows(const Args& a) {
       copy_scales<NP>(reinterpret_cast<float*>(st + L.vs_off), vsr + s0, a.vs_sp, Tg, nv,
                       gthreads - 1 - gt, gthreads, a.vsvec);
     TKV* Vs = reinterpret_cast<TKV*>(st + L.v_off);
-    if (a.vflat) {  // packed rows: the tile is one run of nv * dv elements
+    if constexpr (FMT == FMT_VT) {  // channel rows, every chunk of the tile written
+      for (int i = gt; i < a.dv << kcs; i += gthreads) {
+        const int c = i >> kcs, t = i & (KCv - 1), r = (c & 3) * Qd + (c >> 2);
+        copy_chunk(reinterpret_cast<TKV*>(st + L.v_off + r * L.vcs +
+                                          ((t ^ ((r >> vsh) & vm)) << 4)),
+                   vr + c * a.v_ss + s0 + t * P, nv - t * P, a.vvec);
+      }
+    } else if (a.vflat) {  // packed rows: the tile is one run of nv * dv elements
       const TKV* src = vr + s0 * a.v_ss;
       for (int i = gt; i < nv * VCH; i += gthreads) cp_async16_part(Vs + i * P, src + i * P, 16);
     } else {
@@ -340,11 +432,10 @@ __device__ __forceinline__ void decode_rows(const Args& a) {
   // the lane's score columns 4 pc .. 4 pc + 3 of the warp's and dk rows
   // g, g + G, ...; its value quads lq + LP j at columns ps, ps + PS, ...
   const int pc = lane % PCS, g = lane / PCS;
-  const int Qd = a.dv / 4;
   int LP = 1;
   while (LP < Qd && LP < 32) LP <<= 1;
   const int PS = 32 / LP, lq = lane % LP, ps0 = lane / LP;
-  const bool full = Qd == QPL * LP;
+  const bool full = a.dv == 4 * QPL * LP;
   const int kcol = (wi * Tw + 4 * pc) * elt;  // the lane's byte in a key row of the tile
 
   float m = -INFINITY, l = 0.f;
@@ -375,7 +466,7 @@ __device__ __forceinline__ void decode_rows(const Args& a) {
       for (int d = g; d < a.dk; d += G) {
         const float qd = qs[d];
         const int off = d * Tg * elt + (kcol ^ ((((d & 3) << 1) & swz_mask) << 4));
-        if constexpr (FMT == FMT_K1) {
+        if constexpr (NP == 1) {  // FMT_K1, FMT_VT: one int8/bf16/f32 key a column
           const float4 k = quad(reinterpret_cast<const TKV*>(st + off));
           sc[0][0] = fmaf(qd, k.x, sc[0][0]);
           sc[0][1] = fmaf(qd, k.y, sc[0][1]);
@@ -448,6 +539,12 @@ __device__ __forceinline__ void decode_rows(const Args& a) {
           const float4 f = *reinterpret_cast<const float4*>(st + L.vs_off + 4 * (wi * Tw + 4 * pc));
           w.x *= f.x, w.y *= f.y, w.z *= f.z, w.w *= f.w;
         }
+        if (VT) {  // a unit's weights past nv are read: 0, whatever the stale vs
+          if (4 * pc >= nv) w.x = 0.f;
+          if (4 * pc + 1 >= nv) w.y = 0.f;
+          if (4 * pc + 2 >= nv) w.z = 0.f;
+          if (4 * pc + 3 >= nv) w.w = 0.f;
+        }
         *reinterpret_cast<float4*>(pt + 4 * pc) = w;
       } else {  // (even, odd) weights of each column, side by side
         const float* vsr_t = reinterpret_cast<const float*>(st + L.vs_off) + wi * Tw + 4 * pc;
@@ -469,7 +566,15 @@ __device__ __forceinline__ void decode_rows(const Args& a) {
     __syncwarp();
 
     const TKV* Vs = reinterpret_cast<const TKV*>(st + L.v_off) + wi * Tw * L.dvp + 4 * lq;
-    if constexpr (NP == 1) {
+    if constexpr (VT) {
+      const unsigned char* Vb = st + L.v_off;
+      if (full)
+        values_vt<TKV, QPL, U, false>(acc, Vb, pt, wi * Tw * elt, Tw * elt / U, ps0, PS, nv,
+                                      L.vcs, vsh, vm, LP, lq, Qd, a.dv);
+      else
+        values_vt<TKV, QPL, U, true>(acc, Vb, pt, wi * Tw * elt, Tw * elt / U, ps0, PS, nv,
+                                     L.vcs, vsh, vm, LP, lq, Qd, a.dv);
+    } else if constexpr (NP == 1) {
       if (full)  // every lane owns QPL quads: no guard on the loads
         values<QPL, false>(acc, Vs, pt, ps0, nv, PS, L.dvp, LP, lq, Qd);
       else
@@ -564,12 +669,12 @@ __device__ __forceinline__ void decode_rows(const Args& a) {
 }
 
 // Check the schedule against the kernel, then launch Kern (a __global__
-// wrapper of decode_rows) on a grid of ceil(E / rows) x split CTAs: a plain
-// launch, or a cluster of `split` CTAs a row. kr, np: the format's key runs
-// and positions a column.
+// wrapper of decode_rows over format fmt) on a grid of ceil(E / rows) x
+// split CTAs: a plain launch, or a cluster of `split` CTAs a row.
 template <auto Kern>
-cudaError_t launch_rows(const Args& a, int elt, int qpl, int kr, int np, cudaStream_t st) {
-  const Layout L(elt, qpl, a.dk, a.dv, a.wr, a.stages, kr, np);
+cudaError_t launch_rows(const Args& a, int elt, int qpl, int fmt, cudaStream_t st) {
+  const Layout L(elt, qpl, a.dk, a.dv, a.wr, a.stages, fmt == FMT_MIXED ? 2 : 1,
+                 fmt == FMT_INT4 || fmt == FMT_MIXED ? 2 : 1, fmt == FMT_VT);
   if ((L.Tg * elt) % 16) return cudaErrorInvalidValue;
   const size_t smem = static_cast<size_t>(a.rows) * L.group;
   if (smem > 232448) return cudaErrorInvalidValue;
@@ -612,6 +717,57 @@ bool schedule_ok(long long warps, long long rows, long long split, long long sta
 
 bool aligned(const void* p, long long bytes) {
   return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
+}
+
+// The C entries over one element type's caches, K1's (decode_attention.cu:
+// FMT_K1, values (E, S, dv)) and the selector's (decode_attention_selector.cu:
+// FMT_VT, values (E, dv, S), v_ss the channel stride, any dv): the checks,
+// Args and the dtype switch; Launch::run<TQ, TKV>(a, qpl, stream) launches
+// the source's instance.
+template <class Launch>
+int k1_entry(int fmt, const void* q, const void* kt, const void* ks, const void* v,
+             const void* vs, const void* lengths, void* out, void* mo, void* lo, long long E,
+             long long dk, long long S, long long dv, long long scalar_len, long long q_se,
+             long long kt_se, long long kt_sd, long long v_se, long long v_ss, long long ks_se,
+             long long vs_se, long long q_dtype, long long kv_dtype, long long qpl,
+             long long warps, long long rows, long long split, long long stages, void* stream) {
+  const bool vt = fmt == FMT_VT;
+  if (!schedule_ok(warps, rows, split, stages, dk, vt ? (dv + 3) / 4 * 4 : dv, qpl) ||
+      (mo == nullptr) != (lo == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (E == 0) return 0;
+  const long long elt = kv_dtype == DT_I8 ? 1 : kv_dtype == DT_BF16 ? 2 : 4;
+  const long long P = 16 / elt;
+  Args a;
+  a.q = q, a.kt = kt, a.ks = static_cast<const float*>(ks), a.v = v;
+  a.vs = static_cast<const float*>(vs), a.lengths = static_cast<const int*>(lengths);
+  a.out = out, a.mo = static_cast<float*>(mo), a.lo = static_cast<float*>(lo);
+  a.q_se = q_se, a.kt_se = kt_se, a.kt_sd = kt_sd, a.v_se = v_se, a.v_ss = v_ss;
+  a.ks_se = ks_se, a.vs_se = vs_se, a.k_sp = a.ks_sp = a.vs_sp = 0;
+  a.E = static_cast<int>(E), a.dk = static_cast<int>(dk), a.S = static_cast<int>(S);
+  a.dv = static_cast<int>(dv), a.scalar_len = static_cast<int>(scalar_len);
+  a.rows = static_cast<int>(rows), a.wr = static_cast<int>(warps / rows);
+  a.split = static_cast<int>(split), a.stages = static_cast<int>(stages);
+  a.kvec = aligned(kt, 16) && kt_se % P == 0 && kt_sd % P == 0;
+  // FMT_VT: a channel row is its own run, so dv takes no part
+  a.vvec = aligned(v, 16) && v_se % P == 0 && v_ss % P == 0 && (vt || dv % P == 0);
+  a.vflat = !vt && a.vvec && v_ss == dv;
+  a.ksvec = ks == nullptr || (aligned(ks, 16) && ks_se % 4 == 0);
+  a.vsvec = vs == nullptr || (aligned(vs, 16) && vs_se % 4 == 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (q_dtype == DT_BF16 && kv_dtype == DT_I8)
+    err = Launch::template run<__nv_bfloat16, int8_t>(a, qpl, st);
+  else if (q_dtype == DT_BF16 && kv_dtype == DT_BF16)
+    err = Launch::template run<__nv_bfloat16, __nv_bfloat16>(a, qpl, st);
+  else if (q_dtype == DT_F32 && kv_dtype == DT_I8)
+    err = Launch::template run<float, int8_t>(a, qpl, st);
+  else if (q_dtype == DT_F32 && kv_dtype == DT_F32)
+    err = Launch::template run<float, float>(a, qpl, st);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -64,13 +64,13 @@ lowbit_decode_attn_kernel(const Args a) {
 
 template <typename TQ, bool kSplit>
 cudaError_t launch_qpl(const Args& a, long long qpl, cudaStream_t st) {
-  constexpr int kr = kSplit ? 2 : 1;
+  constexpr int fmt = kSplit ? FMT_MIXED : FMT_INT4;
   switch (qpl) {
-    case 1: return launch_rows<lowbit_decode_attn_kernel<TQ, 1, kSplit>>(a, 1, 1, kr, 2, st);
-    case 2: return launch_rows<lowbit_decode_attn_kernel<TQ, 2, kSplit>>(a, 1, 2, kr, 2, st);
-    case 4: return launch_rows<lowbit_decode_attn_kernel<TQ, 4, kSplit>>(a, 1, 4, kr, 2, st);
-    case 6: return launch_rows<lowbit_decode_attn_kernel<TQ, 6, kSplit>>(a, 1, 6, kr, 2, st);
-    case 8: return launch_rows<lowbit_decode_attn_kernel<TQ, 8, kSplit>>(a, 1, 8, kr, 2, st);
+    case 1: return launch_rows<lowbit_decode_attn_kernel<TQ, 1, kSplit>>(a, 1, 1, fmt, st);
+    case 2: return launch_rows<lowbit_decode_attn_kernel<TQ, 2, kSplit>>(a, 1, 2, fmt, st);
+    case 4: return launch_rows<lowbit_decode_attn_kernel<TQ, 4, kSplit>>(a, 1, 4, fmt, st);
+    case 6: return launch_rows<lowbit_decode_attn_kernel<TQ, 6, kSplit>>(a, 1, 6, fmt, st);
+    case 8: return launch_rows<lowbit_decode_attn_kernel<TQ, 8, kSplit>>(a, 1, 8, fmt, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -88,12 +88,13 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "backpacks_flash_attn_tpu/ops/decode_attention.py:77"),
     Kernel("lowbit_decode_int4_ml", "lowbit_decode_attention.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:1205"),
-    # K1's three redesigns: one source, each form counted apart
+    # K1's three redesigns, each counted apart: gathered (split-KV), the
+    # selector (K1's body over (E, dv, S) values) and blockdiag (K1 itself)
     Kernel("decode_attention_gathered", "decode_attention_variants.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:238"),
-    Kernel("decode_attention_selector", "decode_attention_variants.cu",
+    Kernel("decode_attention_selector", "decode_attention_selector.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:365"),
-    Kernel("decode_attention_blockdiag", "decode_attention_variants.cu",
+    Kernel("decode_attention_blockdiag", "decode_attention.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:465"),
     # K7, the fused MLP forward of training
     Kernel("fused_mlp_fwd", "fused_mlp.cu",

@@ -49,8 +49,6 @@ _SMEM_BYTES = 232448
 # the gathered kernel splits rows until E x chunks reaches this many CTAs
 # per SM (its partial kernel runs 256 threads, so up to 8 fit on an SM)
 _GATHERED_CTAS_PER_SM = 4
-# warps of a selector/blockdiag CTA: a warp a row, up to 32 rows
-_MAX_ROW_WARPS = 32
 _KV_DTYPES = {torch.bfloat16: (torch.int8, torch.bfloat16),
               torch.float32: (torch.int8, torch.float32)}
 
@@ -196,16 +194,19 @@ def _k1_warp_tile(qpl: int, elt: int) -> int:
 
 
 def _k1_group_bytes(qpl: int, dk: int, dv: int, elt: int, wr: int, stages: int,
-                    kr: int = 1, np_: int = 1) -> int:
-    """Shared memory of one K1 (or K8) row group of ``wr`` warps (the
-    kernel's ``Layout``, csrc/decode_attention.cuh): ``stages`` ring stages
-    [keys kr x dk x Tg | values Tg x dv (16-byte rows) | ks, vs np_ x Tg
-    f32], q (dk f32) and each warp's probabilities (np_ x Tw f32), Tg = wr x
-    Tw columns. K8: a column is a packed column (np_ = 2 positions, one
-    byte), kr = 2 key runs over the mixed cache."""
+                    kr: int = 1, np_: int = 1, vt: bool = False) -> int:
+    """Shared memory of one K1 (or K8, or selector) row group of ``wr``
+    warps (the kernel's ``Layout``, csrc/decode_attention.cuh): ``stages``
+    ring stages [keys kr x dk x Tg | values Tg x dv (16-byte rows) | ks, vs
+    np_ x Tg f32], q (dk f32) and each warp's probabilities (np_ x Tw f32),
+    Tg = wr x Tw columns. K8: a column is a packed column (np_ = 2
+    positions, one byte), kr = 2 key runs over the mixed cache. ``vt`` (the
+    selector's (E, dv, S) values): round4(dv) channel rows of round16(Tg x
+    elt) bytes."""
     tw, p = _k1_warp_tile(qpl, elt), 16 // elt
     tg, dvp = wr * tw, -(-dv // p) * p
-    stage = _round16(_round16(kr * dk * tg * elt) + _round16(tg * dvp * elt) + 8 * np_ * tg)
+    values = -(-dv // 4) * 4 * _round16(tg * elt) if vt else _round16(tg * dvp * elt)
+    stage = _round16(_round16(kr * dk * tg * elt) + values + 8 * np_ * tg)
     return stages * stage + _round16(4 * dk) + wr * _round16(4 * np_ * tw)
 
 
@@ -215,15 +216,17 @@ def _quads(dv: int) -> int:
 
 
 def _row_schedule(e: int, dk: int, dv: int, s_len: int, elt: int, sms: int,
-                  wr: int, rows: int, kr: int = 1, np_: int = 1, stages=None):
+                  wr: int, rows: int, kr: int = 1, np_: int = 1, stages=None,
+                  vt: bool = False):
     """The rest of the launch shape K1 and K8 share, for CTAs of ``rows``
     rows of ``wr`` warps over ``s_len`` columns: fewer rows, then fewer
     warps, while a CTA's ring of 2 stages does not fit a block; S split over
     a cluster where the CTAs leave SMs idle (see :func:`_k1_schedule`); and,
     unless given, the deepest ring (2-4 stages) with which as many CTAs fit
-    an SM as the grid puts there (at most 3)."""
+    an SM as the grid puts there (at most 3). ``vt``: the selector's
+    value-transposed layout."""
     qpl = _quads(dv)
-    group = lambda w, st: _k1_group_bytes(qpl, dk, dv, elt, w, st, kr, np_)
+    group = lambda w, st: _k1_group_bytes(qpl, dk, dv, elt, w, st, kr, np_, vt)
     while rows > 1 and rows * group(wr, 2) > _BLOCK_SMEM:
         rows //= 2
     while wr > 2 and group(wr, 2) > _BLOCK_SMEM:   # K8's split int8 keys at large dk
@@ -243,10 +246,13 @@ def _row_schedule(e: int, dk: int, dv: int, s_len: int, elt: int, sms: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _k1_schedule(e: int, dk: int, dv: int, s_len: int, elt: int, sms: int = 132):
+def _k1_schedule(e: int, dk: int, dv: int, s_len: int, elt: int, sms: int = 132,
+                 vt: bool = False):
     """K1's launch shape for E rows of an S-wide cache of ``elt``-byte
     elements on a card of ``sms`` SMs: ``(qpl, warps, rows, split,
-    stages)``.
+    stages)``; ``vt``: values (E, dv, S), the selector's layout: its ring is
+    K1's size where dv values fill whole 16-byte chunks, and its wide rows
+    take 8 warps (see below).
 
     The ``warps / rows`` warps of a row share a cp.async ring of
     ``stages`` stages and stream the row in group tiles, each warp its own
@@ -263,27 +269,38 @@ def _k1_schedule(e: int, dk: int, dv: int, s_len: int, elt: int, sms: int = 132)
     of ``split`` CTAs (the least power of two that gives every SM a CTA, at
     most 8, and each CTA at least two group tiles at the full width). The
     ring takes the most stages (up to 4) with which as many CTAs fit an SM
-    as the grid puts on one (at most 3), and at least 2."""
+    as the grid puts on one (at most 3), and at least 2. The selector's
+    wide rows (``vt``) take 8 warps: a tile's values are then dv channel
+    runs of 64 bytes (int8, bf16), where 4 warps' 32-byte runs read the
+    Backpack combine at 1.6-1.8x the time (``probe_selector.py``, PERF.md)."""
     wr, rows = 4, (2 if _quads(dv) == 1 else 1)
     if _quads(dv) == 1 and -(-e // 2) < sms:
         wr, rows = 8, 1
-    return _row_schedule(e, dk, dv, s_len, elt, sms, wr, rows)
+    elif vt and _quads(dv) > 1:
+        wr = 8
+    return _row_schedule(e, dk, dv, s_len, elt, sms, wr, rows, vt=vt)
 
 
-def _k1_kernel(q, kt, ks, v, vs, length, ml: bool):
-    e, dk, s_len, dv = _check_operands(q, kt, ks, v, vs, "decode_attention")
+def _k1_kernel(q, kt, ks, v, vs, length, ml: bool = False, kernel=None,
+               vt: bool = False):
+    """K1's C entry (counted as ``kernel``, by default K1 or K1-ml), or
+    with ``vt`` the selector's over values (E, dv, S)
+    (csrc/decode_attention_selector.cu); K1's schedule, any S."""
+    kernel = kernel or _K1[ml]
+    e, dk, s_len, dv = _check_operands(q, kt, ks, v, vs, kernel.name, vt)
     lens, scalar_len = _lengths_arg(length, e, q.device)
     out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
     m, l = _ml_outputs(e, q.device) if ml else (None, None)
     P = _build.Ptr.of
     code = _build.DTYPE_CODE
     _build.launch(
-        _K1[ml], "decode_attention_launch", P(q), P(kt), P(ks), P(v), P(vs),
-        P(lens), P(out), P(m), P(l), e, dk, s_len, dv, scalar_len,
-        q.stride(0), kt.stride(0), kt.stride(1), v.stride(0), v.stride(1),
-        *_scale_strides(ks, vs), code[q.dtype], code[kt.dtype],
+        kernel, "decode_attention_selector_launch" if vt else "decode_attention_launch",
+        P(q), P(kt), P(ks), P(v), P(vs), P(lens), P(out), P(m), P(l), e, dk,
+        s_len, dv, scalar_len, q.stride(0), kt.stride(0), kt.stride(1),
+        v.stride(0), v.stride(1), *_scale_strides(ks, vs), code[q.dtype],
+        code[kt.dtype],
         *_k1_schedule(e, dk, dv, s_len, kt.element_size(),
-                      _build.sm_count(q.device.index)))
+                      _build.sm_count(q.device.index), vt))
     return (out, m, l) if ml else out
 
 
@@ -302,12 +319,15 @@ def decode_attention_flat(q, kt, ks, v, vs, length, *,
 
 # ------------------------------------------------------------ K1's redesigns
 #
-# The three TPU redesigns of K1 compute K1's function on other schedules. On
-# the card each is a kernel of its own in ``csrc/decode_attention_variants.cu``
-# (counted as ``decode_attention_gathered`` / ``_selector`` / ``_blockdiag``);
-# their plain versions follow the Pallas bodies' numerics in the working
-# dtype: bf16 operands, products accumulated in f32, p cast to bf16 before
-# the value product.
+# The three TPU redesigns of K1 compute K1's function on other schedules,
+# each counted apart (``decode_attention_gathered`` / ``_selector`` /
+# ``_blockdiag``). On the card the gathered form is a split-KV kernel of its
+# own (``csrc/decode_attention_variants.cu``); the selector runs K1's body
+# over its (E, dv, S) values (``csrc/decode_attention_selector.cu``) and
+# blockdiag K1's kernel itself, both on K1's schedule with no cap on S. Their
+# plain versions follow the Pallas bodies' numerics in the working dtype:
+# bf16 operands, products accumulated in f32, p cast to bf16 before the
+# value product.
 
 def _exact(t: torch.Tensor, cdt) -> torch.Tensor:
     """t rounded to the working dtype, as f32: a product of two such tensors
@@ -446,41 +466,6 @@ def _gathered_kernel(q, kt, ks, v, vs, length, block_s: int):
     return out
 
 
-def _rows_kernel(kernel, q, kt, ks, v, vs, length, rows: int,
-                 v_transposed: bool):
-    """The selector (values (E, dv, S)) or blockdiag (values (E, S, dv))
-    kernel: ``rows`` rows a CTA, a warp a row up to 32; fewer warps, each
-    looping over rows, when their score rows would overflow shared
-    memory."""
-    e, dk, s_len, dv = _check_operands(q, kt, ks, v, vs, kernel.name,
-                                       v_transposed)
-    warps = min(rows, _MAX_ROW_WARPS)
-    while warps > 1 and warps * (dk + s_len) * 4 > _SMEM_BYTES:
-        warps //= 2
-    if (dk + s_len) * 4 > _SMEM_BYTES:
-        raise ValueError(f"{kernel.name} kernel holds a row's S = {s_len} "
-                         f"scores in shared memory; use decode_attention_"
-                         f"gathered for longer rows")
-    lens, scalar_len = _lengths_arg(length, e, q.device)
-    out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
-    if e == 0:
-        return out
-    P = _build.Ptr.of
-    code = _build.DTYPE_CODE
-    _build.launch(
-        kernel, "decode_attention_rows_launch", P(q), P(kt), P(ks), P(v), P(vs),
-        P(lens), P(out), e, dk, s_len, dv, scalar_len, rows, warps,
-        int(v_transposed), q.stride(0), kt.stride(0), kt.stride(1), v.stride(0),
-        v.stride(1), *_scale_strides(ks, vs), code[q.dtype], code[kt.dtype])
-    return out
-
-
-def _halve_until_divides(rows: int, e: int) -> int:
-    while rows > 1 and e % rows != 0:
-        rows //= 2
-    return rows
-
-
 def decode_attention_gathered(q, kt, ks, v, vs, length, *,
                               rows_per_program: int = 8, block_s: int = 128):
     """Length-adaptive decode attention (K1-gathered, JAX :238), K1's
@@ -504,36 +489,31 @@ def decode_attention_selector(q, kt, ks, v, vs, length, *,
     """Selector decode attention (K1-selector, JAX :365), K1's contract; v
     may come as (E, dv, S) with ``v_transposed``, JAX's production layout
     for this kernel. Dispatch as in :func:`decode_attention_gathered`: the
-    kernel reads the transposed values natively; with ``v_transposed=False``
-    the wrapper first makes the contiguous transposed copy JAX's
-    ``swapaxes`` makes (:379). Rows are grouped ``rows_per_program`` to a
-    CTA (halved until it divides E), one warp a row."""
+    kernel (K1's body over the transposed values, any S, any dv) reads them
+    in place; with ``v_transposed=False`` the wrapper first makes the
+    contiguous transposed copy JAX's ``swapaxes`` makes (:379).
+    ``rows_per_program`` is JAX's tiling (rows a program): accepted, not
+    used (the kernel takes K1's schedule)."""
     if not q.is_cuda or not _build.kernels_enabled():
         return decode_attention_selector_ref(q, kt, ks, v, vs, length,
                                              rows_per_program=rows_per_program,
                                              v_transposed=v_transposed)
     vt = v if v_transposed else v.transpose(1, 2).contiguous()
-    rows = _halve_until_divides(rows_per_program, q.shape[0])
-    return _rows_kernel(_SELECTOR, q, kt, ks, vt, vs, length, rows,
-                        v_transposed=True)
+    return _k1_kernel(q, kt, ks, vt, vs, length, kernel=_SELECTOR, vt=True)
 
 
 def decode_attention_blockdiag(q, kt, ks, v, vs, length, *,
                                rows_per_program: Optional[int] = None):
     """Block-diagonal decode attention (K1-blockdiag, JAX :465), K1's
-    contract. Dispatch as in :func:`decode_attention_gathered`. Rows are
-    grouped per CTA by JAX's rule (:480-485), halving included, which can
-    fall under its stated floor of 8 (ROADMAP Queue 3)."""
+    contract. Dispatch as in :func:`decode_attention_gathered`: the kernel
+    is K1's (``csrc/decode_attention.cu``, K1's schedule, any S), counted as
+    ``decode_attention_blockdiag``. ``rows_per_program`` is JAX's tiling
+    (rows a program, its VMEM rule when None, :475-481): accepted, not
+    used."""
     if not q.is_cuda or not _build.kernels_enabled():
         return decode_attention_blockdiag_ref(q, kt, ks, v, vs, length,
                                               rows_per_program=rows_per_program)
-    e, s_len, dv = q.shape[0], v.shape[1], v.shape[2]
-    if rows_per_program is None:
-        cand = max(8, min(32, (2 << 20) // max(s_len * dv, 1)))
-        rows_per_program = 1 << (cand.bit_length() - 1)
-    rows = _halve_until_divides(rows_per_program, e)
-    return _rows_kernel(_BLOCKDIAG, q, kt, ks, v, vs, length, rows,
-                        v_transposed=False)
+    return _k1_kernel(q, kt, ks, v, vs, length, kernel=_BLOCKDIAG)
 
 
 # ---------------------------------------------------------------- low-bit (K8)

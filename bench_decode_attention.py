@@ -1,6 +1,6 @@
-"""Compare K1 (the single-query decode attention, and its (m, l) form K1-ml)
-and the decode steps that carry it between two checkouts of the port on one
-GPU.
+"""Compare K1 (the single-query decode attention, its (m, l) form K1-ml and
+its redesigns) and the decode steps that carry it between two checkouts of
+the port on one GPU.
 
     python3 bench_decode_attention.py [--tree DIR] [--label NAME] [--skip-models] [--out FILE]
 
@@ -13,8 +13,10 @@ unpack the other one with ``git archive`` into a directory that
 1. K1 and K1-ml at every shape the model paths launch them at, through
    ``chip_smoke.phase_kernels``: ``k1_cases`` (GPT rows E 1536, dk = dv =
    64, and the Backpack combine E 2048, dv 768, bf16 and int8, S 512,
-   ragged lengths), ``decode_problem_cases``' K1 at the GPT and combine
-   rows over INT8 caches of S 512 (full and ragged lengths, row 0 empty),
+   ragged lengths), ``decode_problem_cases``' K1 and its three redesigns
+   (gathered; the selector over values transposed in the cache, and
+   transposed by the wrapper; blockdiag) at the GPT and combine rows over
+   INT8 caches of S 512 (full and ragged lengths, row 0 empty),
    ``ml_kernel_cases``' K1-ml (window 256 of 512, ragged base lengths),
    ``decode_long_cases``' gpt-generate shape (E 96, bf16, S 2112, lengths
    2048-2112: K1 and K1-gathered) and ``k1_serve_cases`` (every row at 64
@@ -43,16 +45,18 @@ import torch
 
 import chip_smoke as cs
 
-K1_NAMES = ("decode_attention", "decode_attention_ml", "decode_attention_gathered")
+K1_NAMES = ("decode_attention", "decode_attention_ml", "decode_attention_gathered",
+            "decode_attention_selector", "decode_attention_blockdiag")
 
 
 def k1_bench_cases(gen):
-    """K1's and K1-ml's cases at the model paths' shapes (and K1-gathered
-    at gpt-generate's), each with device and host times."""
+    """K1's and K1-ml's cases at the model paths' shapes (its redesigns at
+    the decode-kernels phase's S 512 and gpt-generate's), each with device
+    and host times."""
     cases = cs.k1_cases(gen)
     for shape, e, dk, dv in cs.DECODE_SHAPES:
         cases += [c for c in cs.decode_problem_cases(gen, shape, e, dk, dv, 512)
-                  if c[0] == "decode_attention"]
+                  if c[0] in K1_NAMES]
     cases += [c for c in cs.ml_kernel_cases(gen) if c[0] == "decode_attention_ml"]
     cases += [c for c in cs.decode_long_cases(gen) if c[1].startswith("gpt-generate")]
     cases += cs.k1_serve_cases(gen)
@@ -84,8 +88,11 @@ def main():
 
     gen = torch.Generator(device=cs.DEV).manual_seed(0)
     with torch.inference_mode():
-        made = cs.phase_kernels(k1_bench_cases(gen), {})
-    lines += [{"label": args.label, **row} for row in made]
+        cases = k1_bench_cases(gen)
+        made = cs.phase_kernels(cases, {})
+    lines += [{"label": args.label, "kernel": name, **row}
+              for (name, _, _), row in zip(cases, made)]
+    del cases
     torch.cuda.empty_cache()
     if args.skip_models:
         return _write(args, lines)

@@ -124,7 +124,10 @@ Phases, each printing one JSON line:
             INT8 caches and of K8 over the int4 and mixed caches through
             JAX's direct entries; K1 and gathered at gpt-generate's decode
             shape (E 96, S 2112, bf16: K1 on a cluster of 2 CTAs a row) and
-            at S 16384, with device and host times. Each call
+            at S 16384, with device and host times; K1-selector (both
+            layouts) and K1-blockdiag at gpt-generate's rows over S 65,536
+            (bf16, row 0 empty), past the warp-a-row kernels' old cap, from
+            a generator of their own. Each call
             against its plain version under the 2x rule, timed beside SDPA
             over the dequantized cache, and launch-gated: the counts reset
             just before it and read just after, its own kernel once and no
@@ -2400,6 +2403,9 @@ DECODE_BATCH, DECODE_SEQLENS = 128, (128, 256, 512)
 DECODE_SHAPES = (("gpt_kv", DECODE_BATCH * 12, 64, 64),
                  ("combine", DECODE_BATCH * 16, 64, 768))
 DECODE_LONG_S = 16384
+# the selector's and blockdiag's case past the warp-a-row kernels' S cap (a
+# row's S scores in shared memory, S ~58,000), from a generator of its own
+DECODE_PAST_CAP_S, DECODE_PAST_CAP_SEED = 65536, 17
 # gpt-generate's decode: E = batch 8 x 12 heads over the 2048 + 64 cache
 GEN_ROWS, GEN_WIDTH = GEN_BATCH * 12, GEN_PROMPT + GEN_TOKENS
 # positions each form reads: the gathered form and the direct K8 entries
@@ -2561,6 +2567,28 @@ def decode_long_cases(gen):
     return cases
 
 
+def decode_past_cap_cases():
+    """K1-selector (values transposed, and transposed by the wrapper) and
+    K1-blockdiag at gpt-generate's rows (E = 96, dk = dv = 64) over a bf16
+    cache of S = 65,536, lengths 32,768-65,536 with row 0 empty (uniform
+    over all S), from a generator of its own (DECODE_PAST_CAP_SEED), so that
+    no other case's data move; launch-gated, with device and host times."""
+    from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=DEV).manual_seed(DECODE_PAST_CAP_SEED)
+    e, d, s = GEN_ROWS, LONG_D, DECODE_PAST_CAP_S
+    bf = torch.bfloat16
+    q = (torch.randn(e, d, generator=gen, device=DEV) * 0.125).to(bf)
+    kt = torch.randn(e, d, s, generator=gen, device=DEV).to(bf)
+    v = torch.randn(e, s, d, generator=gen, device=DEV).to(bf)
+    lens = torch.randint(s // 2, s + 1, (e,), generator=gen, device=DEV, dtype=torch.int32)
+    lens[0] = 0
+    forms = _k1_forms(da, v, v.transpose(1, 2).contiguous(),
+                      ("decode_attention_selector", "decode_attention_blockdiag"))
+    return _k1_form_cases(f"past-cap E={e} S={s} bf16", q, kt, None, v, None, lens,
+                          _sdpa(q, *_dequantized(kt, v), lens), forms, device_times=True)
+
+
 def k1_serve_cases(gen):
     """K1 at the INT8 serve's own decode lengths: every row at 64 under the
     128 window and at 224 under the 256 window of a 512-column cache
@@ -2673,7 +2701,8 @@ def k8_long_cases(gen):
 def phase_decode_kernels(gen, results):
     """bench_int4_kernels.py's comparison on the card, extended: every
     decode kernel form at its six shapes under full and ragged lengths, at
-    gpt-generate's decode shape, and the gathered form at S = 16384. Each
+    gpt-generate's decode shape, the gathered form at S = 16384, and the
+    selector and blockdiag at S = 65,536. Each
     call's launches are gated (its own kernel once, no other); the launches
     of those gated calls are this path's counts."""
     rows = results.setdefault("kernels", {})
@@ -2688,6 +2717,9 @@ def phase_decode_kernels(gen, results):
         torch.cuda.empty_cache()
     log("decode kernels: gpt-generate's shape, S = 16384")
     _run_gated(decode_long_cases(gen), rows, totals)
+    torch.cuda.empty_cache()
+    log(f"decode kernels: selector and blockdiag at S = {DECODE_PAST_CAP_S}")
+    _run_gated(decode_past_cap_cases(), rows, totals)
     torch.cuda.empty_cache()
     results["decode_kernels"] = {"launches": totals}
     emit({"phase": "decode_kernels", "launches": totals})

@@ -1271,13 +1271,17 @@ def _k1_operands(gen, qdt, kvdt, E, S, dv, pad=16):
     (torch.bfloat16, torch.int8, 6, 100, 64),
     (torch.bfloat16, torch.bfloat16, 6, 33, 768),
     (torch.bfloat16, torch.int8, 13, 2112, 128),   # odd E, several chunks
+    (torch.bfloat16, torch.int8, 6, 100, 60),      # dv not whole 16-byte chunks
+    (torch.bfloat16, torch.bfloat16, 4, 65536, 64),  # past the old S cap
 ])
 def test_decode_attention_redesign_kernels(gen, form, qdt, kvdt, E, S, dv):
     """K1-gathered, K1-selector (values transposed by the wrapper, and
     passed transposed) and K1-blockdiag against their plain versions on
     window slices: per-row lengths with an empty row (0 from the gathered
     form, uniform from the others), and a scalar length; each call launches
-    its own kernel once and never K1."""
+    its own kernel once and never K1. S 65,536 lies past the warp-a-row
+    kernels' cap (a row's scores in shared memory), which the selector and
+    blockdiag no longer have."""
     fn, ref_fn, kw = _REDESIGNS[form]
     name = "decode_attention_" + form.split("-")[0]
     q, kt, ks, v, vs = _k1_operands(gen, qdt, kvdt, E, S, dv)
@@ -1298,6 +1302,50 @@ def test_decode_attention_redesign_kernels(gen, form, qdt, kvdt, E, S, dv):
             _within_2x(out, ref_fn(q, kt, ks, v, vs, length, **kw), ref)
         if form == "gathered" and length is lens:
             assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("form", ["selector", "selector-vt", "blockdiag"])
+def test_selector_blockdiag_ignore_rows_per_program(gen, form):
+    """rows_per_program is JAX's tiling: 3, 8 and 32 give bit-identical
+    output, one launch of the form's own kernel each."""
+    fn, _, kw = _REDESIGNS[form]
+    name = "decode_attention_" + form.split("-")[0]
+    q, kt, ks, v, vs = _k1_operands(gen, torch.bfloat16, torch.int8, 13, 300, 64)
+    if kw.get("v_transposed"):
+        v = v.transpose(1, 2).contiguous()
+    lens = torch.randint(0, 301, (13,), generator=gen, device="cuda", dtype=torch.int32)
+    outs = []
+    for rows in (3, 8, 32):
+        _build.reset_launches()
+        outs.append(fn(q, kt, ks, v, vs, lens, rows_per_program=rows, **kw))
+        counts = _build.launch_counts()
+        assert counts[name] == 1 and counts["decode_attention"] == 0, counts
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.parametrize("qdt,kvdt,dv", [
+    (torch.bfloat16, torch.int8, 61),
+    (torch.bfloat16, torch.bfloat16, 1),
+    (torch.float32, torch.float32, 130),
+])
+def test_selector_kernel_any_width(gen, qdt, kvdt, dv):
+    """The selector over (E, dv, S) values takes any dv (the last quad of
+    channels guarded), as the warp-a-row kernel did: per-row lengths with
+    an empty row, against the plain version."""
+    E, S = 7, 200
+    q, kt, ks, v, vs = _k1_operands(gen, qdt, kvdt, E, S, dv)
+    vt = v.transpose(1, 2).contiguous()
+    lens = torch.tensor([0, 1, 5, 99, 200, 150, 33], dtype=torch.int32, device="cuda")
+    _build.reset_launches()
+    out = da.decode_attention_selector(q, kt, ks, vt, vs, lens, v_transposed=True)
+    assert _build.launch_counts()["decode_attention_selector"] == 1
+    ref = da.decode_attention_selector_ref(q.float(), kt.float(), ks, vt.float(), vs, lens,
+                                           v_transposed=True)
+    if qdt == torch.float32:
+        _f32_close(out, ref)
+    else:
+        _within_2x(out, da.decode_attention_selector_ref(q, kt, ks, vt, vs, lens,
+                                                         v_transposed=True), ref)
 
 
 def test_gathered_kernel_past_k1s_width(gen):
