@@ -120,7 +120,7 @@ extern "C" int decode_attention_launch(const void* q, const void* kt, const void
                                        long long q_dtype, long long kv_dtype, long long qpl,
                                        long long warps, long long rows, long long split,
                                        long long stages, void* stream) {
-  return k1_entry<Launch>(FMT_K1, q, kt, ks, v, vs, lengths, out, mo, lo, E, dk, S, dv, scalar_len,
-                          q_se, kt_se, kt_sd, v_se, v_ss, ks_se, vs_se, q_dtype, kv_dtype, qpl,
-                          warps, rows, split, stages, stream);
+  return k1_entry(Launch{}, FMT_K1, q, kt, ks, v, vs, lengths, out, mo, lo, E, dk, S, dv,
+                  scalar_len, q_se, kt_se, kt_sd, v_se, v_ss, ks_se, vs_se, q_dtype, kv_dtype, qpl,
+                  warps, rows, split, stages, stream);
 }

@@ -1,6 +1,11 @@
 // The single-query decode attention of K1 and K1-blockdiag
-// (decode_attention.cu), K1-selector (decode_attention_selector.cu) and K8
-// (lowbit_decode_attention.cu): one kernel body over four key/value formats.
+// (decode_attention.cu), K1-selector (decode_attention_selector.cu), K8
+// (lowbit_decode_attention.cu) and K1-gathered (decode_attention_gathered.cu):
+// one kernel body over four key/value formats. Its stream (stream_segment:
+// one row group, a run of one row's group tiles) and its merge of a group's
+// warps (merge_warps, the output through a sink) serve two schedules: a row
+// group a row (decode_rows, split over a cluster for few rows) and
+// K1-gathered's balanced split of all rows' tiles over the card.
 //
 //   FMT_K1     K1: kt (E, dk, S) and v (E, S, dv) of one element type (f32,
 //              bf16 or int8), scales (E, S) or none.
@@ -323,12 +328,26 @@ __device__ __forceinline__ void values_vt(float (&acc)[QPL][4], const unsigned c
   }
 }
 
-// The kernel body. QPL: column quads a lane accumulates (1 for narrow rows;
-// 2, 4, 6 or 8 for wider ones, 6 for the Backpack combine's 768); Tw, a
-// warp's columns of a group tile, follows from it and the element size
-// (K8: 1 byte a column).
+// What a row group streams: tiles [first, first + count) of row e, whose n
+// columns hold lenp valid positions; keys: whether its keys and ks are read
+// (an empty row attending uniformly reads neither).
+struct Segment {
+  int e, lenp, n, first, count;
+  bool keys;
+};
+
+// The kernel body's stream. QPL: column quads a lane accumulates (1 for
+// narrow rows; 2, 4, 6 or 8 for wider ones, 6 for the Backpack combine's
+// 768); Tw, a warp's columns of a group tile, follows from it and the
+// element size (K8: 1 byte a column). Row group r_local (wr warps, its
+// shared memory at base) streams segment sg through its ring, each warp wi
+// its own slice of every tile with its own online softmax; on return each
+// warp's partial (m, l, pad, pad, acc[dv]; K8: less the values' offset) lies
+// at base + wi * L.part. The caller syncs the group before reading them.
 template <typename TQ, typename TKV, int QPL, int FMT>
-__device__ __forceinline__ void decode_rows(const Args& a) {
+__device__ __forceinline__ void stream_segment(const Args& a, const Layout& L, unsigned char* base,
+                                               const Segment& sg, int r_local, int wi, int gt,
+                                               int gthreads) {
   constexpr bool VT = FMT == FMT_VT;
   constexpr int NP = FMT == FMT_K1 || VT ? 1 : 2;  // positions a column
   constexpr int KR = FMT == FMT_MIXED ? 2 : 1;  // key runs a d row
@@ -338,28 +357,12 @@ __device__ __forceinline__ void decode_rows(const Args& a) {
   constexpr int PCS = Tw / 4;  // score lanes along the warp's columns
   constexpr int G = 32 / PCS;  // score lanes along dk
   constexpr int U = Tw * elt < 16 ? Tw * elt : 16;  // FMT_VT: bytes a value unit
-  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Layout L(elt, QPL, a.dk, a.dv, a.wr, a.stages, KR, NP, VT);
+  const int lane = threadIdx.x & 31;
   const int Tg = L.Tg, KCg = Tg / P;  // columns and key chunks a group tile row
-  const int C = a.split, rank = blockIdx.x % C, rowblock = blockIdx.x / C;
-  const int r_local = warp / a.wr, wi = warp % a.wr;
-  const int gt = threadIdx.x - r_local * a.wr * 32, gthreads = a.wr * 32;
-  const int e = rowblock * a.rows + r_local;
-  const bool active = e < a.E;
+  const int e = sg.e, lenp = sg.lenp, n = sg.n, first = sg.first, count = sg.count;
+  const bool keys = sg.keys;
 
-  const int len = !active ? 0 : a.lengths != nullptr ? a.lengths[e] : a.scalar_len;
-  // an empty row attends uniformly over all NP * S positions (K1, K8) or is
-  // an empty segment (the (m, l) form); lenp positions are valid, n columns
-  // hold them
-  const bool empty = len <= 0;
-  const int lenp = !active ? 0 : empty ? (a.mo != nullptr ? 0 : NP * a.S) : min(len, NP * a.S);
-  const int n = (lenp + NP - 1) / NP;
-  const int nt = (n + Tg - 1) / Tg, tc = (nt + C - 1) / C;
-  const int first = rank * tc, count = max(0, min(nt, first + tc) - first);
-
-  unsigned char* base = smem + r_local * L.group;
   float* qs = reinterpret_cast<float*>(base + L.q_off);
   float* pt = reinterpret_cast<float*>(base + L.p_off) + wi * (round16(4 * NP * Tw) / 4);
   const TQ* qr = static_cast<const TQ*>(a.q) + e * a.q_se;
@@ -367,7 +370,6 @@ __device__ __forceinline__ void decode_rows(const Args& a) {
   const TKV* vr = static_cast<const TKV*>(a.v) + e * a.v_se;
   const float* ksr = a.ks + e * a.ks_se;
   const float* vsr = a.vs + e * a.vs_se;
-  const bool keys = !empty;  // an empty row reads no key and no ks
   // key chunk c of row d lies at chunk c ^ swz(d) of the ring's row
   const int swz_mask = KCg >= 2 ? KCg - 2 : 0;
 
@@ -611,6 +613,70 @@ __device__ __forceinline__ void decode_rows(const Args& a) {
         *reinterpret_cast<float4*>(part + 4 + 4 * qd) =
             make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
     }
+}
+
+// The C == 1 merge of a group's a.wr warp partials (at p0, ps floats
+// apart) in warp order: M and lsum over the warps, the weights exp(m_j - M)
+// once in registers, then for each column col of the group's thread gt
+// put(col, o, inv): o the weighted sum of the warps' columns, inv = 1 / lsum
+// (0 where no position was valid).
+template <class Put>
+__device__ __forceinline__ void merge_warps(const Args& a, const float* p0, int ps, int gt,
+                                            int gthreads, float& M, float& lsum, Put put) {
+  float w[kMaxWarps];
+#pragma unroll
+  for (int j = 0; j < kMaxWarps; ++j)
+    if (j < a.wr) M = fmaxf(M, p0[j * ps]);
+#pragma unroll
+  for (int j = 0; j < kMaxWarps; ++j) {
+    w[j] = j < a.wr && p0[j * ps] != -INFINITY ? __expf(p0[j * ps] - M) : 0.f;
+    if (j < a.wr) lsum = fmaf(p0[j * ps + 1], w[j], lsum);
+  }
+  const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+  for (int col = gt; col < a.dv; col += gthreads) {
+    float o = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxWarps; ++j)
+      if (j < a.wr) o = fmaf(p0[j * ps + 4 + col], w[j], o);
+    put(col, o, inv);
+  }
+}
+
+// The kernel body of K1, K1-ml, the selector and K8: a row group a row,
+// whose ring streams the row's valid prefix (with a split, this CTA's run of
+// its group tiles); the row's warps (and the CTAs of its cluster) merge in
+// (rank, warp) order.
+template <typename TQ, typename TKV, int QPL, int FMT>
+__device__ __forceinline__ void decode_rows(const Args& a) {
+  constexpr bool VT = FMT == FMT_VT;
+  constexpr int NP = FMT == FMT_K1 || VT ? 1 : 2;  // positions a column
+  constexpr int KR = FMT == FMT_MIXED ? 2 : 1;  // key runs a d row
+  constexpr int elt = sizeof(TKV);
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int warp = threadIdx.x >> 5;
+  const Layout L(elt, QPL, a.dk, a.dv, a.wr, a.stages, KR, NP, VT);
+  const int Tg = L.Tg;
+  const int C = a.split, rank = blockIdx.x % C, rowblock = blockIdx.x / C;
+  const int r_local = warp / a.wr, wi = warp % a.wr;
+  const int gt = threadIdx.x - r_local * a.wr * 32, gthreads = a.wr * 32;
+  const int e = rowblock * a.rows + r_local;
+  const bool active = e < a.E;
+
+  const int len = !active ? 0 : a.lengths != nullptr ? a.lengths[e] : a.scalar_len;
+  // an empty row attends uniformly over all NP * S positions (K1, K8) or is
+  // an empty segment (the (m, l) form); lenp positions are valid, n columns
+  // hold them
+  const bool empty = len <= 0;
+  const int lenp = !active ? 0 : empty ? (a.mo != nullptr ? 0 : NP * a.S) : min(len, NP * a.S);
+  const int n = (lenp + NP - 1) / NP;
+  const int nt = (n + Tg - 1) / Tg, tc = (nt + C - 1) / C;
+  const int first = rank * tc, count = max(0, min(nt, first + tc) - first);
+
+  unsigned char* base = smem + r_local * L.group;
+  // an empty row reads no key and no ks
+  stream_segment<TQ, TKV, QPL, FMT>(a, L, base, Segment{e, lenp, n, first, count, !empty}, r_local,
+                                    wi, gt, gthreads);
   if (C > 1)
     cluster_sync();
   else
@@ -626,23 +692,8 @@ __device__ __forceinline__ void decode_rows(const Args& a) {
     TQ* orow = static_cast<TQ*>(a.out) + static_cast<long long>(e) * a.dv;
     float M = -INFINITY, lsum = 0.f;
     if (C == 1) {
-      float w[kMaxWarps];
-#pragma unroll
-      for (int j = 0; j < kMaxWarps; ++j)
-        if (j < a.wr) M = fmaxf(M, p0[j * ps]);
-#pragma unroll
-      for (int j = 0; j < kMaxWarps; ++j) {
-        w[j] = j < a.wr && p0[j * ps] != -INFINITY ? __expf(p0[j * ps] - M) : 0.f;
-        if (j < a.wr) lsum = fmaf(p0[j * ps + 1], w[j], lsum);
-      }
-      const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
-      for (int col = gt; col < a.dv; col += gthreads) {
-        float o = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMaxWarps; ++j)
-          if (j < a.wr) o = fmaf(p0[j * ps + 4 + col], w[j], o);
-        orow[col] = from_f32<TQ>(o * inv);
-      }
+      merge_warps(a, p0, ps, gt, gthreads, M, lsum,
+                  [&](int col, float o, float inv) { orow[col] = from_f32<TQ>(o * inv); });
     } else {  // few columns a thread: l and o together, a weight each
       const int J = C * a.wr;
       auto part_of = [&](int j) { return cluster_map(p0 + (j % a.wr) * ps, j / a.wr); };
@@ -720,12 +771,13 @@ bool aligned(const void* p, long long bytes) {
 }
 
 // The C entries over one element type's caches, K1's (decode_attention.cu:
-// FMT_K1, values (E, S, dv)) and the selector's (decode_attention_selector.cu:
-// FMT_VT, values (E, dv, S), v_ss the channel stride, any dv): the checks,
-// Args and the dtype switch; Launch::run<TQ, TKV>(a, qpl, stream) launches
-// the source's instance.
+// FMT_K1, values (E, S, dv)), K1-gathered's (decode_attention_gathered.cu:
+// FMT_K1) and the selector's (decode_attention_selector.cu: FMT_VT, values
+// (E, dv, S), v_ss the channel stride, any dv): the checks, Args and the
+// dtype switch; launch.run<TQ, TKV>(a, qpl, stream) launches the source's
+// instance.
 template <class Launch>
-int k1_entry(int fmt, const void* q, const void* kt, const void* ks, const void* v,
+int k1_entry(const Launch& launch, int fmt, const void* q, const void* kt, const void* ks, const void* v,
              const void* vs, const void* lengths, void* out, void* mo, void* lo, long long E,
              long long dk, long long S, long long dv, long long scalar_len, long long q_se,
              long long kt_se, long long kt_sd, long long v_se, long long v_ss, long long ks_se,
@@ -757,13 +809,13 @@ int k1_entry(int fmt, const void* q, const void* kt, const void* ks, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == DT_BF16 && kv_dtype == DT_I8)
-    err = Launch::template run<__nv_bfloat16, int8_t>(a, qpl, st);
+    err = launch.template run<__nv_bfloat16, int8_t>(a, qpl, st);
   else if (q_dtype == DT_BF16 && kv_dtype == DT_BF16)
-    err = Launch::template run<__nv_bfloat16, __nv_bfloat16>(a, qpl, st);
+    err = launch.template run<__nv_bfloat16, __nv_bfloat16>(a, qpl, st);
   else if (q_dtype == DT_F32 && kv_dtype == DT_I8)
-    err = Launch::template run<float, int8_t>(a, qpl, st);
+    err = launch.template run<float, int8_t>(a, qpl, st);
   else if (q_dtype == DT_F32 && kv_dtype == DT_F32)
-    err = Launch::template run<float, float>(a, qpl, st);
+    err = launch.template run<float, float>(a, qpl, st);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -66,7 +66,7 @@ extern "C" int decode_attention_selector_launch(
     long long v_se, long long v_sd, long long ks_se, long long vs_se, long long q_dtype,
     long long kv_dtype, long long qpl, long long warps, long long rows, long long split,
     long long stages, void* stream) {
-  return k1_entry<Launch>(FMT_VT, q, kt, ks, v, vs, lengths, out, mo, lo, E, dk, S, dv, scalar_len,
-                          q_se, kt_se, kt_sd, v_se, v_sd, ks_se, vs_se, q_dtype, kv_dtype, qpl,
-                          warps, rows, split, stages, stream);
+  return k1_entry(Launch{}, FMT_VT, q, kt, ks, v, vs, lengths, out, mo, lo, E, dk, S, dv,
+                  scalar_len, q_se, kt_se, kt_sd, v_se, v_sd, ks_se, vs_se, q_dtype, kv_dtype, qpl,
+                  warps, rows, split, stages, stream);
 }

@@ -88,9 +88,10 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "backpacks_flash_attn_tpu/ops/decode_attention.py:77"),
     Kernel("lowbit_decode_int4_ml", "lowbit_decode_attention.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:1205"),
-    # K1's three redesigns, each counted apart: gathered (split-KV), the
+    # K1's three redesigns, each counted apart: gathered (K1's body over a
+    # length-balanced split of all rows; K1's own launch for many rows), the
     # selector (K1's body over (E, dv, S) values) and blockdiag (K1 itself)
-    Kernel("decode_attention_gathered", "decode_attention_variants.cu",
+    Kernel("decode_attention_gathered", "decode_attention_gathered.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:238"),
     Kernel("decode_attention_selector", "decode_attention_selector.cu",
            "backpacks_flash_attn_tpu/ops/decode_attention.py:365"),
@@ -168,14 +169,15 @@ def load(kernel: Kernel) -> ctypes.CDLL:
     return kernel.lib
 
 
-def launch(kernel: Kernel, symbol: str, *args) -> None:
-    """Call the C entry ``symbol`` of ``kernel`` on the device of its first
+def launch(kernel: Kernel, symbol: str, *args, library: Optional[Kernel] = None) -> None:
+    """Call the C entry ``symbol`` of ``kernel`` (found in the library of
+    ``library``, by default ``kernel``'s own) on the device of its first
     tensor operand (a ``Ptr`` made from a CUDA tensor) and that device's
     current stream (appended as the last argument); raise on a non-zero
-    ``cudaGetLastError()``; count the launch. The C entries launch on the
-    current CUDA device, so a device guard is entered when the operands lie
-    on another one."""
-    lib = load(kernel)
+    ``cudaGetLastError()``; count the launch as ``kernel``'s. The C entries
+    launch on the current CUDA device, so a device guard is entered when the
+    operands lie on another one."""
+    lib = load(library or kernel)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = [_ctype(a) for a in args] + [ctypes.c_void_p]

@@ -46,9 +46,6 @@ _SELECTOR = _build.KERNELS["decode_attention_selector"]
 _BLOCKDIAG = _build.KERNELS["decode_attention_blockdiag"]
 # dynamic shared memory a block may take on the H100 (227 KB)
 _SMEM_BYTES = 232448
-# the gathered kernel splits rows until E x chunks reaches this many CTAs
-# per SM (its partial kernel runs 256 threads, so up to 8 fit on an SM)
-_GATHERED_CTAS_PER_SM = 4
 _KV_DTYPES = {torch.bfloat16: (torch.int8, torch.bfloat16),
               torch.float32: (torch.int8, torch.float32)}
 
@@ -282,15 +279,17 @@ def _k1_schedule(e: int, dk: int, dv: int, s_len: int, elt: int, sms: int = 132,
 
 
 def _k1_kernel(q, kt, ks, v, vs, length, ml: bool = False, kernel=None,
-               vt: bool = False):
+               vt: bool = False, empty_zero: bool = False):
     """K1's C entry (counted as ``kernel``, by default K1 or K1-ml), or
     with ``vt`` the selector's over values (E, dv, S)
-    (csrc/decode_attention_selector.cu); K1's schedule, any S."""
+    (csrc/decode_attention_selector.cu); K1's schedule, any S.
+    ``empty_zero``: a row of length 0 gives 0 (the (m, l) epilogue's
+    output; m and l are dropped) instead of attending uniformly."""
     kernel = kernel or _K1[ml]
     e, dk, s_len, dv = _check_operands(q, kt, ks, v, vs, kernel.name, vt)
     lens, scalar_len = _lengths_arg(length, e, q.device)
     out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
-    m, l = _ml_outputs(e, q.device) if ml else (None, None)
+    m, l = _ml_outputs(e, q.device) if ml or empty_zero else (None, None)
     P = _build.Ptr.of
     code = _build.DTYPE_CODE
     _build.launch(
@@ -300,7 +299,8 @@ def _k1_kernel(q, kt, ks, v, vs, length, ml: bool = False, kernel=None,
         v.stride(0), v.stride(1), *_scale_strides(ks, vs), code[q.dtype],
         code[kt.dtype],
         *_k1_schedule(e, dk, dv, s_len, kt.element_size(),
-                      _build.sm_count(q.device.index), vt))
+                      _build.sm_count(q.device.index), vt),
+        library=_SELECTOR if vt else _K1[False])
     return (out, m, l) if ml else out
 
 
@@ -321,13 +321,14 @@ def decode_attention_flat(q, kt, ks, v, vs, length, *,
 #
 # The three TPU redesigns of K1 compute K1's function on other schedules,
 # each counted apart (``decode_attention_gathered`` / ``_selector`` /
-# ``_blockdiag``). On the card the gathered form is a split-KV kernel of its
-# own (``csrc/decode_attention_variants.cu``); the selector runs K1's body
-# over its (E, dv, S) values (``csrc/decode_attention_selector.cu``) and
-# blockdiag K1's kernel itself, both on K1's schedule with no cap on S. Their
-# plain versions follow the Pallas bodies' numerics in the working dtype:
-# bf16 operands, products accumulated in f32, p cast to bf16 before the
-# value product.
+# ``_blockdiag``). On the card all three run K1's body with no cap on S: the
+# gathered form over a length-balanced split of all rows' valid tiles
+# (``csrc/decode_attention_gathered.cu``; K1's own launch where K1 needs no
+# split), the selector over its (E, dv, S) values
+# (``csrc/decode_attention_selector.cu``) on K1's schedule, and blockdiag as
+# K1's kernel itself. Their plain versions follow the Pallas bodies'
+# numerics in the working dtype: bf16 operands, products accumulated in f32,
+# p cast to bf16 before the value product.
 
 def _exact(t: torch.Tensor, cdt) -> torch.Tensor:
     """t rounded to the working dtype, as f32: a product of two such tensors
@@ -425,44 +426,71 @@ def decode_attention_blockdiag_ref(q, kt, ks, v, vs, length, *,
     return out.to(q.dtype)
 
 
-def _gathered_chunks(e: int, s_len: int, block_s: int, device):
-    """The kernel's split of S: chunks of whole block_s blocks (the width
-    the caller passes; the last chunk ends at S), at most 2048 positions
-    unless one block is wider, and enough of them that E rows give
-    ``_GATHERED_CTAS_PER_SM`` CTAs an SM. -> (chunk width, number of
-    chunks)."""
-    n_blocks = -(-s_len // block_s)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_chunk = max(1, 2048 // block_s)
-    want = min(n_blocks, max(-(-_GATHERED_CTAS_PER_SM * sms // max(e, 1)),
-                             -(-n_blocks // per_chunk)))
-    chunk_blocks = min(per_chunk, -(-n_blocks // want))
-    return chunk_blocks * block_s, -(-n_blocks // chunk_blocks)
+@functools.lru_cache(maxsize=None)
+def _gathered_schedule(e: int, dk: int, dv: int, s_len: int, elt: int, sms: int = 132):
+    """K1-gathered's launch for E rows of an S-wide cache of ``elt``-byte
+    elements on a card of ``sms`` SMs: None where K1's schedule needs no
+    split (the rows fill the card: gathered takes K1's launch), else the
+    length-balanced one, ``(qpl, warps, stages, grid, ws_floats)``.
+
+    Its CTAs are K1's few-row row groups (``warps`` warps, one row group a
+    CTA, csrc/decode_attention.cuh ``Layout``) on a ring of 2 stages, and
+    the grid is as many as the card holds at once: ``per_sm`` an SM, at
+    most K1's register bound (two CTAs of 8 warps, ``__launch_bounds__(256,
+    2)``), fewer where their rings do not fit an SM's shared memory. At
+    gpt-generate's decode (~6 tiles a CTA) and at S 16384, 3 stages read
+    9% and 5% slower, 1 CTA an SM or 4-warp CTAs slower still
+    (``probe_gathered.py``, PERF.md). The kernel splits the rows' valid
+    group tiles evenly over the grid; each (CTA, row) piece that is not a
+    whole row writes a partial of 4 + round4(dv) f32 to one of grid + E - 1
+    slots (``ws_floats`` in all)."""
+    qpl, warps, _, split, _ = _k1_schedule(e, dk, dv, s_len, elt, sms)
+    if split == 1:
+        return None
+    group = _k1_group_bytes(qpl, dk, dv, elt, warps, 2) + _SMEM_RESERVED
+    per_sm = 16 // warps
+    while per_sm > 1 and per_sm * group > _SM_SMEM:
+        per_sm -= 1
+    grid = sms * per_sm
+    return qpl, warps, 2, grid, (grid + e - 1) * (4 + -(-dv // 4) * 4)
 
 
-def _gathered_kernel(q, kt, ks, v, vs, length, block_s: int):
-    e, dk, s_len, dv = _check_operands(q, kt, ks, v, vs, "decode_attention_gathered")
-    if block_s < 1:
-        raise ValueError(f"block_s must be positive, got {block_s}")
-    chunk, n_chunks = _gathered_chunks(e, s_len, block_s, q.device)
-    groups = 256 // (dv // 4)          # the partial kernel's s groups
-    if (dk + chunk + 32 + groups * dv) * 4 > _SMEM_BYTES:
-        raise ValueError(f"decode_attention_gathered kernel: block_s {block_s} "
-                         f"too wide for shared memory")
+# K1-gathered's row tickets: int32 zeros, one buffer a (device, stream),
+# grown with E; each launch leaves them 0 again
+_TICKETS: dict = {}
+
+
+def _tickets(e: int, device) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < e:
+        buf = torch.zeros(max(e, 2 * buf.numel() if buf is not None else 0),
+                          dtype=torch.int32, device=device)
+        _TICKETS[key] = buf
+    return buf
+
+
+def _gathered_kernel(q, kt, ks, v, vs, length):
+    """K1-gathered on the card (csrc/decode_attention_gathered.cu): K1's
+    launch with the (m, l) epilogue's empty row where K1 needs no split,
+    else the length-balanced launch; one launch either way."""
+    e, dk, s_len, dv = _check_operands(q, kt, ks, v, vs, _GATHERED.name)
+    sched = _gathered_schedule(e, dk, dv, s_len, kt.element_size(),
+                               _build.sm_count(q.device.index))
+    if sched is None:
+        return _k1_kernel(q, kt, ks, v, vs, length, kernel=_GATHERED, empty_zero=True)
+    qpl, warps, stages, grid, ws_floats = sched
     lens, scalar_len = _lengths_arg(length, e, q.device)
     out = torch.empty((e, dv), dtype=q.dtype, device=q.device)
-    if e == 0 or s_len == 0:
-        return out.zero_()
-    ws_acc = torch.empty((e, n_chunks, dv), dtype=torch.float32, device=q.device)
-    ws_ml = torch.empty((e, n_chunks, 2), dtype=torch.float32, device=q.device)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
     code = _build.DTYPE_CODE
     _build.launch(
         _GATHERED, "decode_attention_gathered_launch", P(q), P(kt), P(ks), P(v),
-        P(vs), P(lens), P(out), P(ws_acc), P(ws_ml), e, dk, s_len, dv,
-        scalar_len, chunk, n_chunks, q.stride(0), kt.stride(0), kt.stride(1),
-        v.stride(0), v.stride(1), *_scale_strides(ks, vs), code[q.dtype],
-        code[kt.dtype])
+        P(vs), P(lens), P(out), P(ws), P(_tickets(e, q.device)), e, dk, s_len, dv,
+        scalar_len, q.stride(0), kt.stride(0), kt.stride(1), v.stride(0),
+        v.stride(1), *_scale_strides(ks, vs), code[q.dtype], code[kt.dtype], qpl,
+        warps, stages, grid)
     return out
 
 
@@ -472,15 +500,18 @@ def decode_attention_gathered(q, kt, ks, v, vs, length, *,
     contract; a row of length 0 returns 0. CPU tensors, and every call
     inside ``_build.plain_path()``, take
     :func:`decode_attention_gathered_ref`; otherwise a CUDA tensor launches
-    the kernel (``csrc/decode_attention_variants.cu``, split-KV over chunks
-    of whole ``block_s`` blocks, any S) or raises. ``rows_per_program`` and
-    ``block_s`` are JAX's contract: on the card they choose the schedule
-    only, never the result."""
+    the kernel (``csrc/decode_attention_gathered.cu``: K1's body, the rows'
+    valid tiles split evenly over the card, any S) or raises.
+    ``rows_per_program`` and ``block_s`` are JAX's tiling: accepted, and on
+    the card they choose nothing (the plain version's f32 sums follow
+    ``block_s``'s blocks)."""
+    if block_s < 1:
+        raise ValueError(f"block_s must be positive, got {block_s}")
     if not q.is_cuda or not _build.kernels_enabled():
         return decode_attention_gathered_ref(q, kt, ks, v, vs, length,
                                              rows_per_program=rows_per_program,
                                              block_s=block_s)
-    return _gathered_kernel(q, kt, ks, v, vs, length, block_s)
+    return _gathered_kernel(q, kt, ks, v, vs, length)
 
 
 def decode_attention_selector(q, kt, ks, v, vs, length, *,

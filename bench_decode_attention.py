@@ -19,11 +19,13 @@ unpack the other one with ``git archive`` into a directory that
    INT8 caches of S 512 (full and ragged lengths, row 0 empty),
    ``ml_kernel_cases``' K1-ml (window 256 of 512, ragged base lengths),
    ``decode_long_cases``' gpt-generate shape (E 96, bf16, S 2112, lengths
-   2048-2112: K1 and K1-gathered) and ``k1_serve_cases`` (every row at 64
-   under the 128 window and at 224 under the 256 window, GPT and combine,
-   int8). Each: errors under the 2x rule, CUDA-event ms, profiler device
-   ms with its recorded launches, host microseconds a call, the bound and
-   SDPA's times.
+   2048-2112) and S 16384 (lengths 8192-16384: K1 and K1-gathered at
+   both), ``k1_serve_cases`` (every row at 64 under the 128 window and at
+   224 under the 256 window, GPT and combine, int8) and
+   ``decode_past_cap_cases`` at S 65,536 (E 96, bf16, row 0 empty: K1,
+   K1-gathered and K1-blockdiag over one cache). Each: errors under the 2x
+   rule, CUDA-event ms, profiler device ms with its recorded launches,
+   host microseconds a call, the bound and SDPA's times.
 2. The INT8 serve (backpack-small, INT8 weights and caches, 128 prompts of
    32 tokens, 224 greedy tokens, ``chip_smoke.serve_run`` and its decode
    profile): wall and device ms a decode step, K1's device ms and its
@@ -51,15 +53,17 @@ K1_NAMES = ("decode_attention", "decode_attention_ml", "decode_attention_gathere
 
 def k1_bench_cases(gen):
     """K1's and K1-ml's cases at the model paths' shapes (its redesigns at
-    the decode-kernels phase's S 512 and gpt-generate's), each with device
-    and host times."""
+    the decode-kernels phase's S 512, gpt-generate's, S 16384 and S
+    65,536), each with device and host times."""
     cases = cs.k1_cases(gen)
     for shape, e, dk, dv in cs.DECODE_SHAPES:
         cases += [c for c in cs.decode_problem_cases(gen, shape, e, dk, dv, 512)
                   if c[0] in K1_NAMES]
     cases += [c for c in cs.ml_kernel_cases(gen) if c[0] == "decode_attention_ml"]
-    cases += [c for c in cs.decode_long_cases(gen) if c[1].startswith("gpt-generate")]
+    cases += cs.decode_long_cases(gen)
     cases += cs.k1_serve_cases(gen)
+    cases += cs.decode_past_cap_cases(("decode_attention", "decode_attention_gathered",
+                                       "decode_attention_blockdiag"))
     for _, _, c in cases:
         c["device_times"] = True
     return [c for c in cases if c[0] in K1_NAMES]

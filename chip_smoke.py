@@ -123,11 +123,12 @@ Phases, each printing one JSON line:
             transposed, and transposed by the wrapper), K1-blockdiag over
             INT8 caches and of K8 over the int4 and mixed caches through
             JAX's direct entries; K1 and gathered at gpt-generate's decode
-            shape (E 96, S 2112, bf16: K1 on a cluster of 2 CTAs a row) and
-            at S 16384, with device and host times; K1-selector (both
-            layouts) and K1-blockdiag at gpt-generate's rows over S 65,536
-            (bf16, row 0 empty), past the warp-a-row kernels' old cap, from
-            a generator of their own. Each call
+            shape (E 96, S 2112, bf16: K1 on a cluster of 2 CTAs a row,
+            gathered on its length-balanced grid) and at S 16384, with
+            device and host times; K1-gathered, K1-selector (both layouts)
+            and K1-blockdiag at gpt-generate's rows over S 65,536 (bf16,
+            row 0 empty), past the warp-a-row kernels' old cap, from a
+            generator of their own. Each call
             against its plain version under the 2x rule, timed beside SDPA
             over the dequantized cache, and launch-gated: the counts reset
             just before it and read just after, its own kernel once and no
@@ -2403,8 +2404,9 @@ DECODE_BATCH, DECODE_SEQLENS = 128, (128, 256, 512)
 DECODE_SHAPES = (("gpt_kv", DECODE_BATCH * 12, 64, 64),
                  ("combine", DECODE_BATCH * 16, 64, 768))
 DECODE_LONG_S = 16384
-# the selector's and blockdiag's case past the warp-a-row kernels' S cap (a
-# row's S scores in shared memory, S ~58,000), from a generator of its own
+# the gathered form's, the selector's and blockdiag's case past the
+# warp-a-row kernels' S cap (a row's S scores in shared memory, S ~58,000),
+# from a generator of its own
 DECODE_PAST_CAP_S, DECODE_PAST_CAP_SEED = 65536, 17
 # gpt-generate's decode: E = batch 8 x 12 heads over the 2048 + 64 cache
 GEN_ROWS, GEN_WIDTH = GEN_BATCH * 12, GEN_PROMPT + GEN_TOKENS
@@ -2567,12 +2569,15 @@ def decode_long_cases(gen):
     return cases
 
 
-def decode_past_cap_cases():
-    """K1-selector (values transposed, and transposed by the wrapper) and
-    K1-blockdiag at gpt-generate's rows (E = 96, dk = dv = 64) over a bf16
-    cache of S = 65,536, lengths 32,768-65,536 with row 0 empty (uniform
-    over all S), from a generator of its own (DECODE_PAST_CAP_SEED), so that
-    no other case's data move; launch-gated, with device and host times."""
+def decode_past_cap_cases(names=("decode_attention_gathered", "decode_attention_selector",
+                                  "decode_attention_blockdiag")):
+    """K1-gathered, K1-selector (values transposed, and transposed by the
+    wrapper) and K1-blockdiag (``names`` keeps some of K1's forms) at
+    gpt-generate's rows (E = 96, dk = dv = 64) over a bf16 cache of S =
+    65,536, lengths 32,768-65,536 with row 0 empty (0 from the gathered
+    form, uniform over all S from the others), from a generator of its own
+    (DECODE_PAST_CAP_SEED), so that no other case's data move;
+    launch-gated, with device and host times."""
     from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
 
     gen = torch.Generator(device=DEV).manual_seed(DECODE_PAST_CAP_SEED)
@@ -2583,10 +2588,10 @@ def decode_past_cap_cases():
     v = torch.randn(e, s, d, generator=gen, device=DEV).to(bf)
     lens = torch.randint(s // 2, s + 1, (e,), generator=gen, device=DEV, dtype=torch.int32)
     lens[0] = 0
-    forms = _k1_forms(da, v, v.transpose(1, 2).contiguous(),
-                      ("decode_attention_selector", "decode_attention_blockdiag"))
+    vt = v.transpose(1, 2).contiguous() if "decode_attention_selector" in names else None
     return _k1_form_cases(f"past-cap E={e} S={s} bf16", q, kt, None, v, None, lens,
-                          _sdpa(q, *_dequantized(kt, v), lens), forms, device_times=True)
+                          _sdpa(q, *_dequantized(kt, v), lens), _k1_forms(da, v, vt, names),
+                          device_times=True)
 
 
 def k1_serve_cases(gen):
@@ -2702,7 +2707,7 @@ def phase_decode_kernels(gen, results):
     """bench_int4_kernels.py's comparison on the card, extended: every
     decode kernel form at its six shapes under full and ragged lengths, at
     gpt-generate's decode shape, the gathered form at S = 16384, and the
-    selector and blockdiag at S = 65,536. Each
+    gathered form, the selector and blockdiag at S = 65,536. Each
     call's launches are gated (its own kernel once, no other); the launches
     of those gated calls are this path's counts."""
     rows = results.setdefault("kernels", {})
@@ -2718,7 +2723,7 @@ def phase_decode_kernels(gen, results):
     log("decode kernels: gpt-generate's shape, S = 16384")
     _run_gated(decode_long_cases(gen), rows, totals)
     torch.cuda.empty_cache()
-    log(f"decode kernels: selector and blockdiag at S = {DECODE_PAST_CAP_S}")
+    log(f"decode kernels: gathered, selector and blockdiag at S = {DECODE_PAST_CAP_S}")
     _run_gated(decode_past_cap_cases(), rows, totals)
     torch.cuda.empty_cache()
     results["decode_kernels"] = {"launches": totals}

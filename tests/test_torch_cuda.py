@@ -1370,6 +1370,75 @@ def test_gathered_kernel_past_k1s_width(gen):
                da.decode_attention_ref(q.float(), kt.float(), None, v.float(), None, lens))
 
 
+def _gathered_call(q, kt, ks, v, vs, length, block_s=128):
+    """K1-gathered's kernel, checked to launch its own kernel once and K1
+    never."""
+    _build.reset_launches()
+    out = da.decode_attention_gathered(q, kt, ks, v, vs, length, block_s=block_s)
+    counts = _build.launch_counts()
+    assert counts["decode_attention_gathered"] == 1 and counts["decode_attention"] == 0, counts
+    return out
+
+
+def _gathered_within_2x(out, q, kt, ks, v, vs, length):
+    ref = da.decode_attention_gathered_ref(q.float(), kt.float(), ks, v.float(), vs, length)
+    _within_2x(out, da.decode_attention_gathered_ref(q, kt, ks, v, vs, length), ref)
+
+
+@pytest.mark.parametrize("kvdt,S", [(torch.bfloat16, 2112), (torch.int8, 2112),
+                                    (torch.bfloat16, 16384), (torch.int8, 16384)])
+def test_gathered_balanced_kernel(gen, kvdt, S):
+    """K1-gathered's length-balanced launch at gpt-generate's 96 rows (bf16
+    over bf16, and over INT8 with scales): ragged lengths with empty rows
+    (0, negative) and a row past S (reads S), every row empty (all 0), a
+    scalar length, each under the 2x rule against the f32 plain version;
+    two calls bit-identical (the merge's fixed order) with a call at 40
+    rows between them on the same ticket buffer, left all 0; block_s 64,
+    128 and 4096 bit-identical. Each call launches its own kernel once and
+    K1 never."""
+    E, dev = 96, "cuda"
+    elt = 1 if kvdt == torch.int8 else 2
+    assert da._gathered_schedule(E, 64, 64, S, elt, _build.sm_count(0)) is not None
+    ops = _k1_operands(gen, torch.bfloat16, kvdt, E, S, 64)
+    lens = torch.randint(1, S + 1, (E,), generator=gen, device=dev, dtype=torch.int32)
+    lens[torch.rand(E, generator=gen, device=dev) < 0.15] = 0
+    lens[:4] = torch.tensor([0, S + 100, -3, S], dtype=torch.int32)
+    empty = torch.zeros(E, dtype=torch.int32, device=dev)
+    for length in (lens, empty, S // 3 + 1):
+        out = _gathered_call(*ops, length)
+        assert out.shape == (E, 64) and out.dtype == torch.bfloat16
+        if length is empty:
+            assert (out == 0).all()
+            continue
+        _gathered_within_2x(out, *ops, length)
+        if length is lens:
+            assert (out[lens <= 0] == 0).all()
+    first = _gathered_call(*ops, lens)
+    few = [None if x is None else x[:40] for x in ops]
+    _gathered_within_2x(_gathered_call(*few, lens[:40]), *few, lens[:40])
+    assert torch.equal(first, _gathered_call(*ops, lens))
+    for block_s in (64, 4096):
+        assert torch.equal(first, _gathered_call(*ops, lens, block_s))
+    torch.cuda.synchronize()
+    tickets = da._TICKETS[(0, torch.cuda.current_stream().cuda_stream)]
+    assert tickets.numel() >= E and (tickets == 0).all()
+
+
+def test_gathered_many_rows_take_k1s_launch(gen):
+    """Where K1's schedule needs no split (300 rows), K1-gathered launches
+    K1's entry under its own count, and its empty rows give 0 (the (m, l)
+    epilogue's), not K1's uniform attention; 2x rule against the f32 plain
+    version."""
+    E, S = 300, 512
+    assert da._gathered_schedule(E, 64, 64, S, 1, _build.sm_count(0)) is None
+    ops = _k1_operands(gen, torch.bfloat16, torch.int8, E, S, 64)
+    lens = torch.randint(0, S + 1, (E,), generator=gen, device="cuda", dtype=torch.int32)
+    lens[:3] = torch.tensor([0, S, -1], dtype=torch.int32)
+    out = _gathered_call(*ops, lens)
+    assert (out[lens <= 0] == 0).all()
+    _gathered_within_2x(out, *ops, lens)
+
+
 @pytest.mark.parametrize("kind", ["int4", "mixed"])
 def test_direct_lowbit_entries_kernel(gen, kind):
     """JAX's direct K8 entries: K8 (counted as its key format, not as the
