@@ -74,26 +74,35 @@ struct SparseKeys {
 
 // ------------------------------------------------------------- f32 (SIMT)
 
-// one 256-thread block per (64-query tile, head, batch row); four threads a
-// row, each making 8 of its 32 scores per key tile and holding 16 of its 64
-// output columns (K3's loop)
-constexpr int BQ_SIMT = 64, BKV = 32, kSimtThreads = 256;
-
 struct SimtShape {
   int H, Sq, Sk, n_kb, block_q, block_k, causal;
   float scale;
 };
 
+// one 256-thread block per (64-query tile, head, batch row); four threads a
+// row, each making 8 of its 32 scores per key tile and holding D / 4 of its
+// D output columns (K3's loop and tiles, flash_attention.cuh)
+template <int D>
 __global__ void __launch_bounds__(kSimtThreads)
 fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
                 const int* __restrict__ row_idx, const int* __restrict__ row_cnt,
                 const int* __restrict__ seq_lengths, SimtShape sh, Strides sq, Strides sk,
                 Strides sv) {
-  __shared__ float Qs[BQ_SIMT][D + 1];
-  __shared__ float Ks[BKV][D + 1];
-  __shared__ float Vs[BKV][D];
-  __shared__ float Ps[BQ_SIMT][BKV + 1];
+  constexpr bool kStatic = kSimtStatic<D>;
+  __shared__ float Qs_s[kStatic ? BQ_SIMT : 1][D + 1];
+  __shared__ float Ks_s[kStatic ? BKV_SIMT : 1][D + 1];
+  __shared__ float Vs_s[kStatic ? BKV_SIMT : 1][D];
+  __shared__ float Ps[BQ_SIMT][BKV_SIMT + 1];
+  float(*Qs)[D + 1] = Qs_s;
+  float(*Ks)[D + 1] = Ks_s;
+  float(*Vs)[D] = Vs_s;
+  if constexpr (!kStatic) {
+    DynRows dyn;
+    Qs = dyn.take<D + 1>(BQ_SIMT);
+    Ks = dyn.take<D + 1>(BKV_SIMT);
+    Vs = dyn.take<D>(BKV_SIMT);
+  }
   const int q0 = blockIdx.x * BQ_SIMT, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, r = tid >> 2, c = tid & 3, qi = q0 + r;
   const int kv_len = seq_lengths ? min(seq_lengths[b], sh.Sk) : sh.Sk;
@@ -115,19 +124,19 @@ fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int i = 0; i < n_act; ++i) {
     const int j_lo = list[i] * sh.block_k, j_hi = min(j_lo + sh.block_k, kv_end);
-    for (int j0 = j_lo; j0 < j_hi; j0 += BKV) {
+    for (int j0 = j_lo; j0 < j_hi; j0 += BKV_SIMT) {
       __syncthreads();  // previous tile fully consumed (and Q staged)
-      for (int idx = tid; idx < BKV * D; idx += kSimtThreads) {
+      for (int idx = tid; idx < BKV_SIMT * D; idx += kSimtThreads) {
         const int rr = idx / D, dd = idx % D;
         const bool in = j0 + rr < sh.Sk;
         Ks[rr][dd] = in ? kp[(j0 + rr) * sk.st + dd] : 0.f;
         Vs[rr][dd] = in ? vp[(j0 + rr) * sv.st + dd] : 0.f;
       }
       __syncthreads();
-      float s[BKV / 4];
+      float s[BKV_SIMT / 4];
       float tile_max = FLASH_NEG_INF;
 #pragma unroll
-      for (int t = 0; t < BKV / 4; ++t) {
+      for (int t = 0; t < BKV_SIMT / 4; ++t) {
         const int kk = c + 4 * t, key = j0 + kk;
         float acc = 0.f;
 #pragma unroll 16
@@ -140,7 +149,7 @@ fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float corr = expf(m - m_new);
       float tile_sum = 0.f;
 #pragma unroll
-      for (int t = 0; t < BKV / 4; ++t) {
+      for (int t = 0; t < BKV_SIMT / 4; ++t) {
         const float p = s[t] == FLASH_NEG_INF ? 0.f : expf(s[t] - m_new);
         tile_sum += p;
         Ps[r][c + 4 * t] = p;
@@ -151,7 +160,7 @@ fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < D / 4; ++j) o[j] *= corr;
       __syncwarp();  // the row's four lanes share one warp
 #pragma unroll 8
-      for (int kk = 0; kk < BKV; ++kk) {
+      for (int kk = 0; kk < BKV_SIMT; ++kk) {
         const float p = Ps[r][kk];
 #pragma unroll
         for (int j = 0; j < D / 4; ++j) o[j] += p * Vs[kk][c + 4 * j];
@@ -167,16 +176,34 @@ fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (c == 0) lse[(static_cast<long long>(b) * sh.H + h) * sh.Sq + qi] = m + logf(l_safe);
 }
 
+template <int D>
+cudaError_t launch_simt(const float* q, const float* k, const float* v, float* out, float* lse,
+                        const int* row_idx, const int* row_cnt, const int* seq_lengths,
+                        const SimtShape& sh, long long B, Strides sq, Strides sk, Strides sv,
+                        cudaStream_t st) {
+  const size_t smem = kSimtStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
+  if (smem > 0) {
+    const cudaError_t err = allow_smem<fwd_simt_kernel<D>>(smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(static_cast<unsigned>((sh.Sq + BQ_SIMT - 1) / BQ_SIMT),
+                  static_cast<unsigned>(sh.H), static_cast<unsigned>(B));
+  fwd_simt_kernel<D><<<grid, kSimtThreads, smem, st>>>(q, k, v, out, lse, row_idx, row_cnt,
+                                                       seq_lengths, sh, sq, sk, sv);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q (B, sq, H, 64), k and v (B, sk, H, 64), bf16 or f32 (dtype) with the
-// given (batch, row, head) strides, bf16 rows 16-byte aligned; seq_lengths
-// (B,) int32 or NULL (sk) -> out (B, sq, H, 64) contiguous, lse (B, H, sq)
-// f32. The tables (int32): row_idx (n_qb, n_kb) and row_cnt (n_qb,), each
-// query block's active key blocks first in order; col_idx (n_kb, n_qb) and
-// col_cnt (n_kb,), each key block's; fwd_order (ceil(sq / rows),) and
-// bwd_order (ceil(sk / key_tile),), the CTAs of the forward (query tiles of
-// `rows` rows: 32, 64 or 128, dividing block_q) and of the backward (key
+// q (B, sq, H, d), k and v (B, sk, H, d), d 64, 80, 96 or 128, bf16 or f32
+// (dtype) with the given (batch, row, head) strides, bf16 rows 16-byte
+// aligned; seq_lengths (B,) int32 or NULL (sk) -> out (B, sq, H, d)
+// contiguous, lse (B, H, sq) f32. The tables (int32): row_idx (n_qb, n_kb)
+// and row_cnt (n_qb,), each query block's active key blocks first in
+// order; col_idx (n_kb, n_qb) and col_cnt (n_kb,), each key block's;
+// fwd_order (ceil(sq / rows),) and bwd_order (ceil(sk / key_tile),), the
+// CTAs of the forward (query tiles of `rows` rows: 32, 64 or 128 at d 64,
+// 32 or 64 past it, dividing block_q) and of the backward (key
 // tiles of key_tile keys) in launch order. They are built here first,
 // from mask (n_qb, n_kb) int32 (blocksparse_tables.cuh; work: ceil(sq /
 // rows) + ceil(sk / key_tile) int32 of scratch), and the backward reads
@@ -188,7 +215,7 @@ extern "C" int blocksparse_fwd_launch(
     long long sq, long long sk, long long n_qb, long long n_kb, long long block_q,
     long long block_k, long long rows, long long key_tile, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
-    long long v_st, long long v_sh, float scale, long long causal, long long dtype,
+    long long v_st, long long v_sh, float scale, long long causal, long long d, long long dtype,
     void* stream) {
   if (block_q % BK || block_k % BK || block_q <= 0 || block_k <= 0 || block_q % rows ||
       block_k % key_tile)
@@ -220,19 +247,21 @@ extern "C" int blocksparse_fwd_launch(
     const SparseKeys::Params wp{ri, rc, static_cast<const int*>(fwd_order),
                                 static_cast<int>(n_kb), static_cast<int>(block_q),
                                 static_cast<int>(block_k)};
-    return launch_rows<SparseKeys, false>(a, wp, static_cast<int>(rows), B, st);
+    return with_head_dim(d, [&](auto D) {
+      return launch_rows<D, SparseKeys, false>(a, wp, static_cast<int>(rows), B, st);
+    });
   }
   if (dtype == DT_F32) {
     const SimtShape sh{static_cast<int>(H),       static_cast<int>(sq),
                        static_cast<int>(sk),      static_cast<int>(n_kb),
                        static_cast<int>(block_q), static_cast<int>(block_k),
                        static_cast<int>(causal),  scale};
-    const dim3 grid(static_cast<unsigned>((sq + BQ_SIMT - 1) / BQ_SIMT),
-                    static_cast<unsigned>(H), static_cast<unsigned>(B));
-    fwd_simt_kernel<<<grid, kSimtThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(out), static_cast<float*>(lse), ri, rc, lp, sh, sq_, sk_, sv_);
-    return static_cast<int>(cudaGetLastError());
+    return with_head_dim(d, [&](auto D) {
+      return static_cast<int>(launch_simt<D>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse), ri,
+          rc, lp, sh, B, sq_, sk_, sv_, st));
+    });
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

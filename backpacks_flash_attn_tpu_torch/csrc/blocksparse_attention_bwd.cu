@@ -90,33 +90,15 @@ struct SparseQueries {
 
 // ------------------------------------------------------------- f32 (SIMT)
 
-constexpr int ST = 32, SLD = D + 1, kSimtThreads = 256;
-
 struct SimtShape {
   int H, Sq, Sk, n_qb, n_kb, block_q, block_k, causal;
   float scale;
 };
 
-// 32 rows from r0 of a row-strided f32 matrix into shared memory; rows at
-// or past S are zero
-__device__ __forceinline__ void load_rows(float (*dst)[SLD], const float* base, long long st,
-                                          int r0, int S) {
-  for (int idx = threadIdx.x; idx < ST * D; idx += kSimtThreads) {
-    const int rr = idx / D, dd = idx % D;
-    dst[rr][dd] = r0 + rr < S ? base[(r0 + rr) * st + dd] : 0.f;
-  }
-}
-
-__device__ __forceinline__ float dot64(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll 16
-  for (int dd = 0; dd < D; ++dd) acc += a[dd] * b[dd];
-  return acc;
-}
-
 // one block per (32-query tile, head, batch row) over its query block's
 // active key blocks; thread (r, c) = query q0 + r, keys c + 8 i of each
 // tile, gradient columns c + 8 j
+template <int D>
 __global__ void __launch_bounds__(kSimtThreads)
 dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
@@ -124,16 +106,25 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                float* __restrict__ dq, const int* __restrict__ row_idx,
                const int* __restrict__ row_cnt, SimtShape sh, Strides sq, Strides sk,
                Strides sv, Strides sd) {
-  __shared__ float Qs[ST][SLD], Ds[ST][SLD], Ks[ST][SLD], Vs[ST][SLD];
+  constexpr int R = kDqStatic<D> ? ST : 1;
+  __shared__ float Qs_s[R][D + 1], Ds_s[R][D + 1], Ks_s[R][D + 1], Vs_s[R][D + 1];
   __shared__ float DSs[ST][ST + 1];
+  float(*Qs)[D + 1] = Qs_s, (*Ds)[D + 1] = Ds_s, (*Ks)[D + 1] = Ks_s, (*Vs)[D + 1] = Vs_s;
+  if constexpr (R == 1) {
+    DynRows dyn;
+    Qs = dyn.take<D + 1>(ST);
+    Ds = dyn.take<D + 1>(ST);
+    Ks = dyn.take<D + 1>(ST);
+    Vs = dyn.take<D + 1>(ST);
+  }
   const int q0 = blockIdx.x * ST, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 3, c = threadIdx.x & 7, qry = q0 + r;
   const long long bh = static_cast<long long>(b) * sh.H + h;
   const int qb = q0 / sh.block_q;
   const int* list = row_idx + static_cast<long long>(qb) * sh.n_kb;
   const int n_act = row_cnt[qb];
-  load_rows(Qs, q + b * sq.sb + h * sq.sh, sq.st, q0, sh.Sq);
-  load_rows(Ds, dout + b * sd.sb + h * sd.sh, sd.st, q0, sh.Sq);
+  load_rows<D>(Qs, q + b * sq.sb + h * sq.sh, sq.st, q0, sh.Sq);
+  load_rows<D>(Ds, dout + b * sd.sb + h * sd.sh, sd.st, q0, sh.Sq);
   const float row_lse = qry < sh.Sq ? lse[bh * sh.Sq + qry] : 0.f;
   const float row_delta = qry < sh.Sq ? delta[bh * sh.Sq + qry] : 0.f;
   float dq_acc[D / 8];
@@ -147,15 +138,15 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int j_lo = list[i] * sh.block_k, j_hi = min(j_lo + sh.block_k, kv_end);
     for (int j0 = j_lo; j0 < j_hi; j0 += ST) {
       __syncthreads();
-      load_rows(Ks, kb, sk.st, j0, sh.Sk);
-      load_rows(Vs, vb, sv.st, j0, sh.Sk);
+      load_rows<D>(Ks, kb, sk.st, j0, sh.Sk);
+      load_rows<D>(Vs, vb, sv.st, j0, sh.Sk);
       __syncthreads();
 #pragma unroll
       for (int t = 0; t < ST / 8; ++t) {
         const int kl = c + 8 * t, key = j0 + kl;
         const bool valid = key < sh.Sk && qry < sh.Sq && (!sh.causal || key <= qry);
-        const float p = valid ? expf(dot64(Qs[r], Ks[kl]) * sh.scale - row_lse) : 0.f;
-        DSs[r][kl] = p * (dot64(Ds[r], Vs[kl]) - row_delta);
+        const float p = valid ? expf(dot<D>(Qs[r], Ks[kl]) * sh.scale - row_lse) : 0.f;
+        DSs[r][kl] = p * (dot<D>(Ds[r], Vs[kl]) - row_delta);
       }
       __syncwarp();
       for (int kl = 0; kl < ST; ++kl) {
@@ -174,6 +165,7 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // one block per (32-key tile, head, batch row) over its key block's active
 // query blocks; thread (r, c) = key k0 + r, queries c + 8 i of each tile,
 // gradient columns c + 8 j
+template <int D>
 __global__ void __launch_bounds__(kSimtThreads)
 dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
@@ -181,17 +173,26 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ dk, float* __restrict__ dv, const int* __restrict__ col_idx,
                  const int* __restrict__ col_cnt, SimtShape sh, Strides sq, Strides sk,
                  Strides sv, Strides sd) {
-  __shared__ float Ks[ST][SLD], Vs[ST][SLD], Qs[ST][SLD], Ds[ST][SLD];
+  constexpr int R = kDkdvStatic<D> ? ST : 1;
+  __shared__ float Ks_s[R][D + 1], Vs_s[R][D + 1], Qs_s[R][D + 1], Ds_s[R][D + 1];
   __shared__ float Ps[ST][ST + 1], DSs[ST][ST + 1];
   __shared__ float Ls[ST], Dl[ST];
+  float(*Ks)[D + 1] = Ks_s, (*Vs)[D + 1] = Vs_s, (*Qs)[D + 1] = Qs_s, (*Ds)[D + 1] = Ds_s;
+  if constexpr (R == 1) {
+    DynRows dyn;
+    Ks = dyn.take<D + 1>(ST);
+    Vs = dyn.take<D + 1>(ST);
+    Qs = dyn.take<D + 1>(ST);
+    Ds = dyn.take<D + 1>(ST);
+  }
   const int k0 = blockIdx.x * ST, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 3, c = threadIdx.x & 7, key = k0 + r;
   const long long bh = static_cast<long long>(b) * sh.H + h;
   const int kb_ = k0 / sh.block_k;
   const int* list = col_idx + static_cast<long long>(kb_) * sh.n_qb;
   const int n_act = col_cnt[kb_];
-  load_rows(Ks, k + b * sk.sb + h * sk.sh, sk.st, k0, sh.Sk);
-  load_rows(Vs, v + b * sv.sb + h * sv.sh, sv.st, k0, sh.Sk);
+  load_rows<D>(Ks, k + b * sk.sb + h * sk.sh, sk.st, k0, sh.Sk);
+  load_rows<D>(Vs, v + b * sv.sb + h * sv.sh, sv.st, k0, sh.Sk);
   float dk_acc[D / 8], dv_acc[D / 8];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) dk_acc[j] = dv_acc[j] = 0.f;
@@ -203,8 +204,8 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // a query tile wholly below this key tile is causally masked
     for (int q0 = sh.causal ? max(q_lo, k0) : q_lo; q0 < q_hi; q0 += ST) {
       __syncthreads();  // the previous tiles are consumed (and K, V staged)
-      load_rows(Qs, qb, sq.st, q0, sh.Sq);
-      load_rows(Ds, db, sd.st, q0, sh.Sq);
+      load_rows<D>(Qs, qb, sq.st, q0, sh.Sq);
+      load_rows<D>(Ds, db, sd.st, q0, sh.Sq);
       for (int t = threadIdx.x; t < ST; t += kSimtThreads) {
         const bool in = q0 + t < sh.Sq;
         Ls[t] = in ? lse[bh * sh.Sq + q0 + t] : 0.f;
@@ -215,9 +216,9 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int t = 0; t < ST / 8; ++t) {
         const int ql = c + 8 * t, qry = q0 + ql;
         const bool valid = key < sh.Sk && qry < sh.Sq && (!sh.causal || key <= qry);
-        const float p = valid ? expf(dot64(Ks[r], Qs[ql]) * sh.scale - Ls[ql]) : 0.f;
+        const float p = valid ? expf(dot<D>(Ks[r], Qs[ql]) * sh.scale - Ls[ql]) : 0.f;
         Ps[r][ql] = p;
-        DSs[r][ql] = p * (dot64(Vs[r], Ds[ql]) - Dl[ql]);
+        DSs[r][ql] = p * (dot<D>(Vs[r], Ds[ql]) - Dl[ql]);
       }
       __syncwarp();  // the row's eight threads share one warp
       for (int ql = 0; ql < ST; ++ql) {
@@ -239,17 +240,42 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// the f32 route at head dim D: delta, then the dK/dV kernel over the
+// columns and the dQ kernel over the rows
+template <int D>
+cudaError_t simt_bwd(const float* q, const float* k, const float* v, const void* out,
+                     const float* dout, const float* lse, float* ws, float* dq, float* dk,
+                     float* dv, const int* row_idx, const int* row_cnt, const int* col_idx,
+                     const int* col_cnt, const SimtShape& sh, long long B, Strides sq,
+                     Strides sk, Strides sv, Strides so, Strides sd, cudaStream_t st) {
+  cudaError_t err = launch_delta(out, dout, ws, B, sh.H, sh.Sq, D, so, sd, st);
+  if (err != cudaSuccess) return err;
+  const size_t kv_smem = kDkdvStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
+  const size_t q_smem = kDqStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
+  if (kv_smem > 0 && (err = allow_smem<dkdv_simt_kernel<D>>(kv_smem)) != cudaSuccess) return err;
+  if (q_smem > 0 && (err = allow_smem<dq_simt_kernel<D>>(q_smem)) != cudaSuccess) return err;
+  const dim3 kgrid(static_cast<unsigned>((sh.Sk + ST - 1) / ST), static_cast<unsigned>(sh.H),
+                   static_cast<unsigned>(B));
+  dkdv_simt_kernel<D><<<kgrid, kSimtThreads, kv_smem, st>>>(q, k, v, dout, lse, ws, dk, dv,
+                                                           col_idx, col_cnt, sh, sq, sk, sv, sd);
+  const dim3 qgrid(static_cast<unsigned>((sh.Sq + ST - 1) / ST), static_cast<unsigned>(sh.H),
+                   static_cast<unsigned>(B));
+  dq_simt_kernel<D><<<qgrid, kSimtThreads, q_smem, st>>>(q, k, v, dout, lse, ws, dq, row_idx,
+                                                        row_cnt, sh, sq, sk, sv, sd);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q, out, dout (B, sq, H, 64), k, v (B, sk, H, 64), bf16 or f32 (dtype)
-// with the given (batch, row, head) strides, bf16 rows 16-byte aligned; lse
-// (B, H, sq) f32; row_idx, row_cnt, col_idx, col_cnt and bwd_order: the
-// tables blocksparse_fwd_launch built for the forward. ws: f32
-// workspace, bf16: the dq accumulator (B * sq * H * 64) then the LSE and
-// delta tables (B * H * sq_pad each, sq_pad = sq rounded up to 64); f32:
-// delta (B * H * sq). dq (B, sq, H, 64), dk, dv (B, sk, H, 64): contiguous
-// outputs of the operands' dtype. key_tile (bf16): 64, or 128 where
-// block_k allows.
+// q, out, dout (B, sq, H, d), k, v (B, sk, H, d), d 64, 80, 96 or 128, bf16
+// or f32 (dtype) with the given (batch, row, head) strides, bf16 rows
+// 16-byte aligned; lse (B, H, sq) f32; row_idx, row_cnt, col_idx, col_cnt
+// and bwd_order: the tables blocksparse_fwd_launch built for the forward.
+// ws: f32 workspace, bf16: the dq accumulator (B * sq * H * d) then the LSE
+// and delta tables (B * H * sq_pad each, sq_pad = sq rounded up to 64);
+// f32: delta (B * H * sq). dq (B, sq, H, d), dk, dv (B, sk, H, d):
+// contiguous outputs of the operands' dtype. key_tile (bf16): 64, or 128
+// where block_k allows.
 extern "C" int blocksparse_bwd_launch(
     const void* q, const void* k, const void* v, const void* out, const void* dout,
     const void* lse, void* ws, void* dq, void* dk, void* dv, const void* row_idx,
@@ -259,7 +285,7 @@ extern "C" int blocksparse_bwd_launch(
     long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh, long long o_sb,
     long long o_st, long long o_sh, long long d_sb, long long d_st, long long d_sh,
-    float scale, long long causal, long long dtype, void* stream) {
+    float scale, long long causal, long long d, long long dtype, void* stream) {
   if (block_q % BQ || block_k % key_tile || block_q <= 0 || block_k <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B * H * sq * sk == 0) return 0;
@@ -290,9 +316,10 @@ extern "C" int blocksparse_bwd_launch(
     const SparseQueries::Params wq{ci, cc, static_cast<const int*>(bwd_order),
                                    static_cast<int>(n_qb), static_cast<int>(block_q),
                                    static_cast<int>(block_k)};
-    return static_cast<int>(bwd_bf16<SparseQueries, false>(
-        a, wq, static_cast<const bf16*>(out), so, lp, wp, static_cast<bf16*>(dq), B, key_tile,
-        st));
+    return static_cast<int>(with_head_dim(d, [&](auto D) {
+      return bwd_bf16<D, SparseQueries, false>(a, wq, static_cast<const bf16*>(out), so, lp, wp,
+                                               static_cast<bf16*>(dq), B, key_tile, st);
+    }));
   }
   if (dtype != DT_F32) return static_cast<int>(cudaErrorInvalidValue);
   const SimtShape sh{static_cast<int>(H),       static_cast<int>(sq),
@@ -300,23 +327,12 @@ extern "C" int blocksparse_bwd_launch(
                      static_cast<int>(n_kb),    static_cast<int>(block_q),
                      static_cast<int>(block_k), static_cast<int>(causal),
                      scale};
-  const auto* qp = static_cast<const float*>(q);
-  const auto* kp = static_cast<const float*>(k);
-  const auto* vp = static_cast<const float*>(v);
-  const auto* dp = static_cast<const float*>(dout);
-  const cudaError_t err = launch_delta(out, dp, wp, B, H, sq, so, sd, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 kgrid(static_cast<unsigned>((sk + ST - 1) / ST), static_cast<unsigned>(H),
-                   static_cast<unsigned>(B));
-  dkdv_simt_kernel<<<kgrid, kSimtThreads, 0, st>>>(qp, kp, vp, dp, lp, wp,
-                                                   static_cast<float*>(dk),
-                                                   static_cast<float*>(dv), ci, cc, sh, sq_, sk_,
-                                                   sv_, sd);
-  const dim3 qgrid(static_cast<unsigned>((sq + ST - 1) / ST), static_cast<unsigned>(H),
-                   static_cast<unsigned>(B));
-  dq_simt_kernel<<<qgrid, kSimtThreads, 0, st>>>(qp, kp, vp, dp, lp, wp, static_cast<float*>(dq),
-                                                 static_cast<const int*>(row_idx),
-                                                 static_cast<const int*>(row_cnt), sh, sq_, sk_,
-                                                 sv_, sd);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_head_dim(d, [&](auto D) {
+    return simt_bwd<D>(static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), out, static_cast<const float*>(dout), lp,
+                       wp, static_cast<float*>(dq), static_cast<float*>(dk),
+                       static_cast<float*>(dv), static_cast<const int*>(row_idx),
+                       static_cast<const int*>(row_cnt), ci, cc, sh, B, sq_, sk_, sv_, so, sd,
+                       st);
+  }));
 }

@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // dtype codes, mirrored by _build.DTYPE_CODE
 enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
 
@@ -81,6 +83,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
                : "r"(s));
 }
 
+// two 8x8 matrices, transposed: lanes 0-15 give the rows' addresses
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -99,23 +109,38 @@ __device__ __forceinline__ float ex2(float x) {
 // rows [r0, r0 + ROWS) of a row-strided (?, W) bf16 matrix into dst
 // (leading dimension LDS), 16 bytes a cp.async: thread i copies chunk
 // i % (W / 8) of rows i / (W / 8), i / (W / 8) + kThreads / (W / 8), ...;
-// rows at or past `valid` are zero-filled without a read
+// rows at or past `valid` are zero-filled without a read. Where W / 8
+// chunks do not divide the threads (W 80 and 96 over 128 threads), the
+// block's threads walk the tile's chunks in order instead, kThreads at a
+// time.
 template <int ROWS, int kThreads, int W = 64, int LDS = W + 8>
 __device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                                 long long st, int r0, int valid) {
-  constexpr int kStep = kThreads / (W / 8);
-  static_assert(ROWS % kStep == 0, "whole rows a pass");
-  const int r = threadIdx.x / (W / 8), c = (threadIdx.x % (W / 8)) * 8;
-  dst += r * LDS + c;
-  src += (r0 + r) * st + c;
+  constexpr int kChunks = W / 8;
+  if constexpr (kThreads % kChunks == 0) {
+    constexpr int kStep = kThreads / kChunks;
+    static_assert(ROWS % kStep == 0, "whole rows a pass");
+    const int r = threadIdx.x / kChunks, c = (threadIdx.x % kChunks) * 8;
+    dst += r * LDS + c;
+    src += (r0 + r) * st + c;
 #pragma unroll 4
-  for (int rr = r0 + r; rr < r0 + ROWS; rr += kStep) {
-    if (rr < valid)
-      cp_async16(dst, src);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    dst += kStep * LDS;
-    src += kStep * st;
+    for (int rr = r0 + r; rr < r0 + ROWS; rr += kStep) {
+      if (rr < valid)
+        cp_async16(dst, src);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      dst += kStep * LDS;
+      src += kStep * st;
+    }
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      if (r0 + r < valid)
+        cp_async16(dst + r * LDS + c, src + (r0 + r) * st + c);
+      else
+        *reinterpret_cast<uint4*>(dst + r * LDS + c) = make_uint4(0u, 0u, 0u, 0u);
+    }
   }
 }
 
@@ -157,11 +182,12 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld, const __nv
   }
 }
 
-// A fragments (4 k-steps of 16) of the 16 tile rows from r0
-__device__ __forceinline__ void a_frags(uint32_t (&a)[4][4], const __nv_bfloat16* t, int ld,
+// A fragments (KS k-steps of 16) of the 16 tile rows from r0
+template <int KS>
+__device__ __forceinline__ void a_frags(uint32_t (&a)[KS][4], const __nv_bfloat16* t, int ld,
                                         int r0, int g, int tq) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+  for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       a[ks][e] = ld32(t + (r0 + g + 8 * (e & 1)) * ld + ks * 16 + 2 * tq + 8 * (e >> 1));
@@ -322,6 +348,44 @@ cudaError_t allow_smem(size_t smem) {
                              static_cast<int>(smem));
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
+}
+
+// The SIMT loops' head-dim-wide tiles are static arrays where all of a
+// kernel's tiles fit the 48 KB of static shared memory (head dim 64), and
+// rows of dynamic shared memory past it, handed out in turn by DynRows
+// (the launcher passes their bytes and raises the kernel's limit through
+// allow_smem).
+constexpr int kStaticSmemBytes = 48 * 1024;
+
+struct DynRows {
+  float* p;
+  __device__ __forceinline__ DynRows() {
+    extern __shared__ __align__(16) float simt_dyn[];
+    p = simt_dyn;
+  }
+  // the next rows x COLS floats
+  template <int COLS>
+  __device__ __forceinline__ float (*take(int rows))[COLS] {
+    float(*t)[COLS] = reinterpret_cast<float(*)[COLS]>(p);
+    p += rows * COLS;
+    return t;
+  }
+};
+
+// The head dims the attention kernels (K3, K5, K9) are built for, the
+// one list of them (ops/flash_attention.py HEAD_DIMS mirrors it;
+// tests/test_torch_head_dims.py holds the two equal): f(D) for d's
+// instance, D a std::integral_constant<int, d>; any other d is refused.
+template <class F>
+auto with_head_dim(long long d, F&& f) {
+  using R = decltype(f(std::integral_constant<int, 64>{}));
+  switch (d) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+  }
+  return static_cast<R>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -3,11 +3,13 @@
 //
 // Replaces the TPU kernel backpacks_flash_attn_tpu/ops/flash_attention.py
 // _flash_fwd (:298, Pallas body _flash_fwd_kernel :158) for causal masking,
-// per-sequence seq_lengths and q_offsets. q is (B, sq, H, 64), k and v are
-// (B, sk, H, 64), each with any (batch, row, head) strides. Key u of
+// per-sequence seq_lengths and q_offsets. q is (B, sq, H, D), k and v are
+// (B, sk, H, D), each with any (batch, row, head) strides; the head dim D is
+// 64, 80, 96 or 128, an instance each (the wrapper pads any other d <= 128
+// with zero columns to the next, as JAX's _head_pad :78 pads to 128). Key u of
 // sequence b is valid for query row i when u < min(seq_len[b], sk) and, if
 // causal, u <= q_off[b] + i. Fully masked rows give 0 (l = 0 is treated as
-// 1) and an LSE of FLASH_NEG_INF, as on the TPU. out is (B, sq, H, 64),
+// 1) and an LSE of FLASH_NEG_INF, as on the TPU. out is (B, sq, H, D),
 // contiguous, in the input's dtype; lse is (B, H, sq) f32. Dropout
 // (common.cuh dropout_keep, positions q_off[b] + i and u, stream b * H + h)
 // scales the kept un-normalised probabilities by 1 / (1 - p) after the
@@ -49,17 +51,21 @@
 // applies the mask (-inf) only on tiles that straddle the diagonal or the
 // length, and a warp whose rows all lie past sq does no products. Query
 // tiles with the most keys launch first (reverse blockIdx.y), so the
-// causal tail does not leave SMs idle. Head dim 64 is a compile-time
-// constant (a template argument once other head dims come). Out of scope
-// in this version: wgmma, TMA and warp specialisation.
+// causal tail does not leave SMs idle. The head dim is a template
+// argument (flash_attention.cuh); past 64, 64-row tiles at every sq past 32
+// and fewer warps an SM for the registers. Out of scope in this version:
+// wgmma, TMA and warp specialisation.
 //
 // f32 operands (no bf16 tensor-core form), bf16 operands whose rows or
 // head offsets are not 16-byte aligned (cp.async needs 16 bytes) and a
 // scale <= 0 take the SIMT loop: one 256-thread block per 64-row query
 // tile, Q staged once in shared memory as f32, 32-key K/V tiles staged as
 // f32, four threads a query row (8 scores each, reduced across the four
-// lanes with shuffles; 16 of the 64 output columns as f32 accumulators in
-// registers). The launcher decides the route once per call.
+// lanes with shuffles; D / 4 of the D output columns as f32 accumulators
+// in registers). Its tiles take 41.6 KB at D = 64, all static; past it
+// (49.8 KB at D 80, 74.4 KB at D 128) they pass the 48 KB static limit and
+// the D-wide ones (Q, K, V) move to dynamic shared memory. The launcher
+// decides the route once per call.
 #include "flash_attention.cuh"
 
 namespace {
@@ -70,9 +76,7 @@ bool aligned16(const void* p, long long sb, long long st, long long sh) {
 
 // ------------------------------------------------------------ SIMT (f32, unaligned bf16)
 
-constexpr int BQ_SIMT = 64, BKV_SIMT = 32, kSimtThreads = 256;
-
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
@@ -81,10 +85,20 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       long long k_sb, long long k_st, long long k_sh, long long v_sb,
                       long long v_st, long long v_sh, float scale, int causal,
                       DropoutParams drop) {
-  __shared__ float Qs[BQ_SIMT][D + 1];
-  __shared__ float Ks[BKV_SIMT][D + 1];
-  __shared__ float Vs[BKV_SIMT][D];
+  constexpr bool kStatic = kSimtStatic<D>;
+  __shared__ float Qs_s[kStatic ? BQ_SIMT : 1][D + 1];
+  __shared__ float Ks_s[kStatic ? BKV_SIMT : 1][D + 1];
+  __shared__ float Vs_s[kStatic ? BKV_SIMT : 1][D];
   __shared__ float Ps[BQ_SIMT][BKV_SIMT + 1];
+  float(*Qs)[D + 1] = Qs_s;
+  float(*Ks)[D + 1] = Ks_s;
+  float(*Vs)[D] = Vs_s;
+  if constexpr (!kStatic) {
+    DynRows dyn;
+    Qs = dyn.take<D + 1>(BQ_SIMT);
+    Ks = dyn.take<D + 1>(BKV_SIMT);
+    Vs = dyn.take<D>(BKV_SIMT);
+  }
 
   const int q0 = blockIdx.x * BQ_SIMT, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -170,16 +184,21 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (c == 0) lse[(static_cast<long long>(b) * H + h) * sq + qi] = m + logf(l_safe);
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_simt(const void* q, const void* k, const void* v, void* out, void* lse,
                 const void* seq_lengths, const void* q_offsets, long long B, long long H,
                 long long sq, long long sk, long long q_sb, long long q_st, long long q_sh,
                 long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
                 long long v_sh, float scale, long long causal, DropoutParams drop,
                 cudaStream_t stream) {
+  const size_t smem = kSimtStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
+  if (smem > 0) {
+    const cudaError_t err = allow_smem<flash_fwd_simt_kernel<T, D>>(smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 grid(static_cast<unsigned>((sq + BQ_SIMT - 1) / BQ_SIMT), static_cast<unsigned>(H),
                   static_cast<unsigned>(B));
-  flash_fwd_simt_kernel<T><<<grid, kSimtThreads, 0, stream>>>(
+  flash_fwd_simt_kernel<T, D><<<grid, kSimtThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), static_cast<const int*>(seq_lengths),
       static_cast<const int*>(q_offsets), static_cast<int>(H), static_cast<int>(sq),
@@ -199,7 +218,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       long long v_st, long long v_sh, float scale,
                                       long long causal, long long seed0, long long seed1,
                                       long long thr, float inv_keep, long long dropout,
-                                      long long dtype, void* stream) {
+                                      long long d, long long dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B * H * sq == 0) return 0;
   const DropoutParams drop = make_dropout(seed0, seed1, thr, inv_keep, dropout);
@@ -212,12 +231,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                     static_cast<int>(sq), static_cast<int>(sk), static_cast<int>(causal),
                     Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
                     Strides{v_sb, v_st, v_sh}, scale * kLog2e, drop};
-    return launch_rows<DenseKeys, true>(a, {}, k3_rows(sq), B, st);
+    return with_head_dim(d, [&](auto D) {
+      return launch_rows<D, DenseKeys, true>(a, {}, k3_rows(sq, D), B, st);
+    });
   }
+  if (dtype != DT_BF16 && dtype != DT_F32) return static_cast<int>(cudaErrorInvalidValue);
 #define K3_ARGS q, k, v, out, lse, seq_lengths, q_offsets, B, H, sq, sk, q_sb, q_st, q_sh, \
                 k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal, drop, st
-  if (dtype == DT_BF16) return launch_simt<__nv_bfloat16>(K3_ARGS);
-  if (dtype == DT_F32) return launch_simt<float>(K3_ARGS);
+  return with_head_dim(d, [&](auto D) {
+    return dtype == DT_BF16 ? launch_simt<__nv_bfloat16, D>(K3_ARGS)
+                            : launch_simt<float, D>(K3_ARGS);
+  });
 #undef K3_ARGS
-  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,6 +13,12 @@
 // tile t multiplies, whatever key it starts at; the body neither knows nor
 // tests which walk it runs. The design notes (tiles, MT, the masks) are in
 // flash_attention.cu.
+//
+// The head dim D (64, 80, 96 or 128; the wrapper pads any other d <= 128
+// with zero columns to the next) is a template argument: K, V and Q rows of
+// D + 8 bf16 in shared memory (144, 176, 208 and 272 bytes: 16-byte aligned,
+// and the 8 rows of an ldmatrix land on 8 distinct 4-bank groups), D / 16
+// k-steps for S = Q K^T and D / 8 output fragments a row group.
 #pragma once
 
 #include "common.cuh"
@@ -20,10 +26,8 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int D = 64;
 
 constexpr int BK = 64;       // keys a K/V tile
-constexpr int LD = D + 8;    // 144-byte smem rows: 16-byte aligned, ldmatrix conflict-free
 constexpr int kStages = 2;   // K/V tiles in the cp.async ring
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -69,7 +73,7 @@ __device__ __forceinline__ float row_max(const float (&s)[NF][4], int half) {
 // The per-warp state of the online softmax: Q's A fragments, and per row
 // group and accumulator half (rows g, g + 8) the running max in log2 units
 // (-inf: no valid key yet), the pre-dropout sum and the output rows.
-template <int MT>
+template <int D, int MT>
 struct WarpRows {
   uint32_t qa[MT][D / 16][4];
   float m[MT][2], l[MT][2];
@@ -84,11 +88,12 @@ constexpr bool kQInSmem = MT == 1;
 // One BK-key tile (K and V in shared memory, [key][d]) into the warp's
 // rows qw, ..., qw + 16 * MT - 1 (rows qs, ... of the Q tile in shared
 // memory)
-template <int MT, bool DROP>
-__device__ __forceinline__ void attend_tile(WarpRows<MT>& w, const bf16* Qs, int qs,
+template <int D, int MT, bool DROP>
+__device__ __forceinline__ void attend_tile(WarpRows<D, MT>& w, const bf16* Qs, int qs,
                                             const bf16* Ks, const bf16* Vs, const MmaArgs& a,
                                             int j0, int qw, int q_off, int kv_len, bool edge,
                                             uint32_t bh) {
+  constexpr int LD = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   // S = Q K^T: one ldmatrix.x4 gives the B fragments of two 8-key blocks
   float s[MT][BK / 8][4];
@@ -197,17 +202,26 @@ __device__ __forceinline__ void attend_tile(WarpRows<MT>& w, const bf16* Qs, int
   }
 }
 
+// The warps an SM the register budget is cut for: at D = 64 16 (at most
+// 128 registers a thread at MT = 1); past it the output fragments grow
+// with D (64 f32 a thread at D = 128), so 12 (170 registers) at D 80 and
+// 96 and 8 (255) at D 128, which shared memory allows no more of anyway
+// (87 KB a 64-row block).
+template <int D>
+constexpr int kSmWarps = D <= 64 ? 16 : D <= 96 ? 12 : 8;
+
 // One block per (query tile of 16 * MT * WARPS rows, head, batch row).
 // A warp owns MT groups of 16 query rows, so every K and V fragment it
 // reads from shared memory feeds MT products; 16 warps an SM at MT = 1
-// (at most 128 registers a thread), 8 at MT = 2 (at most 255). DROP is
-// whether dropout is on, so neither form branches inside the tile. Walk
-// picks the query tile and the key tiles (DenseKeys above, K9's
-// SparseKeys).
-template <int WARPS, int MT, bool DROP, class Walk>
-__global__ void __launch_bounds__(32 * WARPS, 16 / (WARPS * MT))
+// (at most 128 registers a thread), 8 at MT = 2 (at most 255; D = 64
+// only). DROP is whether dropout is on, so neither form branches inside
+// the tile. Walk picks the query tile and the key tiles (DenseKeys above,
+// K9's SparseKeys).
+template <int D, int WARPS, int MT, bool DROP, class Walk>
+__global__ void __launch_bounds__(32 * WARPS, kSmWarps<D> / (WARPS * MT))
     flash_fwd_mma_kernel(const MmaArgs a, const typename Walk::Params wp) {
-  constexpr int RW = 16 * MT, BQ = RW * WARPS, kThreads = 32 * WARPS;
+  static_assert(D % 16 == 0 && D <= 128 && (MT == 1 || D == 64), "a head dim instance");
+  constexpr int RW = 16 * MT, BQ = RW * WARPS, kThreads = 32 * WARPS, LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
   bf16* ring = Qs + BQ * LD;                     // kStages x (K, V), BK x LD each
@@ -231,19 +245,20 @@ __global__ void __launch_bounds__(32 * WARPS, 16 / (WARPS * MT))
   auto load_kv = [&](int t) {
     bf16* Ks = ring + (t % kStages) * 2 * BK * LD;
     const int j0 = walk.key0(t);
-    load_rows_async<BK, kThreads>(Ks, kb, a.sk_.st, j0, kv_len);
-    load_rows_async<BK, kThreads>(Ks + BK * LD, vb, a.sv_.st, j0, kv_len);
+    load_rows_async<BK, kThreads, D>(Ks, kb, a.sk_.st, j0, kv_len);
+    load_rows_async<BK, kThreads, D>(Ks + BK * LD, vb, a.sv_.st, j0, kv_len);
   };
   // Q goes with the first K/V tile's commit group
   if (n_tiles > 0)
-    load_rows_async<BQ, kThreads>(Qs, a.q + b * a.sq_.sb + h * a.sq_.sh, a.sq_.st, q0, a.sq);
+    load_rows_async<BQ, kThreads, D>(Qs, a.q + b * a.sq_.sb + h * a.sq_.sh, a.sq_.st, q0,
+                                     a.sq);
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles) load_kv(t);
     cp_async_commit();
   }
 
-  WarpRows<MT> w;
+  WarpRows<D, MT> w;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     w.m[mt][0] = w.m[mt][1] = -INFINITY;
@@ -264,8 +279,8 @@ __global__ void __launch_bounds__(32 * WARPS, 16 / (WARPS * MT))
     if (j0 >= warp_end) continue;  // warp-uniform: no key of the tile for these rows
     const bf16* Ks = ring + (t % kStages) * 2 * BK * LD;
     const bool edge = j0 + BK > kv_len || (a.causal && j0 + BK - 1 > q_off + qw);
-    attend_tile<MT, DROP>(w, Qs, RW * warp, Ks, Ks + BK * LD, a, j0, qw, q_off, kv_len, edge,
-                          bh);
+    attend_tile<D, MT, DROP>(w, Qs, RW * warp, Ks, Ks + BK * LD, a, j0, qw, q_off, kv_len,
+                             edge, bh);
   }
   cp_async_wait<0>();
 
@@ -289,15 +304,15 @@ __global__ void __launch_bounds__(32 * WARPS, 16 / (WARPS * MT))
     }
 }
 
-template <int WARPS, int MT, bool DROP, class Walk>
+template <int D, int WARPS, int MT, bool DROP, class Walk>
 int launch_form(const MmaArgs& a, const typename Walk::Params& wp, long long B,
                 cudaStream_t stream) {
   constexpr int BQ = 16 * MT * WARPS;
-  const size_t smem = sizeof(bf16) * (BQ + 2 * kStages * BK) * LD;
-  const cudaError_t err = allow_smem<flash_fwd_mma_kernel<WARPS, MT, DROP, Walk>>(smem);
+  const size_t smem = sizeof(bf16) * (BQ + 2 * kStages * BK) * (D + 8);
+  const cudaError_t err = allow_smem<flash_fwd_mma_kernel<D, WARPS, MT, DROP, Walk>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B * a.H), static_cast<unsigned>((a.sq + BQ - 1) / BQ));
-  flash_fwd_mma_kernel<WARPS, MT, DROP, Walk><<<grid, 32 * WARPS, smem, stream>>>(a, wp);
+  flash_fwd_mma_kernel<D, WARPS, MT, DROP, Walk><<<grid, 32 * WARPS, smem, stream>>>(a, wp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -305,27 +320,42 @@ int launch_form(const MmaArgs& a, const typename Walk::Params& wp, long long B,
 // tile, so no warp idles; 64-row tiles of 4 warps up to sq 1024 (at the
 // training and forward shapes more, shorter blocks beat longer ones);
 // longer sequences (bound by the products) 128-row tiles of 4 warps of 32
-// rows, which halve the shared-memory reads per product. (K9's wrapper
+// rows at head dim 64, which halve the shared-memory reads per product
+// (past 64 a warp's two row groups' output fragments and scores would not
+// fit its 255 registers, so wider heads keep 64-row tiles). (K9's wrapper
 // mirrors this as ops.flash_attention._k9_rows, to size its tables;
 // tests/test_torch_k9_schedule.py reads this line and holds the two equal.)
-inline int k3_rows(long long sq) { return sq <= 32 ? 32 : sq <= 1024 ? 64 : 128; }
+inline int k3_rows(long long sq, int d) { return sq <= 32 ? 32 : sq <= 1024 || d > 64 ? 64 : 128; }
 
-// Launch the body over `rows`-row query tiles (32, 64 or 128); DROPS:
-// whether dropout may be on (K9 has none, so its instances are not built).
-template <class Walk, bool DROPS>
+// The SIMT loops of K3 (flash_attention.cu) and K9's forward
+// (blocksparse_attention.cu): 256 threads a 64-query tile over 32-key
+// tiles. Their D-wide tiles (Q and K rows of D + 1 floats, V rows of D) in
+// floats, and whether those and P fit the static limit.
+constexpr int BQ_SIMT = 64, BKV_SIMT = 32, kSimtThreads = 256;
+template <int D>
+constexpr int kSimtDynFloats = (BQ_SIMT + BKV_SIMT) * (D + 1) + BKV_SIMT * D;
+template <int D>
+constexpr bool kSimtStatic =
+    4 * (kSimtDynFloats<D> + BQ_SIMT * (BKV_SIMT + 1)) <= kStaticSmemBytes;
+
+// Launch the body at head dim D over `rows`-row query tiles (32, 64 or 128
+// at D = 64); DROPS: whether dropout may be on (K9 has none, so its
+// instances are not built).
+template <int D, class Walk, bool DROPS>
 int launch_rows(const MmaArgs& a, const typename Walk::Params& wp, int rows, long long B,
                 cudaStream_t st) {
   const bool drop = DROPS && a.drop.on;
   switch (rows) {
     case 32:
-      return drop ? launch_form<2, 1, DROPS, Walk>(a, wp, B, st)
-                  : launch_form<2, 1, false, Walk>(a, wp, B, st);
+      return drop ? launch_form<D, 2, 1, DROPS, Walk>(a, wp, B, st)
+                  : launch_form<D, 2, 1, false, Walk>(a, wp, B, st);
     case 64:
-      return drop ? launch_form<4, 1, DROPS, Walk>(a, wp, B, st)
-                  : launch_form<4, 1, false, Walk>(a, wp, B, st);
+      return drop ? launch_form<D, 4, 1, DROPS, Walk>(a, wp, B, st)
+                  : launch_form<D, 4, 1, false, Walk>(a, wp, B, st);
     case 128:
-      return drop ? launch_form<4, 2, DROPS, Walk>(a, wp, B, st)
-                  : launch_form<4, 2, false, Walk>(a, wp, B, st);
+      if constexpr (D == 64)
+        return drop ? launch_form<D, 4, 2, DROPS, Walk>(a, wp, B, st)
+                    : launch_form<D, 4, 2, false, Walk>(a, wp, B, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

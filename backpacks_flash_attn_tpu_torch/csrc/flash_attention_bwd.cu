@@ -7,9 +7,10 @@
 // recomputed once and feeds all three gradients (5 products), dq summed in
 // f32 across the key tiles. (The no-bias contract of _flash_bwd_fused_kernel
 // :590 and of the split _flash_bwd_dq_kernel :460 + _flash_bwd_dkv_kernel
-// :523 is the same function.) Head dim 64 (a compile-time constant: other
-// head dims become instances), sq == sk, causal or not, bf16 or f32 in and
-// out, f32 accumulators.
+// :523 is the same function.) Head dims 64, 80, 96 and 128, an instance
+// each (the wrapper pads any other d <= 128 with zero columns to the next,
+// as JAX's _head_pad :78 pads to 128), sq == sk, causal or not, bf16 or f32
+// in and out, f32 accumulators.
 //
 // Bound on the H100: at the training shape (32, 12, 512, 64) the bytes,
 // q, k, v, out and dO read and dq, dk, dv written once (8 x 25 MB) plus
@@ -71,49 +72,44 @@
 // f32 operands take the SIMT kernels (delta_kernel, dkdv_simt_kernel,
 // dq_simt_kernel), the training CLI's f32 default: 32-row tiles of f32 in
 // shared memory, 256 threads, eight threads a row, each making 4 of the
-// row's 32 scores per tile and holding 8 of its 64 gradient columns; every
-// product in f32, scores recomputed in both kernels, no atomics.
+// row's 32 scores per tile and holding D / 8 of its D gradient columns;
+// every product in f32, scores recomputed in both kernels, no atomics.
+// Their tiles sit in static shared memory where they all fit its 48 KB
+// (D 64; dq's at D 80 too); past it (the dK/dV kernel's 50.2 KB at D 80)
+// the D-wide ones (Q, dO, K, V) move to dynamic shared memory. The helpers
+// and sizes they share with K9's SIMT kernels are in the header.
 #include "flash_attention_bwd.cuh"
 
 namespace {
 
 // ------------------------------------------------------------- f32 (SIMT)
 
-constexpr int ST = 32, SLD = D + 1, kSimtThreads = 256;
-
-// 32 rows from r0 of a row-strided f32 matrix into shared memory; rows at
-// or past S are zero
-__device__ __forceinline__ void load_rows(float (*dst)[SLD], const float* base, long long st,
-                                          int r0, int S) {
-  for (int idx = threadIdx.x; idx < ST * D; idx += kSimtThreads) {
-    const int rr = idx / D, dd = idx % D;
-    dst[rr][dd] = r0 + rr < S ? base[(r0 + rr) * st + dd] : 0.f;
-  }
-}
-
-__device__ __forceinline__ float dot64(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll 16
-  for (int dd = 0; dd < D; ++dd) acc += a[dd] * b[dd];
-  return acc;
-}
-
 // one block per (32-key tile, head, batch row); thread (r, c) = key k0 + r,
 // queries c + 8 i of each tile, gradient columns c + 8 j
+template <int D>
 __global__ void __launch_bounds__(kSimtThreads)
 dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dk, float* __restrict__ dv, int H, int S, Strides sq,
                  Strides sk, Strides sv, Strides sd, float scale, int causal, DropoutParams drop) {
-  __shared__ float Ks[ST][SLD], Vs[ST][SLD], Qs[ST][SLD], Ds[ST][SLD];
+  constexpr int R = kDkdvStatic<D> ? ST : 1;
+  __shared__ float Ks_s[R][D + 1], Vs_s[R][D + 1], Qs_s[R][D + 1], Ds_s[R][D + 1];
   __shared__ float Ps[ST][ST + 1], DSs[ST][ST + 1];
   __shared__ float Ls[ST], Dl[ST];
+  float(*Ks)[D + 1] = Ks_s, (*Vs)[D + 1] = Vs_s, (*Qs)[D + 1] = Qs_s, (*Ds)[D + 1] = Ds_s;
+  if constexpr (R == 1) {
+    DynRows dyn;
+    Ks = dyn.take<D + 1>(ST);
+    Vs = dyn.take<D + 1>(ST);
+    Qs = dyn.take<D + 1>(ST);
+    Ds = dyn.take<D + 1>(ST);
+  }
   const int k0 = blockIdx.x * ST, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 3, c = threadIdx.x & 7, key = k0 + r;
   const long long bh = static_cast<long long>(b) * H + h;
-  load_rows(Ks, k + b * sk.sb + h * sk.sh, sk.st, k0, S);
-  load_rows(Vs, v + b * sv.sb + h * sv.sh, sv.st, k0, S);
+  load_rows<D>(Ks, k + b * sk.sb + h * sk.sh, sk.st, k0, S);
+  load_rows<D>(Vs, v + b * sv.sb + h * sv.sh, sv.st, k0, S);
   float dk_acc[D / 8], dv_acc[D / 8];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) dk_acc[j] = dv_acc[j] = 0.f;
@@ -122,8 +118,8 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* db = dout + b * sd.sb + h * sd.sh;
   for (int q0 = causal ? k0 : 0; q0 < S; q0 += ST) {
     __syncthreads();  // the previous tiles are consumed (and K, V staged)
-    load_rows(Qs, qb, sq.st, q0, S);
-    load_rows(Ds, db, sd.st, q0, S);
+    load_rows<D>(Qs, qb, sq.st, q0, S);
+    load_rows<D>(Ds, db, sd.st, q0, S);
     for (int i = threadIdx.x; i < ST; i += kSimtThreads) {
       const bool in = q0 + i < S;
       Ls[i] = in ? lse[bh * S + q0 + i] : 0.f;
@@ -134,8 +130,8 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < ST / 8; ++i) {
       const int ql = c + 8 * i, qry = q0 + ql;
       const bool valid = key < S && qry < S && (!causal || key <= qry);
-      const float p = valid ? expf(dot64(Ks[r], Qs[ql]) * scale - Ls[ql]) : 0.f;
-      float dp = dot64(Vs[r], Ds[ql]), pk = p;
+      const float p = valid ? expf(dot<D>(Ks[r], Qs[ql]) * scale - Ls[ql]) : 0.f;
+      float dp = dot<D>(Vs[r], Ds[ql]), pk = p;
       if (drop.on) {
         const bool keep = dropout_keep(drop, static_cast<uint32_t>(bh),
                                        static_cast<uint32_t>(qry), static_cast<uint32_t>(key));
@@ -166,19 +162,29 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // one block per (32-query tile, head, batch row); thread (r, c) = query
 // q0 + r, keys c + 8 i of each tile, gradient columns c + 8 j
+template <int D>
 __global__ void __launch_bounds__(kSimtThreads)
 dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dq, int H, int S, Strides sq, Strides sk, Strides sv,
                Strides sd, float scale, int causal, DropoutParams drop) {
-  __shared__ float Qs[ST][SLD], Ds[ST][SLD], Ks[ST][SLD], Vs[ST][SLD];
+  constexpr int R = kDqStatic<D> ? ST : 1;
+  __shared__ float Qs_s[R][D + 1], Ds_s[R][D + 1], Ks_s[R][D + 1], Vs_s[R][D + 1];
   __shared__ float DSs[ST][ST + 1];
+  float(*Qs)[D + 1] = Qs_s, (*Ds)[D + 1] = Ds_s, (*Ks)[D + 1] = Ks_s, (*Vs)[D + 1] = Vs_s;
+  if constexpr (R == 1) {
+    DynRows dyn;
+    Qs = dyn.take<D + 1>(ST);
+    Ds = dyn.take<D + 1>(ST);
+    Ks = dyn.take<D + 1>(ST);
+    Vs = dyn.take<D + 1>(ST);
+  }
   const int q0 = blockIdx.x * ST, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 3, c = threadIdx.x & 7, qry = q0 + r;
   const long long bh = static_cast<long long>(b) * H + h;
-  load_rows(Qs, q + b * sq.sb + h * sq.sh, sq.st, q0, S);
-  load_rows(Ds, dout + b * sd.sb + h * sd.sh, sd.st, q0, S);
+  load_rows<D>(Qs, q + b * sq.sb + h * sq.sh, sq.st, q0, S);
+  load_rows<D>(Ds, dout + b * sd.sb + h * sd.sh, sd.st, q0, S);
   const float row_lse = qry < S ? lse[bh * S + qry] : 0.f;
   const float row_delta = qry < S ? delta[bh * S + qry] : 0.f;
   float dq_acc[D / 8];
@@ -190,15 +196,15 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(S, q0 + ST) : S;
   for (int j0 = 0; j0 < kv_end; j0 += ST) {
     __syncthreads();
-    load_rows(Ks, kb, sk.st, j0, S);
-    load_rows(Vs, vb, sv.st, j0, S);
+    load_rows<D>(Ks, kb, sk.st, j0, S);
+    load_rows<D>(Vs, vb, sv.st, j0, S);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < ST / 8; ++i) {
       const int kl = c + 8 * i, key = j0 + kl;
       const bool valid = key < S && qry < S && (!causal || key <= qry);
-      const float p = valid ? expf(dot64(Qs[r], Ks[kl]) * scale - row_lse) : 0.f;
-      float dp = dot64(Ds[r], Vs[kl]);
+      const float p = valid ? expf(dot<D>(Qs[r], Ks[kl]) * scale - row_lse) : 0.f;
+      float dp = dot<D>(Ds[r], Vs[kl]);
       if (drop.on)
         dp = dropout_keep(drop, static_cast<uint32_t>(bh), static_cast<uint32_t>(qry),
                           static_cast<uint32_t>(key))
@@ -219,14 +225,38 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < D / 8; ++j) drow[c + 8 * j] = dq_acc[j] * scale;
 }
 
+// the f32 route at head dim D: delta, then the dK/dV and dQ kernels
+template <int D>
+cudaError_t simt_bwd(const float* q, const float* k, const float* v, const void* out,
+                     const float* dout, const float* lse, float* ws, float* dq, float* dk,
+                     float* dv, long long B, long long H, long long S, Strides sq, Strides sk,
+                     Strides sv, Strides so, Strides sd, float scale, int causal,
+                     DropoutParams drop, cudaStream_t st) {
+  cudaError_t err = launch_delta(out, dout, ws, B, H, S, D, so, sd, st);
+  if (err != cudaSuccess) return err;
+  const size_t kv_smem = kDkdvStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
+  const size_t q_smem = kDqStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
+  if (kv_smem > 0 && (err = allow_smem<dkdv_simt_kernel<D>>(kv_smem)) != cudaSuccess) return err;
+  if (q_smem > 0 && (err = allow_smem<dq_simt_kernel<D>>(q_smem)) != cudaSuccess) return err;
+  const int h = static_cast<int>(H), s = static_cast<int>(S);
+  const dim3 grid(static_cast<unsigned>((S + ST - 1) / ST), static_cast<unsigned>(H),
+                  static_cast<unsigned>(B));
+  dkdv_simt_kernel<D><<<grid, kSimtThreads, kv_smem, st>>>(q, k, v, dout, lse, ws, dk, dv, h, s,
+                                                          sq, sk, sv, sd, scale, causal, drop);
+  dq_simt_kernel<D><<<grid, kSimtThreads, q_smem, st>>>(q, k, v, dout, lse, ws, dq, h, s, sq, sk,
+                                                       sv, sd, scale, causal, drop);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q, k, v, out, dout: (B, S, H, 64) bf16 or f32 (dtype) with the given
-// (batch, row, head) strides, bf16 rows 16-byte aligned; lse (B, H, S) f32;
-// ws: f32 workspace, bf16: the dq accumulator (B * S * H * 64) then the
-// LSE and delta tables (B * H * S_pad each, S_pad = S rounded up to 64);
-// f32: delta (B * H * S). dq, dk, dv: contiguous (B, S, H, 64) outputs of
-// the operands' dtype. key_tile (bf16): 64 or 128 keys a CTA.
+// q, k, v, out, dout: (B, S, H, d) bf16 or f32 (dtype) with the given
+// (batch, row, head) strides, bf16 rows 16-byte aligned, d 64, 80, 96 or
+// 128; lse (B, H, S) f32; ws: f32 workspace, bf16: the dq accumulator (B *
+// S * H * d) then the LSE and delta tables (B * H * S_pad each, S_pad = S
+// rounded up to 64); f32: delta (B * H * S). dq, dk, dv: contiguous (B, S,
+// H, d) outputs of the operands' dtype. key_tile (bf16): 64 or 128 keys a
+// CTA.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out, const void* dout,
     const void* lse, void* ws, void* dq, void* dk, void* dv, long long B, long long H,
@@ -234,7 +264,7 @@ extern "C" int flash_attention_bwd_launch(
     long long k_sh, long long v_sb, long long v_st, long long v_sh, long long o_sb,
     long long o_st, long long o_sh, long long d_sb, long long d_st, long long d_sh, float scale,
     long long causal, long long seed0, long long seed1, long long thr, float inv_keep,
-    long long dropout, long long key_tile, long long dtype, void* stream) {
+    long long dropout, long long key_tile, long long d, long long dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropoutParams drop = make_dropout(seed0, seed1, thr, inv_keep, dropout);
   const Strides sq{q_sb, q_st, q_sh}, sk{k_sb, k_st, k_sh}, sv{v_sb, v_st, v_sh},
@@ -260,27 +290,16 @@ extern "C" int flash_attention_bwd_launch(
     a.sd = sd;
     a.scale = scale;
     a.drop = drop;
-    const cudaError_t err =
-        bwd_bf16<DenseQueries, true>(a, {}, static_cast<const bf16*>(out), so, lp, wp,
-                                     static_cast<bf16*>(dq), B, key_tile, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  } else if (dtype == DT_F32) {
-    const auto* qp = static_cast<const float*>(q);
-    const auto* kp = static_cast<const float*>(k);
-    const auto* vp = static_cast<const float*>(v);
-    const auto* dp = static_cast<const float*>(dout);
-    const cudaError_t err = launch_delta(out, dp, wp, B, H, S, so, sd, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>((S + ST - 1) / ST), static_cast<unsigned>(H),
-                    static_cast<unsigned>(B));
-    dkdv_simt_kernel<<<grid, kSimtThreads, 0, st>>>(qp, kp, vp, dp, lp, wp,
-                                                    static_cast<float*>(dk),
-                                                    static_cast<float*>(dv), h, s, sq, sk, sv, sd,
-                                                    scale, c, drop);
-    dq_simt_kernel<<<grid, kSimtThreads, 0, st>>>(qp, kp, vp, dp, lp, wp, static_cast<float*>(dq),
-                                                  h, s, sq, sk, sv, sd, scale, c, drop);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(with_head_dim(d, [&](auto D) {
+      return bwd_bf16<D, DenseQueries, true>(a, {}, static_cast<const bf16*>(out), so, lp, wp,
+                                             static_cast<bf16*>(dq), B, key_tile, st);
+    }));
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype != DT_F32) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_head_dim(d, [&](auto D) {
+    return simt_bwd<D>(static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), out, static_cast<const float*>(dout), lp,
+                       wp, static_cast<float*>(dq), static_cast<float*>(dk),
+                       static_cast<float*>(dv), B, H, S, sq, sk, sv, so, sd, scale, c, drop, st);
+  }));
 }

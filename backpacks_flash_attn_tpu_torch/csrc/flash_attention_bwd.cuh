@@ -21,6 +21,15 @@
 // the LSE in log2 units, the zeroed dq accumulator), bwd_mma_kernel and
 // dq_convert_kernel. dk and dv are deterministic; dq is not (the order in
 // which the key tiles' f32 partials land varies between runs).
+//
+// The head dim D (64, 80, 96 or 128) is a template argument: Q, dO, K and
+// V rows of D + 8 bf16 in shared memory (the pitches of
+// flash_attention.cuh), dS^T at its own pitch of BQ + 8 (it is keys x
+// queries, whatever D is). At D = 64 a warp keeps its K and V A fragments
+// in registers and V passes through the dS^T buffers; past 64 the dK and
+// dV accumulators alone take D registers a thread, so K and V stay in
+// shared memory (V in a buffer of its own) and the fragments are read by
+// ldmatrix at every tile.
 #pragma once
 
 #include "common.cuh"
@@ -28,10 +37,18 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int D = 64, LD = D + 8;  // 144-byte smem rows: 16-byte aligned, ldmatrix conflict-free
+
+// a row's lane pairs: lane l takes columns 2l, 2l + 1, then 64 further on
+// while they lie below D (one pair at D = 64; lanes 0-7 take a second at
+// D = 80)
+template <int D>
+__device__ __forceinline__ bool pair_in(int c0, int lane) {
+  return c0 + 64 <= D || c0 + 2 * lane < D;
+}
 
 // delta = rowsum(dO * O) per (b, h, row) of f32 operands, one warp a row
 // (the f32 routes of K5 and K9)
+template <int D>
 __global__ void __launch_bounds__(256)
 delta_kernel(const float* __restrict__ out, const float* __restrict__ dout,
              float* __restrict__ delta, int B, int H, int S, Strides so, Strides sd) {
@@ -43,31 +60,74 @@ delta_kernel(const float* __restrict__ out, const float* __restrict__ dout,
   const int b = static_cast<int>(row / (static_cast<long long>(H) * S));
   const float* o = out + b * so.sb + i * so.st + h * so.sh + 2 * lane;
   const float* g = dout + b * sd.sb + i * sd.st + h * sd.sh + 2 * lane;
-  const float v = warp_sum(o[0] * g[0] + o[1] * g[1]);
+  float part;  // (the first pair is every lane's)
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += 64)
+    if (pair_in<D>(c0, lane)) {
+      const float x = o[c0] * g[c0] + o[c0 + 1] * g[c0 + 1];
+      part = c0 == 0 ? x : part + x;
+    }
+  const float v = warp_sum(part);
   if (lane == 0) delta[(static_cast<long long>(b) * H + h) * S + i] = v;
 }
 
 inline cudaError_t launch_delta(const void* out, const void* dout, float* delta, long long B,
-                                long long H, long long S, Strides so, Strides sd,
+                                long long H, long long S, long long d, Strides so, Strides sd,
                                 cudaStream_t st) {
   const unsigned blocks = static_cast<unsigned>((B * S * H + 7) / 8);
-  delta_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(out),
-                                       static_cast<const float*>(dout), delta,
-                                       static_cast<int>(B), static_cast<int>(H),
-                                       static_cast<int>(S), so, sd);
-  return cudaGetLastError();
+  const auto* o = static_cast<const float*>(out);
+  const auto* g = static_cast<const float*>(dout);
+  const int b = static_cast<int>(B), h = static_cast<int>(H), s = static_cast<int>(S);
+  return with_head_dim(d, [&](auto D) {
+    delta_kernel<D><<<blocks, 256, 0, st>>>(o, g, delta, b, h, s, so, sd);
+    return cudaGetLastError();
+  });
 }
 
+// The SIMT kernels of the f32 routes (K5's flash_attention_bwd.cu, K9's
+// blocksparse_attention_bwd.cu): 32-row tiles of f32, 256 threads.
+constexpr int ST = 32, kSimtThreads = 256;
+
+// 32 rows from r0 of a row-strided f32 matrix into shared memory; rows at
+// or past S are zero
+template <int D>
+__device__ __forceinline__ void load_rows(float (*dst)[D + 1], const float* base, long long st,
+                                          int r0, int S) {
+  for (int idx = threadIdx.x; idx < ST * D; idx += kSimtThreads) {
+    const int rr = idx / D, dd = idx % D;
+    dst[rr][dd] = r0 + rr < S ? base[(r0 + rr) * st + dd] : 0.f;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ float dot(const float* a, const float* b) {
+  float acc = 0.f;
+#pragma unroll 16
+  for (int dd = 0; dd < D; ++dd) acc += a[dd] * b[dd];
+  return acc;
+}
+
+// the D-wide tiles of the dK/dV and dQ kernels (Q, dO, K, V: 32 rows of D
+// + 1 floats each), and whether each kernel's tiles fit the static limit
+template <int D>
+constexpr int kSimtDynFloats = 4 * ST * (D + 1);
+template <int D>
+constexpr bool kDkdvStatic =
+    4 * (kSimtDynFloats<D> + 2 * ST * (ST + 1) + 2 * ST) <= kStaticSmemBytes;
+template <int D>
+constexpr bool kDqStatic = 4 * (kSimtDynFloats<D> + ST * (ST + 1)) <= kStaticSmemBytes;
+
 // one warp's 16 rows of a gradient from its accumulators, times mult
+template <int NF>
 __device__ __forceinline__ void store_rows(bf16* dst, long long row_stride,
-                                           const float (&c)[D / 8][4], int r0, int g, int tq,
+                                           const float (&c)[NF][4], int r0, int g, int tq,
                                            int S, float mult) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = r0 + g + 8 * half;
     if (row >= S) continue;
 #pragma unroll
-    for (int ni = 0; ni < D / 8; ++ni)
+    for (int ni = 0; ni < NF; ++ni)
       *reinterpret_cast<__nv_bfloat162*>(dst + row * row_stride + ni * 8 + 2 * tq) =
           __floats2bfloat162_rn(c[ni][2 * half] * mult, c[ni][2 * half + 1] * mult);
   }
@@ -75,9 +135,15 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long row_stride,
 
 constexpr int BQ = 64;       // queries a tile
 constexpr int kStages = 2;   // query tiles in the cp.async ring
-// a ring stage: Q and dO (BQ x LD bf16 each), then the tile's LSE (log2
-// units) and delta (BQ f32 each)
-constexpr int kStageBytes = 2 * BQ * LD * 2 + 2 * BQ * 4;
+constexpr int LDT = BQ + 8;  // the dS^T rows' pitch (bf16): 144 bytes, conflict-free
+// a ring stage: Q and dO (BQ x (D + 8) bf16 each), then the tile's LSE
+// (log2 units) and delta (BQ f32 each)
+template <int D>
+constexpr int kStageBytes = 2 * BQ * (D + 8) * 2 + 2 * BQ * 4;
+// whether K and V stay in shared memory (their A fragments read at every
+// tile) instead of registers
+template <int D>
+constexpr bool kKVInSmem = D > 64;
 
 struct BwdArgs {
   const bf16 *q, *k, *v, *dout;
@@ -106,6 +172,7 @@ struct DenseQueries {
 // 1. delta, the LSE in log2 units and the zeroed dq accumulator; one warp
 // a (b, h, row), rows up to S_pad, consecutive warps on consecutive rows
 // (so the LSE and the tables move in whole sectors)
+template <int D>
 __global__ void __launch_bounds__(256)
 bwd_prep_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, float* __restrict__ lse2,
@@ -126,11 +193,18 @@ bwd_prep_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
   }
   const bf16* op = out + b * so.sb + i * so.st + h * so.sh + 2 * lane;
   const bf16* gp = dout + b * sd.sb + i * sd.st + h * sd.sh + 2 * lane;
-  const float2 o = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(op));
-  const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gp));
-  const float v = warp_sum(o.x * g.x + o.y * g.y);
-  *reinterpret_cast<float2*>(dq_acc + ((static_cast<long long>(b) * S + i) * H + h) * D +
-                             2 * lane) = make_float2(0.f, 0.f);
+  float* acc = dq_acc + ((static_cast<long long>(b) * S + i) * H + h) * D + 2 * lane;
+  float part;  // (the first pair is every lane's)
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += 64)
+    if (pair_in<D>(c0, lane)) {
+      const float2 o = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(op + c0));
+      const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gp + c0));
+      const float x = o.x * g.x + o.y * g.y;
+      part = c0 == 0 ? x : part + x;
+      *reinterpret_cast<float2*>(acc + c0) = make_float2(0.f, 0.f);
+    }
+  const float v = warp_sum(part);
   if (lane == 0) {
     lse2[t] = lse[(static_cast<long long>(b) * H + h) * S + i] * kLog2e;
     delta[t] = v;
@@ -177,35 +251,60 @@ __device__ __forceinline__ void tile_probs(uint32_t (&pa)[BQ / 16][4], uint32_t 
   }
 }
 
+// k-step ks of one warp's S^T = K Q^T and dP^T = V dO^T (16 keys x BQ
+// queries), from K's and V's A fragments kf and vf
+template <int D>
+__device__ __forceinline__ void st_dpt_step(float (&st)[BQ / 8][4], float (&dpt)[BQ / 8][4],
+                                            const uint32_t* kf, const uint32_t* vf,
+                                            const bf16* Qs, const bf16* Ds, int ks) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int np = 0; np < BQ / 16; ++np) {
+    // B fragments of two 8-query blocks of Q^T and of dO^T (rows [q][d])
+    const int off =
+        (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + ks * 16 + ((lane >> 3) & 1) * 8;
+    uint32_t bq[4], bd[4];
+    ldmatrix_x4(bq, Qs + off);
+    ldmatrix_x4(bd, Ds + off);
+    mma_16816(st[2 * np], kf, bq);
+    mma_16816(st[2 * np + 1], kf, bq + 2);
+    mma_16816(dpt[2 * np], vf, bd);
+    mma_16816(dpt[2 * np + 1], vf, bd + 2);
+  }
+}
+
 // One warp's 16 keys against one query tile: S^T and dP^T, then p, the
 // keep bits and dS once; dS^T (bf16) into the warp's rows of dst; dV and dK
-// accumulated. L and Dl: the tile's LSE (log2 units) and delta.
-template <bool DROP>
+// accumulated. L and Dl: the tile's LSE (log2 units) and delta. K's and V's
+// A fragments: ka and va (registers), or, at kKVInSmem<D>, by ldmatrix from
+// the warp's 16 rows at Kw and Vw.
+template <int D, bool DROP>
 __device__ __forceinline__ void warp_tile(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
                                           const uint32_t (&ka)[D / 16][4],
-                                          const uint32_t (&va)[D / 16][4], const bf16* Qs,
-                                          const bf16* Ds, const float* L, const float* Dl,
-                                          bf16* dst, const BwdArgs& a, int q0, int kw, bool edge,
+                                          const uint32_t (&va)[D / 16][4], const bf16* Kw,
+                                          const bf16* Vw, const bf16* Qs, const bf16* Ds,
+                                          const float* L, const float* Dl, bf16* dst,
+                                          const BwdArgs& a, int q0, int kw, bool edge,
                                           uint32_t bh) {
+  constexpr int LD = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   float st[BQ / 8][4], dpt[BQ / 8][4];  // 16 keys x BQ queries
   zero(st);
   zero(dpt);
+  if constexpr (kKVInSmem<D>) {
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-    for (int np = 0; np < BQ / 16; ++np) {
-      // B fragments of two 8-query blocks of Q^T and of dO^T (rows [q][d])
-      const int off =
-          (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + ks * 16 + ((lane >> 3) & 1) * 8;
-      uint32_t bq[4], bd[4];
-      ldmatrix_x4(bq, Qs + off);
-      ldmatrix_x4(bd, Ds + off);
-      mma_16816(st[2 * np], ka[ks], bq);
-      mma_16816(st[2 * np + 1], ka[ks], bq + 2);
-      mma_16816(dpt[2 * np], va[ks], bd);
-      mma_16816(dpt[2 * np + 1], va[ks], bd + 2);
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t kf[4], vf[4];
+      const int off = (lane & 15) * LD + ks * 16 + (lane >> 4) * 8;
+      ldmatrix_x4(kf, Kw + off);
+      ldmatrix_x4(vf, Vw + off);
+      st_dpt_step<D>(st, dpt, kf, vf, Qs, Ds, ks);
     }
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) st_dpt_step<D>(st, dpt, ka[ks], va[ks], Qs, Ds, ks);
+  }
   uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
   if (edge)  // warp-uniform
     tile_probs<DROP, true>(pa, dsa, st, dpt, L, Dl, a, q0, kw, bh);
@@ -218,7 +317,7 @@ __device__ __forceinline__ void warp_tile(float (&dk)[D / 8][4], float (&dv)[D /
   for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      *reinterpret_cast<uint32_t*>(dst + (g + 8 * (e & 1)) * LD + (2 * kk + (e >> 1)) * 8 +
+      *reinterpret_cast<uint32_t*>(dst + (g + 8 * (e & 1)) * LDT + (2 * kk + (e >> 1)) * 8 +
                                    2 * tq) = dsa[kk][e];
   mma_ab<D / 8>(dv, pa, Ds, LD, lane);
   mma_ab<D / 8>(dk, dsa, Qs, LD, lane);
@@ -226,11 +325,15 @@ __device__ __forceinline__ void warp_tile(float (&dk)[D / 8][4], float (&dv)[D /
 
 // dQ_tile = dS (BQ x nk keys, from dS^T in shared memory) K, added into the
 // f32 accumulator: warp w takes query rows 16 (w % 4) .. + 15 and the
-// (w / 4)-th of the WARPS / 4 column groups. Every lane of the warp calls it.
-template <int WARPS>
+// (w / 4)-th of the WARPS / 4 column groups (D / 8 n-fragments split
+// evenly; an odd count a warp ends on one 8-column fragment). Every lane of
+// the warp calls it.
+template <int D, int WARPS>
 __device__ __forceinline__ void dq_tile(const BwdArgs& a, const bf16* dsT, const bf16* Ks, int q0,
                                         int nk, int b, int h) {
-  constexpr int NQF = 8 / (WARPS / 4);  // n-fragments of 8 columns a warp
+  static_assert((D / 8) % (WARPS / 4) == 0, "whole fragments a column group");
+  constexpr int LD = D + 8;
+  constexpr int NQF = (D / 8) / (WARPS / 4);  // n-fragments of 8 columns a warp
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tq = lane & 3;
   const int mq = 16 * (warp & 3), c0 = (warp >> 2) * NQF * 8;
   if (q0 + mq >= a.Sq) return;  // warp-uniform: every row of the warp is padding
@@ -240,7 +343,7 @@ __device__ __forceinline__ void dq_tile(const BwdArgs& a, const bf16* dsT, const
   for (int kk = 0; kk < WARPS; ++kk) {  // 16 keys a step
     if (kk * 16 >= nk) break;
     uint32_t af[4];
-    ldmatrix_x4_trans(af, dsT + (kk * 16 + (lane & 7) + 8 * (lane >> 4)) * LD + mq +
+    ldmatrix_x4_trans(af, dsT + (kk * 16 + (lane & 7) + 8 * (lane >> 4)) * LDT + mq +
                               8 * ((lane >> 3) & 1));
 #pragma unroll
     for (int nj = 0; nj < NQF / 2; ++nj) {
@@ -248,6 +351,11 @@ __device__ __forceinline__ void dq_tile(const BwdArgs& a, const bf16* dsT, const
       ldmatrix_x4_trans(bfr, Ks + (kk * 16 + (lane & 15)) * LD + c0 + nj * 16 + (lane >> 4) * 8);
       mma_16816(acc[2 * nj], af, bfr);
       mma_16816(acc[2 * nj + 1], af, bfr + 2);
+    }
+    if constexpr (NQF % 2 == 1) {  // the last 8 columns: rows from lanes 0-15
+      uint32_t bfr[2];
+      ldmatrix_x2_trans(bfr, Ks + (kk * 16 + (lane & 15)) * LD + c0 + (NQF - 1) * 8);
+      mma_16816(acc[NQF - 1], af, bfr);
     }
   }
   // lanes tq and tq ^ 1 trade halves, so that each holds four adjacent
@@ -268,18 +376,29 @@ __device__ __forceinline__ void dq_tile(const BwdArgs& a, const bf16* dsT, const
   }
 }
 
+// The main kernel's shared memory: K (BK x LD, the whole kernel), at
+// kKVInSmem<D> V (BK x LD) too, the two dS^T buffers (2 x BK x LDT; at D =
+// 64, where LD = LDT, V passes through them first), then the ring.
+template <int D>
+constexpr size_t bwd_smem_bytes(int BK) {
+  return ((kKVInSmem<D> ? 2 : 1) * BK * (D + 8) + 2 * BK * LDT) * sizeof(bf16) +
+         kStages * kStageBytes<D>;
+}
+
 // 2. One CTA per (key tile of 16 * WARPS keys, head, batch row): blockIdx.x
 // = b * H + h; Walk picks the key tile from blockIdx.y and the query tiles
 // (DenseQueries above, K9's SparseQueries)
-template <int WARPS, bool DROP, class Walk>
+template <int D, int WARPS, bool DROP, class Walk>
 __global__ void __launch_bounds__(32 * WARPS, 8 / WARPS)
     bwd_mma_kernel(const BwdArgs a, const typename Walk::Params wp) {
-  constexpr int BK = 16 * WARPS, kThreads = 32 * WARPS;
+  constexpr int BK = 16 * WARPS, kThreads = 32 * WARPS, LD = D + 8;
   static_assert(BK % BQ == 0, "a key tile starts on a query tile");
+  static_assert(D % 16 == 0 && D <= 128 && (kKVInSmem<D> || LD == LDT), "a head dim instance");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // BK x LD, the whole kernel
-  bf16* dsT = Ks + BK * LD;  // 2 x BK x LD: dS^T of tiles t and t - 1 (V at first)
-  unsigned char* ring = reinterpret_cast<unsigned char*>(dsT + 2 * BK * LD);
+  bf16* Vs = Ks + BK * LD;                       // BK x LD at kKVInSmem<D>
+  bf16* dsT = Vs + (kKVInSmem<D> ? BK * LD : 0);  // 2 x BK x LDT: dS^T of tiles t and t - 1
+  unsigned char* ring = reinterpret_cast<unsigned char*>(dsT + 2 * BK * LDT);
 
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const Walk walk(wp, a, BK);
@@ -294,19 +413,21 @@ __global__ void __launch_bounds__(32 * WARPS, 8 / WARPS)
   const float* lb = a.lse2 + bh * a.Sq_pad;
   const float* dlb = a.delta + bh * a.Sq_pad;
   auto load_tile = [&](int t) {
-    bf16* Qs = reinterpret_cast<bf16*>(ring + (t % kStages) * kStageBytes);
+    bf16* Qs = reinterpret_cast<bf16*>(ring + (t % kStages) * kStageBytes<D>);
     const int q0 = walk.q0(t);
-    load_rows_async<BQ, kThreads>(Qs, qb, a.sq.st, q0, a.Sq);
-    load_rows_async<BQ, kThreads>(Qs + BQ * LD, db, a.sd.st, q0, a.Sq);
+    load_rows_async<BQ, kThreads, D>(Qs, qb, a.sq.st, q0, a.Sq);
+    load_rows_async<BQ, kThreads, D>(Qs + BQ * LD, db, a.sd.st, q0, a.Sq);
     if (threadIdx.x < 2 * BQ / 4) {  // the LSE, then delta: 16 bytes a thread
       const int c = threadIdx.x;
       float* stats = reinterpret_cast<float*>(Qs + 2 * BQ * LD);
       cp_async16(stats + 4 * c, c < BQ / 4 ? lb + q0 + 4 * c : dlb + q0 + 4 * c - BQ);
     }
   };
-  // K (kept) and V (read once into registers) go with the first tile's group
-  load_rows_async<BK, kThreads>(Ks, a.k + b * a.sk.sb + h * a.sk.sh, a.sk.st, k0, a.Sk);
-  load_rows_async<BK, kThreads>(dsT, a.v + b * a.sv.sb + h * a.sv.sh, a.sv.st, k0, a.Sk);
+  // K (kept) and V (read once into registers at D = 64, through the dS^T
+  // buffers; kept past it) go with the first tile's group
+  load_rows_async<BK, kThreads, D>(Ks, a.k + b * a.sk.sb + h * a.sk.sh, a.sk.st, k0, a.Sk);
+  load_rows_async<BK, kThreads, D>(kKVInSmem<D> ? Vs : dsT,
+                                   a.v + b * a.sv.sb + h * a.sv.sh, a.sv.st, k0, a.Sk);
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles) load_tile(t);
@@ -327,26 +448,26 @@ __global__ void __launch_bounds__(32 * WARPS, 8 / WARPS)
     __syncthreads();  // ... for every thread; tile t - 1 is consumed, dS^T of t - 1 complete
     if (t + kStages - 1 < n_tiles) load_tile(t + kStages - 1);
     cp_async_commit();
-    if (t == 0) {
+    if (!kKVInSmem<D> && t == 0) {
       a_frags(ka, Ks, LD, 16 * warp, g, tq);
       a_frags(va, dsT, LD, 16 * warp, g, tq);
       __syncwarp();  // the warp's V rows are read before its lanes overwrite them
     }
     const int q0 = walk.q0(t);
     if (t > 0)  // tile t - 1's dQ, while other warps may already work on tile t
-      dq_tile<WARPS>(a, dsT + ((t - 1) & 1) * BK * LD, Ks, q_prev, dq_keys(q_prev), b, h);
-    bf16* my_rows = dsT + ((t & 1) * BK + 16 * warp) * LD;  // the warp's keys' rows of dS^T
-    const bf16* Qs = reinterpret_cast<const bf16*>(ring + (t % kStages) * kStageBytes);
+      dq_tile<D, WARPS>(a, dsT + ((t - 1) & 1) * BK * LDT, Ks, q_prev, dq_keys(q_prev), b, h);
+    bf16* my_rows = dsT + ((t & 1) * BK + 16 * warp) * LDT;  // the warp's keys' rows of dS^T
+    const bf16* Qs = reinterpret_cast<const bf16*>(ring + (t % kStages) * kStageBytes<D>);
     const float* L = reinterpret_cast<const float*>(Qs + 2 * BQ * LD);
     // warp-uniform: whether any (key, query) pair of the warp's keys and the
     // tile is valid, and whether the mask cuts through the tile
     if (kw < a.Sk && (!a.causal || q0 + BQ - 1 >= kw)) {
       const bool edge = (a.causal && q0 < kw + 15) || kw + 16 > a.Sk;
-      warp_tile<DROP>(dk_acc, dv_acc, ka, va, Qs, Qs + BQ * LD, L, L + BQ, my_rows, a, q0, kw,
-                      edge, bh32);
+      warp_tile<D, DROP>(dk_acc, dv_acc, ka, va, Ks + 16 * warp * LD, Vs + 16 * warp * LD, Qs,
+                         Qs + BQ * LD, L, L + BQ, my_rows, a, q0, kw, edge, bh32);
     } else {
       for (int i = lane; i < 16 * (BQ / 8); i += 32)
-        *reinterpret_cast<uint4*>(my_rows + (i / (BQ / 8)) * LD + (i % (BQ / 8)) * 8) =
+        *reinterpret_cast<uint4*>(my_rows + (i / (BQ / 8)) * LDT + (i % (BQ / 8)) * 8) =
             make_uint4(0u, 0u, 0u, 0u);
     }
     q_prev = q0;
@@ -354,7 +475,8 @@ __global__ void __launch_bounds__(32 * WARPS, 8 / WARPS)
   cp_async_wait<0>();
   if (n_tiles > 0) {  // (a K9 key tile whose column holds no query tile has none)
     __syncthreads();  // dS^T of the last tile is complete
-    dq_tile<WARPS>(a, dsT + ((n_tiles - 1) & 1) * BK * LD, Ks, q_prev, dq_keys(q_prev), b, h);
+    dq_tile<D, WARPS>(a, dsT + ((n_tiles - 1) & 1) * BK * LDT, Ks, q_prev, dq_keys(q_prev), b,
+                      h);
   }
 
   const long long o_st = static_cast<long long>(a.H) * D;
@@ -376,32 +498,32 @@ dq_convert_kernel(const float4* __restrict__ acc, uint2* __restrict__ dq, long l
   }
 }
 
-template <int WARPS, bool DROP, class Walk>
+template <int D, int WARPS, bool DROP, class Walk>
 cudaError_t launch_form(const BwdArgs& a, const typename Walk::Params& wp, int B,
                         cudaStream_t stream) {
   constexpr int BK = 16 * WARPS;
-  const size_t smem = 3 * BK * LD * sizeof(bf16) + kStages * kStageBytes;
-  const cudaError_t err = allow_smem<bwd_mma_kernel<WARPS, DROP, Walk>>(smem);
+  const size_t smem = bwd_smem_bytes<D>(BK);
+  const cudaError_t err = allow_smem<bwd_mma_kernel<D, WARPS, DROP, Walk>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(B * a.H), static_cast<unsigned>((a.Sk + BK - 1) / BK));
-  bwd_mma_kernel<WARPS, DROP, Walk><<<grid, 32 * WARPS, smem, stream>>>(a, wp);
+  bwd_mma_kernel<D, WARPS, DROP, Walk><<<grid, 32 * WARPS, smem, stream>>>(a, wp);
   return cudaGetLastError();
 }
 
 // The main kernel over key tiles of key_tile (64 or 128) keys; DROPS:
 // whether dropout may be on (K9 has none, so its instances are not built)
-template <class Walk, bool DROPS, int WARPS>
+template <int D, class Walk, bool DROPS, int WARPS>
 cudaError_t launch_mma(const BwdArgs& a, const typename Walk::Params& wp, int B,
                        cudaStream_t stream) {
-  return DROPS && a.drop.on ? launch_form<WARPS, DROPS, Walk>(a, wp, B, stream)
-                            : launch_form<WARPS, false, Walk>(a, wp, B, stream);
+  return DROPS && a.drop.on ? launch_form<D, WARPS, DROPS, Walk>(a, wp, B, stream)
+                            : launch_form<D, WARPS, false, Walk>(a, wp, B, stream);
 }
 
-// The bf16 route: a (everything but the workspace set) and ws, the f32
-// workspace: the dq accumulator (B * Sq * H * 64), then the LSE and delta
-// tables (B * H * Sq_pad each, Sq_pad = Sq rounded up to 64). out, lse:
-// the forward's (B, Sq, H, 64) strided by so and (B, H, Sq) f32.
-template <class Walk, bool DROPS>
+// The bf16 route at head dim D: a (everything but the workspace set) and
+// ws, the f32 workspace: the dq accumulator (B * Sq * H * D), then the LSE
+// and delta tables (B * H * Sq_pad each, Sq_pad = Sq rounded up to 64).
+// out, lse: the forward's (B, Sq, H, D) strided by so and (B, H, Sq) f32.
+template <int D, class Walk, bool DROPS>
 cudaError_t bwd_bf16(BwdArgs a, const typename Walk::Params& wp, const bf16* out, Strides so,
                      const float* lse, float* ws, bf16* dq, long long B, long long key_tile,
                      cudaStream_t st) {
@@ -415,10 +537,10 @@ cudaError_t bwd_bf16(BwdArgs a, const typename Walk::Params& wp, const bf16* out
   a.scale_log2 = a.scale * kLog2e;
   const int b = static_cast<int>(B);
   const unsigned prep_blocks = static_cast<unsigned>((B * a.Sq_pad * a.H + 7) / 8);
-  bwd_prep_kernel<<<prep_blocks, 256, 0, st>>>(out, a.dout, lse, lse2, delta, ws, b, a.H, a.Sq,
-                                               a.Sq_pad, so, a.sd);
-  const cudaError_t err = key_tile == 128 ? launch_mma<Walk, DROPS, 8>(a, wp, b, st)
-                                          : launch_mma<Walk, DROPS, 4>(a, wp, b, st);
+  bwd_prep_kernel<D><<<prep_blocks, 256, 0, st>>>(out, a.dout, lse, lse2, delta, ws, b, a.H,
+                                                  a.Sq, a.Sq_pad, so, a.sd);
+  const cudaError_t err = key_tile == 128 ? launch_mma<D, Walk, DROPS, 8>(a, wp, b, st)
+                                          : launch_mma<D, Walk, DROPS, 4>(a, wp, b, st);
   if (err != cudaSuccess) return err;
   const long long n4 = B * a.Sq * a.H * D / 4;
   const unsigned conv_blocks =

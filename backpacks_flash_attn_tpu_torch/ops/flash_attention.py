@@ -25,6 +25,12 @@ Block-sparse attention (kernel K9) is :func:`flash_blocksparse_attention`
 (JAX :1415): the same online softmax over only the (block_q, block_k) tiles
 a blockmask marks, forward through ``_bs_fwd`` (:1185) and backward through
 ``_bs_bwd_rule`` (:1362).
+
+The kernels are built for head dims 64, 80, 96 and 128 (the repo's
+configurations' head dims). Any other head dim up to 128 is padded with
+zero columns to the next of them and the outputs are cut back, as JAX's
+``_head_pad`` (:78) pads to a multiple of 128: the scores, the softmax and
+the kept columns are unchanged, and the scale is the true head dim's.
 """
 
 from __future__ import annotations
@@ -189,7 +195,37 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
 
 # ------------------------------------------------------------ kernels
 
-def _check_qkv(q, k, v, dtypes):
+HEAD_DIMS = (64, 80, 96, 128)     # the kernels' head-dim instances
+
+
+def head_dim_instance(d: int) -> int:
+    """The kernels' head dim for head dim d: the least of
+    :data:`HEAD_DIMS` at or above it (d itself for the repo's
+    configurations; the wrapper pads the rest with zero columns). Raises
+    past 128."""
+    for inst in HEAD_DIMS:
+        if d <= inst:
+            return inst
+    raise ValueError(f"flash attention kernels take head dims up to "
+                     f"{HEAD_DIMS[-1]}, got {d} (wider heads: ROADMAP Queue 2 "
+                     f"item 2)")
+
+
+def pad_heads(inst: int, *xs: torch.Tensor):
+    """Each x (..., d) zero-padded to (..., inst) (x itself at d == inst)."""
+    return tuple(x if x.shape[-1] == inst
+                 else torch.nn.functional.pad(x, (0, inst - x.shape[-1]))
+                 for x in xs)
+
+
+def cut_heads(d: int, *xs: torch.Tensor):
+    """Each x (..., inst) cut back to its first d columns, contiguous (x
+    itself at d == inst)."""
+    return tuple(x if x.shape[-1] == d else x[..., :d].contiguous() for x in xs)
+
+
+def _check_qkv(q, k, v, dtypes) -> int:
+    """Validate the operands of a kernel call; -> the head dim's instance."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _build.check_cuda_tensor("q", q, dtypes, 4)
@@ -198,9 +234,7 @@ def _check_qkv(q, k, v, dtypes):
     if k.shape != (b, sk, h, d) or v.shape != k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} disagree")
-    if d != 64:
-        raise ValueError(f"flash attention kernels take head dim 64, got {d} "
-                         f"(other head dims: ROADMAP Queue 2)")
+    return head_dim_instance(d)
 
 
 def _dropout_args(dropout_p, seed):
@@ -222,46 +256,51 @@ def _flash_fwd_kernel(q, k, v, *, causal, scale, seq_lengths, q_offsets,
                       dropout_p, seed):
     """K3 (``csrc/flash_attention.cu``): bf16 on tensor cores (q, k and v
     rows 16-byte aligned, scale > 0) or on its SIMT loop (f32, unaligned
-    bf16); d = 64, any outer strides. Returns (out (b, sq, h, d), lse
-    (b, h, sq) f32)."""
+    bf16); head dims 64, 80, 96 and 128 as they are, any other d <= 128
+    padded to the next (:func:`head_dim_instance`); any outer strides.
+    Returns (out (b, sq, h, d), lse (b, h, sq) f32)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
+    inst = _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
+    q, k, v = pad_heads(inst, q, k, v)
     lens = _per_seq_arg(seq_lengths, b, q.device)
     offs = _per_seq_arg(q_offsets, b, q.device)
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, inst), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
     _build.launch(
         _K3, "flash_attention_launch", P(q), P(k), P(v), P(out), P(lse),
         P(lens), P(offs), b, h, sq, sk, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], float(scale), int(causal),
-        *_dropout_args(dropout_p, seed), _build.DTYPE_CODE[q.dtype])
-    return out, lse
+        *_dropout_args(dropout_p, seed), inst, _build.DTYPE_CODE[q.dtype])
+    return cut_heads(d, out)[0], lse
 
 
-def _k5_key_tile(s: int) -> int:
-    """Keys a CTA of K5's bf16 kernel takes: 128 (8 warps, half the dq
-    atomics a query row receives) up to s 1024, 64 (4 warps, two CTAs an
-    SM) past it; on the H100 each was the faster at 512 and at 8192
-    (``bench_flash_bwd.py --key-tiles 64,128``)."""
-    return 128 if s <= 1024 else 64
+def _k5_key_tile(s: int, d: int = 64) -> int:
+    """Keys a CTA of K5's bf16 kernel takes at head dim d (an instance):
+    128 (8 warps, half the dq atomics a query row receives) up to s 1024,
+    64 (4 warps, two CTAs an SM) past it; on the H100 each was the faster
+    at 512 and at 8192 (``bench_flash_bwd.py --key-tiles 64,128``). Past
+    d 64 always 128: K and V stay in shared memory there, and a 64-key CTA
+    holds as few warps an SM as a 128-key one (one CTA of 4 at d 128)."""
+    return 128 if s <= 1024 or d > 64 else 64
 
 
 def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
                       dropout_p, seed):
     """K5 (``csrc/flash_attention_bwd.cu``): bf16 on tensor cores (rows
     16-byte aligned, else copied contiguous first; dq summed in an f32
-    workspace, so its last bits vary between runs) or f32 SIMT; d = 64,
-    sq == sk, no lengths or offsets. -> (dq, dk, dv), contiguous."""
+    workspace, so its last bits vary between runs) or f32 SIMT; head dims
+    as K3's (any other d <= 128 padded, the gradients cut back); sq == sk,
+    no lengths or offsets. -> (dq, dk, dv), contiguous."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
+    inst = _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
     if sq != sk:
         raise ValueError(f"flash_attention_bwd kernel takes sq == sk, got "
                          f"{sq} and {sk}")
-    q, k, v, out, dout = (_build.kernel_operand(t)
-                          for t in (q, k, v, out, dout.to(q.dtype)))
+    q, k, v, out, dout = (_build.kernel_operand(t) for t in pad_heads(
+        inst, q, k, v, out, dout.to(q.dtype)))
     for name, t in (("out", out), ("dout", dout)):
         _build.check_cuda_tensor(name, t, (q.dtype,), 4)
         if t.shape != q.shape:
@@ -270,12 +309,12 @@ def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
     if lse.shape != (b, h, sq):
         raise ValueError(f"lse: shape {tuple(lse.shape)} != {(b, h, sq)}")
     lse = lse.contiguous()
-    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    dq = torch.empty((b, sq, h, inst), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, inst), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, inst), dtype=v.dtype, device=q.device)
     # bf16: the f32 dq accumulator, then the LSE and delta tables padded to
     # whole 64-query tiles; f32: delta
-    ws_len = (b * sq * h * d + 2 * b * h * _round_up(sq, 64)
+    ws_len = (b * sq * h * inst + 2 * b * h * _round_up(sq, 64)
               if q.dtype == torch.bfloat16 else b * h * sq)
     ws = torch.empty(ws_len, dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
@@ -284,8 +323,8 @@ def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
         _K5, "flash_attention_bwd_launch", P(q), P(k), P(v), P(out),
         P(dout), P(lse), P(ws), P(dq), P(dk), P(dv), b, h, sq, *strides,
         float(softmax_scale), int(causal), *_dropout_args(dropout_p, seed),
-        _k5_key_tile(sq), _build.DTYPE_CODE[q.dtype])
-    return dq, dk, dv
+        _k5_key_tile(sq, inst), inst, _build.DTYPE_CODE[q.dtype])
+    return cut_heads(d, dq, dk, dv)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -294,7 +333,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     """Gradients (dq, dk, dv) of the flash forward. CPU tensors, and every
     call inside ``_build.plain_path()``, take
     :func:`flash_attention_bwd_ref`; otherwise a CUDA tensor launches K5
-    (bf16 or f32, d = 64, sq == sk) or raises."""
+    (bf16 or f32, d <= 128, sq == sk) or raises."""
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
     fn = (_flash_bwd_kernel if q.is_cuda and _build.kernels_enabled()
@@ -346,7 +385,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [, lse (b, h, sq) f32]. CPU tensors, and every call inside
     ``_build.plain_path()``, take :func:`flash_attention_ref`; otherwise a
     CUDA tensor launches K3 (``csrc/flash_attention.cu``: bf16 or f32,
-    d = 64, any outer strides) or raises. Differentiable in q, k, v when
+    d <= 128, any outer strides) or raises. Differentiable in q, k, v when
     neither ``seq_lengths`` nor ``q_offsets`` is given (the backward is K5,
     bf16 or f32 as the forward).
     dropout_rng: a key of ``utils.prng`` (required when dropout_p > 0)."""
@@ -467,19 +506,20 @@ def blocksparse_attention_bwd_ref(q, k, v, out, lse, dout, active, *,
 _BS_TILE = 64      # the rows of a K9 tile: its blocks split into 64s
 
 
-def _k9_rows(sq: int, block_q: int) -> int:
-    """Query rows a CTA of K9's bf16 forward takes: K3's rule
-    (``csrc/flash_attention.cuh`` ``k3_rows``: 32 at sq <= 32, 64 up to sq
-    1024, 128 past it), held to a divisor of block_q."""
-    rows = 32 if sq <= 32 else 64 if sq <= 1024 else 128
+def _k9_rows(sq: int, block_q: int, d: int = 64) -> int:
+    """Query rows a CTA of K9's bf16 forward takes at head dim d (an
+    instance): K3's rule (``csrc/flash_attention.cuh`` ``k3_rows``: 32 at
+    sq <= 32, 64 up to sq 1024 and at every sq past d 64, 128 past it at
+    d 64), held to a divisor of block_q."""
+    rows = 32 if sq <= 32 else 64 if sq <= 1024 or d > 64 else 128
     return rows if block_q % rows == 0 else _BS_TILE
 
 
-def _k9_key_tile(sq: int, sk: int, block_k: int) -> int:
-    """Keys a CTA of K9's bf16 backward takes: K5's rule
+def _k9_key_tile(sq: int, sk: int, block_k: int, d: int = 64) -> int:
+    """Keys a CTA of K9's bf16 backward takes at head dim d: K5's rule
     (:func:`_k5_key_tile` at the longer side), held to a divisor of
     block_k."""
-    tile = _k5_key_tile(max(sq, sk))
+    tile = _k5_key_tile(max(sq, sk), d)
     return tile if block_k % tile == 0 else _BS_TILE
 
 
@@ -516,17 +556,18 @@ def _check_blocks(block_q: int, block_k: int) -> None:
 
 
 def _bs_tables(active: torch.Tensor, sq: int, sk: int, *, causal: bool,
-               block_q: int, block_k: int) -> BsTables:
+               block_q: int, block_k: int, d: int = 64) -> BsTables:
     """Plain version of the table kernels (:class:`BsTables`) from the
     active tiles (n_qb, n_kb) (causal pre-filter applied), in tensor ops.
     A CTA's work is the 64-row tiles its walk visits: the forward's query
     tile of ``rows`` rows takes the 64-key tiles of its row's active blocks
     below its last visible key (causal: its last row; and sk); the
     backward's key tile takes the 64-query tiles of its column's active
-    blocks from its first key on (causal) and below sq."""
+    blocks from its first key on (causal) and below sq. d: the kernels'
+    head dim (an instance), which the tiles follow."""
     _check_blocks(block_q, block_k)
     dev, active = active.device, active.to(torch.bool)
-    rows, key_tile = _k9_rows(sq, block_q), _k9_key_tile(sq, sk, block_k)
+    rows, key_tile = _k9_rows(sq, block_q, d), _k9_key_tile(sq, sk, block_k, d)
     row_idx, row_cnt = _active_lists(active)
     col_idx, col_cnt = _active_lists(active.t())
     cdiv = lambda x: (x + _BS_TILE - 1) // _BS_TILE
@@ -549,11 +590,12 @@ def _bs_tables(active: torch.Tensor, sq: int, sk: int, *, causal: bool,
 
 
 def _bs_table_buffers(n_qb: int, n_kb: int, sq: int, sk: int, block_q: int,
-                      block_k: int, device):
-    """Room for the table kernels' output, one int32 allocation: the
-    :class:`BsTables` views and the kernels' work scratch."""
+                      block_k: int, d: int, device):
+    """Room for the table kernels' output at head dim d (an instance), one
+    int32 allocation: the :class:`BsTables` views and the kernels' work
+    scratch."""
     _check_blocks(block_q, block_k)
-    rows, key_tile = _k9_rows(sq, block_q), _k9_key_tile(sq, sk, block_k)
+    rows, key_tile = _k9_rows(sq, block_q, d), _k9_key_tile(sq, sk, block_k, d)
     n_qt, n_kt = -(-sq // rows), -(-sk // key_tile)
     sizes = (n_qb * n_kb, n_qb, n_kb * n_qb, n_kb, n_qt, n_kt, n_qt + n_kt)
     parts = torch.empty(sum(sizes), dtype=torch.int32, device=device).split(sizes)
@@ -566,26 +608,27 @@ def _bs_fwd_kernel(q, k, v, blockmask, *, causal, block_q, block_k,
                    seq_lengths=None):
     """K9 forward (``csrc/blocksparse_attention.cu``), one C entry: the tile
     tables built from the blockmask (the causal pre-filter applied there),
-    then the attention, bf16 on K3's tensor-core body or f32 SIMT; d = 64,
-    pre-scaled q. -> (out, lse, tables); (out, lse) as the plain version's,
-    the tables for the backward."""
+    then the attention, bf16 on K3's tensor-core body or f32 SIMT; head
+    dims as K3's (any other d <= 128 padded, out cut back), pre-scaled q.
+    -> (out, lse, tables); (out, lse) as the plain version's, the tables
+    for the backward."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
-    q, k, v = (_build.kernel_operand(t) for t in (q, k, v))
+    inst = _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
+    q, k, v = (_build.kernel_operand(t) for t in pad_heads(inst, q, k, v))
     mask = blockmask.to(torch.int32).contiguous()
-    tables, work = _bs_table_buffers(*mask.shape, sq, sk, block_q, block_k, q.device)
+    tables, work = _bs_table_buffers(*mask.shape, sq, sk, block_q, block_k, inst, q.device)
     lens = _per_seq_arg(seq_lengths, b, q.device)
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, inst), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
     strides = [s for x in (q, k, v) for s in x.stride()[:3]]
     _build.launch(_K9, "blocksparse_fwd_launch", P(q), P(k), P(v), P(out),
                   P(lse), P(lens), P(mask), *(P(x) for x in tables[:6]), P(work),
                   b, h, sq, sk, *mask.shape, block_q, block_k, tables.rows,
-                  tables.key_tile, *strides, 1.0, int(causal),
+                  tables.key_tile, *strides, 1.0, int(causal), inst,
                   _build.DTYPE_CODE[q.dtype])
-    return out, lse, tables
+    return cut_heads(d, out)[0], lse, tables
 
 
 def _bs_bwd_kernel(q, k, v, out, lse, dout, tables: BsTables, *, causal,
@@ -593,13 +636,13 @@ def _bs_bwd_kernel(q, k, v, out, lse, dout, tables: BsTables, *, causal,
     """K9 backward (``csrc/blocksparse_attention_bwd.cu``), one C entry over
     the tables its forward built: bf16 on K5's single pass (prep, main,
     convert; dq summed in an f32 workspace, so its last bits vary between
-    runs) or f32 SIMT; d = 64, any sq and sk. -> (dq, dk, dv),
-    contiguous."""
+    runs) or f32 SIMT; head dims as K3's (any other d <= 128 padded, the
+    gradients cut back), any sq and sk. -> (dq, dk, dv), contiguous."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
-    q, k, v, out, dout = (_build.kernel_operand(t)
-                          for t in (q, k, v, out, dout.to(q.dtype)))
+    inst = _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
+    q, k, v, out, dout = (_build.kernel_operand(t) for t in pad_heads(
+        inst, q, k, v, out, dout.to(q.dtype)))
     for name, x in (("out", out), ("dout", dout)):
         _build.check_cuda_tensor(name, x, (q.dtype,), 4)
         if x.shape != q.shape:
@@ -608,12 +651,12 @@ def _bs_bwd_kernel(q, k, v, out, lse, dout, tables: BsTables, *, causal,
     if lse.shape != (b, h, sq):
         raise ValueError(f"lse: shape {tuple(lse.shape)} != {(b, h, sq)}")
     lse = lse.contiguous()
-    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    dq = torch.empty((b, sq, h, inst), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, inst), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, inst), dtype=v.dtype, device=q.device)
     # as K5's: bf16 the f32 dq accumulator and the LSE and delta tables
     # padded to whole 64-query tiles; f32 delta
-    ws_len = (b * sq * h * d + 2 * b * h * _round_up(sq, _BS_TILE)
+    ws_len = (b * sq * h * inst + 2 * b * h * _round_up(sq, _BS_TILE)
               if q.dtype == torch.bfloat16 else b * h * sq)
     ws = torch.empty(ws_len, dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
@@ -622,9 +665,9 @@ def _bs_bwd_kernel(q, k, v, out, lse, dout, tables: BsTables, *, causal,
                   P(out), P(dout), P(lse), P(ws), P(dq), P(dk), P(dv),
                   *(P(x) for x in tables[:4]), P(tables.bwd_order), b, h, sq,
                   sk, *tables.row_idx.shape, block_q, block_k,
-                  tables.key_tile, *strides, 1.0, int(causal),
+                  tables.key_tile, *strides, 1.0, int(causal), inst,
                   _build.DTYPE_CODE[q.dtype])
-    return dq, dk, dv
+    return cut_heads(d, dq, dk, dv)
 
 
 class _BlockSparseAttention(torch.autograd.Function):
@@ -678,7 +721,7 @@ def flash_blocksparse_attention(q: torch.Tensor, k: torch.Tensor,
     backward, one C entry); with it, keys at or past ``seq_lengths[b]`` are
     masked and the op is forward only, as in JAX. CPU tensors, and every
     call inside ``_build.plain_path()``, take the plain versions; otherwise
-    a CUDA tensor launches K9 (bf16 or f32, d = 64, block_q and block_k
+    a CUDA tensor launches K9 (bf16 or f32, d <= 128, block_q and block_k
     multiples of 64, any number of blocks) or raises."""
     b, sq, h, d = q.shape
     sk = k.shape[1]

@@ -167,8 +167,11 @@ def main():
         forced += [("_k9_key_tile", int(t)) for t in filter(None, args.key_tiles.split(","))]
         for attr, size in forced:
             default = getattr(fa, attr)
-            setattr(fa, attr, lambda *a, size=size, default=default: (
-                size if a[-1] % size == 0 else default(*a)))
+            # the block the tile must divide: _k9_rows(sq, block_q, d),
+            # _k9_key_tile(sq, sk, block_k, d)
+            block = 1 if attr == "_k9_rows" else 2
+            setattr(fa, attr, lambda *a, size=size, default=default, block=block: (
+                size if a[block] % size == 0 else default(*a)))
             try:
                 for name, label, c in k9_cases(gen, add):
                     run_case((name, f"{label} {attr}={size}", c), _build, add)

@@ -147,7 +147,7 @@ def main():
             default = fa._k5_key_tile
             try:
                 for tile in (int(t) for t in args.key_tiles.split(",")):
-                    fa._k5_key_tile = lambda s, tile=tile: tile
+                    fa._k5_key_tile = lambda *a, tile=tile: tile
                     made += cs.phase_kernels(k5_cases(gen, tile), results["kernels"])
             finally:
                 fa._k5_key_tile = default

@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port (backpacks_flash_attn_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases device,build,kernels,serve,engine,forward,train,
-                                    longctx,train8k,generate,decode_kernels] [--out DIR]
+                                    longctx,train8k,generate,decode_kernels,mini,xl]
+                          [--out DIR]
 
 Phases, each printing one JSON line:
 
@@ -164,7 +165,40 @@ Phases, each printing one JSON line:
             (8192 packed columns), lengths 8192-16384. Last, K9 past the
             old kernels' cap of 512 blocks a row or column (block 64,
             non-causal, a random mask): the forward at sq 128 over sk
-            33,280 and the backward at sq 33,280 over sk 128.
+            33,280 and the backward at sq 33,280 over sk 128. Last, K3, K5
+            and K9 at the head dims past 64 (head_dim_cases): 80 at
+            backpack-mini's training shape (32 x 512, 8 heads), 96 and 128
+            at gpt3-large's and gpt3-xl's (2 x 2048, 16 heads), each in
+            bf16 (tensor cores) and f32 (the SIMT loops; 1 x 512 x 8 at 96
+            and 128), K9 under the band mask at 2 x 2048 x 16; the padded
+            head dim 112 (2 x 1024 x 8); an unaligned bf16 view at d 80
+            (K3's SIMT loop); K3 at the xl generation's prefill (8 x 512 x
+            16 x 128); last, K3 and K5 in f32 at d 80 at the training CLI's
+            own shape (8 x 512 x 8, the mini phase's SIMT launches). Each
+            launch-gated, with device and host times beside SDPA's.
+12. mini    backpack-mini (8 layers, 640, 8 heads of 80, 16 senses of 40)
+            at full width and depth, bf16 weights from the seeded
+            generator: train-einsum (40 steps) and train-fused (12) at 32 x
+            512 on the bigram corpus, K3 and K5 8 launches a step (the
+            fused route K4 and K6 too), the learning gate, the gradient gate
+            (both routes) at gate_weights (8 x 512); the training CLI
+            (train_cli.main --model backpack-mini, f32, smoke mode's 3
+            steps) on a corpus written under DIR, K5 24 launches and K3 24
+            plus the validation forward's; backpack_forward at (8, 512): K3
+            8 and K4 1, logits under the 2x rule; serving in bf16 (128
+            prompts of 32, 224 greedy tokens): K3 8 a prefill, K1 9 a
+            decode step (dk 80 over the GPT layers, the combine), the
+            teacher-forced gate, a 32-step profile.
+13. xl      gpt3-xl with rotary embeddings (24 layers, 2048, 16 heads of
+            128, 64 rotated channels) at full width and depth, bf16 weights
+            from the seeded generator: training at 2 x 2048 (AdamW, dropout,
+            the fused MLP), K3, K5 and K7 24 launches a step, 12 steps, one
+            profiled; the gradient gate at full depth on 5 batches of 1 x
+            2048 at gate_weights; generate_gpt at batch 8, prompt 512, 32
+            tokens: K3 24 a prefill, K1 24 a decode step, the tokens against
+            the plain path's (equal up to each sequence's first
+            difference, which must be a near-tie of the plain path's
+            logits) and the teacher-forced gate.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -671,7 +705,7 @@ def k5_case(label, q, k, v, dout, seed, p, scale, heads=None):
                                               scale=scale, dropout_p=p)
     ldo = dout.transpose(1, 2)
     pairs = b * h * s * (s + 1) // 2
-    tensor = b * s * h * d * 2                           # one bf16 (b, s, h, d)
+    tensor = b * s * h * d * q.element_size()            # one (b, s, h, d)
     return ("flash_attention_bwd", label, dict(
         kernel=lambda: fa.flash_attention_bwd(q, k, v, k3out, k3lse, dout, **kw),
         plain=lambda: bwd(q, k, v, out, lse, dout),
@@ -691,7 +725,6 @@ def train_kernel_cases(gen):
     once (the backward alone). Their dropout masks differ from the port's,
     so their error is not reported."""
     from backpacks_flash_attn_tpu_torch.ops import backpack_kernels as bk
-    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
 
     bf = torch.bfloat16
     randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
@@ -701,22 +734,8 @@ def train_kernel_cases(gen):
     seed = (0x1234567, 0x89ABCDEF)
     qkv = randn(b, s, 3, h, d).to(bf)                    # strided q/k/v, as
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]   # the model makes them
-    q32, k32, v32 = q.float(), k.float(), v.float()
     dout = randn(b, s, h, d).to(bf)
-    kw = dict(causal=True, softmax_scale=scale, dropout_p=p, seed=seed)
-    pairs = b * h * s * (s + 1) // 2
-    tensor = b * s * h * d * 2                           # one bf16 (b, s, h, d)
-    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
-    cases.append(("flash_attention", f"train-dropout b={b} h={h} s={s} p={p}", dict(
-        kernel=lambda: fa._flash_fwd_kernel(q, k, v, scale=scale, seq_lengths=None,
-                                            q_offsets=None, causal=True,
-                                            dropout_p=p, seed=seed)[0],
-        plain=lambda: fa.flash_attention_ref(q, k, v, **kw),
-        ref=lambda: fa.flash_attention_ref(q32, k32, v32, **kw),
-        library=lambda: F.scaled_dot_product_attention(
-            qT, kT, vT, is_causal=True, scale=scale, dropout_p=p).transpose(1, 2),
-        bytes=4 * tensor + b * h * s * 4, flops=4 * pairs * d)))
-
+    cases.append(_k3_train_case("train", q, k, v, p, seed))
     cases.append(k5_case(f"train b={b} h={h} s={s} p={p}", q, k, v, dout, seed, p, scale))
 
     nv, dnv, dd = 16, 48, 768
@@ -914,25 +933,9 @@ def long_flash_cases(gen):
     causal, dropout 0.1, where its flops bound it; library = SDPA with the
     same dropout rate (its own mask). Drawn after every other phase, so
     that the random data of the phases before it stay as they were."""
-    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
-
-    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
-    b, s, h, d, p, scale = 1, LONG_LEN, LONG_H, LONG_D, 0.1, LONG_D ** -0.5
-    seed = (0x2468ACE, 0x13579BDF)
-    q, k, v = (randn(b, s, h, d).to(torch.bfloat16) for _ in range(3))
-    q32, k32, v32 = q.float(), k.float(), v.float()
-    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
-    kw = dict(causal=True, softmax_scale=scale, dropout_p=p, seed=seed)
-    pairs = b * h * s * (s + 1) // 2
-    return [("flash_attention", f"train8k-dropout b={b} h={h} s={s} p={p}", dict(
-        kernel=lambda: fa._flash_fwd_kernel(q, k, v, scale=scale, seq_lengths=None,
-                                            q_offsets=None, causal=True,
-                                            dropout_p=p, seed=seed)[0],
-        plain=lambda: fa.flash_attention_ref(q, k, v, **kw),
-        ref=lambda: fa.flash_attention_ref(q32, k32, v32, **kw),
-        library=lambda: F.scaled_dot_product_attention(
-            qT, kT, vT, is_causal=True, scale=scale, dropout_p=p).transpose(1, 2),
-        bytes=4 * q.numel() * 2 + b * h * s * 4, flops=4 * pairs * d))]
+    q, k, v = (torch.randn(1, LONG_LEN, LONG_H, LONG_D, generator=gen, device=DEV)
+               .to(torch.bfloat16) for _ in range(3))
+    return [_k3_train_case("train8k", q, k, v, 0.1, (0x2468ACE, 0x13579BDF))]
 
 
 def longctx_kernel_cases(gen):
@@ -1019,7 +1022,7 @@ def k9_fwd_case(q, k, v, mask, causal, block, seq=None):
             qT, kT, vT, attn_mask=emask, scale=1.0).transpose(1, 2),
         # read q, k, v once, write out and the LSE; the two products over
         # the valid pairs
-        bytes=2 * (2 * q.numel() + 2 * k.numel()) + b * h * sq * 4,
+        bytes=q.element_size() * (2 * q.numel() + 2 * k.numel()) + b * h * sq * 4,
         flops=4 * pairs * dh)
 
 
@@ -1047,10 +1050,10 @@ def k9_bwd_case(q, k, v, dout, mask, causal, block):
         ref=lambda: fa.blocksparse_attention_bwd_ref(q32, k32, v32, rout, rlse,
                                                      dout.float(), act, **kw),
         library=lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True),
-        # read q, k, v, out, dO once, write dq, dk, dv (8 bf16 tensors),
-        # and two f32 rows (the LSE read, delta made and read); the five
+        # read q, k, v, out, dO once, write dq, dk, dv (8 tensors), and
+        # two f32 rows (the LSE read, delta made and read); the five
         # products (S recomputed, dP, dV, dQ, dK) over the valid pairs
-        bytes=2 * 4 * (q.numel() + k.numel()) + 2 * b * h * sq * 4,
+        bytes=q.element_size() * 4 * (q.numel() + k.numel()) + 2 * b * h * sq * 4,
         flops=10 * pairs * dh)
 
 
@@ -1272,7 +1275,7 @@ def serve_run(label, params, cfg, cache, prompt):
     steps = sum(n for n, _ in SEGMENTS)
     n_tokens = BATCH * steps
     decode_s = statistics.median(t for _, t in times)
-    out = dict(phase="serve", run=label, cache=label,
+    out = dict(phase="serve", run=label, cache=cache,
                prefill_s=statistics.median(p for p, _ in times),
                decode_s=decode_s, decode_s_passes=[t for _, t in times],
                decode_tokens=n_tokens, tokens_per_s=n_tokens / decode_s,
@@ -2053,6 +2056,14 @@ def _sum_counts(rows):
     return {k: sum(r[k] for r in rows) for k in rows[0]}
 
 
+BP_PICKS = {
+    "wte": lambda p: p["gpt"]["wte"],
+    "gpt.layers[0].Wqkv": lambda p: p["gpt"]["layers"]["Wqkv"]["kernel"][0],
+    "gpt.layers[-1].Wqkv": lambda p: p["gpt"]["layers"]["Wqkv"]["kernel"][-1],
+    "ctx_attn.Wqkv": lambda p: p["ctx_attn"]["Wqkv"]["kernel"],
+}
+
+
 def phase_train(gen, results):
     from backpacks_flash_attn_tpu_torch.config import backpack_small
     from backpacks_flash_attn_tpu_torch.data import lm_dataset as lmd
@@ -2066,12 +2077,7 @@ def phase_train(gen, results):
                                 n_successors=4, seed=0)
     ds = lmd.LMDataset(toks, TRAIN_LEN)
     params = bp.init_backpack(cfg, gen, dtype=torch.bfloat16)
-    picks = {
-        "wte": lambda p: p["gpt"]["wte"],
-        "gpt.layers[0].Wqkv": lambda p: p["gpt"]["layers"]["Wqkv"]["kernel"][0],
-        "gpt.layers[-1].Wqkv": lambda p: p["gpt"]["layers"]["Wqkv"]["kernel"][-1],
-        "ctx_attn.Wqkv": lambda p: p["ctx_attn"]["Wqkv"]["kernel"],
-    }
+    picks = BP_PICKS
     trained = {}
     for label, fused, n in (("train_einsum", False, LEARN_STEPS),
                             ("train_fused", True, TRAIN_WARMUP + TRAIN_TIMED)):
@@ -2206,10 +2212,12 @@ GPT_PICKS = {
 GATE_TRAIN_STEPS, GATE_TRAIN_SEED = TRAIN_WARMUP + TRAIN_TIMED, 8
 
 
-def gate_weights(cfg, params, steps=GATE_TRAIN_STEPS, seed=GATE_TRAIN_SEED):
-    """The weights train-8k's gradient gate runs at: ``params`` (not
-    modified) trained ``steps`` AdamW steps (the timed run's optimizer) at
-    the gate's own 1 x GPT_GATE_LEN, dropout on, on the plain path under
+def gate_weights(cfg, params, steps=GATE_TRAIN_STEPS, seed=GATE_TRAIN_SEED, model="gpt",
+                 shape=(1, GPT_GATE_LEN)):
+    """The weights a gradient gate runs at (train-8k's, xl's and mini's):
+    ``params`` (not modified, a ``model`` of cfg) trained ``steps`` AdamW
+    steps (the timed run's optimizer) at the gate's own ``shape`` (1 x
+    GPT_GATE_LEN for the GPTs), dropout on, on the plain path under
     torch.use_deterministic_algorithms, on random tokens from a generator
     of their own seeded ``seed`` (so that no phase's draws move): the same
     bits in every run of one tree and one seed. The timed run's weights
@@ -2220,12 +2228,12 @@ def gate_weights(cfg, params, steps=GATE_TRAIN_STEPS, seed=GATE_TRAIN_SEED):
     from backpacks_flash_attn_tpu_torch.utils import prng
 
     g = torch.Generator(device=DEV).manual_seed(seed)
-    batches = [{"input_ids": torch.randint(0, cfg.vocab_size, (1, GPT_GATE_LEN + 1),
+    batches = [{"input_ids": torch.randint(0, cfg.vocab_size, (shape[0], shape[1] + 1),
                                            generator=g, device=DEV)} for _ in range(steps)]
     p = tl.trainable(_map_tensors(params, lambda t: t.clone()))
     state = tl.TrainState(p, tl.make_optimizer(p, lr=6e-4, warmup_steps=10,
                                                total_steps=1000), 0)
-    step = tl.make_train_step(cfg, model="gpt")
+    step = tl.make_train_step(cfg, model=model)
     rng = prng.PRNGKey(1)
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
@@ -2293,28 +2301,28 @@ def phase_train8k(gen, results, cfg, params):
 GEN_BATCH, GEN_PROMPT, GEN_TOKENS = 8, 2048, 64
 
 
-def _gpt_teacher_forced(params, ref_params, cfg, prompt, tokens):
+def _gpt_teacher_forced(params, ref_params, cfg, prompt, tokens, label="gpt-generate"):
     """The last prefill position's logits and those of the first
     COMPARE_STEPS decode steps on the same tokens: kernel path (bf16 cache),
     plain path (bf16), f32 plain reference (f32 weights and cache)."""
     from backpacks_flash_attn_tpu_torch.models import gpt
     from backpacks_flash_attn_tpu_torch.ops import _build
 
-    L = GEN_PROMPT + COMPARE_STEPS
+    batch, L = prompt.shape[0], prompt.shape[1] + COMPARE_STEPS
     outs = {}
     for path in ("kernel", "plain", "ref"):
         p = ref_params if path == "ref" else params
         dt = torch.float32 if path == "ref" else torch.bfloat16
         ctx = contextlib.nullcontext() if path == "kernel" else _build.plain_path()
         with ctx:
-            cache = gpt.init_kv_cache(cfg, GEN_BATCH, L, dt, device=DEV)
+            cache = gpt.init_kv_cache(cfg, batch, L, dt, device=DEV)
             steps = []
             for ids in [prompt] + [tokens[:, i:i + 1] for i in range(COMPARE_STEPS)]:
                 hidden, cache = gpt.gpt_forward_with_cache(p, cfg, ids, cache)
                 steps.append(gpt.lm_logits(p, cfg, hidden[:, -1:]).float())
         outs[path] = torch.cat(steps, dim=1)
         del cache
-    ek, ep = two_x("gpt-generate teacher-forced logits", outs["kernel"],
+    ek, ep = two_x(f"{label} teacher-forced logits", outs["kernel"],
                    outs["plain"], outs["ref"])
     return dict(kernel=ek, plain_bf16=ep,
                 kernel_vs_plain=max_err(outs["kernel"], outs["plain"]))
@@ -2730,6 +2738,399 @@ def phase_decode_kernels(gen, results):
     emit({"phase": "decode_kernels", "launches": totals})
 
 
+# ------------------------------------------------------------------ head dims
+
+# K3, K5 and K9 at the head dims past 64: backpack-mini's 80 at its training
+# shape (32 x 512, 8 heads), gpt3-large's 96 and gpt3-xl's 128 at theirs
+# (2 x 2048, 16 heads); f32 (the SIMT loops) at 1 x 512 x 8, and K3's and
+# K5's at 80 at the training CLI's own shape (its defaults, 8 x 512, the
+# path that runs them); a padded head dim (112, the 128 instance over zero
+# columns) and an unaligned bf16 view (the SIMT loop of K3; K5 copies it
+# contiguous)
+HEAD_DIM_SHAPES = ((80, 32, 512, 8), (96, 2, 2048, 16), (128, 2, 2048, 16))
+HEAD_DIM_F32, HEAD_DIM_PADDED, HEAD_DIM_K9 = (1, 512, 8), (112, 2, 1024, 8), (2, 2048, 16)
+
+
+def _k3_train_case(label, q, k, v, p, seed):
+    """K3 (causal, dropout p) against its plain version at q's dtype, with
+    launches, device and host times; library = SDPA (its own dropout mask:
+    its error is not reported when p > 0). Draws nothing."""
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    kw = dict(causal=True, softmax_scale=scale, dropout_p=p, seed=seed)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
+    case = dict(
+        kernel=lambda: fa._flash_fwd_kernel(q, k, v, scale=scale, seq_lengths=None,
+                                            q_offsets=None, causal=True,
+                                            dropout_p=p, seed=seed)[0],
+        plain=lambda: fa.flash_attention_ref(q, k, v, **kw),
+        ref=lambda: fa.flash_attention_ref(q32, k32, v32, **kw),
+        library=lambda: F.scaled_dot_product_attention(
+            qT, kT, vT, is_causal=True, scale=scale, dropout_p=p).transpose(1, 2),
+        bytes=4 * q.numel() * q.element_size() + b * h * s * 4,
+        flops=4 * (b * h * s * (s + 1) // 2) * d, gate="flash_attention", device_times=True)
+    tag = f"{label} b={b} h={h} s={s} d={d} {str(q.dtype).split('.')[-1]}"
+    return ("flash_attention", tag + (f" dropout p={p}" if p else ""),
+            _f32_case(case, q.dtype))
+
+
+def _f32_case(case, dtype):
+    """The case dict, given the f32 rule and rate where dtype is f32."""
+    if dtype == torch.float32:
+        case.update(f32_rtol=1e-5, flop_rate=PEAK_F32_FLOP_PER_S)
+    return case
+
+
+def head_dim_cases(gen):
+    """K3, K5 and K9 at head dims 80, 96 and 128 (bf16 on the tensor-core
+    bodies, f32 on the SIMT loops), at the padded 112 and over an unaligned
+    bf16 view: each launch-gated, under the 2x rule (f32 within 1e-5 of
+    the reference's largest magnitude), with device and host times beside
+    SDPA's. q, k and v are strided views of one packed tensor as the models
+    make them; K9's q pre-scaled, under bench_longctx.py's band mask.
+    Drawn after every other phase's data, so that theirs stay as they
+    were. Made outside inference mode (the backward yardsticks are
+    autograd calls)."""
+    from backpacks_flash_attn_tpu_torch.config import backpack_mini
+    from backpacks_flash_attn_tpu_torch.training import train_cli
+
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    bf, p = torch.bfloat16, 0.1
+    seed = (0x5EED1919, 0x0DDBA11)
+    cases = []
+
+    def dense(label, b, s, h, d, dt, misalign=0):
+        qkv = randn(b, s, 3, h, d + misalign).to(dt)[..., misalign:]
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        dout = randn(b, s, h, d).to(dt)
+        cases.append(_k3_train_case(label, q, k, v, p, seed))
+        name, tag, case = k5_case(f"{label} b={b} h={h} s={s} d={d} "
+                                  f"{str(dt).split('.')[-1]} p={p}", q, k, v, dout, seed, p,
+                                  d ** -0.5)
+        cases.append((name, tag, _f32_case(case, dt)))
+
+    def sparse(label, b, s, h, d, dt):
+        q = (randn(b, s, h, d) * d ** -0.5).to(dt)
+        k, v, dout = (randn(b, s, h, d).to(dt) for _ in range(3))
+        bm, density = band_blockmask(s)
+        tag = f"{label} b={b} h={h} s={s} d={d} {str(dt).split('.')[-1]} density={density:.3f}"
+        for name, case in (("blocksparse_fwd", k9_fwd_case(q, k, v, bm, True, BS_BLOCK)),
+                           ("blocksparse_bwd", k9_bwd_case(q, k, v, dout, bm, True, BS_BLOCK))):
+            case.update(gate=name, device_times=True)
+            cases.append((name, tag, _f32_case(case, dt)))
+
+    mini, cli = backpack_mini(), train_cli.RunConfig(corpus="")
+    mini_d = mini.n_embd // mini.n_head
+    for d, b, s, h in HEAD_DIM_SHAPES:
+        dense("heads", b, s, h, d, bf)
+        if d != mini_d:
+            dense("heads", *HEAD_DIM_F32, d, torch.float32)
+        sparse("heads", *HEAD_DIM_K9, d, bf)
+        sparse("heads", *HEAD_DIM_F32, d, torch.float32)
+    d, b, s, h = HEAD_DIM_PADDED
+    dense("padded", b, s, h, d, bf)
+    sparse("padded", b, s, h, d, bf)
+    dense("unaligned", 8, 512, 8, 80, bf, misalign=1)
+    # the xl generation's prefill: 8 prompts of 512, 16 heads of 128, no dropout
+    q, k, v = (randn(8, 512, 16, 128).to(bf) for _ in range(3))
+    cases.append(_k3_train_case("xl-prefill", q, k, v, 0.0, seed))
+    dense("mini-cli", cli.batch_size, cli.seqlen, mini.n_head, mini_d, torch.float32)
+    return cases
+
+
+# ------------------------------------------------------------------ mini
+
+MINI_CLI_STEPS = 3
+
+
+def _mini_cli(out_dir, vocab):
+    """The training CLI as a user runs it (train_cli.main, --model
+    backpack-mini, its defaults otherwise: f32, batch 8 x 512, smoke mode's
+    3 steps) on a bigram corpus written under out_dir, 2% of it held out
+    for the validation perplexity (the default 0.05% of 200k tokens is one
+    window short of a batch): the launches of the whole run (K5 once a
+    layer a step; K3 for the steps and the validation forwards) and the
+    metrics it logged."""
+    import io
+    from backpacks_flash_attn_tpu_torch.config import backpack_mini
+    from backpacks_flash_attn_tpu_torch.data import lm_dataset as lmd
+    from backpacks_flash_attn_tpu_torch.data.synthetic import bigram_corpus
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.training import train_cli
+
+    n_layer = backpack_mini().n_layer
+    toks, _ = bigram_corpus(200_000, vocab_size=vocab, n_successors=4, seed=1)
+    work = out_dir / "mini_cli"
+    corpus = lmd.save_corpus(toks.astype(np.uint16), str(work), "bigram")
+    argv = ["--corpus", corpus, "--model", "backpack-mini", "--mode", "smoke",
+            "--val-fraction", "0.02", "--workdir", str(work / "run")]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    logged = [json.loads(line) for line in (work / "run" / "metrics.jsonl").read_text().splitlines()]
+    losses = [row["loss"] for row in logged if "loss" in row]
+    ppl = [row["val/ppl"] for row in logged if "val/ppl" in row]
+    k3_extra = counts["flash_attention"] - MINI_CLI_STEPS * n_layer
+    if (counts["flash_attention_bwd"] != MINI_CLI_STEPS * n_layer or k3_extra <= 0
+            or k3_extra % n_layer):
+        raise AssertionError(f"mini CLI: launches {counts}, want K5 {MINI_CLI_STEPS * n_layer} "
+                             f"and K3 that plus a whole number of validation forwards")
+    if not (losses and ppl and all(map(math.isfinite, losses + ppl))):
+        raise AssertionError(f"mini CLI: logged {logged}")
+    run = dict(phase="mini", run="mini_cli", argv=argv[2:], dtype="float32", seconds=seconds,
+               launches={k: n for k, n in counts.items() if n}, losses=losses, val_ppl=ppl[-1])
+    emit(run)
+    return run
+
+
+def _mini_forward(params, cfg, gen):
+    """backpack_forward (the scoring path, the fused combine) at (8, 512):
+    K3 once a layer and K4 once, logits against the plain path under the 2x
+    rule."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.ops import _build
+
+    ids = torch.randint(0, cfg.vocab_size, (FWD_BATCH, FWD_LEN), generator=gen, device=DEV)
+    bp.backpack_forward(params, cfg, ids)           # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits = bp.backpack_forward(params, cfg, ids)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    if counts["flash_attention"] != cfg.n_layer or counts["fused_contextualization"] != 1:
+        raise AssertionError(f"mini forward: launches {counts}, want K3 {cfg.n_layer}, K4 1")
+    with _build.plain_path():
+        plain = bp.backpack_forward(params, cfg, ids)
+        ref = bp.backpack_forward(_map_tensors(params, lambda t: t.float()), cfg, ids)
+    ek, ep = two_x("mini backpack_forward logits", logits, plain, ref)
+    run = dict(phase="mini", run="mini_forward", shape=[FWD_BATCH, FWD_LEN], seconds=seconds,
+               tokens_per_s=FWD_BATCH * FWD_LEN / seconds,
+               launches={k: n for k, n in counts.items() if n}, max_abs_err=ek, plain_bf16_err=ep)
+    emit(run)
+    return run
+
+
+def phase_mini(gen, results, out_dir):
+    """backpack-mini (8 layers, 640 wide, 8 heads of 80, 16 senses of 40,
+    vocab 50257 padded to 50264) at full width and depth, bf16 weights from
+    the seeded generator. Training as phase_train at 32 x 512, both combine
+    routes (K3 and K5 8 launches a step, the fused route K4 and K6 too),
+    the learning gate on the einsum run, the gradient gate (both routes)
+    at gate_weights (12 plain deterministic steps at 8 x 512); the training
+    CLI at its f32 defaults (the SIMT loops); then serving: a bf16 prefill
+    of 128 prompts of 32 (K3 at d 80) and 224 greedy tokens (K1 over
+    the GPT layers' dk 80 and the combine), the teacher-forced gate against
+    the plain path, a 32-step profile; and backpack_forward at (8, 512)
+    (_mini_forward: K3 and K4)."""
+    from backpacks_flash_attn_tpu_torch.config import backpack_mini
+    from backpacks_flash_attn_tpu_torch.data import lm_dataset as lmd
+    from backpacks_flash_attn_tpu_torch.data.synthetic import bigram_corpus
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+
+    cfg = backpack_mini(vocab_size=50257)
+    if cfg.n_embd // cfg.n_head != 80:
+        raise AssertionError(f"backpack-mini's head dim is {cfg.n_embd // cfg.n_head}")
+    n_tokens = (LEARN_STEPS + 2) * TRAIN_BATCH * (TRAIN_LEN + 1) * 2
+    toks, floor = bigram_corpus(n_tokens, vocab_size=BIGRAM_VOCAB, n_successors=4, seed=0)
+    ds = lmd.LMDataset(toks, TRAIN_LEN)
+    params = bp.init_backpack(cfg, gen, dtype=torch.bfloat16)
+    for label, fused, n in (("mini_train_einsum", False, LEARN_STEPS),
+                            ("mini_train_fused", True, TRAIN_WARMUP + TRAIN_TIMED)):
+        log(f"mini: {label}")
+        stream = lmd.batches(ds, TRAIN_BATCH, lmd.SamplerState(seed=0))
+        batches = _lm_batches(next(stream)[0] for _ in range(n + 1))
+
+        def check(counts, fused=fused):
+            bad = {k: counts[k] for k in ("flash_attention", "flash_attention_bwd")
+                   if counts[k] != cfg.n_layer}
+            if fused:
+                bad.update({k: counts[k] for k in ("fused_contextualization",
+                                                   "fused_contextualization_bwd")
+                            if counts[k] < 1})
+            return f"launches {bad}, want K3 and K5 {cfg.n_layer} each" if bad else None
+
+        results[label], _ = train_run(label, cfg, params, batches,
+                                      tl.make_train_step(cfg, fused_ctx=fused), check,
+                                      model="backpack_mini", fused_ctx=fused)
+    losses = results["mini_train_einsum"]["losses"]
+    first, last = statistics.mean(losses[:LEARN_WINDOW]), statistics.mean(losses[-LEARN_WINDOW:])
+    results["mini_learning_gate"] = dict(first5=first, last5=last, drop=first - last,
+                                         entropy_floor=floor)
+    emit({"phase": "mini", "learning_gate": results["mini_learning_gate"]})
+    if not first - last >= 1.0:
+        raise AssertionError(f"mini learning gate: loss fell {first - last:.3f} nats over "
+                             f"{LEARN_STEPS} steps, want >= 1")
+
+    log("mini: gradient gate")
+    gate_stream = lmd.batches(ds, GATE_BATCH, lmd.SamplerState(seed=1))
+    gate_batches = _lm_batches(xy for xy, _ in (next(gate_stream) for _ in range(GATE_BATCHES)))
+    trained = gate_weights(cfg, params, model="backpack", shape=(GATE_BATCH, TRAIN_LEN))
+    gate = {f"fused_ctx={f}": gradient_gate(
+        f"mini fused_ctx={f}", trained, gate_batches,
+        lambda p, x, key, f=f: bp.backpack_forward(p, cfg, x, train=True, rng=key, fused_ctx=f),
+        BP_PICKS) for f in (False, True)}
+    gate["weights"] = dict(steps=GATE_TRAIN_STEPS, seed=GATE_TRAIN_SEED,
+                           shape=[GATE_BATCH, TRAIN_LEN], path="plain, deterministic")
+    emit({"phase": "mini", "gradient_gate": gate})
+    results["mini_train_gate"] = gate
+    del trained
+    torch.cuda.empty_cache()
+
+    log("mini: the training CLI (f32)")
+    results["mini_cli"] = _mini_cli(out_dir, BIGRAM_VOCAB)
+    torch.cuda.empty_cache()
+
+    log("mini: forward and serve bf16")
+    with torch.inference_mode():
+        results["mini_forward"] = _mini_forward(params, cfg, gen)
+        prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=DEV)
+        run, gen_tokens = serve_run("mini_bf16", params, cfg, "bf16", prompt)
+        per_step, prefill = run["launches_per_decode_step"], run["launches_prefill"]
+        if (per_step["decode_attention"] != cfg.n_layer + 1
+                or prefill["flash_attention"] != cfg.n_layer):
+            raise AssertionError(f"mini serve: launches a decode step {per_step}, prefill "
+                                 f"{prefill}; want K1 {cfg.n_layer + 1} a step (the GPT "
+                                 f"layers and the combine), K3 {cfg.n_layer} a prefill")
+        params32 = _map_tensors(params, lambda t: t.float())
+        _teacher_forced_gate(run, params, params32, cfg, "f32", prompt, gen_tokens)
+        del params32
+        _add_profile(run, params, cfg, prompt, SHORT_PROFILE)
+    results["mini_serve_bf16"] = run
+    del params
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ xl
+
+XL_BATCH, XL_LEN = 2, 2048
+XL_GEN_BATCH, XL_GEN_PROMPT, XL_GEN_TOKENS, XL_GEN_SEED = 8, 512, 32, 23
+
+
+def _xl_generate(params, cfg):
+    """generate_gpt at batch 8, a 512-token prompt, 32 greedy tokens (bf16
+    cache): K3 once a layer in the prefill (d 128), K1 once a layer a
+    decode step (dk 128); then the same under plain_path(): each sequence's
+    tokens equal the plain path's up to their first difference, where the
+    kernel path's token must lie within twice the plain path's
+    teacher-forced error (against the f32 reference) of the plain path's
+    top logit on the same prefix (a near-tie of bf16 logits, not a wrong
+    token); and the teacher-forced gate of the prefill and the first 8
+    decode steps."""
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.utils.generation import generate_gpt
+
+    gen = torch.Generator(device=DEV).manual_seed(XL_GEN_SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (XL_GEN_BATCH, XL_GEN_PROMPT), generator=gen,
+                           device=DEV)
+    L = XL_GEN_PROMPT + XL_GEN_TOKENS
+    generate_gpt(params, cfg, prompt[:, :64], 72, device=DEV)     # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = generate_gpt(params, cfg, prompt, L, output_scores=True, device=DEV)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    steps = XL_GEN_TOKENS - 1
+    want = {"flash_attention": cfg.n_layer, "decode_attention": cfg.n_layer * steps}
+    if any(counts[n] != w for n, w in want.items()):
+        raise AssertionError(f"xl generate launches {counts}, want {want}")
+    with _build.plain_path():
+        plain = generate_gpt(params, cfg, prompt, L, output_scores=True, device=DEV)
+    tokens = out.sequences[:, XL_GEN_PROMPT:]
+    gate = _gpt_teacher_forced(params, _map_tensors(params, lambda t: t.float()), cfg, prompt,
+                               tokens, label="xl generate")
+    tol = 2 * gate["plain_bf16"]
+    same = tokens == plain.sequences[:, XL_GEN_PROMPT:]
+    gaps = []
+    for i in range(XL_GEN_BATCH):
+        if same[i].all():
+            continue
+        t = int((~same[i]).nonzero()[0])
+        row = plain.scores[i, t].float()
+        gap = (row.max() - row[tokens[i, t]]).item()
+        gaps.append(dict(sequence=i, step=t, gap=gap))
+        if gap > tol:
+            raise AssertionError(f"xl generate: sequence {i} step {t}: the kernel's token lies "
+                                 f"{gap:.3e} below the plain path's top logit, > {tol:.3e}")
+    run = dict(phase="xl", run="xl_generate", batch=XL_GEN_BATCH, prompt=XL_GEN_PROMPT,
+               new_tokens=XL_GEN_TOKENS, seconds=seconds,
+               tokens_per_s=XL_GEN_BATCH * XL_GEN_TOKENS / seconds, launches=counts,
+               launches_per_decode_step=counts["decode_attention"] / steps,
+               tokens_equal_share=same.float().mean().item(), first_differences=gaps,
+               near_tie_tolerance=tol, teacher_forced=gate)
+    emit(run)
+    return run
+
+
+
+def phase_xl(gen, results):
+    """gpt3-xl with rotary embeddings (24 layers, 2048 wide, 16 heads of
+    128, 64 rotated channels, vocab 50257 padded to 50264) at full width
+    and depth, bf16 weights from the seeded generator: training at 2 x
+    2048 with AdamW, dropout and the fused MLP (K3, K5 and K7 24 launches a
+    step), the gradient gate at full depth on 5 batches of 1 x 2048 at
+    gate_weights; then generate_gpt (_xl_generate, its prompts from a
+    generator of their own)."""
+    from backpacks_flash_attn_tpu_torch.config import gpt3_xl
+    from backpacks_flash_attn_tpu_torch.models import gpt
+    from backpacks_flash_attn_tpu_torch.ops import dense
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+
+    cfg = gpt3_xl(rotary=True, vocab_size=50257)
+    if cfg.head_dim != 128 or cfg.rotary_emb_dim != 64:
+        raise AssertionError(f"gpt3-xl: head dim {cfg.head_dim}, rotary {cfg.rotary_emb_dim}")
+    params = gpt.init_gpt(cfg, gen, dtype=torch.bfloat16, device=DEV)
+
+    def check(counts):
+        bad = {n: counts[n] for n in ("flash_attention", "flash_attention_bwd",
+                                      "fused_mlp_fwd") if counts[n] != cfg.n_layer}
+        return f"launches {bad}, want {cfg.n_layer} each" if bad else None
+
+    ids = lambda b, s: {"input_ids": torch.randint(0, cfg.vocab_size, (b, s + 1),
+                                                   generator=gen, device=DEV)}
+    switch = dense._FUSED_MLP
+    dense._FUSED_MLP = True
+    try:
+        log("xl: train")
+        batches = [ids(XL_BATCH, XL_LEN) for _ in range(TRAIN_WARMUP + TRAIN_TIMED + 1)]
+        results["xl_train"], _ = train_run("xl_train", cfg, params, batches,
+                                           tl.make_train_step(cfg, model="gpt"), check,
+                                           model="gpt3_xl(rotary=True)")
+        del batches
+        torch.cuda.empty_cache()
+        log("xl: gradient gate")
+        gate_batches = [ids(1, GPT_GATE_LEN) for _ in range(GATE_BATCHES)]
+        trained = gate_weights(cfg, params)
+        gate = gradient_gate(
+            "gpt3-xl rotary 1 x 2048", trained, gate_batches,
+            lambda p, x, key: gpt.gpt_lm_forward(p, cfg, x, train=True, rng=key), GPT_PICKS)
+    finally:
+        dense._FUSED_MLP = switch
+    gate["weights"] = dict(steps=GATE_TRAIN_STEPS, seed=GATE_TRAIN_SEED,
+                           shape=[1, GPT_GATE_LEN], path="plain, deterministic",
+                           layers=cfg.n_layer)
+    emit({"phase": "xl", "gradient_gate": gate})
+    results["xl_train_gate"] = gate
+    del trained, gate_batches
+    torch.cuda.empty_cache()
+    log("xl: generate")
+    with torch.inference_mode():
+        results["xl_generate"] = _xl_generate(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+
+
 def _run_gated(cases, rows, totals):
     for row in phase_kernels(cases, rows):
         for name, n in row["launches"].items():
@@ -2742,7 +3143,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,serve,engine,forward,train,"
-                            "longctx,train8k,generate,decode_kernels")
+                            "longctx,train8k,generate,decode_kernels,mini,xl")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"))
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -2843,6 +3244,15 @@ def main():
         torch.cuda.empty_cache()
         with torch.no_grad():
             phase_kernels(k9_past_cap_cases(gen), results["kernels"])
+        log("kernels: K3, K5 and K9 at head dims 80, 96, 128, padded 112 and unaligned")
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            phase_kernels(head_dim_cases(gen), results["kernels"])
+        torch.cuda.empty_cache()
+    if "mini" in phases:
+        phase_mini(gen, results, args.out)
+    if "xl" in phases:
+        phase_xl(gen, results)
 
     line = []
     for k in _build.KERNELS.values():

@@ -3,7 +3,7 @@ checkouts: for each kernel, ptxas's registers and spills, and the SASS
 instruction count and opcode histogram.
 
     python3 compare_sass.py --tree DIR --tree DIR [--source flash_attention.cu ...]
-                            [--match NAME] [--out FILE]
+                            [--match NAME] [--drop-arg VALUE] [--out FILE]
 
 Each ``--tree`` is the root of a checkout (unpack the other commit with
 ``git archive`` into a directory that ``.gitignore`` lists). Every source
@@ -11,7 +11,12 @@ Each ``--tree`` is the root of a checkout (unpack the other commit with
 ``flash_attention.cu``) is compiled in every tree, all at once, with the
 flags of ``ops/_build.py`` to a cubin, and disassembled with cuobjdump.
 Kernels are paired across the trees in the order of the cubin; their names
-(demangled, ``--match`` filters them) may differ by template arguments. One
+(demangled, ``--match`` filters them) may differ by template arguments.
+With ``--drop-arg VALUE`` they are paired by name instead, with a template
+argument VALUE taken out of the names first: a tree that added a template
+parameter (``--drop-arg 64``: ``k<64, 4>`` pairs with ``k<4>``, ``k<float,
+64>`` with ``k<float>``) pairs each old instance with its new counterpart,
+and the kernels with no counterpart in every tree are listed apart. One
 line a kernel and tree: registers, instructions, spills, name; then whether
 the opcode histograms of each pair are equal. Needs the CUDA toolkit
 (``nvcc``, ``cuobjdump``, ``cu++filt``), not a card.
@@ -61,11 +66,35 @@ def kernels(ptxas_log: str, sass: str, match: str):
     return out
 
 
+def drop_arg(name: str, value: str) -> str:
+    """name with every template argument equal to value (cu++filt writes
+    ``(int)64``) taken out, and with what that moves besides: the return
+    type a template shows and the numbers of its parameters (``T5::`` in a
+    signature becomes ``T4::``)."""
+    arg = rf"(?:\(\w+\))?{re.escape(value)}"
+    name = re.sub(r"^void ", "", name)
+    name = re.sub(r"\bT\d+::", "T::", name)
+    name = re.sub(rf"<{arg}>", "", name)
+    name = re.sub(rf"<{arg}, ", "<", name)
+    return re.sub(rf", {arg}(?=[,>])", "", name)
+
+
+def pair_by_name(per_tree, value):
+    """[(kernels of each tree, one per tree)] for the names (value dropped)
+    that every tree has, and the names some tree lacks."""
+    keyed = [{drop_arg(k[0], value): k for k in ks} for ks in per_tree]
+    common = [n for n in keyed[0] if all(n in t for t in keyed[1:])]
+    alone = sorted({k[0] for ks in per_tree for k in ks
+                    if drop_arg(k[0], value) not in common})
+    return [tuple(t[n] for t in keyed) for n in common], alone
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, action="append", required=True)
     ap.add_argument("--source", action="append", default=None)
     ap.add_argument("--match", default="")
+    ap.add_argument("--drop-arg", default=None)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     sources = args.source or ["flash_attention.cu"]
@@ -92,7 +121,11 @@ def main():
         for t, ks in enumerate(per_tree):
             for name, regs, spill, n, _ in ks:
                 print(f"{src} tree {t}: {regs} registers, {n} instructions, {spill}: {name}")
-        for i, group in enumerate(zip(*per_tree)):
+        groups, alone = (pair_by_name(per_tree, args.drop_arg) if args.drop_arg
+                         else (list(zip(*per_tree)), []))
+        for name in alone:
+            print(f"{src} unpaired: {name}")
+        for i, group in enumerate(groups):
             same = all(k[4] == group[0][4] for k in group)
             print(f"{src} kernel {i}: opcode histograms {'equal' if same else 'differ'} "
                   f"across the trees")

@@ -119,7 +119,7 @@ def main():
             k5.lib.kernel_error_string.argtypes = [ctypes.c_int]
             k5.lib.kernel_error_string.restype = ctypes.c_char_p
             for tile in (64, 128):
-                fa._k5_key_tile = lambda s, tile=tile: tile
+                fa._k5_key_tile = lambda *a, tile=tile: tile
                 for p in (0.1, 0.0):
                     for shape, (q, k, v, dout) in shapes.items():
                         kw = dict(causal=True, softmax_scale=0.125, dropout_p=p, seed=(5, 7))

@@ -391,7 +391,7 @@ def test_flash_attention_bwd_kernel(gen, monkeypatch, dt, b, s, h, causal,
     packed tensor. key_tile forces the bf16 kernel's key-tile width (None:
     the wrapper's choice)."""
     if key_tile is not None:
-        monkeypatch.setattr(fa, "_k5_key_tile", lambda s: key_tile)
+        monkeypatch.setattr(fa, "_k5_key_tile", lambda *a: key_tile)
     if layout == "packed":
         qkv = torch.randn(b, s, 3, h, 64, generator=gen, device="cuda")
     else:
@@ -449,7 +449,7 @@ def test_flash_attention_bwd_kernel_run_to_run(gen, monkeypatch):
                                     q_offsets=None, causal=True,
                                     dropout_p=0.1, seed=(7, 9))
     for key_tile in (64, 128):
-        monkeypatch.setattr(fa, "_k5_key_tile", lambda s: key_tile)
+        monkeypatch.setattr(fa, "_k5_key_tile", lambda *a: key_tile)
         first, second = (fa.flash_attention_bwd(qb, kb, vb, out, lse, db, **kw)
                          for _ in range(2))
         assert torch.equal(first[1], second[1]), key_tile     # dk
@@ -1176,9 +1176,162 @@ def test_cuda_tensors_never_take_k7_k9_plain_paths(gen, monkeypatch):
                                    seq_lengths=torch.tensor([77], device="cuda"))
     with pytest.raises(ValueError, match="multiples"):
         fm.mlp_fwd_fused(r(8, 96), r(96, 256), r(256), r(256, 96), r(96))
-    with pytest.raises(ValueError, match="head dim 64"):
-        y = r(1, 128, 2, 32)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 2"):
+        y = r(1, 128, 2, 192)
         fa.flash_blocksparse_attention(y, y, y, bm, block_q=128, block_k=128)
+
+
+# ---- head dims past 64: K3, K5 and K9 at each instance (80, 96, 128) in
+# bf16 and f32, rows 16-byte aligned and not, and padded head dims (48 and
+# 112 run the 64 and 128 instances over zero columns)
+
+HEAD_DIM_CASES = ([(d, dt, layout) for d in (80, 96, 128) for dt in (BF16, F32)
+                   for layout in ("aligned", "misaligned")]
+                  + [(48, BF16, "aligned"), (112, BF16, "aligned"), (112, F32, "misaligned")])
+
+
+def _rows(gen, dt, layout, *shape):
+    """randn of shape in dt, as a view whose rows start 16 bytes off (the
+    SIMT route of bf16) when misaligned."""
+    off = 1 if layout == "misaligned" else 0
+    x = torch.randn(*shape[:-1], shape[-1] + off, generator=gen, device="cuda").to(dt)
+    return x[..., off:]
+
+
+@pytest.mark.parametrize("d,dt,layout", HEAD_DIM_CASES)
+def test_flash_attention_head_dims(gen, d, dt, layout):
+    """K3 at head dim d: ragged lengths and offsets (one empty sequence),
+    causal, sq 150 over sk 190, and dropout on an equal-length causal
+    call; one launch each; out and LSE against the f32 plain version."""
+    from backpacks_flash_attn_tpu_torch.utils import prng
+    b, sq, sk, h = 3, 150, 190, 2
+    q = _rows(gen, dt, layout, b, sq, h, d)
+    k, v = _rows(gen, dt, layout, b, sk, h, d), _rows(gen, dt, layout, b, sk, h, d)
+    if layout == "misaligned" and dt == BF16:
+        assert not any(_build.aligned16(t) for t in (q, k, v))
+    seed = prng.seed_words(prng.PRNGKey(3))
+    calls = [(q, k, v, dict(causal=True, softmax_scale=d ** -0.5,
+                            seq_lengths=torch.tensor([190, 101, 0], device="cuda"),
+                            q_offsets=torch.tensor([40, 0, 7], device="cuda"))),
+             (q, k[:, :sq], v[:, :sq], dict(causal=True, softmax_scale=d ** -0.5,
+                                            dropout_p=0.1))]
+    for q_, k_, v_, kw in calls:
+        extra = dict(dropout_rng=prng.PRNGKey(3)) if "dropout_p" in kw else {}
+        ref_kw = dict(kw, seed=seed) if extra else kw
+        before = _build.KERNELS["flash_attention"].launches
+        out, lse = fa.flash_attention(q_, k_, v_, return_lse=True, **kw, **extra)
+        assert _build.KERNELS["flash_attention"].launches == before + 1
+        assert out.shape == q_.shape
+        ref, rlse = fa.flash_attention_ref(q_.float(), k_.float(), v_.float(),
+                                           return_lse=True, **ref_kw)
+        assert torch.allclose(lse, rlse, rtol=1e-5, atol=1e-4)
+        if dt == F32:
+            _f32_close(out, ref)
+        else:
+            _within_2x(out, fa.flash_attention_ref(q_, k_, v_, **ref_kw), ref)
+
+
+@pytest.mark.parametrize("key_tile", [None, 64])
+@pytest.mark.parametrize("d,dt,layout", HEAD_DIM_CASES)
+def test_flash_attention_bwd_head_dims(gen, monkeypatch, d, dt, layout, key_tile):
+    """K5 at head dim d (q, k and v strided views of one packed tensor,
+    causal, dropout 0.1, each backward from its own path's forward): one
+    launch; dq, dk, dv against the f32 plain version. key_tile 64 forces
+    the 4-warp instance (K9's at 64-key blocks)."""
+    if key_tile is not None:
+        if dt == F32:
+            pytest.skip("the key tile is the bf16 kernel's")
+        monkeypatch.setattr(fa, "_k5_key_tile", lambda *a: key_tile)
+    b, s, h = 2, 200, 2
+    qkv = _rows(gen, F32, layout, b, s, 3, h, d)
+    dout = torch.randn(b, s, h, d, generator=gen, device="cuda")
+    kw = dict(causal=True, softmax_scale=d ** -0.5, dropout_p=0.1, seed=(12345, 678))
+
+    def grads(x, go, bwd, fwd_kernel=False):
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        if fwd_kernel:
+            out, lse = fa._flash_fwd_kernel(q, k, v, scale=kw["softmax_scale"],
+                                            seq_lengths=None, q_offsets=None, causal=True,
+                                            dropout_p=0.1, seed=kw["seed"])
+        else:
+            out, lse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        return bwd(q, k, v, out, lse, go, **kw)
+
+    x = qkv.to(dt) if layout == "aligned" else _rows(gen, dt, layout, b, s, 3, h, d)
+    if layout == "misaligned":
+        x.copy_(qkv.to(dt))
+    before = _build.KERNELS["flash_attention_bwd"].launches
+    kernel = grads(x, dout.to(dt), fa.flash_attention_bwd, fwd_kernel=True)
+    assert _build.KERNELS["flash_attention_bwd"].launches == before + 1
+    ref = grads(x.float(), dout.to(dt).float(), fa.flash_attention_bwd_ref)
+    if dt == F32:
+        for a, r in zip(kernel, ref):
+            assert a.shape == r.shape and a.is_contiguous()
+            _f32_close(a, r)
+        return
+    plain = grads(x, dout.to(dt), fa.flash_attention_bwd_ref)
+    for a, p_, r in zip(kernel, plain, ref):
+        assert a.dtype == dt and a.shape == r.shape and a.is_contiguous()
+        _within_2x(a, p_, r)
+
+
+@pytest.mark.parametrize("d,dt,layout", HEAD_DIM_CASES)
+def test_blocksparse_head_dims(gen, d, dt, layout):
+    """K9 forward and backward at head dim d: a band mask over 128-blocks
+    (block_q 128, block_k 64: the backward's 4-warp instance), causal,
+    query block 1 empty; against the f32 plain versions."""
+    b, s, h, bq, bk = 2, 384, 2, 128, 64
+    q = (_rows(gen, dt, layout, b, s, h, d).float() * d ** -0.5).to(dt)
+    k, v = _rows(gen, dt, layout, b, s, h, d), _rows(gen, dt, layout, b, s, h, d)
+    dout = _rows(gen, dt, layout, b, s, h, d)
+    bm = (torch.rand(3, 6, generator=torch.Generator().manual_seed(5)) < 0.6).int()
+    bm[1] = 0
+    act = fa.blocksparse_active(bm.cuda(), True, bq, bk)
+    _bs_check(act, dict(causal=True, block_q=bq, block_k=bk), q, k, v, dout, 1)
+
+
+def test_blocksparse_head_dims_op_autograd(gen):
+    """The op at gpt3-large's head dim 96 through autograd, bf16 on the
+    card's default tiles (128 x 128): one K9 forward and one K9 backward
+    launch, finite gradients within the 2x rule of the plain path."""
+    x = torch.randn(2, 256, 3, 2, 96, generator=gen, device="cuda").to(BF16)
+    bm = _band_mask(2, 2, 1).cuda()
+
+    def grads(y):
+        y = y.detach().requires_grad_(True)
+        out = fa.flash_blocksparse_attention(y[:, :, 0], y[:, :, 1], y[:, :, 2], bm,
+                                             block_q=128, block_k=128)
+        out.float().square().sum().backward()
+        return y.grad
+
+    _build.reset_launches()
+    kernel = grads(x)
+    counts = _build.launch_counts()
+    assert [counts[n] for n in ("blocksparse_fwd", "blocksparse_bwd")] == [1, 1]
+    with _build.plain_path():
+        ref, plain = grads(x.float()), grads(x)
+    for i in range(3):
+        _within_2x(kernel[:, :, i], plain[:, :, i], ref[:, :, i])
+
+
+@pytest.mark.parametrize("fn", ["k3", "k5", "k9"])
+def test_head_dim_past_128_raises_naming_the_roadmap_item(gen, fn):
+    """d = 192 has no instance: each kernel wrapper raises, naming ROADMAP
+    Queue 2 item 2, and launches nothing."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(BF16)
+    q = r(1, 64, 2, 192)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 2"):
+        if fn == "k3":
+            fa.flash_attention(q, q, q)
+        elif fn == "k5":
+            lse = torch.zeros(1, 2, 64, device="cuda")
+            fa.flash_attention_bwd(q, q, q, q, lse, q)
+        else:
+            fa.flash_blocksparse_attention(q, q, q, torch.ones(1, 1, dtype=torch.int32,
+                                                               device="cuda"),
+                                           block_q=128, block_k=128)
+    assert not any(_build.launch_counts().values())
 
 
 def _rotary_gpt():

@@ -189,31 +189,41 @@ def test_k9_launch_orders_put_most_work_first():
         assert bwd == sorted(bwd, reverse=True), key
 
 
-def _c_ternary(expr: str, sq: int) -> int:
-    """A C expression ``a ? x : b ? y : z`` of ``sq`` with integer arms."""
+def _c_ternary(expr: str, sq: int, d: int) -> int:
+    """A C expression ``a ? x : b ? y : z`` of ``sq`` and ``d`` with integer
+    arms (its conditions comparisons joined by ``||``)."""
     while "?" in expr:
         cond, rest = expr.split("?", 1)
         arm, expr = rest.split(":", 1)
-        if eval(cond, {}, {"sq": sq}):
+        if eval(cond.replace("||", " or "), {}, {"sq": sq, "d": d}):
             return int(arm)
     return int(expr)
 
 
 def test_k9_tiles_follow_k3_and_k5_and_divide_the_blocks():
-    """The forward's rows are K3's (32 / 64 / 128 by sq), the backward's
-    key tile K5's (128 up to 1024, then 64), each cut to 64 where it does
-    not divide the block. ``_k9_rows`` repeats the rule of ``k3_rows`` in
+    """The forward's rows are K3's (32 / 64 / 128 by sq; past head dim 64
+    no 128), the backward's key tile K5's (128 up to 1024, then 64; past
+    head dim 64 always 128), each cut to 64 where it does not divide the
+    block. ``_k9_rows`` repeats the rule of ``k3_rows`` in
     ``csrc/flash_attention.cuh`` (the tables are sized in Python): read
-    from the source, the C rule gives the same rows at every sq, so a
-    change to it that leaves K9 behind fails here."""
+    from the source, the C rule gives the same rows at every sq and head
+    dim, so a change to it that leaves K9 behind fails here."""
     for sq, bq, rows in ((32, 64, 32), (200, 128, 64), (1024, 256, 64), (1025, 256, 128),
                          (8192, 256, 128), (8192, 64, 64), (8192, 192, 64)):
         assert fa._k9_rows(sq, bq) == rows, (sq, bq)
+    for d in (80, 96, 128):
+        for sq, bq, rows in ((32, 64, 32), (1025, 256, 64), (8192, 256, 64)):
+            assert fa._k9_rows(sq, bq, d) == rows, (sq, bq, d)
     for sq, sk, bk, tile in ((512, 512, 256, 128), (200, 330, 128, 128), (512, 512, 64, 64),
                              (4096, 4096, 256, 64), (128, 33280, 64, 64), (960, 192, 192, 64)):
         assert fa._k9_key_tile(sq, sk, bk) == tile, (sq, sk, bk)
+    for d in (80, 96, 128):
+        for sq, sk, bk, tile in ((4096, 4096, 256, 128), (128, 33280, 64, 64),
+                                 (8192, 8192, 128, 128)):
+            assert fa._k9_key_tile(sq, sk, bk, d) == tile, (sq, sk, bk, d)
     src = (Path(fa.__file__).resolve().parents[1] / "csrc" / "flash_attention.cuh").read_text()
-    rule = re.search(r"inline int k3_rows\(long long sq\) \{ return ([^;]+); \}", src)
+    rule = re.search(r"inline int k3_rows\(long long sq, int d\) \{ return ([^;]+); \}", src)
     assert rule is not None, "k3_rows not found in flash_attention.cuh"
-    for sq in list(range(1, 2100)) + [4096, 8192, 16384, 33280]:
-        assert fa._k9_rows(sq, 256) == _c_ternary(rule.group(1), sq), sq
+    for d in fa.HEAD_DIMS:
+        for sq in list(range(1, 2100)) + [4096, 8192, 16384, 33280]:
+            assert fa._k9_rows(sq, 256, d) == _c_ternary(rule.group(1), sq, d), (sq, d)
