@@ -1,0 +1,1 @@
+from . import control, genderbias, perplexity, similarity, toxicity, visualize

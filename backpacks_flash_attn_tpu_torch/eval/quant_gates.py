@@ -122,7 +122,7 @@ def main(argv=None) -> None:
                         "checkpoint)")
     p.add_argument("--checkpoint",
                    help="reference Lightning .ckpt / torch state dict: not "
-                        "ported yet (ROADMAP Queue 1 item 5)")
+                        "ported yet (ROADMAP Queue 1 item 5b)")
     p.add_argument("--corpus", required=True,
                    help=".npy token stream; gates eval on its tail "
                         "(--val-fraction)")
@@ -141,7 +141,7 @@ def main(argv=None) -> None:
     if a.checkpoint:
         raise NotImplementedError(
             "--checkpoint needs the reference checkpoint importer "
-            "(utils/torch_import.py), not ported yet: ROADMAP Queue 1 item 5")
+            "(utils/torch_import.py), not ported yet: ROADMAP Queue 1 item 5b")
 
     device = _build.resolve_device(a.device)
     rc = train_cli.RunConfig(corpus=a.corpus, workdir=a.workdir,

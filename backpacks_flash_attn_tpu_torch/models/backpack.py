@@ -153,9 +153,26 @@ def sense_table(params: Params, cfg: BackpackConfig,
 
 # ---------------------------------------------------------------- forward
 
+def apply_sense_edit(content: torch.Tensor, input_ids: torch.Tensor,
+                     sense_edit: Tuple[torch.Tensor, torch.Tensor]
+                     ) -> torch.Tensor:
+    """Replace the sense vectors of edited tokens (JAX :200): content (b, s,
+    nv, d), sense_edit = (edited_ids (m,), edited_senses (m, nv, d)); a
+    token listed twice takes its first entry."""
+    edited_ids, edited_senses = sense_edit
+    match = input_ids[..., None] == edited_ids.to(input_ids.device)[None, None]
+    idx = match.int().argmax(dim=-1)                # the first match
+    repl = edited_senses.to(content.device)[idx]    # (b, s, nv, d)
+    return torch.where(match.any(-1)[..., None, None], repl.to(content.dtype),
+                       content)
+
+
 def backpack_forward(params: Params, cfg: BackpackConfig,
                      input_ids: torch.Tensor, *, train: bool = False,
                      rng: Optional[torch.Tensor] = None,
+                     sense_weights: Optional[torch.Tensor] = None,
+                     sense_edit: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
                      return_parts: bool = False, remat="none",
                      fused_ctx: Optional[bool] = None):
     """Forward -> logits (b, s, vocab) (JAX ``backpack_forward`` :213).
@@ -166,12 +183,23 @@ def backpack_forward(params: Params, cfg: BackpackConfig,
     attention the port always takes.
     train with a key ``rng`` turns dropout on; its first split keys the GPT
     stack and its second the sense network. return_parts takes the einsum
-    path and also returns {'alpha', 'content', 'contextual', 'outputs'}."""
+    path and also returns {'alpha', 'content', 'contextual', 'outputs'}.
+    sense_weights: (nv,) or (b, s, nv) multiplicative weights on the sense
+    vectors, sense_edit: (edited_ids (m,), edited_senses (m, nv, d))
+    replacing the senses of those tokens; both act on ``content`` before
+    the combine, so either route takes them (the intervention hooks,
+    models/interventions.py)."""
     r_gpt, r_content = prng.split(rng) if rng is not None else (None, None)
     contextl = gpt_lib.gpt_forward(params["gpt"], cfg, input_ids,
                                    train=train, rng=r_gpt, remat=remat)
     content = content_forward(params, cfg, input_ids, train=train,
                               rng=r_content)                    # (b, s, nv, d)
+    if sense_edit is not None:
+        content = apply_sense_edit(content, input_ids, sense_edit)
+    if sense_weights is not None:
+        w = (sense_weights[None, None, :] if sense_weights.dim() == 1
+             else sense_weights)
+        content = content * w[..., None].to(content.dtype)
     if fused_ctx is None:
         fused_ctx = not train
     scale = cfg.sense_head_dim ** -0.5
@@ -400,7 +428,9 @@ def backpack_forward_with_cache(
     params: Params, cfg: BackpackConfig, input_ids: torch.Tensor,
     cache: BackpackCache, *, window: Optional[int] = None,
     sense_weights: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, BackpackCache]:
+    sense_edit: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    return_ctx_q: bool = False,
+):
     """Run ``input_ids`` (prefill, or decode s == 1) through the
     incremental path: logits (b, s, vocab) for the new tokens. Writes the
     new keys, senses (and scales) into ``cache`` IN PLACE, advances its
@@ -416,7 +446,12 @@ def backpack_forward_with_cache(
     every cache read covers only the first ``window`` columns.
     sense_weights: multiplicative per-sense weights on the combine's keys
     (JAX :720): (nv,), (b, nv) per request or (b, S, nv) per position;
-    folded into the value scales (unstaged caches only)."""
+    folded into the value scales (unstaged caches only).
+    sense_edit: (edited_ids, edited_senses) replacing the new tokens'
+    senses before they are cached (unstaged caches only).
+    return_ctx_q: also return the new tokens' contextualization queries q
+    (b, s, nv, dnv), for the negative-weighted decode's alpha rows
+    (JAX :907): (logits, cache, q)."""
     b, s = input_ids.shape
     offset = cache.length
     vec = isinstance(offset, torch.Tensor)
@@ -429,10 +464,10 @@ def backpack_forward_with_cache(
     S = max_s if window is None else min(window, max_s)
     staged = cache.staged and vec and s <= min(gpt_lib.FLAT_MULTI_MAX,
                                                cache.ctx_k_stage.shape[1])
-    if staged and sense_weights is not None:
-        raise ValueError("a staged step takes no sense weights: flush and "
-                         "step the unstaged cache (the serving engine's "
-                         "plain view)")
+    if staged and (sense_weights is not None or sense_edit is not None):
+        raise ValueError("a staged step takes no sense weights or edits: "
+                         "flush and step the unstaged cache (the serving "
+                         "engine's plain view)")
     if q4 and s > 1 and vec:
         raise ValueError("int4 caches take multi-token writes at a uniform "
                          "(scalar) offset only")
@@ -445,6 +480,8 @@ def backpack_forward_with_cache(
         params["gpt"], cfg, input_ids, cache.gpt, window=window)
     q, k_new = context_qk(params, cfg, contextl)       # (b, s, nv, dnv)
     senses_new = content_forward(params, cfg, input_ids)  # (b, s, nv, d)
+    if sense_edit is not None:
+        senses_new = apply_sense_edit(senses_new, input_ids, sense_edit)
     senses_t = senses_new.transpose(1, 2).reshape(e, s, d)
     if staged:
         # append at the stage pointer the GPT write started from
@@ -587,6 +624,8 @@ def backpack_forward_with_cache(
                                ).to(contextl.dtype)
     logits = gpt_lib.lm_logits(params["gpt"], cfg, outputs)
     cache.length = new_len
+    if return_ctx_q:
+        return logits, cache, q
     return logits, cache
 
 

@@ -19,6 +19,11 @@ Port of ``backpacks_flash_attn_tpu/serving/engine.py`` (``ServingEngine``
   * per-request sampling (greedy, temperature, top-p, top-k), stop
     sequences, min_new_tokens, frequency/presence penalties, logprobs and
     (nv,) sense weights
+  * the Backpack interventions per request, sharing the batch with plain
+    requests: ``control=True`` decodes under the engine's annealed
+    ``control_table`` (topic control), ``negative=True`` under its
+    ``negative_table`` (toxicity removal), both O(t) a step
+    (models/interventions.py)
   * prompt-lookup and model-draft speculation (``spec_tokens``), adaptive
 
 JAX compiles one program per shape and keeps them in ``_jit_*`` dicts; the
@@ -26,9 +31,19 @@ port runs eagerly, so each of those is a plain method here, and JAX's
 power-of-two padding of a prefill group's rows (compile reuse) is dropped.
 Sampling keys are ``utils.prng`` keys split as JAX splits them, and the
 Gumbel draw is ``jax.random.categorical``'s, so a seeded engine samples the
-JAX engine's tokens wherever the logits agree. Topic-control and
-negative-weighted requests (``control_table``, ``negative_table``) wait
-for ``models/interventions.py`` (ROADMAP Queue 1 item 5).
+JAX engine's tokens wherever the logits agree.
+
+While a control or negative request holds a slot, every step flushes the
+stage and runs on the plain view of the cache (no staging block): K1 over
+the main cache for each GPT layer and the combine, never its (m, l) form.
+Control requests add a (slots, max_seqlen, nv) f32 annealing state and a
+(slots, max_seqlen, d) bf16 copy of the token embeddings (100 MB at 128
+slots of 512 for backpack-small). Negative requests add the sparse state
+of ``interventions.NegativeDecodeState``: the bottom ``negative_quantile``
+of each cached (position, sense)'s vocabulary logits, values f32 and ids
+int32, 2 x slots x max_seqlen x nv x m x 4 bytes (m = 1006 at the default
+0.02 of a 50,264 vocabulary: 8.4 GB at 128 slots of 512), allocated at the
+first negative admission, and each step reads its window.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ import torch
 from ..config import BackpackConfig
 from ..models import backpack as bp
 from ..models import gpt as gpt_lib
+from ..models import interventions as iv
 from ..ops import _build
 from ..utils import prng
 from .scheduler import make_scheduler
@@ -115,9 +131,25 @@ class ServingEngine:
         the device the engine allocates on. ``params`` must lie on that
         device. use_flash=False has no port: attention always takes the
         flash wrappers, and ``ops._build.plain_path()`` is the one switch
-        to the plain versions. num_senses, annealing_scale and the
-        negative_* options belong to the intervention modes, which raise
-        (ROADMAP Queue 1 item 5).
+        to the plain versions.
+
+        control_table: a (vocab, nv) multiplicative weight table
+        (eval/control.control_weights); requests submitted with
+        control=True decode under it, annealed at annealing_scale, beside
+        uncontrolled ones. Their state (annealing sums and token
+        embeddings, ~100 MB at 128 slots of 512 for backpack-small) is
+        allocated at the first control admission.
+
+        negative_table: a (vocab, nv) table (eval/toxicity.
+        toxicity_weights) for requests submitted with negative=True: the
+        O(t) negative-weighted decode (interventions.negative_decode_step)
+        at negative_quantile, annealed when negative_anneal (at
+        negative_annealing_scale). Its sparse per-position state, allocated
+        at the first negative admission, takes 2 x slots x max_seqlen x nv
+        x m x 4 bytes (m = interventions.negative_m(padded vocab,
+        negative_quantile): 8.4 GB at 128 slots of 512 for backpack-small).
+        While either kind of request is active, steps run on the flushed
+        plain view of the cache and never speculate.
 
         spec_tokens > 0: speculation. Each step drafts spec_tokens tokens
         per slot, by prompt lookup over the slot's own history (newest
@@ -134,10 +166,6 @@ class ServingEngine:
         per-row offsets instead of one prefill per length bucket.
         stage_tokens: the staging block's width (0: per-row writes into
         the main cache every step)."""
-        if control_table is not None or negative_table is not None:
-            raise NotImplementedError(
-                "control_table / negative_table need models/interventions.py, "
-                "not ported yet (ROADMAP Queue 1 item 5)")
         if not use_flash:
             raise ValueError("use_flash=False has no port: use "
                              "ops._build.plain_path() for the plain versions")
@@ -168,6 +196,22 @@ class ServingEngine:
         self.temps = np.zeros((max_slots,), np.float32)   # 0 = greedy
         self.sense_weights = np.ones((max_slots, cfg.num_senses), np.float32)
         self._uses_weights = False
+        # the intervention modes: tables, per-slot masks, lazily made states
+        def table(t):
+            if t is None or isinstance(t, torch.Tensor):
+                return t if t is None else t.to(self.device, torch.float32)
+            return self._dev(np.array(t, np.float32))
+
+        self.control_table = table(control_table)
+        self.annealing_scale = annealing_scale
+        self.control_mask = np.zeros((max_slots,), bool)
+        self.istate: Optional[iv.WeightedDecodeState] = None
+        self.negative_table = table(negative_table)
+        self.negative_quantile = negative_quantile
+        self.negative_anneal = negative_anneal
+        self.negative_annealing_scale = negative_annealing_scale
+        self.negative_mask = np.zeros((max_slots,), bool)
+        self.nstate: Optional[iv.NegativeDecodeState] = None
         self._rng = prng.PRNGKey(seed)
         self._next_id = 0
         self.prefill_dispatches = 0
@@ -247,11 +291,18 @@ class ServingEngine:
         frequency/presence penalties: OpenAI-style, from per-slot counts of
         prompt and emitted tokens (speculation steps plainly while a
         penalized slot is active). sense_weights: (nv,) multiplicative
-        weights on the request's senses. control/negative need the
-        intervention tables, which the port does not take yet."""
-        if control or negative:
-            raise ValueError("control=True / negative=True need a "
-                             "control_table / negative_table on the engine")
+        weights on the request's senses. control=True decodes under the
+        engine's annealed control_table, negative=True under its
+        negative_table (one of the two a request)."""
+        if control and self.control_table is None:
+            raise ValueError("control=True needs a control_table on the "
+                             "engine")
+        if negative and self.negative_table is None:
+            raise ValueError("negative=True needs a negative_table on the "
+                             "engine")
+        if control and negative:
+            raise ValueError("control and negative are mutually exclusive "
+                             "per request")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         rid = self._next_id
         self._next_id += 1
@@ -264,7 +315,7 @@ class ServingEngine:
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
         self._prompts[rid] = prompt
-        self._meta[rid] = (temperature, sense_weights)
+        self._meta[rid] = (temperature, sense_weights, control, negative)
         self._meta_top_p[rid] = top_p
         self._meta_top_k[rid] = top_k
         if stop:
@@ -361,14 +412,39 @@ class ServingEngine:
                 return b
         return self.max_seqlen
 
-    def _step_fn(self, cache, window: int, rng):
-        """One decode step of every slot (JAX :465): forward, penalties,
-        sampling; self.tokens becomes the next tokens. Returns the
-        logprobs (or None)."""
+    def _step_fn(self, cache, window: int, rng, control: bool = False,
+                 negative: bool = False):
+        """One decode step of every slot (JAX :465, and with a control or
+        negative slot active :672, :743): forward, penalties, sampling;
+        self.tokens becomes the next tokens. Returns the logprobs (or
+        None)."""
         win = None if window >= self.max_seqlen else window
-        logits, _ = bp.backpack_forward_with_cache(
-            self.params, self.cfg, self.tokens, cache, window=win,
-            sense_weights=self._weights())
+        w = self._weights()
+        if control or negative:
+            # JAX's intervention steps always pass the (b, nv) request
+            # weights (ones are exact)
+            w = self._dev(self.sense_weights)
+        if control:
+            # controlled slots take the annealed table's weights (the state
+            # of every slot advances; only theirs is read)
+            _, cw = iv.advance_weighted_state(
+                self.params, self.cfg, self.tokens, cache, self.istate,
+                self.control_table, anneal=True,
+                annealing_scale=self.annealing_scale, window=win)
+            cmask = self._dev(self.control_mask)[:, None, None]
+            w = torch.where(cmask, cw, 1.0) * w[:, None, :]
+        if negative:
+            logits, _, _ = iv.negative_decode_step(
+                self.params, self.cfg, self.tokens, cache, self.nstate,
+                self.negative_table, anneal=self.negative_anneal,
+                annealing_scale=self.negative_annealing_scale,
+                quantile=self.negative_quantile,
+                negative_mask=self._dev(self.negative_mask), sense_weights=w,
+                window=win)
+        else:
+            logits, _ = bp.backpack_forward_with_cache(
+                self.params, self.cfg, self.tokens, cache, window=win,
+                sense_weights=w)
         last = logits[:, -1].float()
         if self._uses_penalty:
             last = self._apply_penalties(last, self.token_counts,
@@ -553,10 +629,13 @@ class ServingEngine:
                                  slot)
 
     def _post_admit(self, slot: int, rid: int, plen: int, temp, w, sw,
-                    last_logits, greedy_tok: int) -> int:
+                    control: bool, negative: bool, last_logits,
+                    greedy_tok: int) -> int:
         """Host bookkeeping of an admission (JAX :904); samples the
         request's first token from its prefill logits (``greedy_tok``, the
         argmax, read with the rest of its group). Returns the token."""
+        self.control_mask[slot] = control
+        self.negative_mask[slot] = negative
         self.host_lengths[slot] = plen
         self.temps[slot] = temp
         self.sense_weights[slot] = w
@@ -631,20 +710,87 @@ class ServingEngine:
         self.hist_len[slot] = plen + 1
         return tok
 
+    def _special_prefill(self, rid: int, plen: int, w, control: bool,
+                         negative: bool):
+        """A control or negative request's own prefill (JAX :415, :716):
+        batch 1, the prompt right-padded to its length bucket, with its
+        fresh intervention state (pads masked out of the annealing sums).
+        -> (last logits (V,) f32, cache, state)."""
+        bucket = min(_bucket(plen), self.max_seqlen)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :plen] = self._prompts[rid]
+        ids = self._dev(ids)
+        mask = torch.arange(bucket, device=self.device)[None] < plen
+        small = bp.init_backpack_cache(self.cfg, 1, self.max_seqlen,
+                                       self.cache_dtype, device=self.device)
+        if negative:
+            state = iv.init_negative_decode_state(
+                self.cfg, 1, self.max_seqlen, quantile=self.negative_quantile,
+                device=self.device)
+            logits, small, state = iv.negative_decode_step(
+                self.params, self.cfg, ids, small, state, self.negative_table,
+                anneal=self.negative_anneal,
+                annealing_scale=self.negative_annealing_scale,
+                quantile=self.negative_quantile, token_mask=mask)
+        else:
+            state = iv.init_weighted_decode_state(self.cfg, 1, self.max_seqlen,
+                                                  device=self.device)
+            _, cw = iv.advance_weighted_state(
+                self.params, self.cfg, ids, small, state, self.control_table,
+                anneal=True, annealing_scale=self.annealing_scale,
+                token_mask=mask)
+            logits, small = bp.backpack_forward_with_cache(
+                self.params, self.cfg, ids, small,
+                sense_weights=cw * self._dev(w)[None, None, :])
+        small.length = plen
+        small.gpt.length = plen
+        return logits[0, plen - 1].float(), small, state
+
+    def _admit_special(self, rec) -> int:
+        """Admit one control or negative request (JAX :1038-1072): its
+        prefill, its rows of the cache and of its state (the negative
+        state made at the first negative admission). -> request id."""
+        slot, rid, plen, temp, w, sw, control, negative = rec
+        last, small, state = self._special_prefill(rid, plen, w, control,
+                                                   negative)
+        if negative:
+            if self.nstate is None:
+                self.nstate = iv.init_negative_decode_state(
+                    self.cfg, self.max_slots, self.max_seqlen,
+                    quantile=self.negative_quantile, device=self.device)
+            iv.insert_negative_state_slot(self.nstate, state, slot)
+        else:
+            if self.istate is None:
+                self.istate = iv.init_weighted_decode_state(
+                    self.cfg, self.max_slots, self.max_seqlen,
+                    device=self.device)
+            iv.insert_state_slot(self.istate, state, slot)
+        self.prefill_dispatches += 1
+        bp.insert_cache_slot(self.cache, small, slot)
+        del small, state
+        tok = self._post_admit(slot, rid, plen, temp, w, sw, control, negative,
+                               last, int(last.argmax()))
+        self.tokens[slot, 0] = tok
+        if self.sched.on_token(slot, tok):
+            self._finish(slot)
+        return rid
+
     def _admit_all(self) -> List[int]:
         """Drain the scheduler, then admit by groups: one prefill per
         power-of-two length bucket (or one chunked group), rows copied into
-        their slots, first tokens sampled (JAX :980)."""
-        plain = []
+        their slots, first tokens sampled; then each control or negative
+        request alone (JAX :980)."""
+        plain, special = [], []
         while True:
             got = self.sched.admit()
             if got is None:
                 break
             slot, rid, plen = got
-            temp, sw = self._meta.pop(rid)
+            temp, sw, control, negative = self._meta.pop(rid)
             w = (np.ones(self.cfg.num_senses, np.float32) if sw is None
                  else np.asarray(sw, np.float32))
-            plain.append((slot, rid, plen, temp, w, sw))
+            rec = (slot, rid, plen, temp, w, sw, control, negative)
+            (special if control or negative else plain).append(rec)
         groups: Dict[int, list] = {}
         for rec in plain:
             key = 0 if self.prefill_chunk else min(_bucket(rec[2]),
@@ -671,14 +817,16 @@ class ServingEngine:
             del small
             greedy = last.argmax(dim=-1).tolist()
             toks = []
-            for i, (slot, rid, plen, temp, w, sw) in enumerate(recs):
+            for i, (slot, rid, plen, temp, w, sw, _, _) in enumerate(recs):
                 toks.append(self._post_admit(slot, rid, plen, temp, w, sw,
-                                             last[i], greedy[i]))
+                                             False, False, last[i],
+                                             greedy[i]))
                 admitted.append(rid)
             self.tokens[self._dev(slots), 0] = self._dev(toks, torch.long)
             for slot, tok in zip(slots, toks):
                 if self.sched.on_token(slot, tok):
                     self._finish(slot)
+        admitted += [self._admit_special(rec) for rec in special]
         return admitted
 
     def _finish(self, slot: int, trunc: int = 0) -> None:
@@ -695,6 +843,8 @@ class ServingEngine:
             self._slot_logprobs[slot] = []
         self._results[rid] = RequestResult(
             request_id=rid, tokens=tokens, finished=True, logprobs=lps)
+        self.control_mask[slot] = False
+        self.negative_mask[slot] = False
         self.top_ps[slot] = 1.0
         self.top_ks[slot] = 0
         self.freq_p[slot] = 0.0
@@ -717,8 +867,8 @@ class ServingEngine:
 
     def _plain_view(self) -> bp.BackpackCache:
         """The cache without its staging blocks, sharing the main tensors:
-        a sense-weighted step reads and writes the main cache (JAX
-        :1112)."""
+        a sense-weighted, control or negative step reads and writes the
+        main cache (JAX :1112)."""
         c = self.cache
         g = dataclasses.replace(c.gpt, k_stage=None, v_stage=None,
                                 ks_stage=None, vs_stage=None, stage_pos=None,
@@ -748,8 +898,12 @@ class ServingEngine:
         self._rng, sub = prng.split(self._rng)
         k = self.spec_tokens
         cache = self.cache
+        active = [sl for sl in range(self.max_slots)
+                  if self.sched.slot_active(sl)]
+        control = bool(self.control_mask[active].any())
+        negative = bool(self.negative_mask[active].any())
         if self._stage_cap:
-            if self._uses_weights:
+            if self._uses_weights or control or negative:
                 if self._stage_used:
                     bp.flush_cache(self.cache)
                     self._stage_used = 0
@@ -759,17 +913,17 @@ class ServingEngine:
                 bp.flush_cache(self.cache)
                 self._stage_used = 0
                 self._stats["flushes"] += 1
-        active = [sl for sl in range(self.max_slots)
-                  if self.sched.slot_active(sl)]
         max_active_len = max(int(self.host_lengths[sl]) for sl in active)
         active_pen = any(self.freq_p[sl] or self.pres_p[sl] for sl in active)
-        if (k > 0 and not active_pen
+        if (k > 0 and not active_pen and not control and not negative
                 and max_active_len + k + 1 <= self.max_seqlen
                 and self._stats["decode_steps"] >= self._spec_skip_until):
             return self._spec_step(cache, t0, sub)
         window = self._window()
         self._window_hist[window] += 1
-        lp_arr = self._step_fn(cache, window, sub)
+        if control or negative:
+            self._stats["intervention_steps"] += 1
+        lp_arr = self._step_fn(cache, window, sub, control, negative)
         self._after_step(cache, 1)
         toks = self.tokens[:, 0].tolist()
         lps = lp_arr.tolist() if lp_arr is not None else None
@@ -879,8 +1033,9 @@ class ServingEngine:
 
     def stats(self) -> Dict[str, object]:
         """Host-side serving metrics since engine start (JAX :1334):
-        counters (admissions, decode steps, tokens, flushes, ...), the
-        window histogram and derived rates."""
+        counters (admissions, decode steps, tokens, flushes, steps with a
+        control or negative slot active, ...), the window histogram and
+        derived rates."""
         s = dict(self._stats)
         s["prefill_dispatches"] = self.prefill_dispatches
         s["active_slots"] = self.sched.num_active

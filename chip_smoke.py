@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port (backpacks_flash_attn_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases device,build,kernels,serve,engine,forward,train,
-                                    longctx,train8k,generate,decode_kernels,mini,xl]
+                                    longctx,train8k,generate,decode_kernels,mini,xl,
+                                    intervene]
                           [--out DIR]
 
 Phases, each printing one JSON line:
@@ -199,6 +200,37 @@ Phases, each printing one JSON line:
             the plain path's (equal up to each sequence's first
             difference, which must be a near-tie of the plain path's
             logits) and the teacher-forced gate.
+14. intervene  the Backpack interventions on backpack-small at full width
+            and depth, bf16 weights from the seeded generator (drawn after
+            every other phase): a control_weights table (strength 2 over 8
+            word ids from the generator) and a toxicity_weights table; the
+            teacher-forced gate of weighted_decode_step (annealed) and
+            negative_decode_step (quantile 0.02, m 1006) over a prefill of 8
+            x 32 and 8 decode steps, in bf16 (bf16 caches) and in INT8 (INT8
+            weights and caches): kernel path, plain path and the f32 plain
+            reference on the kernel path's greedy tokens, the 2x rule on
+            every step's logits, each kernel-path call launch-gated (K3 12 a
+            prefill; K1 13 a decode step: the 12 GPT layers and the combine,
+            with the sense weights folded into its value scales; K2 50 a
+            call over INT8 weights). weighted_forward and
+            replaced_word_forward at (8, 512), bf16, through K3 (12) and K4
+            (1) against the plain path under the 2x rule. The engine: INT8
+            weights and caches at its defaults, 128 slots, 256 greedy
+            requests (engine's prompts and budgets), 64 control and 64
+            negative, the rest plain: stats(), launches (a step with a
+            control or negative slot active runs the flushed plain view:
+            plain K1 13 and K1-ml 0; the other steps K1-ml 13; K2 50 a step
+            and a prefill; K3 12 a prefill), peak device memory and the
+            negative state's bytes, a 32-step profile (idle share, the eager
+            ops' share of device time), and the share of each kind of
+            request whose tokens equal the same engine's under plain_path()
+            (reported, not gated). Between the forwards and the INT8 gate,
+            the experiment loops end to end on the bf16 weights:
+            run_control_experiment (strengths 0-3, 8 prompts of 32, 32
+            tokens), run_toxicity_experiment (sampled from the generator),
+            run_genderbias_experiment (4 + 4 prompts of 16, sense 10, 10
+            Nelder-Mead iterations) and localize_prediction: seconds and
+            finiteness.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -1506,18 +1538,26 @@ def engine_requests(cfg, gen):
     return [(ids[i][:lens[i]], budgets[i]) for i in range(n)]
 
 
-def new_engine(params, cfg):
+def new_engine(params, cfg, **kw):
+    """The engine at its defaults over INT8 caches, ENGINE_SLOTS slots (kw:
+    the intervention tables and options)."""
     from backpacks_flash_attn_tpu_torch.serving.engine import ServingEngine
     return ServingEngine(params, cfg, max_slots=ENGINE_SLOTS,
                          max_seqlen=MAX_LEN, cache_dtype=torch.int8, eos_id=-1,
-                         stage_tokens=STAGE)
+                         stage_tokens=STAGE, **kw)
 
 
-def engine_run(params, cfg, requests):
+def submit_all(eng, requests):
+    """Submit (prompt, budget[, submit keywords]) requests -> their ids."""
+    return [eng.submit(r[0], max_new_tokens=r[1], **(r[2] if len(r) > 2 else {}))
+            for r in requests]
+
+
+def engine_run(params, cfg, requests, **engine_kw):
     """Serve every request to completion on a fresh engine: (tokens per
     request, stats())."""
-    eng = new_engine(params, cfg)
-    rids = [eng.submit(p, max_new_tokens=n) for p, n in requests]
+    eng = new_engine(params, cfg, **engine_kw)
+    rids = submit_all(eng, requests)
     results = eng.run()
     torch.cuda.synchronize()
     stats = eng.stats()
@@ -1525,14 +1565,18 @@ def engine_run(params, cfg, requests):
     return [results[r].tokens for r in rids], stats
 
 
-def profile_engine(params, cfg, requests):
+# the port's kernels on the engine's path, by profiler symbol: K1 (both
+# forms), K2, K3; the rest of a step's device time is eager PyTorch ops
+ENGINE_KERNEL_SYMBOLS = ("decode_attention_kernel", "quant_matmul", "flash_fwd")
+
+
+def profile_engine(params, cfg, requests, **engine_kw):
     """Wall ms per step of ENGINE_PROFILE[1] steps after ENGINE_PROFILE[0]
     (past the first admission wave), unprofiled, then device ms per step by
     kernel over the next as many steps with torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    eng = new_engine(params, cfg)
-    for p, n in requests:
-        eng.submit(p, max_new_tokens=n)
+    eng = new_engine(params, cfg, **engine_kw)
+    submit_all(eng, requests)
     skip, steps = ENGINE_PROFILE
     for _ in range(skip):
         eng.step()
@@ -1550,17 +1594,25 @@ def profile_engine(params, cfg, requests):
             eng.step()
         torch.cuda.synchronize()
         wall_prof = (time.perf_counter() - t0) * 1e3 / steps
+    iv_steps = eng.stats().get("intervention_steps", 0)
     del eng
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
                    for ev in prof.key_averages()
                    if ev.device_type == torch.autograd.DeviceType.CUDA
                    and ev.self_device_time_total > 0), reverse=True)
     device = sum(us for us, _, _ in rows) / 1e3 / steps
+    kernels = sum(us for us, k, _ in rows
+                  if any(n in k for n in ENGINE_KERNEL_SYMBOLS)) / 1e3 / steps
     return dict(steps=steps, after_steps=skip, wall_ms_per_step=wall,
                 wall_ms_per_step_profiled=wall_prof,
                 device_ms_per_step=device,
                 device_idle_share=1 - device / wall,
                 device_idle_share_profiled=1 - device / wall_prof,
+                intervention_steps_to_profile_end=iv_steps,
+                k2_device_ms_per_step=sum(us for us, k, _ in rows
+                                          if "quant_matmul" in k) / 1e3 / steps,
+                eager_device_ms_per_step=device - kernels,
+                eager_share_of_device=(device - kernels) / device if device else None,
                 **k1_per_step(rows, steps),
                 top=[dict(name=k[:80], ms_per_step=us / 1e3 / steps,
                           calls_per_step=c / steps) for us, k, c in rows[:12]])
@@ -3131,6 +3183,300 @@ def phase_xl(gen, results):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ intervene
+
+IV_BATCH, IV_PROMPT, IV_STEPS, IV_WORDS, IV_STRENGTH = 8, 32, 8, 8, 2
+IV_CONTROL = IV_NEGATIVE = 64          # of ENGINE_REQUESTS; the rest plain
+IV_EXP_PROMPTS, IV_EXP_TOKENS, IV_GB_PROMPTS, IV_GB_LEN = 8, 32, 4, 16
+IV_GB_ITERS, IV_GB_SENSE = 10, 10
+
+
+def _exact_launches(what, counts, want):
+    """The launches of one call: exactly ``want`` (name -> n), no other."""
+    got = {k: n for k, n in counts.items() if n}
+    if got != {k: n for k, n in want.items() if n}:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+    return got
+
+
+def intervene_gate(label, params, ref_params, cfg, cache_dtype, ref_cache_dtype,
+                   prompt, tables, gemm_launches):
+    """weighted_decode_step and negative_decode_step teacher-forced over a
+    prefill of ``prompt`` and IV_STEPS decode steps on the kernel path's
+    greedy tokens: kernel path, plain path and the f32 plain reference
+    (ref_params over a ref_cache_dtype cache) on the same tokens, the 2x
+    rule on every step's logits; each kernel-path call launch-gated (K3
+    once per GPT layer in the prefill, K1 once per layer and once for the
+    combine a decode step, K2 ``gemm_launches`` a call)."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.models import interventions as iv
+    from backpacks_flash_attn_tpu_torch.ops import _build
+
+    out = {}
+    for mode, (table, ann) in tables.items():
+        if mode == "weighted":
+            step = lambda *a: iv.weighted_decode_step(            # noqa: E731
+                *a, anneal=True, annealing_scale=ann)
+        else:
+            step = lambda *a: iv.negative_decode_step(            # noqa: E731
+                *a, anneal=False, annealing_scale=ann)
+        runs = {}
+        for path in ("kernel", "plain", "ref"):
+            ref = path == "ref"
+            cache = bp.init_backpack_cache(cfg, IV_BATCH, MAX_LEN,
+                                           ref_cache_dtype if ref else cache_dtype)
+            state = (iv.init_weighted_decode_state(
+                         cfg, IV_BATCH, MAX_LEN,
+                         torch.float32 if ref else torch.bfloat16)
+                     if mode == "weighted" else
+                     iv.init_negative_decode_state(cfg, IV_BATCH, MAX_LEN))
+            runs[path] = [ref_params if ref else params, cache, state]
+        errs = {"kernel": 0.0, "plain": 0.0, "kernel_vs_plain": 0.0}
+        ids, launches = prompt, []
+        for i in range(IV_STEPS + 1):
+            outs = {}
+            for path, run in runs.items():
+                _build.reset_launches()
+                with (contextlib.nullcontext() if path == "kernel"
+                      else _build.plain_path()):
+                    logits, run[1], run[2] = step(run[0], cfg, ids, run[1],
+                                                  run[2], table)
+                torch.cuda.synchronize()
+                if path == "kernel":
+                    want = ({"flash_attention": cfg.n_layer} if i == 0 else
+                            {"decode_attention": cfg.n_layer + 1})
+                    launches.append(_exact_launches(
+                        f"{label} {mode} step {i}", _build.launch_counts(),
+                        {**want, "quant_matmul": gemm_launches}))
+                outs[path] = logits.float()
+            if not torch.isfinite(outs["kernel"]).all():
+                raise AssertionError(f"{label} {mode}: non-finite logits")
+            for path in ("kernel", "plain"):
+                errs[path] = max(errs[path], max_err(outs[path], outs["ref"]))
+            errs["kernel_vs_plain"] = max(errs["kernel_vs_plain"],
+                                          max_err(outs["kernel"], outs["plain"]))
+            ids = outs["kernel"][:, -1].argmax(-1)[:, None]
+        if not (errs["plain"] > 0 and errs["kernel"] <= 2 * errs["plain"]):
+            raise AssertionError(f"{label} {mode}: kernel error {errs['kernel']:.3e} "
+                                 f"> 2x plain {errs['plain']:.3e}")
+        out[mode] = dict(errs, launches_prefill=launches[0],
+                         launches_decode_step=launches[1])
+        emit({"phase": "intervene", "gate": label, "mode": mode, **out[mode]})
+        del runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def intervene_forwards(params, cfg, ids, table, ann, edit):
+    """weighted_forward and replaced_word_forward through K3 and K4 (the
+    launches of each call gated: K3 once per GPT layer, K4 once) against the
+    plain path under the 2x rule of the f32 reference."""
+    from backpacks_flash_attn_tpu_torch.models import interventions as iv
+    from backpacks_flash_attn_tpu_torch.ops import _build
+
+    p32 = _map_tensors(params, lambda t: t.float())
+    forwards = {
+        "weighted_forward": lambda p: iv.weighted_forward(
+            p, cfg, ids, table, annealing_scale=ann),
+        "replaced_word_forward": lambda p: iv.replaced_word_forward(
+            p, cfg, ids, *edit)}
+    out = {}
+    for name, fwd in forwards.items():
+        fwd(params)                                  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        logits = fwd(params)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _exact_launches(name, _build.launch_counts(), {
+            "flash_attention": cfg.n_layer, "fused_contextualization": 1})
+        with _build.plain_path():
+            plain, ref = fwd(params), fwd(p32)
+        ek, ep = two_x(name, logits, plain, ref)
+        out[name] = dict(shape=list(ids.shape), seconds=seconds,
+                         tokens_per_s=ids.numel() / seconds, launches=launches,
+                         max_abs_err=ek, plain_bf16_err=ep)
+        emit({"phase": "intervene", "forward": name, **out[name]})
+        del logits, plain, ref
+    return out
+
+
+def intervene_engine(qparams, cfg, requests, tables):
+    """The engine over INT8 weights and caches at its defaults, 128 slots,
+    with control and negative requests beside plain ones: stats, launches
+    (K1 13 and its (m, l) form 0 in every step with an intervention slot
+    active, the reverse in the others; K2 50 a step and a prefill; K3 12 a
+    prefill), peak device memory with the negative state's bytes, a 32-step
+    profile (idle and eager shares), and the share of each kind of request
+    whose tokens equal the same engine's under plain_path()."""
+    from backpacks_flash_attn_tpu_torch.ops import _build
+
+    (ctable, cann), (ntable, nann) = tables["weighted"], tables["negative"]
+    kw = dict(control_table=ctable, annealing_scale=cann, negative_table=ntable,
+              negative_annealing_scale=nann)
+    log("intervene: engine warm-up")
+    engine_run(qparams, cfg, [(p, 8, k) for p, _, k in requests[:ENGINE_SLOTS]], **kw)
+    torch.cuda.empty_cache()
+    log("intervene: engine")
+    eng = new_engine(qparams, cfg, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    rids = submit_all(eng, requests)
+    res = eng.run()
+    torch.cuda.synchronize()
+    counts, stats = _build.launch_counts(), eng.stats()
+    peak = torch.cuda.max_memory_allocated()
+    nbytes = eng.nstate.nbytes()
+    tokens = [res[r].tokens for r in rids]
+    del eng, res
+    torch.cuda.empty_cache()
+    D, Div = stats["decode_steps"], stats.get("intervention_steps", 0)
+    P, G = stats["prefill_dispatches"], gemms(cfg)
+    want = {"decode_attention": (cfg.n_layer + 1) * Div,
+            "decode_attention_ml": (cfg.n_layer + 1) * (D - Div),
+            "quant_matmul": G * (D + P), "flash_attention": cfg.n_layer * P}
+    _exact_launches(f"intervene engine ({D} steps, {Div} with an intervention "
+                    f"slot, {P} prefills)", counts, want)
+    if not Div or stats["completed"] != len(requests):
+        raise AssertionError(f"intervene engine: stats {stats}")
+    if any(len(t) != r[1] for t, r in zip(tokens, requests)):
+        raise AssertionError("intervene engine: a request ended early")
+    log("intervene: engine, plain path")
+    with _build.plain_path():
+        plain_tokens, plain_stats = engine_run(qparams, cfg, requests, **kw)
+    torch.cuda.empty_cache()
+    kinds = {"plain": lambda k: not k, "control": lambda k: k.get("control"),
+             "negative": lambda k: k.get("negative")}
+    same = {kind: statistics.mean(a == b for a, b, r in zip(tokens, plain_tokens, requests)
+                                  if pick(r[2]))
+            for kind, pick in kinds.items()}
+    run = dict(phase="intervene", run="engine", stats=stats, launches=counts,
+               launches_per_intervention_step={
+                   "decode_attention": counts["decode_attention"] / Div,
+                   "decode_attention_ml": 0,
+                   "quant_matmul": G},
+               launches_per_prefill={"flash_attention": cfg.n_layer,
+                                     "quant_matmul": G},
+               peak_memory_bytes=peak, memory_before_bytes=base,
+               negative_state_bytes=nbytes,
+               share_equal_to_plain_path=same,
+               plain_path_tokens_per_s=plain_stats["tokens_per_s"])
+    log("intervene: engine profile")
+    run["profile"] = profile_engine(qparams, cfg, requests, **kw)
+    emit(run)
+    torch.cuda.empty_cache()
+    return run
+
+
+def intervene_experiments(params, cfg, gen, words):
+    """The experiment loops end to end at small counts: seconds, shapes,
+    finiteness."""
+    from backpacks_flash_attn_tpu_torch.eval import control, genderbias, toxicity
+    from backpacks_flash_attn_tpu_torch.eval import visualize
+
+    prompts = torch.randint(0, cfg.vocab_size, (IV_EXP_PROMPTS, IV_PROMPT),
+                            generator=gen, device=DEV)
+    gb = torch.randint(0, cfg.vocab_size, (2 * IV_GB_PROMPTS, IV_GB_LEN),
+                       generator=gen, device=DEV).tolist()
+    out = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0}
+        return value
+
+    res = timed("run_control_experiment", lambda: control.run_control_experiment(
+        params, cfg, words, prompts, max_new_tokens=IV_EXP_TOKENS))
+    for strength, entry in res.items():
+        g = entry["generations"]
+        if g.shape != (IV_EXP_PROMPTS, IV_EXP_TOKENS) or g.min() < 0 \
+                or g.max() >= cfg.padded_vocab_size:
+            raise AssertionError(f"control strength {strength}: generations {g.shape}")
+    out["run_control_experiment"]["strengths"] = sorted(res)
+    res = timed("run_toxicity_experiment", lambda: toxicity.run_toxicity_experiment(
+        params, cfg, words, prompts, max_new_tokens=IV_EXP_TOKENS, generator=gen,
+        scorer=lambda g: {"toxicity": np.zeros(len(g))}))
+    for name, entry in res.items():
+        if entry["generations"].shape != (IV_EXP_PROMPTS, IV_EXP_TOKENS):
+            raise AssertionError(f"toxicity {name}: {entry['generations'].shape}")
+    res = timed("run_genderbias_experiment", lambda: genderbias.run_genderbias_experiment(
+        params, cfg, gb[:IV_GB_PROMPTS], gb[IV_GB_PROMPTS:], him_id=words[0],
+        her_id=words[1], job_ids=[p[3] for p in gb], sense_index=IV_GB_SENSE,
+        maxiter=IV_GB_ITERS))
+    if not all(math.isfinite(v) for v in res.values()):
+        raise AssertionError(f"genderbias: {res}")
+    out["run_genderbias_experiment"].update(res)
+    loc = timed("localize_prediction", lambda: visualize.localize_prediction(
+        params, cfg, prompts[0].tolist(), words[2]))
+    if loc.shape != (cfg.num_senses, IV_PROMPT) or not np.isfinite(loc).all():
+        raise AssertionError(f"localize_prediction: {loc.shape}")
+    emit({"phase": "intervene", "experiments": out})
+    return out
+
+
+def phase_intervene(gen, results):
+    """backpack-small at full width and depth (12 layers, 768, 16 senses,
+    vocab 50264), seeded random bf16 weights: the teacher-forced gates of
+    the weighted and negative decode steps in bf16 and in INT8, the
+    intervened full forwards, the engine with control and negative
+    requests, and the experiment loops."""
+    from backpacks_flash_attn_tpu_torch.config import backpack_small
+    from backpacks_flash_attn_tpu_torch.eval import control, toxicity
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.models import interventions as iv
+    from backpacks_flash_attn_tpu_torch.models import quantized as qz
+
+    torch.cuda.empty_cache()
+    cfg = backpack_small(vocab_size=50257)
+    params = bp.init_backpack(cfg, gen, dtype=torch.bfloat16)
+    words = torch.randint(0, cfg.vocab_size, (IV_WORDS,), generator=gen,
+                          device=DEV).tolist()
+    log("intervene: tables")
+    t0 = time.perf_counter()
+    tables = {"weighted": control.control_weights(params, cfg, words, IV_STRENGTH),
+              "negative": toxicity.toxicity_weights(params, cfg, words)}
+    torch.cuda.synchronize()
+    run = {"tables_seconds": time.perf_counter() - t0, "words": words,
+           "negative_m": iv.negative_m(cfg.padded_vocab_size, 0.02)}
+    prompt = torch.randint(0, cfg.vocab_size, (IV_BATCH, IV_PROMPT), generator=gen,
+                           device=DEV)
+    log("intervene: bf16 gate")
+    run["gate_bf16"] = intervene_gate(
+        "bf16", params, _map_tensors(params, lambda t: t.float()), cfg,
+        torch.bfloat16, torch.float32, prompt, tables, 0)
+    log("intervene: full forwards")
+    ids = torch.randint(0, cfg.vocab_size, (FWD_BATCH, FWD_LEN), generator=gen,
+                        device=DEV)
+    edit = iv.mogrify_word(params, cfg, int(ids[0, 7]), int(ids[1, 3]), int(ids[1, 5]))
+    run["forwards"] = intervene_forwards(params, cfg, ids, *tables["weighted"], edit)
+    del ids
+    log("intervene: experiments")
+    run["experiments"] = intervene_experiments(params, cfg, gen, words)
+    log("intervene: int8 gate (quantizing)")
+    qparams = qz.quantize_backpack_params(params, cfg, bits=8)
+    q32 = qz.quantize_backpack_params(params, cfg, bits=8, act_dtype=torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    run["gate_int8"] = intervene_gate("int8", qparams, q32, cfg, torch.int8,
+                                      torch.int8, prompt, tables, gemms(cfg))
+    del q32
+    torch.cuda.empty_cache()
+    requests = engine_requests(cfg, gen)
+    order = torch.randperm(len(requests), generator=gen, device=DEV).tolist()
+    modes = {i: {"control": True} for i in order[:IV_CONTROL]}
+    modes.update({i: {"negative": True} for i in order[IV_CONTROL:IV_CONTROL + IV_NEGATIVE]})
+    requests = [(p, n, modes.get(i, {})) for i, (p, n) in enumerate(requests)]
+    run["engine"] = intervene_engine(qparams, cfg, requests, tables)
+    results["intervene"] = run
+    del qparams
+    torch.cuda.empty_cache()
+
+
 def _run_gated(cases, rows, totals):
     for row in phase_kernels(cases, rows):
         for name, n in row["launches"].items():
@@ -3143,7 +3489,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,serve,engine,forward,train,"
-                            "longctx,train8k,generate,decode_kernels,mini,xl")
+                            "longctx,train8k,generate,decode_kernels,mini,xl,"
+                            "intervene")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"))
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -3253,6 +3600,9 @@ def main():
         phase_mini(gen, results, args.out)
     if "xl" in phases:
         phase_xl(gen, results)
+    if "intervene" in phases:
+        with torch.inference_mode():
+            phase_intervene(gen, results)
 
     line = []
     for k in _build.KERNELS.values():

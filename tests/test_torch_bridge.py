@@ -108,7 +108,9 @@ def test_port_imports_no_jax():
     decode step over the low-bit (4, None) caches, the quant-gates module,
     a training step, the serving engine over a staged cache (its C++
     scheduler built), a rotary GPT training step with the fused-MLP switch
-    on, generate_gpt, the block-sparse op and K1's three redesigns."""
+    on, generate_gpt, the block-sparse op, K1's three redesigns, the
+    intervention evals' modules and a negative-weighted step under an
+    all-ones table (the plain logits)."""
     pattern = re.compile(r"^\s*(import|from) +(jax|backpacks_flash_attn_tpu)\b",
                          re.M)
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py",
@@ -172,6 +174,15 @@ dq, dkt, dv = torch.randn(4, 8), torch.randn(4, 8, 40), torch.randn(4, 40, 16)
 for fn in (da.decode_attention_gathered, da.decode_attention_selector,
            da.decode_attention_blockdiag):
     assert fn(dq, dkt, None, dv, None, 33).shape == (4, 16)
+from backpacks_flash_attn_tpu_torch.eval import control, genderbias, similarity
+from backpacks_flash_attn_tpu_torch.eval import toxicity, visualize
+from backpacks_flash_attn_tpu_torch.models import interventions as iv
+ones = torch.ones(cfg.padded_vocab_size, cfg.num_senses)
+nst = iv.init_negative_decode_state(cfg, 2, 16, device="cpu")
+neg, _, _ = iv.negative_decode_step(
+    params, cfg, ids, bp.init_backpack_cache(cfg, 2, 16, torch.float32,
+                                             device="cpu"), nst, ones)
+assert torch.allclose(neg, logits, atol=1e-5), (neg - logits).abs().max()
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
 print("ok", tuple(logits.shape))
 """

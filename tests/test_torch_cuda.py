@@ -12,6 +12,8 @@ match the f32 plain version closely; bf16 ones must keep their error
 against an f32 reference within twice the bf16 plain version's.
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -1728,3 +1730,120 @@ def test_decode_attention_flat_launches_k1(gen):
     out = da.decode_attention_flat(q, kt, ks, v, vs, 300, length_buckets=True)
     assert _build.KERNELS["decode_attention"].launches == before + 1
     assert torch.equal(out, da.decode_attention(q, kt, ks, v, vs, 300))
+
+
+# ------------------------------------------------------------ interventions
+
+def _intervention_setup(seed=0):
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    cfg = _backpack_d64()
+    params = bp.init_backpack(cfg, torch.Generator().manual_seed(seed),
+                              dtype=torch.bfloat16, device="cuda")
+    table = 0.4 + 1.2 * torch.rand(cfg.padded_vocab_size, cfg.num_senses,
+                                   generator=torch.Generator().manual_seed(1))
+    return cfg, params, table.cuda()
+
+
+@pytest.mark.parametrize("mode", ["weighted", "negative"])
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8])
+def test_intervention_decode_steps_on_the_card(gen, mode, cache_dtype):
+    """weighted_decode_step / negative_decode_step teacher-forced over a
+    prefill and 4 decode steps: the kernel path's logits within twice the
+    bf16 plain path's error against the f32 reference (f32 weights; an f32
+    cache, or the same INT8 cache); K1 once per GPT layer and once for the
+    combine a decode step."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.models import interventions as iv
+
+    cfg, params, table = _intervention_setup()
+    p32 = _tree_float(params)
+    ids = torch.randint(0, 512, (3, 12), generator=gen, device="cuda")
+    paths = {"kernel": (params, cache_dtype), "plain": (params, cache_dtype),
+             "ref": (p32, torch.float32 if cache_dtype != torch.int8
+                     else torch.int8)}
+    runs = {}
+    for name, (p, dt) in paths.items():
+        cache = bp.init_backpack_cache(cfg, 3, 64, dt, device="cuda")
+        state = (iv.init_weighted_decode_state(cfg, 3, 64, device="cuda")
+                 if mode == "weighted" else
+                 iv.init_negative_decode_state(cfg, 3, 64, quantile=0.05,
+                                               device="cuda"))
+        runs[name] = [p, cache, state]
+    step = (iv.weighted_decode_step if mode == "weighted" else
+            lambda *a, **k: iv.negative_decode_step(*a, quantile=0.05, **k))
+    errs = {"kernel": 0.0, "plain": 0.0}
+    for i in range(5):
+        outs = {}
+        for name, run in runs.items():
+            ctx = (_build.plain_path() if name != "kernel"
+                   else contextlib.nullcontext())
+            before = _build.KERNELS["decode_attention"].launches
+            with ctx:
+                logits, run[1], run[2] = step(run[0], cfg, ids, run[1], run[2],
+                                              table, anneal=True)
+            if name == "kernel" and i:
+                assert (_build.KERNELS["decode_attention"].launches - before
+                        == cfg.n_layer + 1)
+            outs[name] = logits.float()
+        for name in errs:
+            errs[name] = max(errs[name], _err(outs[name], outs["ref"]))
+        ids = outs["kernel"][:, -1].argmax(-1)[:, None]
+    assert errs["plain"] > 0 and errs["kernel"] <= 2 * errs["plain"], errs
+
+
+def test_weighted_forward_k4_on_the_card(gen):
+    """weighted_forward and replaced_word_forward through K3 and K4 (one K4
+    launch a forward) against their einsum route, under the 2x rule of the
+    f32 reference."""
+    from backpacks_flash_attn_tpu_torch.models import interventions as iv
+
+    cfg, params, table = _intervention_setup()
+    p32 = _tree_float(params)
+    ids = torch.randint(0, 512, (2, 96), generator=gen, device="cuda")
+    edit = iv.mogrify_word(params, cfg, int(ids[0, 5]), 7, 9)
+    forwards = {
+        "weighted": lambda p, **kw: iv.weighted_forward(p, cfg, ids, table, **kw),
+        "replaced": lambda p, **kw: iv.replaced_word_forward(p, cfg, ids, *edit,
+                                                             **kw)}
+    for name, fwd in forwards.items():
+        before = _build.KERNELS["fused_contextualization"].launches
+        out = fwd(params)
+        assert _build.KERNELS["fused_contextualization"].launches == before + 1
+        with _build.plain_path():
+            plain = fwd(params, fused_ctx=False)
+            ref = fwd(p32, fused_ctx=False)
+        _within_2x(out, plain, ref)
+
+
+def test_serving_engine_interventions_on_the_card(gen):
+    """A short mixed run (a control, a negative and a plain request over 3
+    slots, then three plain ones; INT8 caches, a 4-column stage): a step
+    with an intervention slot active launches plain K1 once per GPT layer
+    and once for the combine, and its (m, l) form never; the plain steps
+    the reverse."""
+    from backpacks_flash_attn_tpu_torch.serving.engine import ServingEngine
+
+    cfg, params, table = _intervention_setup()
+    rng = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, 512, (n,), generator=rng).tolist()
+               for n in (3, 9, 17, 5, 12, 7)]
+    modes = [dict(control=True), dict(negative=True), {}, {}, {}, {}]
+    eng = ServingEngine(params, cfg, max_slots=3, max_seqlen=64,
+                        cache_dtype=torch.int8, eos_id=-1, stage_tokens=4,
+                        control_table=table, negative_table=table,
+                        negative_quantile=0.05)
+    _build.reset_launches()
+    rids = [eng.submit(p, max_new_tokens=9, **kw) for p, kw in zip(prompts, modes)]
+    res = eng.run()
+    counts, stats = _build.launch_counts(), eng.stats()
+    steps, iv_steps = stats["decode_steps"], stats["intervention_steps"]
+    assert all(len(res[r].tokens) == 9 for r in rids) and 0 < iv_steps < steps
+    assert counts["decode_attention"] == (cfg.n_layer + 1) * iv_steps
+    assert counts["decode_attention_ml"] == (cfg.n_layer + 1) * (steps - iv_steps)
+    assert stats["completed"] == len(prompts)
+
+
+def _tree_float(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_float(v) for k, v in tree.items()}
+    return tree.float()

@@ -285,9 +285,18 @@ def test_engine_rejects_what_it_cannot_serve(setup):
                 dict(control=True)):
         with pytest.raises(ValueError):
             eng.submit([1, 2], **bad)
+    # JAX's refusals (engine.py:330-337): an intervention without its
+    # table, and both at once
     table = np.ones((tc.padded_vocab_size, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ServingEngine(tp, tc, control_table=table, device="cpu")
+    one = _engine(setup, max_seqlen=16, control_table=table)
+    both = _engine(setup, max_seqlen=16, control_table=table,
+                   negative_table=table)
+    for e, bad, msg in ((eng, dict(negative=True), "negative_table"),
+                        (one, dict(negative=True), "negative_table"),
+                        (both, dict(control=True, negative=True),
+                         "mutually exclusive")):
+        with pytest.raises(ValueError, match=msg):
+            e.submit([1, 2], **bad)
 
 
 def test_engine_stats_surface(setup):
