@@ -1,1 +1,1 @@
-from . import control, genderbias, perplexity, similarity, toxicity, visualize
+from . import control, genderbias, perplexity, pplm, similarity, toxicity, visualize

@@ -25,6 +25,7 @@ import torch
 from ..models import backpack as bp
 from ..models import quantized as qz
 from ..ops import _build
+from ..utils.weights import to_device
 from .perplexity import evaluate_perplexity
 
 INT8_GATE = 0.1
@@ -105,12 +106,6 @@ def run_cache_gates(params, cfg, val_tokens: np.ndarray, seqlen: int, *,
     }
 
 
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
 def main(argv=None) -> None:
     from ..data import lm_dataset as lmd
     from ..training import checkpoint as ckpt_lib
@@ -121,8 +116,9 @@ def main(argv=None) -> None:
                    help="training workdir of the port's CLI (its newest "
                         "checkpoint)")
     p.add_argument("--checkpoint",
-                   help="reference Lightning .ckpt / torch state dict: not "
-                        "ported yet (ROADMAP Queue 1 item 5b)")
+                   help="reference Lightning .ckpt / torch state dict "
+                        "(the released weights): import -> quantize -> "
+                        "gates in one command")
     p.add_argument("--corpus", required=True,
                    help=".npy token stream; gates eval on its tail "
                         "(--val-fraction)")
@@ -138,23 +134,29 @@ def main(argv=None) -> None:
     a = p.parse_args(argv)
     if bool(a.workdir) == bool(a.checkpoint):
         p.error("exactly one of --workdir / --checkpoint")
-    if a.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint needs the reference checkpoint importer "
-            "(utils/torch_import.py), not ported yet: ROADMAP Queue 1 item 5b")
 
     device = _build.resolve_device(a.device)
-    rc = train_cli.RunConfig(corpus=a.corpus, workdir=a.workdir,
-                             model=a.model, seqlen=a.seqlen, dtype="bfloat16",
-                             val_fraction=a.val_fraction, device=a.device)
-    cfg, kind, params0 = train_cli.build_model(rc, device)
-    if kind != "backpack":
-        raise SystemExit("the gates are defined for Backpack models")
-    ckpt = ckpt_lib.latest_checkpoint(a.workdir)
-    if ckpt is None:
-        raise SystemExit(f"no checkpoint in {a.workdir}")
-    restored, step, _ = ckpt_lib.restore(ckpt, {"state": {"params": params0}})
-    params = _to_device(restored["state"]["params"], device)
+    if a.checkpoint:
+        from .. import config as config_lib
+        from ..utils import torch_import
+        cfg = getattr(config_lib, a.model.replace("-", "_"))()
+        params = torch_import.load_backpack_checkpoint(
+            a.checkpoint, cfg, dtype=torch.bfloat16, device=device)
+        step = -1
+    else:
+        rc = train_cli.RunConfig(corpus=a.corpus, workdir=a.workdir,
+                                 model=a.model, seqlen=a.seqlen,
+                                 dtype="bfloat16",
+                                 val_fraction=a.val_fraction, device=a.device)
+        cfg, kind, params0 = train_cli.build_model(rc, device)
+        if kind != "backpack":
+            raise SystemExit("the gates are defined for Backpack models")
+        ckpt = ckpt_lib.latest_checkpoint(a.workdir)
+        if ckpt is None:
+            raise SystemExit(f"no checkpoint in {a.workdir}")
+        restored, step, _ = ckpt_lib.restore(ckpt,
+                                             {"state": {"params": params0}})
+        params = to_device(restored["state"]["params"], device)
     tokens = lmd.load_corpus(a.corpus)
     n_val = max(int(len(tokens) * a.val_fraction), a.seqlen + 1)
     out = run_gates(params, cfg, tokens[-n_val:], a.seqlen,

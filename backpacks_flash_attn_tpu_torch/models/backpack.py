@@ -411,7 +411,10 @@ def extract_cache_slot(big: BackpackCache, row: int,
 def _weights_es(sense_weights, b: int, nv: int, max_s: int):
     """sense_weights -> (E, max_s) f32 multiplicative key weights (JAX
     :720): (nv,) for every row, (b, nv) per request, or (b, S, nv) per
-    position."""
+    position. Contiguous: over a floating-point cache the weights are the
+    decode kernels' value scales, read with a unit inner stride (the
+    expanded forms, and the per-position one at b = 1, are views
+    without)."""
     if sense_weights is None:
         return None
     w = sense_weights.float()
@@ -421,7 +424,7 @@ def _weights_es(sense_weights, b: int, nv: int, max_s: int):
         w = w[:, :, None].expand(b, nv, max_s)
     else:
         w = w.permute(0, 2, 1)
-    return w.reshape(b * nv, max_s)
+    return w.reshape(b * nv, max_s).contiguous()
 
 
 def backpack_forward_with_cache(

@@ -733,6 +733,11 @@ def gpt_forward_with_cache(
             kt_c, v_c = cache.k[li, :, :, :W], cache.v[li, :, :W]
             k_sc = cache.k_scale[li, :, :W] if cache.quantized else None
             v_sc = cache.v_scale[li, :, :W] if cache.quantized else None
+        # the decode steps' query dtype: a floating cache's own (an f32
+        # cache under bf16 weights, as JAX's PPLM keeps one, runs its steps
+        # in f32 as JAX's promotion does; the kernels take q and a floating
+        # cache in one dtype), else the activations'
+        qd = kt_c.dtype if kt_c.is_floating_point() else q.dtype
         if staged:
             qf = (q.float() * scale).to(q.dtype)
             stage = (cache.k_stage[li], cache.ks_stage[li] if cache.quantized
@@ -758,16 +763,16 @@ def gpt_forward_with_cache(
                     q_flat, kt_c, k_sc, v_c, v_sc, base_e, *stage)
                 ctx = ctx.reshape(b, h, s, dk).transpose(1, 2)
         elif s == 1:
-            q_flat = (q[:, 0].float() * scale).to(q.dtype).reshape(e, dk)
+            q_flat = (q[:, 0].float() * scale).to(qd).reshape(e, dk)
             decode = decode_attention_int4 if q4 else decode_attention
             ctx = decode(q_flat, kt_c, k_sc, v_c, v_sc, lens_e)
-            ctx = ctx.reshape(b, 1, h, dk)
+            ctx = ctx.to(q.dtype).reshape(b, 1, h, dk)
         elif s <= FLAT_MULTI_MAX and not q4:
-            qf = (q.float() * scale).to(q.dtype)
+            qf = (q.float() * scale).to(qd)
             q_flat = qf.transpose(1, 2).reshape(e, s, dk)
             ctx = decode_attention_flat_multi(q_flat, kt_c, k_sc, v_c, v_sc,
                                               lens_e)
-            ctx = ctx.reshape(b, h, s, dk).transpose(1, 2)
+            ctx = ctx.to(q.dtype).reshape(b, h, s, dk).transpose(1, 2)
         else:
             # prefill: attend over the cache prefix (keys already quantized
             # for INT8 caches); one relayout per prefill, never per step

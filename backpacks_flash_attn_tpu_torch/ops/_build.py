@@ -158,6 +158,31 @@ def build_all(names: Optional[List[str]] = None) -> float:
     return time.perf_counter() - t0
 
 
+GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+
+
+def build_host_library(src: Path, subdir: str, stem: str) -> Path:
+    """Compile a host C++ source with a plain C interface (the scheduler,
+    the BPE tokenizer) with ``g++`` into ``build/<subdir>/`` at the root of
+    the checkout, once per content hash; returns the library's path, or
+    raises RuntimeError with the compiler's output."""
+    h = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode())
+    out = BUILD_DIR.parent / subdir / f"{stem}_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            proc = subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", str(tmp)],
+                                  capture_output=True, text=True)
+        except OSError as err:
+            raise RuntimeError(f"{src.name} build failed: {err}") from err
+        if proc.returncode != 0:
+            raise RuntimeError(f"{src.name} build failed:\n" + proc.stdout
+                               + proc.stderr)
+        os.replace(tmp, out)
+    return out
+
+
 def load(kernel: Kernel) -> ctypes.CDLL:
     if kernel.lib is None:
         path = kernel.library_path()

@@ -141,8 +141,22 @@ def decode_attention_ml(q, kt, ks, v, vs, length):
     return _k1_kernel(q, kt, ks, v, vs, length, ml=True)
 
 
+def _check_no_grad(name: str, *operands) -> None:
+    """The decode kernels have no backward (nor have the JAX package's):
+    a launch inside a graph that asks for a gradient through an operand
+    would return an output cut off from it. Raise instead, naming the way
+    out."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{name}: an operand requires grad, but the decode kernels have "
+            "no backward; take the gradient through the plain version "
+            "(inside ops._build.plain_path()) or call under torch.no_grad()")
+
+
 def _check_operands(q, kt, ks, v, vs, name: str, v_transposed: bool = False):
     """Validate K1's operands (and its redesigns'): -> (E, dk, S, dv)."""
+    _check_no_grad(name, q, kt, ks, v, vs)
     e, dk = q.shape
     _build.check_cuda_tensor("q", q, _KV_DTYPES.keys(), 2)
     _build.check_cuda_tensor("kt", kt, _KV_DTYPES[q.dtype], 3)
@@ -635,6 +649,7 @@ def _lowbit_kernel(q, keys, ks2, v4, vs2, length, split_keys: bool,
     as the Pallas body does, instead of attending uniformly (the (m, l)
     epilogue's output; m and l are dropped). Any S: the kernel streams the
     valid packed prefix with an online softmax."""
+    _check_no_grad("lowbit_decode_attention", q, keys, ks2, v4, vs2)
     e, dk = q.shape
     _build.check_cuda_tensor("q", q, _KV_DTYPES.keys(), 2)
     _build.check_cuda_tensor("keys", keys, (torch.int8,), 4 if split_keys else 3)

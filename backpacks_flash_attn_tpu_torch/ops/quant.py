@@ -85,7 +85,10 @@ def quantize_weight(w: torch.Tensor, bits: int = 8,
     q = q.reshape(*lead, d_in, n).to(torch.int8)
     if bits == 4:
         q = pack_int4(q)
-    return QuantWeight(q=q, scale=scale, bias=None, bits=bits, d_out=d_out)
+    # contiguous, as K2 reads them: a transposed w (the tied head, wte.T)
+    # with no out padding would leave both in its strides
+    return QuantWeight(q=q.contiguous(), scale=scale.contiguous(), bias=None,
+                       bits=bits, d_out=d_out)
 
 
 def _to_int8_bytes(packed: torch.Tensor) -> torch.Tensor:

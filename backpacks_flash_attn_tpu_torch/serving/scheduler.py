@@ -11,16 +11,13 @@ compiler's log when that build fails, instead of taking the twin silently.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from collections import deque
 from pathlib import Path
 from typing import List, Optional, Tuple
 
+from ..ops import _build
+
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "scheduler.cpp"
-_BUILD = Path(__file__).resolve().parent.parent.parent / "build" / "scheduler"
-GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -28,21 +25,7 @@ _LIB: Optional[ctypes.CDLL] = None
 def build_native() -> Path:
     """Compile scheduler.cpp (once per content hash); returns the library
     path, or raises RuntimeError with the compiler's output."""
-    h = hashlib.sha256(_SRC.read_bytes() + " ".join(GXX_FLAGS).encode())
-    out = _BUILD / f"libbpsched_{h.hexdigest()[:16]}.so"
-    if not out.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        try:
-            proc = subprocess.run(["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp)],
-                                  capture_output=True, text=True)
-        except OSError as err:
-            raise RuntimeError(f"scheduler build failed: {err}") from err
-        if proc.returncode != 0:
-            raise RuntimeError("scheduler build failed:\n" + proc.stdout
-                               + proc.stderr)
-        os.replace(tmp, out)
-    return out
+    return _build.build_host_library(_SRC, "scheduler", "libbpsched")
 
 
 def _lib() -> ctypes.CDLL:

@@ -12,7 +12,7 @@ those keys.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -88,14 +88,17 @@ def generate_backpack(params, cfg: BackpackConfig, input_ids: torch.Tensor,
                       top_k: int = 0, top_p: float = 1.0,
                       output_scores: bool = False,
                       sense_weights: Optional[torch.Tensor] = None,
+                      sense_edit: Optional[Tuple[torch.Tensor,
+                                                 torch.Tensor]] = None,
                       cache_dtype=torch.bfloat16,
                       device="cuda") -> GenerationOutput:
     """Incremental Backpack generation: one prefill, then one cached decode
     step per new token, on a cache allocated on ``device``. Greedy unless
     ``rng`` (a ``utils.prng`` key) is given with a positive temperature;
     token t samples with ``fold_in(rng, t + 1)`` past the first, which
-    takes ``fold_in(rng, 0)``, as JAX's scan does. sense_weights threads
-    through every step."""
+    takes ``fold_in(rng, 0)``, as JAX's scan does. sense_weights and
+    sense_edit (``models/interventions.mogrify_word``'s pair) thread
+    through every prefill and decode step (JAX :96)."""
     if greedy is None:
         greedy = rng is None or temperature <= 0
     if temperature <= 0:
@@ -106,7 +109,8 @@ def generate_backpack(params, cfg: BackpackConfig, input_ids: torch.Tensor,
 
     def step(ids):
         logits, _ = bp.backpack_forward_with_cache(
-            params, cfg, ids, cache, sense_weights=sense_weights)
+            params, cfg, ids, cache, sense_weights=sense_weights,
+            sense_edit=sense_edit)
         return logits
 
     return _decode_loop(step, step(input_ids)[:, -1], input_ids, max_length,

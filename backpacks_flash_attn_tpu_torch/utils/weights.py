@@ -61,3 +61,11 @@ def params_to_numpy(tree: Any) -> Any:
         return {k: params_to_numpy(v) for k, v in tree.items()}
     t = tree.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def to_device(tree: Any, device) -> Any:
+    """A tensor tree (nested dicts) moved to ``device`` (a restored
+    checkpoint's CPU tensors to the card)."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

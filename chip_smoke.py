@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases device,build,kernels,serve,engine,forward,train,
                                     longctx,train8k,generate,decode_kernels,mini,xl,
-                                    intervene]
+                                    intervene,entry]
                           [--out DIR]
 
 Phases, each printing one JSON line:
@@ -13,7 +13,8 @@ Phases, each printing one JSON line:
 3. kernels  each kernel at the main path's shapes against its plain PyTorch
             version: the kernel's max error against an f32 plain reference
             must be at most twice the bf16 plain version's. Times (CUDA
-            events, median of 25, L2 flushed before each), the bound, and one
+            events, median of 10, L2 flushed before each; the plain version
+            median of 5), the bound, and one
             PyTorch library call computing the same function; K1's
             cases (and K1-ml's) also the profiler's device ms (each kernel
             at its mean time a launch times its recorded launches) and the
@@ -41,8 +42,8 @@ Phases, each printing one JSON line:
             the combine once, K8 over the mixed cache or K1), and the first
             8 teacher-forced steps of the kernel path against the plain
             path in the same cache configuration under the same 2x rule.
-            Device time by kernel from torch.profiler over all 224 steps
-            (bf16, INT8) or the first 32 (kv4, int4), K2's, K1's and K8's
+            Device time by kernel from torch.profiler over the first 32
+            steps, K2's, K1's and K8's
             device ms a step among it (K1's and K8's recorded launches
             beside).
 5. engine   serve-engine: ServingEngine over INT8 weights and INT8 caches
@@ -51,9 +52,15 @@ Phases, each printing one JSON line:
             64-224 new tokens, from the seeded generator), so that slots
             retire and refill: stats(), launches (K1's (m, l) form 13 times
             a decode step, plain K1 never, K2 50 a step and a prefill, K3
-            12 a prefill), a profiled 32-step stretch (idle share), and the
-            share of requests whose tokens equal the same engine's under
-            plain_path() (reported, not gated). serve-staged-kv4: the model
+            12 a prefill), a profiled 16-step stretch (idle share), and the
+            plain-path rule: every request's tokens equal the same
+            engine's under plain_path() up to their first difference,
+            where the kernel path's token lies within twice the sum of the
+            kernel and plain paths' teacher-forced errors against the f32
+            reference on that prefix (a batch-1 prefill by the request's
+            step function) of the plain run's top logit there (the plain
+            run records its logit gap to the kernel run's token at every
+            index). serve-staged-kv4: the model
             path over the staged int4-KV cache (INT8 ctx-K and senses):
             128 prompts of 32 tokens prefilled at a scalar length and
             inserted as the engine admits, then 224 greedy steps under
@@ -221,16 +228,45 @@ Phases, each printing one JSON line:
             control or negative slot active runs the flushed plain view:
             plain K1 13 and K1-ml 0; the other steps K1-ml 13; K2 50 a step
             and a prefill; K3 12 a prefill), peak device memory and the
-            negative state's bytes, a 32-step profile (idle share, the eager
-            ops' share of device time), and the share of each kind of
-            request whose tokens equal the same engine's under plain_path()
-            (reported, not gated). Between the forwards and the INT8 gate,
+            negative state's bytes, a 16-step profile (idle share, the eager
+            ops' share of device time), and the plain-path rule of the
+            engine phase for every request (control and negative ones by
+            the annealed weighted and the negative step). Between the
+            forwards and the INT8 gate,
             the experiment loops end to end on the bf16 weights:
             run_control_experiment (strengths 0-3, 8 prompts of 32, 32
             tokens), run_toxicity_experiment (sampled from the generator),
             run_genderbias_experiment (4 + 4 prompts of 16, sense 10, 10
             Nelder-Mead iterations) and localize_prediction: seconds and
             finiteness.
+15. entry   the user's entry points and the last evals, seeded weights
+            drawn after every other phase: backpack-small's bf16 weights
+            written as a Lightning checkpoint (state_dict_from_backpack_
+            params) and as a BF16 .safetensors file, each imported back
+            equal leaf for leaf, the logits at (8, 512) equal; the REPL
+            (cli.main on the checkpoint, bf16 and --int8, scripted stdin:
+            four prompts of 32 ids at 64 new tokens, then /edit, /upweight,
+            /senses and /reset, each followed by a prompt), every line's
+            launches exact (a prompt: K3 12 in its prefill, K1 13 a decode
+            step, K2 50 a forward under --int8; a command: none) and its
+            seconds, every continuation against the same REPL under
+            plain_path() by the plain-path rule; the tokenizers
+            (train_toy on text spelled from data/synthetic.py's corpus,
+            the native C++ merge loop built and equal to the slow one on
+            the whole corpus, encode_corpus_parallel with 4 workers equal
+            to a serial encode, MB/s); the lm-harness adapter (256 pairs
+            over the 64-512 buckets, K3 12 and K4 1 a scoring forward, the
+            2x rule on the log-likelihoods; generate_until served by the
+            engine over INT8, 64 requests of 32 tokens, its launch split,
+            against the loop over an INT8 cache by the plain-path rule);
+            PPLM on gpt2-small (bf16, batch 4, prompt 16, 24 tokens, 3
+            gradient iterations, 32 bag-of-words ids, window None and 8:
+            the bag's mass rising, K3 12 and K1 48 a step exactly, none in
+            the gradient iterations, the plain-path rule, seconds a
+            token); MAUVE (512 + 512 texts of 128 ids, gpt2-small and
+            backpack-small: features under the 2x rule, K3 12 a batch,
+            the score of a set against itself >= 0.9 and against four
+            repeated tokens <= 0.1).
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -245,6 +281,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -262,7 +299,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor core
 PEAK_F32_FLOP_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
-REPS = 25
+REPS = 10
+PLAIN_REPS = 5     # the plain versions, slow baselines: fewer timed calls
 DEV = "cuda"
 
 
@@ -348,7 +386,7 @@ def device_ms(fn, reps=REPS, clean=False):
     return us / 1e3, sum(ev.count for ev in events) / reps
 
 
-def host_us(fn, calls=200):
+def host_us(fn, calls=50):
     """Host microseconds a call: calls back to back, no synchronisation
     between them (the launch queue absorbs them)."""
     for _ in range(20):
@@ -1212,7 +1250,7 @@ def phase_kernels(cases, results):
                    else None)
         row = dict(case=label, max_abs_err=ek, plain_bf16_err=ep,
                    library_err=lib_err,
-                   ms=time_ms(c["kernel"]), plain_ms=time_ms(c["plain"]),
+                   ms=time_ms(c["kernel"]), plain_ms=time_ms(c["plain"], PLAIN_REPS),
                    library_ms=time_ms(c["library"]))
         if c.get("device_times"):
             row["device_ms"], row["device_launches"] = device_ms(c["kernel"])
@@ -1234,7 +1272,7 @@ def phase_kernels(cases, results):
 
 BATCH, PROMPT, MAX_LEN = 128, 32, 512
 SEGMENTS = [(128 - PROMPT, 128), (128, 256)]      # 224 greedy tokens
-SHORT_PROFILE = [(32, 128)]       # the stretch the low-bit runs profile
+SHORT_PROFILE = [(32, 128)]       # the stretch the serve runs profile
 COMPARE_STEPS = 8
 FWD_BATCH, FWD_LEN = 8, 512
 # the serve runs' cache configurations (init_backpack_cache keywords)
@@ -1264,7 +1302,7 @@ def decode(model_params, cfg, cache, token, segments, record=None):
     return token
 
 
-SERVE_PASSES = 3
+SERVE_PASSES = 1
 
 
 def serve_once(params, cfg, cache, prompt, tokens=None, segments=SEGMENTS):
@@ -1468,7 +1506,7 @@ def phase_serve(gen, results):
         run, gen_tokens = serve_run(label, qparams, cfg, label, prompt)
         _check_lowbit_launches(run, cfg)
         _teacher_forced_gate(run, qparams, q32, cfg, label, prompt, gen_tokens)
-        _add_profile(run, qparams, cfg, prompt, SHORT_PROFILE)
+        _add_profile(run, qparams, cfg, prompt)
         results[f"serve_{label}"] = run
     return cfg
 
@@ -1481,20 +1519,16 @@ def _teacher_forced_gate(run, params, ref_params, cfg, ref_cache, prompt, gen_to
     emit({"phase": "serve", "run": run["run"], "teacher_forced": errs})
 
 
-def _add_profile(run, params, cfg, prompt, segments=SEGMENTS):
+def _add_profile(run, params, cfg, prompt, segments=SHORT_PROFILE):
     """Idle share = 1 - device ms / wall ms per step, both over the same
-    steps: against unprofiled wall time (for SEGMENTS the timed passes'
-    median, the headline; for a shorter stretch one unprofiled decode of
-    it) and against the profiled run itself (which carries the profiler's
-    host overhead). No clamp: a negative share would expose an
-    inconsistent reading."""
+    steps (SHORT_PROFILE's 32: the profiler's summary grows with the
+    events it holds): against one unprofiled decode of them and against
+    the profiled run itself (which carries the profiler's host overhead).
+    No clamp: a negative share would expose an inconsistent reading."""
     prof = profile_decode(params, cfg, run["cache"], prompt, segments)
     steps = sum(n for n, _ in segments)
-    if segments == SEGMENTS:
-        step_ms = run["decode_s"] * 1e3 / steps
-    else:
-        step_ms = serve_once(params, cfg, run["cache"], prompt,
-                             segments=segments)[1] * 1e3 / steps
+    step_ms = serve_once(params, cfg, run["cache"], prompt,
+                         segments=segments)[1] * 1e3 / steps
     prof["wall_ms_per_step"] = step_ms
     prof["device_idle_share"] = 1 - prof["device_ms_per_step"] / step_ms
     prof["device_idle_share_profiled"] = (
@@ -1512,7 +1546,7 @@ def _map_tensors(tree, fn):
 
 # ------------------------------------------------------------------ engine
 
-ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_PROFILE = 128, 256, (64, 32)
+ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_PROFILE = 128, 256, (64, 16)
 ENGINE_PROMPT, ENGINE_NEW = (16, 64), (64, 224)
 STAGE = 64                    # ServingEngine's default stage_tokens
 GATE_STAGE, GATE_LENS = 4, (16, 24, 32, 40)
@@ -1563,6 +1597,99 @@ def engine_run(params, cfg, requests, **engine_kw):
     stats = eng.stats()
     del eng
     return [results[r].tokens for r in rids], stats
+
+
+def _first_difference(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def near_tie(what, kernel_toks, kernel, plain, ref):
+    """The near-tie rule, from the kernel path's, the plain path's and the
+    f32 reference's logits teacher-forced over one sequence (rows): first
+    the 2x rule on those rows, so that a faulty kernel fails there instead
+    of widening its own tolerance; then each of ``kernel_toks``, the kernel
+    path's tokens of the last len(kernel_toks) rows, lies within
+    2 x (kernel error + plain error), at most 6x the plain error, of the
+    plain path's top logit in its row. Where two paths' argmax part, the
+    plain path's top lies above the kernel path's token by at most twice
+    their largest difference, which is at most the sum of their errors.
+    -> the record (the largest gap, its step among the rows, the
+    tolerance, the errors)."""
+    ek, ep = two_x(what, kernel, plain, ref)
+    tol = 2 * (ek + ep)
+    toks = torch.as_tensor(kernel_toks, device=plain.device).reshape(-1).long()
+    rows = plain[-len(toks):]
+    gaps = rows.max(-1).values - rows.gather(1, toks[:, None])[:, 0]
+    worst = int(gaps.argmax())
+    gap, step = gaps[worst].item(), len(plain) - len(toks) + worst
+    if not gap <= tol:
+        raise AssertionError(f"{what}: at row {step} the kernel path's token lies {gap:.4e} "
+                             f"below the plain path's top logit, > {tol:.4e} = 2 x (kernel "
+                             f"error {ek:.3e} + plain error {ep:.3e})")
+    return dict(gap=gap, step=step, tolerance=tol, kernel_err=ek, plain_err=ep)
+
+
+def prefix_rows(params, ref_params, cfg, prompt, tokens, mode=None, tables=None):
+    """One request's teacher-forced rows (its prompt and ``tokens``, the
+    rows from the prompt's last position on) for near_tie: a batch-1
+    prefill over an INT8 cache by the request's step function (the cached
+    forward; with mode "control" the annealed weighted step under
+    tables["weighted"]; with "negative" the negative step under
+    tables["negative"], as the engine runs them), whose last row equals
+    the step's, on the kernel path and the plain path (params: bf16
+    activations) and on ref_params (the same INT8 codes, f32 activations)
+    on the plain path."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.models import interventions as iv
+    from backpacks_flash_attn_tpu_torch.ops import _build
+
+    ids = torch.tensor([list(prompt) + list(tokens)], device=DEV)
+    S, rows = ids.shape[1], []
+    for p, dt, plain in ((params, torch.bfloat16, False), (params, torch.bfloat16, True),
+                         (ref_params, torch.float32, True)):
+        with _build.plain_path() if plain else contextlib.nullcontext():
+            cache = bp.init_backpack_cache(cfg, 1, S, torch.int8, device=DEV)
+            if mode == "control":
+                table, ann = tables["weighted"]
+                st = iv.init_weighted_decode_state(cfg, 1, S, dt, device=DEV)
+                lg, _, _ = iv.weighted_decode_step(p, cfg, ids, cache, st, table,
+                                                   anneal=True, annealing_scale=ann)
+            elif mode == "negative":
+                table, ann = tables["negative"]
+                st = iv.init_negative_decode_state(cfg, 1, S, device=DEV)
+                lg, _, _ = iv.negative_decode_step(p, cfg, ids, cache, st, table,
+                                                   anneal=False, annealing_scale=ann)
+            else:
+                lg, _ = bp.backpack_forward_with_cache(p, cfg, ids, cache)
+        rows.append(lg[0, len(prompt) - 1:].float())
+    return rows
+
+
+def plain_path_rule(what, tokens, plain_tokens, rows_of):
+    """The plain-path rule of every request: its tokens equal the plain
+    path's up to their first difference t, where near_tie holds on
+    rows_of(request, t) (the three paths teacher-forced over the shared
+    prefix, the last row t's). Raises on a request past it; -> the share
+    equal, the first differences, their gaps and tolerances."""
+    diffs = []
+    for rid, (a, b) in enumerate(zip(tokens, plain_tokens)):
+        if a == b:
+            continue
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: request {rid} ended at {len(a)} tokens, "
+                                 f"the plain path's at {len(b)}")
+        t = _first_difference(a, b)
+        rec = near_tie(f"{what} request {rid} step {t}", [a[t]], *rows_of(rid, t))
+        diffs.append(dict(request=rid, step=t, gap=rec["gap"], tolerance=rec["tolerance"]))
+    return dict(requests=len(tokens),
+                share_equal=1 - len(diffs) / len(tokens),
+                first_differences=len(diffs),
+                exact_ties=sum(d["gap"] == 0 for d in diffs),
+                max_gap=max((d["gap"] for d in diffs), default=0.0),
+                max_gap_over_tolerance=max((d["gap"] / d["tolerance"] for d in diffs),
+                                           default=0.0),
+                min_tolerance=min((d["tolerance"] for d in diffs), default=None),
+                differences=diffs)
 
 
 # the port's kernels on the engine's path, by profiler symbol: K1 (both
@@ -1621,8 +1748,10 @@ def profile_engine(params, cfg, requests, **engine_kw):
 def phase_engine(gen, results):
     """serve-engine: ServingEngine over INT8 weights and INT8 caches at its
     defaults (stage 64, windows 128/256/384/512), 128 slots, 256 greedy
-    requests; serve-staged-kv4: the model path over the staged int4-KV
-    cache; then the teacher-forced gates of both staged configurations."""
+    requests, every request by plain_path_rule against the same engine
+    under plain_path(); serve-staged-kv4: the model path over the staged
+    int4-KV cache; then the teacher-forced gates of both staged
+    configurations."""
     from backpacks_flash_attn_tpu_torch.config import backpack_small
     from backpacks_flash_attn_tpu_torch.models import backpack as bp
     from backpacks_flash_attn_tpu_torch.models import quantized as qz
@@ -1680,6 +1809,13 @@ def phase_engine(gen, results):
         gates[label] = staged_gate(qparams, q32, cfg, kw, gen)
         emit({"phase": "engine", "staged_gate": label, **gates[label]})
     results["staged_gates"] = gates
+
+    log("engine: serve-engine against its plain path")
+    run["plain_path_rule"] = plain_path_rule(
+        "serve-engine", tokens, plain_tokens,
+        lambda rid, t: prefix_rows(qparams, q32, cfg, requests[rid][0], tokens[rid][:t]))
+    emit({"phase": "engine", "run": "serve_engine",
+          "plain_path_rule": run["plain_path_rule"]})
 
 
 def staged_prefill(params, cfg, prompts, lens, cache_kw, stage):
@@ -3056,7 +3192,7 @@ def phase_mini(gen, results, out_dir):
         params32 = _map_tensors(params, lambda t: t.float())
         _teacher_forced_gate(run, params, params32, cfg, "f32", prompt, gen_tokens)
         del params32
-        _add_profile(run, params, cfg, prompt, SHORT_PROFILE)
+        _add_profile(run, params, cfg, prompt)
     results["mini_serve_bf16"] = run
     del params
     torch.cuda.empty_cache()
@@ -3072,12 +3208,11 @@ def _xl_generate(params, cfg):
     """generate_gpt at batch 8, a 512-token prompt, 32 greedy tokens (bf16
     cache): K3 once a layer in the prefill (d 128), K1 once a layer a
     decode step (dk 128); then the same under plain_path(): each sequence's
-    tokens equal the plain path's up to their first difference, where the
-    kernel path's token must lie within twice the plain path's
-    teacher-forced error (against the f32 reference) of the plain path's
-    top logit on the same prefix (a near-tie of bf16 logits, not a wrong
-    token); and the teacher-forced gate of the prefill and the first 8
-    decode steps."""
+    tokens equal the plain path's up to their first difference, where
+    near_tie holds on the three paths' rows teacher-forced over the shared
+    prefix (a prefill of the prompt and the kernel path's tokens); and the
+    teacher-forced gate of the prefill and the first 8 decode steps."""
+    from backpacks_flash_attn_tpu_torch.models import gpt
     from backpacks_flash_attn_tpu_torch.ops import _build
     from backpacks_flash_attn_tpu_torch.utils.generation import generate_gpt
 
@@ -3098,29 +3233,35 @@ def _xl_generate(params, cfg):
     if any(counts[n] != w for n, w in want.items()):
         raise AssertionError(f"xl generate launches {counts}, want {want}")
     with _build.plain_path():
-        plain = generate_gpt(params, cfg, prompt, L, output_scores=True, device=DEV)
+        plain = generate_gpt(params, cfg, prompt, L, device=DEV)
     tokens = out.sequences[:, XL_GEN_PROMPT:]
-    gate = _gpt_teacher_forced(params, _map_tensors(params, lambda t: t.float()), cfg, prompt,
-                               tokens, label="xl generate")
-    tol = 2 * gate["plain_bf16"]
+    p32 = _map_tensors(params, lambda t: t.float())
+    gate = _gpt_teacher_forced(params, p32, cfg, prompt, tokens, label="xl generate")
     same = tokens == plain.sequences[:, XL_GEN_PROMPT:]
+    differ = [i for i in range(XL_GEN_BATCH) if not same[i].all()]
     gaps = []
-    for i in range(XL_GEN_BATCH):
-        if same[i].all():
-            continue
-        t = int((~same[i]).nonzero()[0])
-        row = plain.scores[i, t].float()
-        gap = (row.max() - row[tokens[i, t]]).item()
-        gaps.append(dict(sequence=i, step=t, gap=gap))
-        if gap > tol:
-            raise AssertionError(f"xl generate: sequence {i} step {t}: the kernel's token lies "
-                                 f"{gap:.3e} below the plain path's top logit, > {tol:.3e}")
+    if differ:
+        ids = out.sequences[differ, :-1]
+        rows = []
+        for p, plain_path in ((params, False), (params, True), (p32, True)):
+            with _build.plain_path() if plain_path else contextlib.nullcontext():
+                cache = gpt.init_kv_cache(cfg, len(differ), L, p["wte"].dtype, device=DEV)
+                hidden, _ = gpt.gpt_forward_with_cache(p, cfg, ids, cache)
+                rows.append(gpt.lm_logits(p, cfg, hidden[:, XL_GEN_PROMPT - 1:]).float())
+            del cache, hidden
+        for j, i in enumerate(differ):
+            t = int((~same[i]).nonzero()[0])
+            rec = near_tie(f"xl generate sequence {i} step {t}", [tokens[i, t]],
+                           *(r[j, :t + 1] for r in rows))
+            gaps.append(dict(sequence=i, step=t, gap=rec["gap"], tolerance=rec["tolerance"]))
+        del rows
+    del p32
     run = dict(phase="xl", run="xl_generate", batch=XL_GEN_BATCH, prompt=XL_GEN_PROMPT,
                new_tokens=XL_GEN_TOKENS, seconds=seconds,
                tokens_per_s=XL_GEN_BATCH * XL_GEN_TOKENS / seconds, launches=counts,
                launches_per_decode_step=counts["decode_attention"] / steps,
                tokens_equal_share=same.float().mean().item(), first_differences=gaps,
-               near_tie_tolerance=tol, teacher_forced=gate)
+               teacher_forced=gate)
     emit(run)
     return run
 
@@ -3302,14 +3443,16 @@ def intervene_forwards(params, cfg, ids, table, ann, edit):
     return out
 
 
-def intervene_engine(qparams, cfg, requests, tables):
+def intervene_engine(qparams, q32, cfg, requests, tables):
     """The engine over INT8 weights and caches at its defaults, 128 slots,
     with control and negative requests beside plain ones: stats, launches
     (K1 13 and its (m, l) form 0 in every step with an intervention slot
     active, the reverse in the others; K2 50 a step and a prefill; K3 12 a
-    prefill), peak device memory with the negative state's bytes, a 32-step
-    profile (idle and eager shares), and the share of each kind of request
-    whose tokens equal the same engine's under plain_path()."""
+    prefill), peak device memory with the negative state's bytes, a 16-step
+    profile (idle and eager shares), the share of each kind of request
+    whose tokens equal the same engine's under plain_path(), and every
+    request by plain_path_rule against it (prefix_rows by its own step
+    function)."""
     from backpacks_flash_attn_tpu_torch.ops import _build
 
     (ctable, cann), (ntable, nann) = tables["weighted"], tables["negative"]
@@ -3352,6 +3495,11 @@ def intervene_engine(qparams, cfg, requests, tables):
     same = {kind: statistics.mean(a == b for a, b, r in zip(tokens, plain_tokens, requests)
                                   if pick(r[2]))
             for kind, pick in kinds.items()}
+    kind_of = lambda k: next(kind for kind, pick in kinds.items() if pick(k))  # noqa: E731
+    rule = plain_path_rule(
+        "intervene engine", tokens, plain_tokens,
+        lambda rid, t: prefix_rows(qparams, q32, cfg, requests[rid][0], tokens[rid][:t],
+                                        kind_of(requests[rid][2]), tables))
     run = dict(phase="intervene", run="engine", stats=stats, launches=counts,
                launches_per_intervention_step={
                    "decode_attention": counts["decode_attention"] / Div,
@@ -3361,7 +3509,7 @@ def intervene_engine(qparams, cfg, requests, tables):
                                      "quant_matmul": G},
                peak_memory_bytes=peak, memory_before_bytes=base,
                negative_state_bytes=nbytes,
-               share_equal_to_plain_path=same,
+               share_equal_to_plain_path=same, plain_path_rule=rule,
                plain_path_tokens_per_s=plain_stats["tokens_per_s"])
     log("intervene: engine profile")
     run["profile"] = profile_engine(qparams, cfg, requests, **kw)
@@ -3464,16 +3612,676 @@ def phase_intervene(gen, results):
     torch.cuda.empty_cache()
     run["gate_int8"] = intervene_gate("int8", qparams, q32, cfg, torch.int8,
                                       torch.int8, prompt, tables, gemms(cfg))
-    del q32
     torch.cuda.empty_cache()
     requests = engine_requests(cfg, gen)
     order = torch.randperm(len(requests), generator=gen, device=DEV).tolist()
     modes = {i: {"control": True} for i in order[:IV_CONTROL]}
     modes.update({i: {"negative": True} for i in order[IV_CONTROL:IV_CONTROL + IV_NEGATIVE]})
     requests = [(p, n, modes.get(i, {})) for i, (p, n) in enumerate(requests)]
-    run["engine"] = intervene_engine(qparams, cfg, requests, tables)
+    run["engine"] = intervene_engine(qparams, q32, cfg, requests, tables)
     results["intervene"] = run
-    del qparams
+    del qparams, q32
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ entry
+
+ENTRY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_entry"
+ENTRY_MODEL = "backpack-small"        # the REPL's --model, entry_configs()'s Backpack
+CLI_PROMPTS, CLI_PROMPT_LEN, CLI_NEW = 4, 32, 64
+TOK_DOCS, TOK_TRAIN_DOCS, TOK_VOCAB, TOK_WORKERS = 3125, 100, 512, 4
+HARNESS_PAIRS, HARNESS_BATCH = 256, 8
+SERVED_REQUESTS, SERVED_TOKENS = 64, 32
+PPLM_BATCH, PPLM_PROMPT, PPLM_TOKENS, PPLM_ITERS, PPLM_BOW = 4, 16, 24, 3, 32
+PPLM_WINDOWS = (None, 8)
+MAUVE_TEXTS, MAUVE_LEN, MAUVE_BATCH = 512, 128, 16
+
+
+def entry_configs():
+    """backpack-small and gpt2-small at full width and depth (vocab 50257,
+    padded to 50264)."""
+    from backpacks_flash_attn_tpu_torch.config import backpack_small, gpt2_small
+    return backpack_small(vocab_size=50257), gpt2_small(vocab_size=50257)
+
+
+def _same_tree(what, got, want, prefix=""):
+    """Leaves equal bit for bit, dtype and device included."""
+    if isinstance(want, dict):
+        if got.keys() != want.keys():
+            raise AssertionError(f"{what}: keys {sorted(got)} != {sorted(want)} at {prefix}")
+        for k in want:
+            _same_tree(what, got[k], want[k], f"{prefix}/{k}")
+    elif got.dtype != want.dtype or got.device != want.device or not torch.equal(got, want):
+        raise AssertionError(f"{what}: leaf {prefix} differs")
+
+
+def write_safetensors(path, tensors):
+    """A safetensors file by the format's spec (an 8-byte header length,
+    the json header, the raw little-endian buffers): bf16 tensors as BF16."""
+    header, bufs, off = {}, [], 0
+    for name, t in tensors.items():
+        b = t.contiguous().view(torch.int16).numpy().tobytes()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [off, off + len(b)]}
+        bufs.append(b)
+        off += len(b)
+    hb = json.dumps(header).encode()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(len(hb).to_bytes(8, "little") + hb)
+        for b in bufs:
+            f.write(b)
+
+
+def entry_import(cfg, params, gen):
+    """backpack-small's bf16 weights -> a Lightning-style checkpoint
+    ({"state_dict": {"model." + key: ...}}) through
+    state_dict_from_backpack_params, and a BF16 .safetensors file; each
+    loaded back (load_backpack_checkpoint; state_dict_from_pretrained +
+    backpack_params_from_state_dict) equals the weights leaf for leaf, and
+    the checkpoint's backpack_forward logits at (8, 512) equal the
+    weights'. -> (record, checkpoint path)."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.utils import pretrained
+    from backpacks_flash_attn_tpu_torch.utils import torch_import as ti
+
+    ENTRY_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    sd = ti.state_dict_from_backpack_params(params, cfg)
+    shared = {}     # the tied embedding's three keys: one tensor, saved once
+    state = {"model." + k: shared.setdefault(id(v), torch.from_numpy(v)) for k, v in sd.items()}
+    path = ENTRY_DIR / "backpack_small.ckpt"
+    torch.save({"state_dict": state, "epoch": 0}, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ti.load_backpack_checkpoint(str(path), cfg, dtype=torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    _same_tree("checkpoint import", loaded, params)
+    ids = torch.randint(0, cfg.vocab_size, (FWD_BATCH, FWD_LEN), generator=gen, device=DEV)
+    with torch.inference_mode():
+        same_logits = torch.equal(bp.backpack_forward(loaded, cfg, ids),
+                                  bp.backpack_forward(params, cfg, ids))
+    if not same_logits:
+        raise AssertionError("checkpoint import: logits differ")
+    del loaded
+    st = ENTRY_DIR / "safetensors" / "model.safetensors"
+    shared = {}
+    write_safetensors(st, {k: shared.setdefault(id(v), torch.from_numpy(v).to(torch.bfloat16))
+                           for k, v in sd.items()})
+    t0 = time.perf_counter()
+    sd2 = pretrained.state_dict_from_pretrained(str(st.parent))
+    loaded = ti.backpack_params_from_state_dict(sd2, cfg, dtype=torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    st_s = time.perf_counter() - t0
+    _same_tree("safetensors import", loaded, params)
+    out = dict(checkpoint_bytes=path.stat().st_size, safetensors_bytes=st.stat().st_size,
+               save_s=save_s, load_s=load_s, safetensors_load_s=st_s,
+               leaves_equal=True, logits_equal=True, logits_shape=[FWD_BATCH, FWD_LEN])
+    emit({"phase": "entry", "import": out})
+    return out, str(path)
+
+
+class ScriptedStdin:
+    """A scripted stdin for the REPL that records, as the REPL reads each
+    next line, the previous command's launches and wall seconds (counts
+    reset and the clock restarted after every read; the REPL prints a
+    command's reply before it reads on, and every reply is on the host)."""
+
+    def __init__(self, lines):
+        from backpacks_flash_attn_tpu_torch.ops import _build
+        self._build, self.lines, self.records = _build, lines, []
+
+    def __iter__(self):
+        for line in self.lines:
+            self._build.reset_launches()
+            t0 = time.perf_counter()
+            yield line + "\n"
+            self.records.append(dict(
+                line=line[:40], seconds=time.perf_counter() - t0,
+                launches={k: n for k, n in self._build.launch_counts().items() if n}))
+
+
+def run_cli(argv, lines, plain=False):
+    """cli.main on scripted stdin -> (the reply lines, per-line records)."""
+    import io
+    from contextlib import redirect_stdout
+    from backpacks_flash_attn_tpu_torch import cli
+    from backpacks_flash_attn_tpu_torch.ops import _build
+
+    stdin, buf = ScriptedStdin(lines), io.StringIO()
+    saved = sys.stdin
+    sys.stdin = stdin
+    try:
+        with redirect_stdout(buf), (_build.plain_path() if plain else contextlib.nullcontext()):
+            cli.main(argv)
+    finally:
+        sys.stdin = saved
+    return buf.getvalue().splitlines(), stdin.records
+
+
+def repl_replies(what, out, lines, n_tokens, num_senses):
+    """The REPL's replies to the scripted ``lines``, each held to its
+    command: a prompt's is a line of ``n_tokens`` token ids, /edit's,
+    /upweight's and /reset's their acknowledgements, /senses' one line of
+    five ids per sense; an error reply, a missing or an extra line fails.
+    -> the prompts' replies in order."""
+    it = iter(out)
+    if not next(it, "").startswith("backpack REPL"):
+        raise AssertionError(f"{what}: no banner: {out[:2]}")
+    gens = []
+    for line in lines:
+        cmd, args = line.split()[0], line.split()[1:]
+        if cmd == "/quit":
+            continue
+        if cmd == "/senses":
+            got = [next(it, "") for _ in range(num_senses)]
+            for s_, r in enumerate(got):
+                head, _, ids = r.partition(":")
+                if head != f"  sense {s_:2d}" or len(re.findall(r"\d+", ids)) != 5:
+                    raise AssertionError(f"{what}: '{line}' replied {got}")
+            continue
+        r = next(it, "")
+        want = {"/edit": lambda: f"[token {args[0]}: projected {args[1]} -> {args[2]}]",
+                "/upweight": lambda: f"[senses of token {args[0]} x{float(args[1])}]",
+                "/reset": lambda: "[interventions cleared]"}.get(cmd)
+        if want is not None:
+            ok = r == want()
+        else:
+            ok = len(r.split()) == n_tokens and all(t.isdigit() for t in r.split())
+            gens.append(r)
+        if not ok:
+            raise AssertionError(f"{what}: '{line[:40]}' replied '{r[:200]}'")
+    rest = list(it)
+    if rest:
+        raise AssertionError(f"{what}: extra replies {rest[:4]}")
+    return gens
+
+
+def entry_cli(cfg, params, ckpt, gen):
+    """cli.main on the checkpoint, bf16 and --int8, over scripted stdin:
+    four prompts of 32 ids at --max-new-tokens 64, then /edit, /upweight,
+    /senses and /reset, each followed by a prompt; every reply held to its
+    command (repl_replies); per line the exact launches (a prompt: K3 once
+    per GPT layer, K1 13 a decode step, K2 50 a forward under --int8; a
+    command: none) and the wall seconds; every continuation by near_tie at
+    every step, on the three paths' rows teacher-forced over the prompt and
+    the continuation by the step function of the REPL's mode (the full
+    forward, with the edit under /edit; the weighted prefill under
+    /upweight), so that a continuation must follow the intervention; where
+    the prompt holds the intervened token, the intervention must move the
+    plain path's rows by more than the tolerance; /reset's continuation
+    equals the first; and each continuation against the same REPL under
+    plain_path() up to their first difference."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.models import interventions as iv
+    from backpacks_flash_attn_tpu_torch.models import quantized as qz
+    from backpacks_flash_attn_tpu_torch.ops import _build
+
+    rows = torch.randint(0, cfg.vocab_size, (CLI_PROMPTS, CLI_PROMPT_LEN), generator=gen,
+                         device=DEV).tolist()
+    words = torch.randint(0, cfg.vocab_size, (2,), generator=gen, device=DEV).tolist()
+    edit_tok, up_tok = rows[1][5], rows[2][7]
+    # at random weights an edit moves the logits little: the edited token
+    # fills every other position of its prompt, and the edit projects its
+    # senses out of the word whose embedding carries most of them (into a
+    # drawn word), so that the edit moves the rows well past the tolerance
+    rows[1][1::2] = [edit_tok] * (CLI_PROMPT_LEN // 2)
+    with torch.inference_mode():
+        sv = iv.senses_of_word(params, cfg, edit_tok).float()
+        emb = iv.embedding_matrix(params["gpt"]).float()[:cfg.vocab_size]
+        words[0] = int(((sv @ emb.T).abs().sum(0) / emb.norm(dim=1)).argmax())
+        del sv, emb
+    prompts = [" ".join(map(str, r)) for r in rows]
+    lines = prompts + [f"/edit {edit_tok} {words[0]} {words[1]}", prompts[1],
+                       f"/upweight {up_tok} 3.0", prompts[2], f"/senses {edit_tok}",
+                       prompts[3], "/reset", prompts[0], "/quit"]
+    modes = ["plain"] * 4 + [None, "edit", None, "weighted", None, "weighted", None, "plain",
+                             None]
+    L, G, N = cfg.n_layer, gemms(cfg), CLI_NEW
+    out = {}
+    for int8 in (False, True):
+        label = "int8" if int8 else "bf16"
+        argv = ["--checkpoint", ckpt, "--model", ENTRY_MODEL, "--max-new-tokens", str(N),
+                "--device", DEV] + (["--int8"] if int8 else [])
+        log(f"entry: cli {label}")
+        replies, records = run_cli(argv, lines)
+        log(f"entry: cli {label}, plain path")
+        plain_replies, _ = run_cli(argv, lines, plain=True)
+        gens = repl_replies(f"cli {label}", replies, lines, N, cfg.num_senses)
+        plain_gens = repl_replies(f"cli {label} plain path", plain_replies, lines, N,
+                                  cfg.num_senses)
+        want_prompt = {"flash_attention": L, "decode_attention": (L + 1) * (N - 1)}
+        if int8:
+            want_prompt["quant_matmul"] = G * N
+        for rec, mode in zip(records, modes):
+            _exact_launches(f"cli {label} '{rec['line']}'", rec["launches"],
+                            want_prompt if mode else {})
+        # the near-tie rule, on the weights the REPL holds
+        rp = qz.quantize_backpack_params(params, cfg, bits=8) if int8 else params
+        ref = (qz.quantize_backpack_params(params, cfg, bits=8, act_dtype=torch.float32)
+               if int8 else _map_tensors(params, lambda t: t.float()))
+        edit = iv.mogrify_word(rp, cfg, edit_tok, *words)
+        table = torch.ones(cfg.padded_vocab_size, cfg.num_senses, device=DEV)
+        table[up_tok] *= 3.0
+
+        def forced(pp, dt, ids, mode):
+            if mode == "weighted":
+                S = ids.shape[1]
+                cache = bp.init_backpack_cache(cfg, 1, S, dt, device=DEV)
+                st = iv.init_weighted_decode_state(cfg, 1, S, dt, device=DEV)
+                lg, _, _ = iv.weighted_decode_step(pp, cfg, ids, cache, st, table,
+                                                   anneal=False)
+            else:
+                e = (edit[0], edit[1].to(dt)) if mode == "edit" else None
+                lg = bp.backpack_forward(pp, cfg, ids, sense_edit=e)
+            return lg[0, CLI_PROMPT_LEN - 1:].float()
+
+        checks, equal = [], 0
+        gen_modes = [m for m in modes if m]
+        for j, mode in enumerate(gen_modes):
+            a = [int(t) for t in gens[j].split()]
+            b = [int(t) for t in plain_gens[j].split()]
+            t = _first_difference(a, b)
+            equal += t is None
+            prompt_ids = rows[[0, 1, 2, 3, 1, 2, 3, 0][j]]
+            ids = torch.tensor([prompt_ids + a[:-1]], device=DEV)
+            rows_ = []
+            for pp, dt, plain in ((rp, torch.bfloat16, False), (rp, torch.bfloat16, True),
+                                  (ref, torch.float32, True)):
+                with (_build.plain_path() if plain else contextlib.nullcontext()), \
+                        torch.inference_mode():
+                    rows_.append(forced(pp, dt, ids, mode))
+            rec = near_tie(f"cli {label} continuation {j} ({mode})", a, *rows_)
+            rec.update(continuation=j, mode=mode, first_difference=t)
+            if mode != "plain" and (edit_tok if mode == "edit" else up_tok) in prompt_ids:
+                with _build.plain_path(), torch.inference_mode():
+                    moved = max_err(rows_[1], forced(rp, torch.bfloat16, ids, "plain"))
+                if not moved > rec["tolerance"]:
+                    raise AssertionError(f"cli {label} continuation {j}: the {mode} moves the "
+                                         f"logits by {moved:.3e}, not past the tolerance "
+                                         f"{rec['tolerance']:.3e}")
+                rec["intervention_moves_logits_by"] = moved
+            checks.append(rec)
+        # the kernels are deterministic: /reset gives back the first
+        # continuation (whether an intervention changes its prompt's tokens
+        # is reported: at random weights even a clear move of the logits
+        # may leave a greedy argmax in place for many steps)
+        if gens[7] != gens[0]:
+            raise AssertionError(f"cli {label}: after /reset '{gens[7][:80]}', first "
+                                 f"'{gens[0][:80]}'")
+        out[label] = dict(
+            intervention_changes_tokens={"edit": gens[4] != gens[1],
+                                         "upweight": gens[5] != gens[2]},
+            commands=[dict(r, mode=m) for r, m in zip(records, modes)],
+            continuations=len(gen_modes), equal_to_plain_path=equal, near_tie=checks,
+            seconds_per_prompt=statistics.mean(r["seconds"] for r, m in zip(records, modes)
+                                               if m),
+            tokens_per_s=N / statistics.mean(r["seconds"] for r, m in zip(records, modes)
+                                             if m))
+        emit({"phase": "entry", "cli": label,
+              **{k: v for k, v in out[label].items() if k != "commands"},
+              "command_seconds": [[r["line"][:12], round(r["seconds"], 4)] for r in records]})
+        del rp, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+_SYLLABLES = [c + v for c in "bcdfghjklmnprstvz" for v in "aeiou"]
+
+
+def _word(i):
+    """Token id -> a three-syllable word (85^3 > the vocabulary)."""
+    return "".join(_SYLLABLES[(i // 85 ** k) % 85] for k in range(3))
+
+
+def entry_tokenizers():
+    """vocab.json / merges.txt from GPT2Tokenizer.train_toy on text made
+    from data/synthetic.py's bigram corpus (each id spelled as a word),
+    TOK_VOCAB entries; FastGPT2Tokenizer native; its ids equal the slow
+    tokenizer's on the whole corpus; encode_corpus_parallel with
+    TOK_WORKERS workers equal to a serial encode; MB/s of both."""
+    from backpacks_flash_attn_tpu_torch.data import prepare, synthetic
+    from backpacks_flash_attn_tpu_torch.utils.fast_tokenizer import FastGPT2Tokenizer
+    from backpacks_flash_attn_tpu_torch.utils.tokenizer import GPT2Tokenizer
+
+    ids, _ = synthetic.bigram_corpus(TOK_DOCS * 64, seed=3)
+    docs = [" ".join(_word(int(t)) for t in ids[i:i + 64]) for i in range(0, len(ids), 64)]
+    mb = sum(len(d.encode()) for d in docs) / 1e6
+    t0 = time.perf_counter()
+    trained = GPT2Tokenizer.train_toy(docs[:TOK_TRAIN_DOCS], vocab_size=TOK_VOCAB)
+    train_s = time.perf_counter() - t0
+    d = ENTRY_DIR / "tokenizer"
+    d.mkdir(parents=True, exist_ok=True)
+    vocab, merges = d / "vocab.json", d / "merges.txt"
+    vocab.write_text(json.dumps(trained.encoder), encoding="utf-8")
+    ranked = sorted(trained.bpe_ranks.items(), key=lambda kv: kv[1])
+    merges.write_text("#version: 0.2\n" + "".join(f"{a} {b}\n" for (a, b), _ in ranked),
+                      encoding="utf-8")
+    slow = GPT2Tokenizer.from_files(str(vocab), str(merges))
+    fast = FastGPT2Tokenizer(GPT2Tokenizer.from_files(str(vocab), str(merges)))
+    if not fast.native:
+        raise AssertionError("FastGPT2Tokenizer: the C++ library did not build")
+    t0 = time.perf_counter()
+    want = [slow.encode(doc) for doc in docs]
+    slow_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = [fast.encode(doc) for doc in docs]
+    fast_s = time.perf_counter() - t0
+    if got != want:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"native ids differ from the slow tokenizer's at document {bad}")
+    factory = prepare.native_tokenizer_factory(str(vocab), str(merges))
+    t0 = time.perf_counter()
+    serial = prepare.encode_corpus_parallel(docs, str(d / "serial.npy"),
+                                            tokenizer_factory=factory, num_workers=0)
+    serial_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    par = prepare.encode_corpus_parallel(docs, str(d / "parallel.npy"),
+                                         tokenizer_factory=factory,
+                                         num_workers=TOK_WORKERS, chunk_docs=256)
+    par_s = time.perf_counter() - t0
+    if not np.array_equal(np.asarray(serial), np.asarray(par)):
+        raise AssertionError("encode_corpus_parallel differs from the serial encode")
+    out = dict(documents=len(docs), megabytes=mb, vocab=len(trained.encoder),
+               train_s=train_s, native=fast.native, tokens=int(sum(map(len, got))),
+               slow_mb_per_s=mb / slow_s, native_mb_per_s=mb / fast_s,
+               serial_prepare_s=serial_s, parallel_prepare_s=par_s,
+               parallel_workers=TOK_WORKERS, parallel_equal=True)
+    emit({"phase": "entry", "tokenizers": out})
+    return out
+
+
+class IdTokenizer:
+    """Space-separated token ids: the harness's encode/decode."""
+
+    def encode(self, text):
+        return [int(t) for t in text.split()]
+
+    def decode(self, ids):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def entry_harness(cfg, params, gen):
+    """HarnessLM.backpack on backpack-small: HARNESS_PAIRS (context,
+    continuation) pairs whose totals span the 64-512 buckets, the exact
+    launches of the scoring (K3 once per GPT layer and K4 once a forward),
+    the log-likelihoods under the 2x rule against the f32 plain path; then
+    generate_until with engine=True over INT8 weights and INT8 caches
+    (SERVED_REQUESTS requests of SERVED_TOKENS tokens) with the engine's
+    launch split, against the loop over the same INT8 cache by
+    plain_path_rule (prefix_rows over the shared prefix)."""
+    from backpacks_flash_attn_tpu_torch.eval import lm_harness as lh
+    from backpacks_flash_attn_tpu_torch.models import quantized as qz
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.utils.generation import generate_backpack
+
+    tok = IdTokenizer()
+    totals = torch.randint(40, 512, (HARNESS_PAIRS,), generator=gen, device=DEV).tolist()
+    conts = torch.randint(1, 32, (HARNESS_PAIRS,), generator=gen, device=DEV).tolist()
+    ids = torch.randint(0, cfg.vocab_size, (HARNESS_PAIRS, 512), generator=gen,
+                        device=DEV).tolist()
+    reqs = [(tok.decode(r[:n - c]), tok.decode(r[n - c:n])) for r, n, c in zip(ids, totals, conts)]
+    kw = dict(batch_size=HARNESS_BATCH, eot_token_id=cfg.vocab_size - 1)   # GPT-2 eot 50256
+    lm = lh.HarnessLM.backpack(params, cfg, tok, **kw)
+    lm.loglikelihood(reqs[:HARNESS_BATCH])                       # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    scores = lm.loglikelihood(reqs)
+    seconds = time.perf_counter() - t0
+    forwards = -(-HARNESS_PAIRS // HARNESS_BATCH)
+    launches = _exact_launches("harness scoring", _build.launch_counts(), {
+        "flash_attention": cfg.n_layer * forwards, "fused_contextualization": forwards})
+    with _build.plain_path():
+        plain = lm.loglikelihood(reqs)
+        ref = lh.HarnessLM.backpack(_map_tensors(params, lambda t: t.float()), cfg, tok,
+                                    **kw).loglikelihood(reqs)
+    lps = [torch.tensor([lp for lp, _ in r], dtype=torch.float64) for r in (scores, plain, ref)]
+    if not all(torch.isfinite(x).all() for x in lps):
+        raise AssertionError("harness: non-finite log-likelihoods")
+    ek, ep = two_x("harness log-likelihoods", *lps)
+    buckets = sorted({lh._bucket(min(n, 512), lm.buckets) for n in totals})
+    score = dict(pairs=HARNESS_PAIRS, forwards=forwards, buckets=buckets, seconds=seconds,
+                 tokens_per_s=sum(totals) / seconds, launches=launches, max_abs_err=ek,
+                 plain_bf16_err=ep,
+                 greedy_equal_share=statistics.mean(a[1] == b[1] for a, b in zip(scores, plain)))
+    emit({"phase": "entry", "harness": "loglikelihood", **score})
+
+    qparams = qz.quantize_backpack_params(params, cfg, bits=8)
+    q32 = qz.quantize_backpack_params(params, cfg, bits=8, act_dtype=torch.float32)
+    plens = torch.randint(16, 65, (SERVED_REQUESTS,), generator=gen, device=DEV).tolist()
+    prompts = [tok.decode(r[:n]) for r, n in zip(ids, plens)]
+    greqs = [(p, {"until": [], "max_gen_toks": SERVED_TOKENS}) for p in prompts]
+    kw = dict(batch_size=SERVED_REQUESTS, eot_token_id=-1)
+    served = lh.HarnessLM.backpack(qparams, cfg, tok, engine=True, **kw)
+    served.generate_until(greqs[:8])                             # warm-up
+    torch.cuda.synchronize()
+    before = served._engine.stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = served.generate_until(greqs)
+    served_s = time.perf_counter() - t0
+    counts, stats = _build.launch_counts(), served._engine.stats()
+    D = stats["decode_steps"] - before["decode_steps"]
+    P = stats["prefill_dispatches"] - before["prefill_dispatches"]
+    _exact_launches("harness served", counts, {
+        "decode_attention_ml": (cfg.n_layer + 1) * D, "quant_matmul": gemms(cfg) * (D + P),
+        "flash_attention": cfg.n_layer * P})
+    # the loop over the engine's cache precision (HarnessLM.backpack's loop
+    # decodes over a bf16 cache, as JAX's does): INT8
+    loop = lh.HarnessLM(None, qparams, tok, max_length=cfg.n_positions, **kw,
+                        generate_fn=lambda p, x, n: generate_backpack(
+                            p, cfg, x, n, cache_dtype=torch.int8, device=DEV).sequences)
+    t0 = time.perf_counter()
+    want = loop.generate_until(greqs)
+    loop_s = time.perf_counter() - t0
+    got, want = [tok.encode(x) for x in got], [tok.encode(x) for x in want]
+    if any(len(x) != SERVED_TOKENS for x in got + want):
+        raise AssertionError(f"harness served: lengths {[len(x) for x in got]}, the loop's "
+                             f"{[len(x) for x in want]}")
+    rule = plain_path_rule("harness served", got, want, lambda i, t: prefix_rows(
+        qparams, q32, cfg, tok.encode(prompts[i]), got[i][:t]))
+    gen_run = dict(requests=SERVED_REQUESTS, new_tokens=SERVED_TOKENS, served_s=served_s,
+                   served_tokens_per_s=SERVED_REQUESTS * SERVED_TOKENS / served_s,
+                   loop_s=loop_s, loop_tokens_per_s=SERVED_REQUESTS * SERVED_TOKENS / loop_s,
+                   engine_stats=dict(decode_steps=D, prefill_dispatches=P),
+                   launches={k: n for k, n in counts.items() if n},
+                   launches_per_decode_step={"decode_attention_ml": cfg.n_layer + 1,
+                                             "quant_matmul": gemms(cfg)},
+                   equal_to_loop=round(rule["share_equal"] * SERVED_REQUESTS),
+                   loop_rule=rule)
+    emit({"phase": "entry", "harness": "generate_until", **gen_run})
+    del qparams, q32, served, loop
+    torch.cuda.empty_cache()
+    return dict(loglikelihood=score, generate_until=gen_run)
+
+
+def pplm_teacher_forced(params, cfg, prompt, tokens, bow, window):
+    """pplm_generate's loop with its tokens forced to ``tokens`` (b, n),
+    over an f32 cache as pplm_generate keeps it: the fused
+    log-probabilities of every step (b, n, V), f32."""
+    from backpacks_flash_attn_tpu_torch.eval import pplm
+    from backpacks_flash_attn_tpu_torch.models import gpt
+
+    b, p = prompt.shape
+    cache = gpt.init_kv_cache(cfg, b, p + tokens.shape[1] + 1, torch.float32, device=DEV)
+    with torch.no_grad():
+        gpt.gpt_forward_with_cache(params, cfg, prompt[:, :-1], cache)
+    token, rows = prompt[:, -1:], []
+    for i in range(tokens.shape[1]):
+        pert = pplm.perturb_cache(params, cfg, cache, token, bow, num_iterations=PPLM_ITERS,
+                                  window=window)
+        with torch.no_grad():
+            lp = (0.9 * pplm._next_token_logprobs(params, cfg, token, pert)
+                  + 0.1 * pplm._next_token_logprobs(params, cfg, token, cache))
+            gpt.gpt_forward_with_cache(params, cfg, token, cache)
+        rows.append(lp)
+        token = tokens[:, i:i + 1]
+    return torch.stack(rows, dim=1)
+
+
+def entry_pplm(gen):
+    """pplm_generate at its defaults on gpt2-small (12 x 768, bf16 weights
+    over its f32 cache), batch 4, prompt 16, 24 tokens, 3 gradient
+    iterations, a 32-id bag of words, window None and 8: the bag's
+    probability mass after perturb_cache above before it; exactly K3 once
+    per layer in the prefill and K1 4 x n_layer a step (none in the
+    gradient iterations, which run the plain attention); the kernel path,
+    the plain path and the f32 plain reference teacher-forced on the kernel
+    path's tokens: the 2x rule on every step's fused log-probabilities,
+    and each sequence's tokens equal the plain path's greedy tokens on
+    those prefixes (its generation) up to their first difference, where
+    near_tie holds; seconds a token."""
+    from backpacks_flash_attn_tpu_torch.eval import pplm
+    from backpacks_flash_attn_tpu_torch.models import gpt
+    from backpacks_flash_attn_tpu_torch.ops import _build
+
+    _, cfg = entry_configs()
+    params = gpt.init_gpt(cfg, gen, dtype=torch.bfloat16, device=DEV)
+    p32 = _map_tensors(params, lambda t: t.float())
+    prompt = torch.randint(0, cfg.vocab_size, (PPLM_BATCH, PPLM_PROMPT), generator=gen,
+                           device=DEV)
+    bow_ids = torch.randint(0, cfg.vocab_size, (PPLM_BOW,), generator=gen,
+                            device=DEV).tolist()
+    bow = torch.zeros(cfg.padded_vocab_size, device=DEV)
+    bow[bow_ids] = 1.0
+    cache = gpt.init_kv_cache(cfg, PPLM_BATCH, PPLM_PROMPT + 1, torch.float32, device=DEV)
+    tok = prompt[:, -1:]
+    with torch.no_grad():
+        gpt.gpt_forward_with_cache(params, cfg, prompt[:, :-1], cache)
+        m0 = (pplm._next_token_logprobs(params, cfg, tok, cache).exp() * bow).sum(-1)
+    pert = pplm.perturb_cache(params, cfg, cache, tok, bow, num_iterations=PPLM_ITERS)
+    with torch.no_grad():
+        m1 = (pplm._next_token_logprobs(params, cfg, tok, pert).exp() * bow).sum(-1)
+    if not (m1 > m0).all():
+        raise AssertionError(f"pplm: the bag's mass {m0.tolist()} -> {m1.tolist()}")
+    del pert, cache
+    out = dict(bow_mass_before=m0.tolist(), bow_mass_after=m1.tolist(), runs={})
+    for window in PPLM_WINDOWS:
+        pplm.pplm_generate(params, cfg, prompt[:, :8], bow_ids, max_new_tokens=2,
+                           num_iterations=1, window=window)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        toks = pplm.pplm_generate(params, cfg, prompt, bow_ids, max_new_tokens=PPLM_TOKENS,
+                                  num_iterations=PPLM_ITERS, window=window)
+        seconds = time.perf_counter() - t0
+        launches = _exact_launches(f"pplm window {window}", _build.launch_counts(), {
+            "flash_attention": cfg.n_layer,
+            "decode_attention": 4 * cfg.n_layer * PPLM_TOKENS})
+        kt = torch.from_numpy(toks).long().to(DEV)
+        kernel_lp = pplm_teacher_forced(params, cfg, prompt, kt, bow, window)
+        with _build.plain_path():
+            plain_lp = pplm_teacher_forced(params, cfg, prompt, kt, bow, window)
+            ref_lp = pplm_teacher_forced(p32, cfg, prompt, kt, bow, window)
+        ek, ep = two_x(f"pplm window {window} log-probabilities", kernel_lp, plain_lp, ref_lp)
+        # the plain path's greedy token on each of the kernel path's
+        # prefixes: up to the first difference, its own generation
+        plain_toks = plain_lp.argmax(-1).cpu().numpy()
+        ties = []
+        for i in range(PPLM_BATCH):
+            t = _first_difference(toks[i].tolist(), plain_toks[i].tolist())
+            if t is None:
+                continue
+            rec = near_tie(f"pplm window {window} sequence {i} step {t}", [int(toks[i, t])],
+                           *(x[i, :t + 1] for x in (kernel_lp, plain_lp, ref_lp)))
+            ties.append(dict(sequence=i, step=t, gap=rec["gap"], tolerance=rec["tolerance"]))
+        in_bow = float(np.isin(toks, bow_ids).mean())
+        out["runs"][str(window)] = dict(
+            window=window, seconds=seconds, seconds_per_token=seconds / PPLM_TOKENS,
+            launches=launches, launches_per_step={"decode_attention": 4 * cfg.n_layer},
+            max_abs_err=ek, plain_bf16_err=ep,
+            sequences_equal_share=1 - len(ties) / PPLM_BATCH, first_differences=ties,
+            bow_token_share=in_bow)
+        emit({"phase": "entry", "pplm": out["runs"][str(window)]})
+    del params, p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def entry_mauve(gen, bp_cfg, bp_params):
+    """featurize_terminal_hidden on MAUVE_TEXTS + MAUVE_TEXTS sequences of
+    MAUVE_LEN ids for gpt2-small and backpack-small (bf16): the kernel
+    path's features under the 2x rule against the f32 plain path, the exact
+    launches (K3 once per layer a batch; the Backpack's return_parts takes
+    the einsum combine, no K4); compute_mauve of the first set against
+    itself >= 0.9 and against the second set, each text one of four tokens
+    repeated, <= 0.1 (the JAX tests' properties); seconds."""
+    from backpacks_flash_attn_tpu_torch.eval import mauve
+    from backpacks_flash_attn_tpu_torch.models import gpt
+    from backpacks_flash_attn_tpu_torch.ops import _build
+
+    _, gcfg = entry_configs()
+    texts = torch.randint(0, gcfg.vocab_size, (2 * MAUVE_TEXTS, MAUVE_LEN), generator=gen,
+                          device=DEV)
+    # the second set: each text one token repeated, four tokens in all
+    four = torch.randint(0, gcfg.vocab_size, (4,), generator=gen, device=DEV)
+    texts[MAUVE_TEXTS:] = four.repeat(MAUVE_TEXTS // 4)[:, None]
+    texts = texts.tolist()
+    gparams = gpt.init_gpt(gcfg, gen, dtype=torch.bfloat16, device=DEV)
+    out = {}
+    for model, cfg, params in (("gpt", gcfg, gparams), ("backpack", bp_cfg, bp_params)):
+        feat = lambda p: mauve.featurize_terminal_hidden(  # noqa: E731
+            p, cfg, texts, model=model, batch_size=MAUVE_BATCH)
+        feat(params)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        f = feat(params)
+        seconds = time.perf_counter() - t0
+        batches = 2 * MAUVE_TEXTS // MAUVE_BATCH
+        launches = _exact_launches(f"mauve features {model}", _build.launch_counts(),
+                                   {"flash_attention": cfg.n_layer * batches})
+        with _build.plain_path():
+            plain, ref = feat(params), feat(_map_tensors(params, lambda t: t.float()))
+        ek, ep = two_x(f"mauve features {model}", *(torch.from_numpy(x) for x in (f, plain, ref)))
+        a, b = f[:MAUVE_TEXTS], f[MAUVE_TEXTS:]
+        t0 = time.perf_counter()
+        same = mauve.compute_mauve(a, a.copy())
+        apart = mauve.compute_mauve(a, b)
+        mauve_s = time.perf_counter() - t0
+        if not (same.mauve >= 0.9 and apart.mauve <= 0.1):
+            raise AssertionError(f"mauve {model}: itself {same.mauve:.4f}, the four-token "
+                                 f"set {apart.mauve:.4f}")
+        out[model] = dict(texts=2 * MAUVE_TEXTS, length=MAUVE_LEN, seconds=seconds,
+                          tokens_per_s=2 * MAUVE_TEXTS * MAUVE_LEN / seconds,
+                          launches=launches, max_abs_err=ek, plain_bf16_err=ep,
+                          mauve_self=same.mauve, mauve_four_token_set=apart.mauve,
+                          num_buckets=same.num_buckets, mauve_seconds=mauve_s)
+        emit({"phase": "entry", "mauve": model, **out[model]})
+    del gparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_entry(gen, results):
+    """The user's entry points and the last evals at full width (seeded
+    weights, drawn after every other phase): checkpoint import, the REPL,
+    the tokenizers, the lm-harness adapter, PPLM and MAUVE."""
+    import shutil
+
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+
+    cfg, _ = entry_configs()
+    params = bp.init_backpack(cfg, gen, dtype=torch.bfloat16, device=DEV)
+    run = {}
+    try:
+        log("entry: checkpoint import")
+        run["import"], ckpt = entry_import(cfg, params, gen)
+        run["cli"] = entry_cli(cfg, params, ckpt, gen)
+        log("entry: tokenizers")
+        run["tokenizers"] = entry_tokenizers()
+    finally:
+        shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    log("entry: harness")
+    run["harness"] = entry_harness(cfg, params, gen)
+    log("entry: pplm")
+    run["pplm"] = entry_pplm(gen)
+    log("entry: mauve")
+    run["mauve"] = entry_mauve(gen, cfg, params)
+    results["entry"] = run
+    del params
     torch.cuda.empty_cache()
 
 
@@ -3490,7 +4298,7 @@ def main():
     ap.add_argument("--phases",
                     default="device,build,kernels,serve,engine,forward,train,"
                             "longctx,train8k,generate,decode_kernels,mini,xl,"
-                            "intervene")
+                            "intervene,entry")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"))
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -3603,6 +4411,9 @@ def main():
     if "intervene" in phases:
         with torch.inference_mode():
             phase_intervene(gen, results)
+    if "entry" in phases:
+        # outside inference mode: PPLM takes gradients through the cache
+        phase_entry(gen, results)
 
     line = []
     for k in _build.KERNELS.values():

@@ -109,8 +109,10 @@ def test_port_imports_no_jax():
     a training step, the serving engine over a staged cache (its C++
     scheduler built), a rotary GPT training step with the fused-MLP switch
     on, generate_gpt, the block-sparse op, K1's three redesigns, the
-    intervention evals' modules and a negative-weighted step under an
-    all-ones table (the plain logits)."""
+    intervention evals' modules, a negative-weighted step under an
+    all-ones table (the plain logits), the tokenizers, the REPL on an
+    imported checkpoint, a PPLM generation, MAUVE's features and the other
+    modules of the entry-point slice."""
     pattern = re.compile(r"^\s*(import|from) +(jax|backpacks_flash_attn_tpu)\b",
                          re.M)
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py",
@@ -183,6 +185,28 @@ neg, _, _ = iv.negative_decode_step(
     params, cfg, ids, bp.init_backpack_cache(cfg, 2, 16, torch.float32,
                                              device="cpu"), nst, ones)
 assert torch.allclose(neg, logits, atol=1e-5), (neg - logits).abs().max()
+import io, tempfile
+from backpacks_flash_attn_tpu_torch import cli
+from backpacks_flash_attn_tpu_torch.data import prepare
+from backpacks_flash_attn_tpu_torch.eval import lm_harness, mauve, plots, pplm
+from backpacks_flash_attn_tpu_torch.utils import fast_tokenizer, pretrained
+from backpacks_flash_attn_tpu_torch.utils import tokenizer, torch_import
+tok = fast_tokenizer.FastGPT2Tokenizer(
+    tokenizer.GPT2Tokenizer.train_toy(["a b ab abc"] * 3, vocab_size=300))
+assert tok.decode(tok.encode(" ab abc")) == " ab abc"
+with tempfile.TemporaryDirectory() as d:
+    torch.save({"state_dict": {"model." + k: torch.from_numpy(v) for k, v in
+                               torch_import.state_dict_from_backpack_params(
+                                   params, cfg).items()}}, d + "/w.ckpt")
+    sys.stdin = io.StringIO("1 2 3\\n/senses 4\\n")
+    cli.main(["--checkpoint", d + "/w.ckpt", "--model", "backpack-test",
+              "--device", "cpu", "--max-new-tokens", "2"])
+gp32 = gpt.init_gpt(gcfg, torch.Generator().manual_seed(1), device="cpu")
+assert pplm.pplm_generate(gp32, gcfg, ids[:, :4], [5, 6],
+                          max_new_tokens=2).shape == (2, 2)
+feats = mauve.featurize_terminal_hidden(params, cfg, [[1, 2], [3]],
+                                        model="backpack", batch_size=2)
+assert feats.shape == (2, cfg.n_embd)
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
 print("ok", tuple(logits.shape))
 """
@@ -216,7 +240,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(jax_params):
         lambda: train_cli.run(train_cli.RunConfig(corpus="unused.npy")),
         lambda: perplexity.evaluate_perplexity(
             lambda x: x, np.zeros(64, np.uint16), 8, 2),
+        lambda: cli.main(["--model", "backpack-test"]),
+        lambda: torch_import.backpack_params_from_state_dict(
+            torch_import.state_dict_from_backpack_params(params, cfg), cfg),
     ]
+    from backpacks_flash_attn_tpu_torch import cli
+    from backpacks_flash_attn_tpu_torch.utils import torch_import
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA device requested"):
             call()

@@ -1847,3 +1847,121 @@ def _tree_float(tree):
     if isinstance(tree, dict):
         return {k: _tree_float(v) for k, v in tree.items()}
     return tree.float()
+
+
+class _CountedLines:
+    """A scripted stdin that records, as each next line is read, the
+    launches of the command before it (counts reset after each read)."""
+
+    def __init__(self, lines):
+        self.lines, self.counts = lines, []
+
+    def __iter__(self):
+        for line in self.lines:
+            _build.reset_launches()
+            yield line + "\n"
+            self.counts.append({k: n for k, n in _build.launch_counts().items() if n})
+
+
+def test_cli_greedy_launches_on_the_card(gen, monkeypatch, capsys):
+    """The REPL on the card (backpack-test, seeded bf16 weights): a prompt
+    launches K3 once per GPT layer in its prefill and K1 once per layer and
+    once for the combine a decode step; /upweight's weighted decode the
+    same; a command that generates nothing launches nothing and replies
+    its acknowledgement (no error reply); --int8 adds K2 once per linear
+    (4 a layer, ctx_attn, the head) every forward."""
+    from backpacks_flash_attn_tpu_torch import cli
+    from backpacks_flash_attn_tpu_torch.config import backpack_test
+
+    cfg, n = backpack_test(), 6
+    prompt = " ".join(str(t) for t in torch.randint(
+        0, 512, (12,), generator=gen, device="cuda").tolist())
+    lines = [prompt, "/upweight 7 2.0", prompt, "/edit 7 3 5", "/senses 7",
+             "/reset", prompt]
+    step = {"flash_attention": cfg.n_layer}, {"decode_attention": (cfg.n_layer + 1) * (n - 1)}
+    for int8 in (False, True):
+        stdin = _CountedLines(lines)
+        monkeypatch.setattr("sys.stdin", stdin)
+        cli.main(["--model", "backpack-test", "--max-new-tokens", str(n),
+                  "--device", "cuda"] + (["--int8"] if int8 else []))
+        out = capsys.readouterr().out.splitlines()
+        gens = [line for line in out if line[:1].isdigit()]
+        assert len(gens) == 3, out
+        # every command's own reply, and no error reply
+        assert out.count("[senses of token 7 x2.0]") == 1, out
+        assert out.count("[token 7: projected 3 -> 5]") == 1, out
+        assert out.count("[interventions cleared]") == 1, out
+        assert sum(line.startswith("  sense ") for line in out) == cfg.num_senses, out
+        assert len(out) == 2 + len(gens) + 3 + cfg.num_senses, out   # notice, banner
+        assert all(len(g.split()) == n for g in gens), out
+        assert gens[0] == gens[2]                 # /reset restores the plain path
+        want = {**step[0], **step[1]}
+        if int8:
+            want["quant_matmul"] = (4 * cfg.n_layer + 2) * n
+        assert stdin.counts[0] == stdin.counts[2] == stdin.counts[6] == want
+        assert stdin.counts[1] == stdin.counts[3] == stdin.counts[4] == {}
+
+
+def test_pplm_k1_split_on_the_card(gen):
+    """pplm_generate on the card (a two-layer GPT at K3's head dim, bf16
+    weights over PPLM's f32 cache, so K1's f32 form):
+    K3 once per layer in the prefill, K1 4 x n_layer a step (the
+    unperturbed distribution, the final perturbed and unperturbed ones, the
+    real cache's advance) and none in the gradient iterations; the bag's
+    probability mass rises after perturb_cache."""
+    from backpacks_flash_attn_tpu_torch.config import GPTConfig
+    from backpacks_flash_attn_tpu_torch.eval import pplm
+    from backpacks_flash_attn_tpu_torch.models import gpt
+
+    cfg = GPTConfig(vocab_size=512, n_positions=64, n_embd=128, n_head=2,
+                    n_layer=2, pad_vocab_size_multiple=8)
+    params = gpt.init_gpt(cfg, torch.Generator().manual_seed(0),
+                          dtype=torch.bfloat16, device="cuda")
+    prompt = torch.randint(0, 512, (3, 12), generator=gen, device="cuda")
+    bow = torch.randint(0, 512, (8,), generator=gen, device="cuda").tolist()
+    _build.reset_launches()
+    out = pplm.pplm_generate(params, cfg, prompt, bow, max_new_tokens=4,
+                             num_iterations=3)
+    counts = {k: n for k, n in _build.launch_counts().items() if n}
+    assert out.shape == (3, 4)
+    assert counts == {"flash_attention": cfg.n_layer,
+                      "decode_attention": 4 * cfg.n_layer * 4}, counts
+    cache = gpt.init_kv_cache(cfg, 3, 32, torch.float32, device="cuda")
+    gpt.gpt_forward_with_cache(params, cfg, prompt[:, :-1], cache)
+    vec = torch.zeros(cfg.padded_vocab_size, device="cuda")
+    vec[bow] = 1.0
+    tok = prompt[:, -1:]
+    with torch.no_grad():
+        m0 = (pplm._next_token_logprobs(params, cfg, tok, cache).exp() * vec).sum(-1)
+        pert = pplm.perturb_cache(params, cfg, cache, tok, vec)
+        m1 = (pplm._next_token_logprobs(params, cfg, tok, pert).exp() * vec).sum(-1)
+    assert (m1 > m0).all(), (m0, m1)
+
+
+def test_harness_scorer_within_2x_on_the_card(gen):
+    """HarnessLM.backpack's log-likelihoods on the card (K3 once per GPT
+    layer and K4 once a scoring forward) within twice the bf16 plain path's
+    error against the f32 plain reference."""
+    from backpacks_flash_attn_tpu_torch.eval import lm_harness as lh
+
+    cfg, params, _ = _intervention_setup()
+
+    class IdTok:
+        def encode(self, text):
+            return [int(t) for t in text.split()]
+
+    ids = torch.randint(1, 512, (24, 40), generator=gen, device="cuda").tolist()
+    reqs = [(" ".join(map(str, r[:8 + i])), " ".join(map(str, r[8 + i:16 + i])))
+            for i, r in enumerate(ids)]
+    kw = dict(batch_size=8, eot_token_id=0, buckets=(16, 32, 64))
+    _build.reset_launches()
+    out = lh.HarnessLM.backpack(params, cfg, IdTok(), **kw).loglikelihood(reqs)
+    counts = {k: n for k, n in _build.launch_counts().items() if n}
+    assert counts == {"flash_attention": cfg.n_layer * 3,
+                      "fused_contextualization": 3}, counts
+    with _build.plain_path():
+        plain = lh.HarnessLM.backpack(params, cfg, IdTok(), **kw).loglikelihood(reqs)
+        ref = lh.HarnessLM.backpack(_tree_float(params), cfg, IdTok(),
+                                    **kw).loglikelihood(reqs)
+    lps = [torch.tensor([lp for lp, _ in r]) for r in (out, plain, ref)]
+    _within_2x(*lps)

@@ -245,8 +245,8 @@ def test_run_gates_matches_jax(gate_setup):
 
 def test_quant_gates_cli_on_a_training_workdir(tmp_path):
     """The CLI on the newest checkpoint of a 2-step run of the training CLI
-    (backpack-test, CPU); the reference-checkpoint importer is not ported
-    and its flag says so."""
+    (backpack-test, CPU), and on the same weights exported to a reference
+    Lightning checkpoint through --checkpoint."""
     import json
     from contextlib import redirect_stdout
     from io import StringIO
@@ -270,5 +270,27 @@ def test_quant_gates_cli_on_a_training_workdir(tmp_path):
     for key in ("int8_delta", "int4_delta", "int4_cache_delta",
                 "int8_senses_int4_kv_delta"):
         assert np.isfinite(out[key]), key
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tgates.main(["--checkpoint", "x.ckpt", "--corpus", corpus])
+    # --checkpoint: a reference-format Lightning file of the trained weights
+    from backpacks_flash_attn_tpu_torch.training import checkpoint as ckpt_lib
+    from backpacks_flash_attn_tpu_torch.utils import torch_import
+    tc = tcfg.backpack_test()
+    _, kind, params0 = train_cli.build_model(train_cli.RunConfig(
+        corpus=corpus, workdir=workdir, model="backpack-test", device="cpu"),
+        torch.device("cpu"))
+    restored, _, _ = ckpt_lib.restore(ckpt_lib.latest_checkpoint(workdir),
+                                      {"state": {"params": params0}})
+    sd = torch_import.state_dict_from_backpack_params(
+        restored["state"]["params"], tc)
+    path = str(tmp_path / "last.ckpt")
+    torch.save({"state_dict": {"model." + k: torch.from_numpy(v)
+                               for k, v in sd.items()}}, path)
+    buf = StringIO()
+    with redirect_stdout(buf):
+        tgates.main(["--checkpoint", path, "--corpus", corpus, "--model",
+                     "backpack-test", "--seqlen", "16", "--max-batches", "1",
+                     "--val-fraction", "0.05", "--device", "cpu"])
+    imported = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert imported["checkpoint_step"] == -1 and kind == "backpack"
+    # the same bf16 weights either way: the same numbers
+    assert {k: v for k, v in imported.items() if k != "checkpoint_step"} == \
+        {k: v for k, v in out.items() if k != "checkpoint_step"}
