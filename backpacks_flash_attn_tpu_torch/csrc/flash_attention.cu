@@ -3,15 +3,19 @@
 //
 // Replaces the TPU kernel backpacks_flash_attn_tpu/ops/flash_attention.py
 // _flash_fwd (:298, Pallas body _flash_fwd_kernel :158) for causal masking,
-// per-sequence seq_lengths and q_offsets. q is (B, sq, H, D), k and v are
+// per-sequence seq_lengths, q_offsets and k_offsets and a batch-row offset
+// bh_offset (the ring forms: a chunk pair of a sequence split over ranks). q is (B, sq, H, D), k and v are
 // (B, sk, H, D), each with any (batch, row, head) strides; the head dim D is
 // 64, 80, 96 or 128, an instance each (the wrapper pads any other d <= 128
 // with zero columns to the next, as JAX's _head_pad :78 pads to 128). Key u of
 // sequence b is valid for query row i when u < min(seq_len[b], sk) and, if
-// causal, u <= q_off[b] + i. Fully masked rows give 0 (l = 0 is treated as
-// 1) and an LSE of FLASH_NEG_INF, as on the TPU. out is (B, sq, H, D),
-// contiguous, in the input's dtype; lse is (B, H, sq) f32. Dropout
-// (common.cuh dropout_keep, positions q_off[b] + i and u, stream b * H + h)
+// causal, u <= q_off[b] - k_off[b] + i (the relative offset, which may be
+// negative: then a row or the whole block sees no key). Fully masked rows
+// give 0 (l = 0 is treated as 1) and an LSE of FLASH_NEG_INF, as on the TPU,
+// so a ring's merge weights them exp(FLASH_NEG_INF - m) = 0. out is (B, sq,
+// H, D), contiguous, in the input's dtype; lse is (B, H, sq) f32. Dropout
+// (common.cuh dropout_keep, positions q_off[b] + i and k_off[b] + u, stream
+// (bh_offset + b) * H + h)
 // scales the kept un-normalised probabilities by 1 / (1 - p) after the
 // running max and sum are taken, so the LSE stays the pre-dropout one the
 // backward (K5) recomputes from.
@@ -81,7 +85,7 @@ __global__ void __launch_bounds__(kSimtThreads)
 flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
                       const int* __restrict__ seq_lengths, const int* __restrict__ q_offsets,
-                      int H, int sq, int sk, long long q_sb, long long q_st, long long q_sh,
+                      const int* __restrict__ k_offsets, int bh_offset, int H, int sq, int sk, long long q_sb, long long q_st, long long q_sh,
                       long long k_sb, long long k_st, long long k_sh, long long v_sb,
                       long long v_st, long long v_sh, float scale, int causal,
                       DropoutParams drop) {
@@ -104,9 +108,12 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid >> 2, c = tid & 3;  // query row in the tile, lane in its group of 4
   const int kv_len = seq_lengths ? min(seq_lengths[b], sk) : sk;  // NULL: sk and 0
-  const int q_off = q_offsets ? q_offsets[b] : 0;
+  const int q_abs = q_offsets ? q_offsets[b] : 0;
+  const int k_abs = k_offsets ? k_offsets[b] : 0;
+  const int q_off = q_abs - k_abs;      // causality sees the relative offset
   const int qi = q0 + r;                // query row index
-  const int q_pos = q_off + qi;         // its absolute position
+  const int q_pos = q_off + qi;         // its position relative to key column 0
+  const uint32_t bh = static_cast<uint32_t>((bh_offset + b) * H + h);
 
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
@@ -156,8 +163,8 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float p = s[i] == FLASH_NEG_INF ? 0.f : expf(s[i] - m_new);
       tile_sum += p;
       if (drop.on)
-        p = dropout_keep(drop, static_cast<uint32_t>(b * H + h), static_cast<uint32_t>(q_pos),
-                         static_cast<uint32_t>(j0 + c + 4 * i))
+        p = dropout_keep(drop, bh, static_cast<uint32_t>(q_abs + qi),
+                         static_cast<uint32_t>(k_abs + j0 + c + 4 * i))
                 ? p * drop.inv_keep
                 : 0.f;
       Ps[r][c + 4 * i] = p;
@@ -186,8 +193,8 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch_simt(const void* q, const void* k, const void* v, void* out, void* lse,
-                const void* seq_lengths, const void* q_offsets, long long B, long long H,
-                long long sq, long long sk, long long q_sb, long long q_st, long long q_sh,
+                const void* seq_lengths, const void* q_offsets, const void* k_offsets,
+                long long bh_offset, long long B, long long H, long long sq, long long sk, long long q_sb, long long q_st, long long q_sh,
                 long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
                 long long v_sh, float scale, long long causal, DropoutParams drop,
                 cudaStream_t stream) {
@@ -201,7 +208,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, void* ls
   flash_fwd_simt_kernel<T, D><<<grid, kSimtThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), static_cast<const int*>(seq_lengths),
-      static_cast<const int*>(q_offsets), static_cast<int>(H), static_cast<int>(sq),
+      static_cast<const int*>(q_offsets), static_cast<const int*>(k_offsets),
+      static_cast<int>(bh_offset), static_cast<int>(H), static_cast<int>(sq),
       static_cast<int>(sk), q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale,
       static_cast<int>(causal), drop);
   return static_cast<int>(cudaGetLastError());
@@ -211,7 +219,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, void* ls
 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       void* lse, const void* seq_lengths,
-                                      const void* q_offsets, long long B, long long H,
+                                      const void* q_offsets, const void* k_offsets,
+                                      long long bh_offset, long long B, long long H,
                                       long long sq, long long sk, long long q_sb,
                                       long long q_st, long long q_sh, long long k_sb,
                                       long long k_st, long long k_sh, long long v_sb,
@@ -230,13 +239,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                     static_cast<const int*>(q_offsets), static_cast<int>(H),
                     static_cast<int>(sq), static_cast<int>(sk), static_cast<int>(causal),
                     Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
-                    Strides{v_sb, v_st, v_sh}, scale * kLog2e, drop};
+                    Strides{v_sb, v_st, v_sh}, scale * kLog2e, drop,
+                    static_cast<const int*>(k_offsets), static_cast<int>(bh_offset)};
     return with_head_dim(d, [&](auto D) {
       return launch_rows<D, DenseKeys, true>(a, {}, k3_rows(sq, D), B, st);
     });
   }
   if (dtype != DT_BF16 && dtype != DT_F32) return static_cast<int>(cudaErrorInvalidValue);
-#define K3_ARGS q, k, v, out, lse, seq_lengths, q_offsets, B, H, sq, sk, q_sb, q_st, q_sh, \
+#define K3_ARGS q, k, v, out, lse, seq_lengths, q_offsets, k_offsets, bh_offset, B, H, sq, sk, q_sb, q_st, q_sh, \
                 k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal, drop, st
   return with_head_dim(d, [&](auto D) {
     return dtype == DT_BF16 ? launch_simt<__nv_bfloat16, D>(K3_ARGS)

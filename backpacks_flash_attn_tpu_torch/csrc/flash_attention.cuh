@@ -40,6 +40,12 @@ struct MmaArgs {
   Strides sq_, sk_, sv_;
   float scale_log2;  // softmax scale * log2(e), > 0
   DropoutParams drop;
+  // the ring forms: the absolute position of key column 0 (NULL: 0 for
+  // every sequence) and the global index of batch row 0. Causality sees
+  // q_offsets[b] - k_offsets[b], the dropout hash the absolute positions
+  // and the stream (bh_offset + b) * H + h.
+  const int* k_offsets = nullptr;
+  int bh_offset = 0;
 };
 
 // K3's walk: every key tile below kv_end, in order; the query tiles with
@@ -92,7 +98,7 @@ template <int D, int MT, bool DROP>
 __device__ __forceinline__ void attend_tile(WarpRows<D, MT>& w, const bf16* Qs, int qs,
                                             const bf16* Ks, const bf16* Vs, const MmaArgs& a,
                                             int j0, int qw, int q_off, int kv_len, bool edge,
-                                            uint32_t bh) {
+                                            uint32_t bh, int q_abs, int k_abs) {
   constexpr int LD = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   // S = Q K^T: one ldmatrix.x4 gives the B fragments of two 8-key blocks
@@ -176,8 +182,8 @@ __device__ __forceinline__ void attend_tile(WarpRows<D, MT>& w, const bf16* Qs, 
             p[e] = ex2(fmaf(s[mt][nf][2 * half + e], a.scale_log2, -mu[mt][half]));
             kept[e] = !DROP || dropout_keep(
                                    a.drop, bh,
-                                   static_cast<uint32_t>(q_off + qw + 16 * mt + g + 8 * half),
-                                   static_cast<uint32_t>(j0 + nf * 8 + 2 * tq + e))
+                                   static_cast<uint32_t>(q_abs + qw + 16 * mt + g + 8 * half),
+                                   static_cast<uint32_t>(k_abs + j0 + nf * 8 + 2 * tq + e))
                           ? p[e]
                           : 0.f;
           }
@@ -232,7 +238,9 @@ __global__ void __launch_bounds__(32 * WARPS, kSmWarps<D> / (WARPS * MT))
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tq = lane & 3;
   const int qw = q0 + RW * warp;  // the warp's first query row
   const int kv_len = a.seq_lengths ? min(a.seq_lengths[b], a.sk) : a.sk;
-  const int q_off = a.q_offsets ? a.q_offsets[b] : 0;
+  const int q_abs = a.q_offsets ? a.q_offsets[b] : 0;
+  const int k_abs = a.k_offsets ? a.k_offsets[b] : 0;
+  const int q_off = q_abs - k_abs;  // causality: key u is visible to row i at u <= q_off + i
   // keys at or past these bounds are masked for every row of the block,
   // and of the warp (0: the warp's rows all lie past sq)
   const int kv_end = a.causal ? min(kv_len, q_off + min(q0 + BQ, a.sq)) : kv_len;
@@ -265,7 +273,7 @@ __global__ void __launch_bounds__(32 * WARPS, kSmWarps<D> / (WARPS * MT))
     w.l[mt][0] = w.l[mt][1] = 0.f;
     zero(w.o[mt]);
   }
-  const uint32_t bh = static_cast<uint32_t>(b * a.H + h);
+  const uint32_t bh = static_cast<uint32_t>((a.bh_offset + b) * a.H + h);
 
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<kStages - 2>();  // tile t (and Q) have landed
@@ -280,7 +288,7 @@ __global__ void __launch_bounds__(32 * WARPS, kSmWarps<D> / (WARPS * MT))
     const bf16* Ks = ring + (t % kStages) * 2 * BK * LD;
     const bool edge = j0 + BK > kv_len || (a.causal && j0 + BK - 1 > q_off + qw);
     attend_tile<D, MT, DROP>(w, Qs, RW * warp, Ks, Ks + BK * LD, a, j0, qw, q_off, kv_len,
-                             edge, bh);
+                             edge, bh, q_abs, k_abs);
   }
   cp_async_wait<0>();
 

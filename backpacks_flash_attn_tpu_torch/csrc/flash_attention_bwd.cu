@@ -9,8 +9,12 @@
 // :590 and of the split _flash_bwd_dq_kernel :460 + _flash_bwd_dkv_kernel
 // :523 is the same function.) Head dims 64, 80, 96 and 128, an instance
 // each (the wrapper pads any other d <= 128 with zero columns to the next,
-// as JAX's _head_pad :78 pads to 128), sq == sk, causal or not, bf16 or f32
-// in and out, f32 accumulators.
+// as JAX's _head_pad :78 pads to 128), any sq and sk, causal or not, bf16
+// or f32 in and out, f32 accumulators. The ring forms (JAX's q_offsets,
+// k_offsets, bh_offset, :794-806): causality sees q_off[b] - k_off[b],
+// which may be negative (a pair whose keys all follow its queries gives
+// exact zeros: no query tile is visited), the dropout hash the absolute
+// positions and the stream (bh_offset + b) * H + h.
 //
 // Bound on the H100: at the training shape (32, 12, 512, 64) the bytes,
 // q, k, v, out and dO read and dq, dk, dv written once (8 x 25 MB) plus
@@ -82,6 +86,25 @@
 
 namespace {
 
+// the ring forms' offsets, as BwdArgs carries them to the bf16 body
+struct Offsets {
+  const int *q, *k;  // (B,) absolute positions of query row 0 and key column 0, or NULL
+  int bh;            // the global index of batch row 0
+};
+
+// sequence b's relative offset rel = q_off - k_off (key u is visible to
+// query i at u <= i + rel, causal), the absolute positions of its row 0
+// and column 0 for the dropout hash, and head h's dropout stream
+struct Pos {
+  int rel, q_abs, k_abs;
+  uint32_t bh;
+  __device__ __forceinline__ Pos(const Offsets& o, int b, int h, int H)
+      : rel(0), q_abs(o.q ? o.q[b] : 0), k_abs(o.k ? o.k[b] : 0),
+        bh(static_cast<uint32_t>((o.bh + b) * H + h)) {
+    rel = q_abs - k_abs;
+  }
+};
+
 // ------------------------------------------------------------- f32 (SIMT)
 
 // one block per (32-key tile, head, batch row); thread (r, c) = key k0 + r,
@@ -91,8 +114,9 @@ __global__ void __launch_bounds__(kSimtThreads)
 dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dk, float* __restrict__ dv, int H, int S, Strides sq,
-                 Strides sk, Strides sv, Strides sd, float scale, int causal, DropoutParams drop) {
+                 float* __restrict__ dk, float* __restrict__ dv, int H, int Sq, int Sk,
+                 Strides sq, Strides sk, Strides sv, Strides sd, float scale, int causal,
+                 DropoutParams drop, Offsets off) {
   constexpr int R = kDkdvStatic<D> ? ST : 1;
   __shared__ float Ks_s[R][D + 1], Vs_s[R][D + 1], Qs_s[R][D + 1], Ds_s[R][D + 1];
   __shared__ float Ps[ST][ST + 1], DSs[ST][ST + 1];
@@ -108,33 +132,38 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * ST, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 3, c = threadIdx.x & 7, key = k0 + r;
   const long long bh = static_cast<long long>(b) * H + h;
-  load_rows<D>(Ks, k + b * sk.sb + h * sk.sh, sk.st, k0, S);
-  load_rows<D>(Vs, v + b * sv.sb + h * sv.sh, sv.st, k0, S);
+  const Pos pos(off, b, h, H);
+  load_rows<D>(Ks, k + b * sk.sb + h * sk.sh, sk.st, k0, Sk);
+  load_rows<D>(Vs, v + b * sv.sb + h * sv.sh, sv.st, k0, Sk);
   float dk_acc[D / 8], dv_acc[D / 8];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) dk_acc[j] = dv_acc[j] = 0.f;
 
   const float* qb = q + b * sq.sb + h * sq.sh;
   const float* db = dout + b * sd.sb + h * sd.sh;
-  for (int q0 = causal ? k0 : 0; q0 < S; q0 += ST) {
+  // the first query tile any key of the block sees (causal: query k0 - rel)
+  const int first = causal ? max((k0 - pos.rel >= 0 ? (k0 - pos.rel) / ST
+                                                    : -((pos.rel - k0 + ST - 1) / ST)) * ST, 0)
+                           : 0;
+  for (int q0 = first; q0 < Sq; q0 += ST) {
     __syncthreads();  // the previous tiles are consumed (and K, V staged)
-    load_rows<D>(Qs, qb, sq.st, q0, S);
-    load_rows<D>(Ds, db, sd.st, q0, S);
+    load_rows<D>(Qs, qb, sq.st, q0, Sq);
+    load_rows<D>(Ds, db, sd.st, q0, Sq);
     for (int i = threadIdx.x; i < ST; i += kSimtThreads) {
-      const bool in = q0 + i < S;
-      Ls[i] = in ? lse[bh * S + q0 + i] : 0.f;
-      Dl[i] = in ? delta[bh * S + q0 + i] : 0.f;
+      const bool in = q0 + i < Sq;
+      Ls[i] = in ? lse[bh * Sq + q0 + i] : 0.f;
+      Dl[i] = in ? delta[bh * Sq + q0 + i] : 0.f;
     }
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < ST / 8; ++i) {
       const int ql = c + 8 * i, qry = q0 + ql;
-      const bool valid = key < S && qry < S && (!causal || key <= qry);
+      const bool valid = key < Sk && qry < Sq && (!causal || key <= qry + pos.rel);
       const float p = valid ? expf(dot<D>(Ks[r], Qs[ql]) * scale - Ls[ql]) : 0.f;
       float dp = dot<D>(Vs[r], Ds[ql]), pk = p;
       if (drop.on) {
-        const bool keep = dropout_keep(drop, static_cast<uint32_t>(bh),
-                                       static_cast<uint32_t>(qry), static_cast<uint32_t>(key));
+        const bool keep = dropout_keep(drop, pos.bh, static_cast<uint32_t>(pos.q_abs + qry),
+                                       static_cast<uint32_t>(pos.k_abs + key));
         pk = keep ? p * drop.inv_keep : 0.f;
         dp = keep ? dp * drop.inv_keep : 0.f;
       }
@@ -151,8 +180,8 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   }
-  if (key >= S) return;
-  const long long o = ((static_cast<long long>(b) * S + key) * H + h) * D;
+  if (key >= Sk) return;
+  const long long o = ((static_cast<long long>(b) * Sk + key) * H + h) * D;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     dk[o + c + 8 * j] = dk_acc[j] * scale;
@@ -167,8 +196,8 @@ __global__ void __launch_bounds__(kSimtThreads)
 dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dq, int H, int S, Strides sq, Strides sk, Strides sv,
-               Strides sd, float scale, int causal, DropoutParams drop) {
+               float* __restrict__ dq, int H, int Sq, int Sk, Strides sq, Strides sk,
+               Strides sv, Strides sd, float scale, int causal, DropoutParams drop, Offsets off) {
   constexpr int R = kDqStatic<D> ? ST : 1;
   __shared__ float Qs_s[R][D + 1], Ds_s[R][D + 1], Ks_s[R][D + 1], Vs_s[R][D + 1];
   __shared__ float DSs[ST][ST + 1];
@@ -183,31 +212,32 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * ST, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 3, c = threadIdx.x & 7, qry = q0 + r;
   const long long bh = static_cast<long long>(b) * H + h;
-  load_rows<D>(Qs, q + b * sq.sb + h * sq.sh, sq.st, q0, S);
-  load_rows<D>(Ds, dout + b * sd.sb + h * sd.sh, sd.st, q0, S);
-  const float row_lse = qry < S ? lse[bh * S + qry] : 0.f;
-  const float row_delta = qry < S ? delta[bh * S + qry] : 0.f;
+  const Pos pos(off, b, h, H);
+  load_rows<D>(Qs, q + b * sq.sb + h * sq.sh, sq.st, q0, Sq);
+  load_rows<D>(Ds, dout + b * sd.sb + h * sd.sh, sd.st, q0, Sq);
+  const float row_lse = qry < Sq ? lse[bh * Sq + qry] : 0.f;
+  const float row_delta = qry < Sq ? delta[bh * Sq + qry] : 0.f;
   float dq_acc[D / 8];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) dq_acc[j] = 0.f;
 
   const float* kb = k + b * sk.sb + h * sk.sh;
   const float* vb = v + b * sv.sb + h * sv.sh;
-  const int kv_end = causal ? min(S, q0 + ST) : S;
+  const int kv_end = causal ? min(Sk, q0 + pos.rel + ST) : Sk;
   for (int j0 = 0; j0 < kv_end; j0 += ST) {
     __syncthreads();
-    load_rows<D>(Ks, kb, sk.st, j0, S);
-    load_rows<D>(Vs, vb, sv.st, j0, S);
+    load_rows<D>(Ks, kb, sk.st, j0, Sk);
+    load_rows<D>(Vs, vb, sv.st, j0, Sk);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < ST / 8; ++i) {
       const int kl = c + 8 * i, key = j0 + kl;
-      const bool valid = key < S && qry < S && (!causal || key <= qry);
+      const bool valid = key < Sk && qry < Sq && (!causal || key <= qry + pos.rel);
       const float p = valid ? expf(dot<D>(Qs[r], Ks[kl]) * scale - row_lse) : 0.f;
       float dp = dot<D>(Ds[r], Vs[kl]);
       if (drop.on)
-        dp = dropout_keep(drop, static_cast<uint32_t>(bh), static_cast<uint32_t>(qry),
-                          static_cast<uint32_t>(key))
+        dp = dropout_keep(drop, pos.bh, static_cast<uint32_t>(pos.q_abs + qry),
+                          static_cast<uint32_t>(pos.k_abs + key))
                  ? dp * drop.inv_keep
                  : 0.f;
       DSs[r][kl] = p * (dp - row_delta);
@@ -219,8 +249,8 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < D / 8; ++j) dq_acc[j] += ds * Ks[kl][c + 8 * j];
     }
   }
-  if (qry >= S) return;
-  float* drow = dq + ((static_cast<long long>(b) * S + qry) * H + h) * D;
+  if (qry >= Sq) return;
+  float* drow = dq + ((static_cast<long long>(b) * Sq + qry) * H + h) * D;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) drow[c + 8 * j] = dq_acc[j] * scale;
 }
@@ -229,38 +259,45 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 cudaError_t simt_bwd(const float* q, const float* k, const float* v, const void* out,
                      const float* dout, const float* lse, float* ws, float* dq, float* dk,
-                     float* dv, long long B, long long H, long long S, Strides sq, Strides sk,
-                     Strides sv, Strides so, Strides sd, float scale, int causal,
-                     DropoutParams drop, cudaStream_t st) {
-  cudaError_t err = launch_delta(out, dout, ws, B, H, S, D, so, sd, st);
+                     float* dv, long long B, long long H, long long Sq, long long Sk, Strides sq,
+                     Strides sk, Strides sv, Strides so, Strides sd, float scale, int causal,
+                     DropoutParams drop, Offsets off, cudaStream_t st) {
+  cudaError_t err = launch_delta(out, dout, ws, B, H, Sq, D, so, sd, st);
   if (err != cudaSuccess) return err;
   const size_t kv_smem = kDkdvStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
   const size_t q_smem = kDqStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
   if (kv_smem > 0 && (err = allow_smem<dkdv_simt_kernel<D>>(kv_smem)) != cudaSuccess) return err;
   if (q_smem > 0 && (err = allow_smem<dq_simt_kernel<D>>(q_smem)) != cudaSuccess) return err;
-  const int h = static_cast<int>(H), s = static_cast<int>(S);
-  const dim3 grid(static_cast<unsigned>((S + ST - 1) / ST), static_cast<unsigned>(H),
-                  static_cast<unsigned>(B));
-  dkdv_simt_kernel<D><<<grid, kSimtThreads, kv_smem, st>>>(q, k, v, dout, lse, ws, dk, dv, h, s,
-                                                          sq, sk, sv, sd, scale, causal, drop);
-  dq_simt_kernel<D><<<grid, kSimtThreads, q_smem, st>>>(q, k, v, dout, lse, ws, dq, h, s, sq, sk,
-                                                       sv, sd, scale, causal, drop);
+  const int h = static_cast<int>(H), sq_n = static_cast<int>(Sq), sk_n = static_cast<int>(Sk);
+  const dim3 kv_grid(static_cast<unsigned>((Sk + ST - 1) / ST), static_cast<unsigned>(H),
+                     static_cast<unsigned>(B));
+  const dim3 q_grid(static_cast<unsigned>((Sq + ST - 1) / ST), static_cast<unsigned>(H),
+                    static_cast<unsigned>(B));
+  dkdv_simt_kernel<D><<<kv_grid, kSimtThreads, kv_smem, st>>>(
+      q, k, v, dout, lse, ws, dk, dv, h, sq_n, sk_n, sq, sk, sv, sd, scale, causal, drop, off);
+  dq_simt_kernel<D><<<q_grid, kSimtThreads, q_smem, st>>>(
+      q, k, v, dout, lse, ws, dq, h, sq_n, sk_n, sq, sk, sv, sd, scale, causal, drop, off);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, out, dout: (B, S, H, d) bf16 or f32 (dtype) with the given
-// (batch, row, head) strides, bf16 rows 16-byte aligned, d 64, 80, 96 or
-// 128; lse (B, H, S) f32; ws: f32 workspace, bf16: the dq accumulator (B *
-// S * H * d) then the LSE and delta tables (B * H * S_pad each, S_pad = S
-// rounded up to 64); f32: delta (B * H * S). dq, dk, dv: contiguous (B, S,
-// H, d) outputs of the operands' dtype. key_tile (bf16): 64 or 128 keys a
-// CTA.
+// q, out, dout: (B, Sq, H, d), k, v: (B, Sk, H, d), bf16 or f32 (dtype)
+// with the given (batch, row, head) strides, bf16 rows 16-byte aligned, d
+// 64, 80, 96 or 128; lse (B, H, Sq) f32; ws: f32 workspace, bf16: the dq
+// accumulator (B * Sq * H * d) then the LSE and delta tables (B * H * Sq_pad
+// each, Sq_pad = Sq rounded up to 64); f32: delta (B * H * Sq). dq (B, Sq,
+// H, d), dk, dv (B, Sk, H, d): contiguous outputs of the operands' dtype.
+// q_offsets, k_offsets: (B,) int32 absolute positions of query row 0 and
+// key column 0 of each sequence, or NULL (0); bh_offset: the global index
+// of batch row 0 (the ring forms: out and lse are then the rows' GLOBAL
+// ones, so each call gives one chunk pair's exact share of the gradients).
+// key_tile (bf16): 64 or 128 keys a CTA.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out, const void* dout,
-    const void* lse, void* ws, void* dq, void* dk, void* dv, long long B, long long H,
-    long long S, long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,
+    const void* lse, void* ws, void* dq, void* dk, void* dv, const void* q_offsets,
+    const void* k_offsets, long long bh_offset, long long B, long long H, long long Sq,
+    long long Sk, long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh, long long o_sb,
     long long o_st, long long o_sh, long long d_sb, long long d_st, long long d_sh, float scale,
     long long causal, long long seed0, long long seed1, long long thr, float inv_keep,
@@ -269,8 +306,10 @@ extern "C" int flash_attention_bwd_launch(
   const DropoutParams drop = make_dropout(seed0, seed1, thr, inv_keep, dropout);
   const Strides sq{q_sb, q_st, q_sh}, sk{k_sb, k_st, k_sh}, sv{v_sb, v_st, v_sh},
       so{o_sb, o_st, o_sh}, sd{d_sb, d_st, d_sh};
-  const int h = static_cast<int>(H), s = static_cast<int>(S);
+  const int h = static_cast<int>(H);
   const int c = static_cast<int>(causal);
+  const Offsets off{static_cast<const int*>(q_offsets), static_cast<const int*>(k_offsets),
+                    static_cast<int>(bh_offset)};
   const auto* lp = static_cast<const float*>(lse);
   auto* wp = static_cast<float*>(ws);
   if (dtype == DT_BF16) {
@@ -282,7 +321,11 @@ extern "C" int flash_attention_bwd_launch(
     a.dk = static_cast<bf16*>(dk);
     a.dv = static_cast<bf16*>(dv);
     a.H = h;
-    a.Sq = a.Sk = s;
+    a.Sq = static_cast<int>(Sq);
+    a.Sk = static_cast<int>(Sk);
+    a.q_offsets = off.q;
+    a.k_offsets = off.k;
+    a.bh_offset = off.bh;
     a.causal = c;
     a.sq = sq;
     a.sk = sk;
@@ -300,6 +343,7 @@ extern "C" int flash_attention_bwd_launch(
     return simt_bwd<D>(static_cast<const float*>(q), static_cast<const float*>(k),
                        static_cast<const float*>(v), out, static_cast<const float*>(dout), lp,
                        wp, static_cast<float*>(dq), static_cast<float*>(dk),
-                       static_cast<float*>(dv), B, H, S, sq, sk, sv, so, sd, scale, c, drop, st);
+                       static_cast<float*>(dv), B, H, Sq, Sk, sq, sk, sv, so, sd, scale, c, drop,
+                       off, st);
   }));
 }

@@ -12,8 +12,9 @@
 // number of query tiles it visits and the first row of tile t. The
 // cp.async ring prefetches tile t + 1 of the walk while tile t multiplies,
 // and dQ of tile t - 1 goes out after the next barrier, whatever rows
-// either starts at. Queries and keys have their own lengths (Sq, Sk): K9's
-// backward takes sq != sk; K5's wrapper still passes equal ones. The
+// either starts at. Queries and keys have their own lengths (Sq, Sk), and
+// K5's ring forms their own offsets (BwdArgs q_offsets, k_offsets,
+// bh_offset: a chunk pair of a sequence split over ranks). The
 // design notes (tiles, the dQ atomics, the masks) are in
 // flash_attention_bwd.cu.
 //
@@ -154,17 +155,47 @@ struct BwdArgs {
   Strides sq, sk, sv, sd;
   float scale, scale_log2;
   DropoutParams drop;
+  // the ring forms (NULL, NULL, 0: none): the absolute positions of query
+  // row 0 and key column 0 of each sequence, and the global index of batch
+  // row 0. Causality sees q_offsets[b] - k_offsets[b], the dropout hash the
+  // absolute positions and the stream (bh_offset + b) * H + h.
+  const int *q_offsets, *k_offsets;
+  int bh_offset;
 };
 
+// where sequence b's pairs sit: rel = q_off - k_off (key u is visible to
+// query i at u <= i + rel, causal), the absolute positions of query row 0
+// and key column 0, and its dropout stream of head h
+struct PairPos {
+  int rel, q_abs, k_abs;
+  uint32_t bh;
+  __device__ __forceinline__ PairPos(const BwdArgs& a, int b, int h)
+      : rel(0),
+        q_abs(a.q_offsets ? a.q_offsets[b] : 0),
+        k_abs(a.k_offsets ? a.k_offsets[b] : 0),
+        bh(static_cast<uint32_t>((a.bh_offset + b) * a.H + h)) {
+    rel = q_abs - k_abs;
+  }
+};
+
+// floor(x / m) * m for any sign of x (m > 0)
+__device__ __forceinline__ int floor_to(int x, int m) {
+  return (x >= 0 ? x / m : -((-x + m - 1) / m)) * m;
+}
+
 // K5's walk: the 64-query tiles from the first any key of the CTA sees
-// (its own first key, causal) to Sq; the key tiles in blockIdx.y order
-// (tile 0 has the most query tiles under causal masking, and launches
-// first)
+// (causal: the tile of query k0 - rel, its own first key less the
+// sequence's relative offset, at least 0) to Sq; none where that lies past
+// Sq (a ring pair whose keys all lie after its queries). The key tiles in
+// blockIdx.y order (tile 0 has the most query tiles under causal masking,
+// and launches first)
 struct DenseQueries {
   struct Params {};
   int k0, first, n;
   __device__ __forceinline__ DenseQueries(const Params&, const BwdArgs& a, int BK)
-      : k0(blockIdx.y * BK), first(a.causal ? k0 : 0), n((a.Sq - first + BQ - 1) / BQ) {}
+      : k0(blockIdx.y * BK),
+        first(a.causal ? max(floor_to(k0 - PairPos(a, blockIdx.x / a.H, 0).rel, BQ), 0) : 0),
+        n(max((a.Sq - first + BQ - 1) / BQ, 0)) {}
   __device__ __forceinline__ int tiles() const { return n; }
   __device__ __forceinline__ int q0(int t) const { return first + t * BQ; }
 };
@@ -220,7 +251,7 @@ __device__ __forceinline__ void tile_probs(uint32_t (&pa)[BQ / 16][4], uint32_t 
                                            const float (&st)[BQ / 8][4],
                                            const float (&dpt)[BQ / 8][4], const float* L,
                                            const float* Dl, const BwdArgs& a, int q0, int kw,
-                                           uint32_t bh) {
+                                           const PairPos& pp) {
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
 #pragma unroll
   for (int nf = 0; nf < BQ / 8; ++nf) {
@@ -234,12 +265,12 @@ __device__ __forceinline__ void tile_probs(uint32_t (&pa)[BQ / 16][4], uint32_t 
       for (int e = 0; e < 2; ++e) {
         const int qry = q0 + nf * 8 + 2 * tq + e;
         float p = ex2(fmaf(st[nf][2 * half + e], a.scale_log2, -(e ? lv.y : lv.x)));
-        if (MASK && (key >= a.Sk || (a.causal && key > qry))) p = 0.f;
+        if (MASK && (key >= a.Sk || (a.causal && key > qry + pp.rel))) p = 0.f;
         float dp = dpt[nf][2 * half + e];
         pv[e] = p;
         if (DROP) {
-          const bool keep = dropout_keep(a.drop, bh, static_cast<uint32_t>(qry),
-                                         static_cast<uint32_t>(key));
+          const bool keep = dropout_keep(a.drop, pp.bh, static_cast<uint32_t>(pp.q_abs + qry),
+                                         static_cast<uint32_t>(pp.k_abs + key));
           pv[e] = keep ? p * a.drop.inv_keep : 0.f;
           dp = keep ? dp * a.drop.inv_keep : 0.f;
         }
@@ -286,7 +317,7 @@ __device__ __forceinline__ void warp_tile(float (&dk)[D / 8][4], float (&dv)[D /
                                           const bf16* Vw, const bf16* Qs, const bf16* Ds,
                                           const float* L, const float* Dl, bf16* dst,
                                           const BwdArgs& a, int q0, int kw, bool edge,
-                                          uint32_t bh) {
+                                          const PairPos& pp) {
   constexpr int LD = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   float st[BQ / 8][4], dpt[BQ / 8][4];  // 16 keys x BQ queries
@@ -307,9 +338,9 @@ __device__ __forceinline__ void warp_tile(float (&dk)[D / 8][4], float (&dv)[D /
   }
   uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
   if (edge)  // warp-uniform
-    tile_probs<DROP, true>(pa, dsa, st, dpt, L, Dl, a, q0, kw, bh);
+    tile_probs<DROP, true>(pa, dsa, st, dpt, L, Dl, a, q0, kw, pp);
   else
-    tile_probs<DROP, false>(pa, dsa, st, dpt, L, Dl, a, q0, kw, bh);
+    tile_probs<DROP, false>(pa, dsa, st, dpt, L, Dl, a, q0, kw, pp);
   // dS^T (keys x queries) for the dQ product: the pairs as the A fragments
   // hold them (to_a's slots); rows of 144 bytes, so the warp's 32 stores
   // of a step hit 32 banks
@@ -438,9 +469,11 @@ __global__ void __launch_bounds__(32 * WARPS, 8 / WARPS)
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
   zero(dk_acc);
   zero(dv_acc);
-  const uint32_t bh32 = static_cast<uint32_t>(bh);
+  const PairPos pp(a, b, h);
   // the keys any query of tile q0 sees (causal), and the valid ones
-  auto dq_keys = [&](int q0) { return min(min(BK, a.Sk - k0), a.causal ? q0 + BQ - k0 : BK); };
+  auto dq_keys = [&](int q0) {
+    return min(min(BK, a.Sk - k0), a.causal ? q0 + pp.rel + BQ - k0 : BK);
+  };
 
   int q_prev = 0;  // tile t - 1's first query
   for (int t = 0; t < n_tiles; ++t) {
@@ -461,10 +494,10 @@ __global__ void __launch_bounds__(32 * WARPS, 8 / WARPS)
     const float* L = reinterpret_cast<const float*>(Qs + 2 * BQ * LD);
     // warp-uniform: whether any (key, query) pair of the warp's keys and the
     // tile is valid, and whether the mask cuts through the tile
-    if (kw < a.Sk && (!a.causal || q0 + BQ - 1 >= kw)) {
-      const bool edge = (a.causal && q0 < kw + 15) || kw + 16 > a.Sk;
+    if (kw < a.Sk && (!a.causal || q0 + BQ - 1 + pp.rel >= kw)) {
+      const bool edge = (a.causal && q0 + pp.rel < kw + 15) || kw + 16 > a.Sk;
       warp_tile<D, DROP>(dk_acc, dv_acc, ka, va, Ks + 16 * warp * LD, Vs + 16 * warp * LD, Qs,
-                         Qs + BQ * LD, L, L + BQ, my_rows, a, q0, kw, edge, bh32);
+                         Qs + BQ * LD, L, L + BQ, my_rows, a, q0, kw, edge, pp);
     } else {
       for (int i = lane; i < 16 * (BQ / 8); i += 32)
         *reinterpret_cast<uint4*>(my_rows + (i / (BQ / 8)) * LDT + (i % (BQ / 8)) * 8) =

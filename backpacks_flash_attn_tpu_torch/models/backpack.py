@@ -95,12 +95,15 @@ def contextualization(params: Params, cfg: BackpackConfig,
 
 def content_forward(params: Params, cfg: BackpackConfig,
                     input_ids: torch.Tensor, *, train: bool = False,
-                    rng: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    rng: Optional[torch.Tensor] = None,
+                    dropout_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sense network C(x): (b, s) -> (b, s, nv, d); strictly per-token. A
     quantized tree with a precomputed sense table gathers from it. In
     training, the embedding's dropout site takes the first split of
     ``rng`` and each block's two sites a (n_blocks, 2) split of the second
-    (JAX :141-170)."""
+    (JAX :141-170). dropout_idx: the global flat positions of this chunk's
+    elements in the unsharded (B, S, d) tensor, for every site (a
+    sequence-sharded caller, ``parallel/cp_train.py``)."""
     b, s = input_ids.shape
     cp = params["content"]
     act = gpt_lib.quant_act_dtype(params["gpt"])
@@ -123,7 +126,8 @@ def content_forward(params: Params, cfg: BackpackConfig,
     det, eps, pdrop = not train, cfg.layer_norm_epsilon, cfg.resid_pdrop
     hidden, residual = norms.dropout_add_layer_norm(
         hidden, None, cp["ln_0"]["weight"], cp["ln_0"]["bias"],
-        cfg.embd_pdrop, eps, rng=r_emb, deterministic=det)
+        cfg.embd_pdrop, eps, rng=r_emb, deterministic=det,
+        dropout_idx=dropout_idx)
     for i in range(n_blocks):
         blk = gpt_lib.tree_index(cp["blocks"], i)
         r1, r2 = (None, None) if blk_rngs is None else blk_rngs[i]
@@ -131,11 +135,11 @@ def content_forward(params: Params, cfg: BackpackConfig,
         # residual stream
         hidden, residual = norms.dropout_add_layer_norm(
             hidden, residual, blk["norm1"]["weight"], blk["norm1"]["bias"],
-            pdrop, eps, rng=r1, deterministic=det)
+            pdrop, eps, rng=r1, deterministic=det, dropout_idx=dropout_idx)
         mlp_out = dense.mlp(hidden, blk["mlp"], cfg.activation)
         hidden, residual = norms.dropout_add_layer_norm(
             mlp_out, residual, blk["norm2"]["weight"], blk["norm2"]["bias"],
-            pdrop, eps, rng=r2, deterministic=det)
+            pdrop, eps, rng=r2, deterministic=det, dropout_idx=dropout_idx)
     senses = dense.mlp(hidden, cp["final_mlp"], cfg.activation)
     return senses.reshape(b, s, cfg.num_senses, cfg.n_embd)
 

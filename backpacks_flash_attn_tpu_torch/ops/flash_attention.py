@@ -5,11 +5,12 @@ Port of ``backpacks_flash_attn_tpu/ops/flash_attention.py``
 :158, and the ``custom_vjp`` around it, :1009-1036, whose backward is
 ``_flash_bwd`` :794) for causal masking, per-sequence ``seq_lengths`` and
 ``q_offsets``, and attention dropout: key column u of sequence b is valid
-when ``u < min(seq_lengths[b], sk)`` and, if causal, ``u <= q_offsets[b] +
-i`` for query row i. Fully masked rows give 0 and an LSE of ``NEG_INF``.
+when ``u < min(seq_lengths[b], sk)`` and, if causal, ``u <= q_offsets[b] -
+k_offsets[b] + i`` for query row i. Fully masked rows give 0 and an LSE of
+``NEG_INF``.
 
-Dropout keeps a probability where the counter hash of ``(seed, b*H + h,
-q_offsets[b] + i, j)`` falls below a threshold (``dropout_keep_positions``,
+Dropout keeps a probability where the counter hash of ``(seed, (bh_offset
++ b)*H + h, q_offsets[b] + i, k_offsets[b] + j)`` falls below a threshold (``dropout_keep_positions``,
 JAX :120), so the forward, the backward and the plain versions all draw the
 same mask without storing it. It is applied to the un-normalised
 probabilities after the running max and sum, so the LSE stays the one of
@@ -20,6 +21,13 @@ saves ``(q, k, v, out, lse)`` and the seed; its backward is K5 on the card
 and :func:`flash_attention_bwd_ref` on the CPU. The ragged/offset entry is
 inference only. An additive score bias (and K5's ``dbias``) waits for
 ROADMAP Queue 2 item 3.
+
+The ring forms (``k_offsets``, ``bh_offset``, and K5 at sq != sk with
+``q_offsets``): :func:`flash_fwd` and :func:`flash_bwd` at JAX's
+``_flash_fwd``/``_flash_bwd`` signatures, the building blocks of
+``parallel/ring_attention.py``: a chunk pair of a sequence split over ranks
+is masked by its relative offset and hashed at its absolute positions, so
+the pairs' merged outputs and summed gradients are the whole sequence's.
 
 Block-sparse attention (kernel K9) is :func:`flash_blocksparse_attention`
 (JAX :1415): the same online softmax over only the (block_q, block_k) tiles
@@ -87,26 +95,34 @@ def dropout_keep_positions(seed: Tuple[int, int], bh, q_pos, k_pos,
     return x < keep_threshold(dropout_p)
 
 
-def _keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, device):
-    """Keep mask (b, h, sq, sk) at absolute positions: bh = b*H + h, query
-    row i at q_offsets[b] + i, key column j at j."""
-    bh = (torch.arange(b, device=device)[:, None] * h
+def _keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, device,
+               k_offsets=None, bh_offset: int = 0):
+    """Keep mask (b, h, sq, sk) at absolute positions: bh = (bh_offset +
+    b) * H + h, query row i at q_offsets[b] + i, key column j at
+    k_offsets[b] + j."""
+    bh = ((torch.arange(b, device=device)[:, None] + int(bh_offset)) * h
           + torch.arange(h, device=device)[None, :])[:, :, None, None]
     q_pos = (_per_seq(q_offsets, b, device, 0)[:, None]
              + torch.arange(sq, device=device)[None, :])[:, None, :, None]
-    k_pos = torch.arange(sk, device=device)[None, None, None, :]
+    k_pos = (_per_seq(k_offsets, b, device, 0)[:, None]
+             + torch.arange(sk, device=device)[None, :])[:, None, None, :]
     return dropout_keep_positions(seed, bh, q_pos, k_pos, dropout_p)
 
 
 # ------------------------------------------------------------ plain versions
 
-def _valid_mask(b, sq, sk, causal, seq_lengths, q_offsets, device):
+def _valid_mask(b, sq, sk, causal, seq_lengths, q_offsets, device,
+                k_offsets=None):
+    """(b, 1, sq, sk): key column u below min(seq_lengths[b], sk) and, if
+    causal, at most q_offsets[b] - k_offsets[b] + i for query row i (the
+    relative offset, which may be negative)."""
     lens = _per_seq(seq_lengths, b, device, sk)
     k_pos = torch.arange(sk, device=device)
     mask = (k_pos[None, :] < torch.clamp(lens, max=sk)[:, None])[:, None, None, :]
     if causal:
-        q_pos = (_per_seq(q_offsets, b, device, 0)[:, None]
-                 + torch.arange(sq, device=device)[None, :])          # (b, sq)
+        rel = (_per_seq(q_offsets, b, device, 0)
+               - _per_seq(k_offsets, b, device, 0))
+        q_pos = rel[:, None] + torch.arange(sq, device=device)[None, :]  # (b, sq)
         mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]
     return mask
 
@@ -135,7 +151,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         softmax_scale: Optional[float] = None,
                         seq_lengths=None, q_offsets=None,
                         dropout_p: float = 0.0, seed=(0, 0),
-                        return_lse: bool = False):
+                        return_lse: bool = False, k_offsets=None,
+                        bh_offset: int = 0):
     """Plain version of K3: the two products in the working dtype (bf16
     stays bf16), scores and softmax in f32, with the kernel's masks, its
     dropout mask and its zero output for fully masked rows."""
@@ -143,8 +160,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     dev = q.device
-    mask = _valid_mask(b, sq, sk, causal, seq_lengths, q_offsets, dev)
-    keep = (_keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, dev)
+    mask = _valid_mask(b, sq, sk, causal, seq_lengths, q_offsets, dev,
+                       k_offsets)
+    keep = (_keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, dev,
+                       k_offsets, bh_offset)
             if dropout_p > 0.0 else None)
     out, lse = _attend_ref(q, k, v, mask, scale, keep, dropout_p)
     return (out, lse) if return_lse else out
@@ -177,17 +196,23 @@ def _attend_bwd_ref(q, k, v, out, lse, dout, mask, scale, keep=None,
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
                             softmax_scale: Optional[float] = None,
-                            dropout_p: float = 0.0, seed=(0, 0)):
+                            dropout_p: float = 0.0, seed=(0, 0),
+                            q_offsets=None, k_offsets=None,
+                            bh_offset: int = 0):
     """Plain version of K5 (JAX ``_flash_bwd_scratch_kernel`` :681): p is
     recomputed as exp(s - lse) with the forward's masks and keep mask,
     delta = rowsum(dO * O), ds = p * (dp - delta); the products in the
-    working dtype, the rest in f32. Returns (dq, dk, dv) in the input
-    dtypes."""
+    working dtype, the rest in f32. Any sq and sk; the offsets as
+    :func:`flash_attention_ref`'s (given a longer attention's global out
+    and lse, the gradients are one chunk pair's share). Returns (dq, dk,
+    dv) in the input dtypes."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    mask = _valid_mask(b, sq, sk, causal, None, None, q.device)
-    keep = (_keep_mask(seed, dropout_p, b, h, sq, sk, None, q.device)
+    mask = _valid_mask(b, sq, sk, causal, None, q_offsets, q.device,
+                       k_offsets)
+    keep = (_keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, q.device,
+                       k_offsets, bh_offset)
             if dropout_p > 0.0 else None)
     return _attend_bwd_ref(q, k, v, out, lse, dout, mask, scale, keep,
                            dropout_p)
@@ -253,24 +278,27 @@ def _per_seq_arg(x, b: int, device) -> Optional[torch.Tensor]:
 
 
 def _flash_fwd_kernel(q, k, v, *, causal, scale, seq_lengths, q_offsets,
-                      dropout_p, seed):
+                      dropout_p, seed, k_offsets=None, bh_offset: int = 0):
     """K3 (``csrc/flash_attention.cu``): bf16 on tensor cores (q, k and v
     rows 16-byte aligned, scale > 0) or on its SIMT loop (f32, unaligned
     bf16); head dims 64, 80, 96 and 128 as they are, any other d <= 128
-    padded to the next (:func:`head_dim_instance`); any outer strides.
-    Returns (out (b, sq, h, d), lse (b, h, sq) f32)."""
+    padded to the next (:func:`head_dim_instance`); any outer strides; the
+    ring forms' k_offsets and bh_offset. Returns (out (b, sq, h, d), lse
+    (b, h, sq) f32)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     inst = _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
     q, k, v = pad_heads(inst, q, k, v)
     lens = _per_seq_arg(seq_lengths, b, q.device)
     offs = _per_seq_arg(q_offsets, b, q.device)
+    koffs = _per_seq_arg(k_offsets, b, q.device)
     out = torch.empty((b, sq, h, inst), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
     _build.launch(
         _K3, "flash_attention_launch", P(q), P(k), P(v), P(out), P(lse),
-        P(lens), P(offs), b, h, sq, sk, *q.stride()[:3], *k.stride()[:3],
+        P(lens), P(offs), P(koffs), int(bh_offset), b, h, sq, sk,
+        *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], float(scale), int(causal),
         *_dropout_args(dropout_p, seed), inst, _build.DTYPE_CODE[q.dtype])
     return cut_heads(d, out)[0], lse
@@ -287,18 +315,19 @@ def _k5_key_tile(s: int, d: int = 64) -> int:
 
 
 def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
-                      dropout_p, seed):
+                      dropout_p, seed, q_offsets=None, k_offsets=None,
+                      bh_offset: int = 0):
     """K5 (``csrc/flash_attention_bwd.cu``): bf16 on tensor cores (rows
     16-byte aligned, else copied contiguous first; dq summed in an f32
     workspace, so its last bits vary between runs) or f32 SIMT; head dims
-    as K3's (any other d <= 128 padded, the gradients cut back); sq == sk,
-    no lengths or offsets. -> (dq, dk, dv), contiguous."""
+    as K3's (any other d <= 128 padded, the gradients cut back); any sq and
+    sk; the ring forms' q_offsets, k_offsets and bh_offset; no lengths.
+    -> (dq, dk, dv), contiguous."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     inst = _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
-    if sq != sk:
-        raise ValueError(f"flash_attention_bwd kernel takes sq == sk, got "
-                         f"{sq} and {sk}")
+    qoffs = _per_seq_arg(q_offsets, b, q.device)
+    koffs = _per_seq_arg(k_offsets, b, q.device)
     q, k, v, out, dout = (_build.kernel_operand(t) for t in pad_heads(
         inst, q, k, v, out, dout.to(q.dtype)))
     for name, t in (("out", out), ("dout", dout)):
@@ -321,25 +350,29 @@ def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
     strides = [s for t in (q, k, v, out, dout) for s in t.stride()[:3]]
     _build.launch(
         _K5, "flash_attention_bwd_launch", P(q), P(k), P(v), P(out),
-        P(dout), P(lse), P(ws), P(dq), P(dk), P(dv), b, h, sq, *strides,
+        P(dout), P(lse), P(ws), P(dq), P(dk), P(dv), P(qoffs), P(koffs),
+        int(bh_offset), b, h, sq, sk, *strides,
         float(softmax_scale), int(causal), *_dropout_args(dropout_p, seed),
-        _k5_key_tile(sq, inst), inst, _build.DTYPE_CODE[q.dtype])
+        _k5_key_tile(max(sq, sk), inst), inst, _build.DTYPE_CODE[q.dtype])
     return cut_heads(d, dq, dk, dv)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         softmax_scale: Optional[float] = None,
-                        dropout_p: float = 0.0, seed=(0, 0)):
+                        dropout_p: float = 0.0, seed=(0, 0),
+                        q_offsets=None, k_offsets=None, bh_offset: int = 0):
     """Gradients (dq, dk, dv) of the flash forward. CPU tensors, and every
     call inside ``_build.plain_path()``, take
     :func:`flash_attention_bwd_ref`; otherwise a CUDA tensor launches K5
-    (bf16 or f32, d <= 128, sq == sk) or raises."""
+    (bf16 or f32, d <= 128, any sq and sk, the ring forms' offsets) or
+    raises."""
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
     fn = (_flash_bwd_kernel if q.is_cuda and _build.kernels_enabled()
           else flash_attention_bwd_ref)
     return fn(q, k, v, out, lse, dout, causal=causal, softmax_scale=scale,
-              dropout_p=dropout_p, seed=seed)
+              dropout_p=dropout_p, seed=seed, q_offsets=q_offsets,
+              k_offsets=k_offsets, bh_offset=bh_offset)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -416,6 +449,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out, lse = flash_attention_ref(q, k, v, softmax_scale=scale,
                                        return_lse=True, **kw)
     return (out, lse) if return_lse else out
+
+
+def _seed_words(seed) -> Tuple[int, int]:
+    """JAX's (2,) uint32 seed array, a prng key or an (int, int) pair ->
+    the pair of seed words."""
+    if seed is None:
+        return (0, 0)
+    if isinstance(seed, torch.Tensor):
+        return prng.seed_words(seed)
+    return int(seed[0]), int(seed[1])
+
+
+def flash_fwd(q, k, v, seq_lengths, scale, causal, block_q: int = 512,
+              block_k: int = 512, *, dropout_p: float = 0.0, seed=None,
+              q_offsets=None, bias=None, k_offsets=None, bh_offset=None):
+    """JAX's ``_flash_fwd`` (:298) at its signature and layout: q (b, h, sq,
+    d), k and v (b, h, sk, d) -> (out (b, h, sq, d), lse (b, h, sq) f32).
+    q_offsets, k_offsets: (b,) or scalar absolute positions of query row 0
+    and key column 0 (causality uses their difference, the dropout hash the
+    absolute ones); bh_offset: the global index of batch row 0; seed: the
+    dropout seed words. The ring's forward building block: K3 on a CUDA
+    tensor (the (b, s, h, d) views of the operands, no copy), else its
+    plain version. block_q / block_k: the TPU's tiling, not used."""
+    del block_q, block_k
+    if bias is not None:
+        raise NotImplementedError("bias (a score bias in K3, dbias in K5) "
+                                  "comes with ROADMAP Queue 2 item 3")
+    kw = dict(causal=causal, seq_lengths=seq_lengths, q_offsets=q_offsets,
+              k_offsets=k_offsets, bh_offset=int(bh_offset or 0),
+              dropout_p=dropout_p, seed=_seed_words(seed))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if q.is_cuda and _build.kernels_enabled():
+        out, lse = _flash_fwd_kernel(qt, kt, vt, scale=float(scale), **kw)
+    else:
+        out, lse = flash_attention_ref(qt, kt, vt, softmax_scale=float(scale),
+                                       return_lse=True, **kw)
+    return out.transpose(1, 2), lse
+
+
+def flash_bwd(q, k, v, out, lse, g, seed, scale, causal, block_q: int = 512,
+              block_k: int = 512, dropout_p: float = 0.0, bias=None,
+              q_offsets=None, k_offsets=None, bh_offset=None):
+    """JAX's ``_flash_bwd`` (:794) at its signature and layout: q, out, g
+    (b, h, sq, d), k, v (b, h, sk, d), lse (b, h, sq) -> (dq, dk, dv,
+    None) in the (b, h, s, d) layout (no dbias: Queue 2 item 3). Given a
+    longer attention's GLOBAL out and lse and the chunk pair's offsets,
+    the gradients are that pair's exact share (the ring's backward
+    building block). K5 on a CUDA tensor, else its plain version."""
+    del block_q, block_k
+    if bias is not None:
+        raise NotImplementedError("dbias comes with ROADMAP Queue 2 item 3")
+    kw = dict(causal=causal, softmax_scale=float(scale), dropout_p=dropout_p,
+              seed=_seed_words(seed), q_offsets=q_offsets,
+              k_offsets=k_offsets, bh_offset=int(bh_offset or 0))
+    args = [x.transpose(1, 2) for x in (q, k, v, out)] + [lse, g.transpose(1, 2)]
+    fn = (_flash_bwd_kernel if q.is_cuda and _build.kernels_enabled()
+          else flash_attention_bwd_ref)
+    dq, dk, dv = fn(*args, **kw)
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), None
 
 
 def flash_attention_qkv_packed(qkv: torch.Tensor, *, causal: bool = True,

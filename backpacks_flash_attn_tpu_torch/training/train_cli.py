@@ -1,24 +1,33 @@
-"""Training CLI on one device.
+"""Training CLI, on one device or context-parallel over a world of ranks.
 
 Port of ``backpacks_flash_attn_tpu/training/train_cli.py``: mode
 train|smoke|profile (smoke runs 3 steps and writes no checkpoint; profile
 wraps the steps in ``torch.profiler``), resume from the newest periodic or
 crash auto-save checkpoint (parameters, optimizer moments, EMA and the
 data sampler's position), speed and metrics logging with the analytic
-FLOP count, and the validation perplexity at the end. Data, tensor,
-context parallelism and ZeRO wait for ROADMAP Queue 1 item 6: their flags
-raise unless they are 1 or off. There is no ``--use-flash``: attention
-always takes the flash kernels.
+FLOP count, and the validation perplexity at the end. There is no
+``--use-flash``: attention always takes the flash kernels.
+
+``--cp N`` (with ``--dp M``) trains the Backpack model context-parallel,
+as JAX's CLI does (:115-126): the sequence split over N ranks of a ring
+(``--cp-layout natural|zigzag``; ``--cp-attn-impl flash|einsum``, the GPT
+attention's inner block), the batch over M, one process a rank started
+by ``parallel/launch.py`` (``--dist-backend``: nccl needs a GPU a rank,
+gloo runs several ranks on one card or the CPU; the default is nccl on
+cuda, gloo on the CPU). Rank 0 logs and writes the checkpoints. Tensor
+parallelism, ZeRO/FSDP (``--tp``, ``--zero*``) and data parallelism alone
+(``--dp`` at ``--cp 1``) wait for ROADMAP Queue 1 item 6 and raise.
 
 Usage:
     python -m backpacks_flash_attn_tpu_torch.training.train_cli \\
         --corpus tokens.npy --model backpack-micro --steps 1000 \\
-        --batch-size 8 --seqlen 512 --workdir runs/bp-micro
+        --batch-size 8 --seqlen 512 --workdir runs/bp-micro [--cp 2]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 from typing import Any, Dict
@@ -56,7 +65,10 @@ class RunConfig:
     seed: int = 0
     dp: int = 1
     tp: int = 1
-    cp: int = 1
+    cp: int = 1                       # context-parallel ring size ('seq')
+    cp_layout: str = "natural"        # natural | zigzag (load-balanced)
+    cp_attn_impl: str = "flash"       # flash | einsum ring inner block
+    dist_backend: str = ""            # nccl | gloo; "" = nccl on cuda, gloo on cpu
     remat: str = "none"
     zero1: bool = False
     zero2: bool = False
@@ -83,11 +95,19 @@ _MODELS = {
 
 
 def _check_parallel(rc: RunConfig) -> None:
-    if rc.dp != 1 or rc.tp != 1 or rc.cp != 1 or rc.zero1 or rc.zero2 \
-            or rc.zero3:
+    """CP composes with DP; the rest of item 6 is refused."""
+    if rc.tp != 1 or rc.zero1 or rc.zero2 or rc.zero3:
         raise NotImplementedError(
-            "--dp/--tp/--cp and --zero1/2/3 are not ported yet (ROADMAP "
-            "Queue 1 item 6): run with 1 and off")
+            "--tp and --zero1/2/3 are not ported yet (ROADMAP Queue 1 item 6: "
+            "the TP specs of parallel/mesh.py, the ZeRO/FSDP steps): run with "
+            "--tp 1 and them off")
+    if rc.cp == 1 and rc.dp != 1:
+        raise NotImplementedError(
+            "--dp without --cp (the sharded train step of training/train.py) "
+            "is not ported yet (ROADMAP Queue 1 item 6): run with --dp 1, or "
+            "with --cp > 1")
+    if rc.cp > 1 and not rc.model.startswith("backpack"):
+        raise ValueError("--cp drives the Backpack model (as JAX's CLI)")
 
 
 def build_model(rc: RunConfig, device):
@@ -103,9 +123,40 @@ def build_model(rc: RunConfig, device):
     return cfg, kind, params
 
 
+def _backend(rc: RunConfig) -> str:
+    if rc.dist_backend:
+        return rc.dist_backend
+    return "gloo" if rc.device == "cpu" else "nccl"
+
+
+def _run_rank(fields: Dict[str, Any]) -> Dict[str, Any]:
+    """One rank of a --cp world (parallel/launch.py's target)."""
+    return run(RunConfig(**fields))
+
+
+class _Quiet:
+    """The metrics logger of a rank other than 0: logs nothing."""
+
+    def log(self, step, metrics):
+        pass
+
+    def close(self):
+        pass
+
+
 def run(rc: RunConfig) -> Dict[str, Any]:
     _check_parallel(rc)
+    world = rc.dp * rc.cp
+    if world > 1 and not torch.distributed.is_initialized():
+        from ..parallel import launch
+        return launch.run_world(
+            "backpacks_flash_attn_tpu_torch.training.train_cli:_run_rank",
+            world, args=(dataclasses.asdict(rc),), backend=_backend(rc),
+            timeout=float("inf"), inherit_rank0=True)[0]
+    lead = world == 1 or torch.distributed.get_rank() == 0
     device = _build.resolve_device(rc.device)
+    if world > 1 and device.type == "cuda" and _backend(rc) == "nccl":
+        device = torch.device("cuda", torch.cuda.current_device())
     os.makedirs(rc.workdir, exist_ok=True)
     tokens = lmd.load_corpus(rc.corpus)
     n_val = max(int(len(tokens) * rc.val_fraction), rc.seqlen + 1)
@@ -118,8 +169,17 @@ def run(rc: RunConfig) -> Dict[str, Any]:
         warmup_steps=rc.warmup_steps, total_steps=rc.steps,
         grad_clip=rc.grad_clip, accum_steps=rc.accum_steps,
         schedule=rc.lr_schedule)
-    state = train_lib.TrainState(params, opt, 0)
-    step_fn = train_lib.make_train_step(cfg, model=kind, remat=rc.remat)
+    if world > 1:
+        from ..parallel import cp_train as cp_lib
+        from ..parallel import mesh as mesh_lib
+        gpt_lib.check_remat(rc.remat)
+        mesh = mesh_lib.make_cp_mesh(rc.dp, rc.cp)
+        step_fn, init = cp_lib.make_cp_sharded_train_step(
+            cfg, opt, mesh, attn_impl=rc.cp_attn_impl, layout=rc.cp_layout)
+        state = init(params)
+    else:
+        state = train_lib.TrainState(params, opt, 0)
+        step_fn = train_lib.make_train_step(cfg, model=kind, remat=rc.remat)
     sampler = lmd.SamplerState(seed=rc.seed)
     ema = ema_lib.init_ema(params) if rc.ema_decay > 0 else None
 
@@ -138,11 +198,12 @@ def run(rc: RunConfig) -> Dict[str, Any]:
         sampler = lmd.SamplerState(seed=s.get("seed", rc.seed),
                                    epoch=s.get("epoch", 0),
                                    counter=s.get("counter", 0))
-        print(f"resumed from {latest} at step {start_step}")
+        if lead:
+            print(f"resumed from {latest} at step {start_step}")
 
     steps = 3 if rc.mode == "smoke" else rc.steps
-    logger = cb.MetricsLogger(os.path.join(rc.workdir, "metrics.jsonl"),
-                              print_every=rc.log_every)
+    logger = (cb.MetricsLogger(os.path.join(rc.workdir, "metrics.jsonl"),
+                               print_every=rc.log_every) if lead else _Quiet())
     speed = cb.SpeedMonitor()
     ds = lmd.LMDataset(train_tokens, rc.seqlen)
     stream = lmd.batches(ds, rc.batch_size, sampler)
@@ -159,9 +220,10 @@ def run(rc: RunConfig) -> Dict[str, Any]:
         prof.start()
 
     metrics: Dict[str, Any] = {}
-    with ckpt_lib.auto_save_on_exception(
+    with (ckpt_lib.auto_save_on_exception(
             rc.workdir, current_state, lambda: state.step,
-            meta={"sampler": dataclasses.asdict(sampler)}):
+            meta={"sampler": dataclasses.asdict(sampler)}) if lead
+          else contextlib.nullcontext()):
         for i in range(start_step, steps):
             pre = speed.on_step_start()
             (x, y), sampler = next(stream)
@@ -180,7 +242,7 @@ def run(rc: RunConfig) -> Dict[str, Any]:
                 logged.update(pre)
                 logged.update(post)
                 logger.log(i, logged)
-            if rc.mode == "train" and rc.ckpt_every and \
+            if lead and rc.mode == "train" and rc.ckpt_every and \
                     (i + 1) % rc.ckpt_every == 0:
                 ckpt_lib.save(rc.workdir, current_state(), step=i + 1,
                               meta={"sampler": dataclasses.asdict(sampler)},
@@ -188,6 +250,7 @@ def run(rc: RunConfig) -> Dict[str, Any]:
 
     if prof is not None:
         prof.stop()
+    if prof is not None and lead:
         trace = os.path.join(rc.workdir, "profile_trace.json")
         prof.export_chrome_trace(trace)
         sort = ("self_cuda_time_total" if device.type == "cuda"
@@ -195,6 +258,9 @@ def run(rc: RunConfig) -> Dict[str, Any]:
         print(prof.key_averages().table(sort_by=sort, row_limit=10))
         print(f"profile written to {trace}")
 
+    final = {k: float(v) for k, v in metrics.items()}
+    if not lead:
+        return {"final_metrics": final, "val": {}, "steps": steps}
     if rc.mode == "train":
         ckpt_lib.save(rc.workdir, current_state(), step=steps,
                       meta={"sampler": dataclasses.asdict(sampler)},
@@ -212,8 +278,7 @@ def run(rc: RunConfig) -> Dict[str, Any]:
                               params=eval_params, device=device)
     logger.log(steps, {f"val/{k}": v for k, v in val.items()})
     logger.close()
-    return {"final_metrics": {k: float(v) for k, v in metrics.items()},
-            "val": val, "steps": steps}
+    return {"final_metrics": final, "val": val, "steps": steps}
 
 
 def main(argv=None) -> None:

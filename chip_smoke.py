@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases device,build,kernels,serve,engine,forward,train,
                                     longctx,train8k,generate,decode_kernels,mini,xl,
-                                    intervene,entry]
+                                    intervene,entry,cp]
                           [--out DIR]
 
 Phases, each printing one JSON line:
@@ -46,13 +46,15 @@ Phases, each printing one JSON line:
             steps, K2's, K1's and K8's
             device ms a step among it (K1's and K8's recorded launches
             beside).
-5. engine   serve-engine: ServingEngine over INT8 weights and INT8 caches
-            at its defaults (stage 64, windows 128/256/384/512), 128 slots,
+5. engine   backpack-small at full width, its first 6 of 12 GPT layers
+            (all 12 drawn, so no later draw moves). serve-engine:
+            ServingEngine over INT8 weights and INT8 caches at its
+            defaults (stage 64, windows 128/256/384/512), 128 slots,
             max_seqlen 512, 256 greedy requests (prompts of 16-64 tokens,
             64-224 new tokens, from the seeded generator), so that slots
-            retire and refill: stats(), launches (K1's (m, l) form 13 times
-            a decode step, plain K1 never, K2 50 a step and a prefill, K3
-            12 a prefill), a profiled 16-step stretch (idle share), and the
+            retire and refill: stats(), launches (K1's (m, l) form 7 times
+            a decode step, plain K1 never, K2 26 a step and a prefill, K3
+            6 a prefill), a profiled 16-step stretch (idle share), and the
             plain-path rule: every request's tokens equal the same
             engine's under plain_path() up to their first difference,
             where the kernel path's token lies within twice the sum of the
@@ -65,7 +67,7 @@ Phases, each printing one JSON line:
             128 prompts of 32 tokens prefilled at a scalar length and
             inserted as the engine admits, then 224 greedy steps under
             windows 128/256, flushing whenever 64 staged columns fill; K8-ml
-            12 and K1-ml 1 a step. Then the teacher-forced gate of 8 decode
+            6 and K1-ml 1 a step. Then the teacher-forced gate of 8 decode
             steps in the staged INT8 and staged kv4 configurations, ragged
             slot lengths, a 4-column stage (a flush inside the steps).
 6. forward  backpack_forward at (8, 512) in bf16 through K3 and K4, logits
@@ -197,37 +199,38 @@ Phases, each printing one JSON line:
             prompts of 32, 224 greedy tokens): K3 8 a prefill, K1 9 a
             decode step (dk 80 over the GPT layers, the combine), the
             teacher-forced gate, a 32-step profile.
-13. xl      gpt3-xl with rotary embeddings (24 layers, 2048, 16 heads of
-            128, 64 rotated channels) at full width and depth, bf16 weights
-            from the seeded generator: training at 2 x 2048 (AdamW, dropout,
-            the fused MLP), K3, K5 and K7 24 launches a step, 12 steps, one
-            profiled; the gradient gate at full depth on 5 batches of 1 x
-            2048 at gate_weights; generate_gpt at batch 8, prompt 512, 32
-            tokens: K3 24 a prefill, K1 24 a decode step, the tokens against
+13. xl      gpt3-xl with rotary embeddings (2048, 16 heads of 128, 64
+            rotated channels) at full width, its first 4 of 24 layers (all
+            24 drawn from the seeded generator, so no later draw moves),
+            bf16: training at 2 x 2048 (AdamW, dropout, the fused MLP), K3,
+            K5 and K7 4 launches a step, 12 steps, one profiled; the
+            gradient gate on 5 batches of 1 x 2048 at gate_weights;
+            generate_gpt at batch 8, prompt 512, 32 tokens: K3 4 a
+            prefill, K1 4 a decode step, the tokens against
             the plain path's (equal up to each sequence's first
             difference, which must be a near-tie of the plain path's
             logits) and the teacher-forced gate.
 14. intervene  the Backpack interventions on backpack-small at full width
-            and depth, bf16 weights from the seeded generator (drawn after
-            every other phase): a control_weights table (strength 2 over 8
+            and its first 4 of 12 GPT layers (all 12 drawn), bf16 weights
+            from the seeded generator (drawn after every other phase): a control_weights table (strength 2 over 8
             word ids from the generator) and a toxicity_weights table; the
             teacher-forced gate of weighted_decode_step (annealed) and
             negative_decode_step (quantile 0.02, m 1006) over a prefill of 8
             x 32 and 8 decode steps, in bf16 (bf16 caches) and in INT8 (INT8
             weights and caches): kernel path, plain path and the f32 plain
             reference on the kernel path's greedy tokens, the 2x rule on
-            every step's logits, each kernel-path call launch-gated (K3 12 a
-            prefill; K1 13 a decode step: the 12 GPT layers and the combine,
-            with the sense weights folded into its value scales; K2 50 a
+            every step's logits, each kernel-path call launch-gated (K3 4 a
+            prefill; K1 5 a decode step: the 4 GPT layers and the combine,
+            with the sense weights folded into its value scales; K2 18 a
             call over INT8 weights). weighted_forward and
-            replaced_word_forward at (8, 512), bf16, through K3 (12) and K4
+            replaced_word_forward at (8, 512), bf16, through K3 (4) and K4
             (1) against the plain path under the 2x rule. The engine: INT8
             weights and caches at its defaults, 128 slots, 256 greedy
             requests (engine's prompts and budgets), 64 control and 64
             negative, the rest plain: stats(), launches (a step with a
             control or negative slot active runs the flushed plain view:
-            plain K1 13 and K1-ml 0; the other steps K1-ml 13; K2 50 a step
-            and a prefill; K3 12 a prefill), peak device memory and the
+            plain K1 5 and K1-ml 0; the other steps K1-ml 5; K2 18 a step
+            and a prefill; K3 4 a prefill), peak device memory and the
             negative state's bytes, a 16-step profile (idle share, the eager
             ops' share of device time), and the plain-path rule of the
             engine phase for every request (control and negative ones by
@@ -255,18 +258,45 @@ Phases, each printing one JSON line:
             the native C++ merge loop built and equal to the slow one on
             the whole corpus, encode_corpus_parallel with 4 workers equal
             to a serial encode, MB/s); the lm-harness adapter (256 pairs
-            over the 64-512 buckets, K3 12 and K4 1 a scoring forward, the
+            over the 64-512 buckets, K3 4 and K4 1 a scoring forward, the
             2x rule on the log-likelihoods; generate_until served by the
             engine over INT8, 64 requests of 32 tokens, its launch split,
-            against the loop over an INT8 cache by the plain-path rule);
-            PPLM on gpt2-small (bf16, batch 4, prompt 16, 24 tokens, 3
-            gradient iterations, 32 bag-of-words ids, window None and 8:
-            the bag's mass rising, K3 12 and K1 48 a step exactly, none in
+            against the loop over an INT8 cache by the plain-path rule; the
+            harness and MAUVE at the first 4 of the 12 GPT layers);
+            PPLM on gpt2-small at its first 4 of 12 layers (all 12 drawn;
+            bf16, batch 4, prompt 16, 24 tokens, 3 gradient iterations, 32
+            bag-of-words ids, window None and 8: the bag's mass rising, K3
+            4 a prefill and K1 16 a step exactly, none in
             the gradient iterations, the plain-path rule, seconds a
             token); MAUVE (512 + 512 texts of 128 ids, gpt2-small and
-            backpack-small: features under the 2x rule, K3 12 a batch,
+            backpack-small: features under the 2x rule, K3 4 a batch,
             the score of a set against itself >= 0.9 and against four
             repeated tokens <= 0.1).
+16. cp      context-parallel training (phase_cp): a world of 2 processes
+            on the card (parallel/launch.py, gloo: the ring's hops and the
+            gradient all-reduce through host memory; the process group's
+            timeout fails a lost rank). The rotary gpt3-small at
+            train-8k's width, depth and batch (2 x 8192, 4096 tokens a
+            rank a sequence), the flash ring (K3 and K5 a chunk pair, K7
+            under the fused-MLP switch) with dropout at every site, in the
+            natural and zigzag layouts: at gate_weights, the CP loss and
+            gradients against the single-device step under train-8k's
+            gradient gate's rule (the f32 step the reference); then 3
+            timed steps (the gate's forward and backward warm the kernels
+            and the hops): step ms, tokens/s, ms in hops, K3, K5 and K7
+            launches each step exact on each rank. Then backpack-small's
+            CP gradients (f32, the CLI's weights, 8 x 512) against the
+            single-device step's, each leaf (the layers' Wqkv kernel by
+            its q, k and v columns) within 5e-4 relative; then
+            backpack-small through the training CLI's --cp 2 (8 x 512,
+            f32, smoke mode)
+            against its single-device run: the losses a step within 2e-6
+            and the gradient norms within 1e-5 (relative), K3's and K5's
+            f32 ring forms launched once a chunk pair a layer a step on
+            each rank. The kernels phase ends with K3's and K5's ring
+            forms at both shapes (ring_kernel_cases: pairs (0,0), (1,0),
+            (1,1), K5 at sq != sk; bf16 at bh_offset 2, f32 at 8; and the
+            bf16 ring's merge against one full-sequence K3 launch).
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -278,10 +308,13 @@ no CUDA device it exits non-zero before printing any result. TF32 is off
 
 import argparse
 import contextlib
+import dataclasses
+import io
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -710,12 +743,14 @@ def ml_kernel_cases(gen):
     return cases
 
 
-def plain_attention_by_heads(q, k, v, *, scale, p, seed, heads, grads_of=None):
+def plain_attention_by_heads(q, k, v, *, scale, p, seed, heads, grads_of=None,
+                             bh_offset=0):
     """flash_attention_ref (causal, dropout p; grads_of None: -> (out, lse))
     or flash_attention_bwd_ref (grads_of = (out, lse, dout): -> (dq, dk,
     dv)) computed over chunks of ``heads`` heads, each with the masks of its
-    absolute positions (bh = b * H + h): the same function element for
-    element, in pieces whose (s, s) score tensors fit the card at s 8192."""
+    absolute positions (bh = (bh_offset + b) * H + h): the same function
+    element for element, in pieces whose (s, s) score tensors fit the card
+    at s 8192."""
     from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
     b, s, h, _ = q.shape
     mask = fa._valid_mask(1, s, s, True, None, None, q.device)
@@ -725,7 +760,8 @@ def plain_attention_by_heads(q, k, v, *, scale, p, seed, heads, grads_of=None):
         chunks = []
         for h0 in range(0, h, heads):
             hs = slice(h0, min(h, h0 + heads))
-            bh = (bi * h + torch.arange(h0, hs.stop, device=q.device))[None, :, None, None]
+            bh = ((bh_offset + bi) * h
+                  + torch.arange(h0, hs.stop, device=q.device))[None, :, None, None]
             keep = fa.dropout_keep_positions(seed, bh, pos[:, None], pos[None, :], p)
             part = lambda t: t[bi:bi + 1, :, hs]
             if grads_of is None:
@@ -1544,9 +1580,25 @@ def _map_tensors(tree, fn):
     return fn(tree)
 
 
+def _first_layers(params, cfg, n):
+    """A depth cut: params (a GPT tree, or a Backpack's with its GPT stack
+    under "gpt") with only the first n GPT layers, and cfg so cut. Every
+    layer was drawn from the seeded generator before the cut, so no later
+    draw moves; widths, the sense network and every per-layer launch count
+    (n_layer in each formula) stay."""
+    out = dict(params)
+    if "gpt" in out:
+        out["gpt"] = gp = dict(out["gpt"])
+    else:
+        gp = out
+    gp["layers"] = _map_tensors(gp["layers"], lambda t: t[:n].clone())
+    return out, dataclasses.replace(cfg, n_layer=n)
+
+
 # ------------------------------------------------------------------ engine
 
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_PROFILE = 128, 256, (64, 16)
+ENGINE_LAYERS = 6   # of backpack-small's 12 GPT layers: a depth cut that pays for cp
 ENGINE_PROMPT, ENGINE_NEW = (16, 64), (64, 224)
 STAGE = 64                    # ServingEngine's default stage_tokens
 GATE_STAGE, GATE_LENS = 4, (16, 24, 32, 40)
@@ -1746,8 +1798,10 @@ def profile_engine(params, cfg, requests, **engine_kw):
 
 
 def phase_engine(gen, results):
-    """serve-engine: ServingEngine over INT8 weights and INT8 caches at its
-    defaults (stage 64, windows 128/256/384/512), 128 slots, 256 greedy
+    """backpack-small at full width and the first ENGINE_LAYERS of its 12
+    GPT layers (all drawn). serve-engine: ServingEngine over INT8 weights
+    and INT8 caches at its defaults (stage 64, windows 128/256/384/512),
+    128 slots, 256 greedy
     requests, every request by plain_path_rule against the same engine
     under plain_path(); serve-staged-kv4: the model path over the staged
     int4-KV cache; then the teacher-forced gates of both staged
@@ -1758,7 +1812,8 @@ def phase_engine(gen, results):
     from backpacks_flash_attn_tpu_torch.ops import _build
 
     cfg = backpack_small(vocab_size=50257)
-    params = bp.init_backpack(cfg, gen, dtype=torch.bfloat16)
+    params, cfg = _first_layers(bp.init_backpack(cfg, gen, dtype=torch.bfloat16), cfg,
+                                ENGINE_LAYERS)
     qparams = qz.quantize_backpack_params(params, cfg, bits=8)
     q32 = qz.quantize_backpack_params(params, cfg, bits=8,
                                       act_dtype=torch.float32)
@@ -3029,6 +3084,245 @@ def head_dim_cases(gen):
     return cases
 
 
+# ------------------------------------------------------------------ ring forms
+
+# the cp phase's attention: train-8k's 2 x 8192 split over a ring of two
+RING_LEN, RING_CHUNK, RING_BH_OFFSET, RING_SEED = LONG_LEN, LONG_LEN // 2, 2, 22
+RING_PAIRS = ((0, 0), (1, 0), (1, 1))
+# the f32 forms (the SIMT loops) at the shape of the cp phase's CLI run:
+# backpack-small at 8 x 512 over a ring of two (chunks of 256), from a
+# generator of their own, drawn after the bf16 forms'
+RING_F32_BH_OFFSET, RING_F32_SEED = 8, 24
+
+
+def _ring_mask(i, j, c):
+    """Pair (i, j)'s (c, c) boolean mask: key j * c + u is visible to query
+    i * c + t at j * c + u <= i * c + t."""
+    t = torch.arange(c, device=DEV)
+    return (j * c + t[None, :]) <= (i * c + t[:, None])
+
+
+def _merged_rows(pair_fwd, i, dtype):
+    """Chunk i's rows of the whole sequence's attention from its pairs (i,
+    j <= i), merged as the ring merges them (ring_attention._merge):
+    -> (out (b, c, h, d) in dtype, lse (b, h, c))."""
+    from backpacks_flash_attn_tpu_torch.parallel import ring_attention as ra
+    state = None
+    for j in range(i + 1):
+        o_j, lse_j = pair_fwd(i, j)
+        if state is None:
+            b, c, h, d = o_j.shape
+            m = torch.full((b, h, c), ra.NEG, dtype=torch.float32, device=DEV)
+            state = (m, torch.zeros_like(m),
+                     torch.zeros((b, c, h, d), dtype=torch.float32, device=DEV))
+        state = ra._merge(*state, o_j, lse_j)
+    return ra._finish(*state, dtype)
+
+
+@dataclasses.dataclass
+class _RingInputs:
+    """A causal sequence of two chunks of c rows as the ring hands it to
+    its pair calls (q pre-scaled), and the pair calls of each path
+    ("kernel": K3 / K5 through the ring's own pair functions; "plain": the
+    plain versions in the kernel's dtype; "ref": the plain versions in
+    f32)."""
+    paths: dict
+    dtype: torch.dtype
+    c: int
+    p: float
+    seed: tuple
+    boff: int
+
+    def pair_fwd(self, path, i, j, qrows=None, keys=None):
+        from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+        from backpacks_flash_attn_tpu_torch.parallel import ring_attention as ra
+        x, y, z, _ = self.paths[path]
+        qx, ky, vz, qo, ko = self._slices(x, y, z, i, j, qrows, keys)
+        if path == "kernel":
+            return ra._pair_fwd(qx, ky, vz, True, qo, ko, self.p, self.seed, self.boff)
+        return fa.flash_attention_ref(qx, ky, vz, q_offsets=qo, k_offsets=ko,
+                                      return_lse=True, **self.kw)
+
+    def pair_bwd(self, path, i, j, rows, qrows=None, keys=None):
+        from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+        from backpacks_flash_attn_tpu_torch.parallel import ring_attention as ra
+        x, y, z, gz = self.paths[path]
+        qx, ky, vz, qo, ko = self._slices(x, y, z, i, j, qrows, keys)
+        gx = self.chunk(gz, i) if qrows is None else gz[:, qrows]
+        out, lse = rows
+        if path == "kernel":
+            return ra._pair_bwd(qx, ky, vz, out, lse, gx, True, qo, ko, self.p,
+                                self.seed, self.boff)
+        return fa.flash_attention_bwd_ref(qx, ky, vz, out, lse, gx, q_offsets=qo,
+                                          k_offsets=ko, **self.kw)
+
+    @property
+    def kw(self):
+        return dict(causal=True, softmax_scale=1.0, dropout_p=self.p, seed=self.seed,
+                    bh_offset=self.boff)
+
+    def chunk(self, x, i):
+        return x[:, i * self.c:(i + 1) * self.c]
+
+    def _slices(self, x, y, z, i, j, qrows, keys):
+        qx = self.chunk(x, i) if qrows is None else x[:, qrows]
+        ky, vz = ((self.chunk(y, j), self.chunk(z, j)) if keys is None
+                  else (y[:, keys], z[:, keys]))
+        qo, ko = (i * self.c, j * self.c) if qrows is None else (qrows.start, keys.start)
+        return qx, ky, vz, qo, ko
+
+    def path_dtype(self, path):
+        return torch.float32 if path == "ref" else self.dtype
+
+
+def _ring_pair_cases(b, c, h, d, dtype, p, seed, boff, gen_seed):
+    """K3's and K5's ring forms over a causal sequence of two chunks of c
+    rows (h heads of d, dropout p, bh_offset boff), q, k, v and dO drawn
+    from a generator seeded gen_seed (no other phase's draws move): K3 at
+    RING_PAIRS (out and lse), K5 at the same pairs (dq, dk, dv), each path
+    fed its own merged out and lse of the pair's rows (the ring's
+    backward), and K5 at sq != sk (rows c/2 .. c - 1 against keys 0 .. c -
+    1). Each launch-gated, under the 2x rule (f32: within 1e-5 of the
+    reference's largest magnitude), with device and host times beside SDPA
+    under the pair's boolean mask (its own dropout). -> (cases, the
+    _RingInputs)."""
+    import functools
+
+    g = torch.Generator(device=DEV).manual_seed(gen_seed)
+    q, k, v, dout = (torch.randn(b, 2 * c, h, d, generator=g, device=DEV).to(dtype)
+                     for _ in range(4))
+    qs = (q.float() * d ** -0.5).to(dtype)
+    ri = _RingInputs(paths={"kernel": (qs, k, v, dout), "plain": (qs, k, v, dout),
+                            "ref": tuple(t.float() for t in (qs, k, v, dout))},
+                     dtype=dtype, c=c, p=p, seed=seed, boff=boff)
+    ch = ri.chunk
+
+    def sdpa(qx, ky, vz, mask):
+        return F.scaled_dot_product_attention(
+            qx.transpose(1, 2), ky.transpose(1, 2), vz.transpose(1, 2), attn_mask=mask,
+            scale=1.0, dropout_p=p).transpose(1, 2)
+
+    def sdpa_bwd(qx, ky, vz, gx, mask):
+        with torch.enable_grad():
+            lq, lk, lv = (t.detach().requires_grad_() for t in (qx, ky, vz))
+            lout = sdpa(lq, lk, lv, mask)
+        return lambda: torch.autograd.grad(lout, (lq, lk, lv), gx, retain_graph=True)
+
+    dt = str(dtype).split(".")[-1]
+    tag = f"b={b} h={h} c={c} d={d} {dt} dropout p={p} bh_offset={boff}"
+    tensor = b * c * h * d * q.element_size()      # one (b, c, h, d) chunk
+    cases = []
+    for i, j in RING_PAIRS:
+        mask = _ring_mask(i, j, c)
+        pairs = int(mask.sum()) * b * h
+        cases.append(("flash_attention", f"ring pair ({i},{j}) {tag}", _f32_case(dict(
+            kernel=functools.partial(ri.pair_fwd, "kernel", i, j),
+            plain=functools.partial(ri.pair_fwd, "plain", i, j),
+            ref=functools.partial(ri.pair_fwd, "ref", i, j),
+            library=functools.partial(sdpa, ch(qs, i), ch(k, j), ch(v, j), mask),
+            bytes=4 * tensor + b * h * c * 4, flops=4 * pairs * d,
+            gate="flash_attention", device_times=True), dtype)))
+    rows = {path: [_merged_rows(functools.partial(ri.pair_fwd, path), i, ri.path_dtype(path))
+                   for i in range(2)] for path in ri.paths}
+    for i, j in RING_PAIRS:
+        mask = _ring_mask(i, j, c)
+        pairs = int(mask.sum()) * b * h
+        cases.append(("flash_attention_bwd", f"ring pair ({i},{j}) {tag}", _f32_case(dict(
+            kernel=functools.partial(ri.pair_bwd, "kernel", i, j, rows["kernel"][i]),
+            plain=functools.partial(ri.pair_bwd, "plain", i, j, rows["plain"][i]),
+            ref=functools.partial(ri.pair_bwd, "ref", i, j, rows["ref"][i]),
+            library=sdpa_bwd(ch(qs, i), ch(k, j), ch(v, j), ch(dout, i), mask),
+            bytes=8 * tensor + b * h * c * 4, flops=10 * pairs * d,
+            gate="flash_attention_bwd", device_times=True), dtype)))
+    # K5 at sq != sk: rows c/2 .. c - 1 (every key they see lies in 0 .. c - 1)
+    qr, kr = slice(c // 2, c), slice(0, c)
+    prefix = {path: ri.pair_fwd(path, 0, 0, qr, kr) for path in ri.paths}
+    mask = (torch.arange(c, device=DEV)[None, :]
+            <= torch.arange(c // 2, c, device=DEV)[:, None])
+    pairs = int(mask.sum()) * b * h
+    cases.append(("flash_attention_bwd", f"ring sq!=sk sq={c // 2} sk={c} q_offset={c // 2} "
+                  f"b={b} h={h} d={d} {dt} dropout p={p} bh_offset={boff}", _f32_case(dict(
+                      kernel=functools.partial(ri.pair_bwd, "kernel", 0, 0, prefix["kernel"],
+                                               qr, kr),
+                      plain=functools.partial(ri.pair_bwd, "plain", 0, 0, prefix["plain"],
+                                              qr, kr),
+                      ref=functools.partial(ri.pair_bwd, "ref", 0, 0, prefix["ref"], qr, kr),
+                      library=sdpa_bwd(qs[:, qr], k[:, kr], v[:, kr], dout[:, qr], mask),
+                      bytes=4 * (tensor // 2) + 4 * tensor + b * h * (c // 2) * 4,
+                      flops=10 * pairs * d,
+                      gate="flash_attention_bwd", device_times=True), dtype)))
+    return cases, ri
+
+
+def ring_kernel_cases(record):
+    """K3's and K5's ring forms (_ring_pair_cases) at the cp phase's two
+    shapes: train-8k's 2 x 8192 (h 12, d 64, bf16, causal, dropout 0.1)
+    split into two chunks of 4096, bh_offset 2; and the CLI run's
+    backpack-small at 8 x 512 in f32 (the SIMT loops) split into two
+    chunks of 256, dropout 0.1, bh_offset 8. Last, the ring's merge of
+    the three bf16 K3 launches over the whole sequence under the 2x rule
+    against the plain version (four heads at a time), and against ONE
+    full-sequence K3 launch with the same seed, whose dropout masks are the
+    same, so only the rounding differs: the merged out within 2x the full
+    launch's error against the f32 reference, the lse within
+    RING_LSE_ATOL. ``record`` receives those figures."""
+    import functools
+
+    from backpacks_flash_attn_tpu_torch.config import backpack_small
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d, p, c = LONG_BATCH, RING_LEN, LONG_H, LONG_D, 0.1, RING_CHUNK
+    seed, boff = (0x2468ACE, 0x13579BDF), RING_BH_OFFSET
+    cases, ri = _ring_pair_cases(b, c, h, d, torch.bfloat16, p, seed, boff, RING_SEED)
+    small = backpack_small()
+    f32_cases, _ = _ring_pair_cases(CP_CLI_BATCH, CP_CLI_LEN // CP_RANKS, small.n_head,
+                                    small.n_embd // small.n_head, torch.float32,
+                                    small.attn_pdrop, seed, RING_F32_BH_OFFSET,
+                                    RING_F32_SEED)
+    cases += f32_cases
+    qs, k, v, _ = ri.paths["kernel"]
+    # the merge over the whole sequence against the plain version, and
+    # against one full-sequence K3 launch
+    memo = {}
+    by_heads = dict(scale=1.0, p=p, seed=seed, heads=4, bh_offset=boff)
+
+    def merged():
+        parts = [_merged_rows(functools.partial(ri.pair_fwd, "kernel"), i, torch.bfloat16)
+                 for i in range(2)]
+        return (torch.cat([o for o, _ in parts], dim=1), torch.cat([l for _, l in parts], dim=2))
+
+    def ref():
+        if "ref" not in memo:
+            memo["ref"] = plain_attention_by_heads(*ri.paths["ref"][:3], **by_heads)
+        return memo["ref"]
+
+    def against_one_launch(out):
+        full = fa._flash_fwd_kernel(qs, k, v, causal=True, scale=1.0, seq_lengths=None,
+                                    q_offsets=None, dropout_p=p, seed=seed, bh_offset=boff)
+        err_full = max_err(full[0], ref()[0])
+        diff_out, diff_lse = max_err(out[0], full[0]), max_err(out[1], full[1])
+        record.update(out_diff=diff_out, lse_diff=diff_lse, full_launch_err=err_full,
+                      merged_err=max_err(out[0], ref()[0]))
+        if not (diff_out <= 2 * err_full and diff_lse <= RING_LSE_ATOL):
+            raise AssertionError(f"ring merge vs one K3 launch: out {diff_out:.3e} (limit "
+                                 f"{2 * err_full:.3e}), lse {diff_lse:.3e} (limit "
+                                 f"{RING_LSE_ATOL})")
+
+    cases.append(("flash_attention", f"ring merge over s={s} b={b} h={h} d={d} dropout p={p} "
+                  f"bh_offset={boff}", dict(
+                      kernel=merged,
+                      plain=lambda: plain_attention_by_heads(qs, k, v, **by_heads),
+                      ref=ref, check=against_one_launch,
+                      library=lambda: F.scaled_dot_product_attention(
+                          qs.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          is_causal=True, scale=1.0, dropout_p=p).transpose(1, 2),
+                      bytes=4 * qs.numel() * 2 + b * h * s * 4,
+                      flops=4 * (b * h * s * (s + 1) // 2) * d)))
+    return cases
+
+RING_LSE_ATOL = 1e-4    # the merged lse against one launch's (f32, rounding only)
+
+
 # ------------------------------------------------------------------ mini
 
 MINI_CLI_STEPS = 3
@@ -3201,6 +3495,7 @@ def phase_mini(gen, results, out_dir):
 # ------------------------------------------------------------------ xl
 
 XL_BATCH, XL_LEN = 2, 2048
+XL_LAYERS = 4       # of gpt3-xl's 24: a depth cut that pays for the cp phase
 XL_GEN_BATCH, XL_GEN_PROMPT, XL_GEN_TOKENS, XL_GEN_SEED = 8, 512, 32, 23
 
 
@@ -3268,13 +3563,13 @@ def _xl_generate(params, cfg):
 
 
 def phase_xl(gen, results):
-    """gpt3-xl with rotary embeddings (24 layers, 2048 wide, 16 heads of
-    128, 64 rotated channels, vocab 50257 padded to 50264) at full width
-    and depth, bf16 weights from the seeded generator: training at 2 x
-    2048 with AdamW, dropout and the fused MLP (K3, K5 and K7 24 launches a
-    step), the gradient gate at full depth on 5 batches of 1 x 2048 at
-    gate_weights; then generate_gpt (_xl_generate, its prompts from a
-    generator of their own)."""
+    """gpt3-xl with rotary embeddings (2048 wide, 16 heads of 128, 64
+    rotated channels, vocab 50257 padded to 50264) at full width and the
+    first XL_LAYERS of its 24 layers (all 24 drawn from the seeded
+    generator, bf16): training at 2 x 2048 with AdamW, dropout and the
+    fused MLP (K3, K5 and K7 once a layer each step), the gradient gate on
+    5 batches of 1 x 2048 at gate_weights; then generate_gpt
+    (_xl_generate, its prompts from a generator of their own)."""
     from backpacks_flash_attn_tpu_torch.config import gpt3_xl
     from backpacks_flash_attn_tpu_torch.models import gpt
     from backpacks_flash_attn_tpu_torch.ops import dense
@@ -3283,7 +3578,9 @@ def phase_xl(gen, results):
     cfg = gpt3_xl(rotary=True, vocab_size=50257)
     if cfg.head_dim != 128 or cfg.rotary_emb_dim != 64:
         raise AssertionError(f"gpt3-xl: head dim {cfg.head_dim}, rotary {cfg.rotary_emb_dim}")
-    params = gpt.init_gpt(cfg, gen, dtype=torch.bfloat16, device=DEV)
+    params, cfg = _first_layers(gpt.init_gpt(cfg, gen, dtype=torch.bfloat16, device=DEV),
+                                cfg, XL_LAYERS)
+    torch.cuda.empty_cache()
 
     def check(counts):
         bad = {n: counts[n] for n in ("flash_attention", "flash_attention_bwd",
@@ -3328,6 +3625,7 @@ def phase_xl(gen, results):
 
 IV_BATCH, IV_PROMPT, IV_STEPS, IV_WORDS, IV_STRENGTH = 8, 32, 8, 8, 2
 IV_CONTROL = IV_NEGATIVE = 64          # of ENGINE_REQUESTS; the rest plain
+IV_LAYERS = 4       # of backpack-small's 12 GPT layers: a depth cut that pays for cp
 IV_EXP_PROMPTS, IV_EXP_TOKENS, IV_GB_PROMPTS, IV_GB_LEN = 8, 32, 4, 16
 IV_GB_ITERS, IV_GB_SENSE = 10, 10
 
@@ -3446,9 +3744,9 @@ def intervene_forwards(params, cfg, ids, table, ann, edit):
 def intervene_engine(qparams, q32, cfg, requests, tables):
     """The engine over INT8 weights and caches at its defaults, 128 slots,
     with control and negative requests beside plain ones: stats, launches
-    (K1 13 and its (m, l) form 0 in every step with an intervention slot
-    active, the reverse in the others; K2 50 a step and a prefill; K3 12 a
-    prefill), peak device memory with the negative state's bytes, a 16-step
+    (K1 n_layer + 1 and its (m, l) form 0 in every step with an
+    intervention slot active, the reverse in the others; K2 4 n_layer + 2 a
+    step and a prefill; K3 n_layer a prefill), peak device memory with the negative state's bytes, a 16-step
     profile (idle and eager shares), the share of each kind of request
     whose tokens equal the same engine's under plain_path(), and every
     request by plain_path_rule against it (prefix_rows by its own step
@@ -3568,8 +3866,9 @@ def intervene_experiments(params, cfg, gen, words):
 
 
 def phase_intervene(gen, results):
-    """backpack-small at full width and depth (12 layers, 768, 16 senses,
-    vocab 50264), seeded random bf16 weights: the teacher-forced gates of
+    """backpack-small at full width (768, 16 senses, vocab 50264) and the
+    first IV_LAYERS of its 12 GPT layers (all drawn), seeded random bf16
+    weights: the teacher-forced gates of
     the weighted and negative decode steps in bf16 and in INT8, the
     intervened full forwards, the engine with control and negative
     requests, and the experiment loops."""
@@ -3581,7 +3880,8 @@ def phase_intervene(gen, results):
 
     torch.cuda.empty_cache()
     cfg = backpack_small(vocab_size=50257)
-    params = bp.init_backpack(cfg, gen, dtype=torch.bfloat16)
+    params, cfg = _first_layers(bp.init_backpack(cfg, gen, dtype=torch.bfloat16), cfg,
+                                IV_LAYERS)
     words = torch.randint(0, cfg.vocab_size, (IV_WORDS,), generator=gen,
                           device=DEV).tolist()
     log("intervene: tables")
@@ -3634,6 +3934,8 @@ HARNESS_PAIRS, HARNESS_BATCH = 256, 8
 SERVED_REQUESTS, SERVED_TOKENS = 64, 32
 PPLM_BATCH, PPLM_PROMPT, PPLM_TOKENS, PPLM_ITERS, PPLM_BOW = 4, 16, 24, 3, 32
 PPLM_WINDOWS = (None, 8)
+PPLM_LAYERS = 4     # of gpt2-small's 12: a depth cut that pays for the cp phase
+ENTRY_EVAL_LAYERS = 4   # the harness's and MAUVE's models: 4 of 12 GPT layers
 MAUVE_TEXTS, MAUVE_LEN, MAUVE_BATCH = 512, 128, 16
 
 
@@ -4122,8 +4424,9 @@ def pplm_teacher_forced(params, cfg, prompt, tokens, bow, window):
 
 
 def entry_pplm(gen):
-    """pplm_generate at its defaults on gpt2-small (12 x 768, bf16 weights
-    over its f32 cache), batch 4, prompt 16, 24 tokens, 3 gradient
+    """pplm_generate at its defaults on gpt2-small at full width and its
+    first PPLM_LAYERS of 12 layers (768, bf16 weights over its f32 cache;
+    all 12 drawn), batch 4, prompt 16, 24 tokens, 3 gradient
     iterations, a 32-id bag of words, window None and 8: the bag's
     probability mass after perturb_cache above before it; exactly K3 once
     per layer in the prefill and K1 4 x n_layer a step (none in the
@@ -4138,7 +4441,8 @@ def entry_pplm(gen):
     from backpacks_flash_attn_tpu_torch.ops import _build
 
     _, cfg = entry_configs()
-    params = gpt.init_gpt(cfg, gen, dtype=torch.bfloat16, device=DEV)
+    params, cfg = _first_layers(gpt.init_gpt(cfg, gen, dtype=torch.bfloat16, device=DEV),
+                                cfg, PPLM_LAYERS)
     p32 = _map_tensors(params, lambda t: t.float())
     prompt = torch.randint(0, cfg.vocab_size, (PPLM_BATCH, PPLM_PROMPT), generator=gen,
                            device=DEV)
@@ -4219,7 +4523,8 @@ def entry_mauve(gen, bp_cfg, bp_params):
     four = torch.randint(0, gcfg.vocab_size, (4,), generator=gen, device=DEV)
     texts[MAUVE_TEXTS:] = four.repeat(MAUVE_TEXTS // 4)[:, None]
     texts = texts.tolist()
-    gparams = gpt.init_gpt(gcfg, gen, dtype=torch.bfloat16, device=DEV)
+    gparams, gcfg = _first_layers(gpt.init_gpt(gcfg, gen, dtype=torch.bfloat16, device=DEV),
+                                  gcfg, ENTRY_EVAL_LAYERS)
     out = {}
     for model, cfg, params in (("gpt", gcfg, gparams), ("backpack", bp_cfg, bp_params)):
         feat = lambda p: mauve.featurize_terminal_hidden(  # noqa: E731
@@ -4274,6 +4579,10 @@ def phase_entry(gen, results):
         run["tokenizers"] = entry_tokenizers()
     finally:
         shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    # the evals at the first ENTRY_EVAL_LAYERS of the GPT stack (the REPL
+    # above takes the checkpoint's whole depth)
+    params, cfg = _first_layers(params, cfg, ENTRY_EVAL_LAYERS)
+    torch.cuda.empty_cache()
     log("entry: harness")
     run["harness"] = entry_harness(cfg, params, gen)
     log("entry: pplm")
@@ -4282,6 +4591,396 @@ def phase_entry(gen, results):
     run["mauve"] = entry_mauve(gen, cfg, params)
     results["entry"] = run
     del params
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ cp
+
+CP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cp"
+CP_RANKS, CP_WARMUP, CP_TIMED, CP_SEED = 2, 0, 3, 23
+CP_BACKEND = "gloo"         # two ranks on one card: NCCL needs a GPU a rank
+CP_TIMEOUT, CP_PG_TIMEOUT = 400, 180
+CP_CLI_MODEL, CP_CLI_BATCH, CP_CLI_LEN, CP_CLI_TOKENS = "backpack-small", 8, 512, 1 << 18
+CP_CLI_VOCAB = 50257        # backpack-small's (GPT-2's) vocabulary
+CP_CLI_STEPS = 3            # the CLI's smoke mode
+# the CLI's --cp 2 against one device, relative, a step (f32): its losses
+# (they move ~1.5e-4 from step to step; read 8.8e-8) and its gradient norms
+# (read 0)
+CP_CLI_REL, CP_CLI_GRAD_REL = 2e-6, 1e-5
+# each gradient leaf of the CLI model's CP step against the one-device
+# step's, relative (f32): read at most 8.1e-5 (a LayerNorm weight); the
+# off-diagonal pairs' dk shares dropped move Wqkv's k columns by 0.19
+# (backpack-test on the CPU)
+CP_CLI_LEAF_REL = 5e-4
+
+
+def _cp_positions(layout, rank, c):
+    """The global sequence positions of a rank's chunk of c rows."""
+    if layout == "zigzag":
+        c2 = c // 2
+        a, z = rank * c2, (2 * CP_RANKS - 1 - rank) * c2
+        return torch.cat([torch.arange(a, a + c2), torch.arange(z, z + c2)])
+    return torch.arange(rank * c, (rank + 1) * c)
+
+
+def _flat_grads(params):
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+    return torch.cat([t.grad.reshape(-1).float() for _, t in tl.named_leaves(params)])
+
+
+def cp_rank(inputs, layouts, cli_argv):
+    """One rank of the cp phase's world (parallel/launch.run_world's target):
+    the rotary gpt3-small's CP loss and gradients at the gate's weights and
+    key (make_cp_loss_fn, the flash ring, dropout on, this rank's per-token
+    losses returned beside the loss), then CP_WARMUP + CP_TIMED steps of
+    make_cp_sharded_train_step, each with the launches (counts reset just
+    before, read just after) and the seconds in hops; per layout. Then the
+    CLI model's CP gradients against the single-device step's
+    (_cli_model_grads). Then the training CLI's main on ``cli_argv`` (its
+    --cp 2 run, whose ranks are this world's), with its launches (counts
+    reset just before, read just after)."""
+    import torch.distributed as dist
+
+    from backpacks_flash_attn_tpu_torch.config import gpt3_small
+    from backpacks_flash_attn_tpu_torch.ops import _build, dense
+    from backpacks_flash_attn_tpu_torch.parallel import cp_train as cp
+    from backpacks_flash_attn_tpu_torch.parallel import mesh as mesh_lib
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+    from backpacks_flash_attn_tpu_torch.utils import prng
+
+    from backpacks_flash_attn_tpu_torch.training import train_cli
+
+    rank = dist.get_rank()
+    data = torch.load(inputs, weights_only=False)
+    cfg = gpt3_small(rotary=True, vocab_size=50257)
+    switch, dense._FUSED_MLP = dense._FUSED_MLP, True
+    mesh = mesh_lib.make_cp_mesh(1, CP_RANKS)
+    ids = data["ids"].to(DEV)
+    key = prng.fold_in(prng.PRNGKey(1), 0)
+    out = {}
+    for layout in layouts:
+        params = tl.trainable(_map_tensors(data["params"], lambda t: t.to(DEV, copy=True)))
+        loss, per = cp.make_cp_loss_fn(cfg, mesh, attn_impl="flash", train=True,
+                                       layout=layout, model="gpt",
+                                       return_per_token=True)(params, ids, key)
+        loss.backward()
+        cp.reduce_grads(params)
+        gate = {"loss": loss.item(), "per_token": per.cpu(),
+                "pos": _cp_positions(layout, rank, per.shape[1])}
+        if rank == 0:
+            gate["grads"] = _flat_grads(params).to(torch.bfloat16).cpu()
+            gate["picks"] = {k: f(_map_tensors(params, lambda t: t.grad)).cpu()
+                             for k, f in GPT_PICKS.items()}
+        opt = tl.make_optimizer(params, lr=6e-4, warmup_steps=10, total_steps=1000)
+        step, init = cp.make_cp_sharded_train_step(cfg, opt, mesh, attn_impl="flash",
+                                                   layout=layout, model="gpt")
+        state = init(params)
+        rng, steps = prng.PRNGKey(1), []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(CP_WARMUP + CP_TIMED):
+            _build.reset_launches()
+            mesh_lib.reset_hop_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, {"input_ids": ids}, rng)
+            torch.cuda.synchronize()
+            steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              hop_ms=mesh_lib.HOP_STATS["seconds"] * 1e3,
+                              hop_wait_ms=mesh_lib.HOP_STATS["wait_seconds"] * 1e3,
+                              hops=mesh_lib.HOP_STATS["hops"],
+                              hop_bytes=mesh_lib.HOP_STATS["bytes"],
+                              launches={k: n for k, n in _build.launch_counts().items() if n},
+                              loss=m["loss"].item(), grad_norm=m["grad_norm"].item()))
+        out[layout] = dict(gate=gate, steps=steps,
+                           peak_memory_bytes=torch.cuda.max_memory_allocated())
+        del state, params, opt, loss
+        torch.cuda.empty_cache()
+    dense._FUSED_MLP = switch
+    out["cli_grads"] = _cli_model_grads(mesh, data["cli_ids"].to(DEV), key, rank)
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    train_cli.main(cli_argv)
+    torch.cuda.synchronize()
+    out["cli_seconds"] = time.perf_counter() - t0
+    out["cli_launches"] = {k: n for k, n in _build.launch_counts().items() if n}
+    return out
+
+
+def _cli_model_grads(mesh, ids, key, rank):
+    """The CLI model's CP loss and gradients (backpack-small at the CLI's
+    own initial weights, its f32 default, the flash ring, dropout on, the
+    natural layout: the --cp 2 step's loss function) on ``ids`` (8 x 513)
+    at ``key``, and on rank 0 each gradient leaf's relative error against
+    the single-device loss function's at the same weights and key (the
+    CLI's one-device step: K3 and K5 in their f32 forms, the fused
+    contextualization) -> {"loss"[, "single_loss", "leaf_rel": {path:
+    rel}]}, the layers' Wqkv kernel by its q, k and v columns. A leaf
+    whose single-device gradient is 0 gives the CP gradient's norm
+    instead."""
+    from backpacks_flash_attn_tpu_torch.parallel import cp_train as cp
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+    from backpacks_flash_attn_tpu_torch.training import train_cli
+
+    cfg, _, params = train_cli.build_model(
+        train_cli.RunConfig(corpus="", model=CP_CLI_MODEL), torch.device(DEV))
+    params = tl.trainable(params)
+    loss = cp.make_cp_loss_fn(cfg, mesh, attn_impl="flash", train=True,
+                              model="backpack")(params, ids, key)
+    loss.backward()
+    cp.reduce_grads(params)
+    out = {"loss": loss.item()}
+    if rank == 0:
+        one = tl.trainable(_map_tensors(params, lambda t: t.detach().clone()))
+        single = tl.make_loss_fn(cfg, model="backpack")(one, {"input_ids": ids}, key)
+        single.backward()
+        out["single_loss"] = single.item()
+        out["leaf_rel"] = {}
+        for (path, t), (_, u) in zip(tl.named_leaves(params), tl.named_leaves(one)):
+            # the GPT layers' attention weights by their q, k and v columns:
+            # at random weights k's share of the gradient is small beside
+            # v's (not the bias: k's is 0, as a shift of every key leaves
+            # the softmax as it was)
+            parts = (zip("qkv", t.grad.chunk(3, dim=-1), u.grad.chunk(3, dim=-1))
+                     if path[-3:] == ("layers", "Wqkv", "kernel") else (("", t.grad, u.grad),))
+            for part, a, b in parts:
+                name = "/".join(path) + (f"[{part}]" if part else "")
+                out["leaf_rel"][name] = _rel(a, b) if b.norm() > 0 else a.norm().item()
+        del one
+    del params
+    return out
+
+
+def _single_step(params, cfg, x, y, key, dtype):
+    """The single-device train-8k step's per-token losses and gradients at
+    the kernels in ``dtype`` (bf16; f32: the reference, K3, K5 and K7 in
+    their f32 forms), -> (per-token (b, s) f32, flat gradient f32, picks)."""
+    from backpacks_flash_attn_tpu_torch.models import gpt
+    from backpacks_flash_attn_tpu_torch.ops.cross_entropy import cross_entropy
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+
+    p = tl.trainable(_map_tensors(params, lambda t: t.to(dtype)))
+    per_token, _ = cross_entropy(gpt.gpt_lm_forward(p, cfg, x, train=True, rng=key), y)
+    per_token.mean().backward()
+    picks = {k: f(_map_tensors(p, lambda t: t.grad)).float() for k, f in GPT_PICKS.items()}
+    out = per_token.detach().float(), _flat_grads(p), picks
+    del p
+    return out
+
+
+def _cp_gate(layout, ranks, single, ref):
+    """The cp run's loss and gradients against the single-device step under
+    the rule of train-8k's gradient gate: each relative error against the
+    f32 reference (per-token losses, the whole gradient, GPT_PICKS) at most
+    twice the single-device bf16 step's."""
+    b, s = ref[0].shape
+    per = torch.empty(b, s)
+    for r in ranks:
+        g = r[layout]["gate"]
+        per[:, g["pos"]] = g["per_token"]
+    g0 = ranks[0][layout]["gate"]
+    rows = {"loss_per_token": (per.to(DEV), single[0], ref[0]),
+            "all_grads": (g0["grads"].to(DEV), single[1], ref[1])}
+    rows.update({k: (g0["picks"][k].to(DEV), single[2][k], ref[2][k]) for k in GPT_PICKS})
+    out, failed = {}, []
+    for k, (cp_v, one, want) in rows.items():
+        ek, ep = _rel(cp_v, want), _rel(one, want)
+        out[k] = {"cp": ek, "single_bf16": ep}
+        if not (ep > 0 and ek <= 2 * ep):
+            failed.append(f"{k}: cp rel. error {ek:.3e} > 2x single-device {ep:.3e}")
+    losses = [r[layout]["gate"]["loss"] for r in ranks]
+    out["loss"] = {"cp": losses[0], "single_bf16": single[0].mean().item(),
+                   "ref": ref[0].mean().item()}
+    if len(set(losses)) != 1:
+        failed.append(f"the ranks' losses differ: {losses}")
+    if failed:
+        raise AssertionError(f"cp gate ({layout}): " + "; ".join(failed) + f" (all: {out})")
+    return out
+
+
+def _cp_launches(cfg, layout, counts):
+    """What is wrong with one rank's launches of one CP step, or None: the
+    flash ring's K3 and K5 once a chunk pair a layer (natural: S pairs;
+    zigzag: 4 sub-pairs x S), K7 once a layer."""
+    pairs = CP_RANKS * (4 if layout == "zigzag" else 1)
+    want = {"flash_attention": pairs * cfg.n_layer, "flash_attention_bwd": pairs * cfg.n_layer,
+            "fused_mlp_fwd": cfg.n_layer}
+    return None if counts == want else f"launches {counts}, want {want}"
+
+
+def _cli_argv(name, *extra):
+    """The training CLI's arguments for (b): backpack-small at 8 x 512, its
+    f32 default, smoke mode's 3 steps, a loss logged every step, on the
+    corpus _cli_corpus writes."""
+    corpus = str(CP_DIR / "cli_corpus.npy")
+    return ["--corpus", corpus, "--model", CP_CLI_MODEL, "--mode", "smoke",
+            "--batch-size", str(CP_CLI_BATCH), "--seqlen", str(CP_CLI_LEN), "--log-every", "1",
+            "--device", DEV, "--workdir", str(CP_DIR / f"cli_{name}"), *extra]
+
+
+def _cli_corpus():
+    g = torch.Generator(device=DEV).manual_seed(CP_SEED + 1)
+    tokens = torch.randint(0, CP_CLI_VOCAB, (CP_CLI_TOKENS,), generator=g, device=DEV)
+    np.save(CP_DIR / "cli_corpus.npy", tokens.cpu().numpy().astype(np.uint16))
+    # the ids of the CLI model's gradient gate (_cli_model_grads)
+    return torch.randint(0, CP_CLI_VOCAB, (CP_CLI_BATCH, CP_CLI_LEN + 1), generator=g,
+                         device=DEV)
+
+
+def _cli_run(name, seconds):
+    rows = [json.loads(line) for line in open(CP_DIR / f"cli_{name}" / "metrics.jsonl")]
+    return dict(seconds=seconds, losses=[r["loss"] for r in rows if "loss" in r],
+                grad_norms=[r["grad_norm"] for r in rows if "grad_norm" in r],
+                step_ms=[r["time/intra_step_ms"] for r in rows if "time/intra_step_ms" in r])
+
+
+def _cp_cli(results, single, ranks):
+    """(b): first the CLI model's CP gradients (_cli_model_grads, rank 0's)
+    against the single-device step's, each leaf within CP_CLI_LEAF_REL and
+    the loss within CP_CLI_REL. Then backpack-small through the training
+    CLI at 8 x 512 (its f32 default; smoke mode's 3 steps): its losses and
+    gradient norms a step
+    with --cp 2 --dist-backend gloo (cp_rank ran its main on both ranks of
+    the world) against its single-device run's (``single``), within
+    CP_CLI_REL and CP_CLI_GRAD_REL; each rank's K3 and K5 (their f32 ring
+    forms) once a chunk pair a layer a step (rank 0's K3 also in the
+    validation forwards, which it runs alone)."""
+    from backpacks_flash_attn_tpu_torch.config import backpack_small
+
+    ring = CP_CLI_STEPS * CP_RANKS * backpack_small().n_layer
+    for r, rank in enumerate(ranks):
+        got = rank["cli_launches"]
+        k3 = got.get("flash_attention", 0)
+        if got.get("flash_attention_bwd") != ring or (k3 < ring if r == 0 else k3 != ring):
+            raise AssertionError(f"train_cli --cp 2 rank {r}: launches {got}, want K3 and K5 "
+                                 f"{ring} each (rank 0's K3 more)")
+    grads = ranks[0]["cli_grads"]
+    worst = max(grads["leaf_rel"].items(), key=lambda kv: kv[1])
+    loss_rel = abs(grads["loss"] - grads["single_loss"]) / abs(grads["single_loss"])
+    if (worst[1] > CP_CLI_LEAF_REL or loss_rel > CP_CLI_REL
+            or any(r["cli_grads"]["loss"] != grads["loss"] for r in ranks)):
+        raise AssertionError(f"{CP_CLI_MODEL} CP gradients against one device's: worst leaf "
+                             f"{worst} (limit {CP_CLI_LEAF_REL}), loss rel. {loss_rel:.3e} "
+                             f"(limit {CP_CLI_REL}), ranks' losses "
+                             f"{[r['cli_grads']['loss'] for r in ranks]}")
+    runs = {"single": single, "cp2": _cli_run("cp2", ranks[0]["cli_seconds"])}
+    rels = {}
+    for key, limit in (("losses", CP_CLI_REL), ("grad_norms", CP_CLI_GRAD_REL)):
+        one, two = runs["single"][key], runs["cp2"][key]
+        rels[key] = [abs(a - b) / abs(b) for a, b in zip(two, one)]
+        if len(one) != CP_CLI_STEPS or len(two) != CP_CLI_STEPS or max(rels[key]) > limit:
+            raise AssertionError(f"train_cli --cp 2 {key} {two} against one device's {one} "
+                                 f"(rel. {rels[key]}, limit {limit})")
+    run = dict(phase="cp", run="cp_cli", model=CP_CLI_MODEL,
+               shape=[CP_CLI_BATCH, CP_CLI_LEN], backend=CP_BACKEND, ranks=2,
+               rel_loss_diff=rels["losses"], rel_grad_norm_diff=rels["grad_norms"],
+               grad_gate=dict(loss=grads["loss"], single_loss=grads["single_loss"],
+                              loss_rel=loss_rel, worst_leaf=worst,
+                              leaf_rel=grads["leaf_rel"]),
+               launches_per_rank=[rank["cli_launches"] for rank in ranks],
+               launches={k: sum(rank["cli_launches"].get(k, 0) for rank in ranks)
+                         for k in ("flash_attention", "flash_attention_bwd")}, **runs)
+    emit(run)
+    results["cp_cli"] = run
+
+
+def phase_cp(results):
+    """Context-parallel training on the card: a world of CP_RANKS processes
+    (parallel/launch.py, backend CP_BACKEND: the ring's hops and the
+    gradient all-reduce stage through host memory), a process-group
+    timeout so that a lost rank fails the run. (a) the rotary gpt3-small
+    at train-8k's full width and depth and batch (2 x 8192, 4096 tokens a
+    rank), the flash ring with attention dropout, the fused MLP, both
+    layouts: at gate_weights the loss and gradients against the
+    single-device step (the kernel path in bf16, the f32 step its
+    reference) under train-8k's gradient gate's rule; then CP_TIMED timed
+    steps after CP_WARMUP (the gate's forward and backward warm the kernels
+    and the hops): step ms, tokens/s, hop ms a step, K3, K5 and K7
+    launches each step exact. (b) backpack-small through the training CLI:
+    its main in this process on one device, then with --cp 2 on the
+    world's ranks (_cp_cli). Weights and data from generators of their
+    own."""
+    from backpacks_flash_attn_tpu_torch.config import gpt3_small
+    from backpacks_flash_attn_tpu_torch.models import gpt
+    from backpacks_flash_attn_tpu_torch.ops import dense
+    from backpacks_flash_attn_tpu_torch.parallel import launch
+    from backpacks_flash_attn_tpu_torch.training import train_cli
+    from backpacks_flash_attn_tpu_torch.utils import prng
+
+    shutil.rmtree(CP_DIR, ignore_errors=True)
+    CP_DIR.mkdir(parents=True)
+    cfg = gpt3_small(rotary=True, vocab_size=50257)
+    g = torch.Generator(device=DEV).manual_seed(CP_SEED)
+    params = gpt.init_gpt(cfg, g, dtype=torch.bfloat16, device=DEV)
+    ids = torch.randint(0, cfg.vocab_size, (LONG_BATCH, LONG_LEN + 1), generator=g, device=DEV)
+    x, y = ids[:, :-1], ids[:, 1:]
+    key = prng.fold_in(prng.PRNGKey(1), 0)
+    switch = dense._FUSED_MLP
+    dense._FUSED_MLP = True
+    try:
+        log("cp: gate weights and the single-device steps")
+        trained = gate_weights(cfg, params)
+        del params
+        single = _single_step(trained, cfg, x, y, key, torch.bfloat16)
+        ref = _single_step(trained, cfg, x, y, key, torch.float32)
+    finally:
+        dense._FUSED_MLP = switch
+    cli_ids = _cli_corpus()
+    inputs = CP_DIR / "inputs.pt"
+    torch.save({"params": _map_tensors(trained, lambda t: t.cpu()), "ids": ids.cpu(),
+                "cli_ids": cli_ids.cpu()}, inputs)
+    del trained
+    torch.cuda.empty_cache()
+    log("cp: backpack-small through the training CLI on one device")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_cli.main(_cli_argv("single"))
+    single_cli = _cli_run("single", time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    layouts = ("natural", "zigzag")
+    log(f"cp: a world of {CP_RANKS} ranks ({CP_BACKEND}), layouts {layouts}, then the "
+        f"CLI's --cp {CP_RANKS}")
+    t0 = time.perf_counter()
+    ranks = launch.run_world(f"{Path(__file__).resolve()}:cp_rank", CP_RANKS,
+                             args=(str(inputs), layouts, _cli_argv(
+                                 "cp2", "--cp", str(CP_RANKS), "--dist-backend", CP_BACKEND)),
+                             backend=CP_BACKEND, timeout=CP_TIMEOUT, pg_timeout=CP_PG_TIMEOUT,
+                             workdir=CP_DIR / "world")
+    world_s = time.perf_counter() - t0
+    inputs.unlink()
+    tokens = LONG_BATCH * LONG_LEN
+    for layout in layouts:
+        gate = _cp_gate(layout, ranks, single, ref)
+        for r, rank in enumerate(ranks):
+            for i, st in enumerate(rank[layout]["steps"]):
+                msg = _cp_launches(cfg, layout, st["launches"])
+                if msg:
+                    raise AssertionError(f"cp {layout} rank {r} step {i}: {msg}")
+                if not math.isfinite(st["loss"]):
+                    raise AssertionError(f"cp {layout}: non-finite loss at step {i}")
+        steps0 = ranks[0][layout]["steps"][CP_WARMUP:]
+        step_ms = statistics.median(st["ms"] for st in steps0)
+        timed = [st["ms"] for st in steps0]
+        run = dict(phase="cp", run=f"cp_gpt_{layout}", model="gpt3_small(rotary=True)",
+                   shape=[LONG_BATCH, LONG_LEN], ranks=CP_RANKS, backend=CP_BACKEND,
+                   tokens_per_rank_per_sequence=LONG_LEN // CP_RANKS,
+                   step_ms=step_ms, step_ms_timed=timed, tokens_per_s=tokens / step_ms * 1e3,
+                   hop_ms_per_step=statistics.median(st["hop_ms"] for st in steps0),
+                   hop_wait_ms_per_step=statistics.median(st["hop_wait_ms"] for st in steps0),
+                   hops_per_step=steps0[0]["hops"], hop_bytes_per_step=steps0[0]["hop_bytes"],
+                   launches_per_step_per_rank=steps0[0]["launches"],
+                   launches={k: sum(st["launches"].get(k, 0) for rank in ranks
+                                    for st in rank[layout]["steps"][CP_WARMUP:])
+                             for k in ("flash_attention", "flash_attention_bwd",
+                                       "fused_mlp_fwd")},
+                   losses=[st["loss"] for st in ranks[0][layout]["steps"]],
+                   peak_memory_bytes=[rank[layout]["peak_memory_bytes"] for rank in ranks],
+                   gate=gate, world_s=world_s)
+        emit(run)
+        results[f"cp_gpt_{layout}"] = run
+    _cp_cli(results, single_cli, ranks)
+    del single, ref, ranks
+    shutil.rmtree(CP_DIR)
     torch.cuda.empty_cache()
 
 
@@ -4298,7 +4997,7 @@ def main():
     ap.add_argument("--phases",
                     default="device,build,kernels,serve,engine,forward,train,"
                             "longctx,train8k,generate,decode_kernels,mini,xl,"
-                            "intervene,entry")
+                            "intervene,entry,cp")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"))
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -4404,6 +5103,13 @@ def main():
         with torch.no_grad():
             phase_kernels(head_dim_cases(gen), results["kernels"])
         torch.cuda.empty_cache()
+        log("kernels: K3's and K5's ring forms at the cp phase's shape")
+        ring_merge = {}
+        with torch.no_grad():
+            phase_kernels(ring_kernel_cases(ring_merge), results["kernels"])
+        results["ring_merge"] = ring_merge
+        emit({"phase": "kernels", "ring_merge": ring_merge})
+        torch.cuda.empty_cache()
     if "mini" in phases:
         phase_mini(gen, results, args.out)
     if "xl" in phases:
@@ -4414,6 +5120,8 @@ def main():
     if "entry" in phases:
         # outside inference mode: PPLM takes gradients through the cache
         phase_entry(gen, results)
+    if "cp" in phases:
+        phase_cp(results)
 
     line = []
     for k in _build.KERNELS.values():
@@ -4431,6 +5139,24 @@ def main():
                 "library_ms")},
             "case": head["case"] if head else None,
         })
+    # K3's and K5's ring forms (the cp phase's path), each at pair (1, 0):
+    # bf16 (the gpt3-small runs) and f32 (the CLI's --cp 2 run)
+    for suffix, dtype, run in (("ring", "bfloat16", "cp_gpt_natural"),
+                               ("ring_f32", "float32", "cp_cli")):
+        for k in (_build.KERNELS["flash_attention"], _build.KERNELS["flash_attention_bwd"]):
+            rows = results.get("kernels", {}).get(k.name, [])
+            head = next((r for r in rows if r["case"].startswith("ring pair (1,0)")
+                         and f" {dtype} " in r["case"]), None)
+            launches = results.get(run, {}).get("launches", {}).get(k.name, 0)
+            line.append({
+                "name": f"{k.name}_{suffix}", "route": "cuda",
+                "source": f"backpacks_flash_attn_tpu_torch/csrc/{k.source}",
+                "replaces": k.replaces, "launches": launches, "launches_run": run,
+                **{key: head[key] if head else None for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                "case": head["case"] if head else None,
+            })
     results["kernel_line"] = line
     (args.out / "chip_smoke.json").write_text(json.dumps(results, indent=1))
     emit({"kernels": line})

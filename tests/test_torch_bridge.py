@@ -112,11 +112,14 @@ def test_port_imports_no_jax():
     intervention evals' modules, a negative-weighted step under an
     all-ones table (the plain logits), the tokenizers, the REPL on an
     imported checkpoint, a PPLM generation, MAUVE's features and the other
-    modules of the entry-point slice."""
+    modules of the entry-point slice, and the context-parallel modules
+    (the ring pair functions on the CPU). The ranks' module of the
+    parallel tests (tests/torch_parallel_ranks.py) is held JAX-free too."""
     pattern = re.compile(r"^\s*(import|from) +(jax|backpacks_flash_attn_tpu)\b",
                          re.M)
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py",
-                 REPO / "chip_gate_sweep.py", REPO / "bench_quant_matmul.py"]:
+                 REPO / "chip_gate_sweep.py", REPO / "bench_quant_matmul.py",
+                 REPO / "tests" / "torch_parallel_ranks.py"]:
         assert not pattern.search(path.read_text()), path
     code = """
 import sys
@@ -207,6 +210,13 @@ assert pplm.pplm_generate(gp32, gcfg, ids[:, :4], [5, 6],
 feats = mauve.featurize_terminal_hidden(params, cfg, [[1, 2], [3]],
                                         model="backpack", batch_size=2)
 assert feats.shape == (2, cfg.n_embd)
+from backpacks_flash_attn_tpu_torch.parallel import cp_train, launch, mesh
+from backpacks_flash_attn_tpu_torch.parallel import ring_attention
+qh = torch.randn(1, 2, 8, 16)
+o, l = fa.flash_fwd(qh, qh, qh, None, 0.25, True, q_offsets=8, k_offsets=0)
+assert fa.flash_bwd(qh, qh, qh, o, l, o, None, 0.25, True, q_offsets=8,
+                    k_offsets=0)[0].shape == qh.shape
+assert ring_attention.zigzag_order(8, 2).tolist() == [0, 1, 6, 7, 2, 3, 4, 5]
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
 print("ok", tuple(logits.shape))
 """

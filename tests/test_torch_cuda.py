@@ -1965,3 +1965,112 @@ def test_harness_scorer_within_2x_on_the_card(gen):
                                     **kw).loglikelihood(reqs)
     lps = [torch.tensor([lp for lp, _ in r]) for r in (out, plain, ref)]
     _within_2x(*lps)
+
+
+# the ring forms of K3 and K5 (a chunk pair of a sequence split over ranks):
+# (dtype, sq, sk, q offsets, k offsets, dropout p, bh_offset)
+RING_PAIRS = [
+    (BF16, 256, 256, 256, 0, 0.0, 0),               # a past chunk: no mask
+    (BF16, 256, 256, 256, 256, 0.2, 3),             # the diagonal, dropout
+    (BF16, 256, 256, 0, 256, 0.2, 1),               # a future chunk: all masked
+    (BF16, 200, 330, [40, 3], [8, 30], 0.3, 2),     # per-sequence, sq != sk
+    (F32, 100, 130, [40, 3], [8, 30], 0.3, 2),      # the SIMT loops
+    (F32, 64, 64, 0, 64, 0.1, 0),
+]
+
+
+def _ring_pair(gen, dt, sq, sk, qo, ko):
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)
+    offs = lambda o: torch.tensor(o if isinstance(o, list) else [o, o], device="cuda")
+    return r(2, 3, sq, 64), r(2, 3, sk, 64), r(2, 3, sk, 64), offs(qo), offs(ko)
+
+
+@pytest.mark.parametrize("dt,sq,sk,qo,ko,p,boff", RING_PAIRS)
+def test_flash_fwd_ring_pair_kernel(gen, dt, sq, sk, qo, ko, p, boff):
+    """K3 through flash_fwd ((b, h, s, d) views, JAX's _flash_fwd
+    signature) at ring-pair offsets, one launch, out and lse against the
+    plain version; a pair with no visible key gives 0 and the NEG_INF lse."""
+    from backpacks_flash_attn_tpu_torch.utils import prng
+    q, k, v, qo, ko = _ring_pair(gen, dt, sq, sk, qo, ko)
+    kw = dict(dropout_p=p, seed=prng.PRNGKey(4), q_offsets=qo, k_offsets=ko,
+              bh_offset=boff)
+    before = _build.KERNELS["flash_attention"].launches
+    out, lse = fa.flash_fwd(q, k, v, None, 0.125, True, **kw)
+    assert _build.KERNELS["flash_attention"].launches == before + 1
+    with _build.plain_path():
+        plain, plse = fa.flash_fwd(q, k, v, None, 0.125, True, **kw)
+        ref, rlse = fa.flash_fwd(q.float(), k.float(), v.float(), None, 0.125, True, **kw)
+    if (qo - ko).max() + sq <= 0:
+        # the NEG_INF sentinel (-0.7 x the f32 maximum), f32-rounded
+        assert (out == 0).all() and (lse < -2e38).all()
+        assert (plain == 0).all() and (plse < -2e38).all()
+        return
+    assert torch.allclose(lse, rlse, rtol=1e-5, atol=1e-4)
+    if dt == F32:
+        _f32_close(out, ref)
+    else:
+        _within_2x(out, plain, ref)
+
+
+@pytest.mark.parametrize("dt,sq,sk,qo,ko,p,boff", RING_PAIRS)
+def test_flash_bwd_ring_pair_kernel(gen, dt, sq, sk, qo, ko, p, boff):
+    """K5 through flash_bwd at ring-pair offsets and sq != sk, one launch,
+    fed the rows' out and lse of a longer attention (as the ring feeds it
+    the rows' global ones): dq, dk and dv against the plain version; a pair
+    with no visible key gives exact zeros."""
+    from backpacks_flash_attn_tpu_torch.utils import prng
+    q, k, v, qo, ko = _ring_pair(gen, dt, sq, sk, qo, ko)
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+    lead = torch.randn(2, 3, int(ko.max()), 64, generator=gen, device="cuda").to(dt)
+    kl, vl = torch.cat([lead, k], dim=2), torch.cat([lead.flip(-1), v], dim=2)
+    with _build.plain_path():
+        out32, lse = fa.flash_fwd(q.float(), kl.float(), vl.float(), None, 0.125, True,
+                                  q_offsets=qo)
+    kw = dict(dropout_p=p, q_offsets=qo, k_offsets=ko, bh_offset=boff)
+    args = (q, k, v, out32.to(dt), lse, g, prng.PRNGKey(6), 0.125, True)
+    before = _build.KERNELS["flash_attention_bwd"].launches
+    got = fa.flash_bwd(*args, **kw)[:3]
+    assert _build.KERNELS["flash_attention_bwd"].launches == before + 1
+    with _build.plain_path():
+        plain = fa.flash_bwd(*args, **kw)[:3]
+        ref = fa.flash_bwd(*(t.float() for t in args[:6]), *args[6:], **kw)[:3]
+    for o, pl, rf in zip(got, plain, ref):
+        assert o.shape == rf.shape
+        if (qo - ko).max() + sq <= 0:
+            assert (o == 0).all() and (pl == 0).all()
+        elif dt == F32:
+            _f32_close(o, rf)
+        else:
+            _within_2x(o, pl, rf)
+
+
+def test_ring_merge_equals_one_k3_launch(gen):
+    """A causal sequence split into two chunks: the ring's merge of the K3
+    pairs (0, 0), (1, 0) and (1, 1) against ONE K3 launch over the whole
+    sequence with the same seed and bh_offset (the same dropout masks):
+    only the rounding differs, so the merged out lies within twice the one
+    launch's error against the f32 plain reference, and the lse within
+    1e-4."""
+    from backpacks_flash_attn_tpu_torch.parallel import ring_attention as ra
+    from backpacks_flash_attn_tpu_torch.utils import prng
+    b, s, h, d, c, p = 2, 1024, 2, 64, 512, 0.1
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(BF16)
+               for _ in range(3))
+    seed = prng.seed_words(prng.PRNGKey(8))
+    parts = []
+    for i in range(2):
+        m = torch.full((b, h, c), ra.NEG, device="cuda")
+        state = (m, torch.zeros_like(m), torch.zeros(b, c, h, d, device="cuda"))
+        for j in range(i + 1):
+            state = ra._merge(*state, *ra._pair_fwd(q[:, i * c:(i + 1) * c],
+                                                    k[:, j * c:(j + 1) * c],
+                                                    v[:, j * c:(j + 1) * c], True,
+                                                    i * c, j * c, p, seed, 2))
+        parts.append(ra._finish(*state, BF16))
+    out, lse = torch.cat([o for o, _ in parts], 1), torch.cat([l for _, l in parts], 2)
+    full, flse = fa._flash_fwd_kernel(q, k, v, causal=True, scale=1.0, seq_lengths=None,
+                                      q_offsets=None, dropout_p=p, seed=seed, bh_offset=2)
+    ref, _ = fa.flash_attention_ref(q.float(), k.float(), v.float(), softmax_scale=1.0,
+                                    dropout_p=p, seed=seed, bh_offset=2, return_lse=True)
+    assert _err(out, full) <= 2 * _err(full, ref)
+    assert _err(lse, flse) <= 1e-4

@@ -4,7 +4,8 @@
 prompts and bags of words go through ``perturb_cache`` and ``pplm_generate``
 in both packages at f32. The perturbed caches are held to ``atol=1e-5,
 rtol=0`` (three normalized steps of 0.02 on keys and values of O(1)); the
-generated ids must be equal. JAX's ``perturb_cache`` is jitted so each
+generated ids must be equal up to the first step where the packages part,
+and there the two tokens a near tie of both packages' scores. JAX's ``perturb_cache`` is jitted so each
 shape compiles once.
 """
 
@@ -204,7 +205,70 @@ def test_pplm_generate_ids_match_jax(setup, window, temperature):
                               rng=prng.PRNGKey(5) if temperature else None,
                               **kw)
     assert got.shape == (2, 6) and got.dtype == np.int32
-    np.testing.assert_array_equal(got, np.asarray(want))
+    want = np.asarray(want)
+    parted = np.nonzero((got != want).any(axis=0))[0]
+    if len(parted) == 0:
+        return
+    # equal up to the first step where the packages part; there each row's
+    # two tokens must be a near tie of both packages' scores on the shared
+    # prefix (the fused log-probs, plus the step's Gumbel noise when
+    # sampling), which agree within ROW_ATOL
+    t = int(parted[0])
+    np.testing.assert_array_equal(got[:, :t], want[:, :t])
+    prefix = np.concatenate([prompt, got[:, :t]], axis=1)
+    tp, jp = _step_scores(setup, prefix, bow_ids, t, kw)
+    np.testing.assert_allclose(tp, jp, atol=ROW_ATOL, rtol=0)
+    for r in np.nonzero(got[:, t] != want[:, t])[0]:
+        a, b = got[r, t], want[r, t]
+        for scores in (tp[r], jp[r]):
+            gap = abs(scores[a] - scores[b])
+            assert gap <= 2 * ROW_ATOL, (r, t, a, b, gap)
+
+
+# the two packages' f32 scores of one PPLM step agree to this; where their
+# argmax parts, the two tokens' scores lie within 2 x ROW_ATOL of each other
+ROW_ATOL = 1e-4
+
+
+def _step_scores(setup, prefix, bow_ids, t, kw):
+    """Step t of pplm_generate in both packages on the shared prefix
+    (prompt and the first t generated ids): the cache prefilled with all
+    but its last id, that id perturbed toward the bag, the perturbed and
+    unperturbed log-probs fused by gm_scale, divided by the temperature
+    and shifted by the step's Gumbel noise when sampling (the argmax of
+    which is the step's token). -> (port (b, V), JAX (b, V)) numpy."""
+    jc, tc, jparams, tparams = setup
+    b, n = prefix.shape
+    size = n - t + kw["max_new_tokens"] + 1      # pplm_generate's cache size
+    bow = _bow(bow_ids, tc.padded_vocab_size)
+    pkw = dict(stepsize=kw["stepsize"], num_iterations=kw["num_iterations"],
+               kl_scale=kw["kl_scale"], window=kw["window"])
+    gm, temp = kw["gm_scale"], kw["temperature"]
+
+    tcache = tgpt.init_kv_cache(tc, b, size, torch.float32, device="cpu")
+    tgpt.gpt_forward_with_cache(tparams, tc, torch.from_numpy(prefix[:, :-1]).long(),
+                                tcache)
+    tok = torch.from_numpy(prefix[:, -1:]).long()
+    pert = tpplm.perturb_cache(tparams, tc, tcache, tok, torch.from_numpy(bow), **pkw)
+    with torch.no_grad():
+        tl = (gm * tpplm._next_token_logprobs(tparams, tc, tok, pert)
+              + (1.0 - gm) * tpplm._next_token_logprobs(tparams, tc, tok, tcache))
+
+    jcache = jgpt.init_kv_cache(jc, b, size, jnp.float32)
+    _, jcache = jgpt.gpt_forward_with_cache(jparams, jc, jnp.asarray(prefix[:, :-1]),
+                                            jcache)
+    jtok = jnp.asarray(prefix[:, -1:])
+    jpert = jpplm.perturb_cache(jparams, jc, jcache, jtok, jnp.asarray(bow), **pkw)
+    jl = (gm * jpplm._next_token_logprobs(jparams, jc, jtok, jpert)
+          + (1.0 - gm) * jpplm._next_token_logprobs(jparams, jc, jtok, jcache))
+    tl, jl = tl.numpy(), np.asarray(jl)
+    if temp:
+        key = prng.PRNGKey(5)
+        for _ in range(t + 1):
+            key, sub = prng.split(key)
+        noise = prng.gumbel(sub, tl.shape).numpy()
+        tl, jl = tl / temp + noise, jl / temp + noise
+    return tl, jl
 
 
 def test_decode_kernels_refuse_operands_that_require_grad():
