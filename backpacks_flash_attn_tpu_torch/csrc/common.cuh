@@ -281,6 +281,31 @@ inline DropoutParams make_dropout(long long seed0, long long seed1, long long th
   return d;
 }
 
+// The additive score bias of K3 and K5 (JAX ops/flash_attention.py
+// :350-370, :1009-1036), a template flag of their instances: f32 (B|1,
+// H|1, Sq, Sk) at element strides sb, sh, sq (0 for a broadcast dim) and
+// unit key stride; grad: K5's dbias, f32 (B, H, Sq, Sk) contiguous and
+// zeroed by the wrapper, or NULL when the bias needs no gradient. The C
+// entries take it as one host pointer to {p, sb, sh, sq, grad} (NULL: no
+// bias), so a call without a bias passes one NULL more.
+struct ScoreBias {
+  const float* p = nullptr;
+  long long sb = 0, sh = 0, sq = 0;
+  float* grad = nullptr;
+};
+
+inline ScoreBias read_bias(const long long* desc) {
+  ScoreBias s;
+  if (desc) {
+    s.p = reinterpret_cast<const float*>(static_cast<uintptr_t>(desc[0]));
+    s.sb = desc[1];
+    s.sh = desc[2];
+    s.sq = desc[3];
+    s.grad = reinterpret_cast<float*>(static_cast<uintptr_t>(desc[4]));
+  }
+  return s;
+}
+
 // Four consecutive elements as f32 (4-element aligned pointers): one 16-,
 // 8- or 4-byte load.
 struct Vec4 {

@@ -70,6 +70,20 @@
 // (49.8 KB at D 80, 74.4 KB at D 128) they pass the 48 KB static limit and
 // the D-wide ones (Q, K, V) move to dynamic shared memory. The launcher
 // decides the route once per call.
+//
+// An additive f32 score bias (JAX _flash_fwd's bias, :350-370: (B|1, H|1,
+// sq, sk), added to the scaled scores before the masks, so the LSE
+// includes it) is a template flag of both routes, so the instances
+// without one are the code they were. It is read from device memory
+// straight into the scores' layout (the accumulator fragments on the
+// tensor-core route, the row's scores on the SIMT loop) at its broadcast
+// strides, rows clamped below sq and keys below sk, so nothing is padded
+// and no read passes its end. The tensor-core route adds it in log2
+// units (s * scale log2 e + bias * log2 e) and builds it at 64-row tiles
+// only, in the dropout form with a branch on whether dropout is on, and
+// one block an SM fewer for the registers of the bias reads
+// (flash_attention.cuh launch_rows). It costs a 4-byte read a score
+// (mostly from L2: a broadcast bias is read by every (b, h) it covers).
 #include "flash_attention.cuh"
 
 namespace {
@@ -80,7 +94,7 @@ bool aligned16(const void* p, long long sb, long long st, long long sh) {
 
 // ------------------------------------------------------------ SIMT (f32, unaligned bf16)
 
-template <typename T, int D>
+template <typename T, int D, bool BIAS>
 __global__ void __launch_bounds__(kSimtThreads)
 flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
@@ -88,7 +102,7 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const int* __restrict__ k_offsets, int bh_offset, int H, int sq, int sk, long long q_sb, long long q_st, long long q_sh,
                       long long k_sb, long long k_st, long long k_sh, long long v_sb,
                       long long v_st, long long v_sh, float scale, int causal,
-                      DropoutParams drop) {
+                      DropoutParams drop, ScoreBias bias) {
   constexpr bool kStatic = kSimtStatic<D>;
   __shared__ float Qs_s[kStatic ? BQ_SIMT : 1][D + 1];
   __shared__ float Ks_s[kStatic ? BKV_SIMT : 1][D + 1];
@@ -114,6 +128,10 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = q0 + r;                // query row index
   const int q_pos = q_off + qi;         // its position relative to key column 0
   const uint32_t bh = static_cast<uint32_t>((bh_offset + b) * H + h);
+  // the bias row of query row qi (clamped below sq: rows past it are not
+  // stored)
+  const float* brow =
+      BIAS ? bias.p + b * bias.sb + h * bias.sh + min(qi, sq - 1) * bias.sq : nullptr;
 
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
@@ -152,7 +170,10 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int dd = 0; dd < D; ++dd) acc += Qs[r][dd] * Ks[kk][dd];
       const int kpos = j0 + kk;
       const bool valid = kpos < kv_len && (!causal || kpos <= q_pos);
-      s[i] = valid ? acc * scale : FLASH_NEG_INF;
+      if constexpr (BIAS)
+        s[i] = valid ? acc * scale + __ldg(brow + min(kpos, sk - 1)) : FLASH_NEG_INF;
+      else
+        s[i] = valid ? acc * scale : FLASH_NEG_INF;
       tile_max = fmaxf(tile_max, s[i]);
     }
     const float m_new = fmaxf(m, group_max(tile_max, 4));
@@ -191,36 +212,44 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (c == 0) lse[(static_cast<long long>(b) * H + h) * sq + qi] = m + logf(l_safe);
 }
 
-template <typename T, int D>
-int launch_simt(const void* q, const void* k, const void* v, void* out, void* lse,
-                const void* seq_lengths, const void* q_offsets, const void* k_offsets,
-                long long bh_offset, long long B, long long H, long long sq, long long sk, long long q_sb, long long q_st, long long q_sh,
-                long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
-                long long v_sh, float scale, long long causal, DropoutParams drop,
-                cudaStream_t stream) {
+template <typename T, int D, bool BIAS>
+int launch_simt_form(const void* q, const void* k, const void* v, void* out, void* lse,
+                     const void* seq_lengths, const void* q_offsets, const void* k_offsets,
+                     long long bh_offset, long long B, long long H, long long sq, long long sk, long long q_sb, long long q_st, long long q_sh,
+                     long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
+                     long long v_sh, float scale, long long causal, DropoutParams drop,
+                     cudaStream_t stream, ScoreBias bias) {
   const size_t smem = kSimtStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
   if (smem > 0) {
-    const cudaError_t err = allow_smem<flash_fwd_simt_kernel<T, D>>(smem);
+    const cudaError_t err = allow_smem<flash_fwd_simt_kernel<T, D, BIAS>>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(static_cast<unsigned>((sq + BQ_SIMT - 1) / BQ_SIMT), static_cast<unsigned>(H),
                   static_cast<unsigned>(B));
-  flash_fwd_simt_kernel<T, D><<<grid, kSimtThreads, smem, stream>>>(
+  flash_fwd_simt_kernel<T, D, BIAS><<<grid, kSimtThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), static_cast<const int*>(seq_lengths),
       static_cast<const int*>(q_offsets), static_cast<const int*>(k_offsets),
       static_cast<int>(bh_offset), static_cast<int>(H), static_cast<int>(sq),
       static_cast<int>(sk), q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale,
-      static_cast<int>(causal), drop);
+      static_cast<int>(causal), drop, bias);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D, class... Args>
+int launch_simt(const ScoreBias& bias, Args... args) {
+  return bias.p ? launch_simt_form<T, D, true>(args..., bias)
+                : launch_simt_form<T, D, false>(args..., bias);
 }
 
 }  // namespace
 
+// bias: NULL, or a host array {address, batch, head and row strides} of
+// the f32 score bias (common.cuh ScoreBias; its grad slot is not read)
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       void* lse, const void* seq_lengths,
                                       const void* q_offsets, const void* k_offsets,
-                                      long long bh_offset, long long B, long long H,
+                                      const long long* bias, long long bh_offset, long long B, long long H,
                                       long long sq, long long sk, long long q_sb,
                                       long long q_st, long long q_sh, long long k_sb,
                                       long long k_st, long long k_sh, long long v_sb,
@@ -231,6 +260,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B * H * sq == 0) return 0;
   const DropoutParams drop = make_dropout(seed0, seed1, thr, inv_keep, dropout);
+  ScoreBias sb = read_bias(bias);
+  sb.grad = nullptr;
   if (dtype == DT_BF16 && scale > 0.f && aligned16(q, q_sb, q_st, q_sh) &&
       aligned16(k, k_sb, k_st, k_sh) && aligned16(v, v_sb, v_st, v_sh)) {
     const MmaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -240,17 +271,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                     static_cast<int>(sq), static_cast<int>(sk), static_cast<int>(causal),
                     Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
                     Strides{v_sb, v_st, v_sh}, scale * kLog2e, drop,
-                    static_cast<const int*>(k_offsets), static_cast<int>(bh_offset)};
+                    static_cast<const int*>(k_offsets), static_cast<int>(bh_offset), sb};
     return with_head_dim(d, [&](auto D) {
-      return launch_rows<D, DenseKeys, true>(a, {}, k3_rows(sq, D), B, st);
+      return launch_rows<D, DenseKeys, true, true>(a, {}, k3_rows(sq, D), B, st);
     });
   }
   if (dtype != DT_BF16 && dtype != DT_F32) return static_cast<int>(cudaErrorInvalidValue);
 #define K3_ARGS q, k, v, out, lse, seq_lengths, q_offsets, k_offsets, bh_offset, B, H, sq, sk, q_sb, q_st, q_sh, \
                 k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal, drop, st
   return with_head_dim(d, [&](auto D) {
-    return dtype == DT_BF16 ? launch_simt<__nv_bfloat16, D>(K3_ARGS)
-                            : launch_simt<float, D>(K3_ARGS);
+    return dtype == DT_BF16 ? launch_simt<__nv_bfloat16, D>(sb, K3_ARGS)
+                            : launch_simt<float, D>(sb, K3_ARGS);
   });
 #undef K3_ARGS
 }

@@ -46,6 +46,8 @@ struct MmaArgs {
   // and the stream (bh_offset + b) * H + h.
   const int* k_offsets = nullptr;
   int bh_offset = 0;
+  // the additive score bias (read by the BIAS instances only)
+  ScoreBias bias = {};
 };
 
 // K3's walk: every key tile below kv_end, in order; the query tiles with
@@ -93,12 +95,16 @@ constexpr bool kQInSmem = MT == 1;
 
 // One BK-key tile (K and V in shared memory, [key][d]) into the warp's
 // rows qw, ..., qw + 16 * MT - 1 (rows qs, ... of the Q tile in shared
-// memory)
-template <int D, int MT, bool DROP>
+// memory). BIAS: bias_bh is the bias of the block's (b, h), added to the
+// scores in log2 units (times log2 e) before the mask; dropout is then a
+// warp-uniform branch on a.drop.on (the bias instances are built with
+// DROP only, which halves their number).
+template <int D, int MT, bool DROP, bool BIAS>
 __device__ __forceinline__ void attend_tile(WarpRows<D, MT>& w, const bf16* Qs, int qs,
                                             const bf16* Ks, const bf16* Vs, const MmaArgs& a,
                                             int j0, int qw, int q_off, int kv_len, bool edge,
-                                            uint32_t bh, int q_abs, int k_abs) {
+                                            uint32_t bh, int q_abs, int k_abs,
+                                            const float* bias_bh) {
   constexpr int LD = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   // S = Q K^T: one ldmatrix.x4 gives the B fragments of two 8-key blocks
@@ -128,6 +134,29 @@ __device__ __forceinline__ void attend_tile(WarpRows<D, MT>& w, const bf16* Qs, 
       }
     }
   }
+  // With a bias the scores turn into log2 units here (s * scale log2 e +
+  // bias * log2 e, the bias read in the accumulator layout with the rows
+  // clamped below sq and the keys below sk: rows past sq are never
+  // stored, keys past sk are masked below), so the max, the exponents and
+  // the LSE take them as they are (sl2 = 1); without one they stay raw
+  // and sl2 scales them.
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float* brow =
+            bias_bh + min(qw + 16 * mt + g + 8 * half, a.sq - 1) * a.bias.sq;
+#pragma unroll
+        for (int nf = 0; nf < BK / 8; ++nf)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float bv = __ldg(brow + min(j0 + nf * 8 + 2 * tq + e, a.sk - 1));
+            s[mt][nf][2 * half + e] = fmaf(s[mt][nf][2 * half + e], a.scale_log2, bv * kLog2e);
+          }
+      }
+  }
+  const float sl2 = BIAS ? 1.f : a.scale_log2;
   // the mask (-inf) only on tiles that straddle the length or the
   // diagonal (a warp-uniform branch); the running max of the raw scores
   // (scale > 0); o and l rescaled once
@@ -151,7 +180,7 @@ __device__ __forceinline__ void attend_tile(WarpRows<D, MT>& w, const bf16* Qs, 
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const float m_new =
-          fmaxf(w.m[mt][half], group_max(row_max(s[mt], half), 4) * a.scale_log2);
+          fmaxf(w.m[mt][half], group_max(row_max(s[mt], half), 4) * sl2);
       mu[mt][half] = m_new == -INFINITY ? 0.f : m_new;
       const float corr = ex2(w.m[mt][half] - mu[mt][half]);
       w.m[mt][half] = m_new;
@@ -179,8 +208,8 @@ __device__ __forceinline__ void attend_tile(WarpRows<D, MT>& w, const bf16* Qs, 
           float p[2], kept[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            p[e] = ex2(fmaf(s[mt][nf][2 * half + e], a.scale_log2, -mu[mt][half]));
-            kept[e] = !DROP || dropout_keep(
+            p[e] = ex2(fmaf(s[mt][nf][2 * half + e], sl2, -mu[mt][half]));
+            kept[e] = !DROP || (BIAS && !a.drop.on) || dropout_keep(
                                    a.drop, bh,
                                    static_cast<uint32_t>(q_abs + qw + 16 * mt + g + 8 * half),
                                    static_cast<uint32_t>(k_abs + j0 + nf * 8 + 2 * tq + e))
@@ -222,9 +251,11 @@ constexpr int kSmWarps = D <= 64 ? 16 : D <= 96 ? 12 : 8;
 // (at most 128 registers a thread), 8 at MT = 2 (at most 255; D = 64
 // only). DROP is whether dropout is on, so neither form branches inside
 // the tile. Walk picks the query tile and the key tiles (DenseKeys above,
-// K9's SparseKeys).
-template <int D, int WARPS, int MT, bool DROP, class Walk>
-__global__ void __launch_bounds__(32 * WARPS, kSmWarps<D> / (WARPS * MT))
+// K9's SparseKeys). BIAS: whether a.bias is added to the scores (K3 only);
+// its instances take one block an SM fewer, for the registers of the bias
+// reads (the no-bias budget spilled them at D 64, 80 and 96).
+template <int D, int WARPS, int MT, bool DROP, class Walk, bool BIAS = false>
+__global__ void __launch_bounds__(32 * WARPS, kSmWarps<D> / (WARPS * MT) - (BIAS ? 1 : 0))
     flash_fwd_mma_kernel(const MmaArgs a, const typename Walk::Params wp) {
   static_assert(D % 16 == 0 && D <= 128 && (MT == 1 || D == 64), "a head dim instance");
   constexpr int RW = 16 * MT, BQ = RW * WARPS, kThreads = 32 * WARPS, LD = D + 8;
@@ -274,6 +305,7 @@ __global__ void __launch_bounds__(32 * WARPS, kSmWarps<D> / (WARPS * MT))
     zero(w.o[mt]);
   }
   const uint32_t bh = static_cast<uint32_t>((a.bh_offset + b) * a.H + h);
+  const float* bias_bh = BIAS ? a.bias.p + b * a.bias.sb + h * a.bias.sh : nullptr;
 
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<kStages - 2>();  // tile t (and Q) have landed
@@ -287,8 +319,8 @@ __global__ void __launch_bounds__(32 * WARPS, kSmWarps<D> / (WARPS * MT))
     if (j0 >= warp_end) continue;  // warp-uniform: no key of the tile for these rows
     const bf16* Ks = ring + (t % kStages) * 2 * BK * LD;
     const bool edge = j0 + BK > kv_len || (a.causal && j0 + BK - 1 > q_off + qw);
-    attend_tile<D, MT, DROP>(w, Qs, RW * warp, Ks, Ks + BK * LD, a, j0, qw, q_off, kv_len,
-                             edge, bh, q_abs, k_abs);
+    attend_tile<D, MT, DROP, BIAS>(w, Qs, RW * warp, Ks, Ks + BK * LD, a, j0, qw, q_off, kv_len,
+                                   edge, bh, q_abs, k_abs, bias_bh);
   }
   cp_async_wait<0>();
 
@@ -312,15 +344,15 @@ __global__ void __launch_bounds__(32 * WARPS, kSmWarps<D> / (WARPS * MT))
     }
 }
 
-template <int D, int WARPS, int MT, bool DROP, class Walk>
+template <int D, int WARPS, int MT, bool DROP, class Walk, bool BIAS = false>
 int launch_form(const MmaArgs& a, const typename Walk::Params& wp, long long B,
                 cudaStream_t stream) {
   constexpr int BQ = 16 * MT * WARPS;
   const size_t smem = sizeof(bf16) * (BQ + 2 * kStages * BK) * (D + 8);
-  const cudaError_t err = allow_smem<flash_fwd_mma_kernel<D, WARPS, MT, DROP, Walk>>(smem);
+  const cudaError_t err = allow_smem<flash_fwd_mma_kernel<D, WARPS, MT, DROP, Walk, BIAS>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B * a.H), static_cast<unsigned>((a.sq + BQ - 1) / BQ));
-  flash_fwd_mma_kernel<D, WARPS, MT, DROP, Walk><<<grid, 32 * WARPS, smem, stream>>>(a, wp);
+  flash_fwd_mma_kernel<D, WARPS, MT, DROP, Walk, BIAS><<<grid, 32 * WARPS, smem, stream>>>(a, wp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -348,11 +380,17 @@ constexpr bool kSimtStatic =
 
 // Launch the body at head dim D over `rows`-row query tiles (32, 64 or 128
 // at D = 64); DROPS: whether dropout may be on (K9 has none, so its
-// instances are not built).
-template <int D, class Walk, bool DROPS>
+// instances are not built); BIASES: whether a score bias may be given
+// (K3 only). A call with a bias takes 64-row tiles whatever `rows` says,
+// and the DROPS instance whether dropout is on or not: its instances are
+// built at that one form (4 warps of 16 rows), which keeps their count to
+// one a head dim and a warp to one row group's registers.
+template <int D, class Walk, bool DROPS, bool BIASES = false>
 int launch_rows(const MmaArgs& a, const typename Walk::Params& wp, int rows, long long B,
                 cudaStream_t st) {
   const bool drop = DROPS && a.drop.on;
+  if constexpr (BIASES)
+    if (a.bias.p) return launch_form<D, 4, 1, DROPS, Walk, true>(a, wp, B, st);
   switch (rows) {
     case 32:
       return drop ? launch_form<D, 2, 1, DROPS, Walk>(a, wp, B, st)

@@ -82,6 +82,20 @@
 // (D 64; dq's at D 80 too); past it (the dK/dV kernel's 50.2 KB at D 80)
 // the D-wide ones (Q, dO, K, V) move to dynamic shared memory. The helpers
 // and sizes they share with K9's SIMT kernels are in the header.
+//
+// An additive f32 score bias (JAX _flash_bwd's bias with its dbias output,
+// :460-558 and :1009-1036) is a template flag of both routes, so the
+// instances without one are the code they were. p is recomputed with the
+// bias (read at its broadcast strides, queries clamped below Sq and keys
+// below Sk), and each pair's f32 dS = p * (dp_kept - delta) is stored once
+// into a (B, H, Sq, Sk) dbias the wrapper zeroes (the pairs the masks or
+// the causal walk leave out stay 0; the wrapper sums the broadcast dims):
+// on the tensor-core route by the warp that owns the pair's key, on the
+// SIMT route by the dQ kernel, so no atomics. The tensor-core bias
+// instances are built at 128-key tiles only (the wrapper asks for them),
+// in the dropout form with a branch on whether dropout is on; they turn
+// S^T into log2 units with the bias in it before the elementwise pass
+// (add_bias), so that pass holds no bias addresses.
 #include "flash_attention_bwd.cuh"
 
 namespace {
@@ -109,14 +123,14 @@ struct Pos {
 
 // one block per (32-key tile, head, batch row); thread (r, c) = key k0 + r,
 // queries c + 8 i of each tile, gradient columns c + 8 j
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(kSimtThreads)
 dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dk, float* __restrict__ dv, int H, int Sq, int Sk,
                  Strides sq, Strides sk, Strides sv, Strides sd, float scale, int causal,
-                 DropoutParams drop, Offsets off) {
+                 DropoutParams drop, Offsets off, ScoreBias bias) {
   constexpr int R = kDkdvStatic<D> ? ST : 1;
   __shared__ float Ks_s[R][D + 1], Vs_s[R][D + 1], Qs_s[R][D + 1], Ds_s[R][D + 1];
   __shared__ float Ps[ST][ST + 1], DSs[ST][ST + 1];
@@ -133,6 +147,8 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int r = threadIdx.x >> 3, c = threadIdx.x & 7, key = k0 + r;
   const long long bh = static_cast<long long>(b) * H + h;
   const Pos pos(off, b, h, H);
+  // the bias column of key `key` (clamped below Sk: keys past it are masked)
+  const float* bcol = BIAS ? bias.p + b * bias.sb + h * bias.sh + min(key, Sk - 1) : nullptr;
   load_rows<D>(Ks, k + b * sk.sb + h * sk.sh, sk.st, k0, Sk);
   load_rows<D>(Vs, v + b * sv.sb + h * sv.sh, sv.st, k0, Sk);
   float dk_acc[D / 8], dv_acc[D / 8];
@@ -159,7 +175,13 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < ST / 8; ++i) {
       const int ql = c + 8 * i, qry = q0 + ql;
       const bool valid = key < Sk && qry < Sq && (!causal || key <= qry + pos.rel);
-      const float p = valid ? expf(dot<D>(Ks[r], Qs[ql]) * scale - Ls[ql]) : 0.f;
+      float p;
+      if constexpr (BIAS)
+        p = valid ? expf(dot<D>(Ks[r], Qs[ql]) * scale +
+                         __ldg(bcol + min(qry, Sq - 1) * bias.sq) - Ls[ql])
+                  : 0.f;
+      else
+        p = valid ? expf(dot<D>(Ks[r], Qs[ql]) * scale - Ls[ql]) : 0.f;
       float dp = dot<D>(Vs[r], Ds[ql]), pk = p;
       if (drop.on) {
         const bool keep = dropout_keep(drop, pos.bh, static_cast<uint32_t>(pos.q_abs + qry),
@@ -191,13 +213,14 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // one block per (32-query tile, head, batch row); thread (r, c) = query
 // q0 + r, keys c + 8 i of each tile, gradient columns c + 8 j
-template <int D>
+template <int D, bool BIAS>
 __global__ void __launch_bounds__(kSimtThreads)
 dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dq, int H, int Sq, int Sk, Strides sq, Strides sk,
-               Strides sv, Strides sd, float scale, int causal, DropoutParams drop, Offsets off) {
+               Strides sv, Strides sd, float scale, int causal, DropoutParams drop, Offsets off,
+               ScoreBias bias) {
   constexpr int R = kDqStatic<D> ? ST : 1;
   __shared__ float Qs_s[R][D + 1], Ds_s[R][D + 1], Ks_s[R][D + 1], Vs_s[R][D + 1];
   __shared__ float DSs[ST][ST + 1];
@@ -213,6 +236,11 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int r = threadIdx.x >> 3, c = threadIdx.x & 7, qry = q0 + r;
   const long long bh = static_cast<long long>(b) * H + h;
   const Pos pos(off, b, h, H);
+  // the bias row of query qry (clamped below Sq: rows past it are not
+  // stored) and its dbias row
+  const float* brow =
+      BIAS ? bias.p + b * bias.sb + h * bias.sh + min(qry, Sq - 1) * bias.sq : nullptr;
+  float* gbrow = BIAS && bias.grad ? bias.grad + (bh * Sq + qry) * Sk : nullptr;
   load_rows<D>(Qs, q + b * sq.sb + h * sq.sh, sq.st, q0, Sq);
   load_rows<D>(Ds, dout + b * sd.sb + h * sd.sh, sd.st, q0, Sq);
   const float row_lse = qry < Sq ? lse[bh * Sq + qry] : 0.f;
@@ -233,7 +261,12 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < ST / 8; ++i) {
       const int kl = c + 8 * i, key = j0 + kl;
       const bool valid = key < Sk && qry < Sq && (!causal || key <= qry + pos.rel);
-      const float p = valid ? expf(dot<D>(Qs[r], Ks[kl]) * scale - row_lse) : 0.f;
+      float p;
+      if constexpr (BIAS)
+        p = valid ? expf(dot<D>(Qs[r], Ks[kl]) * scale + __ldg(brow + min(key, Sk - 1)) - row_lse)
+                  : 0.f;
+      else
+        p = valid ? expf(dot<D>(Qs[r], Ks[kl]) * scale - row_lse) : 0.f;
       float dp = dot<D>(Ds[r], Vs[kl]);
       if (drop.on)
         dp = dropout_keep(drop, pos.bh, static_cast<uint32_t>(pos.q_abs + qry),
@@ -241,6 +274,8 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  ? dp * drop.inv_keep
                  : 0.f;
       DSs[r][kl] = p * (dp - row_delta);
+      if constexpr (BIAS)
+        if (gbrow && valid) gbrow[key] = DSs[r][kl];
     }
     __syncwarp();
     for (int kl = 0; kl < ST; ++kl) {
@@ -256,28 +291,35 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // the f32 route at head dim D: delta, then the dK/dV and dQ kernels
-template <int D>
-cudaError_t simt_bwd(const float* q, const float* k, const float* v, const void* out,
-                     const float* dout, const float* lse, float* ws, float* dq, float* dk,
-                     float* dv, long long B, long long H, long long Sq, long long Sk, Strides sq,
-                     Strides sk, Strides sv, Strides so, Strides sd, float scale, int causal,
-                     DropoutParams drop, Offsets off, cudaStream_t st) {
+template <int D, bool BIAS>
+cudaError_t simt_form(const float* q, const float* k, const float* v, const void* out,
+                      const float* dout, const float* lse, float* ws, float* dq, float* dk,
+                      float* dv, long long B, long long H, long long Sq, long long Sk, Strides sq,
+                      Strides sk, Strides sv, Strides so, Strides sd, float scale, int causal,
+                      DropoutParams drop, Offsets off, cudaStream_t st, ScoreBias bias) {
   cudaError_t err = launch_delta(out, dout, ws, B, H, Sq, D, so, sd, st);
   if (err != cudaSuccess) return err;
   const size_t kv_smem = kDkdvStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
   const size_t q_smem = kDqStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
-  if (kv_smem > 0 && (err = allow_smem<dkdv_simt_kernel<D>>(kv_smem)) != cudaSuccess) return err;
-  if (q_smem > 0 && (err = allow_smem<dq_simt_kernel<D>>(q_smem)) != cudaSuccess) return err;
+  if (kv_smem > 0 && (err = allow_smem<dkdv_simt_kernel<D, BIAS>>(kv_smem)) != cudaSuccess)
+    return err;
+  if (q_smem > 0 && (err = allow_smem<dq_simt_kernel<D, BIAS>>(q_smem)) != cudaSuccess) return err;
   const int h = static_cast<int>(H), sq_n = static_cast<int>(Sq), sk_n = static_cast<int>(Sk);
   const dim3 kv_grid(static_cast<unsigned>((Sk + ST - 1) / ST), static_cast<unsigned>(H),
                      static_cast<unsigned>(B));
   const dim3 q_grid(static_cast<unsigned>((Sq + ST - 1) / ST), static_cast<unsigned>(H),
                     static_cast<unsigned>(B));
-  dkdv_simt_kernel<D><<<kv_grid, kSimtThreads, kv_smem, st>>>(
-      q, k, v, dout, lse, ws, dk, dv, h, sq_n, sk_n, sq, sk, sv, sd, scale, causal, drop, off);
-  dq_simt_kernel<D><<<q_grid, kSimtThreads, q_smem, st>>>(
-      q, k, v, dout, lse, ws, dq, h, sq_n, sk_n, sq, sk, sv, sd, scale, causal, drop, off);
+  dkdv_simt_kernel<D, BIAS><<<kv_grid, kSimtThreads, kv_smem, st>>>(
+      q, k, v, dout, lse, ws, dk, dv, h, sq_n, sk_n, sq, sk, sv, sd, scale, causal, drop, off,
+      bias);
+  dq_simt_kernel<D, BIAS><<<q_grid, kSimtThreads, q_smem, st>>>(
+      q, k, v, dout, lse, ws, dq, h, sq_n, sk_n, sq, sk, sv, sd, scale, causal, drop, off, bias);
   return cudaGetLastError();
+}
+
+template <int D, class... Args>
+cudaError_t simt_bwd(const ScoreBias& bias, Args... args) {
+  return bias.p ? simt_form<D, true>(args..., bias) : simt_form<D, false>(args..., bias);
 }
 
 }  // namespace
@@ -292,11 +334,14 @@ cudaError_t simt_bwd(const float* q, const float* k, const float* v, const void*
 // key column 0 of each sequence, or NULL (0); bh_offset: the global index
 // of batch row 0 (the ring forms: out and lse are then the rows' GLOBAL
 // ones, so each call gives one chunk pair's exact share of the gradients).
-// key_tile (bf16): 64 or 128 keys a CTA.
+// key_tile (bf16): 64 or 128 keys a CTA (128 with a bias). bias: NULL, or a
+// host array {address, batch, head and row strides, dbias address} of the
+// f32 score bias (common.cuh ScoreBias; dbias (B, H, Sq, Sk) f32 zeroed,
+// or 0 for none).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out, const void* dout,
     const void* lse, void* ws, void* dq, void* dk, void* dv, const void* q_offsets,
-    const void* k_offsets, long long bh_offset, long long B, long long H, long long Sq,
+    const void* k_offsets, const long long* bias, long long bh_offset, long long B, long long H, long long Sq,
     long long Sk, long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh, long long o_sb,
     long long o_st, long long o_sh, long long d_sb, long long d_st, long long d_sh, float scale,
@@ -333,14 +378,15 @@ extern "C" int flash_attention_bwd_launch(
     a.sd = sd;
     a.scale = scale;
     a.drop = drop;
+    a.bias = read_bias(bias);
     return static_cast<int>(with_head_dim(d, [&](auto D) {
-      return bwd_bf16<D, DenseQueries, true>(a, {}, static_cast<const bf16*>(out), so, lp, wp,
+      return bwd_bf16<D, DenseQueries, true, true>(a, {}, static_cast<const bf16*>(out), so, lp, wp,
                                              static_cast<bf16*>(dq), B, key_tile, st);
     }));
   }
   if (dtype != DT_F32) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_head_dim(d, [&](auto D) {
-    return simt_bwd<D>(static_cast<const float*>(q), static_cast<const float*>(k),
+    return simt_bwd<D>(read_bias(bias), static_cast<const float*>(q), static_cast<const float*>(k),
                        static_cast<const float*>(v), out, static_cast<const float*>(dout), lp,
                        wp, static_cast<float*>(dq), static_cast<float*>(dk),
                        static_cast<float*>(dv), B, H, Sq, Sk, sq, sk, sv, so, sd, scale, c, drop,

@@ -161,6 +161,8 @@ struct BwdArgs {
   // absolute positions and the stream (bh_offset + b) * H + h.
   const int *q_offsets, *k_offsets;
   int bh_offset;
+  // the additive score bias and its gradient (the BIAS instances only)
+  ScoreBias bias = {};
 };
 
 // where sequence b's pairs sit: rel = q_off - k_off (key u is visible to
@@ -246,13 +248,22 @@ bwd_prep_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
 // queries) as A fragments over the queries: pa = P after dropout, dsa = dS.
 // MASK: the tile straddles the diagonal or the keys' end, so pairs past
 // either give p = 0 (a template argument: no other tile tests them).
-template <bool DROP, bool MASK>
+// BIAS: st arrives in log2 units with the bias in it (add_bias), each
+// pair's f32 dS goes to dbias_bh (the (b, h) slice of a.bias.grad, or
+// NULL) once (the pair belongs to this warp alone, so no atomics), and
+// dropout is a warp-uniform branch on a.drop.on (the bias instances are
+// built with DROP only, which halves their number).
+template <bool DROP, bool MASK, bool BIAS>
 __device__ __forceinline__ void tile_probs(uint32_t (&pa)[BQ / 16][4], uint32_t (&dsa)[BQ / 16][4],
                                            const float (&st)[BQ / 8][4],
                                            const float (&dpt)[BQ / 8][4], const float* L,
                                            const float* Dl, const BwdArgs& a, int q0, int kw,
-                                           const PairPos& pp) {
+                                           const PairPos& pp, float* dbias_bh) {
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  // dS's rows in dbias: this lane's first query of the tile and its keys
+  float* drow = nullptr;
+  if constexpr (BIAS)
+    if (dbias_bh) drow = dbias_bh + static_cast<long long>(q0 + 2 * tq) * a.Sk + kw + g;
 #pragma unroll
   for (int nf = 0; nf < BQ / 8; ++nf) {
     const float2 lv = *reinterpret_cast<const float2*>(L + nf * 8 + 2 * tq);
@@ -264,21 +275,50 @@ __device__ __forceinline__ void tile_probs(uint32_t (&pa)[BQ / 16][4], uint32_t 
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int qry = q0 + nf * 8 + 2 * tq + e;
-        float p = ex2(fmaf(st[nf][2 * half + e], a.scale_log2, -(e ? lv.y : lv.x)));
+        float p;
+        if constexpr (BIAS)
+          p = ex2(st[nf][2 * half + e] - (e ? lv.y : lv.x));
+        else
+          p = ex2(fmaf(st[nf][2 * half + e], a.scale_log2, -(e ? lv.y : lv.x)));
         if (MASK && (key >= a.Sk || (a.causal && key > qry + pp.rel))) p = 0.f;
         float dp = dpt[nf][2 * half + e];
         pv[e] = p;
-        if (DROP) {
+        if (DROP && (!BIAS || a.drop.on)) {
           const bool keep = dropout_keep(a.drop, pp.bh, static_cast<uint32_t>(pp.q_abs + qry),
                                          static_cast<uint32_t>(pp.k_abs + key));
           pv[e] = keep ? p * a.drop.inv_keep : 0.f;
           dp = keep ? dp * a.drop.inv_keep : 0.f;
         }
         ds[e] = p * (dp - (e ? dl.y : dl.x));
+        if constexpr (BIAS)
+          if (drow && qry < a.Sq && key < a.Sk)
+            drow[(nf * 8 + e) * a.Sk + 8 * half] = ds[e];
       }
       to_a(pa, nf, half, pv[0], pv[1]);
       to_a(dsa, nf, half, ds[0], ds[1]);
     }
+  }
+}
+
+// With a bias: one warp's S^T (16 keys x BQ queries) into log2 units with
+// the bias in them, s * scale log2 e + bias * log2 e, read at the bias's
+// strides straight into the accumulator layout (queries clamped below Sq:
+// a padded query's LSE is +inf; keys below Sk: a key past it is masked),
+// before tile_probs, so that its registers hold no bias addresses.
+__device__ __forceinline__ void add_bias(float (&st)[BQ / 8][4], const float* bias_bh,
+                                         const BwdArgs& a, int q0, int kw) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float* bcol = bias_bh + min(kw + g + 8 * half, a.Sk - 1);
+#pragma unroll
+    for (int nf = 0; nf < BQ / 8; ++nf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qry = min(q0 + nf * 8 + 2 * tq + e, a.Sq - 1);
+        st[nf][2 * half + e] =
+            fmaf(st[nf][2 * half + e], a.scale_log2, __ldg(bcol + qry * a.bias.sq) * kLog2e);
+      }
   }
 }
 
@@ -310,14 +350,15 @@ __device__ __forceinline__ void st_dpt_step(float (&st)[BQ / 8][4], float (&dpt)
 // accumulated. L and Dl: the tile's LSE (log2 units) and delta. K's and V's
 // A fragments: ka and va (registers), or, at kKVInSmem<D>, by ldmatrix from
 // the warp's 16 rows at Kw and Vw.
-template <int D, bool DROP>
+template <int D, bool DROP, bool BIAS>
 __device__ __forceinline__ void warp_tile(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
                                           const uint32_t (&ka)[D / 16][4],
                                           const uint32_t (&va)[D / 16][4], const bf16* Kw,
                                           const bf16* Vw, const bf16* Qs, const bf16* Ds,
                                           const float* L, const float* Dl, bf16* dst,
                                           const BwdArgs& a, int q0, int kw, bool edge,
-                                          const PairPos& pp) {
+                                          const PairPos& pp, const float* bias_bh,
+                                          float* dbias_bh) {
   constexpr int LD = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   float st[BQ / 8][4], dpt[BQ / 8][4];  // 16 keys x BQ queries
@@ -336,11 +377,12 @@ __device__ __forceinline__ void warp_tile(float (&dk)[D / 8][4], float (&dv)[D /
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) st_dpt_step<D>(st, dpt, ka[ks], va[ks], Qs, Ds, ks);
   }
+  if constexpr (BIAS) add_bias(st, bias_bh, a, q0, kw);
   uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
   if (edge)  // warp-uniform
-    tile_probs<DROP, true>(pa, dsa, st, dpt, L, Dl, a, q0, kw, pp);
+    tile_probs<DROP, true, BIAS>(pa, dsa, st, dpt, L, Dl, a, q0, kw, pp, dbias_bh);
   else
-    tile_probs<DROP, false>(pa, dsa, st, dpt, L, Dl, a, q0, kw, pp);
+    tile_probs<DROP, false, BIAS>(pa, dsa, st, dpt, L, Dl, a, q0, kw, pp, dbias_bh);
   // dS^T (keys x queries) for the dQ product: the pairs as the A fragments
   // hold them (to_a's slots); rows of 144 bytes, so the warp's 32 stores
   // of a step hit 32 banks
@@ -418,8 +460,9 @@ constexpr size_t bwd_smem_bytes(int BK) {
 
 // 2. One CTA per (key tile of 16 * WARPS keys, head, batch row): blockIdx.x
 // = b * H + h; Walk picks the key tile from blockIdx.y and the query tiles
-// (DenseQueries above, K9's SparseQueries)
-template <int D, int WARPS, bool DROP, class Walk>
+// (DenseQueries above, K9's SparseQueries). BIAS: whether a.bias enters
+// the scores and dbias is written (K5 only).
+template <int D, int WARPS, bool DROP, class Walk, bool BIAS = false>
 __global__ void __launch_bounds__(32 * WARPS, 8 / WARPS)
     bwd_mma_kernel(const BwdArgs a, const typename Walk::Params wp) {
   constexpr int BK = 16 * WARPS, kThreads = 32 * WARPS, LD = D + 8;
@@ -470,6 +513,8 @@ __global__ void __launch_bounds__(32 * WARPS, 8 / WARPS)
   zero(dk_acc);
   zero(dv_acc);
   const PairPos pp(a, b, h);
+  const float* bias_bh = BIAS ? a.bias.p + b * a.bias.sb + h * a.bias.sh : nullptr;
+  float* dbias_bh = BIAS && a.bias.grad ? a.bias.grad + bh * a.Sq * a.Sk : nullptr;
   // the keys any query of tile q0 sees (causal), and the valid ones
   auto dq_keys = [&](int q0) {
     return min(min(BK, a.Sk - k0), a.causal ? q0 + pp.rel + BQ - k0 : BK);
@@ -496,8 +541,9 @@ __global__ void __launch_bounds__(32 * WARPS, 8 / WARPS)
     // tile is valid, and whether the mask cuts through the tile
     if (kw < a.Sk && (!a.causal || q0 + BQ - 1 + pp.rel >= kw)) {
       const bool edge = (a.causal && q0 + pp.rel < kw + 15) || kw + 16 > a.Sk;
-      warp_tile<D, DROP>(dk_acc, dv_acc, ka, va, Ks + 16 * warp * LD, Vs + 16 * warp * LD, Qs,
-                         Qs + BQ * LD, L, L + BQ, my_rows, a, q0, kw, edge, pp);
+      warp_tile<D, DROP, BIAS>(dk_acc, dv_acc, ka, va, Ks + 16 * warp * LD, Vs + 16 * warp * LD,
+                               Qs, Qs + BQ * LD, L, L + BQ, my_rows, a, q0, kw, edge, pp,
+                               bias_bh, dbias_bh);
     } else {
       for (int i = lane; i < 16 * (BQ / 8); i += 32)
         *reinterpret_cast<uint4*>(my_rows + (i / (BQ / 8)) * LDT + (i % (BQ / 8)) * 8) =
@@ -531,36 +577,39 @@ dq_convert_kernel(const float4* __restrict__ acc, uint2* __restrict__ dq, long l
   }
 }
 
-template <int D, int WARPS, bool DROP, class Walk>
+template <int D, int WARPS, bool DROP, class Walk, bool BIAS = false>
 cudaError_t launch_form(const BwdArgs& a, const typename Walk::Params& wp, int B,
                         cudaStream_t stream) {
   constexpr int BK = 16 * WARPS;
   const size_t smem = bwd_smem_bytes<D>(BK);
-  const cudaError_t err = allow_smem<bwd_mma_kernel<D, WARPS, DROP, Walk>>(smem);
+  const cudaError_t err = allow_smem<bwd_mma_kernel<D, WARPS, DROP, Walk, BIAS>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(B * a.H), static_cast<unsigned>((a.Sk + BK - 1) / BK));
-  bwd_mma_kernel<D, WARPS, DROP, Walk><<<grid, 32 * WARPS, smem, stream>>>(a, wp);
+  bwd_mma_kernel<D, WARPS, DROP, Walk, BIAS><<<grid, 32 * WARPS, smem, stream>>>(a, wp);
   return cudaGetLastError();
 }
 
 // The main kernel over key tiles of key_tile (64 or 128) keys; DROPS:
 // whether dropout may be on (K9 has none, so its instances are not built)
-template <int D, class Walk, bool DROPS, int WARPS>
+template <int D, class Walk, bool DROPS, int WARPS, bool BIAS = false>
 cudaError_t launch_mma(const BwdArgs& a, const typename Walk::Params& wp, int B,
                        cudaStream_t stream) {
-  return DROPS && a.drop.on ? launch_form<D, WARPS, DROPS, Walk>(a, wp, B, stream)
-                            : launch_form<D, WARPS, false, Walk>(a, wp, B, stream);
+  return DROPS && a.drop.on ? launch_form<D, WARPS, DROPS, Walk, BIAS>(a, wp, B, stream)
+                            : launch_form<D, WARPS, false, Walk, BIAS>(a, wp, B, stream);
 }
 
 // The bf16 route at head dim D: a (everything but the workspace set) and
 // ws, the f32 workspace: the dq accumulator (B * Sq * H * D), then the LSE
 // and delta tables (B * H * Sq_pad each, Sq_pad = Sq rounded up to 64).
 // out, lse: the forward's (B, Sq, H, D) strided by so and (B, H, Sq) f32.
-template <int D, class Walk, bool DROPS>
+// BIASES: whether a score bias may be given (K5 only); its instances are
+// built at 128-key tiles only, which a call with a bias must ask for.
+template <int D, class Walk, bool DROPS, bool BIASES = false>
 cudaError_t bwd_bf16(BwdArgs a, const typename Walk::Params& wp, const bf16* out, Strides so,
                      const float* lse, float* ws, bf16* dq, long long B, long long key_tile,
                      cudaStream_t st) {
   if (key_tile != 64 && key_tile != 128) return cudaErrorInvalidValue;
+  if (a.bias.p && (!BIASES || key_tile != 128)) return cudaErrorInvalidValue;
   a.Sq_pad = (a.Sq + BQ - 1) / BQ * BQ;
   a.dq_acc = ws;
   float* lse2 = ws + B * a.Sq * a.H * D;
@@ -572,8 +621,12 @@ cudaError_t bwd_bf16(BwdArgs a, const typename Walk::Params& wp, const bf16* out
   const unsigned prep_blocks = static_cast<unsigned>((B * a.Sq_pad * a.H + 7) / 8);
   bwd_prep_kernel<D><<<prep_blocks, 256, 0, st>>>(out, a.dout, lse, lse2, delta, ws, b, a.H,
                                                   a.Sq, a.Sq_pad, so, a.sd);
-  const cudaError_t err = key_tile == 128 ? launch_mma<D, Walk, DROPS, 8>(a, wp, b, st)
-                                          : launch_mma<D, Walk, DROPS, 4>(a, wp, b, st);
+  cudaError_t err;
+  if constexpr (BIASES)
+    if (a.bias.p) err = launch_form<D, 8, DROPS, Walk, true>(a, wp, b, st);
+  if (!BIASES || !a.bias.p)
+    err = key_tile == 128 ? launch_mma<D, Walk, DROPS, 8>(a, wp, b, st)
+                          : launch_mma<D, Walk, DROPS, 4>(a, wp, b, st);
   if (err != cudaSuccess) return err;
   const long long n4 = B * a.Sq * a.H * D / 4;
   const unsigned conv_blocks =

@@ -167,11 +167,12 @@ def _rotary_tables(cfg: GPTConfig, s: int, offset, device):
 
 
 def _block(hidden, residual, lp, scale, cfg: GPTConfig, *, train: bool,
-           rngs, rot):
+           rngs, rot, key_padding_mask=None):
     """One pre-norm block with the reordered residual (JAX ``_block`` :372):
     rotary on q and k after the qkv split (``rot``: the forward's
-    :func:`_rotary_tables`), attention dropout in the flash kernel, then two
-    dropout+add+LN sites, keyed by the three splits of the layer's key."""
+    :func:`_rotary_tables`), attention dropout in the flash kernel (a key
+    padding mask takes its ragged entry), then two dropout+add+LN sites,
+    keyed by the three splits of the layer's key."""
     b, s, _ = hidden.shape
     qkv = dense.linear(hidden, lp["Wqkv"])
     qkv = qkv.reshape(b, s, 3, cfg.n_head, cfg.head_dim)
@@ -181,8 +182,9 @@ def _block(hidden, residual, lp, scale, cfg: GPTConfig, *, train: bool,
     if rot is not None:
         q, k = rotary.rotate_qk(q, k, rot)
     ctx = mha(q, k, qkv[:, :, 2], causal=True,
-              softmax_scale=scale, dropout_p=cfg.attn_pdrop,
-              dropout_rng=r_attn, deterministic=not train)
+              softmax_scale=scale, key_padding_mask=key_padding_mask,
+              dropout_p=cfg.attn_pdrop, dropout_rng=r_attn,
+              deterministic=not train)
     mixer_out = dense.linear(ctx.reshape(b, s, cfg.n_embd), lp["out_proj"])
     return _mlp_and_norms(hidden, residual, lp, mixer_out, cfg, train=train,
                           r_d1=r_d1, r_d2=r_d2)
@@ -190,13 +192,17 @@ def _block(hidden, residual, lp, scale, cfg: GPTConfig, *, train: bool,
 
 def gpt_forward(params: Params, cfg: GPTConfig, input_ids: torch.Tensor, *,
                 train: bool = False, rng: Optional[torch.Tensor] = None,
-                remat="none") -> torch.Tensor:
+                remat="none",
+                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full forward -> post-final-LN hidden states (b, s, d) (JAX
     ``gpt_forward`` :470). Attention goes through the flash wrapper (K3
     forward, K5 backward); the JAX package's ``use_flash=False`` reference
     attention is not a path of the port. train with a key
     ``rng`` (``utils.prng``) turns on the dropout sites: the embedding's,
-    and per layer the attention's and the two residual ones."""
+    and per layer the attention's and the two residual ones.
+    key_padding_mask: (b, s) True = a real token, right-padded; as in JAX
+    it becomes per-sequence lengths of the ragged flash entry (forward only
+    on the card)."""
     _check_supported(cfg)
     check_remat(remat)
     hidden = embed(params, cfg, input_ids)
@@ -212,7 +218,7 @@ def gpt_forward(params: Params, cfg: GPTConfig, input_ids: torch.Tensor, *,
         hidden, residual = _block(
             hidden, residual, tree_index(params["layers"], li), scale, cfg,
             train=train, rngs=None if layer_rngs is None else layer_rngs[li],
-            rot=rot)
+            rot=rot, key_padding_mask=key_padding_mask)
     return hidden
 
 

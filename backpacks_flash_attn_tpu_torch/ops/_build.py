@@ -323,7 +323,9 @@ def aligned16(t: torch.Tensor) -> bool:
 
 def kernel_operand(t: torch.Tensor) -> torch.Tensor:
     """t itself when a backward kernel can read it in place (unit inner
-    stride; in bf16 also rows 16-byte aligned), else a contiguous copy.
-    Autograd hands a backward expanded cotangents (stride 0) as well."""
+    stride; in bf16 also rows 16-byte aligned), else a contiguous copy in a
+    fresh allocation (``contiguous()`` would hand back a contiguous view
+    whose storage offset breaks the alignment as it is). Autograd hands a
+    backward expanded cotangents (stride 0) as well."""
     ok = t.stride(-1) == 1 and (t.dtype != torch.bfloat16 or aligned16(t))
-    return t if ok else t.contiguous()
+    return t if ok else t.clone(memory_format=torch.contiguous_format)

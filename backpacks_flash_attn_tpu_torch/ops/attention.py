@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import prng
 from .flash_attention import flash_attention, flash_attention_qkv_packed
 
 # The reference's additive mask constant.
@@ -49,22 +50,33 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True,
                   softmax_scale: Optional[float] = None,
                   key_padding_mask: Optional[torch.Tensor] = None,
-                  q_offset=0) -> torch.Tensor:
+                  q_offset=0,
+                  dropout_p: float = 0.0,
+                  dropout_rng: Optional[torch.Tensor] = None,
+                  deterministic: bool = True) -> torch.Tensor:
     """Reference attention in f32, O(s^2) memory. q (b, sq, h, dh); k, v
     (b, sk, h, dh) -> (b, sq, h, dh) in q's dtype. Scale applied to k,
-    additive -10000 masks."""
+    additive -10000 masks. Dropout (not ``deterministic``, a key
+    ``dropout_rng`` of ``utils.prng``) drops softmax probabilities with
+    JAX's ``jax.random.bernoulli`` draw over (b, h, sq, sk), bit for bit
+    (JAX :50-78)."""
     scale = (softmax_scale if softmax_scale is not None
              else 1.0 / math.sqrt(q.shape[-1]))
     scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float() * scale)
     scores = _apply_masks(scores, causal=causal,
                           key_padding_mask=key_padding_mask, q_offset=q_offset)
     attn = torch.softmax(scores, dim=-1)
+    if dropout_p > 0.0 and not deterministic and dropout_rng is not None:
+        keep = prng.bernoulli(dropout_rng, 1.0 - dropout_p, attn.shape,
+                              attn.device)
+        attn = torch.where(keep, attn / (1.0 - dropout_p), 0.0)
     return torch.einsum("bhts,bshd->bthd", attn, v.float()).to(q.dtype)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True,
         softmax_scale: Optional[float] = None,
+        key_padding_mask: Optional[torch.Tensor] = None,
         seq_lengths: Optional[torch.Tensor] = None,
         dropout_p: float = 0.0,
         dropout_rng: Optional[torch.Tensor] = None,
@@ -72,9 +84,15 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_offset=0) -> torch.Tensor:
     """Attention entry point of the model code (JAX :81): the flash wrapper
     (K3, K5 backward), with in-kernel dropout when ``deterministic`` is
-    False. q_offset: scalar or (b,) absolute position of q row 0."""
+    False. q_offset: scalar or (b,) absolute position of q row 0.
+    key_padding_mask: (b, sk) True = a real key; as in JAX (:99-100) it
+    becomes ``seq_lengths = mask.sum(-1)``, which reads the mask as right
+    padding (every real key before every pad key), and takes the ragged
+    flash entry (forward only on the card)."""
     dropout_active = dropout_p > 0.0 and not deterministic
     has_offset = not (isinstance(q_offset, int) and q_offset == 0)
+    if key_padding_mask is not None and seq_lengths is None:
+        seq_lengths = key_padding_mask.sum(-1).to(torch.int32)
     return flash_attention(q, k, v, causal=causal, softmax_scale=softmax_scale,
                            seq_lengths=seq_lengths,
                            dropout_p=dropout_p if dropout_active else 0.0,

@@ -17,10 +17,18 @@ probabilities after the running max and sum, so the LSE stays the one of
 the softmax before dropout (JAX :250-259).
 
 The differentiable entry (no ``seq_lengths``/``q_offsets``, as in JAX)
-saves ``(q, k, v, out, lse)`` and the seed; its backward is K5 on the card
-and :func:`flash_attention_bwd_ref` on the CPU. The ragged/offset entry is
-inference only. An additive score bias (and K5's ``dbias``) waits for
-ROADMAP Queue 2 item 3.
+saves ``(q, k, v, out, lse)``, the bias and the seed; its backward is K5 on
+the card and :func:`flash_attention_bwd_ref` on the CPU. The ragged/offset
+entry is inference only on the card, as in JAX: there it raises when a
+gradient would be asked for (its plain version, eager PyTorch, stays
+differentiable).
+
+An additive f32 score bias ``attn_bias`` (b|1, h|1, sq, sk) or (sq, sk)
+(JAX :1039-1115, :350-370) is added to the scaled scores before the masks
+and the running max, so the LSE includes it and masked keys stay masked;
+its gradient is ``dbias = p * (dp_kept - delta)`` (JAX :488-511), 0 on the
+pairs the masks or the causal skip leave out, summed over the broadcast
+dims in Python and cast to the bias's dtype (JAX :1021-1031).
 
 The ring forms (``k_offsets``, ``bh_offset``, and K5 at sq != sk with
 ``q_offsets``): :func:`flash_fwd` and :func:`flash_bwd` at JAX's
@@ -43,6 +51,7 @@ the kept columns are unchanged, and the scale is the true head dim's.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -127,14 +136,22 @@ def _valid_mask(b, sq, sk, causal, seq_lengths, q_offsets, device,
     return mask
 
 
-def _attend_ref(q, k, v, mask, scale, keep=None, dropout_p: float = 0.0):
+def _scores(q, k, scale, bias=None):
+    """The scaled scores (b, h, sq, sk) in f32 from the product in the
+    working dtype, plus the f32 bias (broadcast) where one is given."""
+    s = torch.einsum("bthd,bshd->bhts", q, k.to(q.dtype)).float() * scale
+    return s if bias is None else s + bias.float()
+
+
+def _attend_ref(q, k, v, mask, scale, keep=None, dropout_p: float = 0.0,
+                bias=None):
     """Softmax attention under a validity mask that broadcasts to (b, h, sq,
     sk): the two products in the working dtype (bf16 stays bf16), scores
-    and softmax in f32, zero output and an LSE of ``NEG_INF`` for fully
-    masked rows; ``keep`` drops un-normalised probabilities after the sum.
-    -> (out (b, sq, h, d), lse (b, h, sq) f32)."""
-    s = torch.einsum("bthd,bshd->bhts", q, k.to(q.dtype)).float() * scale
-    s = torch.where(mask, s, NEG_INF)
+    (with the bias, before the mask) and softmax in f32, zero output and an
+    LSE of ``NEG_INF`` for fully masked rows; ``keep`` drops un-normalised
+    probabilities after the sum. -> (out (b, sq, h, d), lse (b, h, sq)
+    f32)."""
+    s = torch.where(mask, _scores(q, k, scale, bias), NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
@@ -152,10 +169,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         seq_lengths=None, q_offsets=None,
                         dropout_p: float = 0.0, seed=(0, 0),
                         return_lse: bool = False, k_offsets=None,
-                        bh_offset: int = 0):
+                        bh_offset: int = 0, attn_bias=None):
     """Plain version of K3: the two products in the working dtype (bf16
     stays bf16), scores and softmax in f32, with the kernel's masks, its
-    dropout mask and its zero output for fully masked rows."""
+    dropout mask, its zero output for fully masked rows and the additive
+    score bias ``attn_bias`` (broadcasting to (b, h, sq, sk))."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
@@ -165,19 +183,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     keep = (_keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, dev,
                        k_offsets, bh_offset)
             if dropout_p > 0.0 else None)
-    out, lse = _attend_ref(q, k, v, mask, scale, keep, dropout_p)
+    out, lse = _attend_ref(q, k, v, mask, scale, keep, dropout_p,
+                           _bias4(attn_bias))
     return (out, lse) if return_lse else out
 
 
 def _attend_bwd_ref(q, k, v, out, lse, dout, mask, scale, keep=None,
-                    dropout_p: float = 0.0):
+                    dropout_p: float = 0.0, bias=None):
     """Gradients of :func:`_attend_ref` from its LSE: p = exp(s - lse) under
     the mask, delta = rowsum(dO * O), ds = p * (dp - delta); the products in
     the working dtype, the rest in f32. -> (dq, dk, dv) in the input
-    dtypes."""
+    dtypes, and with a bias also dbias = ds (b, h, sq, sk) f32."""
     cdt = q.dtype
     dout = dout.to(cdt)
-    s = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
+    s = _scores(q, k, scale, bias)
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     dp = torch.einsum("bthd,bshd->bhts", dout, v).float()
     if keep is not None:
@@ -187,25 +206,28 @@ def _attend_bwd_ref(q, k, v, out, lse, dout, mask, scale, keep=None,
     else:
         p_v = p
     delta = (out.float() * dout.float()).sum(-1).permute(0, 2, 1)[..., None]
-    ds = (p * (dp - delta)).to(cdt)
+    ds32 = p * (dp - delta)
+    ds = ds32.to(cdt)
     dv = torch.einsum("bhts,bthd->bshd", p_v.to(cdt), dout).float()
     dq = torch.einsum("bhts,bshd->bthd", ds, k).float() * scale
     dk = torch.einsum("bhts,bthd->bshd", ds, q).float() * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return grads if bias is None else (*grads, ds32)
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
                             softmax_scale: Optional[float] = None,
                             dropout_p: float = 0.0, seed=(0, 0),
                             q_offsets=None, k_offsets=None,
-                            bh_offset: int = 0):
-    """Plain version of K5 (JAX ``_flash_bwd_scratch_kernel`` :681): p is
-    recomputed as exp(s - lse) with the forward's masks and keep mask,
-    delta = rowsum(dO * O), ds = p * (dp - delta); the products in the
-    working dtype, the rest in f32. Any sq and sk; the offsets as
-    :func:`flash_attention_ref`'s (given a longer attention's global out
-    and lse, the gradients are one chunk pair's share). Returns (dq, dk,
-    dv) in the input dtypes."""
+                            bh_offset: int = 0, attn_bias=None):
+    """Plain version of K5 (JAX ``_flash_bwd_scratch_kernel`` :681, with a
+    bias the split form :460-558): p is recomputed as exp(s - lse) with the
+    forward's masks, keep mask and bias, delta = rowsum(dO * O), ds = p *
+    (dp - delta); the products in the working dtype, the rest in f32. Any
+    sq and sk; the offsets as :func:`flash_attention_ref`'s (given a longer
+    attention's global out and lse, the gradients are one chunk pair's
+    share). Returns (dq, dk, dv) in the input dtypes, and with a bias also
+    dbias (b, h, sq, sk) f32, not yet summed over broadcast dims."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
@@ -215,7 +237,25 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
                        k_offsets, bh_offset)
             if dropout_p > 0.0 else None)
     return _attend_bwd_ref(q, k, v, out, lse, dout, mask, scale, keep,
-                           dropout_p)
+                           dropout_p, _bias4(attn_bias))
+
+
+def _bias4(bias):
+    """A (sq, sk) bias as (1, 1, sq, sk); a 4-D one (or None) as it is."""
+    return bias[None, None] if bias is not None and bias.dim() == 2 else bias
+
+
+def reduce_dbias(dbias: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The full (b, h, sq, sk) f32 ``dbias`` summed back over the dims the
+    bias broadcast (b or h of 1, or a 2-D bias) and cast to its dtype
+    (JAX ``_flash_bwd_rule`` :1021-1031)."""
+    b, h = dbias.shape[:2]
+    shape = _bias4(bias).shape
+    if shape[0] == 1 and b > 1:
+        dbias = dbias.sum(0, keepdim=True)
+    if shape[1] == 1 and h > 1:
+        dbias = dbias.sum(1, keepdim=True)
+    return dbias.reshape(bias.shape).to(bias.dtype)
 
 
 # ------------------------------------------------------------ kernels
@@ -277,14 +317,46 @@ def _per_seq_arg(x, b: int, device) -> Optional[torch.Tensor]:
         torch.int32).contiguous()
 
 
+def _bias_operand(bias, b: int, h: int, sq: int, sk: int, device
+                 ) -> Optional[torch.Tensor]:
+    """The score bias as the kernels read it: f32 on ``device``, viewed as
+    (b|1, h|1, sq, sk) (a 2-D bias as (1, 1, sq, sk)) with a unit key
+    stride (a copy only where it has none or is not f32); None for none.
+    Raises on a shape that does not broadcast so."""
+    if bias is None:
+        return None
+    t = _bias4(torch.as_tensor(bias, device=device)).to(torch.float32)
+    if (t.dim() != 4 or t.shape[0] not in (1, b) or t.shape[1] not in (1, h)
+            or tuple(t.shape[2:]) != (sq, sk)):
+        raise ValueError(f"attn_bias: shape {tuple(bias.shape)} is not "
+                         f"(b|1, h|1, sq, sk) or (sq, sk) for b {b}, h {h}, "
+                         f"sq {sq}, sk {sk}")
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _bias_arg(bias: Optional[torch.Tensor], dbias=None):
+    """The C entries' bias descriptor (``csrc/common.cuh`` ScoreBias): NULL
+    without a bias, else a host array {address, batch, head and row strides
+    (0 where the dim broadcasts), dbias address or 0}. -> (Ptr, the array,
+    which the caller keeps until the launch returns)."""
+    if bias is None:
+        return _build.Ptr(None), None
+    st = [0 if n == 1 else s for n, s in zip(bias.shape[:3], bias.stride()[:3])]
+    arr = (ctypes.c_longlong * 5)(bias.data_ptr(), *st,
+                                  0 if dbias is None else dbias.data_ptr())
+    return _build.Ptr(ctypes.addressof(arr)), arr
+
+
 def _flash_fwd_kernel(q, k, v, *, causal, scale, seq_lengths, q_offsets,
-                      dropout_p, seed, k_offsets=None, bh_offset: int = 0):
+                      dropout_p, seed, k_offsets=None, bh_offset: int = 0,
+                      bias=None):
     """K3 (``csrc/flash_attention.cu``): bf16 on tensor cores (q, k and v
     rows 16-byte aligned, scale > 0) or on its SIMT loop (f32, unaligned
     bf16); head dims 64, 80, 96 and 128 as they are, any other d <= 128
     padded to the next (:func:`head_dim_instance`); any outer strides; the
-    ring forms' k_offsets and bh_offset. Returns (out (b, sq, h, d), lse
-    (b, h, sq) f32)."""
+    ring forms' k_offsets and bh_offset; an additive score bias (b|1, h|1,
+    sq, sk) or (sq, sk) (:func:`_bias_operand`). Returns (out (b, sq, h, d),
+    lse (b, h, sq) f32)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     inst = _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
@@ -292,42 +364,53 @@ def _flash_fwd_kernel(q, k, v, *, causal, scale, seq_lengths, q_offsets,
     lens = _per_seq_arg(seq_lengths, b, q.device)
     offs = _per_seq_arg(q_offsets, b, q.device)
     koffs = _per_seq_arg(k_offsets, b, q.device)
+    bias = _bias_operand(bias, b, h, sq, sk, q.device)
+    bias_ptr, _keep = _bias_arg(bias)
     out = torch.empty((b, sq, h, inst), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     P = _build.Ptr.of
     _build.launch(
         _K3, "flash_attention_launch", P(q), P(k), P(v), P(out), P(lse),
-        P(lens), P(offs), P(koffs), int(bh_offset), b, h, sq, sk,
+        P(lens), P(offs), P(koffs), bias_ptr, int(bh_offset), b, h, sq, sk,
         *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], float(scale), int(causal),
         *_dropout_args(dropout_p, seed), inst, _build.DTYPE_CODE[q.dtype])
     return cut_heads(d, out)[0], lse
 
 
-def _k5_key_tile(s: int, d: int = 64) -> int:
+def _k5_key_tile(s: int, d: int = 64, bias: bool = False) -> int:
     """Keys a CTA of K5's bf16 kernel takes at head dim d (an instance):
     128 (8 warps, half the dq atomics a query row receives) up to s 1024,
     64 (4 warps, two CTAs an SM) past it; on the H100 each was the faster
     at 512 and at 8192 (``bench_flash_bwd.py --key-tiles 64,128``). Past
     d 64 always 128: K and V stay in shared memory there, and a 64-key CTA
-    holds as few warps an SM as a 128-key one (one CTA of 4 at d 128)."""
-    return 128 if s <= 1024 or d > 64 else 64
+    holds as few warps an SM as a 128-key one (one CTA of 4 at d 128).
+    With a score bias always 128: its instances are built at that tile
+    only."""
+    return 128 if s <= 1024 or d > 64 or bias else 64
 
 
 def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
                       dropout_p, seed, q_offsets=None, k_offsets=None,
-                      bh_offset: int = 0):
+                      bh_offset: int = 0, attn_bias=None,
+                      bias_grad: bool = True):
     """K5 (``csrc/flash_attention_bwd.cu``): bf16 on tensor cores (rows
     16-byte aligned, else copied contiguous first; dq summed in an f32
     workspace, so its last bits vary between runs) or f32 SIMT; head dims
     as K3's (any other d <= 128 padded, the gradients cut back); any sq and
     sk; the ring forms' q_offsets, k_offsets and bh_offset; no lengths.
-    -> (dq, dk, dv), contiguous."""
+    -> (dq, dk, dv), contiguous; with ``attn_bias`` also dbias (b, h, sq,
+    sk) f32, the pairs' dS (zeros where no pair was visited), or None when
+    ``bias_grad`` is False."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     inst = _check_qkv(q, k, v, (torch.bfloat16, torch.float32))
     qoffs = _per_seq_arg(q_offsets, b, q.device)
     koffs = _per_seq_arg(k_offsets, b, q.device)
+    bias = _bias_operand(attn_bias, b, h, sq, sk, q.device)
+    dbias = (torch.zeros((b, h, sq, sk), dtype=torch.float32, device=q.device)
+             if bias is not None and bias_grad else None)
+    bias_ptr, _keep = _bias_arg(bias, dbias)
     q, k, v, out, dout = (_build.kernel_operand(t) for t in pad_heads(
         inst, q, k, v, out, dout.to(q.dtype)))
     for name, t in (("out", out), ("dout", dout)):
@@ -351,48 +434,56 @@ def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
     _build.launch(
         _K5, "flash_attention_bwd_launch", P(q), P(k), P(v), P(out),
         P(dout), P(lse), P(ws), P(dq), P(dk), P(dv), P(qoffs), P(koffs),
-        int(bh_offset), b, h, sq, sk, *strides,
+        bias_ptr, int(bh_offset), b, h, sq, sk, *strides,
         float(softmax_scale), int(causal), *_dropout_args(dropout_p, seed),
-        _k5_key_tile(max(sq, sk), inst), inst, _build.DTYPE_CODE[q.dtype])
-    return cut_heads(d, dq, dk, dv)
+        _k5_key_tile(max(sq, sk), inst, bias is not None), inst,
+        _build.DTYPE_CODE[q.dtype])
+    grads = cut_heads(d, dq, dk, dv)
+    return grads if bias is None else (*grads, dbias)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         softmax_scale: Optional[float] = None,
                         dropout_p: float = 0.0, seed=(0, 0),
-                        q_offsets=None, k_offsets=None, bh_offset: int = 0):
-    """Gradients (dq, dk, dv) of the flash forward. CPU tensors, and every
-    call inside ``_build.plain_path()``, take
-    :func:`flash_attention_bwd_ref`; otherwise a CUDA tensor launches K5
-    (bf16 or f32, d <= 128, any sq and sk, the ring forms' offsets) or
-    raises."""
+                        q_offsets=None, k_offsets=None, bh_offset: int = 0,
+                        attn_bias=None):
+    """Gradients (dq, dk, dv) of the flash forward, and with ``attn_bias``
+    also dbias (b, h, sq, sk) f32 (not summed over broadcast dims: see
+    :func:`reduce_dbias`). CPU tensors, and every call inside
+    ``_build.plain_path()``, take :func:`flash_attention_bwd_ref`;
+    otherwise a CUDA tensor launches K5 (bf16 or f32, d <= 128, any sq and
+    sk, the ring forms' offsets, a score bias) or raises."""
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(
         q.shape[-1])
     fn = (_flash_bwd_kernel if q.is_cuda and _build.kernels_enabled()
           else flash_attention_bwd_ref)
     return fn(q, k, v, out, lse, dout, causal=causal, softmax_scale=scale,
               dropout_p=dropout_p, seed=seed, q_offsets=q_offsets,
-              k_offsets=k_offsets, bh_offset=bh_offset)
+              k_offsets=k_offsets, bh_offset=bh_offset, attn_bias=attn_bias)
 
 
 class _FlashAttention(torch.autograd.Function):
     """K3 forward, K5 backward (JAX ``_flash_attention_bhsd``'s custom_vjp,
-    :1009-1036): saves (q, k, v, out, lse) and the dropout seed, never the
-    mask. The path (kernel or plain) is decided once, at the forward: the
-    backward of a CUDA tensor runs on autograd's device thread, which does
-    not see the caller's ``plain_path()``."""
+    :1009-1036): saves (q, k, v, out, lse, bias) and the dropout seed,
+    never the mask. The path (kernel or plain) is decided once, at the
+    forward: the backward of a CUDA tensor runs on autograd's device
+    thread, which does not see the caller's ``plain_path()``. The bias's
+    gradient is summed over its broadcast dims (:func:`reduce_dbias`); K5
+    writes none when the bias needs none."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, dropout_p, seed, use_kernel):
+    def forward(ctx, q, k, v, bias, causal, scale, dropout_p, seed,
+                use_kernel):
         kw = dict(causal=causal, dropout_p=dropout_p, seed=seed)
         if use_kernel:
             out, lse = _flash_fwd_kernel(q, k, v, scale=scale,
                                          seq_lengths=None, q_offsets=None,
-                                         **kw)
+                                         bias=bias, **kw)
         else:
             out, lse = flash_attention_ref(q, k, v, softmax_scale=scale,
-                                           return_lse=True, **kw)
-        ctx.save_for_backward(q, k, v, out, lse)
+                                           return_lse=True, attn_bias=bias,
+                                           **kw)
+        ctx.save_for_backward(q, k, v, out, lse, bias)
         ctx.kw = dict(kw, softmax_scale=scale)
         ctx.use_kernel = use_kernel
         ctx.mark_non_differentiable(lse)
@@ -400,9 +491,16 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        fn = _flash_bwd_kernel if ctx.use_kernel else flash_attention_bwd_ref
-        dq, dk, dv = fn(*ctx.saved_tensors, dout, **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+        *qkv_out_lse, bias = ctx.saved_tensors
+        bias_grad = bias is not None and ctx.needs_input_grad[3]
+        kw = dict(ctx.kw, attn_bias=bias)
+        if ctx.use_kernel:
+            grads = _flash_bwd_kernel(*qkv_out_lse, dout, bias_grad=bias_grad,
+                                      **kw)
+        else:
+            grads = flash_attention_bwd_ref(*qkv_out_lse, dout, **kw)
+        dbias = reduce_dbias(grads[3], bias) if bias_grad else None
+        return (*grads[:3], dbias, None, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -418,13 +516,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [, lse (b, h, sq) f32]. CPU tensors, and every call inside
     ``_build.plain_path()``, take :func:`flash_attention_ref`; otherwise a
     CUDA tensor launches K3 (``csrc/flash_attention.cu``: bf16 or f32,
-    d <= 128, any outer strides) or raises. Differentiable in q, k, v when
-    neither ``seq_lengths`` nor ``q_offsets`` is given (the backward is K5,
-    bf16 or f32 as the forward).
-    dropout_rng: a key of ``utils.prng`` (required when dropout_p > 0)."""
-    if attn_bias is not None:
-        raise NotImplementedError("attn_bias (a score bias in K3, dbias in "
-                                  "K5) comes with ROADMAP Queue 2 item 3")
+    d <= 128, any outer strides) or raises. Differentiable in q, k, v and
+    ``attn_bias`` when neither ``seq_lengths`` nor ``q_offsets`` is given
+    (the backward is K5, bf16 or f32 as the forward).
+    attn_bias: an additive score bias (b|1, h|1, sq, sk) or (sq, sk), in
+    f32 in the kernels, on every route (JAX :1039).
+    dropout_rng: a key of ``utils.prng`` (required when dropout_p > 0).
+    The ragged/offset entry (``seq_lengths`` or ``q_offsets``) is forward
+    only on the card, as JAX's: it raises when a gradient would be
+    recorded; its plain version (CPU tensors, ``plain_path()``) is eager
+    PyTorch and differentiable."""
     seed = (0, 0)
     if dropout_p > 0.0:
         if dropout_rng is None:
@@ -433,21 +534,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     d = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     use_kernel = q.is_cuda and _build.kernels_enabled()
-    needs_grad = torch.is_grad_enabled() and (
-        q.requires_grad or k.requires_grad or v.requires_grad)
-    if needs_grad and seq_lengths is None and q_offsets is None:
-        out, lse = _FlashAttention.apply(q, k, v, causal, float(scale),
-                                         float(dropout_p), seed, use_kernel)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, attn_bias))
+    ragged = seq_lengths is not None or q_offsets is not None
+    if needs_grad and not ragged:
+        out, lse = _FlashAttention.apply(q, k, v, attn_bias, causal,
+                                         float(scale), float(dropout_p), seed,
+                                         use_kernel)
         return (out, lse) if return_lse else out
-    # no graph to record (or the inference-only ragged entry): the forward
-    # alone, without the autograd Function's overhead
+    if needs_grad and use_kernel:
+        raise RuntimeError(
+            "flash_attention: with seq_lengths or q_offsets the kernel route "
+            "is forward only (as JAX's), but an operand requires grad; take "
+            "the gradient through the plain version (inside "
+            "ops._build.plain_path()) or call under torch.no_grad()")
+    # no graph to record (or the plain ragged entry, which autograd follows
+    # through its eager ops): the forward alone, without the autograd
+    # Function's overhead
     kw = dict(causal=causal, seq_lengths=seq_lengths, q_offsets=q_offsets,
               dropout_p=dropout_p, seed=seed)
     if use_kernel:
-        out, lse = _flash_fwd_kernel(q, k, v, scale=scale, **kw)
+        out, lse = _flash_fwd_kernel(q, k, v, scale=scale, bias=attn_bias,
+                                     **kw)
     else:
         out, lse = flash_attention_ref(q, k, v, softmax_scale=scale,
-                                       return_lse=True, **kw)
+                                       return_lse=True, attn_bias=attn_bias,
+                                       **kw)
     return (out, lse) if return_lse else out
 
 
@@ -469,22 +581,21 @@ def flash_fwd(q, k, v, seq_lengths, scale, causal, block_q: int = 512,
     q_offsets, k_offsets: (b,) or scalar absolute positions of query row 0
     and key column 0 (causality uses their difference, the dropout hash the
     absolute ones); bh_offset: the global index of batch row 0; seed: the
-    dropout seed words. The ring's forward building block: K3 on a CUDA
-    tensor (the (b, s, h, d) views of the operands, no copy), else its
-    plain version. block_q / block_k: the TPU's tiling, not used."""
+    dropout seed words; bias: an additive score bias (b|1, h|1, sq, sk) or
+    (sq, sk). The ring's forward building block: K3 on a CUDA tensor (the
+    (b, s, h, d) views of the operands, no copy), else its plain version.
+    block_q / block_k: the TPU's tiling, not used."""
     del block_q, block_k
-    if bias is not None:
-        raise NotImplementedError("bias (a score bias in K3, dbias in K5) "
-                                  "comes with ROADMAP Queue 2 item 3")
     kw = dict(causal=causal, seq_lengths=seq_lengths, q_offsets=q_offsets,
               k_offsets=k_offsets, bh_offset=int(bh_offset or 0),
               dropout_p=dropout_p, seed=_seed_words(seed))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if q.is_cuda and _build.kernels_enabled():
-        out, lse = _flash_fwd_kernel(qt, kt, vt, scale=float(scale), **kw)
+        out, lse = _flash_fwd_kernel(qt, kt, vt, scale=float(scale),
+                                     bias=bias, **kw)
     else:
         out, lse = flash_attention_ref(qt, kt, vt, softmax_scale=float(scale),
-                                       return_lse=True, **kw)
+                                       return_lse=True, attn_bias=bias, **kw)
     return out.transpose(1, 2), lse
 
 
@@ -493,21 +604,23 @@ def flash_bwd(q, k, v, out, lse, g, seed, scale, causal, block_q: int = 512,
               q_offsets=None, k_offsets=None, bh_offset=None):
     """JAX's ``_flash_bwd`` (:794) at its signature and layout: q, out, g
     (b, h, sq, d), k, v (b, h, sk, d), lse (b, h, sq) -> (dq, dk, dv,
-    None) in the (b, h, s, d) layout (no dbias: Queue 2 item 3). Given a
-    longer attention's GLOBAL out and lse and the chunk pair's offsets,
-    the gradients are that pair's exact share (the ring's backward
-    building block). K5 on a CUDA tensor, else its plain version."""
+    dbias) in the (b, h, s, d) layout; dbias is None without a bias, else
+    (b, h, sq, sk) f32, not summed over the bias's broadcast dims (as
+    JAX's). Given a longer attention's GLOBAL out and lse and the chunk
+    pair's offsets, the gradients are that pair's exact share (the ring's
+    backward building block). K5 on a CUDA tensor, else its plain
+    version."""
     del block_q, block_k
-    if bias is not None:
-        raise NotImplementedError("dbias comes with ROADMAP Queue 2 item 3")
     kw = dict(causal=causal, softmax_scale=float(scale), dropout_p=dropout_p,
               seed=_seed_words(seed), q_offsets=q_offsets,
-              k_offsets=k_offsets, bh_offset=int(bh_offset or 0))
+              k_offsets=k_offsets, bh_offset=int(bh_offset or 0),
+              attn_bias=bias)
     args = [x.transpose(1, 2) for x in (q, k, v, out)] + [lse, g.transpose(1, 2)]
     fn = (_flash_bwd_kernel if q.is_cuda and _build.kernels_enabled()
           else flash_attention_bwd_ref)
-    dq, dk, dv = fn(*args, **kw)
-    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), None
+    dq, dk, dv, *dbias = fn(*args, **kw)
+    return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
+            dbias[0] if dbias else None)
 
 
 def flash_attention_qkv_packed(qkv: torch.Tensor, *, causal: bool = True,

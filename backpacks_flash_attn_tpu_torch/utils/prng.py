@@ -65,12 +65,23 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     return (b1 ^ b2).reshape(tuple(shape))
 
 
-def gumbel(key: torch.Tensor, shape, device=None) -> torch.Tensor:
-    """``jax.random.gumbel(key, shape)`` in f32 (its "low" mode): uniforms
-    from the top 23 bits as a float in [1, 2) less 1, floored at the
-    smallest normal, then -log(-log(u))."""
+def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in f32: the top 23 bits of
+    :func:`random_bits` as a float in [1, 2), less 1."""
     bits = random_bits(key, shape, device)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(key: torch.Tensor, p, shape, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: :func:`uniform` below p,
+    taken as f32."""
+    return uniform(key, shape, device) < torch.tensor(p, dtype=torch.float32)
+
+
+def gumbel(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in f32 (its "low" mode):
+    :func:`uniform` floored at the smallest normal, then -log(-log(u))."""
+    f = uniform(key, shape, device)
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(torch.clamp_min(f + tiny, tiny)))
 

@@ -52,6 +52,22 @@ def params_from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
 
 
 
+def leaf_to_numpy(x) -> np.ndarray:
+    """A tensor (bf16 as f32) or array-like leaf as a numpy array (the HF
+    state dicts the models' remaps read)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def stack_numpy(trees) -> Any:
+    """Per-layer numpy trees (nested dicts) stacked on a leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: stack_numpy([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
 def params_to_numpy(tree: Any) -> Any:
     """The inverse of :func:`params_from_numpy` for floating-point trees:
     tensor tree -> numpy-leaved tree (bf16 leaves as f32), so a test can

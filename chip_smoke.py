@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases device,build,kernels,serve,engine,forward,train,
                                     longctx,train8k,generate,decode_kernels,mini,xl,
-                                    intervene,entry,cp]
+                                    intervene,entry,cp,encoders]
                           [--out DIR]
 
 Phases, each printing one JSON line:
@@ -296,7 +296,33 @@ Phases, each printing one JSON line:
             each rank. The kernels phase ends with K3's and K5's ring
             forms at both shapes (ring_kernel_cases: pairs (0,0), (1,0),
             (1,1), K5 at sq != sk; bf16 at bh_offset 2, f32 at 8; and the
-            bf16 ring's merge against one full-sequence K3 launch).
+            bf16 ring's merge against one full-sequence K3 launch). Last of
+            the kernels phase, K3 and K5 with an additive score bias
+            (bias_kernel_cases, a generator of their own): 8 x 12 x 512,
+            d 64, bf16 at each bias shape (bh, 1h, 11, 2-D; causal and
+            not), f32 at two, one case with dropout 0.1 and one ragged
+            inference case; K5's dbias under the 2x rule with dq, dk, dv;
+            SDPA with a float attn_mask beside (its backward with the
+            mask's gradient).
+17. encoders BERT and ViT, and the score bias's public entry, from a
+            generator of their own (phase_encoders): flash_attention with
+            a learned (1, 12, 512, 512) bias, forward and backward three
+            times (K3 3, K5 3: the launches of the bias rows of the kernels
+            line; the first call's out, dq, dk, dv and dbias under the 2x
+            rule against the plain path); bert-base at full width and depth (12 x 768, 12 heads,
+            vocab 30522, bf16): a forward at 32 x 512 with right-padded
+            masks (lengths 64-512), K3 12 through its ragged entry,
+            tokens/s, the sequence output, pooled output and MLM logits
+            under the 2x rule against the plain path; three pretraining
+            steps at 16 x 512 (MLM over dense_seq_output's 128 gathered
+            positions, NSP, dropout 0.1, no mask, AdamW), K3 and K5 12 each
+            a step, ms a step, tokens/s, and one step's gate (the MLM
+            logits and per-position losses under the 2x rule, the whole
+            gradient's relative error within 2x the plain path's); ViT-B/16
+            at 224 (197 tokens): a forward at 64 images (K3 12, images/s,
+            logits under the 2x rule), three training steps at 32 (K3 and
+            K5 12 each a step) and their gate. Every rate beside the card's
+            name and power limit.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -4990,6 +5016,399 @@ def _run_gated(cases, rows, totals):
             totals[name] = totals.get(name, 0) + n
 
 
+# ------------------------------------------------------------------ score bias, encoders
+
+BIAS_B, BIAS_S, BIAS_H, BIAS_D = 8, 512, 12, 64
+BIAS_SHAPES = {"bh": (BIAS_B, BIAS_H, BIAS_S, BIAS_S), "1h": (1, BIAS_H, BIAS_S, BIAS_S),
+               "11": (1, 1, BIAS_S, BIAS_S), "2d": (BIAS_S, BIAS_S)}
+# the encoders phase's attn-bias run: a (1, h, s, s) bias, bf16, bidirectional
+BIAS_HEADLINE = f"bias 1h b={BIAS_B} h={BIAS_H} s={BIAS_S} d={BIAS_D} bfloat16 bidirectional"
+BIAS_SEED, ENC_SEED = 23, 2323
+
+
+def _sdpa_bias_mask(bias, b, h, s, causal, lens, dtype):
+    """The bias as SDPA's float attn_mask (q's dtype, materialised (b, h, s,
+    s), so its gradient is its own), the causal and key-length masks folded
+    in as -inf."""
+    m = bias.expand(b, h, s, s).float().clone()
+    pos = torch.arange(s, device=bias.device)
+    if causal:
+        m.masked_fill_(pos[None, :] > pos[:, None], float("-inf"))
+    if lens is not None:
+        m.masked_fill_((pos[None, :] >= lens[:, None])[:, None, None, :], float("-inf"))
+    return m.to(dtype)
+
+
+def bias_kernel_cases():
+    """K3 and K5 with an additive score bias (their BIAS instances) at 8 x
+    12 x 512, d 64, from a generator of their own (no earlier draw moves):
+    bf16 (tensor cores) at each bias shape (bh: b and h of its own, causal
+    and bidirectional; 1h: broadcast over b; 11: over both, causal; 2-D);
+    f32 (the SIMT loops) at bh bidirectional and 2-D causal; one bf16 case
+    with dropout 0.1 (1h causal); one ragged inference case (bh,
+    seq_lengths 64-512, K3 only). K5's outputs are
+    dq, dk, dv and the (b, h, s, s) f32 dbias, each under the 2x rule (f32
+    within 1e-5 of the reference's largest magnitude). Library: SDPA with
+    the bias as a float attn_mask (the masks folded in), K5's its autograd
+    backward with the mask's gradient. Each case launch-gated; the bf16
+    cases with device and host times (the headline, the kernels line's
+    bias rows: the bidirectional 1h pair, the encoders phase's attn-bias
+    shape)."""
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(BIAS_SEED)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    b, s, h, d = BIAS_B, BIAS_S, BIAS_H, BIAS_D
+    scale, seed = d ** -0.5, (0x2357, 0xBD1A5)
+    bf, f32 = torch.bfloat16, torch.float32
+    grid = [(bf, "bh", False, 0.0, False), (bf, "bh", True, 0.0, False),
+            (bf, "1h", False, 0.0, False), (bf, "11", True, 0.0, False),
+            (bf, "2d", False, 0.0, False), (f32, "bh", False, 0.0, False),
+            (f32, "2d", True, 0.0, False), (bf, "1h", True, 0.1, False),
+            (bf, "bh", False, 0.0, True)]
+    cases = []
+    for dt, name, causal, p, ragged in grid:
+        qkv = randn(b, s, 3, h, d).to(dt)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        bias = randn(*BIAS_SHAPES[name])
+        dout = randn(b, s, h, d).to(dt)
+        lens = (torch.randint(64, s + 1, (b,), generator=gen, device=DEV) if ragged
+                else None)
+        q32, k32, v32, d32 = (t.float() for t in (q, k, v, dout))
+        kw = dict(causal=causal, softmax_scale=scale, dropout_p=p, seed=seed,
+                  attn_bias=bias)
+        elt = q.element_size()
+        keys = int(lens.sum().item()) if ragged else b * s
+        pairs = (h * s * keys if not causal else b * h * s * (s + 1) // 2)
+        bias_bytes = bias.numel() * 4
+        tag = (f"bias {name} b={b} h={h} s={s} d={d} {str(dt).split('.')[-1]} "
+               f"{'causal' if causal else 'bidirectional'}"
+               + (f" dropout p={p}" if p else "") + (" ragged" if ragged else ""))
+        qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
+        mask = _sdpa_bias_mask(bias if bias.dim() == 4 else bias[None, None],
+                               b, h, s, causal, lens, dt)
+        fkw = dict(kw, seq_lengths=lens)
+        cases.append(("flash_attention", tag, _f32_case(dict(
+            kernel=lambda fkw=fkw, a=(q, k, v): fa._flash_fwd_kernel(
+                *a, scale=scale, seq_lengths=fkw["seq_lengths"], q_offsets=None,
+                causal=fkw["causal"], dropout_p=fkw["dropout_p"], seed=seed,
+                bias=fkw["attn_bias"])[0],
+            plain=lambda fkw=fkw, a=(q, k, v): fa.flash_attention_ref(*a, **fkw),
+            ref=lambda fkw=fkw, a=(q32, k32, v32): fa.flash_attention_ref(*a, **fkw),
+            library=lambda a=(qT, kT, vT), m=mask, p=p: F.scaled_dot_product_attention(
+                *a, attn_mask=m, scale=scale, dropout_p=p).transpose(1, 2),
+            # q read, the keys' K and V rows read, out written; the LSE and the bias
+            bytes=2 * b * s * h * d * elt + 2 * keys * h * d * elt + b * h * s * 4 + bias_bytes,
+            flops=4 * pairs * d, gate="flash_attention", device_times=dt == bf), dt)))
+        if ragged:
+            continue
+        k3out, k3lse = fa._flash_fwd_kernel(q, k, v, scale=scale, seq_lengths=None,
+                                            q_offsets=None, causal=causal, dropout_p=p,
+                                            seed=seed, bias=bias)
+        out, lse = fa.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        out32, lse32 = fa.flash_attention_ref(q32, k32, v32, return_lse=True, **kw)
+        with torch.enable_grad():
+            lq, lk, lv, lm = (t.detach().requires_grad_() for t in (qT, kT, vT, mask))
+            lout = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=lm, scale=scale,
+                                                  dropout_p=p)
+        bkw = {k_: v_ for k_, v_ in kw.items()}
+        cases.append(("flash_attention_bwd", tag, _f32_case(dict(
+            kernel=lambda a=(q, k, v, k3out, k3lse, dout), bkw=bkw: fa.flash_attention_bwd(
+                *a, **bkw),
+            plain=lambda a=(q, k, v, out, lse, dout), bkw=bkw: fa.flash_attention_bwd_ref(
+                *a, **bkw),
+            ref=lambda a=(q32, k32, v32, out32, lse32, d32), bkw=bkw:
+                fa.flash_attention_bwd_ref(*a, **bkw),
+            library=lambda lo=lout, li=(lq, lk, lv, lm), g=dout.transpose(1, 2):
+                torch.autograd.grad(lo, li, g, retain_graph=True),
+            # q, k, v, out, dO read and dq, dk, dv written; the LSE; the bias
+            # read and dbias (b, h, s, s) f32 written
+            bytes=8 * b * s * h * d * elt + b * h * s * 4 + bias_bytes + b * h * s * s * 4,
+            flops=10 * pairs * d, gate="flash_attention_bwd", device_times=dt == bf), dt)))
+    return cases
+
+
+def _three_paths(params, run):
+    """run(p) -> (gated outputs tuple, loss) on the kernel path (bf16), the
+    plain path (bf16) and the plain path in f32 (the reference), each from
+    its own trainable copy of params: the outputs under the 2x rule, the
+    whole gradient (every leaf as one vector) by its relative error, the
+    kernel path's at most 2x the plain path's."""
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+
+    outs = {}
+    for path, dtype in (("kernel", torch.bfloat16), ("plain", torch.bfloat16),
+                        ("ref", torch.float32)):
+        p = tl.trainable(_map_tensors(params, lambda t: t.to(dtype)))
+        with contextlib.nullcontext() if path == "kernel" else _build.plain_path():
+            gated, loss = run(p)
+            loss.backward()
+        grads = [(path_, g.grad if g.grad is not None else torch.zeros_like(g))
+                 for path_, g in tl.named_leaves(p)]
+        outs[path] = (tuple(t.detach() for t in gated), loss.item(), grads)
+        del p
+    ref_grads = dict(outs["ref"][2])
+    ref_norm = math.sqrt(sum(g.float().square().sum().item() for g in ref_grads.values()))
+    rel = {}
+    for path in ("kernel", "plain"):
+        diff = sum((g.float() - ref_grads[k]).square().sum().item() for k, g in outs[path][2])
+        rel[path] = math.sqrt(diff) / ref_norm
+    ek, ep = two_x("outputs", outs["kernel"][0], outs["plain"][0], outs["ref"][0])
+    if not (rel["plain"] > 0 and rel["kernel"] <= 2 * rel["plain"]):
+        raise AssertionError(f"whole gradient: kernel rel. error {rel['kernel']:.3e} > 2x "
+                             f"plain {rel['plain']:.3e}")
+    return dict(max_abs_err=ek, plain_bf16_err=ep, grad_rel_err=rel["kernel"],
+                grad_rel_err_plain=rel["plain"],
+                loss={k: v[1] for k, v in outs.items()})
+
+
+def _exact(label, counts, want):
+    got = {k: n for k, n in counts.items() if n}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def _steps(label, params, loss_of, batches, tokens, smi, layers):
+    """len(batches) AdamW steps (lr 1e-4, warmup 1) of loss_of(p, batch, i)
+    from a trainable copy of params, the launch counts reset just before
+    each step and read just after (K3 and K5 once a layer each, exactly);
+    ms a step (median), tokens (or images) a second, peak memory."""
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+
+    p = tl.trainable(_map_tensors(params, lambda t: t.clone()))
+    opt = tl.make_optimizer(p, lr=1e-4, warmup_steps=1, total_steps=100)
+    losses, times, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        opt.adamw.zero_grad()
+        loss = loss_of(p, batch, i)
+        loss.backward()
+        opt.step(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append({k: n for k, n in _build.launch_counts().items() if n})
+        _exact(f"{label} step {i}", launches[-1],
+               {"flash_attention": layers, "flash_attention_bwd": layers})
+        losses.append(loss.item())
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"{label}: non-finite loss at step {i}")
+    step_s = statistics.median(times)
+    return dict(steps=len(batches), step_ms=step_s * 1e3, step_ms_all=[t * 1e3 for t in times],
+                per_s=tokens / step_s, losses=losses, launches_per_step=launches,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(), card=smi)
+
+
+def _timed_forward(fn, reps=3):
+    """fn() once to warm up, then the median wall seconds of reps calls
+    (each ending in a synchronise)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+BERT_FWD_BATCH, BERT_TRAIN_BATCH, BERT_LEN = 32, 16, 512
+VIT_FWD_BATCH, VIT_TRAIN_BATCH, ENC_STEPS = 64, 32, 3
+
+
+def phase_encoders(results):
+    """BERT and ViT on the card, and the score bias's public entry, from a
+    generator of their own (no earlier draw moves); bf16 weights.
+    attn-bias: flash_attention with a learned (1, 12, 512, 512) bias at 8 x
+    12 x 512, forward and backward three times (K3 3, K5 3), the first
+    call's out, dq, dk, dv and reduced dbias under the 2x rule. bert-base at
+    full width and depth (12 x 768, 12 heads, vocab 30522): a forward at 32
+    x 512 with right-padded attention masks (lengths 64-512): K3 12 times
+    through its ragged entry, the sequence output, pooled output and MLM
+    logits (every 8th position) under the 2x rule against the plain path;
+    three pretraining steps at 16 x 512 (MLM with dense_seq_output's 128
+    gathered positions, NSP, dropout 0.1, no mask): K3 and K5 12 each a
+    step, the gate of one step (logits, per-position losses, the whole
+    gradient). ViT-B/16 at 224 (197 tokens): a forward at 64 images (K3
+    12) and three training steps at 32 (K3 and K5 12 each a step), gated
+    the same way. Rates beside the card's name and power limit."""
+    from backpacks_flash_attn_tpu_torch.models import bert, vit
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
+    from backpacks_flash_attn_tpu_torch.ops.cross_entropy import cross_entropy
+    from backpacks_flash_attn_tpu_torch.utils import prng
+
+    log("encoders")
+    smi = nvidia_smi_line()
+    gen = torch.Generator(device="cuda").manual_seed(ENC_SEED)
+    bf = torch.bfloat16
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+
+    # the score bias through the public entry, a graph recorded
+    b, s, h, d = BIAS_B, BIAS_S, BIAS_H, BIAS_D
+    q, k, v, go = (randn(b, s, h, d).to(bf) for _ in range(4))
+    bias = randn(1, h, s, s) * 0.5
+
+    def bias_call(*ts):
+        """out, dq, dk, dv and the bias's (reduced) gradient of one call."""
+        leaves = [t.detach().requires_grad_() for t in ts]
+        out = fa.flash_attention(*leaves[:3], causal=False, attn_bias=leaves[3])
+        out.backward(go.to(out.dtype))
+        return (out.detach(), *(t.grad for t in leaves))
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    gated = bias_call(q, k, v, bias)
+    for _ in range(ENC_STEPS - 1):
+        bias_call(q, k, v, bias)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k_: n for k_, n in _build.launch_counts().items() if n}
+    _exact("attn-bias", counts, {"flash_attention": ENC_STEPS,
+                                 "flash_attention_bwd": ENC_STEPS})
+    with _build.plain_path():
+        plain = bias_call(q, k, v, bias)
+        ref = bias_call(q.float(), k.float(), v.float(), bias)
+    ek, ep = two_x("attn-bias", gated, plain, ref)
+    run = dict(phase="encoders", run="attn_bias", shape=[b, h, s, d], bias=[1, h, s, s],
+               calls=ENC_STEPS, seconds=seconds, launches=counts, max_abs_err=ek,
+               plain_bf16_err=ep, card=smi)
+    emit(run)
+    results["encoders_bias"] = run
+    del q, k, v, go, bias, gated, plain, ref
+
+    # bert-base: the padded forward
+    cfg = bert.BertConfig()
+    params = bert.init_bert(cfg, gen, dtype=bf)
+    B, S = BERT_FWD_BATCH, BERT_LEN
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV)
+    lens = torch.randint(64, S + 1, (B,), generator=gen, device=DEV)
+    pos = torch.arange(S, device=DEV)[None, :]
+    mask = pos < lens[:, None]
+    tt = ((pos >= (lens // 2)[:, None]) & mask).long()
+
+    def bert_fwd(p):
+        seq, pooled = bert.bert_forward(p, cfg, ids, token_type_ids=tt, attention_mask=mask)
+        return seq, pooled, bert.mlm_logits(p, cfg, seq[:, ::8])
+
+    with torch.no_grad():
+        secs = _timed_forward(lambda: bert_fwd(params))
+        _build.reset_launches()
+        out = bert_fwd(params)
+        torch.cuda.synchronize()
+        counts = {k_: n for k_, n in _build.launch_counts().items() if n}
+        _exact("bert forward", counts, {"flash_attention": cfg.num_hidden_layers})
+        with _build.plain_path():
+            plain = bert_fwd(params)
+            ref = bert_fwd(_map_tensors(params, lambda t: t.float()))
+        ek, ep = two_x("bert forward", out, plain, ref)
+    run = dict(phase="encoders", run="bert_forward", shape=[B, S],
+               real_tokens=int(mask.sum().item()), seconds=secs, tokens_per_s=B * S / secs,
+               real_tokens_per_s=mask.sum().item() / secs, launches=counts,
+               max_abs_err=ek, plain_bf16_err=ep, card=smi)
+    emit(run)
+    results["bert_forward"] = run
+    del out, plain, ref
+
+    # bert-base: pretraining steps (dense_seq_output, NSP, dropout 0.1)
+    dcfg = dataclasses.replace(cfg, dense_seq_output=True)
+    B = BERT_TRAIN_BATCH
+    batches = []
+    for _ in range(ENC_STEPS + 1):
+        ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV)
+        picked = torch.rand(B, S, generator=gen, device=DEV) < 0.15
+        labels = torch.where(picked, torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                                   device=DEV), -100)
+        nsp = torch.randint(0, 2, (B,), generator=gen, device=DEV)
+        tt = (torch.arange(S, device=DEV)[None, :] >= S // 2).long().expand(B, S)
+        batches.append(dict(ids=ids, labels=labels, nsp=nsp, tt=tt))
+
+    def pretrain(p, batch, i):
+        return bert.bert_for_pretraining(
+            p, dcfg, batch["ids"], token_type_ids=batch["tt"], labels=batch["labels"],
+            next_sentence_label=batch["nsp"], train=True,
+            rng=prng.fold_in(prng.PRNGKey(5), i))
+
+    steps = _steps("bert pretraining", params, lambda p, bt, i: pretrain(p, bt, i).loss,
+                   batches[:ENC_STEPS], B * S, smi, cfg.num_hidden_layers)
+    gate_batch = batches[ENC_STEPS]
+    flat = gate_batch["labels"].reshape(-1)
+    idx = torch.argsort((flat == -100).to(torch.int8), stable=True)[:S // 4]
+    sel = torch.where(flat[idx] != -100, flat[idx], -100)
+
+    def gated(p):
+        o = pretrain(p, gate_batch, 0)
+        mlm, _ = cross_entropy(o.prediction_logits, sel)
+        nsp_loss, _ = cross_entropy(o.seq_relationship_logits, gate_batch["nsp"])
+        return (o.prediction_logits, torch.cat([mlm, nsp_loss])), o.loss
+
+    gate = _three_paths(params, gated)
+    rate = steps.pop("per_s")
+    run = dict(phase="encoders", run="bert_pretraining", shape=[B, S],
+               masked_budget=S // 4, **steps, tokens_per_s=rate, gate=gate)
+    emit(run)
+    results["bert_pretraining"] = run
+    del params, batches
+    torch.cuda.empty_cache()
+
+    # ViT-B/16 at 224: forward, then training steps
+    vcfg = vit.ViTConfig()
+    vparams = vit.init_vit(vcfg, gen, dtype=bf)
+    vparams["cls_token"] = randn(1, 1, vcfg.hidden_size).to(bf) * 0.02
+    px = (vcfg.num_channels, vcfg.image_size, vcfg.image_size)
+    images = randn(VIT_FWD_BATCH, *px).to(bf)
+    with torch.no_grad():
+        secs = _timed_forward(lambda: vit.vit_forward(vparams, vcfg, images))
+        _build.reset_launches()
+        logits = vit.vit_forward(vparams, vcfg, images)
+        torch.cuda.synchronize()
+        counts = {k_: n for k_, n in _build.launch_counts().items() if n}
+        _exact("vit forward", counts, {"flash_attention": vcfg.num_hidden_layers})
+        with _build.plain_path():
+            plain = vit.vit_forward(vparams, vcfg, images)
+            ref = vit.vit_forward(_map_tensors(vparams, lambda t: t.float()), vcfg,
+                                  images.float())
+        ek, ep = two_x("vit forward logits", logits, plain, ref)
+    run = dict(phase="encoders", run="vit_forward", shape=[VIT_FWD_BATCH, *px],
+               tokens=vcfg.num_patches + 1, seconds=secs,
+               images_per_s=VIT_FWD_BATCH / secs, launches=counts, max_abs_err=ek,
+               plain_bf16_err=ep, card=smi)
+    emit(run)
+    results["vit_forward"] = run
+    del logits, plain, ref, images
+    B = VIT_TRAIN_BATCH
+    vbatches = [dict(images=randn(B, *px),
+                     labels=torch.randint(0, vcfg.num_classes, (B,), generator=gen, device=DEV))
+                for _ in range(ENC_STEPS + 1)]
+
+    def classify(p, batch, i, per_example=False):
+        x = batch["images"].to(p["patch_embed"]["kernel"].dtype)
+        logits = vit.vit_forward(p, vcfg, x, train=True, rng=prng.fold_in(prng.PRNGKey(6), i))
+        losses, _ = cross_entropy(logits, batch["labels"])
+        return (logits, losses) if per_example else losses.mean()
+
+    steps = _steps("vit training", vparams, classify, vbatches[:ENC_STEPS], B, smi,
+                   vcfg.num_hidden_layers)
+
+    def vgated(p):
+        logits, losses = classify(p, vbatches[ENC_STEPS], 0, per_example=True)
+        return (logits, losses), losses.mean()
+
+    gate = _three_paths(vparams, vgated)
+    rate = steps.pop("per_s")
+    run = dict(phase="encoders", run="vit_training", shape=[B, *px], **steps,
+               images_per_s=rate, gate=gate)
+    emit(run)
+    results["vit_training"] = run
+    del vparams, vbatches
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main
 
 def main():
@@ -4997,7 +5416,7 @@ def main():
     ap.add_argument("--phases",
                     default="device,build,kernels,serve,engine,forward,train,"
                             "longctx,train8k,generate,decode_kernels,mini,xl,"
-                            "intervene,entry,cp")
+                            "intervene,entry,cp,encoders")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"))
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -5110,6 +5529,10 @@ def main():
         results["ring_merge"] = ring_merge
         emit({"phase": "kernels", "ring_merge": ring_merge})
         torch.cuda.empty_cache()
+        log("kernels: K3 and K5 with a score bias")
+        with torch.no_grad():
+            phase_kernels(bias_kernel_cases(), results["kernels"])
+        torch.cuda.empty_cache()
     if "mini" in phases:
         phase_mini(gen, results, args.out)
     if "xl" in phases:
@@ -5122,6 +5545,8 @@ def main():
         phase_entry(gen, results)
     if "cp" in phases:
         phase_cp(results)
+    if "encoders" in phases:
+        phase_encoders(results)
 
     line = []
     for k in _build.KERNELS.values():
@@ -5157,6 +5582,22 @@ def main():
                     "library_ms")},
                 "case": head["case"] if head else None,
             })
+    # K3's and K5's score-bias instances (the public entry with a bias,
+    # the encoders phase's attn-bias run), at that run's shape (1h, bf16,
+    # bidirectional)
+    for k in (_build.KERNELS["flash_attention"], _build.KERNELS["flash_attention_bwd"]):
+        rows = results.get("kernels", {}).get(k.name, [])
+        head = next((r for r in rows if r["case"] == BIAS_HEADLINE), None)
+        launches = results.get("encoders_bias", {}).get("launches", {}).get(k.name, 0)
+        line.append({
+            "name": f"{k.name}_bias", "route": "cuda",
+            "source": f"backpacks_flash_attn_tpu_torch/csrc/{k.source}",
+            "replaces": k.replaces, "launches": launches, "launches_run": "encoders_bias",
+            **{key: head[key] if head else None for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            "case": head["case"] if head else None,
+        })
     results["kernel_line"] = line
     (args.out / "chip_smoke.json").write_text(json.dumps(results, indent=1))
     emit({"kernels": line})

@@ -13,10 +13,11 @@ flags of ``ops/_build.py`` to a cubin, and disassembled with cuobjdump.
 Kernels are paired across the trees in the order of the cubin; their names
 (demangled, ``--match`` filters them) may differ by template arguments.
 With ``--drop-arg VALUE`` they are paired by name instead, with a template
-argument VALUE taken out of the names first: a tree that added a template
-parameter (``--drop-arg 64``: ``k<64, 4>`` pairs with ``k<4>``, ``k<float,
-64>`` with ``k<float>``) pairs each old instance with its new counterpart,
-and the kernels with no counterpart in every tree are listed apart. One
+argument VALUE and the parameter list taken out of the names first: a tree
+that added a template parameter (``--drop-arg 64``: ``k<64, 4>`` pairs with
+``k<4>``, ``k<float, 64>`` with ``k<float>``) or a kernel parameter pairs
+each old instance with its new counterpart, and the kernels with no
+counterpart in every tree, or whose key collides, are listed apart. One
 line a kernel and tree: registers, instructions, spills, name; then whether
 the opcode histograms of each pair are equal. Needs the CUDA toolkit
 (``nvcc``, ``cuobjdump``, ``cu++filt``), not a card.
@@ -79,13 +80,29 @@ def drop_arg(name: str, value: str) -> str:
     return re.sub(rf", {arg}(?=[,>])", "", name)
 
 
+def strip_params(name: str) -> str:
+    """name without its trailing parameter list (the last parenthesised
+    group at depth 0)."""
+    if not name.endswith(")"):
+        return name
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i]
+    return name
+
+
 def pair_by_name(per_tree, value):
-    """[(kernels of each tree, one per tree)] for the names (value dropped)
-    that every tree has, and the names some tree lacks."""
-    keyed = [{drop_arg(k[0], value): k for k in ks} for ks in per_tree]
-    common = [n for n in keyed[0] if all(n in t for t in keyed[1:])]
+    """[(kernels of each tree, one per tree)] for the names (value and the
+    parameter list dropped) that every tree has once, and the names left
+    unpaired."""
+    key = lambda n: strip_params(drop_arg(n, value))
+    keyed = [{key(k[0]): k for k in ks} for ks in per_tree]
+    counts = [collections.Counter(key(k[0]) for k in ks) for ks in per_tree]
+    common = [n for n in keyed[0] if all(c[n] == 1 for c in counts)]
     alone = sorted({k[0] for ks in per_tree for k in ks
-                    if drop_arg(k[0], value) not in common})
+                    if key(k[0]) not in common})
     return [tuple(t[n] for t in keyed) for n in common], alone
 
 

@@ -112,8 +112,11 @@ def test_port_imports_no_jax():
     intervention evals' modules, a negative-weighted step under an
     all-ones table (the plain logits), the tokenizers, the REPL on an
     imported checkpoint, a PPLM generation, MAUVE's features and the other
-    modules of the entry-point slice, and the context-parallel modules
-    (the ring pair functions on the CPU). The ranks' module of the
+    modules of the entry-point slice, the context-parallel modules
+    (the ring pair functions on the CPU), and the encoders' slice (a tiny
+    BERT forward over a padded batch and pretraining loss, a ViT forward,
+    flash attention with a score bias and its gradient, the softmax and
+    padding modules). The ranks' module of the
     parallel tests (tests/torch_parallel_ranks.py) is held JAX-free too."""
     pattern = re.compile(r"^\s*(import|from) +(jax|backpacks_flash_attn_tpu)\b",
                          re.M)
@@ -217,6 +220,27 @@ o, l = fa.flash_fwd(qh, qh, qh, None, 0.25, True, q_offsets=8, k_offsets=0)
 assert fa.flash_bwd(qh, qh, qh, o, l, o, None, 0.25, True, q_offsets=8,
                     k_offsets=0)[0].shape == qh.shape
 assert ring_attention.zigzag_order(8, 2).tolist() == [0, 1, 6, 7, 2, 3, 4, 5]
+from backpacks_flash_attn_tpu_torch.models import bert, vit
+from backpacks_flash_attn_tpu_torch.ops import softmax
+from backpacks_flash_attn_tpu_torch.utils import padding
+bcfg = bert.bert_test()
+bpar = bert.init_bert(bcfg, torch.Generator().manual_seed(0), device="cpu")
+bids = torch.randint(0, bcfg.vocab_size, (2, 8))
+bmask = torch.arange(8)[None, :] < torch.tensor([[8], [5]])
+seq_out, pooled = bert.bert_forward(bpar, bcfg, bids, attention_mask=bmask)
+assert seq_out.shape == (2, 8, 64) and pooled.shape == (2, 64)
+pre = bert.bert_for_pretraining(bpar, bcfg, bids, labels=bids,
+                                next_sentence_label=torch.tensor([0, 1]))
+assert torch.isfinite(pre.loss)
+vcfg = vit.vit_test()
+vpar = vit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu")
+assert vit.vit_forward(vpar, vcfg, torch.randn(2, 3, 16, 16)).shape == (2, 10)
+bias = torch.randn(2, 1, 8, 8, requires_grad=True)
+xb = torch.randn(2, 8, 2, 16, requires_grad=True)
+fa.flash_attention(xb, xb, xb, causal=False, attn_bias=bias).sum().backward()
+assert bias.grad.shape == bias.shape and xb.grad.shape == xb.shape
+assert softmax.FusedScaleMaskSoftmax(causal=True)(torch.randn(1, 1, 3, 3)).shape == (1, 1, 3, 3)
+assert padding.unpad_input(torch.randn(2, 8, 4), bmask).values.shape == (16, 4)
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
 print("ok", tuple(logits.shape))
 """
@@ -312,9 +336,31 @@ def test_wrappers_take_plain_path_on_cpu_and_count_no_launch():
         tfa.blocksparse_attention_ref((a.float() * 0.25).to(a.dtype), a, a,
                                       act, causal=True, block_q=4,
                                       block_k=4)[0])
+    bias = torch.randn(1, 2, 5, 7, generator=torch.Generator().manual_seed(2))
+    assert torch.equal(
+        tfa.flash_attention(a, b, c, attn_bias=bias),
+        tfa.flash_attention_ref(a, b, c, attn_bias=bias))
     assert _build.launch_counts() == {k: 0 for k in _build.KERNELS}
-    with pytest.raises(NotImplementedError, match="attn_bias"):
-        tfa.flash_attention(a, b, c, attn_bias=torch.zeros(5, 7))
+
+
+def test_kernel_operand_copies_unaligned_contiguous_views():
+    """A bf16 view one element into its storage is contiguous but its rows
+    are not 16-byte aligned: kernel_operand hands the backward kernels a
+    fresh aligned copy (``contiguous()`` returned the view itself, and K5's
+    16-byte copies faulted on it); aligned and f32 operands pass through,
+    and a cotangent expanded along its last dim (stride 0) is copied."""
+    store = torch.randn(2 * 5 * 64 + 1).to(torch.bfloat16)
+    view = store[1:].view(2, 5, 64)
+    assert view.is_contiguous() and not _build.aligned16(view)
+    op = _build.kernel_operand(view)
+    assert _build.aligned16(op) and op.data_ptr() != view.data_ptr()
+    assert torch.equal(op, view)
+    aligned = torch.randn(2, 5, 64).to(torch.bfloat16)
+    assert _build.kernel_operand(aligned) is aligned
+    f32 = torch.randn(2 * 5 * 64 + 1)[1:].view(2, 5, 64)
+    assert _build.kernel_operand(f32) is f32
+    expanded = torch.randn(2, 5, 1).expand(2, 5, 64)
+    assert _build.kernel_operand(expanded).stride() == (320, 64, 1)
 
 
 def test_plain_path_switch_is_scoped():

@@ -2074,3 +2074,105 @@ def test_ring_merge_equals_one_k3_launch(gen):
                                     dropout_p=p, seed=seed, bh_offset=2, return_lse=True)
     assert _err(out, full) <= 2 * _err(full, ref)
     assert _err(lse, flse) <= 1e-4
+
+
+# ------------------------------------------------------------ the score bias
+
+@pytest.mark.parametrize("dt,bshape,causal,dropout_p,s,d,unaligned", [
+    (BF16, "bh", True, 0.0, 200, 64, False),
+    (BF16, "1h", False, 0.1, 200, 64, False),
+    (BF16, "11", True, 0.0, 130, 64, False),
+    (BF16, "2d", False, 0.0, 197, 64, False),     # ViT's sequence
+    (BF16, "bh", False, 0.0, 24, 64, False),      # one tile, below 32 rows
+    (BF16, "1h", True, 0.1, 100, 80, False),      # K and V in shared memory
+    (BF16, "bh", True, 0.0, 70, 128, False),
+    (BF16, "11", False, 0.0, 90, 64, True),       # K3's SIMT loop
+    (F32, "bh", True, 0.1, 70, 64, False),
+    (F32, "2d", False, 0.0, 45, 96, False),
+])
+def test_flash_attention_bias_kernel(gen, dt, bshape, causal, dropout_p, s, d,
+                                     unaligned):
+    """flash_attention with a score bias that requires grad, as training
+    calls it: K3 once and K5 once, out and dq, dk, dv, dbias (summed over
+    the broadcast dims) against the plain path (2x rule in bf16, the f32
+    bound in f32)."""
+    from backpacks_flash_attn_tpu_torch.utils import prng
+    b, h = 2, 3
+    shape = {"bh": (b, h, s, s), "1h": (1, h, s, s), "11": (1, 1, s, s),
+             "2d": (s, s)}[bshape]
+    bias0 = torch.randn(shape, generator=gen, device="cuda")
+    # unaligned: q a view one element into its storage, in its dtype
+    store = torch.randn(b * s * h * d + 1, generator=gen, device="cuda").to(dt)
+    q0 = store[int(unaligned):][:b * s * h * d].view(b, s, h, d)
+    k0, v0, go = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                  for _ in range(3))
+
+    def run(q, k, v):
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        bias = bias0.clone().requires_grad_()
+        out = fa.flash_attention(*xs, causal=causal, attn_bias=bias,
+                                 dropout_p=dropout_p,
+                                 dropout_rng=prng.PRNGKey(3))
+        out.backward(go.to(out.dtype))
+        return [out] + [t.grad for t in xs] + [bias.grad]
+
+    qkv = [q0] + [t.to(dt) for t in (k0, v0)]
+    if unaligned:
+        assert qkv[0].data_ptr() % 16 != 0
+    _build.reset_launches()
+    kernel = run(*qkv)
+    counts = _build.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (1, 1)
+    with _build.plain_path():
+        ref = run(*(t.float() for t in qkv))
+        plain = None if dt == F32 else run(*qkv)
+    for i, name in enumerate(("out", "dq", "dk", "dv", "dbias")):
+        assert kernel[i].shape == ref[i].shape, name
+        if dt == F32:
+            _f32_close(kernel[i], ref[i])
+        else:
+            _within_2x(kernel[i], plain[i], ref[i])
+
+
+def test_flash_attention_bias_no_grad_writes_no_dbias(gen):
+    """A bias that needs no gradient: K5 is launched without dbias (None
+    for it), and q's gradient is that of the run that asks for it."""
+    q, k, v = (torch.randn(2, 64, 2, 64, generator=gen, device="cuda").to(BF16)
+               .requires_grad_() for _ in range(3))
+    bias = torch.randn(1, 2, 64, 64, generator=gen, device="cuda")
+    fa.flash_attention(q, k, v, attn_bias=bias).float().sum().backward()
+    dq = q.grad.clone()
+    q.grad = None
+    bias.requires_grad_()
+    fa.flash_attention(q, k, v, attn_bias=bias).float().sum().backward()
+    assert bias.grad is not None and bias.grad.shape == bias.shape
+    # dq's last bits vary between K5 runs (its f32 atomics)
+    assert _err(q.grad, dq) <= 1e-2 * max(1.0, dq.abs().max().item())
+
+
+def test_flash_attention_ragged_kernel_route_is_forward_only(gen):
+    """With seq_lengths (or q_offsets) the kernel route raises when an
+    operand requires grad, and runs K3 under no_grad (with a bias too) to
+    the plain version's 2x rule; the plain route stays differentiable."""
+    q, k, v = (torch.randn(2, 100, 2, 64, generator=gen, device="cuda").to(BF16)
+               for _ in range(3))
+    bias = torch.randn(2, 1, 100, 100, generator=gen, device="cuda")
+    lens = torch.tensor([100, 37], device="cuda")
+    with pytest.raises(RuntimeError, match="forward only"):
+        fa.flash_attention(q.requires_grad_(), k, v, seq_lengths=lens)
+    with pytest.raises(RuntimeError, match="forward only"):
+        fa.flash_attention(q.detach(), k, v, q_offsets=3,
+                           attn_bias=bias.requires_grad_())
+    q, bias = q.detach(), bias.detach()
+    kw = dict(causal=False, seq_lengths=lens, attn_bias=bias)
+    with torch.no_grad():
+        before = _build.KERNELS["flash_attention"].launches
+        out = fa.flash_attention(q.requires_grad_(), k, v, **kw)
+        assert _build.KERNELS["flash_attention"].launches == before + 1
+    q = q.detach()
+    ref = fa.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    _within_2x(out, fa.flash_attention_ref(q, k, v, **kw), ref)
+    with _build.plain_path():
+        qg = q.float().requires_grad_()
+        fa.flash_attention(qg, k.float(), v.float(), **kw).sum().backward()
+    assert torch.isfinite(qg.grad).all() and qg.grad.abs().sum() > 0
