@@ -96,9 +96,13 @@ def contextualization(params: Params, cfg: BackpackConfig,
 def content_forward(params: Params, cfg: BackpackConfig,
                     input_ids: torch.Tensor, *, train: bool = False,
                     rng: Optional[torch.Tensor] = None,
+                    embedded: Optional[torch.Tensor] = None,
                     dropout_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sense network C(x): (b, s) -> (b, s, nv, d); strictly per-token. A
-    quantized tree with a precomputed sense table gathers from it. In
+    quantized tree with a precomputed sense table gathers from it (and
+    ignores ``embedded``). embedded: the pre-gathered wte rows (b, s, d),
+    in place of the embedding gather (JAX :107; the tensor-parallel decode
+    step, ``parallel/tp_decode.py``, sums its vocab-sharded rows once). In
     training, the embedding's dropout site takes the first split of
     ``rng`` and each block's two sites a (n_blocks, 2) split of the second
     (JAX :141-170). dropout_idx: the global flat positions of this chunk's
@@ -117,7 +121,8 @@ def content_forward(params: Params, cfg: BackpackConfig,
         if scales.shape[-1] not in (1, d):
             scales = scales.repeat_interleave(d // scales.shape[-1], dim=-1)
         return (rows.float() * scales).to(act)
-    hidden = gpt_lib.take_embedding(params["gpt"]["wte"], input_ids, act)
+    hidden = (embedded if embedded is not None
+              else gpt_lib.take_embedding(params["gpt"]["wte"], input_ids, act))
     n_blocks = cp["blocks"]["norm1"]["weight"].shape[0]
     r_emb, blk_rngs = None, None
     if rng is not None:

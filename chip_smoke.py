@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases device,build,kernels,serve,engine,forward,train,
                                     longctx,train8k,generate,decode_kernels,mini,xl,
-                                    intervene,entry,cp,encoders]
+                                    intervene,entry,cp,tp,encoders]
                           [--out DIR]
 
 Phases, each printing one JSON line:
@@ -304,7 +304,30 @@ Phases, each printing one JSON line:
             inference case; K5's dbias under the 2x rule with dq, dk, dv;
             SDPA with a float attn_mask beside (its backward with the
             mask's gradient).
-17. encoders BERT and ViT, and the score bias's public entry, from a
+17. tp      tensor-parallel Backpack decode (phase_tp): a world of 2
+            processes on the card (gloo: every ring hop and gather through
+            host memory). backpack-small at full width and depth, INT8
+            weights, the INT8 sense table and INT8 caches, 8 slots each
+            prefilled alone (prompts of 16-32 tokens), window 128 of a 512
+            cache. make_tp_decode_step at (data 1, model 2): 8 steps
+            teacher-forced on the single-device kernel path's tokens, each
+            step's logits under the near-tie rule against it (the 2x rule
+            against the f32 plain reference, the INT8 codes with f32
+            activations), the cache (from_tp_cache of the gathered shards)
+            under the 2x rule on its dequantized keys and values, the
+            senses equal; K1 2 x 13 and K2 2 x 50 launches each step on
+            each rank (two microbatches); step ms, hops and bytes a step;
+            make_tp_decode_scan's 8 greedy steps equal to the step's greedy
+            loop, its tokens against the single-device greedy tokens (equal
+            up to a slot's first difference, a near tie there).
+            make_sharded_decode_step at (data 2, model 1) and with
+            tp_params at (data 1, model 2) (the full cache read, the
+            serving step takes no window): the near-tie rule, K1 13 and K2
+            50 a step. First K1 and K2 at each of a rank's shapes
+            (tp_kernel_cases); the step's calls of each tallied by shape,
+            so that each kernels-line row (one a shape) counts its own
+            launches. Every time beside the card's name and power limit.
+18. encoders BERT and ViT, and the score bias's public entry, from a
             generator of their own (phase_encoders): flash_attention with
             a learned (1, 12, 512, 512) bias, forward and backward three
             times (K3 3, K5 3: the launches of the bias rows of the kernels
@@ -488,49 +511,57 @@ def two_x(name, out, plain, ref):
 
 # ------------------------------------------------------------------ kernels
 
-def k1_cases(gen):
-    """K1: GPT rows (E = 128*12, dv = 64) and Backpack rows (E = 128*16,
-    dv = 768) over a 512 window, ragged per-row lengths, bf16 and int8;
-    CUDA-event, profiler device and host times beside SDPA's."""
+def _k1_case(gen, label, cache, q, lens, S, dk, dv):
+    """One K1 case over a bf16 or INT8 cache (keys, values and scales drawn
+    from ``gen`` in that order), with CUDA-event, profiler device and host
+    times beside SDPA's."""
     from backpacks_flash_attn_tpu_torch.ops import decode_attention as da
 
     dev = DEV
     bf = torch.bfloat16
+    E = q.shape[0]
     randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    if cache == "int8":
+        kt = torch.randint(-127, 128, (E, dk, S), generator=gen,
+                           device=dev, dtype=torch.int8)
+        v = torch.randint(-127, 128, (E, S, dv), generator=gen,
+                          device=dev, dtype=torch.int8)
+        ks = torch.rand(E, S, generator=gen, device=dev) * 0.05
+        vs = torch.rand(E, S, generator=gen, device=dev) * 0.05
+    else:
+        kt, v, ks, vs = randn(E, dk, S).to(bf), randn(E, S, dv).to(bf), None, None
+    args = (q, kt, ks, v, vs, lens)
+    ref_args = (q.float(), kt.float(), ks, v.float(), vs, lens)
+    kd = kt.float() * (ks[:, None, :] if ks is not None else 1.0)
+    vd = v.float() * (vs[..., None] if vs is not None else 1.0)
+    lk = kd.transpose(1, 2).to(bf)[None]        # (1, E, S, dk)
+    lv = vd.to(bf)[None]
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[None, :, None, :]
+    n = lens.sum().item()
+    kvb = kt.element_size()
+    nbytes = (q.numel() * 2 + n * dk * kvb + n * dv * kvb + E * dv * 2
+              + E * 4 + (2 * n * 4 if ks is not None else 0))
+    return ("decode_attention", f"{label}-{cache} E={E} S={S} dv={dv}", dict(
+        kernel=lambda a=args: da.decode_attention(*a),
+        plain=lambda a=args: da.decode_attention_ref(*a),
+        ref=lambda a=ref_args: da.decode_attention_ref(*a),
+        library=lambda q=q, lk=lk, lv=lv, m=mask: F.scaled_dot_product_attention(
+            q[None, :, None, :], lk, lv, attn_mask=m, scale=1.0)[0, :, 0],
+        bytes=nbytes, flops=2 * n * (dk + dv), device_times=True))
+
+
+def k1_cases(gen):
+    """K1: GPT rows (E = 128*12, dv = 64) and Backpack rows (E = 128*16,
+    dv = 768) over a 512 window, ragged per-row lengths, bf16 and int8;
+    CUDA-event, profiler device and host times beside SDPA's."""
     cases = []
     for label, E, dv in (("gpt", 128 * 12, 64), ("backpack", 128 * 16, 768)):
         S, dk = 512, 64
-        lens = torch.randint(1, S + 1, (E,), generator=gen, device=dev,
+        lens = torch.randint(1, S + 1, (E,), generator=gen, device=DEV,
                              dtype=torch.int32)
-        q = (randn(E, dk) * 0.125).to(bf)
+        q = (torch.randn(E, dk, generator=gen, device=DEV) * 0.125).to(torch.bfloat16)
         for cache in ("bf16", "int8"):
-            if cache == "int8":
-                kt = torch.randint(-127, 128, (E, dk, S), generator=gen,
-                                   device=dev, dtype=torch.int8)
-                v = torch.randint(-127, 128, (E, S, dv), generator=gen,
-                                  device=dev, dtype=torch.int8)
-                ks = torch.rand(E, S, generator=gen, device=dev) * 0.05
-                vs = torch.rand(E, S, generator=gen, device=dev) * 0.05
-            else:
-                kt, v, ks, vs = randn(E, dk, S).to(bf), randn(E, S, dv).to(bf), None, None
-            args = (q, kt, ks, v, vs, lens)
-            ref_args = (q.float(), kt.float(), ks, v.float(), vs, lens)
-            kd = kt.float() * (ks[:, None, :] if ks is not None else 1.0)
-            vd = v.float() * (vs[..., None] if vs is not None else 1.0)
-            lk = kd.transpose(1, 2).to(bf)[None]        # (1, E, S, dk)
-            lv = vd.to(bf)[None]
-            mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[None, :, None, :]
-            n = lens.sum().item()
-            kvb = kt.element_size()
-            nbytes = (q.numel() * 2 + n * dk * kvb + n * dv * kvb + E * dv * 2
-                      + E * 4 + (2 * n * 4 if ks is not None else 0))
-            cases.append(("decode_attention", f"{label}-{cache} E={E} S={S} dv={dv}", dict(
-                kernel=lambda a=args: da.decode_attention(*a),
-                plain=lambda a=args: da.decode_attention_ref(*a),
-                ref=lambda a=ref_args: da.decode_attention_ref(*a),
-                library=lambda q=q, lk=lk, lv=lv, m=mask: F.scaled_dot_product_attention(
-                    q[None, :, None, :], lk, lv, attn_mask=m, scale=1.0)[0, :, 0],
-                bytes=nbytes, flops=2 * n * (dk + dv), device_times=True)))
+            cases.append(_k1_case(gen, label, cache, q, lens, S, dk, dv))
     return cases
 
 
@@ -1601,9 +1632,20 @@ def _add_profile(run, params, cfg, prompt, segments=SHORT_PROFILE):
 
 
 def _map_tensors(tree, fn):
+    """fn on every tensor of a tree: dicts, and dataclasses (QuantWeight, the
+    caches) field by field; other leaves (ints, None) as they are."""
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
-    return fn(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: _map_tensors(getattr(tree, f.name), fn)
+                                            for f in dataclasses.fields(tree)})
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _nbytes(tree):
+    sizes = []
+    _map_tensors(tree, lambda t: sizes.append(t.numel() * t.element_size()))
+    return sum(sizes)
 
 
 def _first_layers(params, cfg, n):
@@ -5016,6 +5058,446 @@ def _run_gated(cases, rows, totals):
             totals[name] = totals.get(name, 0) + n
 
 
+# ------------------------------------------------------------------ tp
+
+TP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
+TP_RANKS, TP_SEED, TP_KERNEL_SEED = 2, 24, 25
+TP_BACKEND = "gloo"         # two ranks on one card: NCCL needs a GPU a rank
+TP_TIMEOUT, TP_PG_TIMEOUT = 400, 180
+TP_SLOTS, TP_PROMPT, TP_MAX_LEN, TP_WINDOW, TP_STEPS = 8, 32, 512, 128, 8
+TP_LAYERS = 12      # backpack-small's full depth
+
+
+# a rank's K1 and K2 shapes on the tp step (4 of the 8 slots a microbatch,
+# 6 of 12 heads, 8 of 16 senses): K1 by (E, dv), K2 by (M, K, N)
+TP_K1_SHAPES = {"gpt": (4 * 6, 64), "combine": (4 * 8, 768)}
+TP_K2_SHAPES = {"qkv": (4, 768, 1152), "out_proj": (4, 384, 768), "fc1": (4, 768, 1536),
+                "fc2": (4, 1536, 768), "ctx_qkv": (4, 768, 768), "head": (4, 768, 25132)}
+
+
+def tp_launches(cfg, microbatches):
+    """K1 and K2 launches of one decode step on one rank: K1 per GPT layer
+    and for the combine, K2 per layer's four linears, ctx_attn.Wqkv and the
+    head, each once a microbatch."""
+    return {"decode_attention": microbatches * (cfg.n_layer + 1),
+            "quant_matmul": microbatches * gemms(cfg)}
+
+
+def tp_kernel_cases(gen):
+    """K1 and K2 at the tp phase's shapes on one rank of 2 (TP_K1_SHAPES,
+    TP_K2_SHAPES; the 128 window, the lengths of 16-48 tokens): K1 over the
+    INT8 GPT rows (E 24, dk = dv = 64) and the combine's (E 32, dk 64, dv
+    768); K2 at M 4 over each shard: Wqkv's column shard (768 -> 1152),
+    out_proj's row shard (384 -> 768), fc1's (768 -> 1536), fc2's (1536 ->
+    768), ctx_attn.Wqkv's (768 -> 768) and the tied head's vocab shard (768
+    -> 25132, padded to 25216)."""
+    cases = []
+    for label, (E, dv) in (("tp gpt", TP_K1_SHAPES["gpt"]),
+                           ("tp backpack", TP_K1_SHAPES["combine"])):
+        lens = torch.randint(16, 49, (E,), generator=gen, device=DEV, dtype=torch.int32)
+        q = (torch.randn(E, 64, generator=gen, device=DEV) * 0.125).to(torch.bfloat16)
+        cases.append(_k1_case(gen, label, "int8", q, lens, TP_WINDOW, 64, dv))
+    for M, K, N in TP_K2_SHAPES.values():
+        cases.append(k2_case(gen, M, K, N))
+    return cases
+
+
+@contextlib.contextmanager
+def _tp_shape_tally(tally):
+    """Tally the K1 and K2 calls made inside by shape, into ``tally``: K1
+    (tp_decode's decode_attention) by ("decode_attention", E, dv), K2
+    (quant.quant_matmul) by ("quant_matmul", M, K, N). On the card each
+    call launches its kernel once; the launch counts themselves stay the
+    wrappers' own, and phase_tp holds the tally's sums to them."""
+    from backpacks_flash_attn_tpu_torch.ops import quant
+    from backpacks_flash_attn_tpu_torch.parallel import tp_decode as tpd
+
+    k1, k2 = tpd.decode_attention, quant.quant_matmul
+
+    def add(key):
+        tally[key] = tally.get(key, 0) + 1
+
+    def k1_tallied(q, kt, ks, v, *a, **kw):
+        add(("decode_attention", q.shape[0], v.shape[-1]))
+        return k1(q, kt, ks, v, *a, **kw)
+
+    def k2_tallied(x, qw, *a, **kw):
+        add(("quant_matmul", x.numel() // x.shape[-1], x.shape[-1], qw.d_out))
+        return k2(x, qw, *a, **kw)
+
+    tpd.decode_attention, quant.quant_matmul = k1_tallied, k2_tallied
+    try:
+        yield tally
+    finally:
+        tpd.decode_attention, quant.quant_matmul = k1, k2
+
+
+def _tp_by_shape(tallies, steps_of_ranks):
+    """The tp step's launches by shape, summed over its ranks: each rank's
+    tally must hold only TP_K1_SHAPES and TP_K2_SHAPES and sum, kernel by
+    kernel, to the launches its steps counted. -> {"decode_attention_gpt":
+    n, ..., "quant_matmul_head": n}."""
+    names = {("decode_attention",) + v: f"decode_attention_{k}"
+             for k, v in TP_K1_SHAPES.items()}
+    names.update({("quant_matmul",) + v: f"quant_matmul_{k}"
+                  for k, v in TP_K2_SHAPES.items()})
+    out = dict.fromkeys(names.values(), 0)
+    for r, (tally, steps) in enumerate(zip(tallies, steps_of_ranks)):
+        for kernel in ("decode_attention", "quant_matmul"):
+            counted = sum(st["launches"].get(kernel, 0) for st in steps)
+            tallied = sum(n for key, n in tally.items() if key[0] == kernel)
+            if counted != tallied:
+                raise AssertionError(f"tp rank {r}: {kernel} launched {counted} times, "
+                                     f"called {tallied} times")
+        for key, n in tally.items():
+            if key not in names:
+                raise AssertionError(f"tp rank {r}: a call at {key}, not a tp shape")
+            out[names[key]] += n
+    return out
+
+
+def _tp_prefill(params, cfg, prompts, lens, plain):
+    """A per-slot INT8 cache, each slot prefilled alone with its own prompt
+    length (a batch-1 prefill, then insert_cache_slot) -> (cache, the
+    prefills' greedy tokens (slots, 1))."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.ops import _build
+
+    cache = bp.init_backpack_cache(cfg, TP_SLOTS, TP_MAX_LEN, torch.int8, per_slot=True)
+    first = []
+    with _build.plain_path() if plain else contextlib.nullcontext():
+        for i, n in enumerate(lens):
+            small = bp.init_backpack_cache(cfg, 1, TP_MAX_LEN, torch.int8)
+            logits, small = bp.backpack_forward_with_cache(params, cfg, prompts[i:i + 1, :n],
+                                                           small)
+            bp.insert_cache_slot(cache, small, i)
+            first.append(logits[0, -1].argmax())
+    return cache, torch.stack(first)[:, None]
+
+
+def _tp_counts():
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    return {k: n for k, n in _build.launch_counts().items() if n}
+
+
+def _tp_steps(step, params, tokens, cache, rows_of, record):
+    """TP_STEPS steps of ``step`` teacher-forced on ``tokens``, each with its
+    wall ms (synchronized), launches (counts reset just before, read just
+    after) and hops (HOP_STATS); ``rows_of(logits)`` -> the step's last-row
+    logits to keep (None: keep none)."""
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.parallel import mesh as mesh_lib
+
+    rows = []
+    for tok in tokens:
+        _build.reset_launches()
+        mesh_lib.reset_hop_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = step(params, tok, cache)
+        torch.cuda.synchronize()
+        record.append(dict(ms=(time.perf_counter() - t0) * 1e3, launches=_tp_counts(),
+                           hops=mesh_lib.HOP_STATS["hops"],
+                           hop_bytes=mesh_lib.HOP_STATS["bytes"],
+                           hop_ms=mesh_lib.HOP_STATS["seconds"] * 1e3,
+                           hop_wait_ms=mesh_lib.HOP_STATS["wait_seconds"] * 1e3))
+        kept = rows_of(logits)
+        if kept is not None:
+            rows.append(kept)
+    return rows, cache
+
+
+def tp_rank(inputs):
+    """One rank of the tp phase's world (parallel/launch.run_world's
+    target). (A) make_tp_decode_step at (data 1, model 2) on the INT8
+    tree and per-slot INT8 cache of ``inputs``: TP_STEPS steps
+    teacher-forced on the single-device path's tokens (rank 0 keeps the
+    logits), the cache gathered and converted back (from_tp_cache); then
+    make_tp_decode_scan's TP_STEPS greedy steps, against the same
+    number of greedy step() calls from a copy of the same cache (the scan
+    must equal them exactly), whose tokens rank 0 keeps. (B)
+    make_sharded_decode_step at (data 2, model 1) and, with tp_params, at
+    (data 1, model 2), each TP_STEPS teacher-forced steps. Each step's ms,
+    launches and hops."""
+    import torch.distributed as dist
+
+    from backpacks_flash_attn_tpu_torch.config import backpack_small
+    from backpacks_flash_attn_tpu_torch.parallel import mesh as mesh_lib
+    from backpacks_flash_attn_tpu_torch.parallel import serving
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.parallel import tp_decode as tpd
+
+    rank = dist.get_rank()
+    data = torch.load(inputs, weights_only=False)
+    cfg = dataclasses.replace(backpack_small(), n_layer=data["n_layer"])
+    params = _map_tensors(data["params"], lambda t: t.to(DEV))
+    tokens = [t.to(DEV) for t in data["tokens"]]
+    last = lambda logits: logits[:, -1].float().cpu() if rank == 0 else None
+    out = {}
+
+    mesh = mesh_lib.make_mesh(1, TP_RANKS)
+    step, prepare = tpd.make_tp_decode_step(cfg, mesh, window=TP_WINDOW)
+    p, c = prepare(params, _map_tensors(data["cache"], lambda t: t.to(DEV)))
+    torch.cuda.synchronize()
+    steps, tally = [], {}
+    with _tp_shape_tally(tally):
+        rows, c = _tp_steps(step, p, tokens, c, last, steps)
+    whole = mesh_lib.gather_tree(c, tpd.tp_cache_specs(c), mesh)
+    out["step"] = dict(rows=rows, steps=steps, tally=tally,
+                       local_bytes={"params": _nbytes(p), "cache": _nbytes(c)})
+    if rank == 0:
+        out["step"]["cache"] = _map_tensors(tpd.from_tp_cache(whole, cfg), torch.Tensor.cpu)
+    del whole
+    saved = _map_tensors(c, torch.clone)
+    start = data["scan_start"].to(DEV)
+    scan = tpd.make_tp_decode_scan(cfg, mesh, steps=TP_STEPS, window=TP_WINDOW)
+    _build.reset_launches()
+    mesh_lib.reset_hop_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, c = scan(p, start, c)
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    scan_launches, scan_hops = _tp_counts(), mesh_lib.HOP_STATS["hops"]
+    greedy, tok2, c2 = [], start, saved
+    for _ in range(TP_STEPS):
+        logits, c2 = step(p, tok2, c2)
+        tok2 = logits[:, -1].argmax(-1)[:, None].to(start.dtype)
+        greedy.append(tok2)
+    same = torch.equal(tok, tok2) and all(
+        torch.equal(getattr(c, f.name), getattr(c2, f.name))
+        for f in dataclasses.fields(c) if isinstance(getattr(c, f.name), torch.Tensor))
+    out["scan"] = dict(ms=scan_ms, launches=scan_launches, hops=scan_hops,
+                       equals_steps=same, tokens=torch.cat(greedy, dim=1).cpu())
+    del p, c, c2, saved
+    torch.cuda.empty_cache()
+
+    for name, (dp, mp, tp_params) in (("serving", (TP_RANKS, 1, False)),
+                                      ("serving_tp", (1, TP_RANKS, True))):
+        smesh = mesh_lib.make_mesh(dp, mp)
+        sstep, sprep = serving.make_sharded_decode_step(cfg, smesh, tp_params=tp_params)
+        sp, sc = sprep(params, _map_tensors(data["cache"], lambda t: t.to(DEV)))
+        fn = lambda prm, t, cc, m=smesh, f=sstep: f(prm, mesh_lib.data_rows(t, m), cc)
+        gathered = lambda logits, m=smesh: last(mesh_lib.gather_rows(logits, m))
+        steps = []
+        rows, sc = _tp_steps(fn, sp, tokens, sc, gathered, steps)
+        out[name] = dict(rows=rows, steps=steps, local_param_bytes=_nbytes(sp))
+        del sp, sc
+        torch.cuda.empty_cache()
+    return out
+
+
+
+def _tp_cache_gate(tp, single, ref):
+    """The TP path's cache after the teacher-forced steps (from_tp_cache of
+    the gathered shards) against the single-device kernel path's under the
+    2x rule, each against the f32 plain reference's cache: the dequantized
+    GPT keys and values and contextualization keys (codes times scales;
+    their codes may part where the bf16 activations round apart), and the
+    senses, gathered from the one INT8 table, equal to the single-device
+    path's codes and scales."""
+    out = {}
+    for name, a, b in (("content", tp.content, single.content),
+                       ("content_scale", tp.content_scale, single.content_scale)):
+        if not torch.equal(a.to(DEV), b.to(DEV)):
+            raise AssertionError(f"tp cache: {name} differs from the single-device cache's")
+    for name, get in (("k", lambda c: c.gpt.k.float() * c.gpt.k_scale[:, :, None, :]),
+                      ("v", lambda c: c.gpt.v.float() * c.gpt.v_scale[..., None]),
+                      ("ctx_k", lambda c: c.ctx_k.float() * c.ctx_k_scale[:, None, :])):
+        t, s, r = (get(_map_tensors(c, lambda x: x.to(DEV))) for c in (tp, single, ref))
+        ek, ep = two_x(f"tp cache {name}", t, s, r)
+        codes = (tp.gpt.k if name == "k" else tp.gpt.v if name == "v" else tp.ctx_k)
+        single_codes = (single.gpt.k if name == "k" else single.gpt.v if name == "v"
+                        else single.ctx_k)
+        diff = (codes.to(DEV).int() - single_codes.to(DEV).int()).abs()
+        out[name] = dict(tp_err=ek, single_err=ep, max_code_diff=diff.max().item(),
+                         codes_differing=(diff > 0).float().mean().item())
+    return out
+
+
+def _tp_exact(what, steps, want):
+    for i, st in enumerate(steps):
+        if st["launches"] != want:
+            raise AssertionError(f"{what} step {i}: launches {st['launches']}, want {want}")
+
+
+def _tp_greedy_gate(tp_tokens, single_tokens, single_rows, tol):
+    """The TP path's greedy tokens (make_tp_decode_scan's, as the step
+    loop gives them) against the single-device path's greedy tokens from
+    the same cache: equal in each slot up to its first difference, where
+    the TP path's token lies within ``tol`` (the teacher-forced gate's
+    2 x (TP error + single-device error)) of the single-device path's top
+    logit in that row. -> {slots diverged, the largest gap}."""
+    diverged, worst = 0, 0.0
+    for slot in range(tp_tokens.shape[0]):
+        a, b = tp_tokens[slot].tolist(), single_tokens[slot].tolist()
+        i = _first_difference(a, b)
+        if i is None:
+            continue
+        row = single_rows[i][slot]
+        gap = (row.max() - row[a[i]]).item()
+        if not gap <= tol:
+            raise AssertionError(f"tp greedy slot {slot}: at step {i} token {a[i]} lies "
+                                 f"{gap:.4e} below the single-device top logit, > {tol:.4e}")
+        diverged, worst = diverged + 1, max(worst, gap)
+    return dict(slots_diverged=diverged, worst_gap=worst, tolerance=tol)
+
+
+def phase_tp(results):
+    """Tensor-parallel Backpack decode on the card (parallel/tp_decode.py,
+    parallel/serving.py): a world of TP_RANKS processes (parallel/launch.py,
+    gloo: every ring hop and gather through host memory; the process
+    group's timeout fails a lost rank). backpack-small at full width
+    (TP_LAYERS of 12 layers), the flagship quantization: INT8 weights, the
+    INT8 sense table, INT8 caches; 8 slots, each prefilled alone from a
+    prompt of 16-32 tokens (per-slot lengths), window 128 of a 512 cache.
+    In this process, on the single-device port: the kernel path, the plain
+    path and the f32 plain reference (the same INT8 codes, f32
+    activations), each prefilled by its own path, TP_STEPS decode steps
+    teacher-forced on the kernel path's greedy tokens, then TP_STEPS more
+    greedy steps of the kernel path. The world (tp_rank): (A)
+    make_tp_decode_step at (data 1, model 2) on those tokens: per step its
+    logits under near_tie against the single-device kernel path (the 2x
+    rule against the reference, the TP path's greedy tokens within the
+    tolerance of the single-device top logit), its cache under
+    _tp_cache_gate, K1 and K2 launches exact on every rank and step
+    (tp_launches, two microbatches), step ms and hops; make_tp_decode_scan
+    equal to the step's greedy loop and its tokens under _tp_greedy_gate.
+    (B) make_sharded_decode_step at (data 2, model 1) and with tp_params
+    at (data 1, model 2): near_tie, launches exact (one microbatch's
+    formula), step ms. K1 and K2 at the phase's shapes first
+    (tp_kernel_cases). Weights and data from generators of their own."""
+    from backpacks_flash_attn_tpu_torch.config import backpack_small
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.models import quantized as qz
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    log("tp: K1 and K2 at the phase's shapes")
+    with torch.inference_mode():
+        phase_kernels(tp_kernel_cases(torch.Generator(device=DEV).manual_seed(TP_KERNEL_SEED)),
+                      results.setdefault("kernels", {}))
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    cfg = backpack_small()
+    g = torch.Generator(device=DEV).manual_seed(TP_SEED)
+    with torch.inference_mode():
+        params = bp.init_backpack(cfg, g, dtype=torch.bfloat16, device=DEV)
+        params, cfg = _first_layers(params, cfg, TP_LAYERS)
+        lens = torch.randint(TP_PROMPT // 2, TP_PROMPT + 1, (TP_SLOTS,), generator=g,
+                             device=DEV).tolist()
+        prompts = torch.randint(0, cfg.vocab_size, (TP_SLOTS, TP_PROMPT), generator=g,
+                                device=DEV)
+        qparams = qz.quantize_backpack_params(params, cfg, bits=8)
+        q32 = qz.quantize_backpack_params(params, cfg, bits=8, act_dtype=torch.float32)
+        del params
+        log("tp: the single-device paths")
+        paths = {"kernel": (qparams, False), "plain": (qparams, True), "ref": (q32, True)}
+        caches, first = {}, None
+        for name, (prm, plain) in paths.items():
+            caches[name], f = _tp_prefill(prm, cfg, prompts, lens, plain)
+            first = f if name == "kernel" else first
+        to_host = lambda t: t.to("cpu", copy=True)
+        start_cache = _map_tensors(caches["kernel"], to_host)
+        rows = {name: [] for name in paths}
+        tokens, single_steps, tok = [], [], first
+        for _ in range(TP_STEPS):
+            tokens.append(tok)
+            for name, (prm, plain) in paths.items():
+                if name == "kernel":
+                    _build.reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                with _build.plain_path() if plain else contextlib.nullcontext():
+                    logits, caches[name] = bp.backpack_forward_with_cache(
+                        prm, cfg, tok, caches[name], window=TP_WINDOW)
+                if name == "kernel":
+                    torch.cuda.synchronize()
+                    single_steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                             launches=_tp_counts()))
+                rows[name].append(logits[:, -1].float())
+            tok = rows["kernel"][-1].argmax(-1)[:, None]
+        single_cache = _map_tensors(caches["kernel"], to_host)
+        ref_cache = caches["ref"]
+        scan_start, greedy_rows, greedy_toks = tok, [], []
+        kv = caches["kernel"]
+        for _ in range(TP_STEPS):
+            logits, kv = bp.backpack_forward_with_cache(qparams, cfg, tok, kv, window=TP_WINDOW)
+            greedy_rows.append(logits[:, -1].float())
+            tok = logits[:, -1].argmax(-1)[:, None]
+            greedy_toks.append(tok)
+        del caches, kv, q32
+        _tp_exact("tp single-device", single_steps, tp_launches(cfg, 1))
+        inputs = TP_DIR / "inputs.pt"
+        torch.save({"params": _map_tensors(qparams, torch.Tensor.cpu), "n_layer": cfg.n_layer,
+                    "cache": start_cache, "tokens": [t.cpu() for t in tokens],
+                    "scan_start": scan_start.cpu()}, inputs)
+        del qparams, start_cache
+        torch.cuda.empty_cache()
+    log(f"tp: a world of {TP_RANKS} ranks ({TP_BACKEND})")
+    t0 = time.perf_counter()
+    ranks = launch.run_world(f"{Path(__file__).resolve()}:tp_rank", TP_RANKS,
+                             args=(str(inputs),), backend=TP_BACKEND, timeout=TP_TIMEOUT,
+                             pg_timeout=TP_PG_TIMEOUT, workdir=TP_DIR / "world")
+    world_s = time.perf_counter() - t0
+    cat = lambda rs: torch.cat([r.to(DEV) for r in rs])
+    single, plain, ref = (torch.cat(rows[k]) for k in ("kernel", "plain", "ref"))
+    smi = nvidia_smi_line()
+    run = dict(phase="tp", model="backpack-small", n_layer=cfg.n_layer, ranks=TP_RANKS,
+               backend=TP_BACKEND, slots=TP_SLOTS, prompt_lens=lens, window=TP_WINDOW,
+               max_len=TP_MAX_LEN, steps=TP_STEPS, nvidia_smi=smi, world_s=world_s,
+               single_step_ms=statistics.median(st["ms"] for st in single_steps),
+               single_plain_err=max_err(plain, ref))
+    A = [r["step"] for r in ranks]
+    tp_rows = cat(A[0]["rows"])
+    gate = near_tie("tp step", tp_rows.argmax(-1), tp_rows, single, ref)
+    run["step_gate"] = gate
+    run["cache_gate"] = _tp_cache_gate(A[0]["cache"], single_cache, ref_cache)
+    want = tp_launches(cfg, 2)
+    for r, a in enumerate(A):
+        _tp_exact(f"tp rank {r}", a["steps"], want)
+    scans = [r["scan"] for r in ranks]
+    for r, sc in enumerate(scans):
+        if not sc["equals_steps"]:
+            raise AssertionError(f"tp rank {r}: make_tp_decode_scan differs from the step loop")
+        if sc["launches"] != {k: n * TP_STEPS for k, n in want.items()}:
+            raise AssertionError(f"tp rank {r}: the scan's launches {sc['launches']}")
+    run["scan_gate"] = _tp_greedy_gate(scans[0]["tokens"], torch.cat(greedy_toks, dim=1).cpu(),
+                                       greedy_rows, gate["tolerance"])
+    steps0 = A[0]["steps"]
+    run.update(
+        step_ms=statistics.median(st["ms"] for st in steps0),
+        step_ms_all=[st["ms"] for st in steps0],
+        hops_per_step=steps0[0]["hops"], hop_bytes_per_step=steps0[0]["hop_bytes"],
+        hop_ms_per_step=statistics.median(st["hop_ms"] for st in steps0),
+        hop_wait_ms_per_step=statistics.median(st["hop_wait_ms"] for st in steps0),
+        scan_ms_per_step=scans[0]["ms"] / TP_STEPS,
+        launches_per_step_per_rank=steps0[0]["launches"],
+        local_bytes=[a["local_bytes"] for a in A],
+        launches={k: sum(st["launches"].get(k, 0) for a in A for st in a["steps"])
+                  for k in want},
+        launches_by_shape=_tp_by_shape([a["tally"] for a in A], [a["steps"] for a in A]))
+    for name in ("serving", "serving_tp"):
+        B = [r[name] for r in ranks]
+        b_rows = cat(B[0]["rows"])
+        one = tp_launches(cfg, 1)
+        for r, b in enumerate(B):
+            _tp_exact(f"{name} rank {r}", b["steps"], one)
+        run[name] = dict(gate=near_tie(name, b_rows.argmax(-1), b_rows, single, ref),
+                         max_diff_single=max_err(b_rows, single),
+                         step_ms=statistics.median(st["ms"] for st in B[0]["steps"]),
+                         local_param_bytes=[b["local_param_bytes"] for b in B])
+    run["phase_s"] = time.perf_counter() - t_phase
+    emit(run)
+    log(f"tp: step {run['step_ms']:.2f} ms ({run['hops_per_step']} hops, "
+        f"{run['hop_bytes_per_step']} bytes, {run['hop_ms_per_step']:.2f} ms in hops), "
+        f"single-device {run['single_step_ms']:.2f} ms, on {smi}")
+    results["tp"] = run
+    shutil.rmtree(TP_DIR)
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ score bias, encoders
 
 BIAS_B, BIAS_S, BIAS_H, BIAS_D = 8, 512, 12, 64
@@ -5416,7 +5898,7 @@ def main():
     ap.add_argument("--phases",
                     default="device,build,kernels,serve,engine,forward,train,"
                             "longctx,train8k,generate,decode_kernels,mini,xl,"
-                            "intervene,entry,cp,encoders")
+                            "intervene,entry,cp,tp,encoders")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"))
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -5545,6 +6027,8 @@ def main():
         phase_entry(gen, results)
     if "cp" in phases:
         phase_cp(results)
+    if "tp" in phases:
+        phase_tp(results)
     if "encoders" in phases:
         phase_encoders(results)
 
@@ -5597,6 +6081,30 @@ def main():
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
             "case": head["case"] if head else None,
+        })
+    # K1 and K2 on the tensor-parallel decode path (the tp phase's
+    # make_tp_decode_step at (data 1, model 2)), one row a rank's shape: its
+    # case's numbers, and the launches of that shape on both ranks' steps
+    by_shape = results.get("tp", {}).get("launches_by_shape", {})
+    tp_rows = [("decode_attention", shape, f"tp {'gpt' if shape == 'gpt' else 'backpack'}-int8 "
+                f"E={E} S={TP_WINDOW} dv={dv}") for shape, (E, dv) in TP_K1_SHAPES.items()]
+    tp_rows += [("quant_matmul", shape, f"M={M} K={K} N={N} int8")
+                for shape, (M, K, N) in TP_K2_SHAPES.items()]
+    for kname, shape, case in tp_rows:
+        k = _build.KERNELS[kname]
+        rows = results.get("kernels", {}).get(k.name, [])
+        head = next((r for r in reversed(rows) if r["case"] == case), None)
+        line.append({
+            "name": f"{k.name}_tp_{shape}", "route": "cuda",
+            "source": f"backpacks_flash_attn_tpu_torch/csrc/{k.source}",
+            "replaces": k.replaces,
+            "launches": by_shape.get(f"{kname}_{shape}", 0),
+            "launches_run": "tp",
+            **{key: head[key] if head else None for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            "case": (f"{case}; launches: the {shape} calls of make_tp_decode_step's "
+                     f"{TP_STEPS} steps on both ranks" if head else None),
         })
     results["kernel_line"] = line
     (args.out / "chip_smoke.json").write_text(json.dumps(results, indent=1))

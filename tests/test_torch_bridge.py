@@ -113,7 +113,9 @@ def test_port_imports_no_jax():
     all-ones table (the plain logits), the tokenizers, the REPL on an
     imported checkpoint, a PPLM generation, MAUVE's features and the other
     modules of the entry-point slice, the context-parallel modules
-    (the ring pair functions on the CPU), and the encoders' slice (a tiny
+    (the ring pair functions on the CPU), the tensor-parallel serving
+    modules (the permute, the spec tree, the TP cache's round trip), and
+    the encoders' slice (a tiny
     BERT forward over a padded batch and pretraining loss, a ViT forward,
     flash attention with a score bias and its gradient, the softmax and
     padding modules). The ranks' module of the
@@ -220,6 +222,13 @@ o, l = fa.flash_fwd(qh, qh, qh, None, 0.25, True, q_offsets=8, k_offsets=0)
 assert fa.flash_bwd(qh, qh, qh, o, l, o, None, 0.25, True, q_offsets=8,
                     k_offsets=0)[0].shape == qh.shape
 assert ring_attention.zigzag_order(8, 2).tolist() == [0, 1, 6, 7, 2, 3, 4, 5]
+from backpacks_flash_attn_tpu_torch.parallel import serving, tp_decode
+perm = tp_decode.permute_for_tp_decode(params, cfg)
+assert perm["gpt"]["layers"]["Wqkv"]["kernel"].shape == (2, 64, 192)
+assert mesh.param_specs(params, cfg)["gpt"]["wte"] == ("model", None)
+tpc = tp_decode.to_tp_cache(cache, cfg)
+assert tpc.k.shape == (2, 2, 4, 16, 16) and tpc.length == 6
+assert tp_decode.from_tp_cache(tpc, cfg).content.shape == cache.content.shape
 from backpacks_flash_attn_tpu_torch.models import bert, vit
 from backpacks_flash_attn_tpu_torch.ops import softmax
 from backpacks_flash_attn_tpu_torch.utils import padding

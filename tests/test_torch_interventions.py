@@ -5,7 +5,9 @@ through ``params_from_numpy``; the same tables and tokens, made from a seed
 with numpy, go through ``models/interventions.py`` in both packages at f32.
 Logits are held to ``atol=1e-4, rtol=0`` (tests/test_torch_models.py). The
 JAX side runs as its own tests run it (Pallas in interpret mode on the
-CPU), its steps jitted so each shape compiles once.
+CPU), its calls jitted so each shape compiles once; the weights and the
+INT8 tree stay eager JAX (jitted, their last bits move, and they are the
+tests' inputs).
 """
 
 import functools
@@ -77,6 +79,18 @@ def _greedy(logits):
     return np.asarray(logits)[:, -1].argmax(-1)[:, None].astype(np.int32)
 
 
+def _jit_call(fn, *args, **kw):
+    """fn(*args, **kw) as one jitted executable."""
+    return jax.jit(lambda: fn(*args, **kw))()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init(fn, *args, **kw):
+    """A JAX cache or decode state of zeros, one executable a shape (the
+    arrays are immutable, so the tests share them)."""
+    return _jit_call(fn, *args, **kw)
+
+
 @pytest.mark.parametrize("anneal", [False, True])
 def test_weighted_decode_step_matches_jax(setup, anneal):
     """Prefill + 5 greedy decode steps: logits, the annealing sums and the
@@ -84,8 +98,8 @@ def test_weighted_decode_step_matches_jax(setup, anneal):
     jc, tc, jp, tp = setup
     table = _table(3, lo=1.0, span=0.5)
     ids = _ids(4, 2, 5)
-    jcache = jbp.init_backpack_cache(jc, 2, MAX_LEN, dtype=jnp.float32)
-    jstate = jiv.init_weighted_decode_state(jc, 2, MAX_LEN)
+    jcache = _jax_init(jbp.init_backpack_cache, jc, 2, MAX_LEN, dtype=jnp.float32)
+    jstate = _jax_init(jiv.init_weighted_decode_state, jc, 2, MAX_LEN)
     tcache = tbp.init_backpack_cache(tc, 2, MAX_LEN, torch.float32, device="cpu")
     tstate = tiv.init_weighted_decode_state(tc, 2, MAX_LEN, device="cpu")
     tt = torch.from_numpy(table)
@@ -108,8 +122,9 @@ def test_negative_decode_step_matches_jax(setup, anneal):
     jc, tc, jp, tp = setup
     table = _table(5)
     ids = _ids(6, 2, 5)
-    jcache = jbp.init_backpack_cache(jc, 2, MAX_LEN, dtype=jnp.float32)
-    jstate = jiv.init_negative_decode_state(jc, 2, MAX_LEN, quantile=QUANTILE)
+    jcache = _jax_init(jbp.init_backpack_cache, jc, 2, MAX_LEN, dtype=jnp.float32)
+    jstate = _jax_init(jiv.init_negative_decode_state, jc, 2, MAX_LEN,
+                       quantile=QUANTILE)
     tcache = tbp.init_backpack_cache(tc, 2, MAX_LEN, torch.float32, device="cpu")
     tstate = tiv.init_negative_decode_state(tc, 2, MAX_LEN, quantile=QUANTILE,
                                             device="cpu")
@@ -125,7 +140,7 @@ def test_negative_decode_step_matches_jax(setup, anneal):
         _close(tl, jl, f"step {i}")
         _close(tstate.neg_vals, jstate.neg_vals, f"vals {i}", atol=1e-5)
         _close(tstate.thresh, jstate.thresh, f"thresh {i}", atol=1e-5)
-        kept = np.asarray(jstate.neg_vals < jstate.thresh[..., None])
+        kept = np.asarray(jstate.neg_vals) < np.asarray(jstate.thresh)[..., None]
         assert (tstate.neg_vals < tstate.thresh[..., None]).numpy().tolist() \
             == kept.tolist()
         jidx = np.where(kept, np.asarray(jstate.neg_idx), -1)
@@ -144,9 +159,10 @@ def test_negative_decode_step_mask_weights_slot_lengths_match_jax(setup):
     tm = np.array([[1] * 6, [1] * 4 + [0] * 2], bool)
     sw = np.array([[1.0, 1.5, 0.5, 1.0], [1.2, 1.0, 1.0, 0.7]], np.float32)
     mask = np.array([False, True])
-    jcache = jbp.init_backpack_cache(jc, 2, MAX_LEN, dtype=jnp.float32,
-                                     per_slot=True)
-    jstate = jiv.init_negative_decode_state(jc, 2, MAX_LEN, quantile=QUANTILE)
+    jcache = _jax_init(jbp.init_backpack_cache, jc, 2, MAX_LEN, dtype=jnp.float32,
+                       per_slot=True)
+    jstate = _jax_init(jiv.init_negative_decode_state, jc, 2, MAX_LEN,
+                       quantile=QUANTILE)
     tcache = tbp.init_backpack_cache(tc, 2, MAX_LEN, torch.float32, device="cpu",
                                      per_slot=True)
     tstate = tiv.init_negative_decode_state(tc, 2, MAX_LEN, quantile=QUANTILE,
@@ -164,6 +180,7 @@ def test_negative_decode_step_mask_weights_slot_lengths_match_jax(setup):
                              gpt=jcache.gpt._replace(length=jnp.asarray(lens)))
     tcache.length = torch.from_numpy(lens)
     tcache.gpt.length = torch.from_numpy(lens.copy())
+    jl = np.asarray(jl)
     nxt = np.array([[jl[0, 5].argmax()], [jl[1, 3].argmax()]], np.int32)
     step = _jax_negative(jc, True, masked=True, window=16)
     for i in range(5):
@@ -244,7 +261,7 @@ def test_backpack_forward_sense_weights_and_edit_match_jax(setup, fused_ctx):
         _close(tl, jl, f"weights {w.shape}")
     if not fused_ctx:
         return
-    jcache = jbp.init_backpack_cache(jc, 2, MAX_LEN, dtype=jnp.float32)
+    jcache = _jax_init(jbp.init_backpack_cache, jc, 2, MAX_LEN, dtype=jnp.float32)
     tcache = tbp.init_backpack_cache(tc, 2, MAX_LEN, torch.float32, device="cpu")
     jl, _, jq = jax.jit(lambda p, i, c, e, s: jbp.backpack_forward_with_cache(
         p, jc, i, c, sense_edit=(e, s), return_ctx_q=True))(
@@ -267,15 +284,15 @@ def test_intervention_library_matches_jax(setup):
     tids = torch.from_numpy(ids).long()
     table = _table(14)
     tt = torch.from_numpy(table)
-    content = np.array(jbp.content_forward(jp, jc, ids))
+    content = np.array(_jit_call(jbp.content_forward, jp, jc, ids))
     E = np.array(jp["gpt"]["wte"])
-    scores = np.array(jiv.annealing_scores(E, ids, content,
-                                             annealing_scale=0.3))
+    scores = np.array(_jit_call(jiv.annealing_scores, E, ids, content,
+                                annealing_scale=0.3))
     _close(tiv.annealing_scores(torch.from_numpy(E), tids,
                                 torch.from_numpy(content), annealing_scale=0.3),
            scores, atol=1e-5)
     _close(tiv.soft_sense_mask(tt, tids, torch.from_numpy(scores)),
-           jiv.soft_sense_mask(table, ids, scores), atol=1e-6)
+           _jit_call(jiv.soft_sense_mask, table, ids, scores), atol=1e-6)
     for anneal in (False, True):
         _close(tiv.weighted_forward(tp, tc, tids, tt, anneal=anneal),
                jax.jit(lambda p, i, t: jiv.weighted_forward(
@@ -284,7 +301,7 @@ def test_intervention_library_matches_jax(setup):
                                          key_chunk=4),
            jax.jit(lambda p, i, t: jiv.negative_weighted_forward(
                p, jc, i, t, quantile=QUANTILE, key_chunk=4))(jp, ids, table))
-    jedit = jiv.mogrify_word(jp, jc, int(ids[0, 2]), 7, 9)
+    jedit = _jit_call(jiv.mogrify_word, jp, jc, int(ids[0, 2]), 7, 9)
     tedit = tiv.mogrify_word(tp, tc, int(ids[0, 2]), 7, 9)
     assert tedit[0].tolist() == np.asarray(jedit[0]).tolist()
     _close(tedit[1], jedit[1], atol=1e-5)
@@ -297,27 +314,29 @@ def test_intervention_library_matches_jax(setup):
            jax.jit(lambda p, i, w: jiv.counterfactual_forward(p, jc, i, w, 2, 0.3))(
                jp, ids, words))
     senses = tiv.senses_of_word(tp, tc, 17)
-    _close(senses, jiv.senses_of_word(jp, jc, 17), atol=1e-5)
+    jsenses = _jit_call(jiv.senses_of_word, jp, jc, 17)
+    _close(senses, jsenses, atol=1e-5)
     _close(tiv.per_sense_logits(tp, tc, senses),
-           jiv.per_sense_logits(jp, jc, jiv.senses_of_word(jp, jc, 17)))
+           _jit_call(jiv.per_sense_logits, jp, jc, jsenses))
     d = E[3] - E[4]
     _close(tiv.project_out_and_in(senses, torch.from_numpy(E[3]),
                                   torch.from_numpy(E[4])),
-           jiv.project_out_and_in(np.asarray(senses.numpy()), E[3], E[4]),
+           _jit_call(jiv.project_out_and_in, np.asarray(senses.numpy()), E[3], E[4]),
            atol=1e-5)
     for word_ids in (None, np.array([1, 5, 9])):
         _close(tiv.project_out_embeddings(
                    torch.from_numpy(E), torch.from_numpy(d), 0.25,
                    None if word_ids is None else torch.from_numpy(word_ids)),
-               jiv.project_out_embeddings(E, d, 0.25, word_ids), atol=1e-5)
+               _jit_call(jiv.project_out_embeddings, E, d, 0.25, word_ids), atol=1e-5)
     jq8 = jqz.quantize_backpack_params(jp, jc, bits=8)
     tq8 = params_from_numpy(jax.tree.map(np.asarray, jq8), device="cpu")
     _close(tiv.embedding_matrix(tq8["gpt"]),
-           jiv.embedding_matrix(jq8["gpt"]).astype(jnp.float32), atol=0)
+           _jit_call(lambda g: jiv.embedding_matrix(g).astype(jnp.float32), jq8["gpt"]),
+           atol=0)
     x = torch.from_numpy(np.random.default_rng(15).normal(size=(3, 4, 1001))
                          .astype(np.float32))
     for q in (0.02, 0.5, 0.95):
-        _close(tiv._quantile(x, q), jnp.quantile(x.numpy(), q, axis=-1), atol=0)
+        _close(tiv._quantile(x, q), _jit_call(jnp.quantile, x.numpy(), q, axis=-1), atol=0)
 
 
 def test_int8_cache_decode_steps_match_jax(setup):
@@ -329,16 +348,16 @@ def test_int8_cache_decode_steps_match_jax(setup):
     tt = torch.from_numpy(table)
     for mode in ("weighted", "negative"):
         ids = _ids(17, 2, 5)
-        jcache = jbp.init_backpack_cache(jc, 2, MAX_LEN, dtype=jnp.int8)
+        jcache = _jax_init(jbp.init_backpack_cache, jc, 2, MAX_LEN, dtype=jnp.int8)
         tcache = tbp.init_backpack_cache(tc, 2, MAX_LEN, torch.int8,
                                          device="cpu")
         if mode == "weighted":
-            jstate = jiv.init_weighted_decode_state(jc, 2, MAX_LEN)
+            jstate = _jax_init(jiv.init_weighted_decode_state, jc, 2, MAX_LEN)
             tstate = tiv.init_weighted_decode_state(tc, 2, MAX_LEN, device="cpu")
             step = _jax_weighted(jc, True)
         else:
-            jstate = jiv.init_negative_decode_state(jc, 2, MAX_LEN,
-                                                    quantile=QUANTILE)
+            jstate = _jax_init(jiv.init_negative_decode_state, jc, 2, MAX_LEN,
+                               quantile=QUANTILE)
             tstate = tiv.init_negative_decode_state(tc, 2, MAX_LEN,
                                                     quantile=QUANTILE,
                                                     device="cpu")

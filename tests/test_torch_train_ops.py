@@ -39,35 +39,51 @@ def _leaf(a):
     return torch.tensor(a, requires_grad=True)
 
 
+SPLITS, FOLDS = (2, 3, (4, 2)), (0, 5, 2 ** 31 + 3)
+
+
+@jax.jit
+def _jax_keys(seed):
+    """JAX's key of ``seed``, its data, its splits and its folds, in one
+    executable for every seed."""
+    jk = jax.random.PRNGKey(seed)
+    return (jax.random.key_data(jk), [jax.random.split(jk, n) for n in SPLITS],
+            [jax.random.fold_in(jk, d) for d in FOLDS])
+
+
 def test_prng_split_fold_in_key_data_bit_equal_to_jax():
     for seed in (0, 7, 2 ** 31 - 1):
-        jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
-        np.testing.assert_array_equal(np.asarray(jax.random.key_data(jk)),
-                                      prng.key_data(tk).numpy())
-        for num in (2, 3, (4, 2)):
-            np.testing.assert_array_equal(np.asarray(jax.random.split(jk, num)),
+        tk = prng.PRNGKey(seed)
+        data, splits, folds = _jax_keys(seed)
+        np.testing.assert_array_equal(np.asarray(data), prng.key_data(tk).numpy())
+        for num, want in zip(SPLITS, splits):
+            np.testing.assert_array_equal(np.asarray(want),
                                           prng.split(tk, num).numpy())
-        for data in (0, 5, 2 ** 31 + 3):
-            np.testing.assert_array_equal(
-                np.asarray(jax.random.fold_in(jk, data)),
-                prng.fold_in(tk, data).numpy())
+        for d, want in zip(FOLDS, folds):
+            np.testing.assert_array_equal(np.asarray(want),
+                                          prng.fold_in(tk, d).numpy())
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.3])
 def test_dropout_masks_bit_equal_to_jax(rate):
-    key = jax.random.fold_in(jax.random.PRNGKey(3), 11)
     tkey = prng.fold_in(prng.PRNGKey(3), 11)
-    seed = jax.random.key_data(key).astype(jnp.uint32)
     bh = np.arange(6)[:, None, None]
     qp = np.arange(0, 400, 7)[None, :, None]
     kp = np.arange(90)[None, None, :]
-    want = jfa._dropout_keep_positions(seed, jnp.asarray(bh), jnp.asarray(qp),
-                                       jnp.asarray(kp), rate)
+
+    @jax.jit
+    def masks(bh, qp, kp):
+        key = jax.random.fold_in(jax.random.PRNGKey(3), 11)
+        seed = jax.random.key_data(key).astype(jnp.uint32)
+        return (jfa._dropout_keep_positions(seed, bh, qp, kp, rate),
+                jnorms._hash_mask(jax.random.key_data(key), rate, (3, 5, 70)))
+
+    want, want_hash = masks(bh, qp, kp)
     got = tfa.dropout_keep_positions(prng.seed_words(tkey), torch.tensor(bh),
                                      torch.tensor(qp), torch.tensor(kp), rate)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     assert abs(got.float().mean().item() - (1 - rate)) < 0.02
-    want = jnorms._hash_mask(jax.random.key_data(key), rate, (3, 5, 70))
+    want = want_hash
     got = tnorms.hash_mask(prng.seed_words(tkey), rate, (3, 5, 70))
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
@@ -84,8 +100,8 @@ def test_flash_attention_dropout_fwd_and_grads_match_jax(rng, causal):
         out = jfa.flash_attention(q, k, v, dropout_rng=key, **kw)
         return jnp.sum(out * g), out
 
-    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
-                                           has_aux=True)(q, k, v)
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                                   has_aux=True))(q, k, v)
     tq, tk, tv = _leaf(q), _leaf(k), _leaf(v)
     tout = tfa.flash_attention(tq, tk, tv, dropout_rng=prng.PRNGKey(5), **kw)
     (tout * torch.from_numpy(g)).sum().backward()
@@ -107,11 +123,15 @@ def test_flash_attention_ref_dropout_offsets_match_jax_fwd(rng):
     lens = np.array([40, 0, 29], np.int32)      # sequence 1 is empty
     offs = np.array([28, 0, 9], np.int32)
     scale, p = 0.3, 0.3
-    seed = jax.random.key_data(jax.random.PRNGKey(7)).astype(jnp.uint32)
-    sw = lambda a: jnp.swapaxes(jnp.asarray(a), 1, 2)
-    jout, jlse = jfa._flash_fwd(sw(q), sw(k), sw(v), jnp.asarray(lens), scale,
-                                True, 256, 256, dropout_p=p, seed=seed,
-                                q_offsets=jnp.asarray(offs))
+
+    @jax.jit
+    def fwd(q, k, v, lens, offs):
+        seed = jax.random.key_data(jax.random.PRNGKey(7)).astype(jnp.uint32)
+        sw = lambda a: jnp.swapaxes(a, 1, 2)
+        return jfa._flash_fwd(sw(q), sw(k), sw(v), lens, scale, True, 256, 256,
+                              dropout_p=p, seed=seed, q_offsets=offs)
+
+    jout, jlse = fwd(q, k, v, lens, offs)
     out, lse = tfa.flash_attention_ref(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         causal=True, softmax_scale=scale, seq_lengths=torch.from_numpy(lens),
@@ -135,8 +155,8 @@ def test_fused_contextualization_grads_match_jax(rng):
         out = jbk.fused_contextualization(q, k, c, 0.4)
         return jnp.sum(out * g), out
 
-    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
-                                           has_aux=True)(q, k, c)
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                                   has_aux=True))(q, k, c)
     tq, tk, tc = _leaf(q), _leaf(k), _leaf(c)
     tout = tbk.fused_contextualization(tq, tk, tc, 0.4)
     (tout * torch.from_numpy(g)).sum().backward()
@@ -164,8 +184,8 @@ def test_dropout_add_layer_norm_fwd_and_grads_match_jax(
             rng=key, deterministic=False)
         return jnp.sum(normed * g1) + jnp.sum(nr * g2), (normed, nr)
 
-    (_, (jn, jr)), jgrads = jax.value_and_grad(
-        jloss, argnums=(0, 1, 2, 3), has_aux=True)(x, res, w, bias)
+    (_, (jn, jr)), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2, 3), has_aux=True))(x, res, w, bias)
     tx, tres, tw, tb = _leaf(x), _leaf(res), _leaf(w), _leaf(bias)
     tn, tr = tnorms.dropout_add_layer_norm(
         tx, tres if with_residual else None, tw, tb, 0.2, 1e-5,
@@ -194,7 +214,7 @@ def test_cross_entropy_loss_and_dlogits_match_jax(rng, label_smoothing):
         return jce.cross_entropy_loss(lg, labels,
                                       label_smoothing=label_smoothing)
 
-    jl, jg = jax.value_and_grad(jloss)(logits)
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(logits)
     tl = _leaf(logits)
     tloss = tce.cross_entropy_loss(tl, torch.from_numpy(labels).long(),
                                    label_smoothing=label_smoothing)
@@ -204,7 +224,7 @@ def test_cross_entropy_loss_and_dlogits_match_jax(rng, label_smoothing):
     per_tok, lse = tce.cross_entropy(torch.from_numpy(logits),
                                      torch.from_numpy(labels).long(),
                                      label_smoothing=label_smoothing)
-    jper, jlse = jce.cross_entropy(logits, labels,
-                                   label_smoothing=label_smoothing)
+    jper, jlse = jax.jit(lambda lg: jce.cross_entropy(
+        lg, labels, label_smoothing=label_smoothing))(logits)
     np.testing.assert_allclose(per_tok.numpy(), np.asarray(jper), atol=1e-6)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=1e-6)

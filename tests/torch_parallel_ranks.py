@@ -1,16 +1,23 @@
 """The ranks' side of the port's parallel tests (tests/test_torch_ring_attention.py,
-tests/test_torch_cp_train.py): functions that ``parallel/launch.run_world``
-runs on every rank of a gloo world on the CPU. JAX-free (a child that
+tests/test_torch_cp_train.py, tests/test_torch_tp_decode.py): functions that
+``parallel/launch.run_world`` runs on every rank of a gloo world on the CPU. JAX-free (a child that
 imports JAX can hang on the TPU plugin): inputs and outputs are numpy.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from backpacks_flash_attn_tpu_torch import config as tcfg
+from backpacks_flash_attn_tpu_torch.models import backpack as tbp
+from backpacks_flash_attn_tpu_torch.models import gpt as tgpt
+from backpacks_flash_attn_tpu_torch.models import quantized as tqz
 from backpacks_flash_attn_tpu_torch.parallel import cp_train as cp
 from backpacks_flash_attn_tpu_torch.parallel import mesh as mesh_lib
 from backpacks_flash_attn_tpu_torch.parallel import ring_attention as ra
+from backpacks_flash_attn_tpu_torch.parallel import serving
+from backpacks_flash_attn_tpu_torch.parallel import tp_decode as tpd
 from backpacks_flash_attn_tpu_torch.training import train as tl
 from backpacks_flash_attn_tpu_torch.utils import prng
 from backpacks_flash_attn_tpu_torch.utils.weights import params_from_numpy
@@ -113,8 +120,152 @@ def cp_case(case):
             "grads": _grads(params)}
 
 
+_TP_MESHES = {}
+
+
+def _tp_mesh(data, model):
+    if (data, model) not in _TP_MESHES:
+        _TP_MESHES[(data, model)] = mesh_lib.make_mesh(data, model)
+    return _TP_MESHES[(data, model)]
+
+
+def cache_from_numpy(c):
+    """A flat BackpackCache from the numpy arrays of ``cache_to_numpy`` (a
+    scalar length as an int)."""
+    t = lambda x: None if x is None else torch.from_numpy(np.array(x))
+    n = lambda x: int(x) if np.ndim(x) == 0 else torch.from_numpy(np.array(x, np.int32))
+    gpt = tgpt.KVCache(k=t(c["k"]), v=t(c["v"]), length=n(c["gpt_length"]),
+                       k_scale=t(c["k_scale"]), v_scale=t(c["v_scale"]))
+    return tbp.BackpackCache(gpt=gpt, ctx_k=t(c["ctx_k"]), content=t(c["content"]),
+                             length=n(c["length"]), content_scale=t(c["content_scale"]),
+                             ctx_k_scale=t(c["ctx_k_scale"]))
+
+
+def cache_to_numpy(cache):
+    a = lambda x: None if x is None else x.numpy()
+    n = lambda x: np.asarray(x if isinstance(x, int) else x.numpy())
+    g = cache.gpt
+    return dict(k=a(g.k), v=a(g.v), k_scale=a(g.k_scale), v_scale=a(g.v_scale),
+                gpt_length=n(g.length), ctx_k=a(cache.ctx_k), content=a(cache.content),
+                ctx_k_scale=a(cache.ctx_k_scale), content_scale=a(cache.content_scale),
+                length=n(cache.length))
+
+
+def _nbytes(tree):
+    out = 0
+
+    def count(t, _):
+        nonlocal out
+        out += t.numel() * t.element_size()
+        return t
+    mesh_lib.map_with_specs(count, tree, mesh_lib.replicated(tree))
+    return out
+
+
+def _refusals(cfg, mesh, params, cache):
+    """The messages of what tp_decode refuses (JAX's asserts): heads or
+    senses, or the padded vocabulary, not dividing over 'model', attn_dwconv,
+    three microbatches, an INT4 tree, grouped INT8 scales."""
+    base = dict(vocab_size=cfg.vocab_size, n_positions=cfg.n_positions, n_embd=64,
+                n_layer=2, n_head=4, num_senses=4, pad_vocab_size_multiple=8)
+    model = mesh.size(1)
+    tries = {
+        "heads": lambda: tpd.make_tp_decode_step(
+            tcfg.BackpackConfig(**dict(base, n_head=model // 2, num_senses=model)), mesh),
+        "vocab": lambda: tpd.make_tp_decode_step(
+            tcfg.BackpackConfig(**dict(base, vocab_size=513, pad_vocab_size_multiple=1)),
+            mesh),
+        "dwconv": lambda: tpd.make_tp_decode_step(
+            tcfg.BackpackConfig(**dict(base, attn_dwconv=True)), mesh),
+        "microbatches": lambda: tpd.make_tp_decode_step(cfg, mesh, microbatches=3),
+        "int4": lambda: tpd.make_tp_decode_step(cfg, mesh)[1](
+            tqz.quantize_backpack_params(params, cfg, bits=4), cache),
+        "grouped": lambda: tpd.make_tp_decode_step(cfg, mesh)[1](
+            tqz.quantize_backpack_params(params, cfg, bits=8, group_size=32), cache),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            out[name] = None
+        except ValueError as err:
+            out[name] = str(err)
+    return out
+
+
+def tp_case(case):
+    """One tensor-parallel serving case on this rank, at mesh (data,
+    model): ``entry`` "step" (make_tp_decode_step, teacher-forced on
+    ``tokens``), "scan" (make_tp_decode_scan from ``tokens[0]``),
+    "serving" (make_sharded_decode_step, ``tp_params``), "int4"
+    (make_sharded_decode_step with tp_params over the INT4 tree of
+    ``params``, and the single-device step on this rank beside it) or
+    "refusals". -> the global logits of
+    every step (gathered over 'data'), the global cache at the end as a flat
+    numpy cache, and what the entry adds."""
+    cfg = tcfg.BackpackConfig(**case["cfg"])
+    mesh = _tp_mesh(case["data"], case["model"])
+    params = params_from_numpy(case["params"], device="cpu")
+    cache = cache_from_numpy(case["cache"])
+    tokens = [torch.from_numpy(np.asarray(t)).long() for t in case["tokens"]]
+    entry = case["entry"]
+    if entry == "refusals":
+        return _refusals(cfg, mesh, params, cache)
+    if entry == "int4":
+        step, prepare = serving.make_sharded_decode_step(cfg, mesh, tp_params=True)
+        p, c = prepare(params, cache)
+        single = cache_from_numpy(case["cache"])
+        logits, diffs = [], []
+        for tok in tokens:
+            got, c = step(p, mesh_lib.data_rows(tok, mesh), c)
+            got = mesh_lib.gather_rows(got, mesh)
+            want, single = tbp.backpack_forward_with_cache(params, cfg, tok, single)
+            logits.append(got.numpy())
+            diffs.append((got - want).abs().max().item())
+        whole = mesh_lib.gather_tree(c, serving.cache_specs(c), mesh)
+        return {"logits": logits, "cache": cache_to_numpy(whole), "diffs": diffs,
+                "local_bytes": _nbytes(p), "bytes": _nbytes(params)}
+    out = {}
+    if entry in ("step", "scan"):
+        kw = dict(window=case.get("window"), microbatches=case.get("microbatches", 2))
+        step, prepare = tpd.make_tp_decode_step(cfg, mesh, **kw)
+        p, c = prepare(params, cache)
+        if entry == "scan":
+            start = mesh_lib.data_rows(tokens[0], mesh)
+            kept = tpd.make_tp_decode_scan(cfg, mesh, steps=case["steps"], donate=False,
+                                           **kw)
+            before = mesh_lib.map_with_specs(lambda x, _: x.clone(), c,
+                                             tpd.tp_cache_specs(c))
+            tok_kept, _ = kept(p, start, c)
+            out["donate_false_kept_cache"] = all(
+                torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                for x, y in ((getattr(c, f.name), getattr(before, f.name))
+                             for f in dataclasses.fields(c)))
+            scan = tpd.make_tp_decode_scan(cfg, mesh, steps=case["steps"], **kw)
+            tok, c = scan(p, start, c)
+            out["tokens"] = mesh_lib.gather_rows(tok, mesh).numpy()
+            out["donate_false_tokens"] = mesh_lib.gather_rows(tok_kept, mesh).numpy()
+        else:
+            out["logits"] = []
+            for tok in tokens:
+                lg, c = step(p, mesh_lib.data_rows(tok, mesh), c)
+                out["logits"].append(mesh_lib.gather_rows(lg, mesh).numpy())
+        whole = mesh_lib.gather_tree(c, tpd.tp_cache_specs(c), mesh)
+        out["cache"] = cache_to_numpy(tpd.from_tp_cache(whole, cfg))
+        return out
+    step, prepare = serving.make_sharded_decode_step(cfg, mesh, tp_params=case["tp_params"])
+    p, c = prepare(params, cache)
+    out["logits"] = []
+    for tok in tokens:
+        lg, c = step(p, mesh_lib.data_rows(tok, mesh), c)
+        out["logits"].append(mesh_lib.gather_rows(lg, mesh).numpy())
+    whole = mesh_lib.gather_tree(c, serving.cache_specs(c), mesh)
+    out.update(cache=cache_to_numpy(whole), local_bytes=_nbytes(p), bytes=_nbytes(params))
+    return out
+
+
 def run_cases(cases):
-    """Every case of ``cases`` (each {"kind": "ring" | "cp", ...}) in order
-    on this rank; -> their results."""
-    fns = {"ring": ring_case, "cp": cp_case}
+    """Every case of ``cases`` (each {"kind": "ring" | "cp" | "tp", ...}) in
+    order on this rank; -> their results."""
+    fns = {"ring": ring_case, "cp": cp_case, "tp": tp_case}
     return [fns[c["kind"]](c) for c in cases]
