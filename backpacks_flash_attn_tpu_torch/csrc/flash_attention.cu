@@ -15,7 +15,9 @@
 // so a ring's merge weights them exp(FLASH_NEG_INF - m) = 0. out is (B, sq,
 // H, D), contiguous, in the input's dtype; lse is (B, H, sq) f32. Dropout
 // (common.cuh dropout_keep, positions q_off[b] + i and k_off[b] + u, stream
-// (bh_offset + b) * H + h)
+// (bh_offset + b) * hash_heads + head_offset + h: a head shard of a
+// tensor-parallel rank, heads [head_offset, head_offset + H) of hash_heads,
+// draws the unsharded call's mask)
 // scales the kept un-normalised probabilities by 1 / (1 - p) after the
 // running max and sum are taken, so the LSE stays the pre-dropout one the
 // backward (K5) recomputes from.
@@ -102,7 +104,7 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const int* __restrict__ k_offsets, int bh_offset, int H, int sq, int sk, long long q_sb, long long q_st, long long q_sh,
                       long long k_sb, long long k_st, long long k_sh, long long v_sb,
                       long long v_st, long long v_sh, float scale, int causal,
-                      DropoutParams drop, ScoreBias bias) {
+                      DropoutParams drop, ScoreBias bias, int hash_heads, int head_offset) {
   constexpr bool kStatic = kSimtStatic<D>;
   __shared__ float Qs_s[kStatic ? BQ_SIMT : 1][D + 1];
   __shared__ float Ks_s[kStatic ? BKV_SIMT : 1][D + 1];
@@ -127,7 +129,7 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_off = q_abs - k_abs;      // causality sees the relative offset
   const int qi = q0 + r;                // query row index
   const int q_pos = q_off + qi;         // its position relative to key column 0
-  const uint32_t bh = static_cast<uint32_t>((bh_offset + b) * H + h);
+  const uint32_t bh = static_cast<uint32_t>((bh_offset + b) * hash_heads + head_offset + h);
   // the bias row of query row qi (clamped below sq: rows past it are not
   // stored)
   const float* brow =
@@ -218,7 +220,7 @@ int launch_simt_form(const void* q, const void* k, const void* v, void* out, voi
                      long long bh_offset, long long B, long long H, long long sq, long long sk, long long q_sb, long long q_st, long long q_sh,
                      long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
                      long long v_sh, float scale, long long causal, DropoutParams drop,
-                     cudaStream_t stream, ScoreBias bias) {
+                     cudaStream_t stream, int hash_heads, int head_offset, ScoreBias bias) {
   const size_t smem = kSimtStatic<D> ? 0 : 4 * kSimtDynFloats<D>;
   if (smem > 0) {
     const cudaError_t err = allow_smem<flash_fwd_simt_kernel<T, D, BIAS>>(smem);
@@ -232,7 +234,7 @@ int launch_simt_form(const void* q, const void* k, const void* v, void* out, voi
       static_cast<const int*>(q_offsets), static_cast<const int*>(k_offsets),
       static_cast<int>(bh_offset), static_cast<int>(H), static_cast<int>(sq),
       static_cast<int>(sk), q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale,
-      static_cast<int>(causal), drop, bias);
+      static_cast<int>(causal), drop, bias, hash_heads, head_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -245,11 +247,16 @@ int launch_simt(const ScoreBias& bias, Args... args) {
 }  // namespace
 
 // bias: NULL, or a host array {address, batch, head and row strides} of
-// the f32 score bias (common.cuh ScoreBias; its grad slot is not read)
+// the f32 score bias (common.cuh ScoreBias; its grad slot is not read).
+// head_offset, hash_heads: the call's heads are heads [head_offset,
+// head_offset + H) of hash_heads (a tensor-parallel head shard; 0 and H
+// without one), which key the dropout stream
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       void* lse, const void* seq_lengths,
                                       const void* q_offsets, const void* k_offsets,
-                                      const long long* bias, long long bh_offset, long long B, long long H,
+                                      const long long* bias, long long bh_offset,
+                                      long long head_offset, long long hash_heads,
+                                      long long B, long long H,
                                       long long sq, long long sk, long long q_sb,
                                       long long q_st, long long q_sh, long long k_sb,
                                       long long k_st, long long k_sh, long long v_sb,
@@ -271,14 +278,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                     static_cast<int>(sq), static_cast<int>(sk), static_cast<int>(causal),
                     Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
                     Strides{v_sb, v_st, v_sh}, scale * kLog2e, drop,
-                    static_cast<const int*>(k_offsets), static_cast<int>(bh_offset), sb};
+                    static_cast<const int*>(k_offsets), static_cast<int>(bh_offset), sb,
+                    static_cast<int>(hash_heads), static_cast<int>(head_offset)};
     return with_head_dim(d, [&](auto D) {
       return launch_rows<D, DenseKeys, true, true>(a, {}, k3_rows(sq, D), B, st);
     });
   }
   if (dtype != DT_BF16 && dtype != DT_F32) return static_cast<int>(cudaErrorInvalidValue);
 #define K3_ARGS q, k, v, out, lse, seq_lengths, q_offsets, k_offsets, bh_offset, B, H, sq, sk, q_sb, q_st, q_sh, \
-                k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal, drop, st
+                k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal, drop, st, \
+                static_cast<int>(hash_heads), static_cast<int>(head_offset)
   return with_head_dim(d, [&](auto D) {
     return dtype == DT_BF16 ? launch_simt<__nv_bfloat16, D>(sb, K3_ARGS)
                             : launch_simt<float, D>(sb, K3_ARGS);

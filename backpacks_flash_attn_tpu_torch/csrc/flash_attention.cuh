@@ -43,11 +43,18 @@ struct MmaArgs {
   // the ring forms: the absolute position of key column 0 (NULL: 0 for
   // every sequence) and the global index of batch row 0. Causality sees
   // q_offsets[b] - k_offsets[b], the dropout hash the absolute positions
-  // and the stream (bh_offset + b) * H + h.
+  // and the stream (bh_offset + b) * hash_heads + head_offset + h.
   const int* k_offsets = nullptr;
   int bh_offset = 0;
   // the additive score bias (read by the BIAS instances only)
   ScoreBias bias = {};
+  // a head shard (tensor parallelism): the call's H heads are heads
+  // [head_offset, head_offset + H) of hash_heads, and the dropout stream is
+  // (bh_offset + b) * hash_heads + head_offset + h, the unsharded call's.
+  // K3 sets both (hash_heads = H, head_offset = 0 without a shard); K9 has
+  // no dropout and leaves them
+  int hash_heads = 0;
+  int head_offset = 0;
 };
 
 // K3's walk: every key tile below kv_end, in order; the query tiles with
@@ -304,7 +311,7 @@ __global__ void __launch_bounds__(32 * WARPS, kSmWarps<D> / (WARPS * MT) - (BIAS
     w.l[mt][0] = w.l[mt][1] = 0.f;
     zero(w.o[mt]);
   }
-  const uint32_t bh = static_cast<uint32_t>((a.bh_offset + b) * a.H + h);
+  const uint32_t bh = static_cast<uint32_t>((a.bh_offset + b) * a.hash_heads + a.head_offset + h);
   const float* bias_bh = BIAS ? a.bias.p + b * a.bias.sb + h * a.bias.sh : nullptr;
 
   for (int t = 0; t < n_tiles; ++t) {

@@ -14,7 +14,9 @@
 // k_offsets, bh_offset, :794-806): causality sees q_off[b] - k_off[b],
 // which may be negative (a pair whose keys all follow its queries gives
 // exact zeros: no query tile is visited), the dropout hash the absolute
-// positions and the stream (bh_offset + b) * H + h.
+// positions and the stream (bh_offset + b) * hash_heads + head_offset + h
+// (a tensor-parallel head shard, heads [head_offset, head_offset + H) of
+// hash_heads, draws the unsharded call's mask).
 //
 // Bound on the H100: at the training shape (32, 12, 512, 64) the bytes,
 // q, k, v, out and dO read and dq, dk, dv written once (8 x 25 MB) plus
@@ -104,6 +106,8 @@ namespace {
 struct Offsets {
   const int *q, *k;  // (B,) absolute positions of query row 0 and key column 0, or NULL
   int bh;            // the global index of batch row 0
+  int hash_heads;    // the unsharded call's heads (H without a head shard)
+  int head_offset;   // the global index of head 0 (0 without a head shard)
 };
 
 // sequence b's relative offset rel = q_off - k_off (key u is visible to
@@ -112,9 +116,9 @@ struct Offsets {
 struct Pos {
   int rel, q_abs, k_abs;
   uint32_t bh;
-  __device__ __forceinline__ Pos(const Offsets& o, int b, int h, int H)
+  __device__ __forceinline__ Pos(const Offsets& o, int b, int h)
       : rel(0), q_abs(o.q ? o.q[b] : 0), k_abs(o.k ? o.k[b] : 0),
-        bh(static_cast<uint32_t>((o.bh + b) * H + h)) {
+        bh(static_cast<uint32_t>((o.bh + b) * o.hash_heads + o.head_offset + h)) {
     rel = q_abs - k_abs;
   }
 };
@@ -146,7 +150,7 @@ dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * ST, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 3, c = threadIdx.x & 7, key = k0 + r;
   const long long bh = static_cast<long long>(b) * H + h;
-  const Pos pos(off, b, h, H);
+  const Pos pos(off, b, h);
   // the bias column of key `key` (clamped below Sk: keys past it are masked)
   const float* bcol = BIAS ? bias.p + b * bias.sb + h * bias.sh + min(key, Sk - 1) : nullptr;
   load_rows<D>(Ks, k + b * sk.sb + h * sk.sh, sk.st, k0, Sk);
@@ -235,7 +239,7 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * ST, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 3, c = threadIdx.x & 7, qry = q0 + r;
   const long long bh = static_cast<long long>(b) * H + h;
-  const Pos pos(off, b, h, H);
+  const Pos pos(off, b, h);
   // the bias row of query qry (clamped below Sq: rows past it are not
   // stored) and its dbias row
   const float* brow =
@@ -333,7 +337,10 @@ cudaError_t simt_bwd(const ScoreBias& bias, Args... args) {
 // q_offsets, k_offsets: (B,) int32 absolute positions of query row 0 and
 // key column 0 of each sequence, or NULL (0); bh_offset: the global index
 // of batch row 0 (the ring forms: out and lse are then the rows' GLOBAL
-// ones, so each call gives one chunk pair's exact share of the gradients).
+// ones, so each call gives one chunk pair's exact share of the gradients);
+// head_offset, hash_heads: the call's heads are heads [head_offset,
+// head_offset + H) of hash_heads (a tensor-parallel head shard; 0 and H
+// without one), which key the dropout stream.
 // key_tile (bf16): 64 or 128 keys a CTA (128 with a bias). bias: NULL, or a
 // host array {address, batch, head and row strides, dbias address} of the
 // f32 score bias (common.cuh ScoreBias; dbias (B, H, Sq, Sk) f32 zeroed,
@@ -341,7 +348,8 @@ cudaError_t simt_bwd(const ScoreBias& bias, Args... args) {
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out, const void* dout,
     const void* lse, void* ws, void* dq, void* dk, void* dv, const void* q_offsets,
-    const void* k_offsets, const long long* bias, long long bh_offset, long long B, long long H, long long Sq,
+    const void* k_offsets, const long long* bias, long long bh_offset, long long head_offset,
+    long long hash_heads, long long B, long long H, long long Sq,
     long long Sk, long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh, long long o_sb,
     long long o_st, long long o_sh, long long d_sb, long long d_st, long long d_sh, float scale,
@@ -354,7 +362,8 @@ extern "C" int flash_attention_bwd_launch(
   const int h = static_cast<int>(H);
   const int c = static_cast<int>(causal);
   const Offsets off{static_cast<const int*>(q_offsets), static_cast<const int*>(k_offsets),
-                    static_cast<int>(bh_offset)};
+                    static_cast<int>(bh_offset), static_cast<int>(hash_heads),
+                    static_cast<int>(head_offset)};
   const auto* lp = static_cast<const float*>(lse);
   auto* wp = static_cast<float*>(ws);
   if (dtype == DT_BF16) {
@@ -371,6 +380,8 @@ extern "C" int flash_attention_bwd_launch(
     a.q_offsets = off.q;
     a.k_offsets = off.k;
     a.bh_offset = off.bh;
+    a.hash_heads = off.hash_heads;
+    a.head_offset = off.head_offset;
     a.causal = c;
     a.sq = sq;
     a.sk = sk;

@@ -158,11 +158,19 @@ struct BwdArgs {
   // the ring forms (NULL, NULL, 0: none): the absolute positions of query
   // row 0 and key column 0 of each sequence, and the global index of batch
   // row 0. Causality sees q_offsets[b] - k_offsets[b], the dropout hash the
-  // absolute positions and the stream (bh_offset + b) * H + h.
+  // absolute positions and the stream (bh_offset + b) * hash_heads +
+  // head_offset + h.
   const int *q_offsets, *k_offsets;
   int bh_offset;
   // the additive score bias and its gradient (the BIAS instances only)
   ScoreBias bias = {};
+  // a head shard (tensor parallelism): the call's heads are heads
+  // [head_offset, head_offset + H) of hash_heads, so the dropout stream is
+  // (bh_offset + b) * hash_heads + head_offset + h, the unsharded call's.
+  // K5 sets both (hash_heads = H, head_offset = 0 without a shard); K9 has
+  // no dropout and leaves them
+  int hash_heads = 0;
+  int head_offset = 0;
 };
 
 // where sequence b's pairs sit: rel = q_off - k_off (key u is visible to
@@ -175,7 +183,7 @@ struct PairPos {
       : rel(0),
         q_abs(a.q_offsets ? a.q_offsets[b] : 0),
         k_abs(a.k_offsets ? a.k_offsets[b] : 0),
-        bh(static_cast<uint32_t>((a.bh_offset + b) * a.H + h)) {
+        bh(static_cast<uint32_t>((a.bh_offset + b) * a.hash_heads + a.head_offset + h)) {
     rel = q_abs - k_abs;
   }
 };

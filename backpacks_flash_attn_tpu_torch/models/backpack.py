@@ -70,20 +70,23 @@ def init_backpack(cfg: BackpackConfig, generator: torch.Generator,
 # ---------------------------------------------------------------- pieces
 
 def context_qk(params: Params, cfg: BackpackConfig,
-               hidden: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               hidden: torch.Tensor, shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Contextualization hidden states -> nv-headed q, k, each
-    (b, s, nv, d/nv)."""
+    (b, s, nv, d/nv); with a tensor-parallel shard this rank's nv / tp
+    heads (its column-parallel Wqkv)."""
     b, s, d = hidden.shape
-    qk = dense.linear(hidden, params["ctx_attn"]["Wqkv"])
-    qk = qk.reshape(b, s, 2, cfg.num_senses, cfg.sense_head_dim)
+    qk = gpt_lib.column_linear(hidden, params["ctx_attn"]["Wqkv"], shard)
+    # nv heads, or a tensor-parallel rank's nv / tp (its Wqkv columns)
+    qk = qk.reshape(b, s, 2, -1, cfg.sense_head_dim)
     return qk[:, :, 0], qk[:, :, 1]
 
 
 def contextualization(params: Params, cfg: BackpackConfig,
-                      hidden: torch.Tensor) -> torch.Tensor:
+                      hidden: torch.Tensor, shard=None) -> torch.Tensor:
     """alpha = causal softmax over nv-headed scores, materialized
-    (b, nv, s, s) in hidden's dtype (the return_parts path)."""
-    q, k = context_qk(params, cfg, hidden)
+    (b, nv, s, s) in hidden's dtype (the return_parts path); a
+    tensor-parallel shard's nv / tp heads."""
+    q, k = context_qk(params, cfg, hidden, shard)
     scale = cfg.sense_head_dim ** -0.5
     scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float() * scale)
     s = scores.shape[-1]
@@ -97,7 +100,8 @@ def content_forward(params: Params, cfg: BackpackConfig,
                     input_ids: torch.Tensor, *, train: bool = False,
                     rng: Optional[torch.Tensor] = None,
                     embedded: Optional[torch.Tensor] = None,
-                    dropout_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    dropout_idx: Optional[torch.Tensor] = None,
+                    shard=None) -> torch.Tensor:
     """Sense network C(x): (b, s) -> (b, s, nv, d); strictly per-token. A
     quantized tree with a precomputed sense table gathers from it (and
     ignores ``embedded``). embedded: the pre-gathered wte rows (b, s, d),
@@ -107,7 +111,12 @@ def content_forward(params: Params, cfg: BackpackConfig,
     ``rng`` and each block's two sites a (n_blocks, 2) split of the second
     (JAX :141-170). dropout_idx: the global flat positions of this chunk's
     elements in the unsharded (B, S, d) tensor, for every site (a
-    sequence-sharded caller, ``parallel/cp_train.py``)."""
+    sequence-sharded caller, ``parallel/cp_train.py``; a data-sharded one).
+    shard: a tensor-parallel rank (``parallel.mesh.Shard``): the
+    vocab-sharded embedding, the blocks' MLPs Megatron's, and final_mlp's
+    fc1 and fc2 both column-parallel (fc1's output gathered before fc2), so
+    the senses come out sense-sharded: (b, s, nv / tp, d), this rank's
+    senses [rank * nv / tp, (rank + 1) * nv / tp)."""
     b, s = input_ids.shape
     cp = params["content"]
     act = gpt_lib.quant_act_dtype(params["gpt"])
@@ -121,8 +130,13 @@ def content_forward(params: Params, cfg: BackpackConfig,
         if scales.shape[-1] not in (1, d):
             scales = scales.repeat_interleave(d // scales.shape[-1], dim=-1)
         return (rows.float() * scales).to(act)
-    hidden = (embedded if embedded is not None
-              else gpt_lib.take_embedding(params["gpt"]["wte"], input_ids, act))
+    tp = shard is not None and shard.tp
+    if embedded is not None:
+        hidden = embedded
+    elif tp:
+        hidden = gpt_lib.vocab_rows(params["gpt"]["wte"], input_ids, shard, act)
+    else:
+        hidden = gpt_lib.take_embedding(params["gpt"]["wte"], input_ids, act)
     n_blocks = cp["blocks"]["norm1"]["weight"].shape[0]
     r_emb, blk_rngs = None, None
     if rng is not None:
@@ -141,12 +155,17 @@ def content_forward(params: Params, cfg: BackpackConfig,
         hidden, residual = norms.dropout_add_layer_norm(
             hidden, residual, blk["norm1"]["weight"], blk["norm1"]["bias"],
             pdrop, eps, rng=r1, deterministic=det, dropout_idx=dropout_idx)
-        mlp_out = dense.mlp(hidden, blk["mlp"], cfg.activation)
+        mlp_out = gpt_lib.parallel_mlp(hidden, blk["mlp"], cfg.activation, shard)
         hidden, residual = norms.dropout_add_layer_norm(
             mlp_out, residual, blk["norm2"]["weight"], blk["norm2"]["bias"],
             pdrop, eps, rng=r2, deterministic=det, dropout_idx=dropout_idx)
-    senses = dense.mlp(hidden, cp["final_mlp"], cfg.activation)
-    return senses.reshape(b, s, cfg.num_senses, cfg.n_embd)
+    fm = cp["final_mlp"]
+    if tp:
+        h = dense.ACTIVATIONS[cfg.activation](shard.column(hidden, fm["fc1"]))
+        senses = shard.column(shard.gather_from(h, -1), fm["fc2"])
+    else:
+        senses = dense.mlp(hidden, fm, cfg.activation)
+    return senses.reshape(b, s, -1, cfg.n_embd)
 
 
 def sense_table(params: Params, cfg: BackpackConfig,
@@ -183,7 +202,7 @@ def backpack_forward(params: Params, cfg: BackpackConfig,
                      sense_edit: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
                      return_parts: bool = False, remat="none",
-                     fused_ctx: Optional[bool] = None):
+                     fused_ctx: Optional[bool] = None, shard=None):
     """Forward -> logits (b, s, vocab) (JAX ``backpack_forward`` :213).
     The GPT attention goes to the flash wrapper (K3, K5 backward). The
     combine takes the fused kernel (K4, K6 backward; alpha is never
@@ -197,12 +216,30 @@ def backpack_forward(params: Params, cfg: BackpackConfig,
     vectors, sense_edit: (edited_ids (m,), edited_senses (m, nv, d))
     replacing the senses of those tokens; both act on ``content`` before
     the combine, so either route takes them (the intervention hooks,
-    models/interventions.py)."""
+    models/interventions.py).
+    remat ("none", "full", "dots"; ``gpt.remat_wrap``) rematerializes the
+    GPT blocks and, on the einsum route, the whole combine under any mode
+    but "none" (JAX :293): alpha (b, nv, s, s) is recomputed in the
+    backward instead of saved. shard (``parallel.mesh.Shard``): this rank's
+    part of a sharded step; with tensor parallelism the combine runs on its
+    nv / tp senses (K4 and K6 on them on the fused route), their partial
+    sum is summed over the 'model' group, and the logits are this rank's
+    vocabulary columns (``ops.cross_entropy.vocab_parallel_cross_entropy``
+    takes them)."""
+    tp = shard is not None and shard.tp
+    if tp and (sense_weights is not None or sense_edit is not None or return_parts):
+        raise ValueError("sense_weights, sense_edit and return_parts take the "
+                         "unsharded forward")
     r_gpt, r_content = prng.split(rng) if rng is not None else (None, None)
     contextl = gpt_lib.gpt_forward(params["gpt"], cfg, input_ids,
-                                   train=train, rng=r_gpt, remat=remat)
+                                   train=train, rng=r_gpt, remat=remat,
+                                   shard=shard)
+    gidx = None
+    if shard is not None and train and rng is not None:
+        gidx = shard.token_index(*contextl.shape, contextl.device)
     content = content_forward(params, cfg, input_ids, train=train,
-                              rng=r_content)                    # (b, s, nv, d)
+                              rng=r_content, dropout_idx=gidx,
+                              shard=shard)                      # (b, s, nv, d)
     if sense_edit is not None:
         content = apply_sense_edit(content, input_ids, sense_edit)
     if sense_weights is not None:
@@ -213,15 +250,29 @@ def backpack_forward(params: Params, cfg: BackpackConfig,
         fused_ctx = not train
     scale = cfg.sense_head_dim ** -0.5
     alpha = None
+    # a tensor-parallel rank sums its senses' part of the combine over the
+    # 'model' group; the einsum's part stays f32 until the sum
+    part_dtype = torch.float32 if tp else contextl.dtype
+
+    def combine(hidden, content):
+        a = contextualization(params, cfg, hidden, shard)
+        return torch.einsum("bkts,bskd->btd", a.to(part_dtype),
+                            content.to(part_dtype)).to(part_dtype), a
+
     if fused_ctx and not return_parts:
-        q, ctx_k = context_qk(params, cfg, contextl)
+        q, ctx_k = context_qk(params, cfg, contextl, shard)
         outputs = fused_contextualization(q, ctx_k, content,
                                           scale).to(contextl.dtype)
+    elif return_parts or remat in (False, None, "none"):
+        outputs, alpha = combine(contextl, content)
     else:
-        alpha = contextualization(params, cfg, contextl)
-        outputs = torch.einsum("bkts,bskd->btd", alpha,
-                               content.to(alpha.dtype)).to(contextl.dtype)
-    logits = gpt_lib.lm_logits(params["gpt"], cfg, outputs)
+        from torch.utils.checkpoint import checkpoint
+        outputs = checkpoint(lambda h, c: combine(h, c)[0], contextl, content,
+                             use_reentrant=False)
+    if tp:
+        outputs = shard.reduce_from(outputs)
+    outputs = outputs.to(contextl.dtype)
+    logits = gpt_lib.lm_logits(params["gpt"], cfg, outputs, shard=shard)
     if return_parts:
         return logits, {"alpha": alpha, "content": content,
                         "contextual": contextl, "outputs": outputs}

@@ -120,39 +120,116 @@ def take_embedding(wte, input_ids: torch.Tensor,
     return wte[input_ids]
 
 
+def vocab_rows(wte_local, input_ids: torch.Tensor, shard, dtype) -> torch.Tensor:
+    """The word embedding rows of ``input_ids`` from a vocab-sharded table
+    (this rank's rows [rank * V_loc, (rank + 1) * V_loc)): each rank's own
+    rows, zeros for ids outside its shard, summed over the 'model' group."""
+    v_loc = (wte_local["q"] if isinstance(wte_local, dict) else wte_local).shape[0]
+    ids = input_ids - shard.rank * v_loc
+    ok = (ids >= 0) & (ids < v_loc)
+    rows = take_embedding(wte_local, ids.clamp(0, v_loc - 1), dtype)
+    return shard.reduce_from(torch.where(ok[..., None], rows, torch.zeros_like(rows)))
+
+
 def embed(params: Params, cfg: GPTConfig, input_ids: torch.Tensor,
-          position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+          position_ids: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
     """Word + learned-position embeddings; word only when ``n_positions``
-    is 0 (rotary models, JAX :441)."""
-    hidden = take_embedding(params["wte"], input_ids, quant_act_dtype(params))
+    is 0 (rotary models, JAX :441). shard (a tensor-parallel
+    ``parallel.mesh.Shard``): wte vocab-sharded (:func:`vocab_rows`), wpe
+    sharded over d and gathered."""
+    if shard is not None and shard.tp:
+        hidden = vocab_rows(params["wte"], input_ids, shard, quant_act_dtype(params))
+    else:
+        hidden = take_embedding(params["wte"], input_ids, quant_act_dtype(params))
     if cfg.n_positions > 0:
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1],
                                         device=input_ids.device)[None, :]
-        hidden = hidden + params["wpe"][position_ids].to(hidden.dtype)
+        wpe = params["wpe"] if shard is None else shard.gather_from(params["wpe"], -1)
+        hidden = hidden + wpe[position_ids].to(hidden.dtype)
     return hidden
 
 
 # ---------------------------------------------------------------- forward
 
+def column_linear(x: torch.Tensor, p, shard) -> torch.Tensor:
+    """``dense.linear``, or with a tensor-parallel shard this rank's
+    columns of it (``parallel.mesh.Shard.column``: the input gradient's
+    partials summed over the 'model' group in f32)."""
+    return shard.column(x, p) if shard is not None and shard.tp else dense.linear(x, p)
+
+
+def row_linear(x: torch.Tensor, p, shard) -> torch.Tensor:
+    """``dense.linear``, or with a tensor-parallel shard the row-parallel
+    product of this rank's slice of x and rows of the kernel, its f32
+    partials summed over the 'model' group, the bias added once
+    (``parallel.mesh.Shard.row``)."""
+    return shard.row(x, p) if shard is not None and shard.tp else dense.linear(x, p)
+
+
+def parallel_mlp(x: torch.Tensor, p, activation: str, shard) -> torch.Tensor:
+    """``dense.mlp``, or with a tensor-parallel shard Megatron's MLP: fc1
+    column-parallel over this rank's inner columns, fc2 row-parallel."""
+    if shard is None or not shard.tp:
+        return dense.mlp(x, p, activation)
+    h = dense.ACTIVATIONS[activation](shard.column(x, p["fc1"]))
+    return shard.row(h, p["fc2"])
+
+
 def _mlp_and_norms(hidden, residual, lp, mixer_out, cfg, *,
-                   train: bool = False, r_d1=None, r_d2=None):
+                   train: bool = False, r_d1=None, r_d2=None, shard=None,
+                   gidx=None):
     det = not train
     hidden, residual = norms.dropout_add_layer_norm(
         mixer_out, residual, lp["norm1"]["weight"], lp["norm1"]["bias"],
-        cfg.resid_pdrop, cfg.layer_norm_epsilon, rng=r_d1, deterministic=det)
-    mlp_out = dense.mlp(hidden, lp["mlp"], cfg.activation)
+        cfg.resid_pdrop, cfg.layer_norm_epsilon, rng=r_d1, deterministic=det,
+        dropout_idx=gidx)
+    mlp_out = parallel_mlp(hidden, lp["mlp"], cfg.activation, shard)
     return norms.dropout_add_layer_norm(
         mlp_out, residual, lp["norm2"]["weight"], lp["norm2"]["bias"],
-        cfg.resid_pdrop, cfg.layer_norm_epsilon, rng=r_d2, deterministic=det)
+        cfg.resid_pdrop, cfg.layer_norm_epsilon, rng=r_d2, deterministic=det,
+        dropout_idx=gidx)
 
 
-def check_remat(remat) -> None:
-    """Only "none" (save everything) is ported; the JAX package's
-    rematerialization modes wait for ROADMAP Queue 1 item 6."""
-    if remat not in (False, None, "none"):
-        raise NotImplementedError(f"remat={remat!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item 6)")
+REMAT_MODES = ("none", "full", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The "dots" rematerialization policy (JAX's
+    ``dots_with_no_batch_dims_saveable``) for what the port runs: the
+    outputs of the 2-D matrix products (``aten.mm``, ``aten.addmm``: the
+    block's dense projections Wqkv, out_proj, fc1 and fc2, whose (b, s)
+    rows PyTorch folds into one product) are saved; everything else is
+    recomputed in the backward: the LayerNorms, GELU, the dropout masks,
+    the bias adds and the attention. The flash kernel K3 launches through
+    ctypes, which the dispatcher does not see (it sees only the empty
+    buffers K3 fills), so K3 launches again in the recomputation, as the
+    Pallas call is not a dot for JAX's policy either."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn, mode):
+    """A rematerialization mode on a block function (JAX ``remat_wrap``
+    :449): "none" (also False / None) saves everything; "full" (True) is
+    ``torch.utils.checkpoint`` (non-reentrant): only the block's inputs are
+    kept and the whole block runs again in the backward; "dots" keeps the
+    matrix products' outputs and recomputes the rest (:func:`_dots_policy`).
+    The dropout masks hash positions (``ops/norms.py``, the flash
+    kernels), so the recomputation draws the same masks."""
+    if mode in (False, None, "none"):
+        return fn
+    from torch.utils.checkpoint import checkpoint
+    if mode in (True, "full"):
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if mode == "dots":
+        import functools
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        ctx = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, context_fn=ctx)
+    raise ValueError(f"unknown remat mode: {mode!r} (one of {REMAT_MODES})")
 
 
 def _rotary_tables(cfg: GPTConfig, s: int, offset, device):
@@ -167,58 +244,85 @@ def _rotary_tables(cfg: GPTConfig, s: int, offset, device):
 
 
 def _block(hidden, residual, lp, scale, cfg: GPTConfig, *, train: bool,
-           rngs, rot, key_padding_mask=None):
+           rngs, rot, key_padding_mask=None, shard=None, gidx=None):
     """One pre-norm block with the reordered residual (JAX ``_block`` :372):
     rotary on q and k after the qkv split (``rot``: the forward's
     :func:`_rotary_tables`), attention dropout in the flash kernel (a key
     padding mask takes its ragged entry), then two dropout+add+LN sites,
-    keyed by the three splits of the layer's key."""
+    keyed by the three splits of the layer's key. shard: a tensor-parallel
+    rank's block (Wqkv and fc1 column-parallel over its heads and inner
+    columns, out_proj and fc2 row-parallel; ``parallel.mesh.Shard``), gidx
+    its per-token dropout positions (``Shard.token_index``)."""
     b, s, _ = hidden.shape
-    qkv = dense.linear(hidden, lp["Wqkv"])
-    qkv = qkv.reshape(b, s, 3, cfg.n_head, cfg.head_dim)
+    qkv = column_linear(hidden, lp["Wqkv"], shard)
+    qkv = qkv.reshape(b, s, 3, -1, cfg.head_dim)
+    h = qkv.shape[3]
     r_attn, r_d1, r_d2 = (prng.split(rngs, 3) if rngs is not None
                           else (None, None, None))
     q, k = qkv[:, :, 0], qkv[:, :, 1]
     if rot is not None:
         q, k = rotary.rotate_qk(q, k, rot)
+    at = {} if shard is None else dict(bh_offset=shard.row_offset,
+                                       head_offset=shard.rank * h,
+                                       global_heads=cfg.n_head)
     ctx = mha(q, k, qkv[:, :, 2], causal=True,
               softmax_scale=scale, key_padding_mask=key_padding_mask,
               dropout_p=cfg.attn_pdrop, dropout_rng=r_attn,
-              deterministic=not train)
-    mixer_out = dense.linear(ctx.reshape(b, s, cfg.n_embd), lp["out_proj"])
+              deterministic=not train, **at)
+    mixer_out = row_linear(ctx.reshape(b, s, h * cfg.head_dim), lp["out_proj"], shard)
     return _mlp_and_norms(hidden, residual, lp, mixer_out, cfg, train=train,
-                          r_d1=r_d1, r_d2=r_d2)
+                          r_d1=r_d1, r_d2=r_d2, shard=shard, gidx=gidx)
 
 
 def gpt_forward(params: Params, cfg: GPTConfig, input_ids: torch.Tensor, *,
+                position_ids: Optional[torch.Tensor] = None,
                 train: bool = False, rng: Optional[torch.Tensor] = None,
                 remat="none",
-                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_padding_mask: Optional[torch.Tensor] = None,
+                shard=None) -> torch.Tensor:
     """Full forward -> post-final-LN hidden states (b, s, d) (JAX
     ``gpt_forward`` :470). Attention goes through the flash wrapper (K3
     forward, K5 backward); the JAX package's ``use_flash=False`` reference
     attention is not a path of the port. train with a key
     ``rng`` (``utils.prng``) turns on the dropout sites: the embedding's,
     and per layer the attention's and the two residual ones.
+    position_ids: (b|1, s) rows of the position table (0..s-1 by default).
     key_padding_mask: (b, s) True = a real token, right-padded; as in JAX
     it becomes per-sequence lengths of the ragged flash entry (forward only
-    on the card)."""
+    on the card). remat: "none", "full" or "dots", a block at a time
+    (:func:`remat_wrap`). shard: this rank's part of a sharded step
+    (``parallel.mesh.Shard``): its data shard's rows, from
+    ``shard.row_offset``, and with tensor parallelism its heads and columns
+    of every layer (the tree of ``training.train``'s sharded init); every
+    dropout mask is the unsharded step's, and the hidden states come out
+    whole on every rank of the 'model' group."""
     _check_supported(cfg)
-    check_remat(remat)
-    hidden = embed(params, cfg, input_ids)
+    hidden = embed(params, cfg, input_ids, position_ids, shard=shard)
+    b, s, d = hidden.shape
+    gidx = (shard.token_index(b, s, d, hidden.device)
+            if shard is not None and train and rng is not None else None)
     r_emb, r_layers = prng.split(rng) if rng is not None else (None, None)
     hidden, residual = norms.dropout_add_layer_norm(
         hidden, None, params["ln_0"]["weight"], params["ln_0"]["bias"],
         cfg.embd_pdrop, cfg.layer_norm_epsilon, rng=r_emb,
-        deterministic=not train)
+        deterministic=not train, dropout_idx=gidx)
     layer_rngs = (prng.split(r_layers, cfg.n_layer) if r_layers is not None
                   else None)
-    rot = _rotary_tables(cfg, input_ids.shape[1], 0, input_ids.device)
-    for li, scale in enumerate(_softmax_scales(cfg)):
-        hidden, residual = _block(
-            hidden, residual, tree_index(params["layers"], li), scale, cfg,
-            train=train, rngs=None if layer_rngs is None else layer_rngs[li],
-            rot=rot, key_padding_mask=key_padding_mask)
+    rot = _rotary_tables(cfg, s, 0, input_ids.device)
+    scales = _softmax_scales(cfg)
+
+    def block(hidden, residual, li):
+        # the layer's weights are taken inside the (rematerialized) block,
+        # so that a ZeRO-3 tree gathers them again in the recomputation
+        return _block(hidden, residual, tree_index(params["layers"], li),
+                      scales[li], cfg, train=train,
+                      rngs=None if layer_rngs is None else layer_rngs[li],
+                      rot=rot, key_padding_mask=key_padding_mask,
+                      shard=shard, gidx=gidx)
+
+    block = remat_wrap(block, remat)
+    for li in range(cfg.n_layer):
+        hidden, residual = block(hidden, residual, li)
     return hidden
 
 
@@ -810,12 +914,17 @@ def gpt_forward_with_cache(
 
 # ---------------------------------------------------------------- LM head
 
-def lm_logits(params: Params, cfg: GPTConfig, hidden: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: Params, cfg: GPTConfig, hidden: torch.Tensor,
+              shard=None) -> torch.Tensor:
     """Tied lm_head: hidden @ wte^T, in hidden's dtype. Quantized trees
-    carry an explicit quantized (d, V) 'lm_head' and return f32 logits."""
+    carry an explicit quantized (d, V) 'lm_head' and return f32 logits.
+    With a tensor-parallel shard: this rank's vocabulary columns, from its
+    vocab shard of wte (a column-parallel product)."""
     if "lm_head" in params:
         return quant.quant_linear(hidden, params["lm_head"]).float()
     wte = params["wte"]
+    if shard is not None and shard.tp:
+        return shard.column(hidden, {"kernel": wte.t()})
     if hidden.dtype == torch.bfloat16 and wte.dtype == torch.bfloat16:
         return hidden @ wte.T
     return (hidden.float() @ wte.float().T).to(hidden.dtype)
@@ -823,5 +932,7 @@ def lm_logits(params: Params, cfg: GPTConfig, hidden: torch.Tensor) -> torch.Ten
 
 def gpt_lm_forward(params: Params, cfg: GPTConfig, input_ids: torch.Tensor,
                    **kw) -> torch.Tensor:
-    """GPT LM with the tied head: logits (b, s, V) (JAX :1127)."""
-    return lm_logits(params, cfg, gpt_forward(params, cfg, input_ids, **kw))
+    """GPT LM with the tied head: logits (b, s, V) (JAX :1127); with a
+    tensor-parallel ``shard=`` this rank's vocabulary columns."""
+    return lm_logits(params, cfg, gpt_forward(params, cfg, input_ids, **kw),
+                     shard=kw.get("shard"))

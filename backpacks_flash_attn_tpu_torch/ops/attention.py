@@ -81,10 +81,14 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         dropout_p: float = 0.0,
         dropout_rng: Optional[torch.Tensor] = None,
         deterministic: bool = True,
-        q_offset=0) -> torch.Tensor:
+        q_offset=0, bh_offset: int = 0, head_offset: int = 0,
+        global_heads: Optional[int] = None) -> torch.Tensor:
     """Attention entry point of the model code (JAX :81): the flash wrapper
     (K3, K5 backward), with in-kernel dropout when ``deterministic`` is
     False. q_offset: scalar or (b,) absolute position of q row 0.
+    bh_offset, head_offset, global_heads: this call's rows and heads within
+    an unsharded call (a data and head shard, ``training/train.py``'s
+    sharded step), which key the dropout mask (see ``flash_attention``).
     key_padding_mask: (b, sk) True = a real key; as in JAX (:99-100) it
     becomes ``seq_lengths = mask.sum(-1)``, which reads the mask as right
     padding (every real key before every pad key), and takes the ragged
@@ -97,7 +101,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            seq_lengths=seq_lengths,
                            dropout_p=dropout_p if dropout_active else 0.0,
                            dropout_rng=dropout_rng if dropout_active else None,
-                           q_offsets=q_offset if has_offset else None)
+                           q_offsets=q_offset if has_offset else None,
+                           bh_offset=bh_offset, head_offset=head_offset,
+                           global_heads=global_heads)
 
 
 def mha_qkv_packed(qkv: torch.Tensor, *, causal: bool = True,

@@ -12,7 +12,10 @@ k_offsets[b] + i`` for query row i. Fully masked rows give 0 and an LSE of
 Dropout keeps a probability where the counter hash of ``(seed, (bh_offset
 + b)*H + h, q_offsets[b] + i, k_offsets[b] + j)`` falls below a threshold (``dropout_keep_positions``,
 JAX :120), so the forward, the backward and the plain versions all draw the
-same mask without storing it. It is applied to the un-normalised
+same mask without storing it. A tensor-parallel rank's head shard, heads
+``[head_offset, head_offset + h)`` of ``global_heads``, hashes the stream
+``(bh_offset + b) * global_heads + head_offset + h``: the slice of the
+unsharded call's mask. It is applied to the un-normalised
 probabilities after the running max and sum, so the LSE stays the one of
 the softmax before dropout (JAX :250-259).
 
@@ -105,12 +108,16 @@ def dropout_keep_positions(seed: Tuple[int, int], bh, q_pos, k_pos,
 
 
 def _keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, device,
-               k_offsets=None, bh_offset: int = 0):
+               k_offsets=None, bh_offset: int = 0, head_offset: int = 0,
+               global_heads: Optional[int] = None):
     """Keep mask (b, h, sq, sk) at absolute positions: bh = (bh_offset +
-    b) * H + h, query row i at q_offsets[b] + i, key column j at
-    k_offsets[b] + j."""
-    bh = ((torch.arange(b, device=device)[:, None] + int(bh_offset)) * h
-          + torch.arange(h, device=device)[None, :])[:, :, None, None]
+    b) * global_heads + head_offset + h (global_heads h by default: the
+    call's heads are heads [head_offset, head_offset + h) of global_heads),
+    query row i at q_offsets[b] + i, key column j at k_offsets[b] + j."""
+    hg = h if global_heads is None else int(global_heads)
+    bh = ((torch.arange(b, device=device)[:, None] + int(bh_offset)) * hg
+          + int(head_offset) + torch.arange(h, device=device)[None, :]
+          )[:, :, None, None]
     q_pos = (_per_seq(q_offsets, b, device, 0)[:, None]
              + torch.arange(sq, device=device)[None, :])[:, None, :, None]
     k_pos = (_per_seq(k_offsets, b, device, 0)[:, None]
@@ -169,7 +176,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         seq_lengths=None, q_offsets=None,
                         dropout_p: float = 0.0, seed=(0, 0),
                         return_lse: bool = False, k_offsets=None,
-                        bh_offset: int = 0, attn_bias=None):
+                        bh_offset: int = 0, attn_bias=None,
+                        head_offset: int = 0, global_heads=None):
     """Plain version of K3: the two products in the working dtype (bf16
     stays bf16), scores and softmax in f32, with the kernel's masks, its
     dropout mask, its zero output for fully masked rows and the additive
@@ -181,7 +189,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = _valid_mask(b, sq, sk, causal, seq_lengths, q_offsets, dev,
                        k_offsets)
     keep = (_keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, dev,
-                       k_offsets, bh_offset)
+                       k_offsets, bh_offset, head_offset, global_heads)
             if dropout_p > 0.0 else None)
     out, lse = _attend_ref(q, k, v, mask, scale, keep, dropout_p,
                            _bias4(attn_bias))
@@ -219,7 +227,8 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
                             softmax_scale: Optional[float] = None,
                             dropout_p: float = 0.0, seed=(0, 0),
                             q_offsets=None, k_offsets=None,
-                            bh_offset: int = 0, attn_bias=None):
+                            bh_offset: int = 0, attn_bias=None,
+                            head_offset: int = 0, global_heads=None):
     """Plain version of K5 (JAX ``_flash_bwd_scratch_kernel`` :681, with a
     bias the split form :460-558): p is recomputed as exp(s - lse) with the
     forward's masks, keep mask and bias, delta = rowsum(dO * O), ds = p *
@@ -234,7 +243,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
     mask = _valid_mask(b, sq, sk, causal, None, q_offsets, q.device,
                        k_offsets)
     keep = (_keep_mask(seed, dropout_p, b, h, sq, sk, q_offsets, q.device,
-                       k_offsets, bh_offset)
+                       k_offsets, bh_offset, head_offset, global_heads)
             if dropout_p > 0.0 else None)
     return _attend_bwd_ref(q, k, v, out, lse, dout, mask, scale, keep,
                            dropout_p, _bias4(attn_bias))
@@ -349,12 +358,13 @@ def _bias_arg(bias: Optional[torch.Tensor], dbias=None):
 
 def _flash_fwd_kernel(q, k, v, *, causal, scale, seq_lengths, q_offsets,
                       dropout_p, seed, k_offsets=None, bh_offset: int = 0,
-                      bias=None):
+                      bias=None, head_offset: int = 0, global_heads=None):
     """K3 (``csrc/flash_attention.cu``): bf16 on tensor cores (q, k and v
     rows 16-byte aligned, scale > 0) or on its SIMT loop (f32, unaligned
     bf16); head dims 64, 80, 96 and 128 as they are, any other d <= 128
     padded to the next (:func:`head_dim_instance`); any outer strides; the
-    ring forms' k_offsets and bh_offset; an additive score bias (b|1, h|1,
+    ring forms' k_offsets and bh_offset; a head shard's head_offset and
+    global_heads (the dropout stream's); an additive score bias (b|1, h|1,
     sq, sk) or (sq, sk) (:func:`_bias_operand`). Returns (out (b, sq, h, d),
     lse (b, h, sq) f32)."""
     b, sq, h, d = q.shape
@@ -371,7 +381,8 @@ def _flash_fwd_kernel(q, k, v, *, causal, scale, seq_lengths, q_offsets,
     P = _build.Ptr.of
     _build.launch(
         _K3, "flash_attention_launch", P(q), P(k), P(v), P(out), P(lse),
-        P(lens), P(offs), P(koffs), bias_ptr, int(bh_offset), b, h, sq, sk,
+        P(lens), P(offs), P(koffs), bias_ptr, int(bh_offset), int(head_offset),
+        h if global_heads is None else int(global_heads), b, h, sq, sk,
         *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], float(scale), int(causal),
         *_dropout_args(dropout_p, seed), inst, _build.DTYPE_CODE[q.dtype])
@@ -393,12 +404,14 @@ def _k5_key_tile(s: int, d: int = 64, bias: bool = False) -> int:
 def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
                       dropout_p, seed, q_offsets=None, k_offsets=None,
                       bh_offset: int = 0, attn_bias=None,
-                      bias_grad: bool = True):
+                      bias_grad: bool = True, head_offset: int = 0,
+                      global_heads=None):
     """K5 (``csrc/flash_attention_bwd.cu``): bf16 on tensor cores (rows
     16-byte aligned, else copied contiguous first; dq summed in an f32
     workspace, so its last bits vary between runs) or f32 SIMT; head dims
     as K3's (any other d <= 128 padded, the gradients cut back); any sq and
-    sk; the ring forms' q_offsets, k_offsets and bh_offset; no lengths.
+    sk; the ring forms' q_offsets, k_offsets and bh_offset; a head shard's
+    head_offset and global_heads; no lengths.
     -> (dq, dk, dv), contiguous; with ``attn_bias`` also dbias (b, h, sq,
     sk) f32, the pairs' dS (zeros where no pair was visited), or None when
     ``bias_grad`` is False."""
@@ -434,7 +447,8 @@ def _flash_bwd_kernel(q, k, v, out, lse, dout, *, causal, softmax_scale,
     _build.launch(
         _K5, "flash_attention_bwd_launch", P(q), P(k), P(v), P(out),
         P(dout), P(lse), P(ws), P(dq), P(dk), P(dv), P(qoffs), P(koffs),
-        bias_ptr, int(bh_offset), b, h, sq, sk, *strides,
+        bias_ptr, int(bh_offset), int(head_offset),
+        h if global_heads is None else int(global_heads), b, h, sq, sk, *strides,
         float(softmax_scale), int(causal), *_dropout_args(dropout_p, seed),
         _k5_key_tile(max(sq, sk), inst, bias is not None), inst,
         _build.DTYPE_CODE[q.dtype])
@@ -446,7 +460,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         softmax_scale: Optional[float] = None,
                         dropout_p: float = 0.0, seed=(0, 0),
                         q_offsets=None, k_offsets=None, bh_offset: int = 0,
-                        attn_bias=None):
+                        attn_bias=None, head_offset: int = 0,
+                        global_heads=None):
     """Gradients (dq, dk, dv) of the flash forward, and with ``attn_bias``
     also dbias (b, h, sq, sk) f32 (not summed over broadcast dims: see
     :func:`reduce_dbias`). CPU tensors, and every call inside
@@ -459,7 +474,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
           else flash_attention_bwd_ref)
     return fn(q, k, v, out, lse, dout, causal=causal, softmax_scale=scale,
               dropout_p=dropout_p, seed=seed, q_offsets=q_offsets,
-              k_offsets=k_offsets, bh_offset=bh_offset, attn_bias=attn_bias)
+              k_offsets=k_offsets, bh_offset=bh_offset, attn_bias=attn_bias,
+              head_offset=head_offset, global_heads=global_heads)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -473,8 +489,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, scale, dropout_p, seed,
-                use_kernel):
-        kw = dict(causal=causal, dropout_p=dropout_p, seed=seed)
+                use_kernel, shard):
+        kw = dict(causal=causal, dropout_p=dropout_p, seed=seed, **shard)
         if use_kernel:
             out, lse = _flash_fwd_kernel(q, k, v, scale=scale,
                                          seq_lengths=None, q_offsets=None,
@@ -500,7 +516,7 @@ class _FlashAttention(torch.autograd.Function):
         else:
             grads = flash_attention_bwd_ref(*qkv_out_lse, dout, **kw)
         dbias = reduce_dbias(grads[3], bias) if bias_grad else None
-        return (*grads[:3], dbias, None, None, None, None, None)
+        return (*grads[:3], dbias, None, None, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -511,7 +527,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     dropout_rng: Optional[torch.Tensor] = None,
                     q_offsets=None,
                     attn_bias=None,
-                    return_lse: bool = False):
+                    return_lse: bool = False,
+                    bh_offset: int = 0,
+                    head_offset: int = 0,
+                    global_heads: Optional[int] = None):
     """q (b, sq, h, d); k, v (b, sk, h, d) -> (b, sq, h, d) in q's dtype
     [, lse (b, h, sq) f32]. CPU tensors, and every call inside
     ``_build.plain_path()``, take :func:`flash_attention_ref`; otherwise a
@@ -525,7 +544,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The ragged/offset entry (``seq_lengths`` or ``q_offsets``) is forward
     only on the card, as JAX's: it raises when a gradient would be
     recorded; its plain version (CPU tensors, ``plain_path()``) is eager
-    PyTorch and differentiable."""
+    PyTorch and differentiable.
+    bh_offset, head_offset, global_heads: a data and head shard of a larger
+    call (tensor and data parallelism): batch row 0 is row bh_offset of the
+    unsharded batch and the h heads are heads [head_offset, head_offset +
+    h) of global_heads (h by default), so the dropout mask is the slice of
+    the unsharded call's."""
     seed = (0, 0)
     if dropout_p > 0.0:
         if dropout_rng is None:
@@ -537,10 +561,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (q, k, v, attn_bias))
     ragged = seq_lengths is not None or q_offsets is not None
+    shard = dict(bh_offset=int(bh_offset), head_offset=int(head_offset),
+                 global_heads=None if global_heads is None else int(global_heads))
     if needs_grad and not ragged:
         out, lse = _FlashAttention.apply(q, k, v, attn_bias, causal,
                                          float(scale), float(dropout_p), seed,
-                                         use_kernel)
+                                         use_kernel, shard)
         return (out, lse) if return_lse else out
     if needs_grad and use_kernel:
         raise RuntimeError(
@@ -552,7 +578,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # through its eager ops): the forward alone, without the autograd
     # Function's overhead
     kw = dict(causal=causal, seq_lengths=seq_lengths, q_offsets=q_offsets,
-              dropout_p=dropout_p, seed=seed)
+              dropout_p=dropout_p, seed=seed, **shard)
     if use_kernel:
         out, lse = _flash_fwd_kernel(q, k, v, scale=scale, bias=attn_bias,
                                      **kw)
@@ -575,20 +601,23 @@ def _seed_words(seed) -> Tuple[int, int]:
 
 def flash_fwd(q, k, v, seq_lengths, scale, causal, block_q: int = 512,
               block_k: int = 512, *, dropout_p: float = 0.0, seed=None,
-              q_offsets=None, bias=None, k_offsets=None, bh_offset=None):
+              q_offsets=None, bias=None, k_offsets=None, bh_offset=None,
+              head_offset: int = 0, global_heads=None):
     """JAX's ``_flash_fwd`` (:298) at its signature and layout: q (b, h, sq,
     d), k and v (b, h, sk, d) -> (out (b, h, sq, d), lse (b, h, sq) f32).
     q_offsets, k_offsets: (b,) or scalar absolute positions of query row 0
     and key column 0 (causality uses their difference, the dropout hash the
     absolute ones); bh_offset: the global index of batch row 0; seed: the
     dropout seed words; bias: an additive score bias (b|1, h|1, sq, sk) or
-    (sq, sk). The ring's forward building block: K3 on a CUDA tensor (the
+    (sq, sk); head_offset, global_heads: a head shard's place among the
+    unsharded call's heads (the dropout stream). The ring's forward building block: K3 on a CUDA tensor (the
     (b, s, h, d) views of the operands, no copy), else its plain version.
     block_q / block_k: the TPU's tiling, not used."""
     del block_q, block_k
     kw = dict(causal=causal, seq_lengths=seq_lengths, q_offsets=q_offsets,
               k_offsets=k_offsets, bh_offset=int(bh_offset or 0),
-              dropout_p=dropout_p, seed=_seed_words(seed))
+              dropout_p=dropout_p, seed=_seed_words(seed),
+              head_offset=int(head_offset), global_heads=global_heads)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if q.is_cuda and _build.kernels_enabled():
         out, lse = _flash_fwd_kernel(qt, kt, vt, scale=float(scale),
@@ -601,7 +630,8 @@ def flash_fwd(q, k, v, seq_lengths, scale, causal, block_q: int = 512,
 
 def flash_bwd(q, k, v, out, lse, g, seed, scale, causal, block_q: int = 512,
               block_k: int = 512, dropout_p: float = 0.0, bias=None,
-              q_offsets=None, k_offsets=None, bh_offset=None):
+              q_offsets=None, k_offsets=None, bh_offset=None,
+              head_offset: int = 0, global_heads=None):
     """JAX's ``_flash_bwd`` (:794) at its signature and layout: q, out, g
     (b, h, sq, d), k, v (b, h, sk, d), lse (b, h, sq) -> (dq, dk, dv,
     dbias) in the (b, h, s, d) layout; dbias is None without a bias, else
@@ -614,7 +644,8 @@ def flash_bwd(q, k, v, out, lse, g, seed, scale, causal, block_q: int = 512,
     kw = dict(causal=causal, softmax_scale=float(scale), dropout_p=dropout_p,
               seed=_seed_words(seed), q_offsets=q_offsets,
               k_offsets=k_offsets, bh_offset=int(bh_offset or 0),
-              attn_bias=bias)
+              attn_bias=bias, head_offset=int(head_offset),
+              global_heads=global_heads)
     args = [x.transpose(1, 2) for x in (q, k, v, out)] + [lse, g.transpose(1, 2)]
     fn = (_flash_bwd_kernel if q.is_cuda and _build.kernels_enabled()
           else flash_attention_bwd_ref)

@@ -267,14 +267,6 @@ def broadcast_params(params: Params, src: int = 0) -> None:
             mesh_lib.broadcast_(t, src)
 
 
-def _update_count(opt: train_lib.Optimizer) -> int:
-    """The updates the optimizer has taken (optax's count)."""
-    for state in opt.adamw.state.values():
-        if "step" in state:
-            return int(state["step"])
-    return 0
-
-
 def make_cp_train_step(cfg, tx: train_lib.Optimizer, mesh, *,
                        attn_impl: str = "einsum", train: bool = False,
                        layout: str = "natural",
@@ -291,7 +283,7 @@ def make_cp_train_step(cfg, tx: train_lib.Optimizer, mesh, *,
         loss = loss_fn(params, ids, rng)
         loss.backward()
         reduce_grads(params)
-        opt.step(_update_count(opt))
+        opt.step()
         return params, opt, loss.detach()
 
     return step

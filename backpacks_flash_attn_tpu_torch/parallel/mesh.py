@@ -250,6 +250,274 @@ def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     return t
 
 
+# ---------------------------------------------------------------- training collectives
+#
+# The sharded train step's collectives (``training/train.py``): Megatron's
+# three autograd regions over the 'model' group, and the 'data' group's
+# reduce-scatter and all-gather of slices for ZeRO. They are built on
+# all_reduce_ and all_gather above, so on gloo a CUDA tensor goes through
+# host memory, and each counts as one hop in HOP_STATS (the device work
+# queued before it is waited for first, as a staged ring hop's is).
+
+
+def _group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _counted(t: torch.Tensor, nbytes: int, fn):
+    """fn() as one hop of HOP_STATS moving nbytes."""
+    if t.is_cuda and host_staged():
+        torch.cuda.current_stream(t.device).synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    dt = time.perf_counter() - t0
+    HOP_STATS["hops"] += 1
+    HOP_STATS["bytes"] += nbytes
+    HOP_STATS["seconds"] += dt
+    HOP_STATS["wait_seconds"] += dt
+    return out
+
+
+def group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: ``t`` summed over the group, in t's dtype (bf16 and
+    f16 sum in f32, then round once)."""
+    buf = t.detach().float() if t.dtype in (torch.bfloat16, torch.float16) else \
+        t.detach().clone()
+    _counted(buf, buf.numel() * buf.element_size(), lambda: all_reduce_(buf, group))
+    return buf.to(t.dtype)
+
+
+def group_max(t: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: the elementwise max of ``t`` over the group."""
+    buf = t.detach().clone()
+    if buf.is_cuda and host_staged():
+        host = buf.cpu()
+        _counted(buf, host.numel() * host.element_size(),
+                 lambda: dist.all_reduce(host, op=dist.ReduceOp.MAX, group=group))
+        return host.to(buf.device)
+    _counted(buf, buf.numel() * buf.element_size(),
+             lambda: dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group))
+    return buf
+
+
+def all_gather_slices(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's slice of a tensor split along ``dim`` (the same shape on
+    every rank), concatenated in group-rank order: the whole tensor."""
+    n = _group_size(group)
+    if n == 1:
+        return t
+    parts = _counted(t, t.numel() * t.element_size() * n,
+                     lambda: all_gather(t, group))
+    return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice along ``dim`` of ``t`` summed over the group (the
+    slices in group-rank order; the dim must divide). On gloo, which has no
+    reduce-scatter, an all-reduce and the slice (twice the bytes); on NCCL
+    ``reduce_scatter_tensor``."""
+    n = _group_size(group)
+    if n == 1:
+        return t
+    i = dist.get_rank(group)
+    c = t.shape[dim] // n
+    if host_staged() or not t.is_cuda:
+        return group_sum(t, group).narrow(dim, i * c, c).contiguous()
+    src = t.detach().movedim(dim, 0).contiguous()
+    out = torch.empty((c, *src.shape[1:]), dtype=src.dtype, device=src.device)
+    _counted(src, src.numel() * src.element_size(),
+             lambda: dist.reduce_scatter_tensor(out, src, group=group))
+    return out.movedim(0, dim).contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f: the identity forward, the gradient summed over the
+    group backward (the input of a column-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return group_sum(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g: the partial sums summed over the group forward, the
+    identity backward (the output of a row-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """Every rank's slice along ``dim`` gathered forward, this rank's slice
+    of the gradient backward (the gathered tensor feeds replicated work,
+    whose gradient is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
+        return all_gather_slices(x.contiguous(), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _GatherScatter(torch.autograd.Function):
+    """ZeRO-3's gather of a parameter's 'data' slices: all-gather forward,
+    the gradient reduce-scattered backward (each rank's gradient differs:
+    its own rows)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_slices(x.detach().contiguous(), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """a @ b over the last dims, accumulated in f32 and rounded to dtype
+    (bf16 operands and result: one bf16 product, as the single-device
+    linears make it)."""
+    a2 = a.reshape(-1, a.shape[-1])
+    out = a2 @ b if a2.dtype == b.dtype == dtype == torch.bfloat16 else \
+        (a2.float() @ b.float()).to(dtype)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+class _ColumnLinear(torch.autograd.Function):
+    """A column-parallel linear with Megatron's f fused in: y = x @ W + b
+    in x's dtype (the single-device product); backward, dW and db as
+    autograd makes them, and dx's partial products (this rank's columns)
+    in f32, summed over the group in f32 and rounded once, so that no
+    rank's partial is rounded to bf16 before the sum."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, group):
+        ctx.save_for_backward(x, w)
+        ctx.group, ctx.b_dtype = group, None if b is None else b.dtype
+        y = _mm(x, w, x.dtype)
+        if b is not None:
+            y = y + b.to(y.dtype) if y.dtype == torch.bfloat16 else \
+                (y.float() + b.float()).to(y.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = group_sum(g2.float() @ w.float().t(), ctx.group).to(x.dtype)
+        dw = _mm(x.reshape(-1, x.shape[-1]).t(), g2.to(x.dtype), w.dtype)
+        db = None if ctx.b_dtype is None else g2.float().sum(0).to(ctx.b_dtype)
+        return dx.reshape(x.shape), dw, db, None
+
+
+class _RowPartial(torch.autograd.Function):
+    """This rank's partial product of a row-parallel linear, x @ W_rows,
+    in f32 (summed over the group before it is rounded); backward dx and
+    dW in the operands' dtype, as the single-device product's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm(x, w, torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dw = _mm(x.reshape(-1, x.shape[-1]).t(), g.reshape(-1, g.shape[-1]), w.dtype)
+        return _mm(g, w.t(), x.dtype), dw
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    return x if _group_size(group) == 1 else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    return x if _group_size(group) == 1 else _ReduceFrom.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return x if _group_size(group) == 1 else _GatherFrom.apply(x, dim % x.dim(), group)
+
+
+def gather_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return x if _group_size(group) == 1 else _GatherScatter.apply(x, dim % x.dim(), group)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """Where a rank's part of a sharded training step sits (the models'
+    ``shard=`` argument): the 'model' group (None: no tensor parallelism),
+    this rank's index in it and its size, and the global index of this
+    rank's first batch row (its 'data' shard). The forward then computes
+    ``n_head / size`` heads, ``num_senses / size`` senses, vocab-sharded
+    logits, and every dropout mask of the unsharded step."""
+    group: Any = None
+    rank: int = 0
+    size: int = 1
+    row_offset: int = 0
+
+    @property
+    def tp(self) -> bool:
+        return self.size > 1
+
+    def reduce_from(self, x):
+        return reduce_from(x, self.group) if self.tp else x
+
+    def gather_from(self, x, dim: int):
+        return gather_from(x, dim, self.group) if self.tp else x
+
+    def column(self, x, p):
+        """A column-parallel linear {'kernel', 'bias'?} of this rank's
+        columns on the replicated x (:class:`_ColumnLinear`)."""
+        return _ColumnLinear.apply(x, p["kernel"], p.get("bias"), self.group)
+
+    def row(self, x, p):
+        """A row-parallel linear: this rank's rows of the kernel on its
+        slice of x, the f32 partials summed over the group and rounded to
+        x's dtype once, the bias added after (as the single-device
+        linear adds it)."""
+        y = reduce_from(_RowPartial.apply(x, p["kernel"]), self.group).to(x.dtype)
+        b = p.get("bias")
+        if b is None:
+            return y
+        return y + b.to(y.dtype) if y.dtype == torch.bfloat16 else \
+            (y.float() + b.float()).to(y.dtype)
+
+    def token_index(self, b: int, s: int, d: int, device) -> Optional[torch.Tensor]:
+        """The flat positions of this rank's (b, s, d) elements in the
+        unsharded (B, s, d) tensor, which the per-token dropout sites hash
+        (None for the first data shard: its own positions)."""
+        if self.row_offset == 0:
+            return None
+        rows = torch.arange(b, device=device) + self.row_offset
+        pos = rows[:, None] * s + torch.arange(s, device=device)[None, :]
+        return pos[:, :, None] * d + torch.arange(d, device=device)
+
+
+def shard_of(mesh: DeviceMesh, rows_per_rank: int = 0) -> Shard:
+    """This rank's :class:`Shard` on a ('data', 'model') mesh, its data
+    shard ``rows_per_rank`` rows."""
+    i, n = coord(mesh, "model")
+    di, _ = coord(mesh, "data")
+    return Shard(mesh.get_group("model") if n > 1 else None, i, n, di * rows_per_rank)
+
+
 # ---------------------------------------------------------------- specs
 
 Spec = Tuple[Optional[str], ...]
@@ -385,30 +653,83 @@ def map_with_specs(fn, tree: Any, specs: Any) -> Any:
     return tree
 
 
+def _names(entry) -> Tuple[str, ...]:
+    """The mesh dimensions of one spec entry: None, a name, or a tuple of
+    names (the dimension split over the first, each chunk over the next,
+    as JAX's P(('model', 'data')))."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
 def shard_tensor(t: torch.Tensor, spec: Spec, mesh: DeviceMesh) -> torch.Tensor:
     """This rank's slice of ``t`` under ``spec``: each named dimension cut
     into as many equal chunks as the mesh dimension has ranks, chunk =
     this rank's coordinate (a contiguous copy)."""
-    for dim, name in enumerate(spec):
-        if name is None:
-            continue
-        i, n = coord(mesh, name)
-        if t.shape[dim] % n:
-            raise ValueError(f"dimension {dim} of a {tuple(t.shape)} tensor does "
-                             f"not divide over the {n} ranks of mesh dimension "
-                             f"{name!r}")
-        c = t.shape[dim] // n
-        t = t.narrow(dim, i * c, c)
+    for dim, entry in enumerate(spec):
+        for name in _names(entry):
+            i, n = coord(mesh, name)
+            if t.shape[dim] % n:
+                raise ValueError(f"dimension {dim} of a {tuple(t.shape)} tensor does "
+                                 f"not divide over the {n} ranks of mesh dimension "
+                                 f"{name!r}")
+            c = t.shape[dim] // n
+            t = t.narrow(dim, i * c, c)
     return t.contiguous().clone() if spec and any(spec) else t
 
 
 def gather_tensor(t: torch.Tensor, spec: Spec, mesh: DeviceMesh) -> torch.Tensor:
     """The inverse of :func:`shard_tensor`: the slices of every rank of
     each named mesh dimension, concatenated in coordinate order."""
-    for dim, name in enumerate(spec):
-        if name is not None and coord(mesh, name)[1] > 1:
-            t = torch.cat(all_gather(t, mesh.get_group(name)), dim=dim)
+    for dim, entry in enumerate(spec):
+        for name in reversed(_names(entry)):
+            if coord(mesh, name)[1] > 1:
+                t = torch.cat(all_gather(t, mesh.get_group(name)), dim=dim)
     return t
+
+
+def spec_names(spec: Spec) -> Tuple[str, ...]:
+    """Every mesh dimension a spec shards over."""
+    return tuple(n for entry in spec for n in _names(entry))
+
+
+def with_data(spec: Spec, dim: int) -> Spec:
+    """``spec`` with dimension ``dim`` also split over 'data' (after any
+    name it has)."""
+    parts = list(spec) + [None] * (dim + 1 - len(spec))
+    parts[dim] = _names(parts[dim]) + ("data",) if parts[dim] is not None else "data"
+    return tuple(parts)
+
+
+def _packs_major(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """The last axis from (a, b, rest)-major to (b, a, rest)-major."""
+    y = x.reshape(*x.shape[:-1], a, b, x.shape[-1] // (a * b))
+    return y.transpose(-3, -2).reshape(x.shape)
+
+
+def train_layout(params: Any, cfg: GPTConfig, tp: int, inverse: bool = False) -> Any:
+    """The packed projections' out columns reordered so that the 'model'
+    rank r's contiguous chunk (``shard_tensor`` of the column-parallel
+    spec) holds its groups in the unsharded packing: the GPT Wqkv's (3,
+    n_head, head_dim) columns become (tp, 3, n_head / tp, head_dim)-major,
+    the contextualization Wqkv's (2, nv, dnv) (tp, 2, nv / tp, dnv)-major.
+    Rank r then holds q, k and v of heads [r h / tp, (r + 1) h / tp) in
+    the (3, h / tp, dh) order the forward reshapes. inverse: back to the
+    unsharded layout. A new tree (the other leaves shared); tp 1 is the
+    identity."""
+    if tp == 1:
+        return params
+    a_b = lambda packs: (tp, packs) if inverse else (packs, tp)
+
+    def lin(p, packs):
+        return {k: _packs_major(v, *a_b(packs)) for k, v in p.items()}
+
+    gp = params["gpt"] if "gpt" in params else params
+    out_gp = dict(gp, layers=dict(gp["layers"], Wqkv=lin(gp["layers"]["Wqkv"], 3)))
+    if "gpt" not in params:
+        return out_gp
+    return dict(params, gpt=out_gp,
+                ctx_attn=dict(params["ctx_attn"], Wqkv=lin(params["ctx_attn"]["Wqkv"], 2)))
 
 
 def shard_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:

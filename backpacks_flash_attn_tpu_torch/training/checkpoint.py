@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .ema import EMAState
-from .train import TrainState, named_leaves
+from .train import TrainState, _state_tree, named_leaves
 
 SEP = "/"
 AUTO_SAVE = "auto_save.ckpt.npz"
@@ -83,40 +83,57 @@ def _tree_like(paths, tensors) -> dict:
 
 def train_state_tree(state: TrainState) -> dict:
     """The JAX TrainState's tree: params, optax's AdamW moments and counts,
-    step (int32)."""
+    step (int32). A sharded step's state (``train.make_sharded_train_step``)
+    gives the whole tree on every rank: its slices gathered. Under
+    gradient accumulation also "accum": the calls into the current
+    accumulation and the running mean of their gradients."""
     opt = state.opt_state
-    mu, nu = [], []
-    count = 0
-    for p in opt.params:
-        st = opt.adamw.state.get(p, {})
-        mu.append(st.get("exp_avg", torch.zeros_like(p)))
-        nu.append(st.get("exp_avg_sq", torch.zeros_like(p)))
-        if "step" in st:
-            count = int(st["step"])
-    count = np.int32(count)
-    adam = {"count": count, "mu": _tree_like(opt.paths, mu),
-            "nu": _tree_like(opt.paths, nu)}
-    return {"params": state.params,
-            "opt_state": {"0": {}, "1": {"0": adam, "1": {}, "2": {"count": count}}},
-            "step": np.int32(state.step)}
+    sharding = getattr(opt, "sharding", None)
+    if sharding is not None:
+        tree = sharding.state_tree(state)
+    else:
+        mu, nu = [], []
+        for p in opt.params:
+            st = opt.adamw.state.get(p, {})
+            mu.append(st.get("exp_avg", torch.zeros_like(p)))
+            nu.append(st.get("exp_avg_sq", torch.zeros_like(p)))
+        tree = _state_tree(state.params, _tree_like(opt.paths, mu),
+                           _tree_like(opt.paths, nu), opt.update_count(), state.step)
+    if opt.accum_steps > 1:
+        acc = opt.acc if opt.acc is not None else [torch.zeros_like(p) for p in opt.params]
+        tree["accum"] = {"mini_step": np.int32(opt.mini_step),
+                         "acc": (sharding.global_tree(acc, opt=True) if sharding is not None
+                                 else _tree_like(opt.paths, acc))}
+    return tree
 
 
 @torch.no_grad()
 def load_train_state(state: TrainState, tree: dict) -> TrainState:
-    """Copy a restored ``train_state_tree`` into ``state`` in place."""
+    """Copy a restored ``train_state_tree`` into ``state`` in place (a
+    sharded state takes its slices)."""
     opt = state.opt_state
-    adam = tree["opt_state"]["1"]["0"]
-    mu = dict(named_leaves(adam["mu"]))
-    nu = dict(named_leaves(adam["nu"]))
-    new = dict(named_leaves(tree["params"]))
-    count = int(adam["count"])
-    for path, p in zip(opt.paths, opt.params):
-        p.copy_(new[path].to(p.device))
-        opt.adamw.state[p] = {
-            "step": torch.tensor(float(count)),
-            "exp_avg": mu[path].to(device=p.device, dtype=p.dtype),
-            "exp_avg_sq": nu[path].to(device=p.device, dtype=p.dtype)}
-    state.step = int(tree["step"])
+    sharding = getattr(opt, "sharding", None)
+    if sharding is not None:
+        sharding.load_state_tree(state, tree)
+    else:
+        adam = tree["opt_state"]["1"]["0"]
+        mu = dict(named_leaves(adam["mu"]))
+        nu = dict(named_leaves(adam["nu"]))
+        new = dict(named_leaves(tree["params"]))
+        count = int(adam["count"])
+        for path, p in zip(opt.paths, opt.params):
+            p.copy_(new[path].to(p.device))
+            opt.adamw.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu[path].to(device=p.device, dtype=p.dtype),
+                "exp_avg_sq": nu[path].to(device=p.device, dtype=p.dtype)}
+        state.step = int(tree["step"])
+    if "accum" in tree:
+        acc = tree["accum"]["acc"]
+        local = (sharding.local_tensors(acc, opt=True) if sharding is not None
+                 else [dict(named_leaves(acc))[path] for path in opt.paths])
+        opt.acc = [a.to(device=p.device, dtype=p.dtype) for a, p in zip(local, opt.params)]
+        opt.mini_step = int(tree["accum"]["mini_step"])
     return state
 
 

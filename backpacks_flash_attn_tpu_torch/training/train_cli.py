@@ -1,4 +1,4 @@
-"""Training CLI, on one device or context-parallel over a world of ranks.
+"""Training CLI, on one device or sharded over a world of ranks.
 
 Port of ``backpacks_flash_attn_tpu/training/train_cli.py``: mode
 train|smoke|profile (smoke runs 3 steps and writes no checkpoint; profile
@@ -8,20 +8,39 @@ data sampler's position), speed and metrics logging with the analytic
 FLOP count, and the validation perplexity at the end. There is no
 ``--use-flash``: attention always takes the flash kernels.
 
-``--cp N`` (with ``--dp M``) trains the Backpack model context-parallel,
-as JAX's CLI does (:115-126): the sequence split over N ranks of a ring
-(``--cp-layout natural|zigzag``; ``--cp-attn-impl flash|einsum``, the GPT
-attention's inner block), the batch over M, one process a rank started
-by ``parallel/launch.py`` (``--dist-backend``: nccl needs a GPU a rank,
-gloo runs several ranks on one card or the CPU; the default is nccl on
-cuda, gloo on the CPU). Rank 0 logs and writes the checkpoints. Tensor
-parallelism, ZeRO/FSDP (``--tp``, ``--zero*``) and data parallelism alone
-(``--dp`` at ``--cp 1``) wait for ROADMAP Queue 1 item 6 and raise.
+A world of ranks, one process each, started by ``parallel/launch.py``
+(``--dist-backend``: nccl needs a GPU a rank, gloo runs several ranks on
+one card or on the CPU; the default is nccl on cuda, gloo on the CPU);
+rank 0 logs and writes the checkpoints:
+
+  * ``--dp M --tp N`` (JAX :128-135): ``training/train.py``'s sharded step
+    over a ('data' M, 'model' N) mesh, M x N ranks: the batch split over
+    'data', the layers Megatron-sharded over 'model' (heads, MLP columns,
+    the vocabulary, the Backpack's senses); ``--zero1``/``--zero2`` shard
+    the AdamW moments (and the gradients) over 'data', ``--zero3`` the
+    parameters too. A checkpoint holds the whole tree: it resumes at any
+    layout (``--tp 1`` included).
+  * ``--cp N`` (with ``--dp M``) trains the Backpack model
+    context-parallel (JAX :115-126): the sequence split over N ranks of a
+    ring (``--cp-layout natural|zigzag``; ``--cp-attn-impl flash|einsum``,
+    the GPT attention's inner block), the batch over M. Not with ``--tp``,
+    ``--zero*`` or ``--accum-steps``, as in JAX.
+
+``--accum-steps K`` averages K steps' gradients into one update (each
+step's batch is one micro-batch); ``--remat none|full|dots``
+rematerializes the blocks in the backward (``models/gpt.remat_wrap``).
+``--eval-every K`` logs the validation perplexity every K steps (0: at the
+end only).
+
+On the CPU a sharded run is a gloo world of processes, e.g. ``--device cpu
+--dp 2 --tp 2`` (4 processes). On one GPU, several ranks share the card
+over gloo (``--dist-backend gloo``), each hop through host memory.
 
 Usage:
     python -m backpacks_flash_attn_tpu_torch.training.train_cli \\
         --corpus tokens.npy --model backpack-micro --steps 1000 \\
-        --batch-size 8 --seqlen 512 --workdir runs/bp-micro [--cp 2]
+        --batch-size 8 --seqlen 512 --workdir runs/bp-micro \\
+        [--dp 2 --tp 2 --zero1 true] [--cp 2] [--accum-steps 4] [--remat full]
 """
 
 from __future__ import annotations
@@ -69,7 +88,7 @@ class RunConfig:
     cp_layout: str = "natural"        # natural | zigzag (load-balanced)
     cp_attn_impl: str = "flash"       # flash | einsum ring inner block
     dist_backend: str = ""            # nccl | gloo; "" = nccl on cuda, gloo on cpu
-    remat: str = "none"
+    remat: str = "none"               # none | full | dots (models/gpt.remat_wrap)
     zero1: bool = False
     zero2: bool = False
     zero3: bool = False
@@ -78,6 +97,7 @@ class RunConfig:
     keep_last: int = 3
     log_every: int = 10
     val_fraction: float = 0.0005      # tail of the corpus held out for ppl
+    eval_every: int = 0               # 0 = only at end
     dtype: str = "float32"
     device: str = "cuda"
 
@@ -95,19 +115,21 @@ _MODELS = {
 
 
 def _check_parallel(rc: RunConfig) -> None:
-    """CP composes with DP; the rest of item 6 is refused."""
-    if rc.tp != 1 or rc.zero1 or rc.zero2 or rc.zero3:
-        raise NotImplementedError(
-            "--tp and --zero1/2/3 are not ported yet (ROADMAP Queue 1 item 6: "
-            "the TP specs of parallel/mesh.py, the ZeRO/FSDP steps): run with "
-            "--tp 1 and them off")
-    if rc.cp == 1 and rc.dp != 1:
-        raise NotImplementedError(
-            "--dp without --cp (the sharded train step of training/train.py) "
-            "is not ported yet (ROADMAP Queue 1 item 6): run with --dp 1, or "
-            "with --cp > 1")
+    """CP composes with DP only, as in JAX (:118-120)."""
+    if rc.cp > 1 and (rc.tp != 1 or rc.zero1 or rc.zero2 or rc.zero3):
+        raise ValueError("--cp composes with --dp only (TP/ZeRO: the sharded "
+                         "step, --cp 1)")
     if rc.cp > 1 and not rc.model.startswith("backpack"):
         raise ValueError("--cp drives the Backpack model (as JAX's CLI)")
+    if rc.cp > 1 and rc.accum_steps != 1:
+        raise ValueError("--cp does not support --accum-steps")
+    if rc.remat not in gpt_lib.REMAT_MODES:
+        raise ValueError(f"--remat is one of {gpt_lib.REMAT_MODES}, got {rc.remat!r}")
+    if rc.cp > 1 and rc.remat != "none":
+        raise ValueError("--cp runs without --remat")
+    if rc.cp == 1 and rc.dp * rc.tp > 1 and rc.ema_decay > 0:
+        raise ValueError("--ema-decay takes a run on one device or --cp (a sharded "
+                         "run's parameters are its shards)")
 
 
 def build_model(rc: RunConfig, device):
@@ -130,7 +152,7 @@ def _backend(rc: RunConfig) -> str:
 
 
 def _run_rank(fields: Dict[str, Any]) -> Dict[str, Any]:
-    """One rank of a --cp world (parallel/launch.py's target)."""
+    """One rank of a --cp or sharded world (parallel/launch.py's target)."""
     return run(RunConfig(**fields))
 
 
@@ -146,7 +168,7 @@ class _Quiet:
 
 def run(rc: RunConfig) -> Dict[str, Any]:
     _check_parallel(rc)
-    world = rc.dp * rc.cp
+    world = rc.dp * (rc.cp if rc.cp > 1 else rc.tp)
     if world > 1 and not torch.distributed.is_initialized():
         from ..parallel import launch
         return launch.run_world(
@@ -169,13 +191,19 @@ def run(rc: RunConfig) -> Dict[str, Any]:
         warmup_steps=rc.warmup_steps, total_steps=rc.steps,
         grad_clip=rc.grad_clip, accum_steps=rc.accum_steps,
         schedule=rc.lr_schedule)
-    if world > 1:
+    if rc.cp > 1:
         from ..parallel import cp_train as cp_lib
         from ..parallel import mesh as mesh_lib
-        gpt_lib.check_remat(rc.remat)
         mesh = mesh_lib.make_cp_mesh(rc.dp, rc.cp)
         step_fn, init = cp_lib.make_cp_sharded_train_step(
             cfg, opt, mesh, attn_impl=rc.cp_attn_impl, layout=rc.cp_layout)
+        state = init(params)
+    elif world > 1:
+        from ..parallel import mesh as mesh_lib
+        mesh = mesh_lib.make_mesh(rc.dp, rc.tp)
+        step_fn, init = train_lib.make_sharded_train_step(
+            cfg, opt, mesh, model=kind, remat=rc.remat, zero1=rc.zero1,
+            zero2=rc.zero2, zero3=rc.zero3)
         state = init(params)
     else:
         state = train_lib.TrainState(params, opt, 0)
@@ -211,6 +239,38 @@ def run(rc: RunConfig) -> Dict[str, Any]:
     logger.log(start_step, {"flops_per_step": cb.flop_count(
         cfg, params, rc.batch_size, rc.seqlen)})
 
+    from ..eval.perplexity import evaluate_perplexity
+    if kind == "backpack":
+        def fwd(p, x):
+            return bp_lib.backpack_forward(p, cfg, x)
+    else:
+        def fwd(p, x):
+            return gpt_lib.gpt_lm_forward(p, cfg, x)
+    # a sharded state's whole tree is a gather, which every rank joins: so
+    # every rank takes part in the checkpoints and validations (rank 0
+    # writes and evaluates), and there is no crash auto-save (a failed
+    # rank would not join it)
+    sharded = getattr(state.opt_state, "sharding", None) is not None
+
+    def validate(at: int) -> Dict[str, float]:
+        params_now = (ema.shadow if ema is not None
+                      else ckpt_lib.train_state_tree(state)["params"] if sharded
+                      else state.params)
+        if not lead:
+            return {}
+        val = evaluate_perplexity(fwd, val_tokens, rc.seqlen,
+                                  min(rc.batch_size, 4), max_batches=50,
+                                  params=params_now, device=device)
+        logger.log(at, {f"val/{k}": v for k, v in val.items()})
+        return val
+
+    def checkpoint(at: int) -> None:
+        tree = current_state()
+        if lead:
+            ckpt_lib.save(rc.workdir, tree, step=at,
+                          meta={"sampler": dataclasses.asdict(sampler)},
+                          keep_last=rc.keep_last)
+
     prof = None
     if rc.mode == "profile":
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -222,8 +282,8 @@ def run(rc: RunConfig) -> Dict[str, Any]:
     metrics: Dict[str, Any] = {}
     with (ckpt_lib.auto_save_on_exception(
             rc.workdir, current_state, lambda: state.step,
-            meta={"sampler": dataclasses.asdict(sampler)}) if lead
-          else contextlib.nullcontext()):
+            meta={"sampler": dataclasses.asdict(sampler)})
+          if lead and not sharded else contextlib.nullcontext()):
         for i in range(start_step, steps):
             pre = speed.on_step_start()
             (x, y), sampler = next(stream)
@@ -242,11 +302,10 @@ def run(rc: RunConfig) -> Dict[str, Any]:
                 logged.update(pre)
                 logged.update(post)
                 logger.log(i, logged)
-            if lead and rc.mode == "train" and rc.ckpt_every and \
-                    (i + 1) % rc.ckpt_every == 0:
-                ckpt_lib.save(rc.workdir, current_state(), step=i + 1,
-                              meta={"sampler": dataclasses.asdict(sampler)},
-                              keep_last=rc.keep_last)
+            if rc.mode == "train" and rc.ckpt_every and (i + 1) % rc.ckpt_every == 0:
+                checkpoint(i + 1)
+            if rc.eval_every and (i + 1) % rc.eval_every == 0 and i + 1 < steps:
+                validate(i + 1)
 
     if prof is not None:
         prof.stop()
@@ -259,24 +318,9 @@ def run(rc: RunConfig) -> Dict[str, Any]:
         print(f"profile written to {trace}")
 
     final = {k: float(v) for k, v in metrics.items()}
-    if not lead:
-        return {"final_metrics": final, "val": {}, "steps": steps}
     if rc.mode == "train":
-        ckpt_lib.save(rc.workdir, current_state(), step=steps,
-                      meta={"sampler": dataclasses.asdict(sampler)},
-                      keep_last=rc.keep_last)
-    from ..eval.perplexity import evaluate_perplexity
-    eval_params = ema.shadow if ema is not None else state.params
-    if kind == "backpack":
-        def fwd(p, x):
-            return bp_lib.backpack_forward(p, cfg, x)
-    else:
-        def fwd(p, x):
-            return gpt_lib.gpt_lm_forward(p, cfg, x)
-    val = evaluate_perplexity(fwd, val_tokens, rc.seqlen,
-                              min(rc.batch_size, 4), max_batches=50,
-                              params=eval_params, device=device)
-    logger.log(steps, {f"val/{k}": v for k, v in val.items()})
+        checkpoint(steps)
+    val = validate(steps)
     logger.close()
     return {"final_metrics": final, "val": val, "steps": steps}
 

@@ -52,7 +52,7 @@ def _ideal_ops(fa, bk, which):
     plain versions) by the f32 computation on the same bf16 inputs."""
     ref_flash, ref_ctx = fa.flash_attention_ref, bk.contextualization_reference
 
-    def flash_fwd(q, k, v, *, causal, scale, seq_lengths, q_offsets, dropout_p, seed):
+    def flash_fwd(q, k, v, *, causal, scale, seq_lengths, q_offsets, dropout_p, seed, **_):
         out, lse = ref_flash(q.float(), k.float(), v.float(), causal=causal,
                              softmax_scale=scale, seq_lengths=seq_lengths,
                              q_offsets=q_offsets, dropout_p=dropout_p, seed=seed,

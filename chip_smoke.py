@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases device,build,kernels,serve,engine,forward,train,
                                     longctx,train8k,generate,decode_kernels,mini,xl,
-                                    intervene,entry,cp,tp,encoders]
+                                    intervene,entry,cp,tp,shard,encoders]
                           [--out DIR]
 
 Phases, each printing one JSON line:
@@ -346,6 +346,27 @@ Phases, each printing one JSON line:
             logits under the 2x rule), three training steps at 32 (K3 and
             K5 12 each a step) and their gate. Every rate beside the card's
             name and power limit.
+
+19. shard  sharded training (phase_shard; run after tp, before encoders):
+            K3 and K5 on a head shard first (32 x 512, heads [6, 12) of
+            12, dropout 0.1, against their plain versions at the same
+            offset). backpack-small at full width and depth, bf16, dropout
+            0.1, at gate_weights (8 x 512): a world of 2 processes (gloo).
+            (A) make_sharded_train_step at (data 1, model 2), both combine
+            routes: the loss, gradients and grad norm against the
+            single-device step under train-8k's rule (2x the single-device
+            bf16 step's error against the f32 step), then 1 + 2 steps at
+            8 x 512: ms a step beside the single-device step's, tokens/s,
+            hops, bytes and ms in hops a step, peak memory a rank; K3 and
+            K5 12 a step a rank and K4 and K6 once on the fused route,
+            exact. (B) (data 2, model 1), the first 4 of the 12 GPT layers,
+            replicated and under ZeRO-1, -2 and -3: one gated step each,
+            one timed step, peak memory and the bytes of parameters and
+            moments a rank. (C) in this process at 32 x 512:
+            remat none, full and dots (einsum route): the gate, ms, peak
+            memory, K3 12 or 24 and K5 12 a step exact; then accum_steps=2
+            over the two 16 x 512 halves (dropout off) against the f32
+            step on the whole batch under the same rule.
 
 Then the {"kernels": [...]} line, the nvidia-smi name/power line, and last
 {"ok": true, "device": {...}}. Every number also goes to DIR/chip_smoke.json
@@ -835,23 +856,25 @@ def plain_attention_by_heads(q, k, v, *, scale, p, seed, heads, grads_of=None,
     return tuple(torch.cat(parts, dim=0) for parts in zip(*rows))
 
 
-def k5_case(label, q, k, v, dout, seed, p, scale, heads=None):
+def k5_case(label, q, k, v, dout, seed, p, scale, heads=None, shard=None):
     """K5 against its plain version (causal, dropout p), each backward from
     its own path's forward as in training (K3's for K5: the plain bf16
     forward rounds its scores to bf16, so its LSE lies off the f32 scores K5
     recomputes, and P with it); launch-gated, with device and host times;
     library = SDPA's autograd backward (its own dropout mask, so its error
     is not reported), timed on a graph built once. ``heads``: compute the
-    plain versions a few heads at a time (plain_attention_by_heads). Draws
-    no random numbers. Made outside inference mode."""
+    plain versions a few heads at a time (plain_attention_by_heads).
+    ``shard``: a head shard's {head_offset, global_heads} (the dropout
+    stream of a tensor-parallel rank's heads). Draws no random numbers.
+    Made outside inference mode."""
     from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
 
     b, s, h, d = q.shape
-    kw = dict(causal=True, softmax_scale=scale, dropout_p=p, seed=seed)
+    kw = dict(causal=True, softmax_scale=scale, dropout_p=p, seed=seed, **(shard or {}))
     q32, k32, v32, d32 = (t.float() for t in (q, k, v, dout))
     k3out, k3lse = fa._flash_fwd_kernel(q, k, v, scale=scale, seq_lengths=None,
                                         q_offsets=None, causal=True,
-                                        dropout_p=p, seed=seed)
+                                        dropout_p=p, seed=seed, **(shard or {}))
     if heads is None:
         fwd = lambda *t: fa.flash_attention_ref(*t, return_lse=True, **kw)
         bwd = lambda *t: fa.flash_attention_bwd_ref(*t, **kw)
@@ -3062,21 +3085,22 @@ HEAD_DIM_SHAPES = ((80, 32, 512, 8), (96, 2, 2048, 16), (128, 2, 2048, 16))
 HEAD_DIM_F32, HEAD_DIM_PADDED, HEAD_DIM_K9 = (1, 512, 8), (112, 2, 1024, 8), (2, 2048, 16)
 
 
-def _k3_train_case(label, q, k, v, p, seed):
+def _k3_train_case(label, q, k, v, p, seed, shard=None):
     """K3 (causal, dropout p) against its plain version at q's dtype, with
     launches, device and host times; library = SDPA (its own dropout mask:
-    its error is not reported when p > 0). Draws nothing."""
+    its error is not reported when p > 0). ``shard``: a head shard's
+    {head_offset, global_heads}. Draws nothing."""
     from backpacks_flash_attn_tpu_torch.ops import flash_attention as fa
 
     b, s, h, d = q.shape
     scale = d ** -0.5
-    kw = dict(causal=True, softmax_scale=scale, dropout_p=p, seed=seed)
+    kw = dict(causal=True, softmax_scale=scale, dropout_p=p, seed=seed, **(shard or {}))
     q32, k32, v32 = (t.float() for t in (q, k, v))
     qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
     case = dict(
         kernel=lambda: fa._flash_fwd_kernel(q, k, v, scale=scale, seq_lengths=None,
                                             q_offsets=None, causal=True,
-                                            dropout_p=p, seed=seed)[0],
+                                            dropout_p=p, seed=seed, **(shard or {}))[0],
         plain=lambda: fa.flash_attention_ref(q, k, v, **kw),
         ref=lambda: fa.flash_attention_ref(q32, k32, v32, **kw),
         library=lambda: F.scaled_dot_product_attention(
@@ -5498,6 +5522,469 @@ def phase_tp(results):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ shard
+
+SHARD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_shard"
+SHARD_RANKS, SHARD_SEED, SHARD_KERNEL_SEED, SHARD_IDS_SEED = 2, 26, 27, 28
+SHARD_BACKEND = "gloo"      # two ranks on one card: NCCL needs a GPU a rank
+SHARD_TIMEOUT, SHARD_PG_TIMEOUT = 600, 300
+SHARD_BATCH, SHARD_LEN = 8, 512
+SHARD_WARMUP, SHARD_TIMED = 1, 2
+# (B)'s depth: the first 4 of backpack-small's 12 GPT layers (all 12 drawn),
+# a cut that pays for the phase
+SHARD_ZERO_LAYERS = 4
+SHARD_OPT = dict(lr=6e-4, warmup_steps=10, total_steps=1000)
+# the gated step's optimizer: no clip (the gradients are read after it),
+# lr 0 at update 0 (the weights stay the gate's)
+SHARD_GATE_OPT = dict(SHARD_OPT, grad_clip=0.0)
+# K3's and K5's head-shard cases: a tensor-parallel rank's half of
+# backpack-small's 12 heads at the training shape
+SHARD_HEADS, SHARD_H0, SHARD_HG = 6, 6, 12
+SHARD_KERNEL_CASE = f"shard h0={SHARD_H0}/{SHARD_HG}"
+REMAT_BATCH, REMAT_TIMED = 32, 2
+
+
+def shard_kernel_cases(gen):
+    """K3 and K5 on a head shard (the shard phase's shapes): 32 x 512, heads
+    [6, 12) of 12 (q, k and v strided views of a rank's qkv projection, as
+    the tensor-parallel block makes them), d 64, bf16, causal, dropout 0.1,
+    against their plain versions at the same head offset (whose masks are
+    the slices of the unsharded call's), launch-gated, SDPA beside."""
+    bf = torch.bfloat16
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    b, s, h, d, p = TRAIN_BATCH, TRAIN_LEN, SHARD_HEADS, 64, 0.1
+    seed = (0x2468ACE, 0x13579BDF)
+    shard = dict(head_offset=SHARD_H0, global_heads=SHARD_HG)
+    qkv = randn(b, s, 3, h, d).to(bf)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    dout = randn(b, s, h, d).to(bf)
+    return [_k3_train_case(SHARD_KERNEL_CASE, q, k, v, p, seed, shard=shard),
+            k5_case(f"{SHARD_KERNEL_CASE} b={b} h={h} s={s} p={p}", q, k, v, dout, seed, p,
+                    d ** -0.5, shard=shard)]
+
+
+def _bp_picks(grads):
+    return {k: f(grads).float().cpu() for k, f in BP_PICKS.items()}
+
+
+def _bp_single_step(params, cfg, ids, key, dtype, fused):
+    """One device's loss and gradients of backpack_forward on ``ids`` with
+    the kernels in ``dtype`` (bf16; f32: the reference, the kernels' f32
+    forms), dropout on at ``key`` -> (per-token losses (b, s) f32, the
+    whole gradient f32 (cpu), picks, the global gradient norm)."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.ops.cross_entropy import cross_entropy
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+
+    p = tl.trainable(_map_tensors(params, lambda t: t.to(dtype)))
+    x, y = ids[:, :-1], ids[:, 1:]
+    per, _ = cross_entropy(bp.backpack_forward(p, cfg, x, train=True, rng=key,
+                                               fused_ctx=fused), y)
+    per.mean().backward()
+    grads = _map_tensors(p, lambda t: t.grad)
+    flat = torch.cat([g.reshape(-1).float() for _, g in tl.named_leaves(grads)])
+    out = per.detach().float(), flat.cpu(), _bp_picks(grads), flat.norm().item()
+    del p, grads
+    return out
+
+
+def _shard_gate_grads(state, cfg, ids, key, fused, mesh):
+    """The sharded step's loss and gradients without its update, on every
+    rank: the forward on this rank's rows and shards (through its ZeRO-3
+    gathers), the per-token losses gathered over 'data', the gradients
+    reduced as the step reduces them (``Sharding.reduce_grads``) and
+    gathered whole (the checkpoint's gather), their global norm as the step
+    takes it. -> (per-token (B, s) f32 cpu, whole gradient bf16 cpu, picks,
+    grad norm)."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.ops.cross_entropy import (
+        cross_entropy, vocab_parallel_cross_entropy)
+    from backpacks_flash_attn_tpu_torch.parallel import mesh as mesh_lib
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+
+    sharding = state.opt_state.sharding
+    b = ids.shape[0] // sharding.dn
+    shard = mesh_lib.shard_of(mesh, b)
+    rows = ids[shard.row_offset:shard.row_offset + b]
+    x, y = rows[:, :-1], rows[:, 1:]
+    for leaf in sharding.leaves:
+        leaf.param.grad = leaf.opt.grad = None
+    tree, hooks = sharding.forward_tree(state.params)
+    with hooks:
+        logits = bp.backpack_forward(tree, cfg, x, train=True, rng=key, fused_ctx=fused,
+                                     shard=shard)
+        per = (vocab_parallel_cross_entropy(logits, y, shard.group) if shard.tp
+               else cross_entropy(logits, y)[0])
+    (per.mean() / sharding.dn).backward()
+    del tree, logits
+    sharding.reduce_grads()
+    opt_grads = [leaf.opt.grad for leaf in sharding.leaves]
+    gnorm = sharding.norm(opt_grads).item()
+    grads = sharding.global_tree(opt_grads, opt=True)
+    flat = torch.cat([g.reshape(-1).float() for _, g in tl.named_leaves(grads)])
+    out = (mesh_lib.gather_rows(per.detach().float(), mesh).cpu(),
+           flat.to(torch.bfloat16).cpu(), _bp_picks(grads), gnorm)
+    for leaf in sharding.leaves:
+        leaf.param.grad = leaf.opt.grad = None
+    del grads, flat
+    return out
+
+
+def _timed_steps(step, state, ids, n, rng):
+    """n steps of ``step``, each with its ms, launches (reset just before,
+    read just after), hops, loss and grad norm; peak memory over them."""
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.parallel import mesh as mesh_lib
+    rows = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n):
+        _build.reset_launches()
+        mesh_lib.reset_hop_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, {"input_ids": ids}, rng)
+        torch.cuda.synchronize()
+        rows.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                         hop_ms=mesh_lib.HOP_STATS["seconds"] * 1e3,
+                         hops=mesh_lib.HOP_STATS["hops"],
+                         hop_bytes=mesh_lib.HOP_STATS["bytes"],
+                         launches={k: c for k, c in _build.launch_counts().items() if c},
+                         loss=m["loss"].item(), grad_norm=m["grad_norm"].item()))
+    return state, rows, torch.cuda.max_memory_allocated()
+
+
+def shard_rank(inputs):
+    """One rank of the shard phase's world (parallel/launch.run_world's
+    target). (A) make_sharded_train_step at (data 1, model 2) on
+    backpack-small, both combine routes: at the gate's weights and batch
+    the loss and gradients (_shard_gate_grads), then SHARD_WARMUP +
+    SHARD_TIMED steps from them (each step's ms, launches, hops, loss),
+    peak memory. (B) at (data 2, model 1), replicated (ZeRO-0) and with
+    ZeRO-1, -2 and -3 (the einsum route, SHARD_ZERO_LAYERS layers): the
+    gated step's loss and gradients, then one timed step; peak memory."""
+    import torch.distributed as dist
+
+    from backpacks_flash_attn_tpu_torch.config import backpack_small
+    from backpacks_flash_attn_tpu_torch.parallel import mesh as mesh_lib
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+    from backpacks_flash_attn_tpu_torch.utils import prng
+
+    lead = dist.get_rank() == 0      # returns the gates' gradients
+    data = torch.load(inputs, weights_only=False)
+    cfg = backpack_small(vocab_size=50257)
+    trained = _map_tensors(data["params"], lambda t: t.to(DEV))
+    ids, gate_ids = data["ids"].to(DEV), data["gate_ids"].to(DEV)
+    key, rng = prng.fold_in(prng.PRNGKey(1), 0), prng.PRNGKey(1)
+    out = {}
+    mesh = mesh_lib.make_mesh(1, SHARD_RANKS)
+    for fused in (False, True):
+        tx = tl.make_optimizer(trained, **SHARD_OPT)
+        step, init = tl.make_sharded_train_step(cfg, tx, mesh, fused_ctx=fused)
+        torch.cuda.reset_peak_memory_stats()
+        state = init(trained)
+        gate = _shard_gate_grads(state, cfg, gate_ids, key, fused, mesh)
+        state, steps, peak = _timed_steps(step, state, ids, SHARD_WARMUP + SHARD_TIMED, rng)
+        out[f"tp_fused={fused}"] = dict(gate=gate if lead else None, steps=steps,
+                                        peak_memory_bytes=peak,
+                                        local_param_bytes=_nbytes(state.params))
+        del state, step, init, tx
+        torch.cuda.empty_cache()
+    zcfg = dataclasses.replace(cfg, n_layer=SHARD_ZERO_LAYERS)
+    zparams, _ = _first_layers(trained, cfg, SHARD_ZERO_LAYERS)
+    zmesh = mesh_lib.make_mesh(SHARD_RANKS, 1)
+    for zero in (0, 1, 2, 3):
+        tx = tl.make_optimizer(zparams, **SHARD_GATE_OPT)
+        step, init = tl.make_sharded_train_step(
+            zcfg, tx, zmesh, zero1=zero == 1, zero2=zero == 2, zero3=zero == 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = init(zparams)
+        gate = _shard_gate_grads(state, zcfg, gate_ids, key, False, zmesh)
+        state, steps, peak = _timed_steps(step, state, ids, 2, rng)
+        sharding = state.opt_state.sharding
+        moments = sum(t.numel() * t.element_size() for st in state.opt_state.adamw.state.values()
+                      for k, t in st.items() if k in ("exp_avg", "exp_avg_sq"))
+        out[f"zero{zero}"] = dict(gate=gate if lead else None, steps=steps,
+                                  peak_memory_bytes=peak,
+                                  local_param_bytes=_nbytes(state.params),
+                                  local_moment_bytes=moments,
+                                  sliced=sum(l.slice_dim is not None or l.fsdp_dim is not None
+                                             for l in sharding.leaves))
+        del state, step, init, tx, sharding
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shard_gate(label, got, single, ref):
+    """A sharded step's per-token losses, whole gradient and BP_PICKS
+    against the f32 single-device step, each relative error at most twice
+    the single-device bf16 step's (train-8k's and cp's rule); its grad norm
+    (as the step takes it: each shard's squares once) within the whole
+    gradient's relative error of the reference's (|a| - |b| <= |a - b|)."""
+    per, flat, picks, gnorm = got
+    rows = {"loss_per_token": (per.to(DEV), single[0], ref[0]),
+            "all_grads": (flat.to(DEV), single[1].to(DEV), ref[1].to(DEV))}
+    rows.update({k: (picks[k].to(DEV), single[2][k].to(DEV), ref[2][k].to(DEV))
+                 for k in BP_PICKS})
+    out, failed = {}, []
+    for k, (s_v, one, want) in rows.items():
+        ek, ep = _rel(s_v, want), _rel(one, want)
+        out[k] = {"sharded": ek, "single_bf16": ep}
+        if not (ep > 0 and ek <= 2 * ep):
+            failed.append(f"{k}: sharded rel. error {ek:.3e} > 2x single-device {ep:.3e}")
+    gn_rel = abs(gnorm - ref[3]) / ref[3]
+    out["grad_norm"] = {"sharded": gnorm, "single_bf16": single[3], "ref": ref[3],
+                        "rel": gn_rel, "single_rel": abs(single[3] - ref[3]) / ref[3]}
+    if gn_rel > out["all_grads"]["sharded"] * 1.001 + 1e-6:
+        failed.append(f"grad norm rel. error {gn_rel:.3e} past the whole gradient's "
+                      f"{out['all_grads']['sharded']:.3e}")
+    out["loss"] = {"sharded": per.mean().item(), "single_bf16": single[0].mean().item(),
+                   "ref": ref[0].mean().item()}
+    if failed:
+        raise AssertionError(f"shard gate ({label}): " + "; ".join(failed) + f" (all: {out})")
+    return out
+
+
+def _shard_single_timed(cfg, params, ids, fused):
+    """The single-device step on ``ids`` (the TP runs' batch), the same
+    optimizer and count of steps: step ms and peak memory."""
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+    from backpacks_flash_attn_tpu_torch.utils import prng
+    p = tl.trainable(_map_tensors(params, torch.clone))
+    state = tl.TrainState(p, tl.make_optimizer(p, **SHARD_OPT), 0)
+    _, rows, peak = _timed_steps(tl.make_train_step(cfg, fused_ctx=fused), state, ids,
+                                 SHARD_WARMUP + SHARD_TIMED, prng.PRNGKey(1))
+    del state, p
+    torch.cuda.empty_cache()
+    return rows, peak
+
+
+def _remat_and_accum(cfg, trained, g, smi):
+    """(C), in this process at REMAT_BATCH x 512: the single-device step
+    under remat none, full and dots (einsum route, dropout on): at the
+    gate's weights the loss and gradients of each against the f32 step
+    under _shard_gate's rule (recomputation redraws the hashed masks), then
+    SHARD_WARMUP + REMAT_TIMED steps: ms, peak memory, K3 12 a step
+    ("none") or 24 (12 forward, 12 recomputed), K5 12. Then accumulation,
+    dropout off (the two calls' keys differ from the one step's): two
+    calls of accum_steps=2 on the batch's halves give the mean of their
+    gradients, against the one step's f32 gradient on the whole batch
+    under the same rule."""
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.ops import _build
+    from backpacks_flash_attn_tpu_torch.ops.cross_entropy import cross_entropy
+    from backpacks_flash_attn_tpu_torch.training import train as tl
+    from backpacks_flash_attn_tpu_torch.utils import prng
+
+    ids = torch.randint(0, cfg.vocab_size, (REMAT_BATCH, SHARD_LEN + 1), generator=g,
+                        device=DEV)
+    key, rng = prng.fold_in(prng.PRNGKey(1), 0), prng.PRNGKey(1)
+    x, y = ids[:, :-1], ids[:, 1:]
+    ref = _bp_single_step(trained, cfg, ids, key, torch.float32, False)
+    runs = {}
+    single = None
+    for mode in ("none", "full", "dots"):
+        p = tl.trainable(_map_tensors(trained, torch.clone))
+        per, _ = cross_entropy(bp.backpack_forward(p, cfg, x, train=True, rng=key,
+                                                   remat=mode, fused_ctx=False), y)
+        per.mean().backward()
+        grads = _map_tensors(p, lambda t: t.grad)
+        flat = torch.cat([t.reshape(-1).float() for _, t in tl.named_leaves(grads)])
+        got = (per.detach().float(), flat.cpu(), _bp_picks(grads), flat.norm().item())
+        del p, grads, flat, per
+        if mode == "none":
+            single = got
+        gate = _shard_gate(f"remat {mode}", got, single, ref) if mode != "none" else None
+        torch.cuda.empty_cache()
+        p = tl.trainable(_map_tensors(trained, torch.clone))
+        state = tl.TrainState(p, tl.make_optimizer(p, **SHARD_OPT), 0)
+        _, steps, peak = _timed_steps(tl.make_train_step(cfg, remat=mode), state, ids,
+                                      SHARD_WARMUP + REMAT_TIMED, rng)
+        want = {"flash_attention": cfg.n_layer * (1 if mode == "none" else 2),
+                "flash_attention_bwd": cfg.n_layer}
+        for i, st in enumerate(steps):
+            _exact(f"remat {mode} step {i}", st["launches"], want)
+        timed = [st["ms"] for st in steps[SHARD_WARMUP:]]
+        runs[mode] = dict(gate=gate, step_ms=statistics.median(timed), step_ms_timed=timed,
+                          tokens_per_s=REMAT_BATCH * SHARD_LEN / statistics.median(timed) * 1e3,
+                          peak_memory_bytes=peak, launches_per_step=steps[0]["launches"],
+                          launches={k: sum(st["launches"].get(k, 0) for st in steps)
+                                    for k in want})
+        del state, p
+        torch.cuda.empty_cache()
+    del single
+    # accumulation, dropout off
+    cfg0 = dataclasses.replace(cfg, embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0)
+    ref0 = _bp_single_step(trained, cfg0, ids, key, torch.float32, False)
+    one = _bp_single_step(trained, cfg0, ids, key, torch.bfloat16, False)
+    p = tl.trainable(_map_tensors(trained, torch.clone))
+    opt = tl.make_optimizer(p, accum_steps=2, **SHARD_GATE_OPT)
+    state = tl.TrainState(p, opt, 0)
+    step = tl.make_train_step(cfg0)
+    half = REMAT_BATCH // 2
+    t0 = time.perf_counter()
+    for i in range(2):
+        state, m = step(state, {"input_ids": ids[i * half:(i + 1) * half]}, rng)
+        if opt.updated != (i == 1):
+            raise AssertionError(f"accumulation: call {i} updated={opt.updated}")
+    torch.cuda.synchronize()
+    accum_ms = (time.perf_counter() - t0) * 1e3
+    # after the update each .grad holds the mean of the two calls' gradients
+    grads = _map_tensors(p, lambda t: t.grad)
+    flat = torch.cat([t.reshape(-1).float() for _, t in tl.named_leaves(grads)])
+    # no per-token losses of the whole batch: the halves' rows stand in
+    # with the one step's
+    got = (one[0], flat.cpu(), _bp_picks(grads), flat.norm().item())
+    accum = _shard_gate("accumulation", got, one, ref0)
+    accum.pop("loss_per_token")
+    del state, p, opt, grads, flat
+    torch.cuda.empty_cache()
+    return dict(phase="shard", run="shard_remat", model="backpack-small",
+                shape=[REMAT_BATCH, SHARD_LEN], nvidia_smi=smi, modes=runs,
+                accumulation=dict(gate=accum, halves=[half, SHARD_LEN], ms_two_calls=accum_ms))
+
+
+def phase_shard(results):
+    """Sharded training on the card (training/train.py's
+    make_sharded_train_step): a world of SHARD_RANKS processes
+    (parallel/launch.py, gloo: every collective through host memory; the
+    process group's timeout fails a lost rank), backpack-small at full
+    width and depth, bf16, dropout 0.1 at every site, the weights of
+    gate_weights (12 plain deterministic steps at 8 x 512 from the seeded
+    ones). In this process: the single-device step's loss and gradients on
+    the gate's batch (bf16 kernels, and the f32 reference) on both routes,
+    and its timed steps at SHARD_BATCH x 512. The world (shard_rank): (A)
+    (data 1, model 2), both routes: the gate (_shard_gate), then timed
+    steps: ms, tokens/s, hops and bytes a step, peak memory a rank, K3 and
+    K5 12 a step a rank and K4 and K6 once on the fused route, exact. (B)
+    (data 2, model 1) at SHARD_ZERO_LAYERS layers, replicated and with
+    ZeRO-1, -2 and -3: the gate, a timed step, peak memory and held bytes
+    a rank. Then (C) remat and accumulation in
+    this process (_remat_and_accum). K3 and K5 on a head shard first
+    (shard_kernel_cases). Weights and data from generators of their own."""
+    from backpacks_flash_attn_tpu_torch.config import backpack_small
+    from backpacks_flash_attn_tpu_torch.models import backpack as bp
+    from backpacks_flash_attn_tpu_torch.parallel import launch
+    from backpacks_flash_attn_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    log("shard: K3 and K5 on a head shard")
+    with torch.no_grad():
+        phase_kernels(shard_kernel_cases(torch.Generator(device=DEV).manual_seed(
+            SHARD_KERNEL_SEED)), results.setdefault("kernels", {}))
+    torch.cuda.empty_cache()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    cfg = backpack_small(vocab_size=50257)
+    g = torch.Generator(device=DEV).manual_seed(SHARD_SEED)
+    params = bp.init_backpack(cfg, g, dtype=torch.bfloat16, device=DEV)
+    log("shard: gate weights and the single-device steps")
+    trained = gate_weights(cfg, params, model="backpack", shape=(SHARD_BATCH, SHARD_LEN))
+    del params
+    gi = torch.Generator(device=DEV).manual_seed(SHARD_IDS_SEED)
+    ids, gate_ids = (torch.randint(0, cfg.vocab_size, (SHARD_BATCH, SHARD_LEN + 1),
+                                   generator=gi, device=DEV) for _ in range(2))
+    key = prng.fold_in(prng.PRNGKey(1), 0)
+    single, ref, single_timed = {}, {}, {}
+    for fused in (False, True):
+        single[fused] = _bp_single_step(trained, cfg, gate_ids, key, torch.bfloat16, fused)
+        ref[fused] = _bp_single_step(trained, cfg, gate_ids, key, torch.float32, fused)
+        torch.cuda.empty_cache()
+        single_timed[fused] = _shard_single_timed(cfg, trained, ids, fused)
+    zparams, zcfg = _first_layers(trained, cfg, SHARD_ZERO_LAYERS)
+    zsingle, zref = (_bp_single_step(zparams, zcfg, gate_ids, key, dt, False)
+                     for dt in (torch.bfloat16, torch.float32))
+    del zparams
+    inputs = SHARD_DIR / "inputs.pt"
+    torch.save({"params": _map_tensors(trained, lambda t: t.cpu()), "ids": ids.cpu(),
+                "gate_ids": gate_ids.cpu()}, inputs)
+    torch.cuda.empty_cache()
+    log(f"shard: a world of {SHARD_RANKS} ranks ({SHARD_BACKEND})")
+    t0 = time.perf_counter()
+    ranks = launch.run_world(f"{Path(__file__).resolve()}:shard_rank", SHARD_RANKS,
+                             args=(str(inputs),), backend=SHARD_BACKEND,
+                             timeout=SHARD_TIMEOUT, pg_timeout=SHARD_PG_TIMEOUT,
+                             workdir=SHARD_DIR / "world")
+    world_s = time.perf_counter() - t0
+    inputs.unlink()
+    smi = nvidia_smi_line()
+    tokens = SHARD_BATCH * SHARD_LEN
+    run = dict(phase="shard", run="shard_tp", model="backpack-small", mesh=[1, SHARD_RANKS],
+               backend=SHARD_BACKEND, shape=[SHARD_BATCH, SHARD_LEN], nvidia_smi=smi,
+               world_s=world_s, routes={})
+    totals = {}
+    for fused in (False, True):
+        name = f"tp_fused={fused}"
+        gate = _shard_gate(name, ranks[0][name]["gate"], single[fused], ref[fused])
+        want = {"flash_attention": cfg.n_layer, "flash_attention_bwd": cfg.n_layer}
+        if fused:
+            want.update(fused_contextualization=1, fused_contextualization_bwd=1)
+        for r, rank in enumerate(ranks):
+            for i, st in enumerate(rank[name]["steps"]):
+                _exact(f"shard {name} rank {r} step {i}", st["launches"], want)
+                if not math.isfinite(st["loss"]):
+                    raise AssertionError(f"shard {name}: non-finite loss at step {i}")
+            if rank[name]["steps"][0]["loss"] != ranks[0][name]["steps"][0]["loss"]:
+                raise AssertionError(f"shard {name}: the ranks' losses differ")
+            for k, n in want.items():
+                totals[k] = totals.get(k, 0) + sum(st["launches"].get(k, 0)
+                                                   for st in rank[name]["steps"])
+        steps0 = ranks[0][name]["steps"][SHARD_WARMUP:]
+        step_ms = statistics.median(st["ms"] for st in steps0)
+        one_rows, one_peak = single_timed[fused]
+        one_ms = statistics.median(st["ms"] for st in one_rows[SHARD_WARMUP:])
+        hop_ms = statistics.median(st["hop_ms"] for st in steps0)
+        run["routes"][name] = dict(
+            gate=gate, step_ms=step_ms, step_ms_timed=[st["ms"] for st in steps0],
+            tokens_per_s=tokens / step_ms * 1e3, single_step_ms=one_ms,
+            single_tokens_per_s=tokens / one_ms * 1e3, hop_ms_per_step=hop_ms,
+            hop_share=hop_ms / step_ms, hops_per_step=steps0[0]["hops"],
+            hop_bytes_per_step=steps0[0]["hop_bytes"],
+            peak_memory_bytes=[rank[name]["peak_memory_bytes"] for rank in ranks],
+            single_peak_memory_bytes=one_peak,
+            local_param_bytes=[rank[name]["local_param_bytes"] for rank in ranks],
+            launches_per_step_per_rank=steps0[0]["launches"],
+            losses=[st["loss"] for st in ranks[0][name]["steps"]])
+    run["launches"] = totals
+    emit(run)
+    results["shard_tp"] = run
+    zrun = dict(phase="shard", run="shard_zero", model="backpack-small",
+                n_layer=SHARD_ZERO_LAYERS, mesh=[SHARD_RANKS, 1], backend=SHARD_BACKEND,
+                shape=[SHARD_BATCH, SHARD_LEN], nvidia_smi=smi, stages={})
+    want = {"flash_attention": SHARD_ZERO_LAYERS, "flash_attention_bwd": SHARD_ZERO_LAYERS}
+    for zero in (0, 1, 2, 3):
+        name = f"zero{zero}"
+        for r, rank in enumerate(ranks):
+            for i, st in enumerate(rank[name]["steps"]):
+                _exact(f"shard {name} rank {r} step {i}", st["launches"], want)
+        z = ranks[0][name]
+        zrun["stages"][name] = dict(
+            gate=_shard_gate(name, z["gate"], zsingle, zref),
+            step_ms=z["steps"][-1]["ms"], hop_ms=z["steps"][-1]["hop_ms"],
+            hop_bytes=z["steps"][-1]["hop_bytes"],
+            peak_memory_bytes=[rank[name]["peak_memory_bytes"] for rank in ranks],
+            local_param_bytes=[rank[name]["local_param_bytes"] for rank in ranks],
+            local_moment_bytes=[rank[name]["local_moment_bytes"] for rank in ranks],
+            sliced_leaves=z["sliced"])
+    emit(zrun)
+    results["shard_zero"] = zrun
+    del ranks, single, ref, zsingle, zref
+    torch.cuda.empty_cache()
+    log("shard: remat and accumulation")
+    rrun = _remat_and_accum(cfg, trained, g, smi)
+    emit(rrun)
+    results["shard_remat"] = rrun
+    del trained
+    shutil.rmtree(SHARD_DIR)
+    torch.cuda.empty_cache()
+    results["shard_tp"]["phase_s"] = time.perf_counter() - t_phase
+    for name, r in run["routes"].items():
+        log(f"shard {name}: step {r['step_ms']:.1f} ms (one device {r['single_step_ms']:.1f}), "
+            f"{r['hop_ms_per_step']:.1f} ms in {r['hops_per_step']} hops, on {smi}")
+    log(f"shard: {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------ score bias, encoders
 
 BIAS_B, BIAS_S, BIAS_H, BIAS_D = 8, 512, 12, 64
@@ -5898,7 +6385,7 @@ def main():
     ap.add_argument("--phases",
                     default="device,build,kernels,serve,engine,forward,train,"
                             "longctx,train8k,generate,decode_kernels,mini,xl,"
-                            "intervene,entry,cp,tp,encoders")
+                            "intervene,entry,cp,tp,shard,encoders")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"))
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -6029,6 +6516,8 @@ def main():
         phase_cp(results)
     if "tp" in phases:
         phase_tp(results)
+    if "shard" in phases:
+        phase_shard(results)
     if "encoders" in phases:
         phase_encoders(results)
 
@@ -6105,6 +6594,23 @@ def main():
                 "library_ms")},
             "case": (f"{case}; launches: the {shape} calls of make_tp_decode_step's "
                      f"{TP_STEPS} steps on both ranks" if head else None),
+        })
+    # K3 and K5 on a tensor-parallel head shard (the shard phase's TP step at
+    # (data 1, model 2)): the head-shard case's numbers, and the launches of
+    # that run's steps on both ranks, both routes
+    for k in (_build.KERNELS["flash_attention"], _build.KERNELS["flash_attention_bwd"]):
+        rows = results.get("kernels", {}).get(k.name, [])
+        head = next((r for r in rows if r["case"].startswith(SHARD_KERNEL_CASE)), None)
+        line.append({
+            "name": f"{k.name}_shard", "route": "cuda",
+            "source": f"backpacks_flash_attn_tpu_torch/csrc/{k.source}",
+            "replaces": k.replaces,
+            "launches": results.get("shard_tp", {}).get("launches", {}).get(k.name, 0),
+            "launches_run": "shard_tp",
+            **{key: head[key] if head else None for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            "case": head["case"] if head else None,
         })
     results["kernel_line"] = line
     (args.out / "chip_smoke.json").write_text(json.dumps(results, indent=1))

@@ -2076,6 +2076,47 @@ def test_ring_merge_equals_one_k3_launch(gen):
     assert _err(lse, flse) <= 1e-4
 
 
+@pytest.mark.parametrize("dt,b,s,h,d,h0,hg,boff", [
+    (BF16, 4, 512, 6, 64, 6, 12, 8),      # backpack-small's heads at tp 2
+    (BF16, 2, 130, 2, 64, 2, 4, 1),       # ragged key tiles, bh_offset
+    (BF16, 2, 100, 3, 96, 3, 6, 0),       # K and V in shared memory
+    (F32, 2, 70, 2, 64, 2, 4, 3),         # the SIMT loops
+])
+def test_flash_attention_head_shard_kernel(gen, dt, b, s, h, d, h0, hg, boff):
+    """K3 and K5 on a tensor-parallel head shard: the call's h heads are
+    heads [h0, h0 + h) of hg, rows from bh_offset, dropout 0.1. Out, dq,
+    dk and dv against the plain version at the same offsets (the 2x rule
+    in bf16, the f32 bound in f32), whose mask is the slice of the
+    unsharded call's (tests/test_torch_sharded_train.py holds that
+    exactly); one launch of each."""
+    from backpacks_flash_attn_tpu_torch.utils import prng
+    q0, k0, v0 = ((torch.randn(b, s, h, d, generator=gen, device="cuda") * 0.5)
+                  for _ in range(3))
+    go = torch.randn(b, s, h, d, generator=gen, device="cuda")
+    key = prng.PRNGKey(11)
+    kw = dict(causal=True, dropout_p=0.1, dropout_rng=key, bh_offset=boff,
+              head_offset=h0, global_heads=hg)
+
+    def run(q, k, v):
+        q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out = fa.flash_attention(q, k, v, **kw)
+        (out.float() * go).sum().backward()
+        return [out] + [t.grad for t in (q, k, v)]
+
+    _build.reset_launches()
+    got = run(*(t.to(dt) for t in (q0, k0, v0)))
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    with _build.plain_path():
+        plain = run(*(t.to(dt) for t in (q0, k0, v0)))
+        ref = run(q0, k0, v0)
+    for o, pl, rf in zip(got, plain, ref):
+        if dt == F32:
+            _f32_close(o, rf)
+        else:
+            _within_2x(o, pl, rf)
+
+
 # ------------------------------------------------------------ the score bias
 
 @pytest.mark.parametrize("dt,bshape,causal,dropout_p,s,d,unaligned", [

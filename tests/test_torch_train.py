@@ -185,8 +185,10 @@ def test_train_cli_smoke_resume_and_unported_flags(tmp_path):
     out = tcli.run(tcli.RunConfig(workdir=work, steps=6, ckpt_every=2,
                                   ema_decay=0.99, **kw))
     assert out["steps"] == 6 and np.isfinite(out["final_metrics"]["loss"])
-    for flag in ({"dp": 2}, {"tp": 2}, {"cp": 2, "tp": 2}, {"zero1": True}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # --dp, --tp and --zero* run the sharded step
+    # (tests/test_torch_sharded_train.py); what stays refused, as in JAX
+    for flag in ({"cp": 2, "tp": 2}, {"cp": 2, "zero1": True}, {"cp": 2, "accum_steps": 2}):
+        with pytest.raises(ValueError, match="--cp"):
             tcli.run(tcli.RunConfig(workdir=work, **kw, **flag))
 
 

@@ -1,5 +1,6 @@
 """The ranks' side of the port's parallel tests (tests/test_torch_ring_attention.py,
-tests/test_torch_cp_train.py, tests/test_torch_tp_decode.py): functions that
+tests/test_torch_cp_train.py, tests/test_torch_tp_decode.py,
+tests/test_torch_sharded_train.py): functions that
 ``parallel/launch.run_world`` runs on every rank of a gloo world on the CPU. JAX-free (a child that
 imports JAX can hang on the TPU plugin): inputs and outputs are numpy.
 """
@@ -264,8 +265,93 @@ def tp_case(case):
     return out
 
 
+def _params_numpy(tree):
+    return {k: _params_numpy(v) for k, v in tree.items()} if isinstance(tree, dict) \
+        else tree.detach().numpy().copy()
+
+
+def shard_case(case):
+    """One sharded-training case on this rank at mesh (data, model):
+    ``steps`` steps of make_sharded_train_step (``zero`` 0-3, ``model``,
+    ``fused_ctx``, ``remat``) from the numpy tree ``params`` on the global
+    batch ``ids`` with key ``rng`` -> each step's loss and gradient norm,
+    every rank's, and the whole tree after the last step (the checkpoint's
+    gather, ``checkpoint.train_state_tree``), with the bytes this rank
+    holds (parameters and AdamW moments) beside the whole tree's."""
+    from backpacks_flash_attn_tpu_torch.training import checkpoint as ckpt
+    cfg = (tcfg.BackpackConfig if case["model"] == "backpack" else tcfg.GPTConfig)(**case["cfg"])
+    mesh = _tp_mesh(case["data"], case["model_size"])
+    params = tl.trainable(params_from_numpy(case["params"], device="cpu"))
+    tx = tl.make_optimizer(params, **case["opt"])
+    zero = case.get("zero", 0)
+    step, init = tl.make_sharded_train_step(
+        cfg, tx, mesh, model=case["model"], zero1=zero == 1, zero2=zero == 2,
+        zero3=zero == 3, fused_ctx=case.get("fused_ctx"), remat=case.get("remat", "none"))
+    state = init(params)
+    ids = torch.from_numpy(np.asarray(case["ids"])).long()
+    rng = prng.PRNGKey(case["rng"])
+    out = {"loss": [], "grad_norm": []}
+    for _ in range(case["steps"]):
+        state, m = step(state, {"input_ids": ids}, rng)
+        out["loss"].append(m["loss"].item())
+        out["grad_norm"].append(m["grad_norm"].item())
+    tree = ckpt.train_state_tree(state)
+    out["params"] = _params_numpy(tree["params"])
+    out["mu"] = _params_numpy(tree["opt_state"]["1"]["0"]["mu"])
+    opt = state.opt_state
+    moments = [t for st in opt.adamw.state.values() for k, t in st.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    out["local_bytes"] = {"params": _nbytes(state.params),
+                          "moments": sum(t.numel() * t.element_size() for t in moments)}
+    out["bytes"] = _nbytes(params)
+    return out
+
+
+def vocab_ce_case(case):
+    """vocab_parallel_cross_entropy over the 'model' group of a (data, n)
+    mesh: this rank's columns of ``logits``, the loss and the gradient of
+    sum(loss * w) in those columns."""
+    from backpacks_flash_attn_tpu_torch.ops.cross_entropy import vocab_parallel_cross_entropy
+    mesh = _tp_mesh(case["data"], case["model_size"])
+    i, n = mesh_lib.coord(mesh, "model")
+    logits = torch.from_numpy(np.asarray(case["logits"], np.float32))
+    v = logits.shape[-1] // n
+    local = logits[..., i * v:(i + 1) * v].clone().requires_grad_()
+    loss = vocab_parallel_cross_entropy(local, torch.from_numpy(np.asarray(case["labels"])),
+                                        mesh.get_group("model"),
+                                        label_smoothing=case["smoothing"])
+    (loss * torch.from_numpy(np.asarray(case["w"], np.float32))).sum().backward()
+    return {"loss": loss.detach().numpy(), "grad": local.grad.numpy()}
+
+
+def collectives_case(case):
+    """The training collectives of parallel/mesh.py on a (data, model)
+    mesh, each on a tensor that names this rank (rank r's x is r + arange),
+    backward from an upstream gradient that names it too (r + 1): the
+    forward value and the gradient of x, keyed by collective."""
+    mesh = _tp_mesh(case["data"], case["model_size"])
+    model, data = mesh.get_group("model"), mesh.get_group("data")
+    r = torch.distributed.get_rank()
+    out = {}
+    for name, fn in (("copy_to", lambda x: mesh_lib.copy_to(x, model)),
+                     ("reduce_from", lambda x: mesh_lib.reduce_from(x, model)),
+                     ("gather_from", lambda x: mesh_lib.gather_from(x, 1, model)),
+                     ("gather_scatter", lambda x: mesh_lib.gather_scatter(x, 0, data))):
+        x = (r + torch.arange(6.0).reshape(2, 3)).requires_grad_()
+        y = fn(x)
+        y.backward(torch.full_like(y, float(r + 1)))
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+    t = r + torch.arange(8.0).reshape(4, 2)
+    out["reduce_scatter"] = mesh_lib.reduce_scatter(t, 0, data).numpy()
+    out["all_gather_slices"] = mesh_lib.all_gather_slices(t, 1, data).numpy()
+    out["group_max"] = mesh_lib.group_max(t, model).numpy()
+    return out
+
+
 def run_cases(cases):
-    """Every case of ``cases`` (each {"kind": "ring" | "cp" | "tp", ...}) in
-    order on this rank; -> their results."""
-    fns = {"ring": ring_case, "cp": cp_case, "tp": tp_case}
+    """Every case of ``cases`` (each {"kind": "ring" | "cp" | "tp" | "shard" |
+    "vocab_ce" | "collectives", ...}) in order on this rank; -> their
+    results."""
+    fns = {"ring": ring_case, "cp": cp_case, "tp": tp_case, "shard": shard_case,
+           "vocab_ce": vocab_ce_case, "collectives": collectives_case}
     return [fns[c["kind"]](c) for c in cases]
